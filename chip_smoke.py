@@ -10,19 +10,33 @@ Phases, in order; any failure raises and exits non-zero:
    nvcc into ``build/repro_torch/`` and prints the build seconds and the
    ptxas resource lines.
 2. Kernels: each kernel against its plain PyTorch version on the card at
-   the path's shapes (gather bit-equal; fused cell within 1e-4, TF32 off),
-   then timed cold (L2 flushed before every launch, CUDA events, median)
-   beside the plain version and, for the gather, ``torch.index_select``.
+   the path's shapes and edge cases (gather bit-equal; the others within
+   1e-4, TF32 off), then timed cold (L2 flushed before every launch, CUDA
+   events, median) beside the plain version and, where one PyTorch call
+   computes the same function, that call (``torch.index_select``,
+   ``scaled_dot_product_attention``; yardsticks the port never calls).
 3. The slice: BiLSTM-Tagger at model_size=512 on CUDA. An FSM policy is
    learned on small graphs, then fresh 16-sentence minibatches (and one
    repeat) run through the interpreted, per-topology and bucketed
    executors. All three must agree within 1e-4 on every tag logit ``y``,
    the first minibatch must match a plain-PyTorch run of the same seed on
-   the CPU, and both kernels' launch counters must rise during the slice.
-   Prints steady-state ms per run for each executor and the plan stats.
+   the CPU, and the gather and fused-cell launch counters must rise during
+   the slice. Prints steady-state ms per run for each executor and the plan
+   stats.
+4. The LM wave: Qwen2-0.5B, then Mamba2-130m, at full published width and
+   depth (random weights from the seed, made on the CPU and copied to the
+   card) through the port's wave ``ServeEngine``: six requests, eight new
+   tokens each. The flash-attention (Qwen2) and SSD-scan (Mamba2) launch
+   counters must rise during the wave; the tokens must equal the same wave
+   on the CPU (plain versions only), apart from a near-tie flip within the
+   logit tolerance, and one prefill batch's logits must agree with the CPU
+   within 2e-3 of the largest |logit|. Prints tokens/s, ms per prefill
+   batch and per decode wave, the batch counts and a profiler summary.
 
-The line before the last is ``{"kernels": [...]}`` (per kernel: launches in
-the slice, max error, kernel / plain / bound / library ms); the last line is
+Phases 2 and 4 hold the two new kernels to 1e-4 of the largest magnitude of
+their plain versions' outputs. The line before the last is
+``{"kernels": [...]}`` (per kernel: launches in the phase that drives its
+path, max abs error, kernel / plain / bound / library ms); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -115,6 +129,19 @@ def build_kernels() -> None:
 # -- phase 2 --------------------------------------------------------------
 
 
+def rel_err(got, want) -> float:
+    """Max abs error relative to the largest magnitude of the result."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over its memory rate or
+    operations over its fp32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / MEM_BW, flops / FP32_PEAK
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def check_gather(torch, timer) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.gather_batch import gather_rows
@@ -163,8 +190,7 @@ def check_gather(torch, timer) -> dict:
             "replaces": "src/repro/kernels/gather_batch.py:26",
             "shape": f"src ({N}, {D}) float32, K={K}",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": nbytes / MEM_BW * 1e3, "bound_by": "bytes",
-            "library_ms": library_ms}
+            **bound(nbytes, 0), "library_ms": library_ms}
 
 
 def check_fused(torch, timer) -> dict:
@@ -218,15 +244,124 @@ def check_fused(torch, timer) -> dict:
             f"warm (L2-resident) {timer(call, cold=False):.4f}")
     K = E + H
     nbytes = (K * 4 * H + 4 * H + B * (E + 2 * H) + 2 * B * H) * 4 + 3 * B * 4
-    flops = 2 * B * K * 4 * H
-    t_bytes, t_ops = nbytes / MEM_BW, flops / FP32_PEAK
     return {"name": "fused_gather_lstm_cell", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_gather_lstm_cell.cu",
             "replaces": "src/repro/kernels/fused_gather_cell.py:47",
             "shape": f"E=H={E}, B={B}, float32",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **bound(nbytes, 2 * B * K * 4 * H), "library_ms": None}
+
+
+def check_flash(torch, timer) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cases = [  # (label, B, Sq, Skv, H, KV, D, causal, window)
+        ("path S=96 B=2", 2, 96, 96, 14, 2, 64, True, 0),
+        ("path S=32 B=1", 1, 32, 32, 14, 2, 64, True, 0),
+        ("path S=48 B=4", 4, 48, 48, 14, 2, 64, True, 0),
+        ("ragged S=100", 2, 100, 100, 14, 2, 64, True, 0),
+        ("window 16, S=130", 1, 130, 130, 4, 2, 64, True, 16),
+        ("cross Sq=40 Skv=77", 2, 40, 77, 6, 3, 64, False, 0),
+        ("D=128 MHA", 1, 70, 70, 4, 4, 128, True, 0),
+    ]
+    worst = 0.0
+    for label, B, Sq, Skv, H, KV, D, causal, window in cases:
+        q = torch.randn((B, Sq, H, D), generator=g, device="cuda")
+        k = torch.randn((B, Skv, KV, D), generator=g, device="cuda")
+        v = torch.randn((B, Skv, KV, D), generator=g, device="cuda")
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        err = rel_err(out, want)
+        if not err <= 1e-4:
+            fail(f"flash_attention {label}: relative err {err} > 1e-4")
+        worst = max(worst, float((out - want).abs().max()))
+        log(f"flash_attention {label}: relative err {err:.3e}")
+
+    B, S, H, KV, D = 4, 96, 14, 2, 64   # the Qwen2 wave's largest prefill
+    q = torch.randn((B, S, H, D), generator=g, device="cuda")
+    k = torch.randn((B, S, KV, D), generator=g, device="cuda")
+    v = torch.randn((B, S, KV, D), generator=g, device="cuda")
+    ms = timer(lambda: flash_attention(q, k, v))
+    plain_ms = timer(lambda: ref.flash_attention_ref(q, k, v))
+    # yardstick only: the port never calls it
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True))
+    log(f"flash_attention warm ms (L2-resident): kernel "
+        f"{timer(lambda: flash_attention(q, k, v), cold=False):.4f}")
+    pairs = B * H * S * (S + 1) // 2          # causal (row, column) pairs
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:65",
+            "shape": f"q ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {KV}, {D}) "
+                     f"float32, causal",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **bound((2 * B * S * H * D + 2 * B * S * KV * D) * 4,
+                    4 * D * pairs),
+            "library_ms": library_ms}
+
+
+def ssd_flops(b: int, l: int, h: int, p: int, n: int, q: int) -> int:
+    """FLOPs the chunked algorithm needs: per (batch, head, chunk) the
+    masked C.B^T scores and the diagonal block over the q(q+1)/2 causal
+    pairs, the carried state's contribution and the state update."""
+    pairs = q * (q + 1) // 2
+    return b * h * (l // q) * (2 * pairs * (n + p) + 4 * q * n * p)
+
+
+def check_ssd(torch, timer) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def inputs(b, l, h, p, grp, n):
+        return (torch.randn((b, l, h, p), generator=g, device="cuda"),
+                torch.rand((b, l, h), generator=g, device="cuda") * 0.5,
+                -torch.rand((h,), generator=g, device="cuda") * 0.5,
+                torch.randn((b, l, grp, n), generator=g, device="cuda"),
+                torch.randn((b, l, grp, n), generator=g, device="cuda"))
+
+    cases = [  # (label, b, l, h, p, groups, n, chunk)
+        ("path l=128 B=1", 1, 128, 24, 64, 1, 128, 128),
+        ("path l=256 B=3", 3, 256, 24, 64, 1, 128, 128),
+        ("path l=256 B=4", 4, 256, 24, 64, 1, 128, 128),
+        ("groups 2, chunk 16", 2, 64, 8, 16, 2, 16, 16),
+        ("ragged p=24 n=40 chunk 32", 1, 96, 4, 24, 1, 40, 32),
+    ]
+    worst = 0.0
+    for label, b, l, h, p, grp, n, chunk in cases:
+        x, dt, A, B, C = inputs(b, l, h, p, grp, n)
+        y, final = ssd_scan(x, dt, A, B, C, chunk)
+        y_ref, final_ref = ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+        torch.cuda.synchronize()
+        err = max(rel_err(y, y_ref), rel_err(final, final_ref))
+        if not err <= 1e-4:
+            fail(f"ssd_scan {label}: relative err {err} > 1e-4")
+        worst = max(worst, float((y - y_ref).abs().max()),
+                    float((final - final_ref).abs().max()))
+        log(f"ssd_scan {label}: relative err (y, final state) {err:.3e}")
+
+    b, l, h, p, n, q = 3, 256, 24, 64, 128, 128
+    x, dt, A, B, C = inputs(b, l, h, p, 1, n)
+    ms = timer(lambda: ssd_scan(x, dt, A, B, C, q))
+    plain_ms = timer(lambda: ref.ssd_scan_ref(x, dt, A, B, C, q))
+    log(f"ssd_scan warm ms (L2-resident): kernel "
+        f"{timer(lambda: ssd_scan(x, dt, A, B, C, q), cold=False):.4f}")
+    nbytes = 4 * (2 * b * l * h * p + b * l * h + h + 2 * b * l * n
+                  + b * h * p * n)
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:64",
+            "shape": f"x ({b}, {l}, {h}, {p}), B/C ({b}, {l}, 1, {n}), "
+                     f"chunk {q}, float32",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes, ssd_flops(b, l, h, p, n, q)),
             "library_ms": None}
 
 
@@ -353,6 +488,160 @@ def run_slice(device: str, model_size: int = MODEL_SIZE, batch: int = BATCH,
     return report
 
 
+# -- phase 4 --------------------------------------------------------------
+
+
+# Full published width and depth; random weights from the seed.
+LM_RUNS = {  # name: (prompt lengths to draw from, requests, max_new, cache)
+    "qwen2-0.5b": ((32, 48, 96), 6, 8, 256),
+    "mamba2-130m": ((128, 256), 6, 8, 256),
+}
+LOGIT_TOL = 2e-3    # prefill vs forward bar of the reference's own tests
+
+
+def timed(dev, fn, reps: int = 5) -> float:
+    """Median host ms of ``fn`` ending in a device synchronise."""
+    from repro_torch.core.device import block
+
+    times = []
+    for _ in range(reps):
+        block(dev)
+        t = time.perf_counter()
+        fn()
+        block(dev)
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def top2_margin(torch, model, params, prompt, prefix) -> tuple:
+    """(top-1 minus top-2 logit, largest |logit|) of the step that follows
+    ``prompt + prefix``, from a full forward pass."""
+    toks = torch.tensor([list(prompt) + list(prefix)], device=model.device)
+    with torch.no_grad():
+        logits = model.forward(params, toks)[0][0, -1]
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1]), float(logits.abs().max())
+
+
+def lm_wave(name: str, wrappers: dict, device: str = "cuda",
+            cfg=None) -> dict:
+    """One LM at full width through the port's wave server on the card:
+    one counted wave (the kernels' launch counts are read around it), a
+    timed repeat and a profiled one; then the same first wave on the CPU,
+    where every kernel is its plain version, with the same weights. Tokens
+    must match (a differing token is accepted only at a near-tie, top-2
+    margin within the logit tolerance), and one prefill batch's logits
+    must agree within 2e-3 of the largest |logit|. ``device`` and a
+    smaller ``cfg`` serve to rehearse the phase on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.core.device import block
+    from repro_torch.serve.lm_wave import ServeEngine, ServeStats
+
+    lengths, n_req, max_new, cache_len = LM_RUNS[name]
+    cfg = cfg or get_config(name)
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    cpu_model = TransformerLM(cfg, device="cpu")
+    cpu_params = cpu_model.init_params(torch.Generator().manual_seed(SEED))
+    model = TransformerLM(cfg, device=device)
+    params = tree_map(lambda t: t.to(dev), cpu_params)
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    report = {"model": name, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "n_params": sum(sizes),
+              "init_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.choice(lengths))).tolist()
+               for _ in range(n_req)]
+    report["prompt_lengths"] = [len(p) for p in prompts]
+
+    eng = ServeEngine(model, params, cache_len=cache_len, device=device)
+    for fn in wrappers.values():
+        fn.launches = 0
+    stats = ServeStats()
+    outs, _ = eng.generate(prompts, max_new=max_new, stats=stats)
+    block(dev)
+    report["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+    report["first_wave_s"] = stats.wall_s
+    if any(len(o) != max_new for o in outs):
+        fail(f"{name}: a request did not get {max_new} tokens")
+
+    warm = ServeStats()
+    outs_again, _ = eng.generate(prompts, max_new=max_new, stats=warm)
+    if outs_again != outs:
+        fail(f"{name}: a repeat of the wave gave other tokens")
+    report.update(tok_per_s=warm.tok_per_s, wave_ms=warm.wall_s * 1e3,
+                  n_batches=warm.n_batches,
+                  n_prefill_batches=warm.n_prefill_batches,
+                  n_decode_batches=warm.n_decode_batches,
+                  sched_cache_hits=warm.sched_cache_hits)
+
+    # ms per prefill batch (each length bucket) and per decode wave
+    by_len: dict[int, list] = {}
+    for p in prompts:
+        by_len.setdefault(len(p), []).append(p)
+    with torch.no_grad():
+        prefill_ms = {}
+        for L_, group in sorted(by_len.items()):
+            toks = torch.tensor(group, device=dev)
+            prefill_ms[f"L={L_} B={len(group)}"] = timed(
+                dev, lambda: model.prefill(params, toks, cache_len))
+        caches = model.init_cache(n_req, cache_len)
+        tok = torch.zeros(n_req, dtype=torch.int64, device=dev)
+        pos = torch.full((n_req,), 100, dtype=torch.int64, device=dev)
+        decode_ms = timed(dev, lambda: model.decode_step(params, tok, caches,
+                                                         pos))
+    report.update(prefill_ms=prefill_ms, decode_wave_ms=decode_ms)
+    if dev.type == "cuda":
+        report["profile"] = profile_run(
+            torch, lambda: eng.generate(prompts, max_new=max_new))
+
+    # the same first wave on the CPU, plain versions only
+    t0 = time.perf_counter()
+    cpu_outs, cpu_stats = ServeEngine(cpu_model, cpu_params,
+                                      cache_len=cache_len, device="cpu"
+                                      ).generate(prompts, max_new=max_new)
+    report["cpu_wave_s"] = time.perf_counter() - t0
+    if (cpu_stats.n_prefill_batches, cpu_stats.n_decode_batches) != \
+            (stats.n_prefill_batches, stats.n_decode_batches):
+        fail(f"{name}: batch counts differ from the CPU run")
+    flips = []
+    for r, (got, want) in enumerate(zip(outs, cpu_outs)):
+        if got == want:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        margin, scale = top2_margin(torch, cpu_model, cpu_params, prompts[r],
+                                    want[:t])
+        log(f"{name} request {r}: token {t} is {got[t]} on the card, "
+            f"{want[t]} on the CPU; CPU top-2 margin {margin:.3e} "
+            f"(tolerance {LOGIT_TOL * scale:.3e})")
+        if margin > LOGIT_TOL * scale:
+            fail(f"{name}: request {r} differs from the CPU run at token {t} "
+                 f"beyond a near-tie")
+        flips.append([r, t, margin])
+    report["near_tie_flips"] = flips
+
+    group = by_len[len(prompts[0])]
+    with torch.no_grad():
+        lg = model.prefill(params, torch.tensor(group, device=dev),
+                           cache_len)[0].cpu()
+        lg_cpu = cpu_model.prefill(cpu_params, torch.tensor(group),
+                                   cache_len)[0]
+    if tuple(lg.shape) != (len(group), cfg.vocab) or \
+            not torch.isfinite(lg).all():
+        fail(f"{name}: bad prefill logits {tuple(lg.shape)}")
+    err = rel_err(lg, lg_cpu)
+    report["prefill_logits_rel_err_vs_cpu"] = err
+    if not err <= LOGIT_TOL:
+        fail(f"{name}: prefill logits differ from the CPU run by {err} of "
+             f"the largest |logit|")
+    report["tokens_equal_cpu"] = not flips
+    return report
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script",
@@ -373,24 +662,44 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timer = ColdTimer(torch)
-    rows = [check_gather(torch, timer), check_fused(torch, timer)]
+    rows = [check_gather(torch, timer), check_fused(torch, timer),
+            check_flash(torch, timer), check_ssd(torch, timer)]
 
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_gather_cell import fused_gather_lstm_cell
     from repro_torch.kernels.gather_batch import gather_rows
+    from repro_torch.kernels.ssd_scan import ssd_scan
 
     wrappers = {"gather_rows": gather_rows,
-                "fused_gather_lstm_cell": fused_gather_lstm_cell}
+                "fused_gather_lstm_cell": fused_gather_lstm_cell,
+                "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    launches = {}
     for fn in wrappers.values():
         fn.launches = 0
     report = run_slice("cuda")
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    for name, n in launches.items():
-        if n <= 0:
+    slice_counts = {name: fn.launches for name, fn in wrappers.items()}
+    for name in ("gather_rows", "fused_gather_lstm_cell"):
+        if slice_counts[name] <= 0:
             fail(f"{name} was not launched during the slice")
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+        launches[name] = slice_counts[name]
     log(f"slice: {json.dumps(report, default=str)}")
     log(f"slice ms per run: {report['ms_per_run']} ({card})")
+
+    for name, kernel in (("qwen2-0.5b", "flash_attention"),
+                         ("mamba2-130m", "ssd_scan")):
+        lm = lm_wave(name, wrappers)
+        if lm["launches"][kernel] <= 0:
+            fail(f"{kernel} was not launched during the {name} wave")
+        launches[kernel] = lm["launches"][kernel]
+        log(f"lm wave {name}: {json.dumps(lm, default=str)}")
+        log(f"lm wave {name}: {lm['tok_per_s']:.1f} tok/s, "
+            f"{lm['wave_ms']:.1f} ms per wave of {lm['n_batches']} batches "
+            f"({lm['n_prefill_batches']} prefill, {lm['n_decode_batches']} "
+            f"decode), prefill ms {lm['prefill_ms']}, decode wave ms "
+            f"{lm['decode_wave_ms']:.2f}, tokens equal the CPU run: "
+            f"{lm['tokens_equal_cpu']} ({card})")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,8 @@ _I = ctypes.c_int64
 SIGNATURES = {
     "gather_rows_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fused_gather_lstm_cell_launch": [_P] * 10 + [_I] * 6 + [_P],
+    "flash_attention_launch": [_P] * 4 + [_I] * 17 + [_P],
+    "ssd_scan_launch": [_P] * 7 + [_I] * 15 + [_P],
 }
 
 _lock = threading.Lock()

@@ -13,9 +13,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.fused_gather_cell import \
     fused_gather_lstm_cell  # noqa: E402
 from repro_torch.kernels.gather_batch import gather_rows  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 
 
 @pytest.fixture
@@ -185,3 +187,175 @@ def test_bucketed_slice_on_card(cuda):
         y = ex.run(g, policy).field("y", ids).cpu()
         assert float((y - y_want).abs().max()) <= 1e-4, type(ex).__name__
     assert fused_gather_lstm_cell.launches > before
+
+
+def _rel_err(got, want) -> float:
+    """Max abs error relative to the largest magnitude of the result."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _attn_inputs(B, Sq, Skv, H, KV, D, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=device)
+            for shape in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D))]
+
+
+# (B, Sq, Skv, H, KV, D, causal, window): the Qwen2-0.5B prefill shapes
+# (14 query heads over 2 KV heads, D = 64) and the edge cases.
+_ATTN_CASES = {
+    "path S=96 B=2": (2, 96, 96, 14, 2, 64, True, 0),
+    "path S=32 B=1": (1, 32, 32, 14, 2, 64, True, 0),
+    "path S=48 B=4": (4, 48, 48, 14, 2, 64, True, 0),
+    "path S=256 B=1": (1, 256, 256, 14, 2, 64, True, 0),
+    "ragged S=100": (2, 100, 100, 14, 2, 64, True, 0),
+    "window 16, S=130": (1, 130, 130, 4, 2, 64, True, 16),
+    "window 1": (1, 40, 40, 2, 1, 32, True, 1),
+    "cross Sq=40 Skv=77": (2, 40, 77, 6, 3, 64, False, 0),
+    "non-causal square": (1, 64, 64, 2, 2, 16, False, 0),
+    "D=128": (1, 70, 70, 4, 1, 128, True, 0),
+    "D=16 MHA": (3, 33, 33, 4, 4, 16, True, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ATTN_CASES))
+def test_flash_attention_kernel_within_1e4(cuda, case):
+    B, Sq, Skv, H, KV, D, causal, window = _ATTN_CASES[case]
+    q, k, v = _attn_inputs(B, Sq, Skv, H, KV, D, cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert _rel_err(out, want) <= 1e-4
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """q, k, v as slices of one packed projection, as strides allow."""
+    B, S, H, KV, D = 2, 50, 4, 2, 64
+    rng = np.random.default_rng(3)
+    packed = torch.as_tensor(rng.standard_normal((B, S, (H + 2 * KV) * D)),
+                             dtype=torch.float32, device=cuda)
+    q = packed[..., :H * D].view(B, S, H, D)
+    k = packed[..., H * D:(H + KV) * D].view(B, S, KV, D)
+    v = packed[..., (H + KV) * D:].view(B, S, KV, D)
+    assert not q.is_contiguous()
+    out = flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert _rel_err(out, want) <= 1e-4
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    q, k, v = _attn_inputs(1, 8, 8, 2, 1, 8, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, v)                      # D = 8
+    q, k, v = _attn_inputs(1, 8, 8, 2, 1, 16, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        flash_attention(q.bfloat16(), k, v)
+    with pytest.raises(ValueError, match="heads"):
+        flash_attention(q, *_attn_inputs(1, 8, 8, 3, 3, 16, cuda)[1:])
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, causal=False, window=4)
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v)
+
+
+def _ssd_inputs(b, l, h, p, g, n, device, seed=0):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((b, l, h, p)),
+              np.abs(rng.standard_normal((b, l, h))) * 0.5,
+              -np.abs(rng.standard_normal(h)) * 0.5,
+              rng.standard_normal((b, l, g, n)),
+              rng.standard_normal((b, l, g, n))]
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in arrays]
+
+
+# (b, l, h, p, g, n, chunk): the Mamba2-130m prefill shapes (24 heads,
+# p = 64, n = 128, chunk 128, one group) and smaller ones with groups.
+_SSD_CASES = {
+    "path l=128 b=1": (1, 128, 24, 64, 1, 128, 128),
+    "path l=256 b=3": (3, 256, 24, 64, 1, 128, 128),
+    "path l=256 b=4": (4, 256, 24, 64, 1, 128, 128),
+    "groups 2, chunk 16": (2, 64, 8, 16, 2, 16, 16),
+    "ragged p=24, n=40, chunk 32": (1, 96, 4, 24, 1, 40, 32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SSD_CASES))
+def test_ssd_scan_kernel_within_1e4(cuda, case):
+    b, l, h, p, g, n, chunk = _SSD_CASES[case]
+    x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, cuda)
+    before = ssd_scan.launches
+    y, final = ssd_scan(x, dt, A, B, C, chunk)
+    y_ref, final_ref = ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert _rel_err(y, y_ref) <= 1e-4
+    assert _rel_err(final, final_ref) <= 1e-4
+
+
+def test_ssd_scan_kernel_reads_slices_of_a_packed_projection(cuda):
+    """x, B and C as views into one (b, l, channels) tensor, as the SSM
+    block's split of its convolved projection gives them."""
+    b, l, h, p, n = 2, 64, 4, 16, 16
+    rng = np.random.default_rng(5)
+    xbc = torch.as_tensor(rng.standard_normal((b, l, h * p + 2 * n)),
+                          dtype=torch.float32, device=cuda)
+    x = xbc[..., :h * p].view(b, l, h, p)
+    B = xbc[..., h * p:h * p + n].view(b, l, 1, n)
+    C = xbc[..., h * p + n:].view(b, l, 1, n)
+    _, dt, A, _, _ = _ssd_inputs(b, l, h, p, 1, n, cuda, seed=6)
+    y, final = ssd_scan(x, dt, A, B, C, 16)
+    y_ref, final_ref = ref.ssd_scan_ref(x, dt, A, B, C, 16)
+    torch.cuda.synchronize()
+    assert _rel_err(y, y_ref) <= 1e-4
+    assert _rel_err(final, final_ref) <= 1e-4
+
+
+def test_ssd_scan_rejects_what_it_does_not_take(cuda):
+    x, dt, A, B, C = _ssd_inputs(1, 32, 2, 16, 1, 16, cuda)
+    with pytest.raises(ValueError, match="init_state"):
+        ssd_scan(x, dt, A, B, C, 16, init_state=torch.zeros(
+            (1, 2, 16, 16), device=cuda))
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan(x, dt, A, B, C, 12)                   # does not divide 32
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan(x.double(), dt, A, B, C, 16)
+    with pytest.raises(ValueError, match="state size"):
+        big = torch.zeros((1, 32, 1, 256), device=cuda)
+        ssd_scan(x, dt, A, big, big, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C,
+                 16)
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-130m"])
+def test_lm_wave_on_card_matches_cpu(cuda, name):
+    """A reduced LM served on the card gives the CPU run's tokens and batch
+    counts, and the wave goes through the model's kernel."""
+    import dataclasses
+
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.serve.lm_wave import ServeEngine
+
+    cfg = get_config(name).reduced()
+    if cfg.ssm_state:
+        cfg = dataclasses.replace(cfg, ssm_chunk=32)
+    cpu = TransformerLM(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    card = TransformerLM(cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (32, 64, 32)]
+    kernel = ssd_scan if cfg.ssm_state else flash_attention
+    before = kernel.launches
+    outs, stats = ServeEngine(card, tree_map(lambda t: t.to(cuda), params),
+                              cache_len=80, device=cuda).generate(prompts, 5)
+    assert kernel.launches > before
+    want, want_stats = ServeEngine(cpu, params, cache_len=80,
+                                   device="cpu").generate(prompts, 5)
+    assert outs == want
+    assert (stats.n_prefill_batches, stats.n_decode_batches) == \
+        (want_stats.n_prefill_batches, want_stats.n_decode_batches) == (2, 4)

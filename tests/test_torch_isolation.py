@@ -21,7 +21,10 @@ PORT = ROOT / "src" / "repro_torch"
 # Framework-free modules the port copies instead of importing.
 VERBATIM = ["core/graph.py", "core/cache.py", "core/batching.py",
             "core/encodings.py", "core/rl.py", "core/pqtree.py",
-            "core/memplan.py", "models/data.py", "obs/tracer.py"]
+            "core/memplan.py", "models/data.py", "obs/tracer.py",
+            "arch/config.py"] + sorted(
+    str(p.relative_to(ROOT / "src" / "repro"))
+    for p in (ROOT / "src" / "repro" / "configs").glob("*.py"))
 
 
 def _forbidden(module: str) -> bool:
@@ -100,18 +103,34 @@ def no_cuda(monkeypatch):
 def _entry_points():
     from repro_torch.core.executor import DynamicExecutor
     from repro_torch.core.plan import BucketedPlanExecutor, PlanExecutor
+    from repro_torch.arch.model import TransformerLM
+    from repro_torch.configs import get_config
     from repro_torch.models.workloads import make_workload
+    from repro_torch.serve.lm_wave import ServeEngine, serve_wave
+
+    cfg = get_config("qwen2-0.5b").reduced(d_model=32)
+
+    def engine():
+        # a model built for the CPU, but the engine itself asked for no device
+        model = TransformerLM(cfg, device="cpu")
+        return ServeEngine(model, model.init_params(torch.Generator()))
 
     return {
         "make_workload": lambda: make_workload("BiLSTM-Tagger", 8),
         "DynamicExecutor": lambda: DynamicExecutor({}, None),
         "PlanExecutor": lambda: PlanExecutor({}, None),
         "BucketedPlanExecutor": lambda: BucketedPlanExecutor({}, None),
+        "TransformerLM": lambda: TransformerLM(get_config("qwen2-0.5b")),
+        "ServeEngine": engine,
+        "serve_wave": lambda: serve_wave(TransformerLM(cfg, device="cpu"), {},
+                                         [[1, 2]]),
     }
 
 
 @pytest.mark.parametrize("name", ["make_workload", "DynamicExecutor",
-                                  "PlanExecutor", "BucketedPlanExecutor"])
+                                  "PlanExecutor", "BucketedPlanExecutor",
+                                  "TransformerLM", "ServeEngine",
+                                  "serve_wave"])
 def test_entry_points_default_to_cuda(no_cuda, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()
@@ -124,6 +143,21 @@ def test_explicit_cpu_device_is_honoured(no_cuda):
     assert wl.device == torch.device("cpu")
     assert all(t.device.type == "cpu"
                for impl in wl.impls.values() for t in impl.params.values())
+
+
+def test_explicit_cpu_device_is_honoured_by_the_lm_server(no_cuda):
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.serve.lm_wave import ServeEngine
+
+    model = TransformerLM(get_config("mamba2-130m").reduced(), device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    devices = set()
+    tree_map(lambda t: devices.add(t.device.type), params)
+    assert model.device == torch.device("cpu") and devices == {"cpu"}
+    outs, _ = ServeEngine(model, params, cache_len=32,
+                          device="cpu").generate([[1] * 16], max_new=2)
+    assert len(outs[0]) == 2
 
 
 def _run_smoke(cwd: Path, script: Path):

@@ -1,0 +1,138 @@
+"""The port's wave LM server (``repro_torch.serve.lm_wave``) against the
+JAX package's ``repro.serve.lm_wave`` with the same parameters and prompts:
+identical token streams (a mismatch reports the top-2 logit margin at the
+first differing step) and identical batch counts."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.arch.model import TransformerLM as JaxLM  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.serve import lm_wave as jwave  # noqa: E402
+from repro_torch.arch.convert import install_params  # noqa: E402
+from repro_torch.arch.model import TransformerLM  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.batching import FSMPolicy  # noqa: E402
+from repro_torch.serve import lm_wave  # noqa: E402
+
+
+def _pair(name, **over):
+    jcfg = jax_config(name).reduced(**over)
+    cfg = get_config(name).reduced(**over)
+    jm = JaxLM(jcfg)
+    jparams = jm.init_params(jax.random.PRNGKey(0))
+    m = TransformerLM(cfg, device="cpu")
+    params = m.init_params(torch.Generator().manual_seed(0))
+    install_params(params, jax.tree.map(np.asarray, jparams))
+    return jm, jparams, m, params
+
+
+def _top2_margin(m, params, prompt, prefix) -> float:
+    """Top-1 minus top-2 logit of the step that produced ``prefix``'s next
+    token, recomputed on the port from the full sequence."""
+    toks = torch.tensor([list(prompt) + list(prefix)])
+    logits, _ = m.forward(params, toks)
+    top = torch.topk(logits[0, -1], 2).values
+    return float(top[0] - top[1])
+
+
+def _assert_same_streams(outs, jouts, m, params, prompts):
+    for r, (got, want) in enumerate(zip(outs, jouts)):
+        want = [int(t) for t in want]
+        if got != want:
+            t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            margin = _top2_margin(m, params, prompts[r], want[:t])
+            pytest.fail(f"request {r}: token {t} is {got[t]}, the reference "
+                        f"gives {want[t]} (top-2 margin {margin:.3e})")
+
+
+@pytest.mark.parametrize("name,lengths,cache_len,d_model", [
+    ("qwen2-0.5b", (5, 5, 9), 48, 32),        # tests/test_launch.py's case
+    ("qwen2-0.5b", (7, 12, 7, 3), 40, 0),
+    ("mamba2-130m", (16, 32, 16), 48, 0),     # prompts: multiples of the chunk
+])
+def test_serve_engine_matches_reference(name, lengths, cache_len, d_model):
+    over = {"d_model": d_model} if d_model else {}
+    jm, jparams, m, params = _pair(name, **over)
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, m.cfg.vocab, n)) for n in lengths]
+    jeng = jwave.ServeEngine(jm, jparams, cache_len=cache_len)
+    eng = lm_wave.ServeEngine(m, params, cache_len=cache_len, device="cpu")
+    jouts, jstats = jeng.generate(prompts, max_new=4)
+    outs, stats = eng.generate(prompts, max_new=4)
+    _assert_same_streams(outs, jouts, m, params, prompts)
+    assert all(len(o) == 4 for o in outs)
+    for f in ("n_batches", "n_prefill_batches", "n_decode_batches",
+              "tokens_out"):
+        assert getattr(stats, f) == getattr(jstats, f), f
+    assert stats.n_prefill_batches == len(set(lengths))
+    assert stats.n_decode_batches == 3
+
+
+def test_serve_engine_batches_requests():
+    """Mirror of the reference's launch test, on the port alone."""
+    cfg = get_config("qwen2-0.5b").reduced(d_model=32)
+    model = TransformerLM(cfg, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    eng = lm_wave.ServeEngine(model, params, cache_len=48, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, cfg.vocab, n)) for n in (5, 5, 9)]
+    outs, stats = eng.generate(prompts, max_new=4)
+    assert all(len(o) == 4 for o in outs)
+    # 2 prompt-length types + 3 decode waves
+    assert stats.n_prefill_batches == 2
+    assert stats.n_decode_batches == 3
+    # a repeat of the same wave shape hits the schedule cache
+    eng.generate(prompts, max_new=4, stats=stats)
+    assert stats.sched_cache_hits == 1
+
+
+def test_request_graph_and_schedule_match_reference():
+    from repro.core.batching import SufficientConditionPolicy as JPolicy
+    from repro.core.batching import resolve_schedule as jresolve
+    from repro_torch.core.batching import (SufficientConditionPolicy,
+                                           resolve_schedule)
+
+    lengths, max_new = (4, 9, 4, 6), 5
+    reqs = [lm_wave.Request(list(range(n)), max_new) for n in lengths]
+    jreqs = [jwave.Request(list(range(n)), max_new) for n in lengths]
+    g, jg = lm_wave.request_graph(reqs), jwave.request_graph(jreqs)
+    assert g.topology_key() == jg.topology_key()
+    assert [(n.type, n.inputs, n.attrs) for n in g.nodes] == \
+        [(n.type, n.inputs, n.attrs) for n in jg.nodes]
+    assert resolve_schedule(g, SufficientConditionPolicy()) == \
+        jresolve(jg, JPolicy())
+
+
+def test_engine_with_learned_fsm_policy_matches_reference():
+    """An FSM policy (the learned kind) schedules the wave the same way in
+    both packages; its Q-table goes across as the reference's payload."""
+    from repro.core.batching import FSMPolicy as JFSM
+    from repro.core.rl import RLConfig, train_fsm
+
+    jm, jparams, m, params = _pair("qwen2-0.5b", d_model=32)
+    rng = np.random.default_rng(1)
+    prompts = [list(rng.integers(0, m.cfg.vocab, n)) for n in (6, 3, 6)]
+    graph = jwave.request_graph([jwave.Request(p, 3) for p in prompts])
+    fsm = train_fsm([graph], RLConfig(max_iters=50, seed=0))
+    payload = fsm.policy.to_payload()
+    jouts, jstats = jwave.ServeEngine(jm, jparams, cache_len=16,
+                                      policy=JFSM.from_payload(payload)
+                                      ).generate(prompts, max_new=3)
+    outs, stats = lm_wave.ServeEngine(m, params, cache_len=16, device="cpu",
+                                      policy=FSMPolicy.from_payload(payload)
+                                      ).generate(prompts, max_new=3)
+    _assert_same_streams(outs, jouts, m, params, prompts)
+    assert (stats.n_prefill_batches, stats.n_decode_batches) == \
+        (jstats.n_prefill_batches, jstats.n_decode_batches)
+
+
+def test_engine_refuses_a_model_on_another_device():
+    cfg = get_config("qwen2-0.5b").reduced(d_model=32)
+    model = TransformerLM(cfg, device="cpu")
+    with pytest.raises(ValueError, match="model on cpu"):
+        lm_wave.ServeEngine(model, {}, device="meta")
