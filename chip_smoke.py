@@ -261,6 +261,7 @@ def check_flash(torch, timer) -> dict:
         ("path S=96 B=2", 2, 96, 96, 14, 2, 64, True, 0),
         ("path S=32 B=1", 1, 32, 32, 14, 2, 64, True, 0),
         ("path S=48 B=4", 4, 48, 48, 14, 2, 64, True, 0),
+        ("path S=96 B=4", 4, 96, 96, 14, 2, 64, True, 0),
         ("ragged S=100", 2, 100, 100, 14, 2, 64, True, 0),
         ("window 16, S=130", 1, 130, 130, 4, 2, 64, True, 16),
         ("cross Sq=40 Skv=77", 2, 40, 77, 6, 3, 64, False, 0),
@@ -307,11 +308,15 @@ def check_flash(torch, timer) -> dict:
 
 
 def ssd_flops(b: int, l: int, h: int, p: int, n: int, q: int) -> int:
-    """FLOPs the chunked algorithm needs: per (batch, head, chunk) the
-    masked C.B^T scores and the diagonal block over the q(q+1)/2 causal
-    pairs, the carried state's contribution and the state update."""
+    """The fewest FLOPs that compute the scan: the lesser of the chunked
+    algorithm's count (per (batch, head, chunk) the masked C.B^T scores and
+    the diagonal block over the q(q+1)/2 causal pairs, the carried state's
+    contribution and the state update) and the sequential recurrence's
+    (per step and (p, n) state entry a decay multiply and a multiply-add
+    for the update, and a multiply-add for C . state)."""
     pairs = q * (q + 1) // 2
-    return b * h * (l // q) * (2 * pairs * (n + p) + 4 * q * n * p)
+    chunked = b * h * (l // q) * (2 * pairs * (n + p) + 4 * q * n * p)
+    return min(chunked, 5 * b * l * h * p * n)
 
 
 def check_ssd(torch, timer) -> dict:
@@ -523,16 +528,14 @@ def top2_margin(torch, model, params, prompt, prefix) -> tuple:
     return float(top[0] - top[1]), float(logits.abs().max())
 
 
-def lm_wave(name: str, wrappers: dict, device: str = "cuda",
-            cfg=None) -> dict:
+def lm_wave(name: str, wrappers: dict) -> dict:
     """One LM at full width through the port's wave server on the card:
     one counted wave (the kernels' launch counts are read around it), a
     timed repeat and a profiled one; then the same first wave on the CPU,
     where every kernel is its plain version, with the same weights. Tokens
     must match (a differing token is accepted only at a near-tie, top-2
     margin within the logit tolerance), and one prefill batch's logits
-    must agree within 2e-3 of the largest |logit|. ``device`` and a
-    smaller ``cfg`` serve to rehearse the phase on the CPU."""
+    must agree within 2e-3 of the largest |logit|."""
     import numpy as np
     import torch
     from repro_torch.arch.model import TransformerLM, tree_map
@@ -541,12 +544,12 @@ def lm_wave(name: str, wrappers: dict, device: str = "cuda",
     from repro_torch.serve.lm_wave import ServeEngine, ServeStats
 
     lengths, n_req, max_new, cache_len = LM_RUNS[name]
-    cfg = cfg or get_config(name)
-    dev = torch.device(device)
+    cfg = get_config(name)
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
     cpu_model = TransformerLM(cfg, device="cpu")
     cpu_params = cpu_model.init_params(torch.Generator().manual_seed(SEED))
-    model = TransformerLM(cfg, device=device)
+    model = TransformerLM(cfg, device=dev)
     params = tree_map(lambda t: t.to(dev), cpu_params)
     sizes = []
     tree_map(lambda t: sizes.append(t.numel()), params)
@@ -558,7 +561,7 @@ def lm_wave(name: str, wrappers: dict, device: str = "cuda",
                for _ in range(n_req)]
     report["prompt_lengths"] = [len(p) for p in prompts]
 
-    eng = ServeEngine(model, params, cache_len=cache_len, device=device)
+    eng = ServeEngine(model, params, cache_len=cache_len, device=dev)
     for fn in wrappers.values():
         fn.launches = 0
     stats = ServeStats()
@@ -595,9 +598,8 @@ def lm_wave(name: str, wrappers: dict, device: str = "cuda",
         decode_ms = timed(dev, lambda: model.decode_step(params, tok, caches,
                                                          pos))
     report.update(prefill_ms=prefill_ms, decode_wave_ms=decode_ms)
-    if dev.type == "cuda":
-        report["profile"] = profile_run(
-            torch, lambda: eng.generate(prompts, max_new=max_new))
+    report["profile"] = profile_run(
+        torch, lambda: eng.generate(prompts, max_new=max_new))
 
     # the same first wave on the CPU, plain versions only
     t0 = time.perf_counter()

@@ -96,30 +96,41 @@ def causal_mask(S: int, window: int = 0, device=None):
     return attention_mask(S, S, window, device)[None]  # (1, S, T)
 
 
-def attention(p, x, cfg: ArchConfig, positions, kv=None):
-    """Causal self-attention (with ``cfg.sliding_window``) when ``kv`` is
-    None, else non-causal cross-attention onto ``kv`` (no RoPE on the
-    encoder side). Both go through the flash-attention kernel; the
-    reference's causal mask argument is the kernel's own mask here."""
-    h, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+def _project_qkv(p, x, src, cfg: ArchConfig):
+    """Q from ``x``, K and V from ``src``, biased and split into heads."""
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    src = x if kv is None else kv
     k = src @ p["wk"]
     v = src @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
-    q = _split_heads(q, h, dh)
-    k = _split_heads(k, nkv, dh)
-    v = _split_heads(v, nkv, dh)
+    return (_split_heads(q, cfg.n_heads, cfg.d_head),
+            _split_heads(k, cfg.n_kv_heads, cfg.d_head),
+            _split_heads(v, cfg.n_kv_heads, cfg.d_head))
+
+
+def self_attention(p, x, cfg: ArchConfig, positions):
+    """Causal self-attention (with ``cfg.sliding_window``) through the
+    flash-attention kernel; the reference's causal mask argument is the
+    kernel's own mask here. Returns ``(out, k, v)`` with K roped: the rows
+    a prefill writes into the decode cache."""
+    q, k, v = _project_qkv(p, x, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    return out.flatten(2).to(x.dtype) @ p["wo"], k, v
+
+
+def attention(p, x, cfg: ArchConfig, positions, kv=None):
+    """Causal self-attention when ``kv`` is None, else non-causal
+    cross-attention onto ``kv`` (no RoPE on the encoder side). Both go
+    through the flash-attention kernel."""
     if kv is None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    else:
-        out = flash_attention(q, k, v, causal=False)
-    return out.reshape(out.shape[:2] + (h * dh,)).to(x.dtype) @ p["wo"]
+        return self_attention(p, x, cfg, positions)[0]
+    q, k, v = _project_qkv(p, x, kv, cfg)
+    out = flash_attention(q, k, v, causal=False)
+    return out.flatten(2).to(x.dtype) @ p["wo"]
 
 
 def attention_with_cache(p, x, cfg: ArchConfig, cache, pos):
@@ -128,18 +139,8 @@ def attention_with_cache(p, x, cfg: ArchConfig, cache, pos):
     absolute position, a scalar or a per-request (B,) tensor. Writes the
     new K/V row into ``cache`` in place (the reference returns updated
     copies) and returns ``(out, cache)``."""
-    h, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     B = x.shape[0]
-    q = x @ p["wq"]
-    if "bq" in p:
-        q = q + p["bq"]
-    k_new = x @ p["wk"]
-    v_new = x @ p["wv"]
-    if "bk" in p:
-        k_new, v_new = k_new + p["bk"], v_new + p["bv"]
-    q = _split_heads(q, h, dh)                      # (B,1,H,Dh)
-    k_new = _split_heads(k_new, nkv, dh)
-    v_new = _split_heads(v_new, nkv, dh)
+    q, k_new, v_new = _project_qkv(p, x, x, cfg)    # (B,1,H,Dh), (B,1,KV,Dh)
     posv = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
     q = apply_rope(q, posv[:, None], cfg.rope_theta)
     k_new = apply_rope(k_new, posv[:, None], cfg.rope_theta)  # rope at write

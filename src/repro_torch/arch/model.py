@@ -199,15 +199,7 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
         if spec.mixer == "attn":
-            a = lp["attn"]
-            mix = L.attention(a, h, cfg, positions)
-            k = h @ a["wk"]
-            v = h @ a["wv"]
-            if "bk" in a:
-                k, v = k + a["bk"], v + a["bv"]
-            k = L.apply_rope(L._split_heads(k, cfg.n_kv_heads, cfg.d_head),
-                             positions, cfg.rope_theta)
-            v = L._split_heads(v, cfg.n_kv_heads, cfg.d_head)
+            mix, k, v = L.self_attention(lp["attn"], h, cfg, positions)
             if pad:
                 k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
                 v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))

@@ -12,10 +12,12 @@
 //
 // Bound on the H100: operations. At the path's shapes (Mamba2-130m
 // prefill: 24 heads, p = 64, n = 128, chunk 128, one group) one chunk of
-// one head needs about 7.4 MFLOP (the masked C.B^T scores, the diagonal
-// block, the state's contribution and the state update) against about
-// 70 KB of x, y and its share of B and C: some 100 FLOP per byte, far
-// above the card's fp32 ridge of 20 (67 TFLOP/s over 3.35 TB/s).
+// one head needs at least 5.2 MFLOP, the sequential recurrence's count
+// (per step and state entry a decay multiply, a multiply-add for the
+// update and one for C . state; the chunked algorithm here does 7.4 MFLOP,
+// as it also forms the masked C.B^T scores), against about 70 KB of x, y
+// and its share of B and C: some 75 FLOP per byte, far above the card's
+// fp32 ridge of 20 (67 TFLOP/s over 3.35 TB/s).
 // Parallelism is the harder limit: b * h is 24 per request against
 // 132 SMs.
 //
@@ -251,12 +253,18 @@ extern "C" int ssd_scan_launch(
       H % G != 0 || batch > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(sizeof(Smem));
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // The shared-memory limit is a per-device attribute: set it once on each
+  // device a launch reaches.
+  constexpr int MAX_DEVICES = 64;
+  static bool configured[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= MAX_DEVICES || !configured[device]) {
+    err = cudaFuncSetAttribute(
         ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    if (device < MAX_DEVICES) configured[device] = true;
   }
   const dim3 grid(static_cast<unsigned>((P + PS - 1) / PS),
                   static_cast<unsigned>(H), static_cast<unsigned>(batch));

@@ -68,12 +68,14 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
     if y.numel() == 0:
         return y, final.zero_()
     lib = build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(lib.ssd_scan_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), final.data_ptr(), b, l, h, p, g, n, chunk,
-        x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), B.stride(0),
-        B.stride(1), C.stride(0), C.stride(1), stream), "ssd_scan")
+    with torch.cuda.device(dev):   # the launch goes to the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        build.check(lib.ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), final.data_ptr(), b, l, h, p, g, n,
+            chunk, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
+            B.stride(0), B.stride(1), C.stride(0), C.stride(1), stream),
+            "ssd_scan")
     ssd_scan.launches += 1
     return y, final
 
