@@ -5,7 +5,8 @@ process per source, all started together), the objects are linked into
 one shared library with a plain C interface, and the library is loaded
 with ``ctypes``. The build happens at first use, into
 ``build/repro_torch/<digest>/`` under the checkout, where the digest covers
-the sources and the flags; a later process finds the library there.
+the sources, the ``csrc/*.cuh`` headers they include and the flags; a later
+process finds the library there.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ _I = ctypes.c_int64
 SIGNATURES = {
     "gather_rows_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fused_gather_lstm_cell_launch": [_P] * 10 + [_I] * 6 + [_P],
+    "fused_lstm_cell_launch": [_P] * 6 + [_I] * 3 + [_P],
     "flash_attention_launch": [_P] * 4 + [_I] * 17 + [_P],
     "ssd_scan_launch": [_P] * 7 + [_I] * 15 + [_P],
 }
@@ -53,7 +55,7 @@ def _nvcc() -> str:
 
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -33,12 +33,13 @@ def _normal(rng: np.random.Generator, shape, device) -> torch.Tensor:
                                       np.float32), device=device)
 
 
-def _zero_state_impl(hidden: int) -> NodeImpl:
+def _zero_state_impl(hidden: int,
+                     fields: tuple[str, ...] = ("h_out", "c_out")) -> NodeImpl:
     def apply(params, inputs, aux):
         k = aux.shape[0]
         z = torch.zeros((k, hidden), dtype=torch.float32, device=aux.device)
-        return {"h_out": z, "c_out": z}
-    return NodeImpl("S", [], {"h_out": (hidden,), "c_out": (hidden,)}, apply)
+        return {f: z for f in fields}
+    return NodeImpl("S", [], {f: (hidden,) for f in fields}, apply)
 
 
 def _out_impl(in_slots, wo: torch.Tensor, bo: torch.Tensor) -> NodeImpl:

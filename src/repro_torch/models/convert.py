@@ -2,9 +2,10 @@
 
 The arrays are in the JAX package's own layout: each cell's packed
 parameter buffer (ordered by ``CompiledCell.offsets``), the embedding
-tables, and the output projection. They are keyed by
+tables, and the output projections. They are keyed by
 ``(impl name, array name)`` with the array names the reference's impl
-closures use: ``pbuf``, ``table``, ``wo`` and ``bo``.
+closures use: ``pbuf``, ``table``, ``wo`` and ``bo``; the tree head's
+``w`` and ``b``; MV-RNN's leaf tables ``vec`` and ``mat``.
 """
 
 from __future__ import annotations

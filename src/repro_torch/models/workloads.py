@@ -1,10 +1,11 @@
-"""Registry of the paper's workloads (Table 1) plus the servable
-``ChainLM`` family. This slice of the port builds the chain workloads; the
-tree and lattice workloads come with a later slice."""
+"""Registry of the paper's 8 workloads (Table 1), plus the servable
+``ChainLM`` family and the serve subsystem's family -> workload mapping."""
 
 from __future__ import annotations
 
 from .chains import BiLSTMTagger, ChainLM, LSTMNMT
+from .lattices import LatticeGRU, LatticeLSTM
+from .trees import TreeWorkload
 
 
 def make_workload(name: str, model_size: int = 64, seed: int = 0,
@@ -17,10 +18,12 @@ def make_workload(name: str, model_size: int = 64, seed: int = 0,
         return LSTMNMT(model_size, seed, layout, device=device)
     if name == "ChainLM":
         return ChainLM(model_size, seed, layout, device=device)
-    if name in TREE_WORKLOADS or name in LATTICE_WORKLOADS:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet: tree and lattice workloads come "
-            f"with the trees-and-lattices slice of the port")
+    if name in TREE_WORKLOADS:
+        return TreeWorkload(name, model_size, seed, layout, device=device)
+    if name == "LatticeLSTM":
+        return LatticeLSTM(model_size, seed, layout, device=device)
+    if name == "LatticeGRU":
+        return LatticeGRU(model_size, seed, layout, device=device)
     raise ValueError(name)
 
 
@@ -29,3 +32,8 @@ WORKLOADS = ["BiLSTM-Tagger", "LSTM-NMT", "TreeLSTM", "TreeGRU", "MV-RNN",
 CHAIN_WORKLOADS = ["BiLSTM-Tagger", "LSTM-NMT"]
 TREE_WORKLOADS = ["TreeLSTM", "TreeGRU", "MV-RNN", "TreeLSTM-2Type"]
 LATTICE_WORKLOADS = ["LatticeLSTM", "LatticeGRU"]
+
+# Serve subsystem: request family -> default workload. "lm" is the
+# autoregressive chain-LM decode family; "tree" and "lattice" serve
+# single-shot classifier / NER request graphs.
+SERVE_FAMILIES = {"lm": "ChainLM", "tree": "TreeLSTM", "lattice": "LatticeLSTM"}

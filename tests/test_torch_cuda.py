@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.fused_cell import fused_lstm_cell  # noqa: E402
 from repro_torch.kernels.fused_gather_cell import \
     fused_gather_lstm_cell  # noqa: E402
 from repro_torch.kernels.gather_batch import gather_rows  # noqa: E402
@@ -359,3 +360,105 @@ def test_lm_wave_on_card_matches_cpu(cuda, name):
     assert outs == want
     assert (stats.n_prefill_batches, stats.n_decode_batches) == \
         (want_stats.n_prefill_batches, want_stats.n_decode_batches) == (2, 4)
+
+
+def _cell_inputs(B, K, H, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(scale * rng.standard_normal(shape),
+                            dtype=torch.float32, device=device)
+            for scale, shape in ((1.0, (B, K)), (0.05, (K, 4 * H)),
+                                 (0.1, (4 * H,)), (1.0, (B, H)))]
+
+
+# (B, K, H): the tagger's cell at width 512 (the path shape), table5's
+# shapes, the reference tests' shapes and ragged ones.
+_DENSE_CASES = {
+    "path": (16, 1024, 512),
+    "table5 H=64": (16, 128, 64),
+    "table5 H=128": (16, 256, 128),
+    "table5 H=256": (16, 512, 256),
+    "reference B=8": (8, 64, 32),
+    "reference B=4": (4, 32, 32),
+    "reference B=16": (16, 128, 64),
+    "B=1": (1, 1024, 512),
+    "ragged B=37 K=333 H=100": (37, 333, 100),
+    "ragged B=5 K=7 H=13": (5, 7, 13),
+    "K=1 H=1": (3, 1, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_DENSE_CASES))
+def test_dense_cell_kernel_within_1e4(cuda, case):
+    xh, w, b, c = _cell_inputs(*_DENSE_CASES[case], cuda)
+    before = fused_lstm_cell.launches
+    h2, c2 = fused_lstm_cell(xh, w, b, c)
+    hr, cr = ref.fused_lstm_cell_ref(xh, w, b, c)
+    torch.cuda.synchronize()
+    assert fused_lstm_cell.launches == before + 1
+    assert _rel_err(h2, hr) <= 1e-4
+    assert _rel_err(c2, cr) <= 1e-4
+
+
+def test_dense_cell_on_gathered_rows_is_the_gather_cell(cuda):
+    """The card counterpart of the reference's composition test: the dense
+    cell on concat[x[ix], h[ih]] and c[ic] is the gather cell."""
+    B, E, H, n = 16, 512, 512, 300
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, h, c = (torch.randn((n, d), generator=g, device=cuda)
+               for d in (E, H, H))
+    _, w, b, _ = _cell_inputs(1, E + H, H, cuda)
+    ix, ih, ic = (torch.randint(-n, n, (B,), generator=g, device=cuda,
+                                dtype=torch.int32) for _ in range(3))
+    xh = torch.cat([x[ix.long()], h[ih.long()]], dim=1)
+    h2, c2 = fused_lstm_cell(xh, w, b, c[ic.long()].contiguous())
+    h3, c3 = fused_gather_lstm_cell(x, h, c, ix, ih, ic, w, b)
+    torch.cuda.synchronize()
+    assert _rel_err(h2, h3) <= 1e-4
+    assert _rel_err(c2, c3) <= 1e-4
+
+
+def test_dense_cell_rejects_what_it_does_not_take(cuda):
+    xh, w, b, c = _cell_inputs(4, 24, 8, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fused_lstm_cell(xh.double(), w, b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_lstm_cell(xh, w.t().contiguous().t(), b, c)
+    with pytest.raises(ValueError, match="must be"):
+        fused_lstm_cell(xh, w[:, :30], b, c)            # 4H not a multiple
+    with pytest.raises(ValueError, match="must be"):
+        fused_lstm_cell(xh, w, b, c[:3])
+    with pytest.raises(ValueError, match="float32"):
+        fused_lstm_cell(xh, w, b.cpu(), c)
+
+
+@pytest.mark.parametrize("name,args", [
+    ("TreeLSTM", dict(leaves_lo=4, leaves_hi=6)),
+    ("MV-RNN", dict(leaves_lo=4, leaves_hi=6)),
+    ("LatticeLSTM", dict(lo=6, hi=10)),
+])
+def test_tree_and_lattice_on_card_match_cpu(cuda, name, args):
+    """Small tree and lattice minibatches through the interpreted and
+    bucketed executors on the card agree with the plain run on the CPU,
+    through the gather kernel (and the fused cell on LatticeLSTM)."""
+    import random
+
+    from repro_torch.core.batching import SufficientConditionPolicy
+    from repro_torch.core.executor import DynamicExecutor
+    from repro_torch.core.plan import BucketedPlanExecutor
+    from repro_torch.models.workloads import make_workload
+
+    policy = SufficientConditionPolicy()
+    ref_wl = make_workload(name, 64, 0, device="cpu")
+    wl = make_workload(name, 64, 0, device=cuda)
+    g = wl.sample_graph(random.Random(0), 2, **args)
+    want = DynamicExecutor(ref_wl.impls, None, device="cpu").run(g, policy)
+    ids = list(want.nodes_with_field("y"))
+    y_want = want.field("y", ids)
+    gathers, cells = gather_rows.launches, fused_gather_lstm_cell.launches
+    for ex in (DynamicExecutor(wl.impls, None, device=cuda),
+               BucketedPlanExecutor(wl.impls, None, device=cuda)):
+        y = ex.run(g, policy).field("y", ids).cpu()
+        assert float((y - y_want).abs().max()) <= 1e-4, type(ex).__name__
+    assert gather_rows.launches > gathers
+    if name == "LatticeLSTM":
+        assert fused_gather_lstm_cell.launches > cells

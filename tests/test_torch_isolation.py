@@ -117,6 +117,8 @@ def _entry_points():
 
     return {
         "make_workload": lambda: make_workload("BiLSTM-Tagger", 8),
+        "make_workload tree": lambda: make_workload("MV-RNN", 8),
+        "make_workload lattice": lambda: make_workload("LatticeLSTM", 8),
         "DynamicExecutor": lambda: DynamicExecutor({}, None),
         "PlanExecutor": lambda: PlanExecutor({}, None),
         "BucketedPlanExecutor": lambda: BucketedPlanExecutor({}, None),
@@ -127,7 +129,8 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["make_workload", "DynamicExecutor",
+@pytest.mark.parametrize("name", ["make_workload", "make_workload tree",
+                                  "make_workload lattice", "DynamicExecutor",
                                   "PlanExecutor", "BucketedPlanExecutor",
                                   "TransformerLM", "ServeEngine",
                                   "serve_wave"])

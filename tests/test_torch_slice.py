@@ -91,7 +91,7 @@ def test_chip_smoke_slice_runs_on_cpu():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     report = smoke.run_slice("cpu", model_size=SIZE, batch=2, n_fresh=2,
-                             timed_reps=1, lengths=(4, 8))
+                             timed_reps=1, graph_args=ARGS)
     assert report["max_abs_err_executors"] <= 1e-4
     assert report["max_abs_err_vs_cpu"] == 0.0
     assert set(report["ms_per_run"]) == {"interpreted", "per_topology",

@@ -19,7 +19,6 @@ from repro_torch.core.executor import DynamicExecutor  # noqa: E402
 from repro_torch.core.rl import RLConfig, train_fsm  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.workloads import (CHAIN_WORKLOADS,  # noqa: E402
-                                          LATTICE_WORKLOADS, TREE_WORKLOADS,
                                           make_workload)
 
 NAMES = CHAIN_WORKLOADS + ["ChainLM"]
@@ -122,12 +121,6 @@ def test_params_from_numpy_rejects_unknown_and_misshapen():
         params_from_numpy(wl, {("C", "table"): np.zeros(3, np.float32)})
     with pytest.raises(ValueError):
         params_from_numpy(wl, {("E", "table"): np.zeros((3, 3), np.float32)})
-
-
-@pytest.mark.parametrize("name", TREE_WORKLOADS + LATTICE_WORKLOADS)
-def test_trees_and_lattices_wait_for_their_slice(name):
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        make_workload(name, SIZE, device="cpu")
 
 
 def test_chainlm_resume_reads_threaded_slots():
