@@ -9,15 +9,20 @@ Phases, in order; any failure raises and exits non-zero:
    gives them), builds the CUDA kernels from ``src/repro_torch/csrc`` with
    nvcc into ``build/repro_torch/`` and prints the build seconds and the
    ptxas resource lines.
-2. Kernels: each kernel against its plain PyTorch version on the card at
-   the path's shapes and edge cases (gather bit-equal; the others within
-   1e-4, TF32 off), then timed cold (L2 flushed before every launch, CUDA
-   events, median) beside the plain version and, where one PyTorch call
-   computes the same function, that call (``torch.index_select``,
-   ``torch._VF.lstm_cell``, ``scaled_dot_product_attention``; yardsticks
-   the port never calls). The dense LSTM cell is also checked on gathered
-   rows against the gather cell; no model path launches it, so its
-   launches are those of its checks.
+2. Kernels: counts the tensor-core (``HMMA``) instructions of the
+   attention and scan kernels in the built library (``cuobjdump -sass``,
+   where the toolkit has it; none fails). Then each kernel against its
+   plain PyTorch version on the card at the path's shapes and edge cases
+   (gather bit-equal; the others within 1e-4, TF32 off; the scan also
+   from a random initial state), then timed cold (L2 flushed before every
+   launch, CUDA events, median) beside the plain version and, where one
+   PyTorch call computes the same function, that call
+   (``torch.index_select``, ``torch._VF.lstm_cell``,
+   ``scaled_dot_product_attention``, whose kernel names one profiled call
+   prints; yardsticks the port never calls). Attention and scan are timed
+   at both prefill shapes of their LM wave. The dense LSTM cell is also
+   checked on gathered rows against the gather cell; no model path
+   launches it, so its launches are those of its checks.
 3. The slice: BiLSTM-Tagger at model_size=512 on CUDA. An FSM policy is
    learned on small graphs, then fresh 16-sentence minibatches (and one
    repeat) run through the interpreted, per-topology and bucketed
@@ -48,7 +53,10 @@ Phases, in order; any failure raises and exits non-zero:
 Phases 2 and 4 hold the kernels other than the gather to 1e-4 of the
 largest magnitude of their plain versions' outputs. The line before the
 last is ``{"kernels": [...]}`` (per kernel: launches in the phase that
-drives its path, max abs error, kernel / plain / bound / library ms); the
+drives its path, max abs error, kernel / plain / bound / library ms);
+phase 2 logs each bound's byte and operation times and the peak it
+divides by (fp32 on the CUDA cores, or 3xTF32 on the tensor cores for
+attention and the scan) on a ``<kernel> bound:`` line; the
 last line is ``{"ok": true, "device": {...}}``. The total seconds are
 printed before them. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -67,6 +75,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 MEM_BW = 3.35e12        # H100 SXM HBM3 bytes/s (data sheet)
 FP32_PEAK = 67e12       # H100 SXM fp32 FLOP/s outside the tensor cores
+TF32X3_PEAK = 495e12 / 3   # fp32 products as 3xTF32 on the tensor cores
 MODEL_SIZE = 512
 BATCH = 16              # sentences per minibatch, as benchmarks/bench_plan.py
 N_FRESH = 3             # fresh topologies, then one repeat of the first
@@ -153,6 +162,34 @@ def build_kernels() -> None:
                 log(f"ptxas {src}: {line.strip()}")
 
 
+def hmma_counts(kernels: tuple[str, ...]) -> dict | None:
+    """Tensor-core instructions (``HMMA``) in each named kernel's SASS in
+    the built library, summed over its template instances, from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    import os
+    import shutil
+
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+        / "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    out = subprocess.run([tool, "-sass", str(build.build())],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump failed: {out.stderr.strip()[-500:]}")
+    counts = dict.fromkeys(kernels, 0)
+    current = None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            current = next((k for k in kernels if k in line), None)
+        elif current and "HMMA" in line:
+            counts[current] += 1
+    return counts
+
+
 # -- phase 2 --------------------------------------------------------------
 
 
@@ -161,10 +198,20 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def bound(nbytes: float, flops: float) -> dict:
+PEAKS = {"fp32 on the CUDA cores": FP32_PEAK,
+         "3xTF32 on the tensor cores": TF32X3_PEAK}
+
+
+def bound(name: str, nbytes: float, flops: float,
+          units: str = "fp32 on the CUDA cores") -> dict:
     """The least time the card could take: bytes over its memory rate or
-    operations over its fp32 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / MEM_BW, flops / FP32_PEAK
+    operations over the fp32 rate of the ``units`` the kernel's arithmetic
+    runs on, whichever is larger. Logs both times and the peak used."""
+    peak = PEAKS[units]
+    t_bytes, t_ops = nbytes / MEM_BW, flops / peak
+    log(f"{name} bound: bytes {t_bytes * 1e6:.4f} us ({nbytes:.0f} B at "
+        f"{MEM_BW / 1e12} TB/s), operations {t_ops * 1e6:.4f} us "
+        f"({flops:.0f} FLOP at {peak / 1e12:.0f} TFLOP/s, {units})")
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -217,7 +264,7 @@ def check_gather(torch, timer) -> dict:
             "replaces": "src/repro/kernels/gather_batch.py:26",
             "shape": f"src ({N}, {D}) float32, K={K}",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes, 0), "library_ms": library_ms}
+            **bound("gather_rows", nbytes, 0), "library_ms": library_ms}
 
 
 def check_fused(torch, timer) -> dict:
@@ -276,7 +323,8 @@ def check_fused(torch, timer) -> dict:
             "replaces": "src/repro/kernels/fused_gather_cell.py:47",
             "shape": f"E=H={E}, B={B}, float32",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes, 2 * B * K * 4 * H), "library_ms": None}
+            **bound("fused_gather_lstm_cell", nbytes, 2 * B * K * 4 * H),
+            "library_ms": None}
 
 
 def check_fused_dense(torch, timer) -> dict:
@@ -372,7 +420,23 @@ def check_fused_dense(torch, timer) -> dict:
             "shape": f"B={B}, K={K}, H={H}, float32",
             "launches": launches, "max_abs_err": worst,
             "max_rel_err": worst_rel, "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes, 2 * B * K * 4 * H), "library_ms": library_ms}
+            **bound("fused_lstm_cell", nbytes, 2 * B * K * 4 * H),
+            "library_ms": library_ms}
+
+
+def library_kernels(torch, fn) -> list:
+    """Names of the device kernels one call of ``fn`` launches, from one
+    profiled call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA})
 
 
 def check_flash(torch, timer) -> dict:
@@ -389,6 +453,14 @@ def check_flash(torch, timer) -> dict:
         ("window 16, S=130", 1, 130, 130, 4, 2, 64, True, 16),
         ("cross Sq=40 Skv=77", 2, 40, 77, 6, 3, 64, False, 0),
         ("D=128 MHA", 1, 70, 70, 4, 4, 128, True, 0),
+        # tile edges: a warp's 16 rows, an 8-column mma tile, a K/V tile
+        ("P V relayout D=16 Skv=8", 1, 8, 8, 2, 1, 16, True, 0),
+        ("Sq=1 Skv=77 D=16 G=7", 2, 1, 77, 14, 2, 16, True, 0),
+        ("Sq=15 Skv=8 D=128 G=7", 2, 15, 8, 14, 2, 128, True, 0),
+        ("cross Sq=17 Skv=9 D=32", 2, 17, 9, 2, 2, 32, False, 0),
+        ("window 8 Sq=100 Skv=77", 1, 100, 77, 2, 2, 64, True, 8),
+        ("window 4 Sq=17 Skv=9, rows with no key", 1, 17, 9, 14, 2, 16,
+         True, 4),
     ]
     worst = 0.0
     for label, B, Sq, Skv, H, KV, D, causal, window in cases:
@@ -404,42 +476,63 @@ def check_flash(torch, timer) -> dict:
         worst = max(worst, float((out - want).abs().max()))
         log(f"flash_attention {label}: relative err {err:.3e}")
 
-    B, S, H, KV, D = 4, 96, 14, 2, 64   # the Qwen2 wave's largest prefill
-    q = torch.randn((B, S, H, D), generator=g, device="cuda")
-    k = torch.randn((B, S, KV, D), generator=g, device="cuda")
-    v = torch.randn((B, S, KV, D), generator=g, device="cuda")
-    ms = timer(lambda: flash_attention(q, k, v))
-    plain_ms = timer(lambda: ref.flash_attention_ref(q, k, v))
-    # yardstick only: the port never calls it
-    qt = q.transpose(1, 2).contiguous()
-    kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
-              for t in (k, v))
+    H, KV, D = 14, 2, 64
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True))
-    log(f"flash_attention warm ms (L2-resident): kernel "
-        f"{timer(lambda: flash_attention(q, k, v), cold=False):.4f}")
+    waves = {}
+    for S, B in ((32, 2), (96, 4)):   # the Qwen2 wave's prefill shapes
+        q = torch.randn((B, S, H, D), generator=g, device="cuda")
+        k = torch.randn((B, S, KV, D), generator=g, device="cuda")
+        v = torch.randn((B, S, KV, D), generator=g, device="cuda")
+        # yardstick only: the port never calls it
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        waves[f"S={S} B={B}"] = {
+            "ms": timer(lambda: flash_attention(q, k, v)),
+            "library_ms": timer(lambda: sdpa(qt, kt, vt, is_causal=True)),
+            "warm_ms": timer(lambda: flash_attention(q, k, v), cold=False)}
+        log(f"flash_attention S={S} B={B} ms: cold kernel "
+            f"{waves[f'S={S} B={B}']['ms']:.4f}, scaled_dot_product_attention "
+            f"{waves[f'S={S} B={B}']['library_ms']:.4f}, warm kernel "
+            f"{waves[f'S={S} B={B}']['warm_ms']:.4f}")
+    # q, k, v, qt, kt, vt are the larger wave's from here on
+    plain_ms = timer(lambda: ref.flash_attention_ref(q, k, v))
+    log(f"scaled_dot_product_attention runs: "
+        f"{library_kernels(torch, lambda: sdpa(qt, kt, vt, is_causal=True))}")
     pairs = B * H * S * (S + 1) // 2          # causal (row, column) pairs
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:65",
             "shape": f"q ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {KV}, {D}) "
                      f"float32, causal",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound((2 * B * S * H * D + 2 * B * S * KV * D) * 4,
-                    4 * D * pairs),
-            "library_ms": library_ms}
+            "max_abs_err": worst, "ms": waves[f"S={S} B={B}"]["ms"],
+            "plain_ms": plain_ms,
+            **bound("flash_attention",
+                    (2 * B * S * H * D + 2 * B * S * KV * D) * 4,
+                    4 * D * pairs, "3xTF32 on the tensor cores"),
+            "library_ms": waves[f"S={S} B={B}"]["library_ms"],
+            "waves": waves}
 
 
-def ssd_flops(b: int, l: int, h: int, p: int, n: int, q: int) -> int:
-    """The fewest FLOPs that compute the scan: the lesser of the chunked
-    algorithm's count (per (batch, head, chunk) the masked C.B^T scores and
-    the diagonal block over the q(q+1)/2 causal pairs, the carried state's
-    contribution and the state update) and the sequential recurrence's
-    (per step and (p, n) state entry a decay multiply and a multiply-add
-    for the update, and a multiply-add for C . state)."""
-    pairs = q * (q + 1) // 2
-    chunked = b * h * (l // q) * (2 * pairs * (n + p) + 4 * q * n * p)
-    return min(chunked, 5 * b * l * h * p * n)
+def ssd_flops(b: int, l: int, h: int, p: int, n: int) -> int:
+    """The fewest FLOPs that compute the scan, whose result does not depend
+    on the chunk size: the least over every chunk size q (a ragged last
+    chunk allowed) of the chunked algorithm's count, and the sequential
+    recurrence's. Per (batch, head) and chunk of m steps the chunked count
+    is the masked C.B^T scores and the diagonal block over the m(m+1)/2
+    causal pairs (2n + 2p each), the carried state's contribution and the
+    state update (2np each per step) and the state's decay (np); the
+    recurrence's is, per step and (p, n) state entry, a decay multiply and
+    a multiply-add for the update and a multiply-add for C . state."""
+    def chunk(m: int) -> int:
+        return m * (m + 1) * (n + p) + 4 * m * n * p + n * p
+
+    def chunked(q: int) -> int:
+        full, rest = divmod(l, q)
+        return full * chunk(q) + (chunk(rest) if rest else 0)
+
+    least = min(min(chunked(q) for q in range(1, l + 1)), 5 * l * p * n)
+    return b * h * least
 
 
 def check_ssd(torch, timer) -> dict:
@@ -455,18 +548,53 @@ def check_ssd(torch, timer) -> dict:
                 torch.randn((b, l, grp, n), generator=g, device="cuda"),
                 torch.randn((b, l, grp, n), generator=g, device="cuda"))
 
-    cases = [  # (label, b, l, h, p, groups, n, chunk)
-        ("path l=128 B=1", 1, 128, 24, 64, 1, 128, 128),
-        ("path l=256 B=3", 3, 256, 24, 64, 1, 128, 128),
-        ("path l=256 B=4", 4, 256, 24, 64, 1, 128, 128),
-        ("groups 2, chunk 16", 2, 64, 8, 16, 2, 16, 16),
-        ("ragged p=24 n=40 chunk 32", 1, 96, 4, 24, 1, 40, 32),
+    def packed(b, l, h, p, grp, n):
+        """x, B and C as views into one (b, l, 1 + h p + 2 grp n)
+        projection at an odd offset: no row of x or B starts on a 16-byte
+        boundary, so the kernel stages them 4 bytes at a time."""
+        xbc = torch.randn((b, l, 1 + h * p + 2 * grp * n), generator=g,
+                          device="cuda")
+        o = 1 + h * p
+        _, dt, A, _, _ = inputs(b, l, h, 1, 1, 1)
+        return (xbc[..., 1:o].view(b, l, h, p), dt, A,
+                xbc[..., o:o + grp * n].view(b, l, grp, n),
+                xbc[..., o + grp * n:].view(b, l, grp, n))
+
+    cases = [  # (label, b, l, h, p, groups, n, chunk, from a state)
+        ("path l=128 B=1", 1, 128, 24, 64, 1, 128, 128, False),
+        ("path l=256 B=3", 3, 256, 24, 64, 1, 128, 128, False),
+        ("path l=256 B=4", 4, 256, 24, 64, 1, 128, 128, False),
+        ("groups 2, chunk 16", 2, 64, 8, 16, 2, 16, 16, False),
+        ("ragged p=24 n=40 chunk 32", 1, 96, 4, 24, 1, 40, 32, False),
+        # tile edges: one 8-row tile, half a 16-row tile, 5 column tiles
+        ("chunk 8 n=16 p=24 groups 2", 2, 24, 4, 24, 2, 16, 8, False),
+        ("chunk 24 n=40 p=64", 2, 72, 4, 64, 1, 40, 24, False),
+        ("chunk 24 n=128 p=24 groups 2", 1, 48, 4, 24, 2, 128, 24, False),
+        ("init state, path l=256 B=3", 3, 256, 24, 64, 1, 128, 128, True),
+        ("init state, ragged p=24 n=40 chunk 24", 2, 48, 4, 24, 2, 40, 24,
+         True),
+        # 4-byte staging: rows of B (n = 33) or x (p = 21, 37) that are not
+        # whole 16-byte chunks, and a packed projection at an odd offset
+        ("4-byte B n=33 p=20 chunk 24", 2, 48, 4, 20, 1, 33, 24, False),
+        ("4-byte x n=32 p=21 chunk 24, init state", 2, 48, 4, 21, 1, 32, 24,
+         True),
+        ("4-byte B and x n=33 p=37 chunk 24 groups 2", 2, 48, 4, 37, 2, 33,
+         24, False),
+        ("4-byte B and x n=33 p=37 chunk 24 groups 2, init state", 2, 48, 4,
+         37, 2, 33, 24, True),
+        ("packed at an odd offset, path l=256 B=2", 2, 256, 24, 64, 1, 128,
+         128, False),
+        ("packed at an odd offset, path l=256 B=2, init state", 2, 256, 24,
+         64, 1, 128, 128, True),
     ]
     worst = 0.0
-    for label, b, l, h, p, grp, n, chunk in cases:
-        x, dt, A, B, C = inputs(b, l, h, p, grp, n)
-        y, final = ssd_scan(x, dt, A, B, C, chunk)
-        y_ref, final_ref = ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+    for label, b, l, h, p, grp, n, chunk, from_state in cases:
+        make = packed if label.startswith("packed") else inputs
+        x, dt, A, B, C = make(b, l, h, p, grp, n)
+        s0 = (torch.randn((b, h, p, n), generator=g, device="cuda")
+              if from_state else None)
+        y, final = ssd_scan(x, dt, A, B, C, chunk, s0)
+        y_ref, final_ref = ref.ssd_scan_ref(x, dt, A, B, C, chunk, s0)
         torch.cuda.synchronize()
         err = max(rel_err(y, y_ref), rel_err(final, final_ref))
         if not err <= 1e-4:
@@ -475,12 +603,18 @@ def check_ssd(torch, timer) -> dict:
                     float((final - final_ref).abs().max()))
         log(f"ssd_scan {label}: relative err (y, final state) {err:.3e}")
 
-    b, l, h, p, n, q = 3, 256, 24, 64, 128, 128
-    x, dt, A, B, C = inputs(b, l, h, p, 1, n)
-    ms = timer(lambda: ssd_scan(x, dt, A, B, C, q))
+    h, p, n, q = 24, 64, 128, 128
+    waves = {}
+    for l, b in ((128, 3), (256, 3)):   # the Mamba2 wave's prefill shapes
+        x, dt, A, B, C = inputs(b, l, h, p, 1, n)
+        waves[f"l={l} B={b}"] = {
+            "ms": timer(lambda: ssd_scan(x, dt, A, B, C, q)),
+            "warm_ms": timer(lambda: ssd_scan(x, dt, A, B, C, q),
+                             cold=False)}
+        log(f"ssd_scan l={l} B={b} ms: cold {waves[f'l={l} B={b}']['ms']:.4f}"
+            f", warm {waves[f'l={l} B={b}']['warm_ms']:.4f}")
+    # x, dt, A, B, C are the longer wave's from here on
     plain_ms = timer(lambda: ref.ssd_scan_ref(x, dt, A, B, C, q))
-    log(f"ssd_scan warm ms (L2-resident): kernel "
-        f"{timer(lambda: ssd_scan(x, dt, A, B, C, q), cold=False):.4f}")
     nbytes = 4 * (2 * b * l * h * p + b * l * h + h + 2 * b * l * n
                   + b * h * p * n)
     return {"name": "ssd_scan", "route": "cuda",
@@ -488,9 +622,11 @@ def check_ssd(torch, timer) -> dict:
             "replaces": "src/repro/kernels/ssd_scan.py:64",
             "shape": f"x ({b}, {l}, {h}, {p}), B/C ({b}, {l}, 1, {n}), "
                      f"chunk {q}, float32",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes, ssd_flops(b, l, h, p, n, q)),
-            "library_ms": None}
+            "max_abs_err": worst, "ms": waves[f"l={l} B={b}"]["ms"],
+            "plain_ms": plain_ms,
+            **bound("ssd_scan", nbytes, ssd_flops(b, l, h, p, n),
+                    "3xTF32 on the tensor cores"),
+            "library_ms": None, "waves": waves}
 
 
 # -- phase 3 --------------------------------------------------------------
@@ -865,6 +1001,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timer = ColdTimer(torch)
+    hmma = hmma_counts(("flash_attention_kernel", "ssd_scan_kernel"))
+    if hmma is None:
+        log("HMMA instructions: not counted (no cuobjdump in the toolkit)")
+    else:
+        log(f"HMMA instructions in the SASS: {hmma}")
+        if not all(hmma.values()):
+            fail(f"a tensor-core kernel has no HMMA instruction: {hmma}")
     rows = [check_gather(torch, timer), check_fused(torch, timer),
             check_fused_dense(torch, timer), check_flash(torch, timer),
             check_ssd(torch, timer)]

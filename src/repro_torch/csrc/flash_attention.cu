@@ -10,32 +10,38 @@
 // diagonal masked, not skipped; S a multiple of the block).
 //
 // Bound on the H100: at the path's shapes (Qwen2-0.5B prefill: 14 query
-// heads over 2 KV heads, D = 64, S of 32 to 256, fp32) bytes and
-// operations are both tiny: S = 96, B = 4 moves about 3.1 MB (0.9 us at
-// 3.35 TB/s) and does about 67 MFLOP over the causal pairs (1.0 us at
-// 67 TFLOP/s fp32). The launch and the dependent steps of one block's K/V
-// loop are the time.
+// heads over 2 KV heads, D = 64, S of 32 to 96, fp32) bytes and
+// operations are both tiny: S = 96, B = 4 moves about 3.1 MB (0.94 us at
+// 3.35 TB/s) and does about 67 MFLOP over the causal pairs (0.41 us at
+// the 165 TFLOP/s of 3xTF32 on the tensor cores). The launch and the
+// dependent steps of one block's K/V loop are the time.
 //
-// Design: one block per (batch * head, 32 query rows), four threads per
-// query row, each owning a quarter of the head dim as float4 chunks
-// interleaved so the four lanes of a row read 64 contiguous bytes of a
-// K/V row in shared memory (no bank conflicts; the 8 rows of a warp
-// broadcast). The block loops over 64-row K/V tiles (32 rows at D = 128)
-// staged in shared memory: the loop takes the place of the TPU grid's
-// sequential kv axis. A row's score is its four partial dot products
-// summed by two xor shuffles; the running max and sum are per thread
-// (the four lanes of a row hold the same values), the output accumulator
-// is the thread's quarter in registers. When causal the loop stops at the
-// block's diagonal, and with a window it starts at the first tile the
-// window reaches: skipped tiles contribute nothing, as masking them does.
-// The kv head is read as h / G in the kernel, so K and V are never copied
-// out per query head. The layout is the port's (B, S, H, D), addressed by
-// the strides the wrapper passes. A ragged last tile is masked in the
-// kernel (columns past Skv take no part; rows past Sq are not written),
-// so S need not be a multiple of the tile. Masked in-range columns score
-// -1e30 and the running max starts at -1e30, as in the TPU kernel, so a
-// row gives the same result the TPU kernel does. Tensor cores (wgmma),
-// TMA and bf16 are left for later work.
+// Design: one block per (batch * head, 64 query rows), four warps of 16
+// rows each. Both products run on the tensor cores as 3xTF32 m16n8k8
+// steps (mma_tf32x3.cuh), which keep the fp32 plain version's accuracy:
+// S = Q K^T over D (a warp keeps its Q rows in registers and splits them
+// per step), then O += P V with the score accumulator fed back as the A
+// operand (the paired k order of the header: no shuffle, no shared-memory
+// stage). Tiles that share an operand are issued term by term, so
+// consecutive tensor-core steps do not wait on each other (a warp issues
+// in order). The online softmax runs on the accumulator fragments: a lane
+// holds two rows, whose max and sum are reduced over the four lanes of a
+// quad (xor shuffles 1 and 2; the sum only once, at the end), with
+// ex2.approx and log2(e) folded into the scale. K/V tiles of 64 rows (32
+// at D = 128) go through two shared-memory stages filled by cp.async (16
+// bytes a thread, zero-filled past Skv): tile j + 1 is in flight while
+// tile j computes. Rows are padded to D + 4 floats, so the fragment reads of both
+// products hit 32 banks. When causal the loop stops at the block's
+// diagonal, a warp skips the tiles wholly above its own, and with a
+// window the loop starts at the first tile the window reaches (unless a
+// row of the block sees no key at all, as when Sq > Skv: then, as in the
+// plain version, it averages every key). The mask is applied only on
+// tiles that need it (the diagonal, the window's edge, the ragged end).
+// The kv head is read as h / G, so K and V are never copied per query
+// head; the layout is (B, S, H, D), addressed by the strides passed in.
+// Masked in-range columns score -1e30 and columns past Skv -inf, and the
+// running max starts at -1e30, so a fully masked row gives what the plain
+// version gives. TMA, wgmma and bf16 are left for later work.
 //
 // C interface: launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -44,12 +50,25 @@
 #include <cstdint>
 #include <math.h>
 
+#include "mma_tf32x3.cuh"
+
 namespace {
 
-constexpr int TPR = 4;              // threads per query row
-constexpr int BQ = 32;              // query rows per block
-constexpr int THREADS = BQ * TPR;   // 128
+using namespace tf32x3;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BQ = 16 * WARPS;   // query rows per block
 constexpr float MASKED = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  static constexpr int BK = D <= 64 ? 64 : 32;   // K/V rows per tile
+  static constexpr int LD = D + 4;               // padded row, in floats
+  static constexpr int STAGE = BK * LD;          // floats per K or V stage
+  static constexpr int SMEM = 2 * 2 * STAGE * 4; // two stages of K and V
+};
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
@@ -57,38 +76,51 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const float* __restrict__ v, float* __restrict__ o, int64_t Sq,
     int64_t Skv, int64_t H, int64_t G, int64_t qsb, int64_t qss, int64_t qsh,
     int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
-    int64_t vsh, int causal, int64_t window, float scale) {
-  constexpr int BK = D <= 64 ? 64 : 32;   // K/V rows per tile
-  constexpr int C4 = D / 4;               // float4 chunks per row
-  constexpr int V4 = C4 / TPR;            // float4 chunks per thread
-  static_assert(V4 >= 1 && C4 % TPR == 0, "D must be a multiple of 16");
-  __shared__ __align__(16) float4 ks[BK][C4];
-  __shared__ __align__(16) float4 vs[BK][C4];
+    int64_t vsh, int causal, int64_t window, float scale_log2) {
+  constexpr int BK = Tile<D>::BK, LD = Tile<D>::LD, STAGE = Tile<D>::STAGE;
+  constexpr int KT = D / 8;    // k-steps of Q K^T, and n-tiles of O
+  constexpr int NT = BK / 8;   // n-tiles of S, and k-steps of P V
+  constexpr int C4 = D / 4;    // 16-byte chunks per K/V row
+  constexpr int GR = KT < 4 ? KT : 4;   // O tiles issued together
+  static_assert(NT % 4 == 0 && KT % GR == 0, "tiles issued in groups");
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                // [2][BK][LD]
+  float* vs = smem + 2 * STAGE;    // [2][BK][LD]
 
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, c = tid % TPR;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int64_t bh = blockIdx.x;
   const int64_t b = bh / H, h = bh % H, kvh = h / G;
   const int64_t q0 = static_cast<int64_t>(blockIdx.y) * BQ;
-  const int64_t i = q0 + r;
-  const bool row_ok = i < Sq;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int64_t r0 = q0 + 16 * warp;      // the warp's first row
+  const int64_t i0 = r0 + g, i1 = i0 + 8; // the lane's two rows
 
-  // Thread c of a row owns the float4 chunks c, c + TPR, c + 2 TPR, ...
-  float4 qv[V4], acc[V4];
-  const float* qrow = q + b * qsb + i * qss + h * qsh;
+  // The warp's Q rows as A fragments, raw fp32 (split at each use).
+  float qf[KT][4];
+  {
+    const float* qb = q + b * qsb + h * qsh;
+    const bool ok0 = i0 < Sq, ok1 = i1 < Sq;
 #pragma unroll
-  for (int t = 0; t < V4; ++t) {
-    qv[t] = row_ok ? *reinterpret_cast<const float4*>(qrow + 4 * (c + TPR * t))
-                   : zero;
-    acc[t] = zero;
+    for (int kk = 0; kk < KT; ++kk) {
+      const int c = kk * 8 + t;
+      qf[kk][0] = ok0 ? qb[i0 * qss + c] : 0.f;
+      qf[kk][1] = ok1 ? qb[i1 * qss + c] : 0.f;
+      qf[kk][2] = ok0 ? qb[i0 * qss + c + 4] : 0.f;
+      qf[kk][3] = ok1 ? qb[i1 * qss + c + 4] : 0.f;
+    }
   }
-  float m = MASKED, l = 0.f;
+  float acc[KT][4];
+#pragma unroll
+  for (int nt = 0; nt < KT; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
 
   int64_t lo = 0, hi = Skv;
   if (causal) {
-    hi = q0 + BQ < Skv ? q0 + BQ : Skv;
-    if (window > 0) {
+    const int64_t last = (q0 + BQ < Sq ? q0 + BQ : Sq) - 1;
+    hi = last + 1 < Skv ? last + 1 : Skv;
+    // Start at the window's first tile, unless a row sees no key at all.
+    if (window > 0 && last < Skv - 1 + window) {
       const int64_t first = q0 - window + 1;
       lo = first > 0 ? first / BK * BK : 0;
     }
@@ -96,83 +128,146 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
   const float* kbase = k + b * ksb + kvh * ksh;
   const float* vbase = v + b * vsb + kvh * vsh;
 
-  for (int64_t j0 = lo; j0 < hi; j0 += BK) {
-    __syncthreads();   // every thread is done with the previous tile
+  auto load_tile = [&](int64_t j0, int stage) {
+    float* kd = ks + stage * STAGE;
+    float* vd = vs + stage * STAGE;
     for (int e = tid; e < BK * C4; e += THREADS) {
       const int jr = e / C4, cc = e % C4;
       const int64_t j = j0 + jr;
-      float4 kk = zero, vv = zero;
-      if (j < Skv) {
-        kk = *reinterpret_cast<const float4*>(kbase + j * kss + 4 * cc);
-        vv = *reinterpret_cast<const float4*>(vbase + j * vss + 4 * cc);
-      }
-      ks[jr][cc] = kk;
-      vs[jr][cc] = vv;
+      const bool valid = j < Skv;
+      const int64_t js = valid ? j : 0;   // a mapped address either way
+      cp_async16(kd + jr * LD + 4 * cc, kbase + js * kss + 4 * cc, valid);
+      cp_async16(vd + jr * LD + 4 * cc, vbase + js * vss + 4 * cc, valid);
     }
+    cp_async_commit();
+  };
+
+  const int64_t ntiles = lo < hi ? (hi - lo + BK - 1) / BK : 0;
+  if (ntiles > 0) load_tile(lo, 0);
+  for (int64_t it = 0; it < ntiles; ++it) {
+    const int64_t j0 = lo + it * BK;
+    if (it + 1 < ntiles)
+      load_tile(j0 + BK, static_cast<int>((it + 1) & 1));
+    else
+      cp_async_commit();   // an empty group keeps the wait count uniform
+    cp_async_wait<1>();    // tile it has landed
     __syncthreads();
 
-    float s[BK];
-    float tmax = MASKED;
+    const bool live = r0 < Sq && !(causal && j0 > r0 + 15);
+    if (live) {
+      const float* kt = ks + (it & 1) * STAGE;
+      const float* vt = vs + (it & 1) * STAGE;
+      float s[NT][4];
 #pragma unroll
-    for (int jj = 0; jj < BK; ++jj) {
-      float part = 0.f;
+      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int t = 0; t < V4; ++t) {
-        const float4 kk = ks[jj][c + TPR * t];
-        part = fmaf(qv[t].x, kk.x, part);
-        part = fmaf(qv[t].y, kk.y, part);
-        part = fmaf(qv[t].z, kk.z, part);
-        part = fmaf(qv[t].w, kk.w, part);
+      for (int kk = 0; kk < KT; ++kk) {
+        const FragA a = split_a(qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+#pragma unroll
+        for (int jb = 0; jb < NT; jb += 4) {
+          FragB kb[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            kb[u] = load_b_nk(kt, LD, (jb + u) * 8, kk * 8, lane);
+          mma3_row<4>(&s[jb], a, kb);
+        }
       }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const int64_t j = j0 + jj;
-      float sj;
-      if (j >= Skv) {
-        sj = -INFINITY;                  // past the keys: takes no part
-      } else if (causal && (j > i || (window > 0 && i - j >= window))) {
-        sj = MASKED;
-      } else {
-        sj = part * scale;
+
+      const bool need_mask =
+          j0 + BK > Skv ||
+          (causal && (j0 + BK - 1 > r0 ||
+                      (window > 0 && r0 + 15 - j0 >= window)));
+      // In tile columns c (32-bit): keys end at `left`; row i sees
+      // lo_i <= c <= hi_i (causal: c <= i - j0, and with a window
+      // c > i - j0 - window).
+      const int left = static_cast<int>(Skv - j0 < BK ? Skv - j0 : BK);
+      int hi0 = BK, hi1 = BK, lo0 = -1, lo1 = -1;
+      if (causal) {
+        const int64_t d0 = i0 - j0;
+        hi0 = static_cast<int>(d0 < BK ? d0 : BK);
+        hi1 = static_cast<int>(d0 + 8 < BK ? d0 + 8 : BK);
+        if (window > 0) {
+          const int64_t f0 = d0 - window + 1;
+          lo0 = static_cast<int>(f0 > -1 ? (f0 < BK ? f0 : BK) : -1);
+          lo1 = static_cast<int>(f0 + 8 > -1 ? (f0 + 8 < BK ? f0 + 8 : BK)
+                                             : -1);
+        }
       }
-      s[jj] = sj;
-      tmax = fmaxf(tmax, sj);
-    }
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
+      float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int t = 0; t < V4; ++t) {
-      acc[t].x *= alpha;
-      acc[t].y *= alpha;
-      acc[t].z *= alpha;
-      acc[t].w *= alpha;
-    }
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-    for (int jj = 0; jj < BK; ++jj) {
-      const float p = expf(s[jj] - m_new);
-      l += p;
+        for (int e = 0; e < 4; ++e) {
+          float val = s[j][e] * scale_log2;
+          if (need_mask) {
+            const int c = j * 8 + 2 * t + (e & 1);
+            const int hi = e < 2 ? hi0 : hi1, lo = e < 2 ? lo0 : lo1;
+            if (c >= left)
+              val = -INFINITY;            // past the keys: takes no part
+            else if (c > hi || c < lo)
+              val = MASKED;
+          }
+          s[j][e] = val;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float al0 = fast_exp2(m0 - mx0), al1 = fast_exp2(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= al0;
+      l1 *= al1;
 #pragma unroll
-      for (int t = 0; t < V4; ++t) {
-        const float4 vv = vs[jj][c + TPR * t];
-        acc[t].x = fmaf(p, vv.x, acc[t].x);
-        acc[t].y = fmaf(p, vv.y, acc[t].y);
-        acc[t].z = fmaf(p, vv.z, acc[t].z);
-        acc[t].w = fmaf(p, vv.w, acc[t].w);
+      for (int nt = 0; nt < KT; ++nt) {
+        acc[nt][0] *= al0;
+        acc[nt][1] *= al0;
+        acc[nt][2] *= al1;
+        acc[nt][3] *= al1;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][0] = fast_exp2(s[j][0] - mx0);
+        s[j][1] = fast_exp2(s[j][1] - mx0);
+        s[j][2] = fast_exp2(s[j][2] - mx1);
+        s[j][3] = fast_exp2(s[j][3] - mx1);
+        l0 += s[j][0] + s[j][1];
+        l1 += s[j][2] + s[j][3];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const FragA pa = acc_as_a(s[j]);
+#pragma unroll
+        for (int nb = 0; nb < KT; nb += GR) {
+          FragB vb[GR];
+#pragma unroll
+          for (int u = 0; u < GR; ++u)
+            vb[u] = load_b_paired(vt, LD, j * 8, (nb + u) * 8, lane);
+          mma3_row<GR>(&acc[nb], pa, vb);
+        }
       }
     }
-    m = m_new;
+    __syncthreads();   // every warp is done with this stage
   }
 
-  if (row_ok) {
-    const float denom = fmaxf(l, 1e-30f);
-    float* orow = o + ((b * Sq + i) * H + h) * D;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  float* ob = o + (b * Sq * H + h) * D;
 #pragma unroll
-    for (int t = 0; t < V4; ++t) {
-      const float4 a = acc[t];
-      *reinterpret_cast<float4*>(orow + 4 * (c + TPR * t)) =
-          make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
-    }
+  for (int nt = 0; nt < KT; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    if (i0 < Sq)
+      *reinterpret_cast<float2*>(ob + i0 * H * D + c) =
+          make_float2(acc[nt][0] * inv0, acc[nt][1] * inv0);
+    if (i1 < Sq)
+      *reinterpret_cast<float2*>(ob + i1 * H * D + c) =
+          make_float2(acc[nt][2] * inv1, acc[nt][3] * inv1);
   }
 }
 
@@ -182,11 +277,26 @@ int launch(const float* q, const float* k, const float* v, float* o,
            int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,
            int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh, int causal,
            int64_t window, cudaStream_t stream) {
+  constexpr int smem = Tile<D>::SMEM;
+  // The shared-memory limit is a per-device attribute: set it once on each
+  // device a launch reaches.
+  constexpr int MAX_DEVICES = 64;
+  static bool configured[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= MAX_DEVICES || !configured[device]) {
+    err = cudaFuncSetAttribute(flash_attention_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device < MAX_DEVICES) configured[device] = true;
+  }
   const dim3 grid(static_cast<unsigned>(B * H),
                   static_cast<unsigned>((Sq + BQ - 1) / BQ));
-  flash_attention_kernel<D><<<grid, THREADS, 0, stream>>>(
+  flash_attention_kernel<D><<<grid, THREADS, smem, stream>>>(
       q, k, v, o, Sq, Skv, H, G, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-      causal, window, 1.0f / sqrtf(static_cast<float>(D)));
+      causal, window, LOG2E / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 

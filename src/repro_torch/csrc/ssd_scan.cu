@@ -1,5 +1,6 @@
 // Chunked SSD scan (Mamba-2), fp32. Per head, with the state S (p, n)
-// starting at zero and cum the within-chunk cumulative sum of dt * A:
+// starting at the given initial state (or zero) and cum the within-chunk
+// cumulative sum of dt * A:
 //   y[t]   = sum_{s <= t in chunk} (C_t . B_s) exp(cum_t - cum_s) dt_s x_s
 //            + exp(cum_t) S C_t
 //   S     <- S exp(cum_end) + sum_s x_s dt_s exp(cum_end - cum_s) B_s^T
@@ -11,32 +12,48 @@
 // the caller; the final state not written).
 //
 // Bound on the H100: operations. At the path's shapes (Mamba2-130m
-// prefill: 24 heads, p = 64, n = 128, chunk 128, one group) one chunk of
-// one head needs at least 5.2 MFLOP, the sequential recurrence's count
-// (per step and state entry a decay multiply, a multiply-add for the
-// update and one for C . state; the chunked algorithm here does 7.4 MFLOP,
-// as it also forms the masked C.B^T scores), against about 70 KB of x, y
-// and its share of B and C: some 75 FLOP per byte, far above the card's
-// fp32 ridge of 20 (67 TFLOP/s over 3.35 TB/s).
-// Parallelism is the harder limit: b * h is 24 per request against
-// 132 SMs.
+// prefill: 24 heads, p = 64, n = 128, one group) the fewest FLOPs come
+// from the chunked algorithm at a chunk of 7 steps (per step 4np for the
+// carried state and the update, (q + 1)(n + p) for the scores and the
+// diagonal block, np / q for the state's decay), 0.87 of the sequential
+// recurrence's 5 per step and state entry: 0.654 GFLOP at l = 256,
+// b = 3, or 4.0 us at the 165 TFLOP/s of 3xTF32 on the tensor cores,
+// against 3.8 us for its bytes (chip_smoke.py:ssd_flops).
 //
-// Design: one block per (batch, head, 16 rows of p). Each state row
-// evolves on its own, so a block carries a 16 x n slice of the state in
-// shared memory through a loop over the chunks (the loop takes the place
-// of the TPU grid's sequential chunk axis) and four blocks cover a head,
-// at the price of computing the chunk's C.B^T scores in each. Per chunk
-// the block stages B transposed (n x chunk) and x * dt for its 16 rows,
-// then walks the chunk in sub-blocks of 32 output rows: C rows, the
-// 32 x chunk scores (each warp four rows, each lane four columns, skipping
-// column blocks wholly above the diagonal), then y for those rows. The
-// decay exp(cum_t - cum_s) is computed only where s <= t: the TPU kernel
-// computes it everywhere and masks afterwards, where for s > t the
-// exponent is positive and can overflow. Shared arrays are padded to an
-// odd row stride so column walks hit distinct banks. The group of head h
-// is read as h / (heads / groups), so B and C are never expanded. About
-// 114 KB of shared memory: one block per SM. The state starts at zero.
-// Tensor cores (wgmma) and TMA are left for later work.
+// Design: one block per (batch, head, 32 rows of p), four warps. Each
+// state row evolves on its own, so a block carries a 32 x n slice of the
+// state through a loop over the chunks (the loop takes the place of the
+// TPU grid's sequential chunk axis), and two blocks cover a head of 64:
+// 144 blocks at the timed shape, at most two on an SM (102 KB of shared
+// memory each), one round on 132 SMs. All four products of a chunk run
+// on the tensor cores as 3xTF32 m16n8k8 steps (mma_tf32x3.cuh), at the
+// fp32 plain version's accuracy. A warp takes two 16-row tiles of the
+// chunk (w and 7 - w, so the triangle's work is even) and holds their C
+// rows in registers (read straight from global memory); for each:
+//   1. the scores C B^T, for the column tiles on or below the diagonal
+//      (in groups of four), and 3. the carried state C S^T (scaled by
+//      exp(cum_t)),
+//      in one pass over n that splits each C fragment once for both;
+//   2. the diagonal block (scores o decay o dt) (x): each score tile is
+//      scaled in registers by exp(cum_t - cum_s) dt_s, formed only where
+//      s <= t (above the diagonal the exponent is positive and can
+//      overflow), and fed straight back as the A operand (the paired k
+//      order of the header).
+//   4. The update S <- S exp(cum_end) + (x)^T (B o dt o exp(cum_end -
+//      cum_s)): each warp owns a quarter of the state's columns, seeds its
+//      accumulators from shared memory and writes them back.
+// Tiles that share an operand are issued term by term (`mma3_row`), so
+// consecutive tensor-core steps do not wait on each other: a warp issues
+// in order.
+// B and x of a chunk (and dt) are staged in shared memory by cp.async,
+// 16 bytes a thread where rows are 16-byte aligned, 4 bytes where they are
+// not, with zero fill past the chunk, p and n: the products run on tiles
+// padded to multiples of 8 and 16. The next chunk's B is not prefetched:
+// a second stage of B (66 KB) would leave room for one block per SM; the
+// second resident block hides the loads instead. Rows are padded to
+// 4 mod 16 floats, so the fragment reads hit distinct banks. The group of
+// head h is read as h / (heads / groups), so B and C are never expanded.
+// TMA and wgmma are left for later work.
 //
 // C interface: launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -45,63 +62,132 @@
 #include <cstdint>
 #include <math.h>
 
+#include "mma_tf32x3.cuh"
+
 namespace {
+
+using namespace tf32x3;
 
 constexpr int MAXQ = 128;   // largest chunk
 constexpr int MAXN = 128;   // largest state size n
-constexpr int PS = 16;      // rows of p per block
-constexpr int TR = 32;      // output rows per sub-block
-constexpr int WARPS = 8;
+constexpr int PS = 32;      // rows of p per block
+constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-static_assert(TR == 4 * WARPS, "each warp computes four score rows");
-static_assert(MAXQ == 4 * 32, "each lane computes four score columns");
-static_assert(THREADS == 2 * MAXN && THREADS / PS == TR / 2,
-              "thread maps of the y and state phases");
+constexpr int LDB = MAXN + 4;   // B rows
+constexpr int LDX = PS + 4;     // x rows
+constexpr int LDS = MAXN + 4;   // state rows
+constexpr int KN = MAXN / 8;    // most k-steps over n
+constexpr int QT = MAXQ / 8;    // most 8-column score tiles of a chunk
+constexpr int PT = PS / 8;      // n-tiles of y over p
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(MAXQ == 4 * 32, "the cum scan gives each lane four steps");
+static_assert(MAXQ / 16 == 2 * WARPS, "each warp takes two row tiles");
+static_assert(MAXN / 8 == 4 * WARPS, "each warp updates four column tiles");
 
 struct Smem {
-  float bt[MAXN][MAXQ + 1];   // B of the chunk, transposed
-  float cs[TR][MAXN + 1];     // C rows of the sub-block
-  float sc[TR][MAXQ + 1];     // masked, decayed scores of the sub-block
-  float st[PS][MAXN + 1];     // the block's slice of the state
-  float xdt[MAXQ][PS];        // x * dt for the block's rows of p
-  float cum[MAXQ];            // cumulative dt * A within the chunk
-  float dend[MAXQ];           // exp(cum_end - cum_s)
+  float bs[MAXQ][LDB];   // B of the chunk
+  float xs[MAXQ][LDX];   // x of the chunk, the block's rows of p
+  float st[PS][LDS];     // the block's slice of the state
+  float cum[MAXQ];       // cumulative dt * A within the chunk
+  float dts[MAXQ];       // dt
+  float wdt[MAXQ];       // dt * exp(cum_end - cum_s)
 };
 
-__global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
+__global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
-    const float* __restrict__ Cm, float* __restrict__ y,
-    float* __restrict__ final_state, int64_t L, int64_t H, int64_t P,
-    int64_t G, int64_t N, int64_t Q, int64_t x_sb, int64_t x_sl,
-    int64_t dt_sb, int64_t dt_sl, int64_t b_sb, int64_t b_sl, int64_t c_sb,
-    int64_t c_sl) {
+    const float* __restrict__ Cm, const float* __restrict__ init_state,
+    float* __restrict__ y, float* __restrict__ final_state, int64_t L,
+    int64_t H, int64_t P, int64_t G, int64_t N, int64_t Q, int64_t x_sb,
+    int64_t x_sl, int64_t dt_sb, int64_t dt_sl, int64_t b_sb, int64_t b_sl,
+    int64_t c_sb, int64_t c_sl, int vec_b, int vec_x) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int64_t p0 = static_cast<int64_t>(blockIdx.x) * PS;
   const int64_t h = blockIdx.y, b = blockIdx.z;
   const int64_t grp = h / (H / G);
+  const int pvalid = static_cast<int>(P - p0 < PS ? P - p0 : PS);
+  const int nn = static_cast<int>(N), q = static_cast<int>(Q);
+  const int NK = (nn + 7) / 8;           // k-steps over n
+  const int Q8 = (q + 7) & ~7;           // the chunk padded to 8 rows
+  const int MT = (q + 15) / 16;          // 16-row tiles of the chunk
+  const int Q16 = MT * 16;
+  // rows of B staged each chunk: the score tiles of the last row tile
+  // reach 16 rows past it
+  const int QB = Q16 + 16 < MAXQ ? Q16 + 16 : MAXQ;
   const float a = A[h];
-  const float* xb = x + b * x_sb + h * P;
+  const float* xb = x + b * x_sb + h * P + p0;
   const float* dtb = dt + b * dt_sb + h;
   const float* bb = Bm + b * b_sb + grp * N;
   const float* cb = Cm + b * c_sb + grp * N;
 
-  for (int e = tid; e < PS * (MAXN + 1); e += THREADS)
-    (&sm.st[0][0])[e] = 0.f;
+  // The state slice: the initial state's rows, or zero; padding is zero.
+  for (int e = tid; e < PS * LDS; e += THREADS) {
+    const int pp = e / LDS, kk = e % LDS;
+    float val = 0.f;
+    if (init_state != nullptr && pp < pvalid && kk < nn)
+      val = init_state[((b * H + h) * P + p0 + pp) * N + kk];
+    sm.st[pp][kk] = val;
+  }
 
   for (int64_t c0 = 0; c0 < L; c0 += Q) {
     __syncthreads();   // the previous chunk's reads are done
+
+    // -- stage B, x and dt of the chunk ------------------------------------
+    // Rows up to the chunk's last 16-row tile and every column of B are
+    // written, zero past the chunk and n, so the products run on whole
+    // tiles with no guard.
+    if (vec_b) {
+      // a thread keeps one 16-byte column chunk and walks the rows
+      constexpr int C4 = MAXN / 4, STEP = THREADS / C4;
+      const int cc = tid % C4;
+      const bool col_ok = 4 * cc < nn;
+      const float* src = bb + (c0 + tid / C4) * b_sl + 4 * cc;
+      for (int s = tid / C4; s < QB; s += STEP, src += STEP * b_sl) {
+        const bool valid = s < q && col_ok;
+        cp_async16(&sm.bs[s][4 * cc], valid ? src : bb, valid);
+      }
+    } else {
+      for (int e = tid; e < QB * MAXN; e += THREADS) {
+        const int s = e / MAXN, kk = e % MAXN;
+        const bool valid = s < q && kk < nn;
+        cp_async4(&sm.bs[s][kk], valid ? bb + (c0 + s) * b_sl + kk : bb,
+                  valid);
+      }
+    }
+    if (vec_x) {
+      constexpr int C4 = PS / 4, STEP = THREADS / C4;
+      const int cc = tid % C4;
+      const bool col_ok = 4 * cc < pvalid;
+      const float* src = xb + (c0 + tid / C4) * x_sl + 4 * cc;
+      for (int s = tid / C4; s < Q16; s += STEP, src += STEP * x_sl) {
+        const bool valid = s < q && col_ok;
+        cp_async16(&sm.xs[s][4 * cc], valid ? src : xb, valid);
+      }
+    } else {
+      for (int e = tid; e < Q16 * PS; e += THREADS) {
+        const int s = e / PS, pp = e % PS;
+        const bool valid = s < q && pp < pvalid;
+        cp_async4(&sm.xs[s][pp], valid ? xb + (c0 + s) * x_sl + pp : xb,
+                  valid);
+      }
+    }
+    for (int s = tid; s < MAXQ; s += THREADS)
+      cp_async4(&sm.dts[s], s < q ? dtb + (c0 + s) * dt_sl : dtb, s < q);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // -- cum and the state-update weights ----------------------------------
     if (warp == 0) {
-      // cum: each lane scans four consecutive steps, then the lanes' sums.
+      // each lane scans four consecutive steps, then the lanes' sums
       float v[4], run = 0.f;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int t = lane * 4 + e;
-        const float d = t < Q ? dtb[(c0 + t) * dt_sl] : 0.f;
-        run += d * a;
+        run += sm.dts[lane * 4 + e] * a;   // dt is 0 past the chunk
         v[e] = run;
       }
       float incl = run;
@@ -111,133 +197,176 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
         if (lane >= off) incl += up;
       }
       const float excl = incl - run;
+      const float cum_end = __shfl_sync(0xffffffffu, incl, 31);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int t = lane * 4 + e;
-        if (t < Q) sm.cum[t] = excl + v[e];
+        const int s = lane * 4 + e;
+        const float c = excl + v[e];
+        sm.cum[s] = s < q ? c : cum_end;
+        sm.wdt[s] =
+            s < q ? fast_exp2((cum_end - c) * LOG2E) * sm.dts[s] : 0.f;
       }
-    }
-    // Global loads are unrolled so that several are in flight at once.
-#pragma unroll 8
-    for (int64_t e = tid; e < Q * N; e += THREADS) {
-      const int64_t s = e / N, kk = e % N;
-      sm.bt[kk][s] = bb[(c0 + s) * b_sl + kk];
-    }
-#pragma unroll 8
-    for (int64_t e = tid; e < Q * PS; e += THREADS) {
-      const int64_t s = e / PS, pp = e % PS;
-      const int64_t t = c0 + s;
-      sm.xdt[s][pp] =
-          p0 + pp < P ? xb[t * x_sl + p0 + pp] * dtb[t * dt_sl] : 0.f;
     }
     __syncthreads();
-    const float cum_end = sm.cum[Q - 1];
-    if (tid < Q) sm.dend[tid] = expf(cum_end - sm.cum[tid]);
 
-    for (int64_t t0 = 0; t0 < Q; t0 += TR) {
-#pragma unroll 8
-      for (int64_t e = tid; e < TR * N; e += THREADS) {
-        const int64_t tt = e / N, kk = e % N;
-        sm.cs[tt][kk] = t0 + tt < Q ? cb[(c0 + t0 + tt) * c_sl + kk] : 0.f;
+    // -- y: the diagonal block and the carried state -----------------------
+    for (int half = 0; half < 2; ++half) {
+      const int mi = half == 0 ? warp : 2 * WARPS - 1 - warp;
+      if (mi >= MT) continue;
+      const int tr0 = mi * 16 + g, tr1 = tr0 + 8;   // the lane's two rows
+      // The tile's C rows as A fragments over n, raw fp32, zero past n.
+      float cf[KN][4];
+#pragma unroll
+      for (int kk = 0; kk < KN; ++kk) {
+        if (kk < NK) {
+          const int col = kk * 8 + t;
+          const float* r0p = cb + (c0 + tr0) * c_sl;
+          const float* r1p = cb + (c0 + tr1) * c_sl;
+          const bool ok0 = tr0 < q, ok1 = tr1 < q;
+          cf[kk][0] = ok0 && col < nn ? r0p[col] : 0.f;
+          cf[kk][1] = ok1 && col < nn ? r1p[col] : 0.f;
+          cf[kk][2] = ok0 && col + 4 < nn ? r0p[col + 4] : 0.f;
+          cf[kk][3] = ok1 && col + 4 < nn ? r1p[col + 4] : 0.f;
+        }
       }
-      __syncthreads();
+      const float cum0 = sm.cum[tr0], cum1 = sm.cum[tr1];
 
-      // Scores: warp w takes rows 4w..4w+3 of the sub-block, lane the
-      // columns lane + 32 jb; column blocks past the sub-block's last row
-      // lie above the diagonal and are skipped.
-      const int nb = static_cast<int>(t0 / 32) + 1;
-      float acc[4][4];
+      // One pass over n gives the scores of every column tile on or below
+      // the diagonal (in groups of four tiles, so two more above it when mi
+      // is even; they are masked) and the carried state's term: each
+      // k-step splits its C fragment once for both.
+      const int ntl = 2 * mi + 2;
+      float sc[QT][4];   // the row tile's score tiles
+      float yo[PT][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int jt = 0; jt < QT; ++jt)
+        sc[jt][0] = sc[jt][1] = sc[jt][2] = sc[jt][3] = 0.f;
 #pragma unroll
-        for (int jb = 0; jb < 4; ++jb) acc[r][jb] = 0.f;
-#pragma unroll 4
-      for (int64_t kk = 0; kk < N; ++kk) {
-        float cv[4];
+      for (int pt = 0; pt < PT; ++pt)
+        yo[pt][0] = yo[pt][1] = yo[pt][2] = yo[pt][3] = 0.f;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) cv[r] = sm.cs[4 * warp + r][kk];
+      for (int kk = 0; kk < KN; ++kk) {
+        if (kk < NK) {
+          const FragA af = split_a(cf[kk][0], cf[kk][1], cf[kk][2],
+                                   cf[kk][3]);
 #pragma unroll
-        for (int jb = 0; jb < 4; ++jb) {
-          if (jb < nb) {
-            const float bv = sm.bt[kk][lane + 32 * jb];
+          for (int jb = 0; jb < QT; jb += 4) {
+            if (jb < ntl) {
+              FragB bf[4];
 #pragma unroll
-            for (int r = 0; r < 4; ++r) acc[r][jb] = fmaf(cv[r], bv, acc[r][jb]);
+              for (int u = 0; u < 4; ++u)
+                bf[u] = load_b_nk(&sm.bs[0][0], LDB, (jb + u) * 8, kk * 8,
+                                  lane);
+              mma3_row<4>(&sc[jb], af, bf);
+            }
           }
+          FragB sf[PT];
+#pragma unroll
+          for (int pt = 0; pt < PT; ++pt)
+            sf[pt] = load_b_nk(&sm.st[0][0], LDS, pt * 8, kk * 8, lane);
+          mma3_row<PT>(yo, af, sf);
         }
       }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int tt = 4 * warp + r;
-        const int64_t t = t0 + tt;
-#pragma unroll
-        for (int jb = 0; jb < 4; ++jb) {
-          if (jb < nb) {
-            const int s = lane + 32 * jb;
-            sm.sc[tt][s] = (s <= t && t < Q)
-                               ? acc[r][jb] * expf(sm.cum[t] - sm.cum[s])
-                               : 0.f;
-          }
-        }
-      }
-      __syncthreads();
 
-      // y for rows tt and tt + TR / 2 of one column pp per thread: the
-      // diagonal block plus the carried state's contribution,
-      // exp(cum_t) S C_t. The two rows share each x * dt and state load,
-      // and both sums run to the later row's diagonal (the earlier row's
-      // scores are 0 past its own).
-      const int pp = tid % PS;
-      const int ta = tid / PS, tb = ta + TR / 2;
-      const int64_t t_a = t0 + ta, t_b = t0 + tb;
-      if (t_a < Q) {
-        const int64_t last = t_b < Q ? t_b : t_a;
-        float yda = 0.f, ydb = 0.f, yoa = 0.f, yob = 0.f;
-#pragma unroll 4
-        for (int64_t s = 0; s <= last; ++s) {
-          const float xv = sm.xdt[s][pp];
-          yda = fmaf(sm.sc[ta][s], xv, yda);
-          ydb = fmaf(sm.sc[tb][s], xv, ydb);
-        }
-#pragma unroll 4
-        for (int64_t kk = 0; kk < N; ++kk) {
-          const float sv = sm.st[pp][kk];
-          yoa = fmaf(sm.cs[ta][kk], sv, yoa);
-          yob = fmaf(sm.cs[tb][kk], sv, yob);
-        }
-        if (p0 + pp < P) {
-          float* yp = y + ((b * L + c0 + t_a) * H + h) * P + p0 + pp;
-          *yp = yda + expf(sm.cum[t_a]) * yoa;
-          if (t_b < Q)
-            yp[(TR / 2) * H * P] = ydb + expf(sm.cum[t_b]) * yob;
+      // The diagonal block: each score tile decayed, times dt, and fed back
+      // as the A operand against x.
+      float yd[PT][4];
+#pragma unroll
+      for (int pt = 0; pt < PT; ++pt)
+        yd[pt][0] = yd[pt][1] = yd[pt][2] = yd[pt][3] = 0.f;
+#pragma unroll
+      for (int jt = 0; jt < QT; ++jt) {
+        if (jt < ntl) {
+          float w[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int s = jt * 8 + 2 * t + (e & 1);
+            const int tr = e < 2 ? tr0 : tr1;
+            const float ct = e < 2 ? cum0 : cum1;
+            w[e] = s <= tr && tr < q ? sc[jt][e] * sm.dts[s] *
+                                           fast_exp2((ct - sm.cum[s]) * LOG2E)
+                                     : 0.f;
+          }
+          const FragA pa = acc_as_a(w);
+          FragB xf[PT];
+#pragma unroll
+          for (int pt = 0; pt < PT; ++pt)
+            xf[pt] = load_b_paired(&sm.xs[0][0], LDX, jt * 8, pt * 8, lane);
+          mma3_row<PT>(yd, pa, xf);
         }
       }
-      __syncthreads();   // cs and sc are rewritten by the next sub-block
+
+      const float e0 = fast_exp2(cum0 * LOG2E);
+      const float e1 = fast_exp2(cum1 * LOG2E);
+#pragma unroll
+      for (int pt = 0; pt < PT; ++pt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tr = e < 2 ? tr0 : tr1;
+          const int pp = pt * 8 + 2 * t + (e & 1);
+          if (tr < q && pp < pvalid)
+            y[((b * L + c0 + tr) * H + h) * P + p0 + pp] =
+                yd[pt][e] + (e < 2 ? e0 : e1) * yo[pt][e];
+        }
+      }
     }
+    __syncthreads();   // every carried-state read of st is done
 
-    // State update: thread -> state column kk, rows tid / MAXN + 2 i.
-    const int kk = tid % MAXN;
-    if (kk < N) {
-      const float keep = expf(cum_end);
-      float acc_s[PS / 2];
+    // -- the state update: warp w owns column tiles w, w + 4, ... ----------
+    // Padded columns of B and of the state are zero and stay zero.
+    const float keep = fast_exp2(sm.cum[MAXQ - 1] * LOG2E);  // exp(cum_end)
+    float sa[2][4][4];   // [row tile of p][column tile]
 #pragma unroll
-      for (int i = 0; i < PS / 2; ++i)
-        acc_s[i] = sm.st[tid / MAXN + 2 * i][kk] * keep;
-#pragma unroll 4
-      for (int64_t s = 0; s < Q; ++s) {
-        const float w = sm.bt[kk][s] * sm.dend[s];
+    for (int u = 0; u < 4; ++u) {
+      const int c = (warp + WARPS * u) * 8 + 2 * t;
 #pragma unroll
-        for (int i = 0; i < PS / 2; ++i)
-          acc_s[i] = fmaf(w, sm.xdt[s][tid / MAXN + 2 * i], acc_s[i]);
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = mt * 16 + g;
+        sa[mt][u][0] = sm.st[r][c] * keep;
+        sa[mt][u][1] = sm.st[r][c + 1] * keep;
+        sa[mt][u][2] = sm.st[r + 8][c] * keep;
+        sa[mt][u][3] = sm.st[r + 8][c + 1] * keep;
       }
+    }
+    for (int k0 = 0; k0 < Q8; k0 += 8) {
+      const FragA xa[2] = {load_at_paired(&sm.xs[0][0], LDX, k0, 0, lane),
+                           load_at_paired(&sm.xs[0][0], LDX, k0, 16, lane)};
+      const float w0 = sm.wdt[k0 + 2 * t], w1 = sm.wdt[k0 + 2 * t + 1];
+      FragB wb[4];
 #pragma unroll
-      for (int i = 0; i < PS / 2; ++i) sm.st[tid / MAXN + 2 * i][kk] = acc_s[i];
+      for (int u = 0; u < 4; ++u)
+        wb[u] = load_b_paired(&sm.bs[0][0], LDB, k0, (warp + WARPS * u) * 8,
+                              lane, w0, w1);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma(sa[mt][u], xa[mt].small, wb[u].big);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma(sa[mt][u], xa[mt].big, wb[u].small);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma(sa[mt][u], xa[mt].big, wb[u].big);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = (warp + WARPS * u) * 8 + 2 * t;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = mt * 16 + g;
+        sm.st[r][c] = sa[mt][u][0];
+        sm.st[r][c + 1] = sa[mt][u][1];
+        sm.st[r + 8][c] = sa[mt][u][2];
+        sm.st[r + 8][c + 1] = sa[mt][u][3];
+      }
     }
   }
   __syncthreads();
-  for (int64_t e = tid; e < PS * N; e += THREADS) {
-    const int64_t pp = e / N, kk = e % N;
-    if (p0 + pp < P)
-      final_state[((b * H + h) * P + p0 + pp) * N + kk] = sm.st[pp][kk];
+  for (int e = tid; e < pvalid * nn; e += THREADS) {
+    const int pp = e / nn, kk = e % nn;
+    final_state[((b * H + h) * P + p0 + pp) * N + kk] = sm.st[pp][kk];
   }
 }
 
@@ -245,10 +374,10 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
 
 extern "C" int ssd_scan_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
-    const void* Cm, void* y, void* final_state, int64_t batch, int64_t L,
-    int64_t H, int64_t P, int64_t G, int64_t N, int64_t Q, int64_t x_sb,
-    int64_t x_sl, int64_t dt_sb, int64_t dt_sl, int64_t b_sb, int64_t b_sl,
-    int64_t c_sb, int64_t c_sl, void* stream) {
+    const void* Cm, const void* init_state, void* y, void* final_state,
+    int64_t batch, int64_t L, int64_t H, int64_t P, int64_t G, int64_t N,
+    int64_t Q, int64_t x_sb, int64_t x_sl, int64_t dt_sb, int64_t dt_sl,
+    int64_t b_sb, int64_t b_sl, int64_t c_sb, int64_t c_sl, void* stream) {
   if (Q <= 0 || Q > MAXQ || N <= 0 || N > MAXN || L % Q != 0 || G <= 0 ||
       H % G != 0 || batch > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -266,13 +395,22 @@ extern "C" int ssd_scan_launch(
     if (err != cudaSuccess) return static_cast<int>(err);
     if (device < MAX_DEVICES) configured[device] = true;
   }
+  // 16-byte copies where every row of B (and of the block's x slice)
+  // starts on a 16-byte boundary.
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec_b = aligned(Bm) && N % 4 == 0 && b_sb % 4 == 0 &&
+                    b_sl % 4 == 0;
+  const int vec_x = aligned(x) && P % 4 == 0 && x_sb % 4 == 0 &&
+                    x_sl % 4 == 0;
   const dim3 grid(static_cast<unsigned>((P + PS - 1) / PS),
                   static_cast<unsigned>(H), static_cast<unsigned>(batch));
   ssd_scan_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(Bm),
-      static_cast<const float*>(Cm), static_cast<float*>(y),
-      static_cast<float*>(final_state), L, H, P, G, N, Q, x_sb, x_sl, dt_sb,
-      dt_sl, b_sb, b_sl, c_sb, c_sl);
+      static_cast<const float*>(Cm), static_cast<const float*>(init_state),
+      static_cast<float*>(y), static_cast<float*>(final_state), L, H, P, G, N,
+      Q, x_sb, x_sl, dt_sb, dt_sl, b_sb, b_sl, c_sb, c_sl, vec_b, vec_x);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,7 +34,7 @@ SIGNATURES = {
     "fused_gather_lstm_cell_launch": [_P] * 10 + [_I] * 6 + [_P],
     "fused_lstm_cell_launch": [_P] * 6 + [_I] * 3 + [_P],
     "flash_attention_launch": [_P] * 4 + [_I] * 17 + [_P],
-    "ssd_scan_launch": [_P] * 7 + [_I] * 15 + [_P],
+    "ssd_scan_launch": [_P] * 8 + [_I] * 15 + [_P],
 }
 
 _lock = threading.Lock()

@@ -2,10 +2,12 @@
 
 Every self-attention of a prefill (and a cross-attention, non-causal with
 ``Sq != Skv``) runs here. On the card it is the hand-written kernel in
-``csrc/flash_attention.cu``: one block per (batch, head, 32 query rows),
-looping over 64-row K/V tiles with an fp32 online softmax, reading the KV
-head ``h // G`` in place (no seven-fold copy of K and V for Qwen2's 14/2
-heads) and stopping at the diagonal when causal. For tensors on the CPU the
+``csrc/flash_attention.cu``: one block per (batch, head, 64 query rows),
+four warps of 16 rows running Q K^T and P V on the tensor cores (3xTF32,
+fp32 accuracy) with the online softmax on the accumulators, looping over
+64-row K/V tiles double-buffered by cp.async, reading the KV head
+``h // G`` in place (no seven-fold copy of K and V for Qwen2's 14/2 heads)
+and stopping at the diagonal when causal. For tensors on the CPU the
 wrapper runs the plain version in :mod:`repro_torch.kernels.ref`.
 """
 

@@ -2,10 +2,11 @@
 
 Every SSM layer of a prefill runs its sequence through here. On the card it
 is the hand-written kernel in ``csrc/ssd_scan.cu``: one block per (batch,
-head, 16 rows of the head dim) carries its slice of the state through a
-loop over the chunks and writes the final state for the decode cache. For
-tensors on the CPU the wrapper runs the plain chunked version in
-:mod:`repro_torch.kernels.ref`.
+head, 32 rows of the head dim) carries its slice of the state, seeded from
+``init_state`` or zero, through a loop over the chunks, runs each chunk's
+four matrix products on the tensor cores (3xTF32, fp32 accuracy) and
+writes the final state for the decode cache. For tensors on the CPU the
+wrapper runs the plain chunked version in :mod:`repro_torch.kernels.ref`.
 """
 
 from __future__ import annotations
@@ -23,17 +24,15 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
     groups shared by ``h // g`` heads each; ``l % chunk == 0``. Returns
     ``(y (b, l, h, p), final_state (b, h, p, n) float32)``, equal to
     :func:`ref.ssd_scan_ref`. On the card: float32, ``chunk`` and ``n`` at
-    most 128, no ``init_state`` (the state starts at zero), and each tensor
-    contiguous within a position (the batch and length strides are free,
-    so slices of a packed projection need no copy)."""
+    most 128, ``init_state`` (if given) a contiguous (b, h, p, n) float32
+    tensor, and each other tensor contiguous within a position (the batch
+    and length strides are free, so slices of a packed projection need no
+    copy)."""
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {dev}")
-    if init_state is not None:
-        raise ValueError("ssd_scan: the kernel starts from a zero state; "
-                         "init_state is not supported on the card")
     if x.ndim != 4 or dt.ndim != 3 or A.ndim != 1 or B.ndim != 4:
         raise ValueError("ssd_scan: x, B, C must be 4-D, dt 3-D and A 1-D")
     b, l, h, p = x.shape
@@ -63,16 +62,28 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
     if dt.stride(2) != 1 or not A.is_contiguous():
         raise ValueError("ssd_scan: dt must be contiguous within a position "
                          "and A contiguous")
+    if init_state is not None:
+        if (tuple(init_state.shape) != (b, h, p, n)
+                or init_state.dtype != torch.float32
+                or init_state.device != dev
+                or not init_state.is_contiguous()):
+            raise ValueError(f"ssd_scan: init_state must be a contiguous "
+                             f"float32 {(b, h, p, n)} tensor on {dev}, got "
+                             f"{init_state.dtype} {tuple(init_state.shape)} "
+                             f"on {init_state.device}")
     y = torch.empty((b, l, h, p), dtype=torch.float32, device=dev)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     if y.numel() == 0:
-        return y, final.zero_()
+        return y, (final.zero_() if init_state is None
+                   else final.copy_(init_state))
     lib = build.library()
     with torch.cuda.device(dev):   # the launch goes to the current device
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.check(lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), final.data_ptr(), b, l, h, p, g, n,
+            C.data_ptr(),
+            None if init_state is None else init_state.data_ptr(),
+            y.data_ptr(), final.data_ptr(), b, l, h, p, g, n,
             chunk, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
             B.stride(0), B.stride(1), C.stride(0), C.stride(1), stream),
             "ssd_scan")

@@ -231,6 +231,45 @@ def test_flash_attention_kernel_within_1e4(cuda, case):
     assert _rel_err(out, want) <= 1e-4
 
 
+def _edge_cases():
+    """(Sq, Skv, D, G, causal, window) at the tile edges: query rows around
+    a warp's 16 and a block's 64, keys around an m16n8k8 column tile of 8
+    and a K/V tile of 64, each head dim, plain and grouped heads, causal
+    and cross; then windows, one of them with rows that see no key."""
+    cases = {}
+    i = 0
+    for Sq in (1, 15, 17, 100):
+        for Skv in (1, 8, 9, 77):
+            for causal in (True, False):
+                D, G = (16, 32, 128)[i % 3], (1, 7)[i % 2]
+                cases[f"Sq={Sq} Skv={Skv} D={D} G={G} "
+                      f"{'causal' if causal else 'cross'}"] = (
+                    Sq, Skv, D, G, causal, 0)
+                i += 1
+    cases["P V relayout D=16 Skv=8"] = (8, 8, 16, 1, True, 0)
+    cases["window 16 S=100 G=7"] = (100, 100, 32, 7, True, 16)
+    cases["window 8 Sq=100 Skv=77"] = (100, 77, 64, 1, True, 8)
+    cases["window 4 Sq=17 Skv=9, rows with no key"] = (17, 9, 16, 7, True, 4)
+    return cases
+
+
+_ATTN_EDGES = _edge_cases()
+
+
+@pytest.mark.parametrize("case", sorted(_ATTN_EDGES))
+def test_flash_attention_kernel_at_tile_edges(cuda, case):
+    Sq, Skv, D, G, causal, window = _ATTN_EDGES[case]
+    KV = 2
+    q, k, v = _attn_inputs(2, Sq, Skv, KV * G, KV, D, cuda, seed=Sq + Skv)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, want) <= 1e-4
+
+
 def test_flash_attention_kernel_reads_strided_views(cuda):
     """q, k, v as slices of one packed projection, as strides allow."""
     B, S, H, KV, D = 2, 50, 4, 2, 64
@@ -297,6 +336,78 @@ def test_ssd_scan_kernel_within_1e4(cuda, case):
     assert _rel_err(final, final_ref) <= 1e-4
 
 
+# (chunk, n, p, groups): the tile edges of the scan's products: chunks of
+# one 8-row tile, of 24 rows (a half 16-row tile) and the path's 128;
+# state sizes of 16, 40 (five column tiles, 16-byte rows) and 128; p of
+# 24 (a part of the block's 32 rows) and 64; one group and two.
+_SSD_EDGES = [(q, n, p, g) for q in (8, 24, 128) for n in (16, 40, 128)
+              for p in (24, 64) for g in (1, 2)]
+
+
+@pytest.mark.parametrize("chunk,n,p,g", _SSD_EDGES)
+def test_ssd_scan_kernel_at_tile_edges(cuda, chunk, n, p, g):
+    x, dt, A, B, C = _ssd_inputs(2, 2 * chunk, 4, p, g, n, cuda,
+                                 seed=chunk + n + p + g)
+    y, final = ssd_scan(x, dt, A, B, C, chunk)
+    y_ref, final_ref = ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert _rel_err(y, y_ref) <= 1e-4
+    assert _rel_err(final, final_ref) <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["path", "ragged"])
+def test_ssd_scan_kernel_from_an_initial_state(cuda, case):
+    """A random initial state, against the plain version given the same;
+    and a sequence scanned in two halves, the second from the first's
+    final state, equals the whole."""
+    b, l, h, p, g, n, chunk = ((2, 256, 24, 64, 1, 128, 128)
+                               if case == "path" else
+                               (2, 48, 4, 24, 2, 40, 24))
+    x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, cuda, seed=11)
+    s0 = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (b, h, p, n)), dtype=torch.float32, device=cuda)
+    y, final = ssd_scan(x, dt, A, B, C, chunk, init_state=s0)
+    y_ref, final_ref = ref.ssd_scan_ref(x, dt, A, B, C, chunk, s0)
+    half = l // 2
+    y1, s1 = ssd_scan(x[:, :half], dt[:, :half], A, B[:, :half],
+                      C[:, :half], chunk, init_state=s0)
+    y2, s2 = ssd_scan(x[:, half:], dt[:, half:], A, B[:, half:],
+                      C[:, half:], chunk, init_state=s1)
+    torch.cuda.synchronize()
+    assert _rel_err(y, y_ref) <= 1e-4
+    assert _rel_err(final, final_ref) <= 1e-4
+    assert _rel_err(torch.cat([y1, y2], dim=1), y_ref) <= 1e-4
+    assert _rel_err(s2, final_ref) <= 1e-4
+
+
+def test_ssm_block_from_a_state_on_card_matches_cpu(cuda):
+    """``ssm_block(..., state=S)`` on the card, through the scan kernel,
+    against the same call on the CPU."""
+    import dataclasses
+
+    from repro_torch.arch.model import tree_map
+    from repro_torch.arch.ssm import init_ssm, ssm_block
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("mamba2-130m").reduced(),
+                              ssm_chunk=16)
+    p = init_ssm(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(13)
+    x = torch.as_tensor(rng.standard_normal((2, 48, cfg.d_model)),
+                        dtype=torch.float32)
+    s0 = torch.as_tensor(0.5 * rng.standard_normal(
+        (2, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)),
+        dtype=torch.float32)
+    want, want_state = ssm_block(p, x, cfg, state=s0)
+    before = ssd_scan.launches
+    out, state = ssm_block(tree_map(lambda t: t.to(cuda), p), x.to(cuda), cfg,
+                           state=s0.to(cuda))
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert _rel_err(out.cpu(), want) <= 1e-4
+    assert _rel_err(state.cpu(), want_state) <= 1e-4
+
+
 def test_ssd_scan_kernel_reads_slices_of_a_packed_projection(cuda):
     """x, B and C as views into one (b, l, channels) tensor, as the SSM
     block's split of its convolved projection gives them."""
@@ -315,11 +426,51 @@ def test_ssd_scan_kernel_reads_slices_of_a_packed_projection(cuda):
     assert _rel_err(final, final_ref) <= 1e-4
 
 
+# (n, p, groups, packed): operands the kernel stages 4 bytes at a time:
+# rows of B (n = 33) or of x (p = 21, 37; two blocks of p) that are not
+# whole 16-byte chunks, and x, B and C as views into one projection at an
+# odd offset, at the path's widths.
+_SSD_4_BYTE = {
+    "B, n=33 p=20": (33, 20, 1, False),
+    "x, n=32 p=21": (32, 21, 1, False),
+    "B and x, n=33 p=37 groups 2": (33, 37, 2, False),
+    "packed at an odd offset, n=128 p=64": (128, 64, 1, True),
+}
+
+
+@pytest.mark.parametrize("from_state", [False, True])
+@pytest.mark.parametrize("case", sorted(_SSD_4_BYTE))
+def test_ssd_scan_kernel_copies_4_bytes_at_a_time(cuda, case, from_state):
+    n, p, g, packed = _SSD_4_BYTE[case]
+    b, l, h, chunk = (2, 256, 8, 128) if packed else (2, 48, 4, 24)
+    x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, cuda, seed=n + p)
+    if packed:
+        rng = np.random.default_rng(7)
+        xbc = torch.as_tensor(rng.standard_normal((b, l, 1 + h * p
+                                                   + 2 * g * n)),
+                              dtype=torch.float32, device=cuda)
+        o = 1 + h * p
+        x = xbc[..., 1:o].view(b, l, h, p)
+        B = xbc[..., o:o + g * n].view(b, l, g, n)
+        C = xbc[..., o + g * n:].view(b, l, g, n)
+    s0 = (torch.as_tensor(np.random.default_rng(8).standard_normal(
+        (b, h, p, n)), dtype=torch.float32, device=cuda)
+        if from_state else None)
+    y, final = ssd_scan(x, dt, A, B, C, chunk, init_state=s0)
+    y_ref, final_ref = ref.ssd_scan_ref(x, dt, A, B, C, chunk, s0)
+    torch.cuda.synchronize()
+    assert _rel_err(y, y_ref) <= 1e-4
+    assert _rel_err(final, final_ref) <= 1e-4
+
+
 def test_ssd_scan_rejects_what_it_does_not_take(cuda):
     x, dt, A, B, C = _ssd_inputs(1, 32, 2, 16, 1, 16, cuda)
     with pytest.raises(ValueError, match="init_state"):
         ssd_scan(x, dt, A, B, C, 16, init_state=torch.zeros(
-            (1, 2, 16, 16), device=cuda))
+            (1, 2, 16, 8), device=cuda))               # wrong shape
+    with pytest.raises(ValueError, match="init_state"):
+        ssd_scan(x, dt, A, B, C, 16, init_state=torch.zeros(
+            (1, 2, 16, 16), device=cuda).double())
     with pytest.raises(ValueError, match="chunk"):
         ssd_scan(x, dt, A, B, C, 12)                   # does not divide 32
     with pytest.raises(ValueError, match="float32"):

@@ -239,8 +239,8 @@ def test_ssd_plain_matches_pallas_and_arch_scan(b, l, h, p, n, chunk, g):
 
 
 def test_ssd_plain_carries_an_initial_state():
-    """With ``init_state`` (a CPU-only option) the scan continues a state:
-    two halves equal one whole."""
+    """With ``init_state`` the scan continues a state: two halves equal
+    one whole (the card's kernel takes it too: ``test_torch_cuda.py``)."""
     x, dt, A, B, C = _ssd_inputs(np.random.default_rng(9), 2, 32, 4, 8, 2, 8)
     y, final = ssd_scan(x, dt, A, B, C, 8)
     y1, s1 = ssd_scan(x[:, :16], dt[:, :16], A, B[:, :16], C[:, :16], 8)

@@ -1,0 +1,295 @@
+"""The numerics of the tensor-core kernels, rehearsed on the CPU.
+
+``csrc/flash_attention.cu`` and ``csrc/ssd_scan.cu`` run their matrix
+products as 3xTF32 ``mma.sync`` steps (``csrc/mma_tf32x3.cuh``): each fp32
+operand is split as ``big = tf32(a)``, ``small = a - big`` and a product
+is accumulated in fp32 as ``small*big' + big*small' + big*big'``. Here
+TF32 rounding (round to nearest, ties away from zero, to a 10-bit
+mantissa, as PTX ``cvt.rna.tf32.f32`` rounds and as the header does with
+two integer operations) is emulated through the int32 view, and so is the
+tensor core's reading of an unrounded operand (``small``): only its top
+19 bits, the rest dropped. The two kernels' algorithms, with every
+product made that way, are
+held to the 1e-4 bar (of the largest |output|) that the card checks hold
+the kernels to against the fp32 plain versions of ``kernels/ref.py``, at
+the shapes of the LM path. A single-TF32 product is computed too; it is
+reported beside the split and only held to be worse than it.
+
+The fragment layout of an ``m16n8k8`` step and the header's paired k
+order (an accumulator fed back as the A operand with no shuffle) are
+checked lane by lane.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ref
+
+BAR = 1e-4
+LOG2E = 1.4426950408889634
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), to nearest, ties away
+    from zero: add half of the 13 dropped bits' unit to the magnitude
+    bits, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor core reads of a float32 given as a TF32 operand: the
+    top 19 bits, the 13 low mantissa bits dropped (toward zero)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels compute it: 3xTF32, the small terms first."""
+    ab, bb = tf32(a), tf32(b)
+    as_, bs = tf32_read(a - ab), tf32_read(b - bb)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with both operands rounded to TF32 once."""
+    return tf32(a) @ tf32(b)
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+# -- the rounding itself ----------------------------------------------------
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits_and_ties_away():
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal(10000) * 10.0 ** rng.integers(
+        -6, 6, 10000), dtype=torch.float32)
+    r = tf32(x)
+    assert (r.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((r - x).abs() <= x.abs() * 2.0 ** -11).all()
+    one = torch.tensor([1.0, -1.0])
+    tie = one * (1 + 2.0 ** -11)                   # half way: away from 0
+    assert torch.equal(tf32(tie), one * (1 + 2.0 ** -10))
+    below = one * (1 + 2.0 ** -11 - 2.0 ** -23)    # just below: down
+    assert torch.equal(tf32(below), one)
+
+
+def test_split_recovers_the_operand_to_fp32_resolution():
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(10000),
+                        dtype=torch.float32)
+    big = tf32(x)
+    small = x - big
+    assert ((small.abs() <= x.abs() * 2.0 ** -11)).all()
+    assert ((big + tf32_read(small) - x).abs() <= x.abs() * 2.0 ** -21).all()
+
+
+# -- the paired k order and the fragment layout -----------------------------
+
+
+def _lanes():
+    lane = np.arange(32)
+    return lane >> 2, lane & 3      # g, t
+
+
+def _a_matrix(frag):
+    """The 16 x 8 A operand that per-lane registers ``frag`` (32, 4) stand
+    for in an m16n8k8 step: a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+    a3 (g+8, t+4)."""
+    g, t = _lanes()
+    A = np.zeros((16, 8))
+    A[g, t], A[g + 8, t] = frag[:, 0], frag[:, 1]
+    A[g, t + 4], A[g + 8, t + 4] = frag[:, 2], frag[:, 3]
+    return A
+
+
+def _b_matrix(frag):
+    """The 8 x 8 B operand (K x N) of registers ``frag`` (32, 2):
+    b0 (k = t, n = g), b1 (k = t+4, n = g)."""
+    g, t = _lanes()
+    B = np.zeros((8, 8))
+    B[t, g], B[t + 4, g] = frag[:, 0], frag[:, 1]
+    return B
+
+
+PAIRED = [0, 2, 4, 6, 1, 3, 5, 7]   # logical k -> physical column
+
+
+def test_accumulator_fed_back_as_a_operand_in_paired_order():
+    """An m16n8k8 accumulator c (c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t),
+    c3 (g+8, 2t+1)) passed on as a = (c0, c2, c1, c3), with B read as
+    b0 = V[2t][g], b1 = V[2t+1][g], multiplies the accumulator by V: the
+    P V step of the attention kernel and the diagonal block of the scan."""
+    rng = np.random.default_rng(2)
+    P, V = rng.standard_normal((16, 8)), rng.standard_normal((8, 8))
+    g, t = _lanes()
+    c = np.stack([P[g, 2 * t], P[g, 2 * t + 1], P[g + 8, 2 * t],
+                  P[g + 8, 2 * t + 1]], axis=1)
+    a = c[:, [0, 2, 1, 3]]
+    b = np.stack([V[2 * t, g], V[2 * t + 1, g]], axis=1)
+    A, B = _a_matrix(a), _b_matrix(b)
+    # the logical operands are the physical ones with k permuted alike
+    np.testing.assert_array_equal(A, P[:, PAIRED])
+    np.testing.assert_array_equal(B, V[PAIRED])
+    np.testing.assert_allclose(A @ B, P @ V, rtol=1e-12, atol=1e-12)
+
+
+def test_transposed_operand_in_paired_order():
+    """``load_at_paired`` (a0 = X[2t][g], a1 = X[2t][g+8], a2 =
+    X[2t+1][g], a3 = X[2t+1][g+8]) with ``load_b_paired`` on W gives
+    X^T W: the scan's state update."""
+    rng = np.random.default_rng(3)
+    X, W = rng.standard_normal((8, 16)), rng.standard_normal((8, 8))
+    g, t = _lanes()
+    a = np.stack([X[2 * t, g], X[2 * t, g + 8], X[2 * t + 1, g],
+                  X[2 * t + 1, g + 8]], axis=1)
+    b = np.stack([W[2 * t, g], W[2 * t + 1, g]], axis=1)
+    got = _a_matrix(a) @ _b_matrix(b)
+    np.testing.assert_allclose(got, X.T @ W, rtol=1e-12, atol=1e-12)
+
+
+def test_transposed_b_operand_in_natural_order():
+    """``load_b_nk`` (b0 = K[g][t], b1 = K[g][t+4]) reads K^T: the score
+    products Q K^T and C B^T and the carried state C S^T."""
+    rng = np.random.default_rng(4)
+    Q, K = rng.standard_normal((16, 8)), rng.standard_normal((8, 8))
+    g, t = _lanes()
+    a = np.stack([Q[g, t], Q[g + 8, t], Q[g, t + 4], Q[g + 8, t + 4]],
+                 axis=1)
+    b = np.stack([K[g, t], K[g, t + 4]], axis=1)
+    got = _a_matrix(a) @ _b_matrix(b)
+    np.testing.assert_allclose(got, Q @ K.T, rtol=1e-12, atol=1e-12)
+
+
+# -- the kernels' algorithms with split products ----------------------------
+
+
+def attention_split(q, k, v, causal, window, mm):
+    """The attention kernel's arithmetic: S = Q K^T and O = P V through
+    ``mm``, the softmax in fp32 with exp2 and log2(e) folded into the
+    scale (masked in-range scores -1e30, as the kernel's)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qh = q.permute(0, 2, 1, 3)                               # (B, H, Sq, D)
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    s = mm(qh, kh.transpose(-1, -2)) * (LOG2E / D ** 0.5)
+    if causal:
+        s = s.masked_fill(~ref.attention_mask(Sq, Skv, window), -1e30)
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    o = mm(p, vh) / p.sum(dim=-1, keepdim=True)
+    return o.permute(0, 2, 1, 3)
+
+
+def ssd_split(x, dt, A, B, C, chunk, mm, init_state=None):
+    """The scan kernel's arithmetic: per chunk the scores C B^T, the
+    diagonal block (scores o decay o dt) x, the carried state C S^T
+    scaled by exp(cum_t) and the update S exp(cum_end) + x^T (B o dt o
+    exp(cum_end - cum_s)), every product through ``mm``."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    xh = x.permute(0, 2, 1, 3)                               # (b, h, l, p)
+    dth = dt.permute(0, 2, 1)                                # (b, h, l)
+    Bh = B.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)  # (b, h, l, n)
+    Ch = C.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+    S = (torch.zeros((b, h, p, n)) if init_state is None
+         else init_state.clone())
+    tril = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    ys = []
+    for c0 in range(0, l, chunk):
+        sl = slice(c0, c0 + chunk)
+        xc, dtc, Bc, Cc = xh[:, :, sl], dth[:, :, sl], Bh[:, :, sl], Ch[:, :, sl]
+        cum = torch.cumsum(dtc * A[None, :, None], dim=-1)   # (b, h, q)
+        diff = (cum[..., :, None] - cum[..., None, :]).masked_fill(~tril, 0)
+        decay = torch.exp2(diff * LOG2E).masked_fill(~tril, 0)
+        scores = mm(Cc, Bc.transpose(-1, -2)) * decay * dtc[..., None, :]
+        y = mm(scores, xc) + torch.exp2(cum * LOG2E)[..., None] * mm(
+            Cc, S.transpose(-1, -2))
+        ys.append(y)
+        wdt = torch.exp2((cum[..., -1:] - cum) * LOG2E) * dtc
+        S = S * torch.exp2(cum[..., -1] * LOG2E)[..., None, None] + mm(
+            xc.transpose(-1, -2), Bc * wdt[..., None])
+    return torch.cat(ys, dim=2).permute(0, 2, 1, 3), S
+
+
+def _attn_inputs(B, Sq, Skv, H, KV, D, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+            for shape in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D))]
+
+
+def _ssd_inputs(b, l, h, p, g, n, seed):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((b, l, h, p)),
+              np.abs(rng.standard_normal((b, l, h))) * 0.5,
+              -np.abs(rng.standard_normal(h)) * 0.5,
+              rng.standard_normal((b, l, g, n)),
+              rng.standard_normal((b, l, g, n))]
+    return [torch.as_tensor(a, dtype=torch.float32) for a in arrays]
+
+
+# (B, Sq, Skv, H, KV, D, causal, window): the two Qwen2-0.5B wave shapes
+# (S = 32, B = 2 and S = 96, B = 4), a window and a cross-attention.
+ATTN_CASES = {
+    "wave S=32 B=2": (2, 32, 32, 14, 2, 64, True, 0),
+    "wave S=96 B=4": (4, 96, 96, 14, 2, 64, True, 0),
+    "window 16 S=100": (1, 100, 100, 4, 2, 32, True, 16),
+    "cross Sq=40 Skv=77": (2, 40, 77, 6, 3, 128, False, 0),
+}
+
+# (b, l, h, p, g, n, chunk): the two Mamba2-130m wave shapes and a ragged
+# one with two groups.
+SSD_CASES = {
+    "wave l=128 b=3": (3, 128, 24, 64, 1, 128, 128),
+    "wave l=256 b=3": (3, 256, 24, 64, 1, 128, 128),
+    "ragged p=24 n=40 chunk 24, groups 2": (2, 72, 4, 24, 2, 40, 24),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_with_split_products_meets_the_bar(case):
+    B, Sq, Skv, H, KV, D, causal, window = ATTN_CASES[case]
+    q, k, v = _attn_inputs(B, Sq, Skv, H, KV, D, seed=Sq + D)
+    want = ref.flash_attention_ref(q, k, v, causal, window)
+    err3 = rel_err(attention_split(q, k, v, causal, window, mm3), want)
+    err1 = rel_err(attention_split(q, k, v, causal, window, mm1), want)
+    print(f"attention {case}: 3xTF32 {err3:.3e}, TF32 {err1:.3e}")
+    assert err3 <= BAR
+    assert err3 < err1
+
+
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_scan_with_split_products_meets_the_bar(case):
+    b, l, h, p, g, n, chunk = SSD_CASES[case]
+    x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, seed=l + n)
+    s0 = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (b, h, p, n)), dtype=torch.float32)
+    for init in (None, s0):
+        y_want, s_want = ref.ssd_scan_ref(x, dt, A, B, C, chunk, init)
+        y3, s3 = ssd_split(x, dt, A, B, C, chunk, mm3, init)
+        y1, s1 = ssd_split(x, dt, A, B, C, chunk, mm1, init)
+        err3 = max(rel_err(y3, y_want), rel_err(s3, s_want))
+        err1 = max(rel_err(y1, y_want), rel_err(s1, s_want))
+        print(f"ssd_scan {case}, init {init is not None}: 3xTF32 "
+              f"{err3:.3e}, TF32 {err1:.3e}")
+        assert err3 <= BAR
+        assert err3 < err1
+
+
+def test_split_algorithms_in_fp32_are_the_plain_versions():
+    """With exact fp32 products the two algorithms above are the plain
+    versions, so what the bar measures is the split's rounding alone."""
+    def mm(a, b):
+        return a @ b
+
+    q, k, v = _attn_inputs(2, 33, 33, 14, 2, 64, seed=6)
+    want = ref.flash_attention_ref(q, k, v, True, 0)
+    assert rel_err(attention_split(q, k, v, True, 0, mm), want) <= 1e-6
+    x, dt, A, B, C = _ssd_inputs(2, 64, 4, 16, 2, 16, seed=7)
+    y, s = ssd_split(x, dt, A, B, C, 16, mm)
+    y_want, s_want = ref.ssd_scan_ref(x, dt, A, B, C, 16)
+    assert rel_err(y, y_want) <= 1e-5 and rel_err(s, s_want) <= 1e-5
