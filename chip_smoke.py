@@ -10,8 +10,10 @@ Phases, in order; any failure raises and exits non-zero:
    nvcc into ``build/repro_torch/`` and prints the build seconds and the
    ptxas resource lines.
 2. Kernels: counts the tensor-core (``HMMA``) instructions of the
-   attention and scan kernels in the built library (``cuobjdump -sass``,
-   where the toolkit has it; none fails). Then each kernel against its
+   attention, scan and both LSTM-cell kernels in the built library
+   (``cuobjdump -sass``, where the toolkit has it; none fails). Times an
+   empty kernel launched through the library in the same timer as the
+   kernels (the ``launch floor:`` line). Then each kernel against its
    plain PyTorch version on the card at the path's shapes and edge cases
    (gather bit-equal; the others within 1e-4, TF32 off; the scan also
    from a random initial state), then timed cold (L2 flushed before every
@@ -19,18 +21,22 @@ Phases, in order; any failure raises and exits non-zero:
    PyTorch call computes the same function, that call
    (``torch.index_select``, ``torch._VF.lstm_cell``,
    ``scaled_dot_product_attention``, whose kernel names one profiled call
-   prints; yardsticks the port never calls). Attention and scan are timed
-   at both prefill shapes of their LM wave. The dense LSTM cell is also
-   checked on gathered rows against the gather cell; no model path
-   launches it, so its launches are those of its checks.
+   prints; yardsticks the port never calls). The gather is timed cold and
+   warm beside ``index_select`` at the path's shapes (``GATHER_TIMED``),
+   both cells cold and warm at B = 1, 16, 32, attention and scan at both
+   prefill shapes of their LM wave. The dense LSTM cell is also checked on
+   gathered rows against the gather cell; no model path launches it, so
+   its launches are those of its checks.
 3. The slice: BiLSTM-Tagger at model_size=512 on CUDA. An FSM policy is
    learned on small graphs, then fresh 16-sentence minibatches (and one
    repeat) run through the interpreted, per-topology and bucketed
    executors. All three must agree within 1e-4 on every tag logit ``y``,
    the first minibatch must match a plain-PyTorch run of the same seed on
    the CPU, and the gather and fused-cell launch counters must rise during
-   the slice. Prints steady-state ms per run for each executor and the plan
-   stats.
+   the slice. Prints steady-state ms per run for each executor, the plan
+   stats, the gather's ``(K, row bytes)`` launch histogram, and the device
+   us of the gather and cell kernels in the profiled bucketed run with
+   their share of its device time.
 4. The LM wave: Qwen2-0.5B, then Mamba2-130m, at full published width and
    depth (random weights from the seed, made on the CPU and copied to the
    card) through the port's wave ``ServeEngine``: six requests, eight new
@@ -48,18 +54,20 @@ Phases, in order; any failure raises and exits non-zero:
    resolved to 1e-4, against a float64 run (``run_slice``). The gather
    launch counter must rise in every workload and the fused-cell counter
    in LatticeLSTM. Prints ms per run, batches against their lower bound,
-   plan stats, lowering seconds and the bucketed busy share.
+   plan stats, lowering seconds, the bucketed busy share and the gather's
+   ``(K, row bytes)`` launch histogram.
 
 Phases 2 and 4 hold the kernels other than the gather to 1e-4 of the
 largest magnitude of their plain versions' outputs. The line before the
 last is ``{"kernels": [...]}`` (per kernel: launches in the phase that
 drives its path, max abs error, kernel / plain / bound / library ms);
 phase 2 logs each bound's byte and operation times and the peak it
-divides by (fp32 on the CUDA cores, or 3xTF32 on the tensor cores for
-attention and the scan) on a ``<kernel> bound:`` line; the
-last line is ``{"ok": true, "device": {...}}``. The total seconds are
-printed before them. Without CUDA, or without the package
-beside it, the script exits non-zero and prints no result.
+divides by (3xTF32 on the tensor cores for every kernel with products) on
+a ``<kernel> bound:`` line; the last line is ``{"ok": true, "device":
+{...}}``. The total seconds are printed before them. Without CUDA, or
+without the package beside it, the script exits non-zero and prints no
+result. ``--phases`` and ``--workloads`` run a part (phase 1 always) and
+then print no result lines.
 """
 
 from __future__ import annotations
@@ -80,6 +88,11 @@ MODEL_SIZE = 512
 BATCH = 16              # sentences per minibatch, as benchmarks/bench_plan.py
 N_FRESH = 3             # fresh topologies, then one repeat of the first
 SEED = 0
+# (K, row bytes) at which the gather is timed beside index_select: the
+# path's most frequent K (TreeLSTM 1, the tagger 16), K = 256 (timed since
+# the first port) and the largest K of both (512), all rows of 2048 bytes
+# (`gather shapes` lines of phases 3 and 5)
+GATHER_TIMED = [(1, 2048), (16, 2048), (256, 2048), (512, 2048)]
 
 
 def fail(msg: str) -> None:
@@ -247,6 +260,24 @@ def check_gather(torch, timer) -> dict:
                  f"(max abs err {err})")
         log(f"gather_rows {label}: {tuple(shape)} {dtype} K={k} bit-equal")
 
+    timed_shapes = {}
+    for K, row_bytes in GATHER_TIMED:
+        src = torch.randn((max(2048, 2 * K), row_bytes // 4), generator=g,
+                          device="cuda")
+        idx = torch.randint(0, src.shape[0], (K,), generator=g,
+                            device="cuda", dtype=torch.int32)
+        idx_long = idx.long()
+        t = {f"{how}_{regime}": timer(fn, cold=regime == "cold")
+             for regime in ("cold", "warm")
+             for how, fn in (("ms", lambda: gather_rows(src, idx)),
+                             ("library_ms", lambda: torch.index_select(
+                                 src, 0, idx_long)))}
+        timed_shapes[f"K={K} row_bytes={row_bytes}"] = t
+        log(f"gather_rows K={K} row_bytes={row_bytes} ms: cold kernel "
+            f"{t['ms_cold']:.5f}, index_select {t['library_ms_cold']:.5f}; "
+            f"warm kernel {t['ms_warm']:.5f}, index_select "
+            f"{t['library_ms_warm']:.5f}")
+
     N, D, K = 2048, MODEL_SIZE, 256
     src = torch.randn((N, D), generator=g, device="cuda")
     idx = torch.randint(0, N, (K,), generator=g, device="cuda",
@@ -264,7 +295,24 @@ def check_gather(torch, timer) -> dict:
             "replaces": "src/repro/kernels/gather_batch.py:26",
             "shape": f"src ({N}, {D}) float32, K={K}",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound("gather_rows", nbytes, 0), "library_ms": library_ms}
+            **bound("gather_rows", nbytes, 0), "library_ms": library_ms,
+            "timed_shapes": timed_shapes}
+
+
+def launch_floor(torch, timer) -> dict:
+    """The fixed cost of a launch through the kernel library: an empty
+    one-warp kernel in the same timer as the kernels, cold and warm."""
+    from repro_torch.kernels import build
+
+    lib = build.library()
+
+    def empty():
+        build.check(lib.empty_kernel_launch(
+            torch.cuda.current_stream().cuda_stream), "empty_kernel")
+    floor = {"cold_ms": timer(empty), "warm_ms": timer(empty, cold=False)}
+    log(f"launch floor: empty kernel ms cold {floor['cold_ms']:.5f}, warm "
+        f"{floor['warm_ms']:.5f}")
+    return floor
 
 
 def check_fused(torch, timer) -> dict:
@@ -323,7 +371,8 @@ def check_fused(torch, timer) -> dict:
             "replaces": "src/repro/kernels/fused_gather_cell.py:47",
             "shape": f"E=H={E}, B={B}, float32",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound("fused_gather_lstm_cell", nbytes, 2 * B * K * 4 * H),
+            **bound("fused_gather_lstm_cell", nbytes, 2 * B * K * 4 * H,
+                    "3xTF32 on the tensor cores"),
             "library_ms": None}
 
 
@@ -420,7 +469,8 @@ def check_fused_dense(torch, timer) -> dict:
             "shape": f"B={B}, K={K}, H={H}, float32",
             "launches": launches, "max_abs_err": worst,
             "max_rel_err": worst_rel, "ms": ms, "plain_ms": plain_ms,
-            **bound("fused_lstm_cell", nbytes, 2 * B * K * 4 * H),
+            **bound("fused_lstm_cell", nbytes, 2 * B * K * 4 * H,
+                    "3xTF32 on the tensor cores"),
             "library_ms": library_ms}
 
 
@@ -664,9 +714,25 @@ def profile_run(torch, fn) -> dict:
         entry[1] += e.time_range.elapsed_us() / 1e3
     top = sorted(([n, c, ms] for n, (c, ms) in names.items()),
                  key=lambda t: -t[2])[:6]
+    own = {}
+    for kernel, names in OWN_KERNELS.items():
+        us = [e.time_range.elapsed_us() for e in events
+              if any(n in e.name for n in names)]
+        if us:
+            own[kernel] = {"launches": len(us), "device_us": sum(us),
+                           "share": sum(us) / device_us}
     return {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
             "busy_share": device_us / wall_us if events else None,
-            "device_events": len(events), "top_events": top}
+            "device_events": len(events), "top_events": top,
+            "own_kernels": own}
+
+
+# wrapper -> the names of its device kernels
+OWN_KERNELS = {"gather_rows": ("gather_rows_kernel",),
+               "fused_gather_lstm_cell": ("fused_gather_lstm_cell_kernel",),
+               "fused_lstm_cell": ("fused_lstm_cell_kernel",),
+               "flash_attention": ("flash_attention_kernel",),
+               "ssd_scan": ("ssd_scan_kernel",)}
 
 
 EXECUTORS = ("interpreted", "per_topology", "bucketed")
@@ -981,7 +1047,24 @@ TREES_LATTICES = {
 }
 
 
-def main() -> int:
+def shape_histogram(shapes) -> list:
+    """A gather's ``(K, row bytes)`` launch counts, most frequent first."""
+    return [[k, row_bytes, n] for (k, row_bytes), n in
+            sorted(shapes.items(), key=lambda t: (-t[1], t[0]))]
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="1,2,3,4,5",
+                    help="phases to run after phase 1 (comma-separated); "
+                         "the result lines are printed only for all five")
+    ap.add_argument("--workloads", default=",".join(TREES_LATTICES),
+                    help="phase 5's workloads (comma-separated)")
+    args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")} | {1}
+    workloads = args.workloads.split(",")
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script",
               file=sys.stderr)
@@ -1001,17 +1084,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timer = ColdTimer(torch)
-    hmma = hmma_counts(("flash_attention_kernel", "ssd_scan_kernel"))
+    hmma = hmma_counts(("flash_attention_kernel", "ssd_scan_kernel",
+                        "fused_gather_lstm_cell_kernel",
+                        "fused_lstm_cell_kernel"))
     if hmma is None:
         log("HMMA instructions: not counted (no cuobjdump in the toolkit)")
     else:
         log(f"HMMA instructions in the SASS: {hmma}")
         if not all(hmma.values()):
             fail(f"a tensor-core kernel has no HMMA instruction: {hmma}")
-    rows = [check_gather(torch, timer), check_fused(torch, timer),
-            check_fused_dense(torch, timer), check_flash(torch, timer),
-            check_ssd(torch, timer)]
-    log(f"kernel checks done: {time.perf_counter() - t_start:.1f} s")
+    rows = []
+    if 2 in phases:
+        launch_floor(torch, timer)
+        rows = [check_gather(torch, timer), check_fused(torch, timer),
+                check_fused_dense(torch, timer), check_flash(torch, timer),
+                check_ssd(torch, timer)]
+        log(f"kernel checks done: {time.perf_counter() - t_start:.1f} s")
 
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_cell import fused_lstm_cell
@@ -1025,25 +1113,39 @@ def main() -> int:
                 "flash_attention": flash_attention, "ssd_scan": ssd_scan}
 
     def drive(fn):
-        """Run ``fn`` with every launch count set to 0 just before it;
-        returns its result and the counts read just after."""
+        """Run ``fn`` with every launch count (and the gather's shape
+        counts) set to 0 just before it; returns its result and the counts
+        read just after."""
         for w in wrappers.values():
             w.launches = 0
+        gather_rows.shapes.clear()
         out = fn()
         return out, {name: w.launches for name, w in wrappers.items()}
 
-    launches = {"fused_lstm_cell": rows[2]["launches"]}
-    report, slice_counts = drive(lambda: run_slice("cuda"))
-    for name in ("gather_rows", "fused_gather_lstm_cell"):
-        if slice_counts[name] <= 0:
-            fail(f"{name} was not launched during the slice")
-        launches[name] = slice_counts[name]
-    log(f"slice: {json.dumps(report, default=str)}")
-    log(f"slice ms per run: {report['ms_per_run']} ({card})")
-    log(f"slice done: {time.perf_counter() - t_start:.1f} s")
+    launches = {"fused_lstm_cell": rows[2]["launches"]} if rows else {}
+    if 3 in phases:
+        report, slice_counts = drive(lambda: run_slice("cuda"))
+        for name in ("gather_rows", "fused_gather_lstm_cell"):
+            if slice_counts[name] <= 0:
+                fail(f"{name} was not launched during the slice")
+            launches[name] = slice_counts[name]
+        log(f"slice: {json.dumps(report, default=str)}")
+        log(f"slice ms per run: {report['ms_per_run']} ({card})")
+        log(f"gather shapes BiLSTM-Tagger [K, row bytes, launches]: "
+            f"{shape_histogram(gather_rows.shapes)}")
+        prof = report["profile"]["bucketed"]
+        log(f"tagger bucketed run device time: {prof['device_ms'] * 1e3:.2f} "
+            f"us of {prof['wall_ms'] * 1e3:.1f} us wall; "
+            + "; ".join(f"{k} {v['launches']} launches {v['device_us']:.2f} "
+                        f"us, share {v['share']:.3f}"
+                        for k, v in prof["own_kernels"].items())
+            + f" ({card})")
+        log(f"slice done: {time.perf_counter() - t_start:.1f} s")
 
     for name, kernel in (("qwen2-0.5b", "flash_attention"),
                          ("mamba2-130m", "ssd_scan")):
+        if 4 not in phases:
+            break
         lm = lm_wave(name, wrappers)
         if lm["launches"][kernel] <= 0:
             fail(f"{kernel} was not launched during the {name} wave")
@@ -1058,6 +1160,8 @@ def main() -> int:
     log(f"lm waves done: {time.perf_counter() - t_start:.1f} s")
 
     for name, (rl_iters, run) in TREES_LATTICES.items():
+        if 5 not in phases or name not in workloads:
+            continue
         t0 = time.perf_counter()
         tl, counts = drive(lambda: run_slice("cuda", name, rl_iters=rl_iters,
                                              **run))
@@ -1068,15 +1172,21 @@ def main() -> int:
             if counts[kernel] <= 0:
                 fail(f"{kernel} was not launched during {name}")
         busy = tl["profile"]["bucketed"]["busy_share"]
+        log(f"gather shapes {name} [K, row bytes, launches]: "
+            f"{shape_histogram(gather_rows.shapes)}")
         log(f"workload {name}: {json.dumps(tl, default=str)}")
         log(f"workload {name}: {tl['graph_nodes']} nodes, "
             f"{tl['n_batches']} batches (lower bound "
             f"{tl['batch_lower_bound']}), ms per run {tl['ms_per_run']}, "
             f"lowering s {tl['lower_s']}, bucketed busy share {busy:.3f}, "
             f"launches {counts}, {time.perf_counter() - t0:.1f} s ({card})")
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    if phases != {1, 2, 3, 4, 5} or set(workloads) != set(TREES_LATTICES):
+        log(f"partial run (phases {sorted(phases)}, workloads {workloads}): "
+            f"no result lines")
+        return 0
     for row in rows:
         row["launches"] = launches[row["name"]]
-    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

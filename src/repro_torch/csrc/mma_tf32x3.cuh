@@ -1,6 +1,6 @@
 // fp32 matrix products on the tensor cores: 3xTF32 `mma.sync` steps, and
-// the `cp.async` copies that feed them. Included by flash_attention.cu and
-// ssd_scan.cu.
+// the `cp.async` copies that feed them. Included by flash_attention.cu,
+// ssd_scan.cu and lstm_cell_tile.cuh.
 //
 // A TF32 product keeps 10 mantissa bits, about three decimal digits, which
 // does not meet the kernels' bar of 1e-4 of fp32. So each fp32 operand a is

@@ -30,11 +30,12 @@ _I = ctypes.c_int64
 # C entry point -> argument types. Every pointer and the stream are
 # c_void_p: ctypes would otherwise pass a Python int as a 32-bit int.
 SIGNATURES = {
-    "gather_rows_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "fused_gather_lstm_cell_launch": [_P] * 10 + [_I] * 6 + [_P],
-    "fused_lstm_cell_launch": [_P] * 6 + [_I] * 3 + [_P],
+    "gather_rows_launch": [_P] * 3 + [_I] * 11 + [_P],
+    "fused_gather_lstm_cell_launch": [_P] * 10 + [_I] * 11 + [_P],
+    "fused_lstm_cell_launch": [_P] * 6 + [_I] * 8 + [_P],
     "flash_attention_launch": [_P] * 4 + [_I] * 17 + [_P],
     "ssd_scan_launch": [_P] * 8 + [_I] * 15 + [_P],
+    "empty_kernel_launch": [_P],
 }
 
 _lock = threading.Lock()

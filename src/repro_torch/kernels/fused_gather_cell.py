@@ -4,7 +4,8 @@ The bucketed plan executor makes every operand a runtime row gather, so an
 unfused LSTM step would first copy its x, h and c rows into three gathered
 buffers and only then run the gate GEMM. The kernel in
 ``csrc/fused_gather_lstm_cell.cu`` reads the rows straight out of the
-source arenas into shared memory and applies the cell in one launch.
+source arenas into shared memory and applies the cell in one launch (one
+cluster launch, with the geometry of :func:`.fused_cell.cell_geometry`).
 
 Weight layout as in the reference: ``w`` is ``(E+H, 4H)`` with gate columns
 blocked ``[i|f|g|o]``; ``b`` is ``(4H,)``. For tensors on the CPU the
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
+from .fused_cell import cell_geometry, packed_weights
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
@@ -32,7 +34,10 @@ def fused_gather_lstm_cell(x_src, h_src, c_src, ix, ih, ic, w, b):
     w: (E+H, 4H); b: (4H,) -> (h', c'), each (B, H), equal to
     ``lstm(concat(x_src[ix], h_src[ih]), c_src[ic])``. Indices read as in
     that expression: negative ones count from the end, and one outside its
-    source raises (a device-side assert on the card)."""
+    source raises (a device-side assert on the card). On the card ``w`` is
+    packed once and the packing kept on it
+    (:func:`.fused_cell.packed_weights`): a write into ``w.data`` in place
+    is not seen."""
     if x_src.device.type == "cpu":
         return ref.fused_gather_lstm_cell_ref(x_src, h_src, c_src, ix, ih, ic,
                                               w, b)
@@ -57,10 +62,13 @@ def fused_gather_lstm_cell(x_src, h_src, c_src, ix, ih, ic, w, b):
         return h_out, c_out
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    geo = cell_geometry(B, E + H, H)
     build.check(lib.fused_gather_lstm_cell_launch(
         x_src.data_ptr(), h_src.data_ptr(), c_src.data_ptr(), ix.data_ptr(),
-        ih.data_ptr(), ic.data_ptr(), w.data_ptr(), b.data_ptr(),
-        h_out.data_ptr(), c_out.data_ptr(), B, E, H, nx, nh, nc, stream),
+        ih.data_ptr(), ic.data_ptr(), packed_weights(w).data_ptr(),
+        b.data_ptr(),
+        h_out.data_ptr(), c_out.data_ptr(), B, E, H, nx, nh, nc, geo["nt"],
+        geo["cluster"], geo["chunks_per_rank"], *geo["grid"], stream),
         "fused_gather_lstm_cell")
     fused_gather_lstm_cell.launches += 1
     return h_out, c_out

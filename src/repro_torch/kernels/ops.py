@@ -35,7 +35,7 @@ def fused_lstm_cell(xh, w, b, c, block_m: int = 128, block_n: int = 128,
                     block_k: int = 128):
     """The dense fused LSTM cell (:func:`.fused_cell.fused_lstm_cell`).
     ``block_m``/``block_n``/``block_k`` are the reference's tile sizes,
-    accepted so its callers find this signature, and ignored: the kernel's
-    tile is fixed (16 rows x 8 hidden units x 4 gates) and it takes any
-    shape."""
+    accepted so its callers find this signature, and ignored: the kernel
+    computes its own launch geometry (``fused_cell.cell_geometry``) and
+    takes any shape."""
     return _fused_lstm_cell(xh, w, b, c)

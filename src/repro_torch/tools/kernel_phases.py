@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.tools.kernel_phases
 
-Builds with nvcc (into ``build/tools/``) and runs two plain CUDA programs,
+Builds with nvcc (into ``build/tools/``) and runs plain CUDA programs,
 with no PyTorch in them:
 
 1. **The m16n8k8 TF32 rate**: one ``mma.sync`` chain or several
@@ -15,9 +15,28 @@ with no PyTorch in them:
    warp; each stamp first waits on the phase's last result), run five
    times on fixed inputs; prints each launch's ms (CUDA events) and, for
    a few blocks, every warp's cycles per phase from the last run.
+3. **The LSTM-cell tile** (``csrc/lstm_cell_tile.cuh`` through
+   ``csrc/fused_gather_lstm_cell.cu``) at the tagger's shape (B = 16,
+   E = H = 512): a stamped copy (every warp's cycles, from its CTA's first
+   stamp, to the row pointers, the rows stored, the products done (and
+   within the chunk loop, the cycles spent waiting on the ring and
+   issuing the products), the partial sums, the push into the leader, the
+   cluster barrier passed, the epilogue);
+   its floors: the same cluster launch with an empty body, and streaming
+   only the weights (and the rows) as the tile does; and the unmodified
+   kernel timed cold and warm (L2 flushed or not, a spin kernel holding
+   the stream, CUDA events, median of 30) at B = 1, 16, 32 with clusters
+   of 1, 2 and 4 CTAs (the tool computes the grid for each), and copies of
+   the tile with its ``EARLY`` constant (2) rewritten to 0 and 8, in
+   clusters of 4.
+4. **The row gather**: ``csrc/gather_rows.cu`` at the wrapper's geometry
+   and at other block shapes, timed the same way at the path's shapes
+   (K = 1, 16, 256, 512 rows of 2048 bytes) beside an empty kernel, and
+   checked bit-equal.
 
-The copies are made from the sources by inserting stamps at fixed lines;
-if a source changes so that a line is not found, the script says which.
+The copies are made from the sources by inserting stamps at fixed lines,
+or rewriting them; if a source changes so that a line is not found, the
+script says which.
 """
 
 from __future__ import annotations
@@ -28,6 +47,8 @@ import subprocess
 from pathlib import Path
 
 from ..kernels.build import ARCH, CSRC
+from ..kernels.fused_cell import cell_geometry
+from ..kernels.gather_batch import gather_geometry
 
 OUT = Path(__file__).resolve().parents[3] / "build" / "tools"
 
@@ -233,6 +254,406 @@ int main() {
 """
 
 
+# Cold and warm timing of one launch, as chip_smoke.py's ColdTimer: the
+# L2 flushed (or not) before each, a spin kernel holding the stream while
+# the host enqueues it, CUDA events around it, median of 30.
+TIMING = r"""
+#include <algorithm>
+#include <cstdio>
+#include <vector>
+__global__ void spin_kernel(long long cycles) {
+  const long long t0 = clock64();
+  while (clock64() - t0 < cycles) {}
+}
+__global__ void empty_kernel_tool() {}
+static char* g_flush = nullptr;
+static const size_t kFlush = size_t(128) << 20;
+template <class F>
+float time_ms(F launch, bool cold) {
+  if (!g_flush) cudaMalloc(&g_flush, kFlush);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0); cudaEventCreate(&e1);
+  std::vector<float> t;
+  for (int i = 0; i < 33; ++i) {
+    if (cold) cudaMemsetAsync(g_flush, i, kFlush);
+    spin_kernel<<<1, 1>>>(1000000);
+    cudaEventRecord(e0);
+    launch();
+    cudaEventRecord(e1);
+    cudaEventSynchronize(e1);
+    float ms;
+    cudaEventElapsedTime(&ms, e0, e1);
+    if (i >= 3) t.push_back(ms);
+  }
+  std::sort(t.begin(), t.end());
+  return t[t.size() / 2];
+}
+static void time_floor(const char* tag) {
+  auto empty = [] { empty_kernel_tool<<<1, 32>>>(); };
+  printf("%s: empty kernel ms cold %.5f, warm %.5f\n", tag,
+         time_ms(empty, true), time_ms(empty, false));
+}
+"""
+
+# Stamps in lstm_cell_tile.cuh (lane 0 of every warp): 0 start, 1 the
+# row pointers in (the barrier after them passed), 2 the ring's rows
+# stored, 3 the products done (10: cycles waiting on the ring's
+# mbarriers, 11: issuing the products, which do not wait for their
+# steps), 4 partial sums in shared memory, 5
+# pushed into the leader, 6 the cluster barrier passed, 7 the epilogue
+# done (leaders only).
+CELL_STAMPS = [
+    ("  const int lane = tid & 31, warp = tid >> 5;\n",
+     "+  const int pidx = (blockIdx.y * gridDim.x + blockIdx.x) * 8 + warp;\n"
+     "  STAMP(0, 0.f);\n"),
+    ("  __syncthreads();   // the row pointers are in\n",
+     "+  STAMP(1, 0.f);\n"),
+    ("  const int mt = warp & 1, ks = warp >> 1;\n",
+     "  STAMP(2, 0.f);\n  long long t_wait = 0, t_mma = 0;\n"),
+    ("    mbar_wait(tf32x3::smem_addr(&full[c % NS]),",
+     "    long long tp = clock64();\n"),
+    ("              static_cast<uint32_t>((c / NS) & 1));\n",
+     "+    t_wait += clock64() - tp;\n    tp = clock64();\n"),
+    ("    tf32x3::mma3_row<NT>(a_acc, a, bf);\n",
+     "+    t_mma += clock64() - tp;\n"),
+    ("  // -- the warps' partial sums: part[ks][col][row] over the ring\n",
+     "  STAMP(3, acc[1][NT - 1][3]);\n  if (lane == 0) {\n"
+     "    g_prof[pidx][10] = t_wait;\n    g_prof[pidx][11] = t_mma;\n  }\n"),
+    ("  cluster_wait();   // every CTA of the cluster is running\n",
+     "  STAMP(4, 0.f);\n"),
+    ("  cooperative_groups::this_cluster().sync();   // every slot is written\n",
+     "  STAMP(5, 0.f);\n"),
+    ("  if (rank != 0) return;\n", "  STAMP(6, 0.f);\n"),
+    ("    h_out[row * H + col] = o_g * tanh_f(c_new);\n  }\n",
+     "+  STAMP(7, 0.f);\n"),
+]
+
+
+def cell_geometry_with_cluster(B: int, K: int, H: int,
+                               cluster: int | None = None) -> dict:
+    """``cell_geometry(B, K, H)``, or the same with clusters of ``cluster``
+    CTAs in place of the wrapper's choice: each CTA reduces
+    ``ceil(n_chunks / cluster)`` chunks, and grid x holds ``cluster`` CTAs
+    per unit tile."""
+    geo = cell_geometry(B, K, H)
+    if cluster is None:
+        return geo
+    return dict(geo, cluster=cluster,
+                chunks_per_rank=max(1, -(-geo["n_chunks"] // cluster)),
+                grid=(geo["unit_tiles"] * cluster, geo["row_groups"]))
+
+
+def _cell_args(B: int, cluster: int | None = None) -> str:
+    """The geometry arguments of a cell launch at E = H = 512."""
+    geo = cell_geometry_with_cluster(B, 1024, 512, cluster)
+    return (f"{geo['nt']}, {geo['cluster']}, {geo['chunks_per_rank']}, "
+            f"{geo['grid'][0]}, {geo['grid'][1]}")
+
+
+CELL_SETUP = r"""
+#include <cstdint>
+struct CellInputs {
+  float *x, *h, *c, *w, *b, *ho, *co;
+  int32_t *ix, *ih, *ic;
+};
+static CellInputs cell_inputs(int B, int n, int E, int H) {
+  CellInputs in;
+  // x, h, c of n rows; w packed as kernels/fused_cell.py:pack_weights
+  // packs it (H a multiple of 8 and K of 32 here)
+  std::vector<float> hx(size_t(n) * E), hw(size_t(E + H) * 4 * H);
+  for (size_t i = 0; i < hx.size(); ++i) hx[i] = (i * 2654435761u % 1000) / 1e3f - .5f;
+  for (size_t i = 0; i < hw.size(); ++i) hw[i] = (i * 40503u % 1000) / 2e4f - .025f;
+  std::vector<int32_t> hi(64);
+  for (int i = 0; i < 64; ++i) hi[i] = (i * 7919) % n;
+  cudaMalloc(&in.x, hx.size() * 4); cudaMalloc(&in.h, hx.size() * 4);
+  cudaMalloc(&in.c, hx.size() * 4); cudaMalloc(&in.w, hw.size() * 4);
+  cudaMalloc(&in.b, 4 * H * 4); cudaMalloc(&in.ho, 64 * H * 4);
+  cudaMalloc(&in.co, 64 * H * 4);
+  cudaMalloc(&in.ix, 64 * 4); cudaMalloc(&in.ih, 64 * 4); cudaMalloc(&in.ic, 64 * 4);
+  cudaMemcpy(in.x, hx.data(), hx.size() * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(in.h, hx.data(), hx.size() * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(in.c, hx.data(), hx.size() * 4, cudaMemcpyHostToDevice);
+  const int K = E + H, C = K / 32;
+  std::vector<float> hp(hw.size());
+  for (int t = 0; t < H / 8; ++t)
+    for (int c = 0; c < C; ++c)
+      for (int s = 0; s < 4; ++s)
+        for (int mt = 0; mt < 2; ++mt)
+          for (int lane = 0; lane < 32; ++lane)
+            for (int j = 0; j < 4; ++j) {
+              const int k = 32 * c + 8 * s + lane % 4 + 4 * (j / 2);
+              const int col = 16 * mt + lane / 4 + 8 * (j % 2);
+              hp[((((size_t(t) * C + c) * 4 + s) * 2 + mt) * 32 + lane) * 4 +
+                 j] = hw[size_t(k) * 4 * H + (col / 8) * H + t * 8 + col % 8];
+            }
+  cudaMemcpy(in.w, hp.data(), hp.size() * 4, cudaMemcpyHostToDevice);
+  cudaMemset(in.b, 0, 4 * H * 4);
+  cudaMemcpy(in.ix, hi.data(), 64 * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(in.ih, hi.data(), 64 * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(in.ic, hi.data(), 64 * 4, cudaMemcpyHostToDevice);
+  return in;
+}
+// CELL_LAUNCH(in, B, nt, cluster, chunks_per_rank, grid_x, grid_y)
+#define CELL_LAUNCH(in, B, ...) fused_gather_lstm_cell_launch( \
+    in.x, in.h, in.c, in.ix, in.ih, in.ic, in.w, in.b, in.ho, in.co, B, 512, \
+    512, 2048, 2048, 2048, __VA_ARGS__, 0)
+"""
+
+CELL_MAIN = TIMING + CELL_SETUP + r"""
+int main() {
+  const int B = 16;
+  CellInputs in = cell_inputs(B, 2048, 512, 512);
+  for (int rep = 0; rep < 5; ++rep) {
+    cudaEvent_t e0, e1;
+    cudaEventCreate(&e0); cudaEventCreate(&e1);
+    cudaEventRecord(e0);
+    const int rc = CELL_LAUNCH(in, B, @GEO@);
+    cudaEventRecord(e1); cudaEventSynchronize(e1);
+    float ms; cudaEventElapsedTime(&ms, e0, e1);
+    printf("cell phases: launch %d rc %d (%s), %.4f ms\n", rep, rc,
+           cudaGetErrorString(cudaGetLastError()), ms);
+  }
+  static long long hp[4096][20];
+  cudaMemcpyFromSymbol(hp, g_prof, sizeof(hp));
+  for (int cta : {0, 1, 3, 128}) {
+    long long t0 = hp[cta * 8][0];
+    for (int w = 1; w < 8; ++w) t0 = std::min(t0, hp[cta * 8 + w][0]);
+    for (int w = 0; w < 8; ++w) {
+      const long long* t = hp[cta * 8 + w];
+      printf("cell phases: CTA %d (rank %d) warp %d, cycles since the CTA's "
+             "first stamp: start %lld, row pointers in %lld, rows stored "
+             "%lld, products done %lld (waiting on the ring %lld, issuing "
+             "the products %lld), partial sums %lld, pushed %lld, cluster "
+             "barrier passed %lld, epilogue done %lld\n", cta, cta % 4, w,
+             t[0] - t0, t[1] - t0, t[2] - t0, t[3] - t0, t[10], t[11],
+             t[4] - t0, t[5] - t0, t[6] - t0, t[7] ? t[7] - t0 : 0LL);
+    }
+  }
+  return 0;
+}
+"""
+
+
+# The tile's constant for the chunks of weights issued before the rows;
+# the EARLY copies rewrite it.
+EARLY_LINE = "constexpr int EARLY = 2;\n"
+
+
+def cell_with_tile(tile: str) -> str:
+    """fused_gather_lstm_cell.cu with ``tile`` (a copy of
+    lstm_cell_tile.cuh) inlined in place of its include."""
+    kernel = (CSRC / "fused_gather_lstm_cell.cu").read_text()
+    anchor = '#include "lstm_cell_tile.cuh"'
+    if anchor not in kernel:
+        raise RuntimeError(f"fused_gather_lstm_cell.cu: line not found: "
+                           f"{anchor!r}")
+    return kernel.replace(anchor, tile.replace("#pragma once", ""))
+
+
+def instrument_cell() -> str:
+    """A copy of fused_gather_lstm_cell.cu with the stamped tile inlined
+    and a host program at B = 16, E = H = 512."""
+    return (cell_with_tile(instrument("lstm_cell_tile.cuh", CELL_STAMPS))
+            + CELL_MAIN.replace("@GEO@", _cell_args(16)))
+
+
+def cell_with_early(early: int) -> str:
+    """fused_gather_lstm_cell.cu with a copy of the tile whose EARLY is
+    ``early``."""
+    tile = (CSRC / "lstm_cell_tile.cuh").read_text()
+    if tile.count(EARLY_LINE) != 1:
+        raise RuntimeError(f"lstm_cell_tile.cuh: line not found once: "
+                           f"{EARLY_LINE!r}")
+    return cell_with_tile(tile.replace(
+        EARLY_LINE, f"constexpr int EARLY = {early};\n"))
+
+
+CELL_CLUSTERS_MAIN = TIMING + CELL_SETUP + r"""
+int main() {
+  CellInputs in = cell_inputs(64, 2048, 512, 512);
+  time_floor("cell clusters");
+@CASES@
+  printf("cell clusters: %s\n", cudaGetErrorString(cudaGetLastError()));
+  return 0;
+}
+"""
+
+
+def cell_clusters_main(only: int | None = None, early: int = 2) -> str:
+    """fused_gather_lstm_cell.cu, timed at B = 1, 16, 32 with clusters of
+    1, 2 and 4 CTAs (E = H = 512), or with clusters of ``only`` CTAs, on a
+    copy of the tile with its EARLY at ``early`` (the source's is 2)."""
+    cases = []
+    for B in (1, 16, 32):
+        for cl in (1, 2, 4) if only is None else (only,):
+            geo = _cell_args(B, cl)
+            cases.append(
+                f"  {{ auto f = [&] {{ CELL_LAUNCH(in, {B}, {geo}); }};\n"
+                f"    printf(\"cell clusters: EARLY={early} B=%d cluster=%d ms "
+                f"cold %.5f, warm %.5f\\n\", {B}, {cl}, time_ms(f, true), "
+                f"time_ms(f, false)); }}")
+    kernel = ('#include "fused_gather_lstm_cell.cu"\n' if early == 2
+              else cell_with_early(early))
+    return kernel + CELL_CLUSTERS_MAIN.replace("@CASES@", "\n".join(cases))
+
+
+CELL_FLOORS_MAIN = TIMING + CELL_SETUP + r"""
+// What a cell launch costs before its arithmetic: the same cluster launch
+// (256 CTAs of 256 threads in clusters of 4, the B = 16 tile's dynamic
+// shared memory) with an empty body; then streaming each CTA's K slice of
+// the packed weights (eight 4 KB bulk copies on one mbarrier) and nothing
+// else; then that and the CTA's rows (16 rows x 256 k, float4 loads
+// stored into shared memory).
+__global__ void __launch_bounds__(256) empty_cluster_kernel() {}
+__global__ void __launch_bounds__(256) stream_kernel(const float* wp,
+                                                     const float* x,
+                                                     int with_rows) {
+  extern __shared__ __align__(128) float smem[];
+  __shared__ __align__(8) unsigned long long bar;
+  const uint32_t b = tf32x3::smem_addr(&bar);
+  const int tile = blockIdx.x / 4, rank = blockIdx.x % 4;
+  if (threadIdx.x == 0) {
+    lstm_tile::mbar_init(b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 32) {
+    lstm_tile::mbar_expect(b, 8 * lstm_tile::CHUNK_BYTES);
+    for (int c = 0; c < 8; ++c)
+      lstm_tile::bulk_copy(smem + c * 1024,
+                           wp + (size_t(tile) * 32 + rank * 8 + c) * 1024,
+                           lstm_tile::CHUNK_BYTES, b);
+  }
+  if (with_rows) {
+    float* rs = smem + 8 * 1024;
+    for (int i = 0; i < 4; ++i) {
+      const int p = threadIdx.x + i * 256;   // 16 rows x 64 float4
+      const int m = p / 64, q = p % 64;
+      const float4 v = __ldg(reinterpret_cast<const float4*>(
+          x + size_t((m * 7919) % 2048) * 512 + rank * 256 % 512 + q * 4));
+      *reinterpret_cast<float4*>(rs + m * 260 + q * 4) = v;
+    }
+  }
+  lstm_tile::mbar_wait(b, 0);
+}
+int main() {
+  CellInputs in = cell_inputs(16, 2048, 512, 512);
+  time_floor("cell floors");
+  const size_t smem = lstm_tile::Tile<2>::smem_bytes(4);
+  cudaFuncSetAttribute(empty_cluster_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  cudaFuncSetAttribute(stream_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(256);
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 4;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  auto empty = [&] { cudaLaunchKernelEx(&cfg, empty_cluster_kernel); };
+  auto stream = [&] {
+    cudaLaunchKernelEx(&cfg, stream_kernel, (const float*)in.w,
+                       (const float*)in.x, 0);
+  };
+  auto rows = [&] {
+    cudaLaunchKernelEx(&cfg, stream_kernel, (const float*)in.w,
+                       (const float*)in.x, 1);
+  };
+  auto cell = [&] { CELL_LAUNCH(in, 16, @GEO@); };
+  printf("cell floors: empty cluster launch ms cold %.5f, warm %.5f\n",
+         time_ms(empty, true), time_ms(empty, false));
+  printf("cell floors: weights streamed ms cold %.5f, warm %.5f\n",
+         time_ms(stream, true), time_ms(stream, false));
+  printf("cell floors: weights and rows streamed ms cold %.5f, warm %.5f\n",
+         time_ms(rows, true), time_ms(rows, false));
+  printf("cell floors: the cell (B = 16) ms cold %.5f, warm %.5f\n",
+         time_ms(cell, true), time_ms(cell, false));
+  printf("cell floors: %s\n", cudaGetErrorString(cudaGetLastError()));
+  return 0;
+}
+"""
+
+
+def cell_floors_main() -> str:
+    """Floors of the cell launch at B = 16, E = H = 512 (see the program's
+    comment), beside the cell itself."""
+    return ('#include "fused_gather_lstm_cell.cu"\n'
+            + CELL_FLOORS_MAIN.replace("@GEO@", _cell_args(16)))
+
+
+GATHER_MAIN = TIMING + r"""
+// a block shape of the kernel: (tc, r, v, row tiles, unit tiles, grid)
+struct Variant {
+  long long k, tc, r, v, row_tiles, tiles, gx, gy, unit;
+};
+int main() {
+  const Variant variants[] = {
+@VARIANTS@
+  };
+  const int n = 2048, row_bytes = 2048;
+  char *src, *out, *want;
+  int32_t* idx;
+  cudaMalloc(&src, size_t(n) * row_bytes);
+  cudaMalloc(&out, size_t(1024) * row_bytes);
+  cudaMalloc(&want, size_t(1024) * row_bytes);
+  cudaMalloc(&idx, 1024 * 4);
+  std::vector<char> hs(size_t(n) * row_bytes);
+  for (size_t i = 0; i < hs.size(); ++i) hs[i] = char(i * 2654435761u >> 13);
+  std::vector<int32_t> hi(1024);
+  for (int i = 0; i < 1024; ++i) hi[i] = (i * 7919) % n - (i % 3 ? 0 : n);
+  cudaMemcpy(src, hs.data(), hs.size(), cudaMemcpyHostToDevice);
+  cudaMemcpy(idx, hi.data(), 1024 * 4, cudaMemcpyHostToDevice);
+  time_floor("gather variants");
+  for (const Variant& x : variants) {
+    auto run = [&](char* dst) {
+      gather_rows_launch(src, idx, dst, n, x.k, row_bytes, x.unit, x.tc,
+                         x.r, x.v, x.row_tiles, x.tiles, x.gx, x.gy, 0);
+    };
+    // the reference: one 16-byte unit a thread, a row a block
+    gather_rows_launch(src, idx, want, n, x.k, row_bytes, 16, 128, 1, 1,
+                       x.k, 1, x.k, 1, 0);
+    run(out);
+    cudaDeviceSynchronize();
+    std::vector<char> a(size_t(x.k) * row_bytes), b(a.size());
+    cudaMemcpy(a.data(), out, a.size(), cudaMemcpyDeviceToHost);
+    cudaMemcpy(b.data(), want, b.size(), cudaMemcpyDeviceToHost);
+    auto f = [&] { run(out); };
+    printf("gather variants: K=%lld %lld-byte units, tc=%lld r=%lld v=%lld "
+           "unit tiles %lld: ms cold %.5f, warm %.5f; bit-equal %s\n", x.k,
+           x.unit, x.tc, x.r, x.v, x.tiles, time_ms(f, true),
+           time_ms(f, false), a == b ? "yes" : "NO");
+  }
+  printf("gather variants: %s\n", cudaGetErrorString(cudaGetLastError()));
+  return 0;
+}
+"""
+
+
+def gather_main() -> str:
+    """gather_rows.cu at the path's shapes (K = 1, 16, 256, 512 rows of
+    2048 bytes): with the geometry the wrapper computes, and with other
+    block shapes (four 16-byte units a thread, 32 threads a row and two
+    rows a block; half a row a block; and 4-byte units, one or four a
+    thread, in 128-thread blocks)."""
+    variants = []
+    for k in (1, 16, 256, 512):
+        vec = gather_geometry(k, 2048, 16)
+        for unit, tc, r, v in ((16, vec["tc"], vec["r"], vec["v"]),
+                               (16, 32, 2, 4), (16, 32, 1, 2),
+                               (4, 128, 1, 1), (4, 128, 1, 4)):
+            r = min(r, k)
+            tiles, rows = -(-(2048 // unit) // (tc * v)), -(-k // r)
+            variants.append(f"    {{{k}, {tc}, {r}, {v}, {rows}, {tiles}, "
+                            f"{rows}, {tiles}, {unit}}},")
+    return ('#include "gather_rows.cu"\n'
+            + GATHER_MAIN.replace("@VARIANTS@", "\n".join(variants)))
+
+
 def instrument(source: str, stamps, extra: str = "") -> str:
     """``source`` with the stamp macro and the stamps inserted; raises
     naming the first line not found."""
@@ -260,8 +681,12 @@ def build_and_run(name: str, source: str) -> str:
     OUT.mkdir(parents=True, exist_ok=True)
     src, exe = OUT / f"{name}.cu", OUT / name
     src.write_text(source)
-    subprocess.run([_nvcc(), *ARCH, "-std=c++17", "-O3", "-o", str(exe),
-                    str(src)], check=True, capture_output=True, text=True)
+    built = subprocess.run([_nvcc(), *ARCH, "-std=c++17", "-O3", "-I",
+                            str(CSRC), "-o", str(exe), str(src)],
+                           capture_output=True, text=True)
+    if built.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{built.stdout}"
+                           f"{built.stderr}")
     return subprocess.run([str(exe)], check=True, capture_output=True,
                           text=True, timeout=300).stdout
 
@@ -271,7 +696,13 @@ def main() -> None:
             ("hmma_rate", HMMA_RATE),
             ("flash_phases", instrument("flash_attention.cu", FLASH_STAMPS,
                                         FLASH_MAIN)),
-            ("ssd_phases", instrument("ssd_scan.cu", SSD_STAMPS, SSD_MAIN))):
+            ("ssd_phases", instrument("ssd_scan.cu", SSD_STAMPS, SSD_MAIN)),
+            ("cell_phases", instrument_cell()),
+            ("cell_clusters", cell_clusters_main()),
+            ("cell_floors", cell_floors_main()),
+            ("gather_variants", gather_main()),
+            ("cell_early_0", cell_clusters_main(4, 0)),
+            ("cell_early_8", cell_clusters_main(4, 8))):
         print(build_and_run(name, source), end="", flush=True)
 
 

@@ -115,6 +115,165 @@ def test_gather_kernel_rejects_what_it_does_not_take(cuda):
         gather_rows(src, idx.cpu())                  # indices on the host
 
 
+@pytest.mark.parametrize("k", [1, 2, 255, 256, 257, 4096])
+def test_gather_kernel_at_row_counts_around_its_tiles(cuda, k):
+    """Path-width rows (2 KB of float32) at row counts around the block's
+    rows and the grid's sizing: bit-equal, one launch."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    src = torch.randn((max(2 * k, 64), 512), generator=g, device=cuda)
+    idx = torch.randint(-src.shape[0], src.shape[0], (k,), generator=g,
+                        device=cuda, dtype=torch.int32)
+    before = gather_rows.launches
+    out = gather_rows(src, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(out, ref.gather_rows_ref(src, idx))
+
+
+def test_gather_kernel_past_the_grid_cap(cuda):
+    """More row tiles than the grid holds: one float per row, 256 rows per
+    block, so 2^24 + 1000 rows need the row-tile loop."""
+    from repro_torch.kernels.gather_batch import GRID_CAP, gather_geometry
+
+    k = 256 * GRID_CAP + 1000
+    geo = gather_geometry(k, 4, 4)
+    assert geo["row_tiles"] > geo["grid"][0] == GRID_CAP
+    src = torch.arange(1000, dtype=torch.float32, device=cuda)[:, None]
+    idx = torch.randint(-1000, 1000, (k,), device=cuda, dtype=torch.int32)
+    out = gather_rows(src, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.gather_rows_ref(src, idx))
+
+
+def test_gather_kernel_long_rows_past_the_grid_cap(cuda):
+    """1 KB rows, 65535 x 4 + 100 of them: more row tiles than the grid
+    holds, so the row-tile loop runs with 16-byte units."""
+    from repro_torch.kernels.gather_batch import GRID_CAP, gather_geometry
+
+    k = 4 * GRID_CAP + 100
+    geo = gather_geometry(k, 1024, 16)
+    assert geo["row_tiles"] > geo["grid"][0] == GRID_CAP
+    g = torch.Generator(device=cuda).manual_seed(1)
+    src = torch.randn((1000, 256), generator=g, device=cuda)
+    idx = torch.randint(-1000, 1000, (k,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    out = gather_rows(src, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.gather_rows_ref(src, idx))
+
+
+@pytest.mark.parametrize("row_floats", [256, 500, 2048, 2052, 1 << 18])
+def test_gather_kernel_long_rows(cuda, row_floats):
+    """Rows of 1 KB up to MV-RNN's 1 MB matrices: one unit tile a row, or
+    many (a ragged last one), eight 16-byte units a thread."""
+    g = torch.Generator(device=cuda).manual_seed(row_floats)
+    src = torch.randn((40, row_floats), generator=g, device=cuda)
+    idx = torch.randint(-40, 40, (37,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    out = gather_rows(src, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.gather_rows_ref(src, idx))
+
+
+_GATHER_DTYPES = [torch.uint8, torch.int8, torch.bool, torch.int16,
+                  torch.float16, torch.bfloat16, torch.int32, torch.float32,
+                  torch.int64, torch.float64, torch.complex64]
+
+
+@pytest.mark.parametrize("dtype", _GATHER_DTYPES, ids=str)
+@pytest.mark.parametrize("width,offset", [(3, 0), (5, 1), (16, 1), (64, 0),
+                                          (129, 3)])
+def test_gather_kernel_every_dtype_odd_rows_unaligned_views(cuda, dtype,
+                                                             width, offset):
+    """Every element size, rows of odd byte counts, and sources that start
+    ``offset`` elements into their storage (so not on a 16-byte boundary
+    where offset > 0): bit-equal to ``src[idx]``."""
+    n, k = 97, 300
+    rng = np.random.default_rng(width + offset)
+    flat = torch.as_tensor(rng.integers(0, 100, n * width + offset),
+                           device=cuda).to(dtype)
+    src = flat[offset:].view(n, width)
+    assert src.is_contiguous()
+    idx = torch.as_tensor(rng.integers(-n, n, k), dtype=torch.int32,
+                          device=cuda)
+    out = gather_rows(src, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.gather_rows_ref(src, idx))
+
+
+def _cell_case(B, E, H, n, device, offset=0, seed=0):
+    """Sources of n rows (as views ``offset`` floats into their storage),
+    indices with duplicates, pad lanes (repeats of one row) and negative
+    ones, and the (E+H, 4H) weights."""
+    rng = np.random.default_rng(seed)
+
+    def view(rows, cols):
+        flat = torch.as_tensor(rng.standard_normal(rows * cols + offset),
+                               dtype=torch.float32, device=device)
+        return flat[offset:].view(rows, cols)
+
+    x_src, h_src, c_src = view(n, E), view(n, H), view(n, H)
+    idx = []
+    for _ in range(3):
+        i = rng.integers(-n, n, B)
+        i[: B // 3] = i[0]                  # duplicates
+        if B >= 4:
+            i[B - B // 4:] = n - 1          # pad lanes
+        idx.append(torch.as_tensor(i, dtype=torch.int32, device=device))
+    w = torch.as_tensor(0.05 * rng.standard_normal((E + H, 4 * H)),
+                        dtype=torch.float32, device=device)
+    b = torch.as_tensor(0.1 * rng.standard_normal(4 * H),
+                        dtype=torch.float32, device=device)
+    return [x_src, h_src, c_src, *idx, w, b]
+
+
+def _check_cells(args):
+    """The gather cell, and the dense cell on the gathered rows, against
+    the plain version within 1e-4 (max abs error)."""
+    x_src, h_src, c_src, ix, ih, ic, w, b = args
+    before = (fused_gather_lstm_cell.launches, fused_lstm_cell.launches)
+    h2, c2 = fused_gather_lstm_cell(*args)
+    hr, cr = ref.fused_gather_lstm_cell_ref(*args)
+    xh = torch.cat([x_src[ix.long()], h_src[ih.long()]], dim=1)
+    h3, c3 = fused_lstm_cell(xh, w, b, c_src[ic.long()].contiguous())
+    torch.cuda.synchronize()
+    assert (fused_gather_lstm_cell.launches, fused_lstm_cell.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for got, want in ((h2, hr), (c2, cr), (h3, hr), (c3, cr)):
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 15, 16, 17, 32, 33, 64, 65])
+def test_cell_kernels_at_every_row_tile_edge(cuda, B):
+    """Both cells at E = H = 512 for B around the n8 tiles and past the 64
+    rows a CTA holds."""
+    _check_cells(_cell_case(B, 512, 512, 300, cuda, seed=B))
+
+
+@pytest.mark.parametrize("E,H", [(512, 512), (24, 40), (520, 500), (3, 5),
+                                 (1024, 1024)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("B", [5, 16, 33])
+def test_cell_kernels_ragged_widths_unaligned_views(cuda, E, H, offset, B):
+    """Widths whose K = E + H leaves a ragged chunk and uneven K slices
+    over the cluster (520 + 500, 3 + 5), H not a multiple of the 8 hidden
+    units of a cluster (500, 5, 3), more chunks a CTA than its ring holds
+    (1024 + 1024), and sources one float into their storage (4-byte
+    copies); duplicate, pad and negative indices."""
+    _check_cells(_cell_case(B, E, H, 50, cuda, offset=offset, seed=E + H))
+
+
+def test_cell_kernels_are_deterministic(cuda):
+    """The cluster's partial sums meet in a fixed order: two launches on the
+    same inputs give the same bits."""
+    args = _cell_case(16, 512, 512, 300, cuda, seed=1)
+    first = fused_gather_lstm_cell(*args)
+    again = fused_gather_lstm_cell(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
 def _inputs(B, E, H, n, device):
     rng = np.random.default_rng(B)
     arrays = [rng.standard_normal((n, E)), rng.standard_normal((n, H)),

@@ -1,11 +1,12 @@
-"""The phase-profile tool's copies of the attention and scan kernels.
+"""The phase-profile tool's copies of the tensor-core kernels.
 
 ``repro_torch.tools.kernel_phases`` builds its copies on the card by
-inserting ``clock64`` stamps at fixed lines of ``csrc/flash_attention.cu``
-and ``csrc/ssd_scan.cu`` and calls each launch function from a host
-program of its own. These tests run on the CPU, with no compiler: each
-anchor line is found exactly once in today's source, every stamp goes in,
-and each host program passes as many arguments as the launch function
+inserting ``clock64`` stamps at fixed lines of ``csrc/flash_attention.cu``,
+``csrc/ssd_scan.cu`` and ``csrc/lstm_cell_tile.cuh`` (through
+``csrc/fused_gather_lstm_cell.cu``) and calls each launch function from a
+host program of its own. These tests run on the CPU, with no compiler:
+each anchor line is found exactly once in today's source, every stamp goes
+in, and each host program passes as many arguments as the launch function
 takes (``kernels/build.py:SIGNATURES``). A kernel edit that moves an
 anchor or a launch argument fails here, not on the card."""
 
@@ -18,30 +19,63 @@ pytest.importorskip("torch")
 from repro_torch.kernels.build import CSRC, SIGNATURES  # noqa: E402
 from repro_torch.tools import kernel_phases  # noqa: E402
 
+# launch function -> (the source holding the anchors, its stamps, the host
+# program and the instrumented copy)
 _KERNELS = {
-    "flash_attention": (kernel_phases.FLASH_STAMPS, kernel_phases.FLASH_MAIN),
-    "ssd_scan": (kernel_phases.SSD_STAMPS, kernel_phases.SSD_MAIN),
+    "flash_attention": (
+        "flash_attention.cu", kernel_phases.FLASH_STAMPS,
+        kernel_phases.FLASH_MAIN,
+        lambda: kernel_phases.instrument("flash_attention.cu",
+                                         kernel_phases.FLASH_STAMPS,
+                                         kernel_phases.FLASH_MAIN)),
+    "ssd_scan": (
+        "ssd_scan.cu", kernel_phases.SSD_STAMPS, kernel_phases.SSD_MAIN,
+        lambda: kernel_phases.instrument("ssd_scan.cu",
+                                         kernel_phases.SSD_STAMPS,
+                                         kernel_phases.SSD_MAIN)),
+    "fused_gather_lstm_cell": (
+        "lstm_cell_tile.cuh", kernel_phases.CELL_STAMPS,
+        kernel_phases.CELL_MAIN, kernel_phases.instrument_cell),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_KERNELS))
 def test_every_anchor_is_found_once(name):
-    stamps, _ = _KERNELS[name]
-    text = (CSRC / f"{name}.cu").read_text()
+    source, stamps, _, _ = _KERNELS[name]
+    text = (CSRC / source).read_text()
     for anchor, _ in stamps:
         assert text.count(anchor) == 1, anchor
 
 
 @pytest.mark.parametrize("name", sorted(_KERNELS))
 def test_every_stamp_goes_in(name):
-    stamps, main = _KERNELS[name]
-    copy = kernel_phases.instrument(f"{name}.cu", stamps, main)
+    source, stamps, _, make = _KERNELS[name]
+    copy = make()
     inserted = sum(insert.count("STAMP(") for _, insert in stamps)
-    assert inserted == len(stamps)
-    original = (CSRC / f"{name}.cu").read_text().count("STAMP(")
+    if stamps is kernel_phases.CELL_STAMPS:
+        # some of the cell's entries insert only cycle counters
+        assert inserted >= 1
+    else:
+        assert inserted == len(stamps)
+    original = (CSRC / source).read_text().count("STAMP(")
     assert copy.count("STAMP(") - original == inserted + \
         kernel_phases.STAMP.count("STAMP(")
+    for anchor, insert in stamps:
+        assert insert.lstrip("+") in copy, anchor
     assert str(CSRC / "mma_tf32x3.cuh") in copy
+
+
+@pytest.mark.parametrize("early", [0, 8])
+def test_early_copies_rewrite_the_tiles_constant(early):
+    """The tool's EARLY copies rewrite the tile's one ``EARLY`` line and
+    inline the tile into the gather cell."""
+    tile = (CSRC / "lstm_cell_tile.cuh").read_text()
+    assert tile.count(kernel_phases.EARLY_LINE) == 1
+    copy = kernel_phases.cell_with_early(early)
+    assert f"constexpr int EARLY = {early};" in copy
+    assert kernel_phases.EARLY_LINE not in copy
+    assert '#include "lstm_cell_tile.cuh"' not in copy
+    assert "fused_gather_lstm_cell_launch(" in copy
 
 
 def _top_level_args(call: str) -> int:
@@ -60,8 +94,13 @@ def _top_level_args(call: str) -> int:
 
 @pytest.mark.parametrize("name", sorted(_KERNELS))
 def test_host_program_passes_every_launch_argument(name):
-    _, main = _KERNELS[name]
-    call = re.search(rf"{name}_launch\((.*?)\);", main, re.S)
+    _, _, main, _ = _KERNELS[name]
+    # the cell's host program calls through a variadic macro: expand it
+    macro = re.search(r"#define CELL_LAUNCH\(in, B, \.\.\.\) (.*?\))\n",
+                      main, re.S)
+    if macro is not None:
+        main = macro.group(1).replace("__VA_ARGS__", "nt, cl, cpr, gx, gy")
+    call = re.search(rf"{name}_launch\((.*?)\);?$", main, re.S | re.M)
     assert call is not None
     assert _top_level_args(call.group(1)) == len(SIGNATURES[f"{name}_launch"])
     source = (CSRC / f"{name}.cu").read_text()

@@ -1,6 +1,7 @@
 """The numerics of the tensor-core kernels, rehearsed on the CPU.
 
-``csrc/flash_attention.cu`` and ``csrc/ssd_scan.cu`` run their matrix
+``csrc/flash_attention.cu``, ``csrc/ssd_scan.cu`` and the LSTM-cell tile
+(``csrc/lstm_cell_tile.cuh``) run their matrix
 products as 3xTF32 ``mma.sync`` steps (``csrc/mma_tf32x3.cuh``): each fp32
 operand is split as ``big = tf32(a)``, ``small = a - big`` and a product
 is accumulated in fp32 as ``small*big' + big*small' + big*big'``. Here
@@ -12,7 +13,8 @@ tensor core's reading of an unrounded operand (``small``): only its top
 product made that way, are
 held to the 1e-4 bar (of the largest |output|) that the card checks hold
 the kernels to against the fp32 plain versions of ``kernels/ref.py``, at
-the shapes of the LM path. A single-TF32 product is computed too; it is
+the shapes of the LM path; the cell's, with its split of K over a cluster
+and the fixed order in which the partial sums meet, at the tagger's. A single-TF32 product is computed too; it is
 reported beside the split and only held to be worse than it.
 
 The fragment layout of an ``m16n8k8`` step and the header's paired k
@@ -280,6 +282,83 @@ def test_ssd_scan_with_split_products_meets_the_bar(case):
         assert err3 < err1
 
 
+def cell_split(xh, w, b, c, split, cluster=4, kc=32):
+    """The cell kernels' arithmetic at B rows: y^T = w^T xh^T in k steps
+    of 8, each step's products (``split``: the three 3xTF32 terms in the
+    kernel's order, or one TF32 product) added in fp32 into the
+    accumulator of its CTA (``cluster`` CTAs, a K slice of chunks of
+    ``kc`` each), its warp (k step 0-3 of a chunk) and its chunk's parity;
+    then a CTA's two accumulators and four warps' partials, then the CTAs
+    in rank order, in the kernel's fixed order; then the bias and the gate
+    math."""
+    K, H4 = w.shape
+    H, B = H4 // 4, xh.shape[0]
+    n_chunks = -(-K // kc)
+    per_rank = -(-n_chunks // cluster)
+    acc = torch.zeros((cluster, 4, 2, H4, B))
+    for chunk in range(n_chunks):
+        rank, local = divmod(chunk, per_rank)
+        for ks in range(4):
+            k0 = chunk * kc + ks * 8
+            if k0 >= K:
+                continue
+            a, bm = w[k0:k0 + 8].t(), xh[:, k0:k0 + 8].t()
+            for term in split(a, bm):
+                acc[rank, ks, local % 2] += term
+    part = acc[:, :, 0] + acc[:, :, 1]
+    cta = ((part[:, 0] + part[:, 1]) + part[:, 2]) + part[:, 3]
+    y = cta[0]
+    for r in range(1, cluster):
+        y = y + cta[r]
+    y = y.t() + b
+    i, f = torch.sigmoid(y[:, :H]), torch.sigmoid(y[:, H:2 * H])
+    g, o = torch.tanh(y[:, 2 * H:3 * H]), torch.sigmoid(y[:, 3 * H:])
+    c_new = f * c + i * g
+    return o * torch.tanh(c_new), c_new
+
+
+def terms3(a, b):
+    """A step's 3xTF32 terms in the order ``mma3_row`` issues them."""
+    ab, bb = tf32(a), tf32(b)
+    as_, bs = tf32_read(a - ab), tf32_read(b - bb)
+    return as_ @ bb, ab @ bs, ab @ bb
+
+
+def terms1(a, b):
+    return (tf32(a) @ tf32(b),)
+
+
+def _cell_inputs(B, K, H, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(scale * rng.standard_normal(shape),
+                            dtype=torch.float32)
+            for scale, shape in ((1.0, (B, K)), (0.05, (K, 4 * H)),
+                                 (0.1, (4 * H,)), (1.0, (B, H)))]
+
+
+# (B, K, H, cluster): the tagger's cell at width 512 (B = 16, K = 1024,
+# 4H = 2048; clusters of 4), one row, and clusters of 2 at B = 32.
+CELL_CASES = {
+    "tagger B=16": (16, 1024, 512, 4),
+    "B=1": (1, 1024, 512, 4),
+    "B=32 clusters of 2": (32, 1024, 512, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CELL_CASES))
+def test_cell_with_split_products_and_split_k_meets_the_bar(case):
+    B, K, H, cluster = CELL_CASES[case]
+    xh, w, b, c = _cell_inputs(B, K, H, seed=B + K)
+    h_want, c_want = ref.fused_lstm_cell_ref(xh, w, b, c)
+    h3, c3 = cell_split(xh, w, b, c, terms3, cluster)
+    h1, c1 = cell_split(xh, w, b, c, terms1, cluster)
+    err3 = max(rel_err(h3, h_want), rel_err(c3, c_want))
+    err1 = max(rel_err(h1, h_want), rel_err(c1, c_want))
+    print(f"cell {case}: 3xTF32 {err3:.3e}, TF32 {err1:.3e}")
+    assert err3 <= BAR
+    assert err1 > BAR       # a single TF32 product misses the bar
+
+
 def test_split_algorithms_in_fp32_are_the_plain_versions():
     """With exact fp32 products the two algorithms above are the plain
     versions, so what the bar measures is the split's rounding alone."""
@@ -293,3 +372,7 @@ def test_split_algorithms_in_fp32_are_the_plain_versions():
     y, s = ssd_split(x, dt, A, B, C, 16, mm)
     y_want, s_want = ref.ssd_scan_ref(x, dt, A, B, C, 16)
     assert rel_err(y, y_want) <= 1e-5 and rel_err(s, s_want) <= 1e-5
+    xh, w, b, c = _cell_inputs(5, 333, 24, seed=8)   # ragged K and chunks
+    h, c2 = cell_split(xh, w, b, c, lambda a, bm: (a @ bm,), 4)
+    h_want, c_want = ref.fused_lstm_cell_ref(xh, w, b, c)
+    assert rel_err(h, h_want) <= 1e-5 and rel_err(c2, c_want) <= 1e-5
