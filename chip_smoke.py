@@ -16,8 +16,9 @@ Phases, in order; any failure raises and exits non-zero:
    kernels (the ``launch floor:`` line). Then each kernel against its
    plain PyTorch version on the card at the path's shapes and edge cases
    (gather bit-equal; the others within 1e-4, TF32 off; the scan also
-   from a random initial state), then timed cold (L2 flushed before every
-   launch, CUDA events, median) beside the plain version and, where one
+   from a random initial state), then timed cold (L2 flushed and left
+   clean before every launch, CUDA events, median) beside the plain
+   version and, where one
    PyTorch call computes the same function, that call
    (``torch.index_select``, ``torch._VF.lstm_cell``,
    ``scaled_dot_product_attention``, whose kernel names one profiled call
@@ -30,7 +31,9 @@ Phases, in order; any failure raises and exits non-zero:
 3. The slice: BiLSTM-Tagger at model_size=512 on CUDA. An FSM policy is
    learned on small graphs, then fresh 16-sentence minibatches (and one
    repeat) run through the interpreted, per-topology and bucketed
-   executors. All three must agree within 1e-4 on every tag logit ``y``,
+   executors (the bucketed one captures each bucket signature as a CUDA
+   graph and replays it). All three must agree within 1e-4 on every tag
+   logit ``y``,
    the first minibatch must match a plain-PyTorch run of the same seed on
    the CPU, and the gather and fused-cell launch counters must rise during
    the slice. Prints steady-state ms per run for each executor, the plan
@@ -56,6 +59,25 @@ Phases, in order; any failure raises and exits non-zero:
    in LatticeLSTM. Prints ms per run, batches against their lower bound,
    plan stats, lowering seconds, the bucketed busy share and the gather's
    ``(K, row bytes)`` launch histogram.
+6. The serve engine (``repro_torch.serve``) at model_size=512 for the
+   three serve families (ChainLM, TreeLSTM, LatticeLSTM, an FSM learned
+   for each), on two traces: the serve launcher's mixed defaults (24
+   requests, 4 a round, 12 new tokens, 16 slots) and the LM benchmark's
+   (32 requests, 20 new tokens, 32 slots). Each runs on the card through
+   the default engine (bucketed, each bucket signature captured once as
+   a CUDA graph and replayed, pipelined rounds), the same engine with
+   eager buckets and the interpreted engine, each a first pass, a steady
+   pass with every cache warm and a profiled pass; and on the CPU through
+   the default engine. Every request must complete; lm tokens must equal
+   the CPU's (a flip only at a near-tie, its margin printed) and tree and
+   lattice outputs be within 1e-4 of it; the default engine must book no
+   contained error, quarantine or round below its tier, capture at least
+   one graph and replay more often than it captures, and the gather and
+   gather-cell launch counters (replays included) must rise in its steady
+   pass, and in each card engine's profiled pass they must rise by as
+   many launches as the profiler counts of those kernels. Prints a ``serve <trace> <mode>:`` line per run (tok/s, rounds,
+   ms per round median and p90, captures and replays, busy share and
+   device events per round) and the replayed run beside the eager one.
 
 Phases 2 and 4 hold the kernels other than the gather to 1e-4 of the
 largest magnitude of their plain versions' outputs. The line before the
@@ -110,11 +132,18 @@ class ColdTimer:
     """Times one call at a time on the card with the L2 cache flushed
     before each (``cold=True``) or not, and returns the median in ms. A
     spin kernel holds the stream while the host enqueues the call, so the
-    events bracket device time and not the wrapper's host overhead."""
+    events bracket device time and not the wrapper's host overhead.
+
+    The flush writes 128 MB and then reads another 128 MB that is never
+    written: the write evicts whatever the call left in the 50 MB L2, and
+    the read evicts the write's dirty lines, so that the timed call writes
+    back none of them and finds L2 clean."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+        self.clean = torch.zeros(32 * 2**20, dtype=torch.float32,
+                                 device="cuda")
 
     def __call__(self, fn, reps: int = 30, warmup: int = 3,
                  cold: bool = True) -> float:
@@ -125,6 +154,7 @@ class ColdTimer:
         for _ in range(reps):
             if cold:
                 self.flush.zero_()
+                self.clean.sum()
             torch.cuda._sleep(1_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -689,23 +719,39 @@ def y_logits(res):
     return res.field("y", ids).double().cpu(), len(ids)
 
 
+# Empty kernels launched at the start of every profile window, and left out
+# of what it reports: once the process has run a large profile (phase 4's
+# waves), a session drops its first few kernel records (a serve pass saw
+# 425 of the 428 gathers it launched; with the window primed, every one).
+PROFILE_PRIME = 256
+
+
 def profile_run(torch, fn) -> dict:
     """One traced run: device time (kernel and copy events on the card, which
     run on one stream and do not overlap) over the wall time, and the six
     event names that took the most device time, as [name, count, ms]. The
     wall time includes the profiler's own host cost, so the busy share is a
-    lower bound."""
+    lower bound. The window opens with PROFILE_PRIME empty kernels, which
+    finish before the run and are not counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import build
+
+    lib = build.library()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(PROFILE_PRIME):
+            build.check(lib.empty_kernel_launch(stream), "empty_kernel")
+        torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and "empty_kernel" not in e.name]
     device_us = sum(e.time_range.elapsed_us() for e in events)
     names: dict[str, list] = {}
     for e in events:
@@ -1053,13 +1099,312 @@ def shape_histogram(shapes) -> list:
             sorted(shapes.items(), key=lambda t: (-t[1], t[0]))]
 
 
+# -- phase 6 --------------------------------------------------------------
+
+
+# The serve engine's traces: name -> (families, requests, rate, max_new,
+# max_slots, further synth_trace arguments). "mixed" is the serve
+# launcher's defaults (src/repro/launch/serve.py), "lm" the LM trace of
+# benchmarks/bench_serve.py; graph sizes are synth_trace's own.
+SERVE_TRACES = {
+    "mixed": (["lm", "tree", "lattice"], 24, 4.0, 12, 16, {}),
+    "lm": (["lm"], 32, 4.0, 20, 32, dict(prompt_lo=5, prompt_hi=8)),
+}
+# The card's runs: the default engine (bucketed, each bucket signature
+# captured once as a CUDA graph and replayed, pipelined rounds), the same
+# engine with every bucket run eagerly, and the interpreted engine.
+SERVE_MODES = {"replayed": {}, "eager": dict(capture=False),
+               "interpreted": dict(compiled=False)}
+SERVE_RL = {"lm": 600, "tree": 600, "lattice": 800}   # RL iterations
+
+
+def serve_workloads(device) -> dict:
+    from repro_torch.models.workloads import SERVE_FAMILIES, make_workload
+
+    return {fam: make_workload(name, MODEL_SIZE, SEED, device=device)
+            for fam, name in SERVE_FAMILIES.items()}
+
+
+def serve_policies(wls) -> dict:
+    """An FSM per family, learned as phase 5 learns one (three 2-instance
+    graphs of the family's workload)."""
+    from repro_torch.core.rl import RLConfig, train_fsm
+
+    out = {}
+    for fam, iters in SERVE_RL.items():
+        rng = random.Random(SEED)
+        out[fam] = train_fsm([wls[fam].sample_graph(rng, 2) for _ in range(3)],
+                             RLConfig(max_iters=iters, seed=SEED)).policy
+    return out
+
+
+SERVE_PASSES = ("first", "steady", "profiled", "traced")
+# The engine's host spans, summed over a traced pass (each inclusive of
+# the spans inside it).
+SERVE_SPANS = ("serve.round", "round.schedule", "round.feed_stage",
+               "round.pack", "plan.pack", "plan.h2d", "plan.dispatch",
+               "plan.block", "round.scatter", "round.feed", "round.single",
+               "interp.exec")
+
+
+def serve_passes(torch, wls, policies, trace: str, caches: dict,
+                 drive=None, passes=SERVE_PASSES, **kw) -> dict:
+    """``trace`` once for each of ``passes`` through one engine on the
+    workloads' device, each pass's arrivals after the previous pass's end:
+    a first pass that lowers, builds and captures; a steady pass with
+    every cache warm (run under ``drive`` if given, for the kernels'
+    launch counts; one engine keeps one slot pool, so it replays the
+    graphs the first captured); a profiled pass; and a pass with the
+    engine's tracer on. Per pass: the requests, the deltas of the engine's
+    stats and its rounds' seconds (``serve.round_s``); the profiled pass's
+    profile and the launch counts' deltas over it (``counted``); the
+    traced pass's ms per round in each of ``SERVE_SPANS``."""
+    import torch
+    from repro_torch.kernels import launches as launch_counts
+    from repro_torch.obs import Obs, Tracer
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve import ServeEngine, synth_trace
+
+    fams, n, rate, max_new, slots, args = SERVE_TRACES[trace]
+    device = wls["lm"].device
+    metrics = MetricsRegistry()
+    rounds_s = metrics.histogram("serve.round_s")
+    tracer = Tracer(enabled=False)
+    eng = ServeEngine(dict(wls), policies=policies, max_slots=slots,
+                      obs=Obs(metrics=metrics, tracer=tracer), device=device,
+                      **caches, **kw)
+    fields = ("tokens_out", "n_rounds", "wall_s", "lower_s",
+              "n_graph_captures", "n_graph_replays", "n_contained_errors",
+              "n_quarantine_events")
+    out = {}
+    for name in passes:
+        reqs = synth_trace(fams, n, rate, max_new, wls, SEED, **args)
+        for r in reqs:
+            r.arrival += eng._now
+        before = {f: getattr(eng.stats, f) for f in fields}
+        tiers = dict(eng.stats.tier_rounds)
+        n_rounds = rounds_s.count
+        build_s = sum(getattr(ex, "compile_time_s", 0.0)
+                      for ex in eng._executors.values())
+        eng.submit_many(reqs)
+        run = {"reqs": reqs}
+        if name == "steady" and drive is not None:
+            _, run["launches"] = drive(eng.run)
+        elif name == "profiled":
+            counted = launch_counts.snapshot()
+            run["profile"] = profile_run(torch, eng.run)
+            run["counted"] = launch_counts.delta(counted,
+                                                 launch_counts.snapshot())
+        elif name == "traced":
+            tracer.clear()
+            tracer.enabled = True
+            eng.run()
+            tracer.enabled = False
+        else:
+            eng.run()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        bad = [r.status for r in reqs if r.status != "COMPLETED"]
+        if bad:
+            fail(f"serve {trace} {kw} {name} pass: {len(bad)} requests "
+                 f"ended {set(bad)}")
+        run.update({f: getattr(eng.stats, f) - before[f] for f in fields})
+        run["tier_rounds"] = {t: k - tiers.get(t, 0)
+                              for t, k in eng.stats.tier_rounds.items()
+                              if k > tiers.get(t, 0)}
+        run["round_s"] = rounds_s.samples[n_rounds:]
+        run["build_s"] = sum(getattr(ex, "compile_time_s", 0.0)
+                             for ex in eng._executors.values()) - build_s
+        run["tok_per_s"] = run["tokens_out"] / max(run["wall_s"], 1e-9)
+        if name == "traced":
+            run["span_ms_per_round"] = {
+                span: sum(e["dur"] for e in tracer.spans(span)) / 1e3
+                / max(run["n_rounds"], 1) for span in SERVE_SPANS
+                if tracer.spans(span)}
+        out[name] = run
+    return out
+
+
+def chainlm_margin(cpu_wl, req, t: int) -> tuple:
+    """(top-1 minus top-2 logit, largest |logit|) of the CPU's logits for
+    token ``t`` of lm request ``req``: its left-padded prompt and first
+    ``t`` tokens fed through the cell from a zero state, as the engine
+    feeds them."""
+    from repro_torch.core.batching import SufficientConditionPolicy
+    from repro_torch.core.executor import DynamicExecutor
+    from repro_torch.core.graph import Graph, Node
+    from repro_torch.serve.scheduler import bucket_len
+
+    pad = bucket_len(len(req.prompt), 4) - len(req.prompt)
+    nodes = [Node(id=0, type="S")]
+    prev = 0
+    for tok in [0] * pad + list(req.prompt) + list(req.out[:t]):
+        nodes.append(Node(id=len(nodes), type="E", attrs={"aux": tok}))
+        nodes.append(Node(id=len(nodes), type="C",
+                          inputs=(prev, len(nodes) - 1)))
+        prev = len(nodes) - 1
+    nodes.append(Node(id=len(nodes), type="O", inputs=(prev,)))
+    res = DynamicExecutor(cpu_wl.impls, None, device="cpu").run(
+        Graph(nodes), SufficientConditionPolicy())
+    logits = res.field("y", [len(nodes) - 1])[0]
+    top = logits.topk(2).values
+    return float(top[0] - top[1]), float(logits.abs().max())
+
+
+def serve_agrees(label: str, got: list, want: list, cpu_wl) -> dict:
+    """Hold a card run's requests to the CPU run's: lm tokens equal but
+    for a flip at a near-tie (the CPU's top-2 margin within LOGIT_TOL of
+    the largest |logit|), tree and lattice outputs within 1e-4."""
+    flips, worst = [], 0.0
+    for a, b in zip(got, want):
+        if a.family != "lm":
+            err = float(abs(a.result - b.result).max())
+            worst = max(worst, err)
+            if a.result.shape != b.result.shape or not err <= 1e-4:
+                fail(f"serve {label}: {a.family} request {a.rid} differs "
+                     f"from the CPU run by {err}")
+            continue
+        if a.out == b.out:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(a.out, b.out)) if x != y)
+        margin, scale = chainlm_margin(cpu_wl, b, t)
+        log(f"serve {label}: lm request {a.rid} token {t} is {a.out[t]} on "
+            f"the card, {b.out[t]} on the CPU; CPU top-2 margin {margin:.3e} "
+            f"(tolerance {LOGIT_TOL * scale:.3e})")
+        if margin > LOGIT_TOL * scale:
+            fail(f"serve {label}: lm request {a.rid} differs from the CPU "
+                 f"run at token {t} beyond a near-tie")
+        flips.append([a.rid, t, margin])
+    return {"near_tie_flips": flips, "max_abs_err_vs_cpu": worst}
+
+
+def serve_phase(torch, drive, card: str) -> dict:
+    """Both traces through the card's three engines and the CPU's default
+    engine (section 5 of the module docstring); returns the launches of
+    the row gather and the gather cell during the replayed engine's
+    steady pass of each trace."""
+    from repro_torch.core.cache import FIFOCache, LRUCache
+    from repro_torch.obs.metrics import percentile
+
+    t0 = time.perf_counter()
+    wls = serve_workloads("cuda")
+    cpu_wls = serve_workloads("cpu")
+    policies = serve_policies(wls)
+    log(f"serve policies learned: {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for trace in SERVE_TRACES:
+        t_trace = time.perf_counter()
+        cpu = serve_passes(torch, cpu_wls, policies, trace, {},
+                           passes=("first",))["first"]
+        want = cpu["reqs"]
+        # packs and schedules are host artifacts the card's engines share
+        host = dict(plan_cache=FIFOCache(256), schedule_cache=FIFOCache(512))
+        lines = {}
+        for mode, kw in SERVE_MODES.items():
+            runs = serve_passes(torch, wls, policies, trace,
+                                dict(host, bucket_cache=LRUCache(256)),
+                                drive if mode == "replayed" else None, **kw)
+            agree = {"near_tie_flips": [], "max_abs_err_vs_cpu": 0.0}
+            for name, run in runs.items():
+                a = serve_agrees(f"{trace} {mode} {name} pass", run["reqs"],
+                                 want, cpu_wls["lm"])
+                agree["near_tie_flips"] += [[name] + f
+                                            for f in a["near_tie_flips"]]
+                agree["max_abs_err_vs_cpu"] = max(
+                    agree["max_abs_err_vs_cpu"], a["max_abs_err_vs_cpu"])
+                if mode == "replayed" and (
+                        run["n_contained_errors"]
+                        or run["n_quarantine_events"]
+                        or set(run["tier_rounds"]) - {"bucketed"}):
+                    fail(f"serve {trace} replayed {name} pass: contained "
+                         f"{run['n_contained_errors']}, quarantined "
+                         f"{run['n_quarantine_events']}, tiers "
+                         f"{run['tier_rounds']}")
+            first, steady = runs["first"], runs["steady"]
+            prof = runs["profiled"]["profile"]
+            # The counters of a replayed run are bookkeeping (each replay
+            # adds its capture's counts): hold them to the kernels the
+            # profiler saw run on the card in the same pass.
+            for kernel in ("gather_rows", "fused_gather_lstm_cell"):
+                seen = prof["own_kernels"].get(kernel, {}).get("launches", 0)
+                if runs["profiled"]["counted"][kernel] != seen:
+                    fail(f"serve {trace} {mode} profiled pass: {kernel} "
+                         f"counted {runs['profiled']['counted'][kernel]} "
+                         f"launches, the profiler saw {seen}")
+            rounds = steady["n_rounds"]
+            line = {
+                "tok_per_s": steady["tok_per_s"], "rounds": rounds,
+                "ms_per_round_median": percentile(steady["round_s"], 50) * 1e3,
+                "ms_per_round_p90": percentile(steady["round_s"], 90) * 1e3,
+                "wall_ms": steady["wall_s"] * 1e3,
+                "captures_first": first["n_graph_captures"],
+                "replays_first": first["n_graph_replays"],
+                "captures_steady": steady["n_graph_captures"],
+                "replays_steady": steady["n_graph_replays"],
+                "first_pass_ms": first["wall_s"] * 1e3,
+                "first_pass_tok_per_s": first["tok_per_s"],
+                "first_pass_lower_s": first["lower_s"],
+                "first_pass_build_s": first["build_s"],
+                "busy_share": prof["busy_share"],
+                "device_events_per_round": (prof["device_events"]
+                                            / runs["profiled"]["n_rounds"]),
+                "device_ms_per_round": (prof["device_ms"]
+                                        / runs["profiled"]["n_rounds"]),
+                "top_events": prof["top_events"],
+                "host_span_ms_per_round": runs["traced"]["span_ms_per_round"],
+                "tier_rounds": steady["tier_rounds"],
+                "requests": len(want), **agree}
+            lines[mode] = line
+            if mode == "replayed":
+                launches[trace] = steady["launches"]
+            log(f"serve {trace} {mode}: {line['tok_per_s']:.1f} tok/s, "
+                f"{rounds} rounds, ms per round median "
+                f"{line['ms_per_round_median']:.3f} p90 "
+                f"{line['ms_per_round_p90']:.3f}, captures "
+                f"{line['captures_first']} replays {line['replays_first']} "
+                f"(first pass; steady {line['captures_steady']}, "
+                f"{line['replays_steady']}), busy share "
+                f"{line['busy_share']:.3f}, device events per round "
+                f"{line['device_events_per_round']:.1f}; profiled pass "
+                f"gathers and gather cells counted "
+                f"{runs['profiled']['counted']['gather_rows']}, "
+                f"{runs['profiled']['counted']['fused_gather_lstm_cell']}, "
+                f"seen as many ({card})")
+            log(f"serve {trace} {mode} host ms per round (traced pass): "
+                + ", ".join(f"{k} {v:.3f}" for k, v in
+                            line["host_span_ms_per_round"].items()))
+            log(f"serve {trace} {mode} detail: "
+                f"{json.dumps(line, default=str)}")
+        rep = lines["replayed"]
+        if not (rep["captures_first"] >= 1
+                and rep["replays_first"] > rep["captures_first"]
+                and rep["captures_steady"] == 0
+                and rep["replays_steady"] > 0):
+            fail(f"serve {trace}: captures and replays {rep}")
+        for kernel in ("gather_rows", "fused_gather_lstm_cell"):
+            if launches[trace][kernel] <= 0:
+                fail(f"{kernel} was not launched during serve {trace}")
+        eager = lines["eager"]
+        log(f"serve {trace}: replayed beside eager, ms per round median "
+            f"{rep['ms_per_round_median']:.3f} / "
+            f"{eager['ms_per_round_median']:.3f}, tok/s "
+            f"{rep['tok_per_s']:.1f} / {eager['tok_per_s']:.1f}, busy share "
+            f"{rep['busy_share']:.3f} / {eager['busy_share']:.3f}, device "
+            f"events per round {rep['device_events_per_round']:.1f} / "
+            f"{eager['device_events_per_round']:.1f}; launches in the "
+            f"replayed steady pass {launches[trace]}; CPU run "
+            f"{cpu['wall_s']:.1f} s; "
+            f"{time.perf_counter() - t_trace:.1f} s ({card})")
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="phases to run after phase 1 (comma-separated); "
-                         "the result lines are printed only for all five")
+                         "the result lines are printed only for all six")
     ap.add_argument("--workloads", default=",".join(TREES_LATTICES),
                     help="phase 5's workloads (comma-separated)")
     args = ap.parse_args(argv)
@@ -1101,16 +1446,8 @@ def main(argv: list[str] | None = None) -> int:
                 check_ssd(torch, timer)]
         log(f"kernel checks done: {time.perf_counter() - t_start:.1f} s")
 
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.fused_cell import fused_lstm_cell
-    from repro_torch.kernels.fused_gather_cell import fused_gather_lstm_cell
     from repro_torch.kernels.gather_batch import gather_rows
-    from repro_torch.kernels.ssd_scan import ssd_scan
-
-    wrappers = {"gather_rows": gather_rows,
-                "fused_gather_lstm_cell": fused_gather_lstm_cell,
-                "fused_lstm_cell": fused_lstm_cell,
-                "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    from repro_torch.kernels.launches import WRAPPERS as wrappers
 
     def drive(fn):
         """Run ``fn`` with every launch count (and the gather's shape
@@ -1180,8 +1517,17 @@ def main(argv: list[str] | None = None) -> int:
             f"{tl['batch_lower_bound']}), ms per run {tl['ms_per_run']}, "
             f"lowering s {tl['lower_s']}, bucketed busy share {busy:.3f}, "
             f"launches {counts}, {time.perf_counter() - t0:.1f} s ({card})")
+    if 6 in phases:
+        t0 = time.perf_counter()
+        serve_launches = serve_phase(torch, drive, card)
+        log(f"serve launches of the row gather and the gather cell (replayed "
+            f"steady passes): "
+            + "; ".join(f"{trace} {c['gather_rows']}, "
+                        f"{c['fused_gather_lstm_cell']}"
+                        for trace, c in serve_launches.items())
+            + f"; serve done: {time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
-    if phases != {1, 2, 3, 4, 5} or set(workloads) != set(TREES_LATTICES):
+    if phases != {1, 2, 3, 4, 5, 6} or set(workloads) != set(TREES_LATTICES):
         log(f"partial run (phases {sorted(phases)}, workloads {workloads}): "
             f"no result lines")
         return 0

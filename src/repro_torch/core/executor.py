@@ -14,6 +14,7 @@ execution (batched op launches).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -218,6 +219,25 @@ def cell_impl(name: str, compiled_cell, in_slots: list[tuple[int, str]],
                     params=own)
 
 
+_derived: list | None = None
+
+
+@contextlib.contextmanager
+def derived_copies():
+    """Collect the weight copies that the fused LSTM path derives from its
+    parameter buffers while the block runs. Yields a list that gains one
+    ``(buffer, version, (w, b))`` for each use: the blocked ``w`` and ``b``
+    built from ``buffer`` at that version (the cell kernel's packed copy
+    hangs off ``w``). Each cell keeps one such copy, for the last buffer it
+    saw, so a captured CUDA graph that reads one must hold it itself."""
+    global _derived
+    outer, _derived = _derived, []
+    try:
+        yield _derived
+    finally:
+        _derived = outer
+
+
 def _lstm_fused_gather(name: str, compiled_cell, input_names, own: dict):
     """Fused gather→cell fast path for standard LSTM cells, or None.
 
@@ -245,6 +265,8 @@ def _lstm_fused_gather(name: str, compiled_cell, input_names, own: dict):
                  for g in "ifgo"], dim=1)
             b = torch.cat([buf[b_off[g]:b_off[g] + H] for g in "ifgo"])
             cache.update(buf=buf, version=buf._version, w=w, b=b)
+        if _derived is not None:
+            _derived.append((buf, cache["version"], (cache["w"], cache["b"])))
         return cache["w"], cache["b"]
 
     def fused_gather(params, bufs, idxs, aux):

@@ -33,9 +33,14 @@ execution plan*, at two levels of specialization:
 Eager PyTorch has no whole-program compile: in this port a "compile" (the
 ``n_compiles`` / ``compile_time_s`` counters and the ``xla.compile`` span,
 kept in their reference places) is the build of a program object — the
-step structure plus its index tensors uploaded to the device — and a run
-is one eager pass of that program on the current stream.  The interpreted
-executor remains the reference path.
+step structure plus its index tensors uploaded to the device.  A
+per-topology run is one eager pass of that program on the current stream.
+A bucket signature's program is built once more on the card: run once
+eagerly (a warm-up that builds what is built once), then captured into a
+CUDA graph whose static input buffers each run refills before one replay —
+the counterpart of the reference's one XLA executable per bucket
+signature (:class:`_Bucket`).  The interpreted executor remains the
+reference path.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.kernels import launches
 from repro_torch.kernels.gather_batch import gather_rows
 from repro_torch.obs.tracer import Tracer, default_tracer
 
@@ -56,7 +62,7 @@ from . import memplan
 from .batching import Policy, Schedule, policy_cache_key, resolve_schedule
 from .cache import FIFOCache, LRUCache
 from .device import block, resolve_device
-from .executor import ExecStats, NodeImpl
+from .executor import ExecStats, NodeImpl, derived_copies
 from .graph import Graph, TypeId
 
 ArenaKey = tuple[str, tuple[int, ...]]  # (field name, element shape)
@@ -386,6 +392,18 @@ def _params_kind(params: Any) -> tuple:
     dtype and device (e.g. eval with None vs training with a params dict)
     — so alternating runs each keep their own pool."""
     return ("params", _kind(params))
+
+
+def _tensors(x: Any) -> list[torch.Tensor]:
+    """Every tensor in a nest of dicts, lists and tuples, in ``_kind``'s
+    order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x, key=repr) for t in _tensors(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
 
 
 def _node_aux_np(graph: Graph, perm: np.ndarray) -> np.ndarray:
@@ -883,6 +901,125 @@ class _BucketProgram:
         return arenas
 
 
+def _release_generator(dev: torch.device) -> None:
+    """A capture that fails inside its body ends without taking the card's
+    default random generator out of capture mode, and the generator's next
+    draw outside a capture raises. Give it a copy of its state, which is
+    not in capture mode (no bucket program draws random numbers)."""
+    gen = torch.cuda.default_generators[
+        dev.index if dev.index is not None else torch.cuda.current_device()]
+    gen.graphsafe_set_state(gen.clone_state())
+
+
+class _Bucket:
+    """One bucket signature's entry in the executable cache: its program,
+    the impls it pins (shared caches namespace on ``id(impls)``), the arena
+    pool donation rotates, the static input buffers every run refills and,
+    on the card, the CUDA graph captured over them.
+
+    The captured graph reads fixed addresses: the static buffers, the
+    arenas its capture allocated (its outputs, ``out``), the impls' weights,
+    the copies derived from weights before the capture (the fused cells'
+    blocked and packed ``w``), and whatever the threaded ``params`` held at
+    capture (the serve engine's slot pools, which the engine therefore
+    updates in place). The executable key carries the weights' and the
+    threaded tensors' data pointers and the weights' version counters; the
+    entry keeps all of those tensors and the derived copies alive
+    (``pinned``), and is stale (:meth:`current`) once a buffer it derived a
+    copy from has changed in place. So no graph replays over memory another
+    tensor owns, or over a copy of old weights. A replay overwrites
+    ``out``: unless the executor donates, each run returns copies of it,
+    as the reference's undonated runs return fresh arrays."""
+
+    def __init__(self, prog: _BucketProgram, impls: dict,
+                 device: torch.device):
+        self.prog = prog
+        self.impls = impls
+        self.pool: dict = {}
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.out: dict[ArenaKey, torch.Tensor] | None = None
+        self.counts: dict | None = None   # launch counts of one replay
+        self.pinned: list[torch.Tensor] = []
+        self.sources: list[tuple[torch.Tensor, int]] = []
+        self.loaded: BucketedPack | None = None
+        spec = prog.spec
+        self.idx = torch.zeros(spec.n_index_lanes, dtype=torch.int32,
+                               device=device)
+        self.idx_long = torch.zeros(spec.n_index_lanes, dtype=torch.int64,
+                                    device=device)
+        self.aux = torch.zeros(spec.n_aux_lanes, dtype=torch.int32,
+                               device=device)
+
+    def load(self, pack: BucketedPack, aux: np.ndarray) -> None:
+        """Copy a run's operands into the static buffers; the index vectors
+        only when they are another pack's than the last run's."""
+        if self.loaded is not pack:
+            self.idx.copy_(pack.idxpack)
+            self.idx_long.copy_(pack.idxpack_long)
+            self.loaded = pack
+        self.aux.copy_(torch.from_numpy(aux))
+
+    def current(self) -> bool:
+        """False once a buffer that a copy read by the graph was derived
+        from has been updated in place since the capture."""
+        return all(t._version == v for t, v in self.sources)
+
+    def capture(self, params: Any) -> None:
+        """Warm up, then capture the body into a CUDA graph. The warm-up
+        runs the body once eagerly on a side stream, so that what is built
+        once (the blocked and packed cell weights, the kernels' attributes)
+        is built there and not captured into every replay; the entry pins
+        those copies and records what they were derived from. The wrappers'
+        launch counts move during the capture, though nothing ran: they are
+        set back and kept as the counts each replay adds."""
+        dev = self.idx.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with derived_copies() as found:
+            with torch.cuda.stream(side):
+                self.prog.body(params, self.idx, self.idx_long, self.aux, {})
+            torch.cuda.synchronize(dev)
+            before = launches.snapshot()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                # Not ``torch.cuda.graph``: when the capture is invalidated
+                # its exit raises before it restores the current stream.
+                with torch.cuda.stream(side):
+                    graph.capture_begin()
+                    try:
+                        out = self.prog.body(params, self.idx, self.idx_long,
+                                             self.aux, {})
+                    finally:
+                        graph.capture_end()
+            except BaseException:
+                _release_generator(dev)
+                raise
+            finally:
+                after = launches.snapshot()
+                launches.restore(before)
+        # one entry a buffer: every step of both passes reports its copies
+        for src, version, copies in {id(f[0]): f for f in found}.values():
+            self.pinned.extend(copies)
+            self.sources.append((src, version))
+        self.counts = launches.delta(before, after)
+        self.graph, self.out = graph, out
+
+    def run(self, pack: BucketedPack, aux: np.ndarray, params: Any,
+            donate: bool) -> dict[ArenaKey, torch.Tensor]:
+        """One run of the bucket on ``pack``'s operands, queued on the
+        current stream: refill the static buffers, then replay the graph
+        where one was captured, else run the body eagerly over them."""
+        self.load(pack, aux)
+        if self.graph is None:
+            return self.prog.body(params, self.idx, self.idx_long, self.aux,
+                                  self.pool if donate else {})
+        self.graph.replay()
+        launches.add(self.counts)
+        if donate:
+            return dict(self.out)
+        return {k: v.clone() for k, v in self.out.items()}
+
+
 class BucketedPlanExecutor:
     """Shape-polymorphic counterpart of :class:`PlanExecutor`.
 
@@ -890,6 +1027,13 @@ class BucketedPlanExecutor:
     pack index vectors (all cached FIFO by topology fingerprint). The built
     program is cached by *bucket signature* — typically a handful of
     entries serve an unbounded topology stream.
+
+    ``capture`` (default on): on the card each bucket signature's program
+    is captured once into a CUDA graph, after a warm-up run, and each run
+    refills its static input buffers and replays it. ``capture=False``
+    runs every bucket eagerly on the card, over the same static buffers
+    (the counterpart of running the reference under ``jax.disable_jit()``).
+    On the CPU a bucket always runs eagerly.
     """
 
     def __init__(self, impls: dict[TypeId, NodeImpl], params: Any, *,
@@ -901,7 +1045,8 @@ class BucketedPlanExecutor:
                  pack_cache: FIFOCache | None = None,
                  exe_cache: FIFOCache | None = None, namespace: Any = None,
                  compile_hook: Callable[[Any], None] | None = None,
-                 tracer: Tracer | None = None, device=None):
+                 tracer: Tracer | None = None, device=None,
+                 capture: bool = True):
         self.impls = impls
         self.params = params
         self.layout = layout
@@ -912,9 +1057,11 @@ class BucketedPlanExecutor:
         self.ladder = tuple(ladder) if ladder else None
         self.pad_steps = pad_steps
         self.device = resolve_device(device)
+        self.capture = bool(capture)
         # Consulted with the program-cache key on every miss, before the
         # build; raising aborts the build with the cache untouched — the
-        # serve degradation ladder's compile-failure injection point.
+        # serve degradation ladder's compile-failure injection point. A
+        # failed capture raises the same way.
         self.compile_hook = compile_hook
         self.tracer = tracer if tracer is not None else default_tracer()
         # Packs are cheap (host-side numpy); programs and their arena pools
@@ -924,6 +1071,8 @@ class BucketedPlanExecutor:
         self._ns = namespace
         self.n_bucket_compiles = 0
         self.compile_time_s = 0.0
+        self.n_captures = 0       # CUDA graphs captured by this executor
+        self.n_replays = 0        # and replayed
 
     def _pack_key(self, graph: Graph,
                   policy: Policy | Callable[[Graph], Schedule],
@@ -970,33 +1119,62 @@ class BucketedPlanExecutor:
         lad = self.ladder if ladder is None else tuple(ladder)
         return self._packs.peek(self._pack_key(graph, policy, lad))
 
+    def _weights(self) -> list[torch.Tensor]:
+        """Every impl's own tensors, which a captured graph reads in place
+        (directly, or through copies built once from them)."""
+        return _tensors([self.impls[n].params
+                         for n in sorted(self.impls, key=repr)])
+
     def executable_key(self, pack: BucketedPack, params: Any) -> tuple:
-        return (self._ns, pack.spec, _params_kind(params))
+        """The reference's ``(namespace, spec, params kind)``, and the run
+        mode. With ``capture`` also the data pointers of the threaded
+        params' tensors, and the pointers and version counters of the
+        impls' weights: a graph reads the tensors it was captured over, so
+        another tensor (or a weight updated in place, whose blocked and
+        packed copies a graph does not rebuild) needs another entry. The
+        threaded params are runtime state read at each replay: the serve
+        engine updates its slot pools in place, and they keep their key. A
+        threaded weight buffer updated in place keeps its key too, but the
+        entry captured over copies of it is stale (``_Bucket.current``) and
+        is built again."""
+        key = (self._ns, pack.spec, _params_kind(params))
+        if not self.capture:
+            return key + ("eager",)
+        return key + ("static",
+                      tuple(t.data_ptr() for t in _tensors(params)),
+                      tuple((t.data_ptr(), t._version)
+                            for t in self._weights()))
 
     def executable_ready(self, pack: BucketedPack, params: Any) -> bool:
         """True when the bucket program is already in the shared cache — a
         pure probe (no build, no LRU refresh, no counter bump)."""
-        return self._exes.peek(self.executable_key(pack, params)) is not None
+        entry = self._exes.peek(self.executable_key(pack, params))
+        return entry is not None and entry.current()
 
-    def _ensure_executable(self, pack: BucketedPack, params: Any
-                           ) -> tuple[Any, tuple, float]:
+    def _ensure_executable(self, pack: BucketedPack, params: Any,
+                           aux: np.ndarray | None = None
+                           ) -> tuple[Any, _Bucket, float]:
         """Returns ``(key, entry, compile_s)``. The entry comes straight
         from the locked cache ``get`` (or the fresh build) — callers must
         not re-read the shared cache afterwards: a concurrent insert could
         evict the key between the check and the act."""
-        return self.build_executable(pack, params)
+        return self.build_executable(pack, params, aux=aux)
 
     def build_executable(self, pack: BucketedPack, params: Any,
                          span_args: dict | None = None,
-                         abort_check: Callable[[], bool] | None = None
-                         ) -> tuple[Any, tuple, float]:
+                         abort_check: Callable[[], bool] | None = None,
+                         aux: np.ndarray | None = None
+                         ) -> tuple[Any, _Bucket, float]:
         """Build (or fetch) the bucket program for ``pack``. ``span_args``
         are stamped onto the ``xla.compile`` span; ``abort_check`` is
         consulted after the compile hook and before the build (an abort
-        raises, so nothing is cached)."""
+        raises, so nothing is cached). On the card with ``capture`` the
+        build warms the program up and captures it on ``pack``'s indices
+        and ``aux`` (zeros if None); a capture that fails raises like a
+        failed compile, and nothing is cached."""
         key = self.executable_key(pack, params)
         entry = self._exes.get(key)
-        if entry is not None:
+        if entry is not None and entry.current():
             return key, entry, 0.0
         ctx = {"kind": "bucketed", "sig": _sig_digest(pack.spec)}
         ctx.update(span_args or {})
@@ -1008,18 +1186,24 @@ class BucketedPlanExecutor:
             raise RuntimeError(
                 f"compile of bucket {_sig_digest(pack.spec)} aborted "
                 f"(job abandoned before the build)")
+        capture = self.capture and self.device.type == "cuda"
         with self.tracer.span("xla.compile", cat="compile", kind="bucketed",
                               bucket=_sig_digest(pack.spec),
                               steps=len(pack.spec.steps),
-                              shards=pack.spec.n_shards,
+                              shards=pack.spec.n_shards, capture=capture,
                               **(span_args or {})) as sp:
             t0 = time.perf_counter()
             prog = _BucketProgram(pack.spec, self.impls, fused=self.fused)
-            # The pool starts empty: the first run allocates the arenas at
+            # The pool starts empty: an eager run allocates the arenas at
             # their first writes, and with donation later runs reuse them.
-            # The impls dict rides along to pin its id for the entry's
-            # lifetime: shared caches namespace on id(impls).
-            entry = (prog, {}, self.impls)
+            entry = _Bucket(prog, self.impls, self.device)
+            if self.capture:
+                entry.pinned = _tensors(params) + self._weights()
+            if capture:
+                entry.load(pack, aux if aux is not None else
+                           np.zeros(pack.spec.n_aux_lanes, np.int32))
+                entry.capture(params)
+                self.n_captures += 1
             self._exes[key] = entry
             dt = time.perf_counter() - t0
             sp.set(lower_s=dt)
@@ -1058,20 +1242,20 @@ class BucketedPlanExecutor:
         tr = self.tracer
         params = params if params is not None else self.params
         with tr.span("plan.h2d", cat="plan"):
-            aux = _node_aux(graph, pack.aux_perm, self.device)
-        key, entry, compile_s = self._ensure_executable(pack, params)
-        prog, pool, impls_pin = entry
+            aux = _node_aux_np(graph, pack.aux_perm)
+        key, entry, compile_s = self._ensure_executable(pack, params, aux)
         t1 = time.perf_counter()
         with tr.span("plan.dispatch", cat="plan"):
-            arenas = prog.body(params, pack.idxpack, pack.idxpack_long, aux,
-                               pool if self.donate else {})
+            arenas = entry.run(pack, aux, params, self.donate)
+            if entry.graph is not None:
+                self.n_replays += 1
             done = None
             if self.device.type == "cuda":
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(self.device))
         dispatch_s = time.perf_counter() - t1
-        return InFlightDispatch(self, graph, pack, key, prog, arenas,
-                                impls_pin, stats, dispatch_s, compile_s, done)
+        return InFlightDispatch(self, graph, pack, key, entry, arenas, stats,
+                                dispatch_s, compile_s, done)
 
 
 class InFlightDispatch:
@@ -1084,16 +1268,15 @@ class InFlightDispatch:
     same result."""
 
     def __init__(self, executor: BucketedPlanExecutor, graph: Graph,
-                 pack: BucketedPack, key: tuple, prog: Any, arenas: dict,
-                 impls_pin: Any, stats: ExecStats, dispatch_s: float,
+                 pack: BucketedPack, key: tuple, entry: _Bucket,
+                 arenas: dict, stats: ExecStats, dispatch_s: float,
                  compile_s: float, done: "torch.cuda.Event | None"):
         self._ex = executor
         self._graph = graph
         self._pack = pack
         self._key = key
-        self._prog = prog
+        self._entry = entry
         self._arenas = arenas
-        self._impls_pin = impls_pin
         self._stats = stats
         self._dispatch_s = dispatch_s
         self._compile_s = compile_s
@@ -1114,7 +1297,8 @@ class InFlightDispatch:
                 self._done.synchronize()
         wait_s = time.perf_counter() - t0
         if ex.donate:
-            ex._exes[self._key] = (self._prog, self._arenas, self._impls_pin)
+            self._entry.pool = self._arenas
+            ex._exes[self._key] = self._entry
         st = self._stats
         if self._compile_s > 0:
             # The build ran before the timed dispatch; charge it to

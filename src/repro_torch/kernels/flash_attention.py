@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from . import build, guard, ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
 
@@ -35,6 +35,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
+    guard.check_no_grad("flash_attention", q, k, v)
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: q, k and v must be 4-D")
     B, Sq, H, D = q.shape

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from . import build, guard, ref
 
 BN = 8            # hidden units per cluster (csrc/lstm_cell_tile.cuh)
 KC = 32           # k rows per chunk
@@ -113,6 +113,7 @@ def fused_lstm_cell(xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     dev = xh.device
     if dev.type != "cuda":
         raise ValueError(f"fused_lstm_cell: unsupported device {dev}")
+    guard.check_no_grad("fused_lstm_cell", xh, w, b, c)
     if xh.ndim != 2 or w.ndim != 2 or w.shape[1] % 4:
         raise ValueError(f"fused_lstm_cell: xh must be (B, K) and w (K, 4H), "
                          f"got {tuple(xh.shape)} and {tuple(w.shape)}")

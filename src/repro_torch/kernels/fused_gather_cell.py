@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from . import build, guard, ref
 from .fused_cell import cell_geometry, packed_weights
 
 
@@ -44,6 +44,7 @@ def fused_gather_lstm_cell(x_src, h_src, c_src, ix, ih, ic, w, b):
     dev = x_src.device
     if dev.type != "cuda":
         raise ValueError(f"fused_gather_lstm_cell: unsupported device {dev}")
+    guard.check_no_grad("fused_gather_lstm_cell", x_src, h_src, c_src, w, b)
     if x_src.ndim != 2 or h_src.ndim != 2 or c_src.ndim != 2 or ix.ndim != 1:
         raise ValueError("fused_gather_lstm_cell: sources must be 2-D and "
                          "indices 1-D")

@@ -16,7 +16,7 @@ from collections import Counter
 
 import torch
 
-from . import build, ref
+from . import build, guard, ref
 
 
 THREADS = 256          # at most, per block (csrc/gather_rows.cu)
@@ -66,6 +66,7 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return ref.gather_rows_ref(src, idx)
     if src.device.type != "cuda":
         raise ValueError(f"gather_rows: unsupported device {src.device}")
+    guard.check_no_grad("gather_rows", src)
     if idx.device != src.device:
         raise ValueError(f"gather_rows: idx on {idx.device}, src on {src.device}")
     if idx.dtype != torch.int32 or idx.ndim != 1:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from . import build, guard, ref
 
 MAX_CHUNK = 128
 MAX_STATE = 128
@@ -33,6 +33,7 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {dev}")
+    guard.check_no_grad("ssd_scan", x, dt, A, B, C, init_state)
     if x.ndim != 4 or dt.ndim != 3 or A.ndim != 1 or B.ndim != 4:
         raise ValueError("ssd_scan: x, B, C must be 4-D, dt 3-D and A 1-D")
     b, l, h, p = x.shape

@@ -255,8 +255,10 @@ int main() {
 
 
 # Cold and warm timing of one launch, as chip_smoke.py's ColdTimer: the
-# L2 flushed (or not) before each, a spin kernel holding the stream while
-# the host enqueues it, CUDA events around it, median of 30.
+# L2 flushed (or not) before each (128 MB written, then another 128 MB,
+# never written after it was zeroed, read, so that L2 holds no dirty line),
+# a spin kernel holding the stream while the host enqueues it, CUDA events
+# around it, median of 30.
 TIMING = r"""
 #include <algorithm>
 #include <cstdio>
@@ -266,16 +268,36 @@ __global__ void spin_kernel(long long cycles) {
   while (clock64() - t0 < cycles) {}
 }
 __global__ void empty_kernel_tool() {}
+__global__ void read_kernel(const float4* p, size_t n, float* sink) {
+  float acc = 0.f;
+  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < n;
+       i += size_t(gridDim.x) * blockDim.x) {
+    const float4 v = p[i];
+    acc += v.x + v.y + v.z + v.w;
+  }
+  if (acc == 1.f) *sink = acc;   // never: the buffer is zero
+}
 static char* g_flush = nullptr;
+static char* g_clean = nullptr;
+static float* g_sink = nullptr;
 static const size_t kFlush = size_t(128) << 20;
 template <class F>
 float time_ms(F launch, bool cold) {
-  if (!g_flush) cudaMalloc(&g_flush, kFlush);
+  if (!g_flush) {
+    cudaMalloc(&g_flush, kFlush);
+    cudaMalloc(&g_clean, kFlush);
+    cudaMalloc(&g_sink, sizeof(float));
+    cudaMemset(g_clean, 0, kFlush);
+  }
   cudaEvent_t e0, e1;
   cudaEventCreate(&e0); cudaEventCreate(&e1);
   std::vector<float> t;
   for (int i = 0; i < 33; ++i) {
-    if (cold) cudaMemsetAsync(g_flush, i, kFlush);
+    if (cold) {
+      cudaMemsetAsync(g_flush, i, kFlush);
+      read_kernel<<<132 * 8, 256>>>(reinterpret_cast<const float4*>(g_clean),
+                                    kFlush / sizeof(float4), g_sink);
+    }
     spin_kernel<<<1, 1>>>(1000000);
     cudaEventRecord(e0);
     launch();

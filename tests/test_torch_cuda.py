@@ -772,3 +772,353 @@ def test_tree_and_lattice_on_card_match_cpu(cuda, name, args):
     assert gather_rows.launches > gathers
     if name == "LatticeLSTM":
         assert fused_gather_lstm_cell.launches > cells
+
+
+# -- CUDA graphs: one capture per bucket signature, then replays -------------
+
+
+def _bucket_case(name, device):
+    """(impls, graphs of one bucket signature, params, policy) for a
+    tagger, a TreeLSTM and a ChainLM decode bucket at width 64. The ChainLM
+    graphs are feed rounds of 8 entries over a slot pool of 8."""
+    import random
+
+    from repro_torch.core.batching import SufficientConditionPolicy
+    from repro_torch.models.workloads import make_workload
+    from repro_torch.serve.scheduler import (RoundPlan,
+                                             build_lm_feed_round_graph)
+
+    policy = SufficientConditionPolicy()
+    if name == "ChainLM":
+        wl = make_workload("ChainLM", 64, 0, device=device)
+        rng = np.random.default_rng(0)
+        pool = {f: torch.as_tensor(rng.standard_normal((8, 64)),
+                                   dtype=torch.float32, device=device)
+                for f in wl.state_fields}
+        graphs = []
+        for k in range(2):
+            g, _ = build_lm_feed_round_graph(RoundPlan(), count=8)
+            for n in g.nodes:
+                if n.type == "R":
+                    n.attrs["aux"] = (n.id // 4 + k) % 8      # slot
+                elif n.type == "E":
+                    n.attrs["aux"] = int(rng.integers(0, wl.vocab))
+            graphs.append(g)
+        return wl.impls, graphs, {"slots": pool}, policy
+    wl = make_workload(name, 64, 0, device=device)
+    args = (dict(lo=4, hi=8) if name == "BiLSTM-Tagger"
+            else dict(leaves_lo=4, leaves_hi=6))
+    g = wl.sample_graph(random.Random(0), 2, **args)
+    return wl.impls, [g, g], None, policy
+
+
+def _outputs(res, graph):
+    return {(n.id, f): t.clone() for n in graph.nodes
+            for f, t in res.node(n.id).items()}
+
+
+@pytest.mark.parametrize("name", ["BiLSTM-Tagger", "TreeLSTM", "ChainLM"])
+def test_replay_equals_eager_bit_for_bit(cuda, name):
+    """The captured bucket replays what the eager run computes, bit for
+    bit, on every node output (the trash rows excluded), on the run that
+    captures and on later replays; one capture per signature."""
+    from repro_torch.core.plan import BucketedPlanExecutor
+
+    impls, graphs, params, policy = _bucket_case(name, cuda)
+    ex = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda)
+    eager = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda,
+                                 capture=False)
+    for g in graphs + graphs:
+        got = _outputs(ex.run(g, policy), g)
+        want = _outputs(eager.run(g, policy), g)
+        for k, t in want.items():
+            assert torch.equal(got[k], t), k
+    assert ex.n_captures == 1 and ex.n_replays == 4
+    assert eager.n_captures == eager.n_replays == 0
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_replay_results_are_copies_unless_donated(cuda, donate):
+    """A replay overwrites the arenas the capture allocated. Undonated runs
+    return copies, as the reference's return fresh arrays: a result stays
+    as it was after later replays. With donation, as on the eager path, a
+    run overwrites the previous run's arenas."""
+    from repro_torch.core.plan import BucketedPlanExecutor
+
+    impls, graphs, params, policy = _bucket_case("ChainLM", cuda)
+    ex = BucketedPlanExecutor(impls, params, ladder=(8,), donate=donate,
+                              device=cuda)
+    first = ex.run(graphs[0], policy)
+    kept = _outputs(first, graphs[0])
+    second = ex.run(graphs[1], policy)
+    torch.cuda.synchronize()
+    assert ex.n_replays == 2
+    now = _outputs(first, graphs[0])
+    same = all(torch.equal(now[k], t) for k, t in kept.items())
+    assert same is not donate
+    shared = any(first.arenas[k].data_ptr() == second.arenas[k].data_ptr()
+                 for k in first.arenas)
+    assert shared is donate
+
+
+def test_in_place_pool_update_is_seen_by_the_next_replay(cuda):
+    """The graph reads the slot pool at its captured addresses: an
+    in-place update is read by the next replay (no new capture), and the
+    result equals an eager run over the updated pool."""
+    from repro_torch.core.plan import BucketedPlanExecutor
+
+    impls, graphs, params, policy = _bucket_case("ChainLM", cuda)
+    ex = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda)
+    eager = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda,
+                                 capture=False)
+    g = graphs[0]
+    before = _outputs(ex.run(g, policy), g)
+    for t in params["slots"].values():
+        t.mul_(-0.5).add_(0.25)
+    got = _outputs(ex.run(g, policy), g)
+    want = _outputs(eager.run(g, policy), g)
+    assert ex.n_captures == 1 and ex.n_replays == 2
+    assert all(torch.equal(got[k], t) for k, t in want.items())
+    assert not all(torch.equal(got[k], t) for k, t in before.items())
+
+
+def test_replays_add_to_the_launch_counters(cuda):
+    """Each replay adds the launches (and gather shapes) of one eager run
+    of the bucket; the capture itself adds nothing."""
+    from collections import Counter
+
+    from repro_torch.core.plan import BucketedPlanExecutor
+
+    impls, graphs, params, policy = _bucket_case("BiLSTM-Tagger", cuda)
+    g = graphs[0]
+    eager = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda,
+                                 capture=False)
+    eager.run(g, policy)                     # builds what is built once
+
+    def counts(fn):
+        before = (gather_rows.launches, fused_gather_lstm_cell.launches,
+                  Counter(gather_rows.shapes))
+        fn()
+        return (gather_rows.launches - before[0],
+                fused_gather_lstm_cell.launches - before[1],
+                gather_rows.shapes - before[2])
+
+    one = counts(lambda: eager.run(g, policy))
+    assert one[0] > 0 and one[1] > 0
+    ex = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda)
+    first = counts(lambda: ex.run(g, policy))   # warm-up + capture + replay
+    assert first[:2] == (2 * one[0], 2 * one[1])
+    three = counts(lambda: [ex.run(g, policy) for _ in range(3)])
+    assert three[:2] == (3 * one[0], 3 * one[1])
+    assert three[2] == Counter({k: 3 * n for k, n in one[2].items()})
+
+
+def test_engines_with_other_weights_do_not_alias_a_shared_bucket_cache(cuda):
+    """Two engines on the card sharing one pack cache and one bucket cache,
+    built around different weights, each give the tokens they give alone:
+    neither replays the other's graph."""
+    from repro_torch.core.cache import FIFOCache
+    from repro_torch.models.workloads import make_workload
+    from repro_torch.serve import ServeEngine, lm_request
+
+    def run(wl, **caches):
+        eng = ServeEngine({"lm": wl}, max_slots=4, device=cuda, **caches)
+        reqs = [lm_request([1, 2, 3], 4), lm_request([7, 5], 4)]
+        eng.submit_many(reqs)
+        stats = eng.run()
+        return [r.out for r in reqs], stats
+
+    a, b = (make_workload("ChainLM", 64, seed, device=cuda) for seed in (0, 1))
+    alone = [run(a)[0], run(b)[0]]
+    shared = dict(plan_cache=FIFOCache(8), bucket_cache=FIFOCache(8))
+    out_a, stats_a = run(a, **shared)
+    out_b, stats_b = run(b, **shared)
+    assert [out_a, out_b] == alone and out_a != out_b
+    assert stats_a.n_graph_captures >= 1 and stats_b.n_graph_captures >= 1
+    assert stats_b.n_graph_replays > stats_b.n_graph_captures
+
+
+def test_capture_failure_is_a_compile_failure(cuda, monkeypatch):
+    """A capture that fails raises like a failed compile: the engine books
+    the signature into quarantine and serves the round on the interpreted
+    floor (never a silent eager fallback), and every request completes
+    with the tokens of a clean run."""
+    from repro_torch.core import plan
+    from repro_torch.models.workloads import make_workload
+    from repro_torch.serve import ServeEngine, lm_request
+
+    wl = make_workload("ChainLM", 64, 0, device=cuda)
+
+    def run():
+        eng = ServeEngine({"lm": wl}, max_slots=4, device=cuda)
+        reqs = [lm_request([1, 2, 3], 4), lm_request([7, 5], 4)]
+        eng.submit_many(reqs)
+        return [r for r in reqs], eng.run()
+
+    clean, clean_stats = run()
+    assert clean_stats.n_quarantine_events == clean_stats.n_contained_errors \
+        == 0 and set(clean_stats.tier_rounds) == {"bucketed"}
+
+    def broken(self, params):
+        raise RuntimeError("capture failed")
+
+    monkeypatch.setattr(plan._Bucket, "capture", broken)
+    reqs, stats = run()
+    assert all(r.status == "COMPLETED" for r in reqs)
+    assert [r.out for r in reqs] == [r.out for r in clean]
+    assert stats.n_quarantine_events >= 1 and stats.n_contained_errors >= 1
+    assert stats.tier_rounds.get("interpreted", 0) >= 1
+    assert stats.n_graph_captures == 0
+
+
+def test_threaded_weights_replay_the_copies_they_were_captured_over(cuda):
+    """A graph captured over threaded cell weights reads the blocked and
+    packed copies built from them, and a cell keeps such copies for the
+    last buffer it saw only. The entry holds its own: runs with threaded
+    weights P, the cells' own, P again (with what the cells let go of
+    handed out again full of NaN in between), and P after an in-place
+    update each equal the eager run bit for bit."""
+    from repro_torch.core.executor import derived_copies
+    from repro_torch.core.plan import BucketedPlanExecutor
+    from repro_torch.kernels.fused_cell import packed_weights
+
+    impls, graphs, _, policy = _bucket_case("BiLSTM-Tagger", cuda)
+    g = graphs[0]
+    cells = [impl for impl in impls.values() if impl.fused_gather is not None]
+    assert cells
+    threaded = {c.name: c.params["pbuf"] * 0.5 + 0.01 for c in cells}
+    ex = BucketedPlanExecutor(impls, None, ladder=(8,), device=cuda)
+    eager = BucketedPlanExecutor(impls, None, ladder=(8,), device=cuda,
+                                 capture=False)
+
+    def check(params):
+        got = _outputs(ex.run(g, policy, params=params), g)
+        want = _outputs(eager.run(g, policy, params=params), g)
+        for k, t in want.items():
+            assert torch.equal(got[k], t), k
+        return got
+
+    with derived_copies() as found:
+        eager.run(g, policy, params=threaded)
+    sizes = {(t.shape, t.dtype) for _, _, (w, b) in found
+             for t in (w, b, packed_weights(w))}
+    del found
+    first = check(threaded)
+    own = check(None)
+    assert any(not torch.equal(first[k], t) for k, t in own.items())
+    junk = [torch.full(shape, float("nan"), dtype=dtype, device=cuda)
+            for shape, dtype in sizes for _ in range(4)]
+    again = check(threaded)
+    assert all(torch.equal(again[k], t) for k, t in first.items())
+    assert (ex.n_captures, ex.n_replays) == (2, 3)
+    for t in threaded.values():
+        t.mul_(0.5)
+    check(threaded)
+    assert (ex.n_captures, ex.n_replays) == (3, 4)   # the stale entry rebuilt
+    del junk
+
+
+def test_failure_inside_a_capture_is_a_compile_failure(cuda, monkeypatch):
+    """A body that syncs the host only while it is captured (``.item()``)
+    fails inside the capture itself. The build raises; the capture's
+    launch counts are set back (only the eager warm-up's stay); nothing is
+    cached; the current stream is the one before, the random generator
+    draws again, and the stream and the allocator serve the next runs;
+    and an engine quarantines the signature and serves every round on the
+    interpreted floor with the tokens of a clean run."""
+    from repro_torch.core.plan import BucketedPlanExecutor
+    from repro_torch.kernels import launches
+    from repro_torch.models.workloads import make_workload
+    from repro_torch.serve import ServeEngine, lm_request
+
+    impls, graphs, params, policy = _bucket_case("ChainLM", cuda)
+    g = graphs[0]
+    eager = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda,
+                                 capture=False)
+    want = _outputs(eager.run(g, policy), g)
+    before = launches.snapshot()
+    eager.run(g, policy)
+    one = launches.delta(before, launches.snapshot())
+
+    def syncing(fn):
+        def fused(params, bufs, idxs, aux):
+            if torch.cuda.is_current_stream_capturing():
+                idxs[0].sum().item()
+            return fn(params, bufs, idxs, aux)
+        return fused
+
+    for impl in impls.values():
+        if impl.fused_gather is not None:
+            monkeypatch.setattr(impl, "fused_gather",
+                                syncing(impl.fused_gather))
+    ex = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda)
+    stream = torch.cuda.current_stream(cuda)
+    before = launches.snapshot()
+    with pytest.raises(RuntimeError):
+        ex.run(g, policy)
+    assert launches.delta(before, launches.snapshot()) == one
+    assert not torch.cuda.is_current_stream_capturing()
+    assert torch.cuda.current_stream(cuda) == stream
+    torch.randn(4, device=cuda)          # the generator left capture mode
+    pack = ex.pack_for(g, policy)
+    assert ex._exes.peek(ex.executable_key(pack, params)) is None
+    assert ex.n_captures == ex.n_bucket_compiles == 0
+    got = _outputs(eager.run(g, policy), g)
+    assert all(torch.equal(got[k], t) for k, t in want.items())
+    torch.cuda.synchronize()
+
+    def run(wl):
+        eng = ServeEngine({"lm": wl}, max_slots=4, device=cuda)
+        reqs = [lm_request([1, 2, 3], 4), lm_request([7, 5], 4)]
+        eng.submit_many(reqs)
+        return reqs, eng.run()
+
+    clean, _ = run(make_workload("ChainLM", 64, 0, device=cuda))
+    wl = make_workload("ChainLM", 64, 0, device=cuda)
+    for impl in wl.impls.values():
+        if impl.fused_gather is not None:
+            impl.fused_gather = syncing(impl.fused_gather)
+    reqs, stats = run(wl)
+    assert all(r.status == "COMPLETED" for r in reqs)
+    assert [r.out for r in reqs] == [r.out for r in clean]
+    assert stats.n_quarantine_events >= 1 and stats.n_contained_errors >= 1
+    assert stats.tier_rounds.get("interpreted", 0) >= 1
+    assert stats.n_graph_captures == 0
+
+
+def _grad_cases(device):
+    def t(*shape):
+        return torch.randn(shape, device=device)
+
+    idx = torch.zeros(4, dtype=torch.int32, device=device)
+    return {
+        "gather_rows": (lambda a: gather_rows(a[0], idx), [t(8, 16)]),
+        "fused_gather_lstm_cell": (
+            lambda a: fused_gather_lstm_cell(a[0], a[1], a[2], idx, idx, idx,
+                                             a[3], a[4]),
+            [t(8, 16), t(8, 16), t(8, 16), t(32, 64), t(64)]),
+        "fused_lstm_cell": (lambda a: fused_lstm_cell(*a),
+                            [t(4, 32), t(32, 64), t(64), t(4, 16)]),
+        "flash_attention": (lambda a: flash_attention(*a),
+                            [t(1, 8, 2, 16), t(1, 8, 2, 16), t(1, 8, 2, 16)]),
+        "ssd_scan": (lambda a: ssd_scan(a[0], a[1], a[2], a[3], a[4], 8),
+                     [t(1, 16, 2, 8), t(1, 16, 2).abs(), -t(2).abs(),
+                      t(1, 16, 1, 8), t(1, 16, 1, 8)]),
+    }
+
+
+@pytest.mark.parametrize("name", ["gather_rows", "fused_gather_lstm_cell",
+                                  "fused_lstm_cell", "flash_attention",
+                                  "ssd_scan"])
+def test_cuda_routes_raise_under_grad_mode(cuda, name):
+    """The kernels have no backward: with grad mode on and an input that
+    requires grad, each CUDA route raises instead of returning a result
+    with no autograd graph; under no_grad it runs."""
+    fn, args = _grad_cases(cuda)[name]
+    args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(args)
+    with torch.no_grad():
+        fn(args)
+    fn([a.detach() for a in args])
+    torch.cuda.synchronize()

@@ -22,6 +22,9 @@ PORT = ROOT / "src" / "repro_torch"
 VERBATIM = ["core/graph.py", "core/cache.py", "core/batching.py",
             "core/encodings.py", "core/rl.py", "core/pqtree.py",
             "core/memplan.py", "models/data.py", "obs/tracer.py",
+            "obs/metrics.py", "obs/flight.py", "obs/__init__.py",
+            "serve/queue.py", "serve/traces.py", "serve/registry.py",
+            "serve/checkpoint.py", "serve/faults.py", "serve/scheduler.py",
             "arch/config.py"] + sorted(
     str(p.relative_to(ROOT / "src" / "repro"))
     for p in (ROOT / "src" / "repro" / "configs").glob("*.py"))
@@ -106,6 +109,7 @@ def _entry_points():
     from repro_torch.arch.model import TransformerLM
     from repro_torch.configs import get_config
     from repro_torch.models.workloads import make_workload
+    from repro_torch.serve import engine as serve_engine
     from repro_torch.serve.lm_wave import ServeEngine, serve_wave
 
     cfg = get_config("qwen2-0.5b").reduced(d_model=32)
@@ -126,6 +130,7 @@ def _entry_points():
         "ServeEngine": engine,
         "serve_wave": lambda: serve_wave(TransformerLM(cfg, device="cpu"), {},
                                          [[1, 2]]),
+        "serve engine": lambda: serve_engine.ServeEngine(),
     }
 
 
@@ -133,7 +138,7 @@ def _entry_points():
                                   "make_workload lattice", "DynamicExecutor",
                                   "PlanExecutor", "BucketedPlanExecutor",
                                   "TransformerLM", "ServeEngine",
-                                  "serve_wave"])
+                                  "serve_wave", "serve engine"])
 def test_entry_points_default_to_cuda(no_cuda, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()
