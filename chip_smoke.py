@@ -78,6 +78,27 @@ Phases, in order; any failure raises and exits non-zero:
    many launches as the profiler counts of those kernels. Prints a ``serve <trace> <mode>:`` line per run (tok/s, rounds,
    ms per round median and p90, captures and replays, busy share and
    device events per round) and the replayed run beside the eager one.
+7. The serve launcher (``repro_torch.launch.serve``) at its defaults
+   (24 requests, 4 a round, 12 new tokens, 16 slots, lm,tree,lattice,
+   bucketed plans with async compile: bucket graphs captured on background
+   workers, pipelined rounds) at model_size=512 with phase 6's FSMs
+   (through a policy registry under ``build/chip_smoke/``). (a) ``main()``
+   in-process: exit 0, every request completed, its summary lines printed,
+   the gather and gather-cell counters rising during it. (b) The engine as
+   the launcher builds it, async, with ``--no-async-compile`` and on the
+   CPU: a first, a steady and a profiled pass each on the card, and a
+   first pass of a fresh async engine under the profiler. Tokens as in
+   phase 6, tree and lattice outputs within 1e-4 of the CPU and 1e-6
+   between the card engines; every steady round bucketed and replayed with
+   no quarantine; the counters equal the profiler's kernel counts in every
+   profiled pass. Prints first-pass wall, time to first token, loop and
+   background lowering, jobs, hot-swaps and tiers, and steady ms per round,
+   busy share and device events per round, async beside sync. (c)
+   ``--checkpoint-dir C --inject-faults crash=8`` exits 1, ``--restore C``
+   exits 0 with the uninterrupted run's tokens and outputs (within 1e-6,
+   bit-equality printed) and the slot pool at the addresses it was made
+   at. (d) A fresh engine prewarms the async engine's warm set: its first
+   lm round runs bucketed; prints time to first token, cold and warm.
 
 Phases 2 and 4 hold the kernels other than the gather to 1e-4 of the
 largest magnitude of their plain versions' outputs. The line before the
@@ -1278,19 +1299,16 @@ def serve_agrees(label: str, got: list, want: list, cpu_wl) -> dict:
     return {"near_tie_flips": flips, "max_abs_err_vs_cpu": worst}
 
 
-def serve_phase(torch, drive, card: str) -> dict:
+def serve_phase(torch, drive, card: str, policies: dict) -> dict:
     """Both traces through the card's three engines and the CPU's default
-    engine (section 5 of the module docstring); returns the launches of
-    the row gather and the gather cell during the replayed engine's
-    steady pass of each trace."""
+    engine (section 6 of the module docstring) with ``policies``; returns
+    the launches of the row gather and the gather cell during the replayed
+    engine's steady pass of each trace."""
     from repro_torch.core.cache import FIFOCache, LRUCache
     from repro_torch.obs.metrics import percentile
 
-    t0 = time.perf_counter()
     wls = serve_workloads("cuda")
     cpu_wls = serve_workloads("cpu")
-    policies = serve_policies(wls)
-    log(f"serve policies learned: {time.perf_counter() - t0:.1f} s")
     launches = {}
     for trace in SERVE_TRACES:
         t_trace = time.perf_counter()
@@ -1398,13 +1416,324 @@ def serve_phase(torch, drive, card: str) -> dict:
     return launches
 
 
+# -- phase 7 --------------------------------------------------------------
+
+
+# The launcher at its defaults (24 requests, 4 a round, 12 new tokens, 16
+# slots, lm,tree,lattice, bucketed plans, async compile, pipelined rounds)
+# at phase 6's width, with phase 6's FSMs through a policy registry.
+LAUNCHER_DIR = ROOT / "build" / "chip_smoke"
+
+
+def launcher_args(*extra: str) -> list[str]:
+    return ["--model-size", str(MODEL_SIZE), "--seed", str(SEED),
+            "--registry", str(LAUNCHER_DIR / "registry"), *extra]
+
+
+def first_token_s(reqs, t0: float) -> float:
+    """Seconds from ``t0`` to the first lm token of ``reqs``."""
+    return min(r.t_first for r in reqs if r.family == "lm" and r.out) - t0
+
+
+def launcher_passes(torch, launcher, argv: list[str], names=("first",),
+                    wls=None) -> dict:
+    """Build the engine as the launcher does for ``argv`` and run its trace
+    once for each of ``names``, each pass's arrivals after the previous
+    pass's end: "first" (cold caches: lowering, builds, captures), "steady"
+    (every cache warm), "profiled" (steady, under the profiler, with the
+    launch counts' deltas) and "profiled_first" (a first pass under the
+    profiler). Per pass: the requests, deltas of the engine's stats, its
+    rounds' seconds and the time to the first lm token."""
+    from repro_torch.kernels import launches as launch_counts
+    from repro_torch.obs.metrics import default_registry
+    from repro_torch.serve import PolicyRegistry
+
+    args = launcher.parse_args(argv)
+    wls = wls if wls is not None else launcher.make_workloads(args)
+    eng = launcher.make_engine(args, wls, PolicyRegistry(args.registry))
+    rounds_s = default_registry().histogram("serve.round_s")
+    fields = ("tokens_out", "n_rounds", "wall_s", "lower_s", "lower_bg_s",
+              "compile_jobs_submitted", "compile_jobs_landed", "n_hotswaps",
+              "n_graph_captures", "n_graph_replays", "n_contained_errors",
+              "n_quarantine_events")
+    out = {"engine": eng, "workloads": wls}
+    for name in names:
+        reqs = launcher.make_trace(args, wls)
+        for r in reqs:
+            r.arrival += eng._now
+        before = {f: getattr(eng.stats, f) for f in fields}
+        tiers = dict(eng.stats.tier_rounds)
+        n_rounds = rounds_s.count
+        eng.submit_many(reqs)
+        run = {"reqs": reqs}
+        t0 = time.perf_counter()
+        if name.startswith("profiled"):
+            counted = launch_counts.snapshot()
+            run["profile"] = profile_run(torch, eng.run)
+            run["counted"] = launch_counts.delta(counted,
+                                                 launch_counts.snapshot())
+        else:
+            eng.run()
+        if args.device == "cuda":
+            torch.cuda.synchronize()
+        bad = [r.status for r in reqs if r.status != "COMPLETED"]
+        if bad:
+            fail(f"launcher {argv} {name} pass: {len(bad)} requests ended "
+                 f"{set(bad)}")
+        run.update({f: getattr(eng.stats, f) - before[f] for f in fields})
+        run["tier_rounds"] = {t: k - tiers.get(t, 0)
+                              for t, k in eng.stats.tier_rounds.items()
+                              if k > tiers.get(t, 0)}
+        run["round_s"] = rounds_s.samples[n_rounds:]
+        run["ttft_s"] = first_token_s(reqs, t0)
+        out[name] = run
+    eng.close()
+    return out
+
+
+def outputs_agree(label: str, got: list, want: list, cpu_wl,
+                  tol: float) -> dict:
+    """Tokens as :func:`serve_agrees` holds them; tree and lattice outputs
+    within ``tol``. Returns the largest difference, whether all are
+    bit-equal, and the near-tie flips."""
+    worst, exact = 0.0, True
+    for a, b in zip(got, want):
+        if a.family == "lm":
+            continue
+        err = float(abs(a.result - b.result).max())
+        worst = max(worst, err)
+        exact = exact and bool((a.result == b.result).all())
+        if a.result.shape != b.result.shape or not err <= tol:
+            fail(f"launcher {label}: {a.family} request {a.rid} differs "
+                 f"by {err} (tolerance {tol})")
+    lm_only = [r for r in got if r.family == "lm"]
+    flips = serve_agrees(label, lm_only, [r for r in want
+                                          if r.family == "lm"],
+                         cpu_wl)["near_tie_flips"]
+    return {"max_abs_err": worst, "bit_equal": exact, "near_tie_flips": flips}
+
+
+def own_counts_seen(label: str, run: dict) -> dict:
+    """Fail unless the gather and gather-cell counters moved by as many
+    launches as the profiler saw of those kernels in ``run``."""
+    seen = {}
+    for kernel in ("gather_rows", "fused_gather_lstm_cell"):
+        seen[kernel] = run["profile"]["own_kernels"].get(kernel, {}).get(
+            "launches", 0)
+        if run["counted"][kernel] != seen[kernel]:
+            fail(f"launcher {label}: {kernel} counted "
+                 f"{run['counted'][kernel]} launches, the profiler saw "
+                 f"{seen[kernel]}")
+    return seen
+
+
+def launcher_phase(torch, drive, card: str, policies: dict) -> dict:
+    """The serve launcher (section 7 of the module docstring); returns the
+    launches of the row gather and the gather cell during its run (a)."""
+    import shutil
+
+    from repro_torch.launch import serve as launcher
+    from repro_torch.obs.metrics import percentile
+    from repro_torch.serve import PolicyRegistry
+    from repro_torch.serve.checkpoint import (decode_array, latest_checkpoint,
+                                              read_checkpoint)
+
+    shutil.rmtree(LAUNCHER_DIR, ignore_errors=True)
+    registry = PolicyRegistry(str(LAUNCHER_DIR / "registry"))
+    for fam, policy in policies.items():
+        registry.save(fam, policy)
+
+    # (a) the launcher as a user starts it
+    stats_path = LAUNCHER_DIR / "stats.json"
+    t0 = time.perf_counter()
+    code, counts = drive(lambda: launcher.main(
+        launcher_args("--out", str(stats_path))))
+    stats = json.loads(stats_path.read_text())
+    if code != 0 or stats["requests_done"] != 24 or any(
+            stats[k] for k in ("requests_failed", "requests_timed_out",
+                               "requests_rejected")):
+        fail(f"launcher (a): exit {code}, {json.dumps(stats)}")
+    for kernel in ("gather_rows", "fused_gather_lstm_cell"):
+        if counts[kernel] <= 0:
+            fail(f"{kernel} was not launched during the launcher's run")
+    log(f"launcher (a): exit 0, 24 requests completed, "
+        f"{time.perf_counter() - t0:.1f} s; launches {counts} ({card})")
+
+    # (b) the engine as the launcher builds it: async, sync, and the CPU
+    runs = {
+        "async": launcher_passes(torch, launcher, launcher_args(),
+                                 ("first", "steady", "profiled")),
+        "sync": launcher_passes(torch, launcher,
+                                launcher_args("--no-async-compile"),
+                                ("first", "steady", "profiled")),
+        "async_cold_profiled": launcher_passes(
+            torch, launcher, launcher_args(), ("profiled_first",)),
+        "cpu": launcher_passes(torch, launcher,
+                               launcher_args("--device", "cpu")),
+    }
+    cpu_wl = runs["cpu"]["workloads"]["lm"]
+    want = runs["cpu"]["first"]["reqs"]
+    agree = {}
+    for mode in ("async", "sync"):
+        for name in ("first", "steady", "profiled"):
+            agree[mode, name] = outputs_agree(
+                f"(b) {mode} {name} pass against the CPU",
+                runs[mode][name]["reqs"], want, cpu_wl, 1e-4)
+        agree[mode, "vs"] = outputs_agree(
+            f"(b) {mode} first pass against the other card engine",
+            runs[mode]["first"]["reqs"],
+            runs["sync" if mode == "async" else "async"]["first"]["reqs"],
+            cpu_wl, 1e-6)
+    seen = {mode: own_counts_seen(f"(b) {mode} {name} pass",
+                                  runs[mode][name])
+            for mode, name in (("async", "profiled"), ("sync", "profiled"),
+                               ("async_cold_profiled", "profiled_first"))}
+    lines = {}
+    for mode in ("async", "sync"):
+        first, steady = runs[mode]["first"], runs[mode]["steady"]
+        prof = runs[mode]["profiled"]
+        if (steady["n_contained_errors"] or steady["n_quarantine_events"]
+                or set(steady["tier_rounds"]) != {"bucketed"}
+                or steady["n_graph_captures"] or not steady["n_graph_replays"]):
+            fail(f"launcher (b) {mode} steady pass: tiers "
+                 f"{steady['tier_rounds']}, contained "
+                 f"{steady['n_contained_errors']}, quarantined "
+                 f"{steady['n_quarantine_events']}, captures "
+                 f"{steady['n_graph_captures']}, replays "
+                 f"{steady['n_graph_replays']}")
+        lines[mode] = {
+            "first_pass_ms": first["wall_s"] * 1e3,
+            "first_pass_ttft_ms": first["ttft_s"] * 1e3,
+            "first_pass_lower_s": first["lower_s"],
+            "first_pass_lower_bg_s": first["lower_bg_s"],
+            "jobs_submitted": first["compile_jobs_submitted"],
+            "jobs_landed": first["compile_jobs_landed"],
+            "hotswaps": first["n_hotswaps"],
+            "first_pass_tier_rounds": first["tier_rounds"],
+            "first_pass_captures": first["n_graph_captures"],
+            "rounds": steady["n_rounds"],
+            "ms_per_round_median": percentile(steady["round_s"], 50) * 1e3,
+            "ms_per_round_p90": percentile(steady["round_s"], 90) * 1e3,
+            "steady_tok_per_s": steady["tokens_out"] / max(steady["wall_s"],
+                                                           1e-9),
+            "busy_share": prof["profile"]["busy_share"],
+            "device_events_per_round": (prof["profile"]["device_events"]
+                                        / prof["n_rounds"]),
+            "device_ms_per_round": (prof["profile"]["device_ms"]
+                                    / prof["n_rounds"]),
+            "profiled_launches_seen": seen[mode],
+            "agree": {k[1]: v for k, v in agree.items() if k[0] == mode}}
+        log(f"launcher (b) {mode} detail: {json.dumps(lines[mode])}")
+    a, s = lines["async"], lines["sync"]
+    cold = runs["async_cold_profiled"]["profiled_first"]
+    log(f"launcher (b) first pass, async / sync: "
+        f"{a['first_pass_ms']:.1f} / {s['first_pass_ms']:.1f} ms, time to "
+        f"first token {a['first_pass_ttft_ms']:.1f} / "
+        f"{s['first_pass_ttft_ms']:.1f} ms, lower_s on the loop "
+        f"{a['first_pass_lower_s']:.3f} / {s['first_pass_lower_s']:.3f}, "
+        f"lower_bg_s {a['first_pass_lower_bg_s']:.3f} / "
+        f"{s['first_pass_lower_bg_s']:.3f}, jobs submitted "
+        f"{a['jobs_submitted']} landed {a['jobs_landed']}, hot-swaps "
+        f"{a['hotswaps']}, tier rounds {a['first_pass_tier_rounds']} / "
+        f"{s['first_pass_tier_rounds']} ({card})")
+    log(f"launcher (b) steady pass, async / sync: ms per round median "
+        f"{a['ms_per_round_median']:.3f} / {s['ms_per_round_median']:.3f}, "
+        f"p90 {a['ms_per_round_p90']:.3f} / {s['ms_per_round_p90']:.3f}, "
+        f"busy share {a['busy_share']:.3f} / {s['busy_share']:.3f}, device "
+        f"events per round {a['device_events_per_round']:.1f} / "
+        f"{s['device_events_per_round']:.1f}; every round bucketed and "
+        f"replayed, no quarantine ({card})")
+    log(f"launcher (b) outputs: async vs sync max abs err "
+        f"{a['agree']['vs']['max_abs_err']:.3e} (bit-equal "
+        f"{a['agree']['vs']['bit_equal']}), vs the CPU "
+        f"{max(v['max_abs_err'] for k, v in a['agree'].items() if k != 'vs'):.3e}"
+        f" / {max(v['max_abs_err'] for k, v in s['agree'].items() if k != 'vs'):.3e}"
+        f"; near-tie flips "
+        f"{[f for v in agree.values() for f in v['near_tie_flips']]}; "
+        f"cold async pass under the profiler: counted = seen "
+        f"{seen['async_cold_profiled']}, tiers {cold['tier_rounds']}, "
+        f"busy share {cold['profile']['busy_share']:.3f}")
+
+    # (c) crash at round 8 with a checkpoint, then --restore
+    ckpt = LAUNCHER_DIR / "ckpt"
+    code, _ = launcher.serve(launcher.parse_args(launcher_args(
+        "--checkpoint-dir", str(ckpt), "--inject-faults", "crash=8")))
+    if code != 1:
+        fail(f"launcher (c): the injected crash exited {code}, not 1")
+    path = latest_checkpoint(str(ckpt))
+    saved = read_checkpoint(path)["pool"]
+    args = launcher.parse_args(launcher_args("--restore", str(ckpt)))
+    wls = launcher.make_workloads(args)
+    made = {}
+    init_slots = wls["lm"].init_slots
+
+    def recording(n):
+        pool = init_slots(n)
+        made.update({f: t.data_ptr() for f, t in pool.items()})
+        return pool
+
+    wls["lm"].init_slots = recording
+    code, restored = launcher.serve(args, wls)
+    if code != 0:
+        fail(f"launcher (c): --restore exited {code}")
+    pool = restored._pool
+    ptrs = {f: t.data_ptr() for f, t in pool.items()}
+    if ptrs != made:
+        fail(f"launcher (c): the restored pool moved ({made} -> {ptrs})")
+    clean = runs["async"]["first"]["reqs"]
+    led = [restored.requests[rid] for rid in sorted(restored.requests)]
+    if [r.status for r in led] != ["COMPLETED"] * len(clean):
+        fail(f"launcher (c): restored statuses {[r.status for r in led]}")
+    for a_req, b_req in zip(led, clean):
+        if a_req.family == "lm" and a_req.out != b_req.out:
+            fail(f"launcher (c): lm request {a_req.rid} tokens "
+                 f"{a_req.out} != {b_req.out}")
+    res = outputs_agree("(c) restored against the uninterrupted run", led,
+                        clean, cpu_wl, 1e-6)
+    log(f"launcher (c): crash exit 1 at round 8 ({Path(path).name}), "
+        f"--restore exit 0 from round {read_checkpoint(path)['clock']['round']}"
+        f", {restored.stats.n_restores} restore; tokens equal the "
+        f"uninterrupted run's, outputs max abs err {res['max_abs_err']:.3e} "
+        f"(bit-equal {res['bit_equal']}); the pool kept its addresses "
+        f"({len(ptrs)} fields, {len(saved)} in the checkpoint)")
+
+    # (d) warm start: a second engine prewarms the first's warm set
+    ws = runs["async"]["engine"].warmset()
+    args = launcher.parse_args(launcher_args())
+    wls = launcher.make_workloads(args)
+    eng = launcher.make_engine(args, wls, PolicyRegistry(args.registry))
+    t0 = time.perf_counter()
+    n_jobs = eng.prewarm(ws)
+    eng._compiler.drain()
+    prewarm_s = time.perf_counter() - t0
+    reqs = launcher.make_trace(args, wls)
+    eng.submit_many(reqs)
+    t0 = time.perf_counter()
+    eng.step()        # round 0 admits the trace's first request, an lm one
+    # a pipelined round is an lm round served at tier bucketed
+    first_lm_bucketed = (reqs[0].family == "lm" and reqs[0].admit_round == 0
+                         and eng.stats.n_pipelined_rounds == 1)
+    eng.run()
+    eng.close()
+    warm_ttft = first_token_s(reqs, t0)
+    if not first_lm_bucketed or eng.stats.n_hotswaps:
+        fail(f"launcher (d): the warm engine's first lm round ran below "
+             f"tier bucketed ({eng.stats.tier_rounds}, hot-swaps "
+             f"{eng.stats.n_hotswaps})")
+    log(f"launcher (d): warm set {ws}, {n_jobs} job(s) prewarmed in "
+        f"{prewarm_s:.2f} s; the first lm round ran bucketed; time to first "
+        f"token cold {a['first_pass_ttft_ms']:.1f} ms, warm "
+        f"{warm_ttft * 1e3:.1f} ms ({card})")
+    return counts
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="phases to run after phase 1 (comma-separated); "
-                         "the result lines are printed only for all six")
+                         "the result lines are printed only for all seven")
     ap.add_argument("--workloads", default=",".join(TREES_LATTICES),
                     help="phase 5's workloads (comma-separated)")
     args = ap.parse_args(argv)
@@ -1517,17 +1846,28 @@ def main(argv: list[str] | None = None) -> int:
             f"{tl['batch_lower_bound']}), ms per run {tl['ms_per_run']}, "
             f"lowering s {tl['lower_s']}, bucketed busy share {busy:.3f}, "
             f"launches {counts}, {time.perf_counter() - t0:.1f} s ({card})")
+    if phases & {6, 7}:
+        t0 = time.perf_counter()
+        policies = serve_policies(serve_workloads("cpu"))
+        log(f"serve policies learned: {time.perf_counter() - t0:.1f} s")
     if 6 in phases:
         t0 = time.perf_counter()
-        serve_launches = serve_phase(torch, drive, card)
+        serve_launches = serve_phase(torch, drive, card, policies)
         log(f"serve launches of the row gather and the gather cell (replayed "
             f"steady passes): "
             + "; ".join(f"{trace} {c['gather_rows']}, "
                         f"{c['fused_gather_lstm_cell']}"
                         for trace, c in serve_launches.items())
             + f"; serve done: {time.perf_counter() - t0:.1f} s")
+    if 7 in phases:
+        t0 = time.perf_counter()
+        launcher_launches = launcher_phase(torch, drive, card, policies)
+        log(f"launcher launches of the row gather and the gather cell (run "
+            f"(a)): {launcher_launches['gather_rows']}, "
+            f"{launcher_launches['fused_gather_lstm_cell']}; launcher done: "
+            f"{time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
-    if phases != {1, 2, 3, 4, 5, 6} or set(workloads) != set(TREES_LATTICES):
+    if phases != set(range(1, 8)) or set(workloads) != set(TREES_LATTICES):
         log(f"partial run (phases {sorted(phases)}, workloads {workloads}): "
             f"no result lines")
         return 0

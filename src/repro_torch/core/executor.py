@@ -15,6 +15,7 @@ execution (batched op launches).
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -28,7 +29,7 @@ from repro_torch.obs.tracer import Tracer, default_tracer
 
 from .batching import Policy, Schedule, policy_cache_key, resolve_schedule
 from .cache import FIFOCache
-from .device import block, resolve_device
+from .device import Published, block, capturing, resolve_device
 from .graph import Graph, TypeId
 
 
@@ -219,23 +220,33 @@ def cell_impl(name: str, compiled_cell, in_slots: list[tuple[int, str]],
                     params=own)
 
 
-_derived: list | None = None
+_derived = threading.local()
 
 
 @contextlib.contextmanager
 def derived_copies():
     """Collect the weight copies that the fused LSTM path derives from its
-    parameter buffers while the block runs. Yields a list that gains one
-    ``(buffer, version, (w, b))`` for each use: the blocked ``w`` and ``b``
-    built from ``buffer`` at that version (the cell kernel's packed copy
-    hangs off ``w``). Each cell keeps one such copy, for the last buffer it
-    saw, so a captured CUDA graph that reads one must hold it itself."""
-    global _derived
-    outer, _derived = _derived, []
+    parameter buffers while the block runs on the calling thread. Yields a
+    list that gains one ``(buffer, version, (w, b))`` for each use: the
+    blocked ``w`` and ``b`` built from ``buffer`` at that version (the cell
+    kernel's packed copy hangs off ``w``). Each cell keeps one such copy,
+    for the last buffer it saw, so a captured CUDA graph that reads one
+    must hold it itself. Another thread's uses are its own."""
+    outer = getattr(_derived, "found", None)
+    _derived.found = []
     try:
-        yield _derived
+        yield _derived.found
     finally:
-        _derived = outer
+        _derived.found = outer
+
+
+def _note(buf, version: int, w, b):
+    """Report a use of ``(w, b)`` to the calling thread's
+    :func:`derived_copies`, if one is open; returns them."""
+    found = getattr(_derived, "found", None)
+    if found is not None:
+        found.append((buf, version, (w, b)))
+    return w, b
 
 
 def _lstm_fused_gather(name: str, compiled_cell, input_names, own: dict):
@@ -247,7 +258,11 @@ def _lstm_fused_gather(name: str, compiled_cell, input_names, own: dict):
     that matrix on every step (8 MB at width 512), so the blocked ``w`` and
     ``b`` are built once per parameter buffer and cached; the cache holds
     the buffer itself and its version counter, so threaded params and
-    in-place weight updates both rebuild it.
+    in-place weight updates both rebuild it. The copy is queued on the
+    current stream and published with it: a reader on another stream (the
+    serve loop, while a capture worker built it) waits for the write
+    (:class:`~repro_torch.core.device.Published`). A copy built while the
+    stream captures a CUDA graph belongs to that graph and is not cached.
     """
     prog = compiled_cell.prog
     if prog.name != "LSTMCell" or input_names != ["x", "h", "c"]:
@@ -256,18 +271,19 @@ def _lstm_fused_gather(name: str, compiled_cell, input_names, own: dict):
     H = prog.vars["h"].shape[0]
     w_off = {g: compiled_cell.offsets[f"W{g}"] for g in "ifgo"}
     b_off = {g: compiled_cell.offsets[f"b{g}"] for g in "ifgo"}
-    cache: dict = {}
+    cache: list = [None]   # (buffer, version, Published(w, b))
 
     def blocked(buf):
-        if cache.get("buf") is not buf or cache.get("version") != buf._version:
+        hit = cache[0]
+        if hit is None or hit[0] is not buf or hit[1] != buf._version:
             w = torch.cat(
                 [buf[w_off[g]:w_off[g] + (E + H) * H].reshape(E + H, H)
                  for g in "ifgo"], dim=1)
             b = torch.cat([buf[b_off[g]:b_off[g] + H] for g in "ifgo"])
-            cache.update(buf=buf, version=buf._version, w=w, b=b)
-        if _derived is not None:
-            _derived.append((buf, cache["version"], (cache["w"], cache["b"])))
-        return cache["w"], cache["b"]
+            if capturing(buf):   # the graph's own, written at each replay
+                return _note(buf, buf._version, w, b)
+            hit = cache[0] = (buf, buf._version, Published(w, b))
+        return _note(buf, hit[1], *hit[2].get())
 
     def fused_gather(params, bufs, idxs, aux):
         w, b = blocked(_param(params, name, own, "pbuf"))

@@ -45,7 +45,9 @@ reference path.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import threading
 import time
 import warnings
 from dataclasses import dataclass
@@ -942,6 +944,7 @@ class _Bucket:
         self.pinned: list[torch.Tensor] = []
         self.sources: list[tuple[torch.Tensor, int]] = []
         self.loaded: BucketedPack | None = None
+        self.streams: set[int] = set()   # streams it was replayed on
         spec = prog.spec
         self.idx = torch.zeros(spec.n_index_lanes, dtype=torch.int32,
                                device=device)
@@ -969,23 +972,26 @@ class _Bucket:
         runs the body once eagerly on a side stream, so that what is built
         once (the blocked and packed cell weights, the kernels' attributes)
         is built there and not captured into every replay; the entry pins
-        those copies and records what they were derived from. The wrappers'
-        launch counts move during the capture, though nothing ran: they are
-        set back and kept as the counts each replay adds."""
+        those copies and records what they were derived from. Only the
+        calling thread is held to the capture's rules (another thread may
+        replay, copy to the host or allocate meanwhile), and its launch
+        counts during the capture, though nothing ran, go to a tally of
+        their own: the counts each replay adds. The caller holds the
+        build lock (:func:`_build_lock`); the side stream has finished all
+        of this when the method returns."""
         dev = self.idx.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with derived_copies() as found:
             with torch.cuda.stream(side):
                 self.prog.body(params, self.idx, self.idx_long, self.aux, {})
-            torch.cuda.synchronize(dev)
-            before = launches.snapshot()
+            side.synchronize()
             graph = torch.cuda.CUDAGraph()
             try:
                 # Not ``torch.cuda.graph``: when the capture is invalidated
                 # its exit raises before it restores the current stream.
-                with torch.cuda.stream(side):
-                    graph.capture_begin()
+                with launches.captured() as counts, torch.cuda.stream(side):
+                    graph.capture_begin(capture_error_mode="thread_local")
                     try:
                         out = self.prog.body(params, self.idx, self.idx_long,
                                              self.aux, {})
@@ -994,30 +1000,58 @@ class _Bucket:
             except BaseException:
                 _release_generator(dev)
                 raise
-            finally:
-                after = launches.snapshot()
-                launches.restore(before)
         # one entry a buffer: every step of both passes reports its copies
         for src, version, copies in {id(f[0]): f for f in found}.values():
             self.pinned.extend(copies)
             self.sources.append((src, version))
-        self.counts = launches.delta(before, after)
+        self.counts = counts
         self.graph, self.out = graph, out
 
     def run(self, pack: BucketedPack, aux: np.ndarray, params: Any,
             donate: bool) -> dict[ArenaKey, torch.Tensor]:
         """One run of the bucket on ``pack``'s operands, queued on the
         current stream: refill the static buffers, then replay the graph
-        where one was captured, else run the body eagerly over them."""
+        where one was captured, else run the body eagerly over them. The
+        first replay on a stream marks what the graph reads as used there,
+        so that memory freed with the entry (on another thread, say) is
+        not handed out while a replay may still read it."""
         self.load(pack, aux)
         if self.graph is None:
             return self.prog.body(params, self.idx, self.idx_long, self.aux,
                                   self.pool if donate else {})
+        stream = torch.cuda.current_stream(self.idx.device)
+        if stream.cuda_stream not in self.streams:
+            for t in self.pinned + [self.idx, self.idx_long, self.aux]:
+                t.record_stream(stream)
+            self.streams.add(stream.cuda_stream)
         self.graph.replay()
         launches.add(self.counts)
         if donate:
             return dict(self.out)
         return {k: v.clone() for k, v in self.out.items()}
+
+
+# One build at a time in the process: two capture workers never capture at
+# once, and a worker that finds the entry built by another while it waited
+# takes that one. Lowering and packing run outside it, in parallel.
+_BUILD_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _build_lock(abort_check: Callable[[], bool] | None = None):
+    """Hold the process-wide build lock; a job abandoned while it waits (or
+    once it has the lock) raises before it builds, so nothing is cached."""
+    while not _BUILD_LOCK.acquire(timeout=0.05):
+        if abort_check is not None and abort_check():
+            raise RuntimeError("build aborted (job abandoned while waiting "
+                               "for the build lock)")
+    try:
+        if abort_check is not None and abort_check():
+            raise RuntimeError("build aborted (job abandoned before the "
+                               "build)")
+        yield
+    finally:
+        _BUILD_LOCK.release()
 
 
 class BucketedPlanExecutor:
@@ -1191,7 +1225,12 @@ class BucketedPlanExecutor:
                               bucket=_sig_digest(pack.spec),
                               steps=len(pack.spec.steps),
                               shards=pack.spec.n_shards, capture=capture,
-                              **(span_args or {})) as sp:
+                              **(span_args or {})) as sp, \
+                _build_lock(abort_check):
+            # another worker may have built it while this one waited
+            entry = self._exes.peek(key)
+            if entry is not None and entry.current():
+                return key, entry, 0.0
             t0 = time.perf_counter()
             prog = _BucketProgram(pack.spec, self.impls, fused=self.fused)
             # The pool starts empty: an eager run allocates the arenas at
@@ -1207,10 +1246,10 @@ class BucketedPlanExecutor:
             self._exes[key] = entry
             dt = time.perf_counter() - t0
             sp.set(lower_s=dt)
-        self.n_bucket_compiles += 1
-        self.compile_time_s += dt
-        pack.stats.n_compiles += 1
-        pack.stats.compile_time_s += dt
+            self.n_bucket_compiles += 1
+            self.compile_time_s += dt
+            pack.stats.n_compiles += 1
+            pack.stats.compile_time_s += dt
         return key, entry, dt
 
     def run(self, graph: Graph, policy: Policy | Callable[[Graph], Schedule],

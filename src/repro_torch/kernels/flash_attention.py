@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build, guard, ref
+from . import build, counting, guard, ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
 
@@ -68,7 +68,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Skv, H, KV, D, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], int(causal), window, stream), "flash_attention")
-    flash_attention.launches += 1
+    counting.count(flash_attention)
     return out
 
 

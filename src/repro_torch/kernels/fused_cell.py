@@ -14,7 +14,9 @@ from __future__ import annotations
 
 import torch
 
-from . import build, guard, ref
+from repro_torch.core.device import Published, capturing
+
+from . import build, counting, guard, ref
 
 BN = 8            # hidden units per cluster (csrc/lstm_cell_tile.cuh)
 KC = 32           # k rows per chunk
@@ -59,13 +61,20 @@ def packed_weights(w: torch.Tensor) -> torch.Tensor:
     tensor. The executors pass the same blocked ``w`` every step
     (``core/executor.py:_lstm_fused_gather``), so a model packs each cell's
     weights once; a caller that passes a fresh view of its weights every
-    call repacks them every call."""
+    call repacks them every call.
+
+    The packing is queued on the current stream, and a caller on another
+    stream (another thread's) waits for it before it reads it
+    (:class:`~repro_torch.core.device.Published`). One built while the
+    stream captures a CUDA graph belongs to that graph and is not kept."""
     key = (w._version, w.data_ptr())
     cached = getattr(w, "_cell_packed", None)
     if cached is None or cached[0] != key:
-        cached = (key, pack_weights(w))
+        if capturing(w):
+            return pack_weights(w)
+        cached = (key, Published(pack_weights(w)))
         w._cell_packed = cached
-    return cached[1]
+    return cached[1].get()[0]
 
 
 def cell_geometry(B: int, K: int, H: int) -> dict:
@@ -139,7 +148,7 @@ def fused_lstm_cell(xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         h_out.data_ptr(), c_out.data_ptr(), B, K, H, geo["nt"],
         geo["cluster"], geo["chunks_per_rank"], *geo["grid"], stream),
         "fused_lstm_cell")
-    fused_lstm_cell.launches += 1
+    counting.count(fused_lstm_cell)
     return h_out, c_out
 
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build, guard, ref
+from . import build, counting, guard, ref
 from .fused_cell import cell_geometry, packed_weights
 
 
@@ -71,7 +71,7 @@ def fused_gather_lstm_cell(x_src, h_src, c_src, ix, ih, ic, w, b):
         h_out.data_ptr(), c_out.data_ptr(), B, E, H, nx, nh, nc, geo["nt"],
         geo["cluster"], geo["chunks_per_rank"], *geo["grid"], stream),
         "fused_gather_lstm_cell")
-    fused_gather_lstm_cell.launches += 1
+    counting.count(fused_gather_lstm_cell)
     return h_out, c_out
 
 

@@ -16,7 +16,7 @@ from collections import Counter
 
 import torch
 
-from . import build, guard, ref
+from . import build, counting, guard, ref
 
 
 THREADS = 256          # at most, per block (csrc/gather_rows.cu)
@@ -93,8 +93,7 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         idx.shape[0], row_bytes, unit, geo["tc"], geo["r"], geo["v"],
         geo["row_tiles"], geo["unit_tiles"], *geo["grid"], stream)
     build.check(status, "gather_rows")
-    gather_rows.launches += 1
-    gather_rows.shapes[(idx.shape[0], row_bytes)] += 1
+    counting.count(gather_rows, (idx.shape[0], row_bytes))
     return out
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build, guard, ref
+from . import build, counting, guard, ref
 
 MAX_CHUNK = 128
 MAX_STATE = 128
@@ -88,7 +88,7 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
             chunk, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
             B.stride(0), B.stride(1), C.stride(0), C.stride(1), stream),
             "ssd_scan")
-    ssd_scan.launches += 1
+    counting.count(ssd_scan)
     return y, final
 
 

@@ -10,10 +10,13 @@
 - ``traces``     — synthetic request traces
 - ``faults``     — error codes, validation, quarantine, fault injection
 - ``checkpoint`` — versioned, fingerprinted session snapshots (atomic IO)
+- ``resilience`` — snapshot and restore of a single-shard engine
+- ``compiler``   — supervised background build service (async compile:
+                   bucket graphs captured on worker threads)
 - ``lm_wave``    — wave-by-wave TransformerLM engine (baseline)
 
-The reference's ``resilience`` and ``compiler`` modules (snapshot and
-restore, elastic mesh, work stealing, async compile) are not ported yet.
+The reference's elastic mesh and work stealing come with the sharding
+slice and raise ``NotImplementedError`` here.
 """
 
 from .checkpoint import (CheckpointError, latest_checkpoint, list_checkpoints,

@@ -40,14 +40,24 @@ enforced at round boundaries; a bounded admission queue sheds load with an
 explicit ``REJECTED`` status; and exceeding ``max_rounds`` drains
 gracefully. Every request ends in exactly one terminal state.
 
+With ``async_compile`` a bucket signature's build (its host pack, the eager
+warm-up and the CUDA-graph capture) runs on a background worker of the
+compile service (``serve/compiler.py``); the serve loop only probes the
+caches, serves a round whose graph has not landed on a coarser bucket or
+the interpreted floor, and hot-swaps at a later round boundary. Sessions
+are checkpointed and restored through ``serve/resilience.py``; a restore
+copies the slot pool into the engine's own, which its graphs read in
+place. ``warmset()`` records the lm signatures served, which ``prewarm()``
+builds again in the background.
+
 Not ported yet, and raising ``NotImplementedError`` where asked for: more
-than one shard and the data mesh (the sharded executor), the async compile
-service (background capture), checkpoints, restore, shard loss and regrowth
-and work stealing (``serve/resilience.py``), and warm sets.
+than one shard and the data mesh (the sharded executor), shard loss and
+regrowth and work stealing.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -55,7 +65,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.batching import SufficientConditionPolicy
+from repro_torch.core.batching import (SufficientConditionPolicy,
+                                       policy_cache_key)
 from repro_torch.core.cache import FIFOCache, LRUCache
 from repro_torch.core.device import resolve_device
 from repro_torch.core.executor import DynamicExecutor, ExecStats
@@ -82,10 +93,8 @@ def _not_ported(what: str, where: str) -> NotImplementedError:
         f"of the port")
 
 
-SHARDING = "the sharded executor (ShardedBucketedPlanExecutor)"
-ASYNC_COMPILE = "serve/compiler.py (background CUDA-graph capture)"
-RESILIENCE = "serve/resilience.py"
-WARMSET = "launch/jaxcache.py's warm sets"
+SHARDING = ("the sharding slice (ShardedBucketedPlanExecutor, the data "
+            "mesh, shard loss, regrowth and work stealing)")
 
 
 @dataclass
@@ -119,15 +128,18 @@ class ServeStats:
     requests_rejected: int = 0    # shed by the bounded admission queue
     n_contained_errors: int = 0   # exceptions absorbed at a fault boundary
     n_quarantine_events: int = 0  # bucket-signature quarantine bookings
-    # Durability & elasticity accounting (not ported yet: stays 0).
-    n_checkpoints: int = 0
-    n_restores: int = 0
+    # Durability & elasticity accounting (the mesh fields stay 0 on one
+    # shard).
+    n_checkpoints: int = 0        # snapshots written (periodic + crash)
+    n_restores: int = 0           # engine lifetimes resumed from a snapshot
     n_resize_events: int = 0
     n_entries_evacuated: int = 0
     n_entries_stolen: int = 0
-    # Async compile service accounting (not ported yet: stays 0).
-    lower_bg_s: float = 0.0
-    n_hotswaps: int = 0
+    # Async compile service accounting. ``lower_s`` keeps its meaning —
+    # lowering and builds paid *on* the serve loop — while background
+    # builds (pack, warm-up, capture) land in ``lower_bg_s``.
+    lower_bg_s: float = 0.0       # background (off-loop) lowering + build
+    n_hotswaps: int = 0           # sigs upgraded to bucketed after degraded rounds
     compile_jobs_submitted: int = 0
     compile_jobs_landed: int = 0
     compile_jobs_retried: int = 0
@@ -276,7 +288,10 @@ class ServeEngine:
     raising when CUDA is absent; pass ``"cpu"`` to run on the CPU).
     ``capture`` is the bucketed executor's: on the card each bucket
     signature is captured once as a CUDA graph and replayed (False: every
-    bucket runs eagerly on the card).
+    bucket runs eagerly on the card). ``async_compile`` moves those builds
+    to ``compile_workers`` background threads (``serve/compiler.py``);
+    ``checkpoint_dir``/``checkpoint_every`` write session snapshots that
+    :meth:`restore` resumes from.
     """
 
     def __init__(self, families: dict[str, Any] | None = None, *,
@@ -304,12 +319,8 @@ class ServeEngine:
                  device=None, capture: bool = True):
         if int(n_shards) > 1 or mesh is not None:
             raise _not_ported("serving on more than one shard", SHARDING)
-        if async_compile and compiled and bucketed:
-            raise _not_ported("async compile", ASYNC_COMPILE)
-        if checkpoint_every:
-            raise _not_ported("periodic checkpoints", RESILIENCE)
         if steal_threshold is not None:
-            raise _not_ported("work stealing", RESILIENCE)
+            raise _not_ported("work stealing", SHARDING)
         self.device = resolve_device(device)
         self.capture = bool(capture)
         self.compiled = compiled
@@ -344,6 +355,28 @@ class ServeEngine:
                                     tracer=self.tracer)
         self._injector = fault_injector
         self.quarantine = Quarantine(on_event=self._on_quarantine)
+        # Async compile service: bucket builds (pack, eager warm-up, CUDA
+        # graph capture) run on a supervised background worker pool; rounds
+        # whose graph has not landed degrade (coarse bucket -> interpreted
+        # floor) instead of blocking on the build, and hot-swap at a later
+        # round boundary. Library default OFF; the serve launcher turns it
+        # on.
+        self.async_compile = bool(async_compile and compiled and bucketed)
+        self.compile_workers = int(compile_workers)
+        self.compile_timeout_s = float(compile_timeout_s)
+        self._compiler = None
+        if self.async_compile:
+            from .compiler import CompileService
+            self._compiler = CompileService(
+                workers=self.compile_workers,
+                timeout_s=self.compile_timeout_s,
+                quarantine=self.quarantine, metrics=self._metrics,
+                on_quarantine=self._on_compile_quarantine)
+        # Sigs that served at least one degraded round while their build
+        # was in flight — the first bucketed round after landing counts as
+        # a hot-swap. ``_seen_lm_counts`` feeds the persisted warmset.
+        self._awaiting: set[str] = set()
+        self._seen_lm_counts: set[int] = set()
         # Round pipelining: while round t's bucket program is in flight on
         # the device, the next LM feed round is planned and packed on the
         # host. ``_spec`` holds the speculative (plan, graph, scheduler
@@ -380,8 +413,20 @@ class ServeEngine:
         self._pool: dict[str, torch.Tensor] | None = None
         self._now = 0.0
         self._round = 0
+        # Durability: the request ledger holds every request ever submitted
+        # (what a checkpoint snapshots); ``_base`` carries restored absolute
+        # counters that fold-time recomputation would otherwise lose
+        # (restored executors and caches restart from zero). The mesh
+        # fields stay at one shard and are kept for the checkpoint format.
+        self.checkpoint_every = int(checkpoint_every)
         self.checkpoint_dir = checkpoint_dir
+        self.steal_threshold = steal_threshold
         self.requests: dict[int, ServeRequest] = {}
+        self.resize_log: list[dict] = []
+        self._n_shards0 = self.n_shards
+        self._excluded_devices: list[int] = []
+        self._retired_shard_stats: list[ServeStats] = []
+        self._base: dict[str, float] = {}
         self._run_t0: float | None = None
 
     # -- observability accessors ---------------------------------------------
@@ -498,6 +543,32 @@ class ServeEngine:
                               fails=fails, until=until, error=error,
                               round=self._round)
 
+    def _on_compile_quarantine(self, job) -> None:
+        """A background build exhausted its retry budget: leave a
+        flight-recorder dump carrying the job context. (The per-failure
+        quarantine bookings already fired through ``_on_quarantine``; this
+        dump marks the terminal give-up with attempt/error detail.)"""
+        self.tracer.event("compile.quarantined", cat="compile", sig=job.sig,
+                          family=job.family, attempts=job.attempts,
+                          error=job.error, round=self._round)
+        if self._flight is not None:
+            self._flight.dump(self.tracer, "compile_quarantine",
+                              sig=job.sig, family=job.family,
+                              attempts=job.attempts, error=job.error,
+                              round=self._round)
+
+    def _poll_compiles(self) -> None:
+        """Supervision heartbeat at the round boundary: collect landed
+        builds (hot-swap happens on first use, in ``_exec_graph_async``),
+        enforce job timeouts, release backoff-expired retries."""
+        if self._compiler is None:
+            return
+        for job in self._compiler.poll(self._round):
+            self.tracer.event("compile.landed", cat="compile", sig=job.sig,
+                              family=job.family, attempts=job.attempts,
+                              compile_s=round(job.compile_s, 6),
+                              round=self._round)
+
     def _lm_pool(self):
         if self._pool is None:
             self._pool = self.family("lm").init_slots(self.scheduler.max_slots)
@@ -546,16 +617,29 @@ class ServeEngine:
                     self._cancel_spec()
                     self._drain_round_budget()
                     break
+            if self._compiler is not None:
+                # Drain-before-exit: every in-flight build resolves (lands
+                # or quarantines) so no worker is left mid-build when the
+                # caller tears the engine down. Hung builds ride out their
+                # timeout x retry budget inside drain — it always returns.
+                with self.tracer.span("serve.drain_compiles",
+                                      cat="compile"):
+                    self._compiler.drain()
+                self._poll_compiles()
         self.stats.wall_s += time.perf_counter() - t0
         self._run_t0 = None
         self._fold_exec_stats()
         return self.stats
 
     def close(self) -> None:
-        """Tear down background machinery: none yet on the port."""
+        """Tear down background machinery (the compile worker pool).
+        Idempotent; an engine without the async service is a no-op."""
+        if self._compiler is not None:
+            self._compiler.shutdown()
 
     def step(self) -> None:
         """One scheduler round: admit, build wave graphs, execute, feed back."""
+        self._poll_compiles()
         if self._injector is not None:
             for kind, _ in self._injector.shard_events(self._round):
                 if kind == "back":
@@ -614,29 +698,48 @@ class ServeEngine:
                 self._now += self._injector.round_delay(self._round)
         self._round += 1
         self._now = max(self._now + 1.0, float(self._round))
+        if (self.checkpoint_every and self.checkpoint_dir
+                and self._round % self.checkpoint_every == 0):
+            self.checkpoint(reason="periodic")
 
-    # -- durability, elasticity and warm starts (not ported yet) ------------
+    # -- durability ----------------------------------------------------------
 
     def checkpoint(self, path: str | None = None,
                    reason: str = "manual") -> str:
-        raise _not_ported("checkpoint()", RESILIENCE)
+        """Write a versioned, fingerprinted snapshot of the whole session
+        (atomic write; see serve/checkpoint.py). Returns the path."""
+        from . import resilience
+        from .checkpoint import checkpoint_path, write_checkpoint
+        if path is None:
+            if not self.checkpoint_dir:
+                raise ValueError(
+                    "no checkpoint destination: pass path= or construct the "
+                    "engine with checkpoint_dir=")
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
+            path = checkpoint_path(self.checkpoint_dir, self._round)
+        with self.tracer.span("ckpt.save", round=self._round, reason=reason):
+            payload = resilience.snapshot_engine(self, reason)
+            fp = write_checkpoint(path, payload)
+        self.stats.n_checkpoints += 1
+        self._metrics.counter("serve.checkpoints_written").inc()
+        self.tracer.event("ckpt.written", cat="ckpt", path=path,
+                          reason=reason, round=self._round, fingerprint=fp)
+        return path
 
     @classmethod
     def restore(cls, source, families: dict[str, Any] | None = None,
                 **kwargs) -> "ServeEngine":
-        raise _not_ported("restore()", RESILIENCE)
+        """Rebuild an engine mid-trace from a checkpoint path (or verified
+        payload dict); ``run()`` then resumes where the snapshot left off.
+        See ``resilience.restore_engine`` for the keyword overrides."""
+        from . import resilience
+        return resilience.restore_engine(source, families, **kwargs)
 
     def lose_shard(self, shard: int) -> None:
-        raise _not_ported("lose_shard()", RESILIENCE)
+        raise _not_ported("lose_shard()", SHARDING)
 
     def regrow_shard(self) -> None:
-        raise _not_ported("regrow_shard()", RESILIENCE)
-
-    def warmset(self) -> dict:
-        raise _not_ported("warmset()", WARMSET)
-
-    def prewarm(self, warmset: dict | None) -> int:
-        raise _not_ported("prewarm()", WARMSET)
+        raise _not_ported("regrow_shard()", SHARDING)
 
     # -- fault boundaries ----------------------------------------------------
 
@@ -723,9 +826,12 @@ class ServeEngine:
 
     # -- the degradation ladder ----------------------------------------------
 
-    def _exec_graph(self, fam: str, graph, params: Any = None):
+    def _exec_graph(self, fam: str, graph, params: Any = None,
+                    coarse_fn=None):
         """Run one round graph down the degradation ladder; returns
-        ``(result, tier)``.
+        ``(result, tier)``. ``coarse_fn(count)`` (lm feed rounds only)
+        rebuilds the round graph padded to a coarser count bucket — the
+        async path's bridge tier while the native build is in flight.
 
         The primary tier (bucketed / per-topology plan) is skipped while
         its quarantine key — the bucket signature on the bucketed path, the
@@ -738,6 +844,9 @@ class ServeEngine:
         pol = self.policy_for(fam)
         es = self._exec_stats[fam]
         tier = self._primary_tier()
+        if tier == "bucketed" and self._compiler is not None:
+            return self._exec_graph_async(fam, ex, pol, es, graph, params,
+                                          coarse_fn)
         if tier != "interpreted":
             qkey = None
             try:
@@ -756,6 +865,172 @@ class ServeEngine:
                 self._contained()
         res = self._interp_executor(fam).run(graph, pol, es, params=params)
         return res, "interpreted"
+
+    # -- async tier selection -------------------------------------------------
+
+    def _exec_graph_async(self, fam: str, ex, pol, es, graph,
+                          params: Any = None, coarse_fn=None):
+        """Non-blocking counterpart of the primary-tier branch: the serve
+        loop only *probes* caches — every piece of lowering (schedule,
+        pack, build and capture) runs on the compile service's workers.
+        Ready native bucket -> ``bucketed``; not ready -> submit the build
+        and bridge through a coarser already-built bucket (``coarse``), else
+        the interpreted floor. The first bucketed round after degraded ones
+        is the hot-swap."""
+        jobsig = _sig_digest(("cjob", fam, graph.topology_key(),
+                              policy_cache_key(pol)))
+        pack = ex.pack_ready(graph, pol)
+        blocked = (pack is not None
+                   and self.quarantine.blocks((fam, pack.spec), self._round))
+        if pack is not None and not blocked:
+            qkey = (fam, pack.spec)
+            if ex.executable_ready(pack, params):
+                try:
+                    if self._injector is not None:
+                        self._injector.on_exec(self._round, "bucketed")
+                    res = ex.run_packed(graph, pack, es, params=params)
+                    self.quarantine.clear(qkey)
+                    self._note_hotswap(jobsig, fam)
+                    return res, "bucketed"
+                except Exception as exc:
+                    self.quarantine.record_failure(qkey, self._round, exc)
+                    self._contained()
+                    res = self._interp_executor(fam).run(graph, pol, es,
+                                                         params=params)
+                    return res, "interpreted"
+        if not blocked:
+            # This round serves degraded while the build is in flight:
+            # remember the sig so its first bucketed round counts as a
+            # hot-swap (submission itself dedupes inside the service).
+            self._submit_compile_job(fam, ex, pol, graph, jobsig, params)
+            self._awaiting.add(jobsig)
+            cres = self._try_coarse(fam, ex, pol, es, graph, params,
+                                    coarse_fn)
+            if cres is not None:
+                return cres, "coarse"
+        res = self._interp_executor(fam).run(graph, pol, es, params=params)
+        return res, "interpreted"
+
+    def _try_coarse(self, fam: str, ex, pol, es, graph, params, coarse_fn):
+        """Bridge tier: re-pad this round into a *coarser count bucket*
+        whose graph already exists. ``coarse_fn(count)`` rebuilds the round
+        graph padded to ``count`` entries (real entries keep their node ids,
+        dummies append), so a count-8 round can ride a count-16 or count-32
+        graph captured earlier (by a bigger round, a warm start, or a
+        restore). Pure cache probes on the loop: a pack that was never built
+        is simply a miss — no lowering happens here."""
+        if coarse_fn is None:
+            return None
+        count = len(graph) // 4
+        for mult in (2, 4):
+            cg = coarse_fn(count * mult)
+            if cg is None:
+                continue
+            cpack = ex.pack_ready(cg, pol)
+            if cpack is None or not ex.executable_ready(cpack, params):
+                continue
+            ckey = (fam, cpack.spec)
+            if self.quarantine.blocks(ckey, self._round):
+                continue
+            try:
+                if self._injector is not None:
+                    self._injector.on_exec(self._round, "coarse")
+                res = ex.run_packed(cg, cpack, es, params=params)
+                self.quarantine.clear(ckey)
+                return res
+            except Exception as exc:
+                self.quarantine.record_failure(ckey, self._round, exc)
+                self._contained()
+                return None
+        return None
+
+    def _submit_compile_job(self, fam: str, ex, pol, graph, jobsig: str,
+                            params: Any, kind: str = "bucketed") -> bool:
+        """Queue the background build for ``graph``'s native bucket. The
+        job closure owns *all* lowering: schedule + pack (host-side), then
+        ``build_executable`` (on the card the eager warm-up and the CUDA
+        graph capture, under the process-wide build lock); it returns the
+        total background seconds for ``lower_bg_s``."""
+        if self._compiler is None or self._compiler.in_flight(jobsig):
+            return False
+        describe = {}
+        if fam == "lm" and len(graph) % 4 == 0:
+            # Feed-round topology is determined by the padded entry count
+            # alone (an R,E,C,O fragment per entry) — that one number is a
+            # re-submittable descriptor for checkpoints and warmsets.
+            describe = {"family": "lm", "count": len(graph) // 4}
+
+        def build(job, span_args, abort):
+            scratch = ExecStats()
+            pack = ex.pack_for(graph, pol, scratch)
+            # From here on failures quarantine the same key the dispatch
+            # path checks.
+            job.qkey = (fam, pack.spec)
+            _, _, dt = ex.build_executable(pack, params,
+                                           span_args=span_args,
+                                           abort_check=abort)
+            return scratch.lower_time + dt
+
+        return self._compiler.submit(jobsig, build, family=fam, kind=kind,
+                                     describe=describe)
+
+    def _note_hotswap(self, jobsig: str | None, fam: str) -> None:
+        """First bucketed round after degraded ones counts as a hot-swap
+        (single site shared by the serial and pipelined paths)."""
+        if jobsig is None or jobsig not in self._awaiting:
+            return
+        self._awaiting.discard(jobsig)
+        self.stats.n_hotswaps += 1
+        self._metrics.counter("compile.hotswaps").inc()
+        self.tracer.event("compile.hotswap", cat="compile", sig=jobsig,
+                          family=fam, round=self._round)
+
+    # -- warm starts ----------------------------------------------------------
+
+    def warmset(self) -> dict:
+        """Bucket signatures seen by this engine as a re-submittable
+        warm-start descriptor set (persisted in the launcher's cache
+        directory; see ``launch/cache.py``). Only lm feed rounds are
+        recorded: their topology is the padded entry count alone, so one
+        integer rebuilds the graph and the build job. A CUDA graph cannot
+        outlive its process, so a warm start captures these again."""
+        return {"version": 1,
+                "families": {"lm": {"counts": sorted(self._seen_lm_counts)}}}
+
+    def prewarm(self, warmset: dict | None) -> int:
+        """Pre-submit build jobs for previously seen bucket signatures (a
+        ``warmset()`` payload or a checkpoint's in-flight descriptors).
+        Returns the number of jobs submitted; no-op without the async
+        service."""
+        if self._compiler is None or not warmset:
+            return 0
+        counts = (warmset.get("families", {})
+                  .get("lm", {}).get("counts", []))
+        n = 0
+        for c in counts:
+            n += self._prewarm_lm(int(c))
+        return n
+
+    def _prewarm_lm(self, count: int) -> int:
+        if count < 1:
+            return 0
+        # An all-dummy feed graph of ``count`` fragments has the same
+        # topology — hence bucket signature — as any real round of that
+        # padded entry count.
+        g, _ = build_lm_feed_round_graph(RoundPlan(), count=count)
+        if g is None:
+            return 0
+        ex = self._executor("lm")
+        pol = self.policy_for("lm")
+        params = {"slots": self._lm_pool()}
+        self._seen_lm_counts.add(count)
+        pack = ex.pack_ready(g, pol)
+        if pack is not None and ex.executable_ready(pack, params):
+            return 0
+        jobsig = _sig_digest(("cjob", "lm", g.topology_key(),
+                              policy_cache_key(pol)))
+        return int(self._submit_compile_job("lm", ex, pol, g, jobsig,
+                                            params, kind="warm"))
 
     # -- round pipelining ----------------------------------------------------
     #
@@ -858,9 +1133,11 @@ class ServeEngine:
                                 + list(req.prompt))
                     req.n_fed = 0
                 graph, nentries = build_lm_feed_round_graph(nplan)
-                if graph is not None:
+                if graph is not None and self._compiler is None:
                     # Warm the host-side pack (index vectors, bucket spec)
                     # now — at promotion the dispatch hits the plan cache.
+                    # With the async service the workers own all lowering,
+                    # so the loop keeps to pure cache probes.
                     ex = self._executor("lm")
                     ex.pack_for(graph, self.policy_for("lm"),
                                 self._exec_stats["lm"])
@@ -909,18 +1186,22 @@ class ServeEngine:
             # Fragment layout is R,E,C,O: the embed node precedes the cell.
             graph.nodes[e.cell_node - 1].attrs["aux"] = next_feed_token(e.req)
 
-    def _dispatch_lm(self, graph, pool):
+    def _dispatch_lm(self, graph, pool, coarse_fn):
         """Non-blocking counterpart of ``_exec_graph`` for the lm feed
-        round: returns ``(handle, tier, qkey)`` where ``handle`` is in
-        flight for real bucketed dispatches and pre-resolved
-        (``_ReadyRound``) for the interpreted floor, or ``None`` when even
-        the floor failed. Quarantine *clearing* moves to commit — a
-        dispatch is not a success until its results materialize."""
+        round: returns ``(handle, tier, qkey, jobsig)`` where ``handle``
+        is in flight for real bucketed dispatches and pre-resolved
+        (``_ReadyRound``) for the coarse and interpreted tiers, or ``None``
+        when even the floor failed. Quarantine *clearing* and hot-swap
+        accounting move to commit — a dispatch is not a success until its
+        results materialize."""
         fam = "lm"
         ex = self._executor(fam)
         pol = self.policy_for(fam)
         es = self._exec_stats[fam]
         params = {"slots": pool}
+        if self._compiler is not None:
+            return self._dispatch_lm_async(fam, ex, pol, es, graph, params,
+                                           coarse_fn)
         qkey = None
         try:
             pack = ex.pack_for(graph, pol, es)
@@ -929,11 +1210,46 @@ class ServeEngine:
                 if self._injector is not None:
                     self._injector.on_exec(self._round, "bucketed")
                 handle = ex.dispatch_packed(graph, pack, es, params=params)
-                return handle, "bucketed", qkey
+                return handle, "bucketed", qkey, None
         except Exception as exc:
             if qkey is not None:
                 self.quarantine.record_failure(qkey, self._round, exc)
             self._contained()
+        return self._floor_handle(fam, graph, params)
+
+    def _dispatch_lm_async(self, fam, ex, pol, es, graph, params,
+                           coarse_fn):
+        """Async-compile twin of ``_exec_graph_async`` that dispatches
+        instead of running: ready native bucket -> in-flight handle; not
+        ready -> submit the build and serve this round eagerly through the
+        coarse bridge or the interpreted floor (transitional tiers — no
+        overlap is lost by not pipelining them)."""
+        jobsig = _sig_digest(("cjob", fam, graph.topology_key(),
+                              policy_cache_key(pol)))
+        pack = ex.pack_ready(graph, pol)
+        blocked = (pack is not None
+                   and self.quarantine.blocks((fam, pack.spec),
+                                              self._round))
+        if pack is not None and not blocked:
+            qkey = (fam, pack.spec)
+            if ex.executable_ready(pack, params):
+                try:
+                    if self._injector is not None:
+                        self._injector.on_exec(self._round, "bucketed")
+                    handle = ex.dispatch_packed(graph, pack, es,
+                                                params=params)
+                    return handle, "bucketed", qkey, jobsig
+                except Exception as exc:
+                    self.quarantine.record_failure(qkey, self._round, exc)
+                    self._contained()
+                    return self._floor_handle(fam, graph, params)
+        if not blocked:
+            self._submit_compile_job(fam, ex, pol, graph, jobsig, params)
+            self._awaiting.add(jobsig)
+            cres = self._try_coarse(fam, ex, pol, es, graph, params,
+                                    coarse_fn)
+            if cres is not None:
+                return _ReadyRound(cres), "coarse", None, None
         return self._floor_handle(fam, graph, params)
 
     def _floor_handle(self, fam, graph, params):
@@ -946,10 +1262,10 @@ class ServeEngine:
                                                  params=params)
         except Exception:
             return None
-        return _ReadyRound(res), "interpreted", None
+        return _ReadyRound(res), "interpreted", None, None
 
-    def _run_lm_round_pipelined(self, plan, wl, pool, graph,
-                                entries) -> None:
+    def _run_lm_round_pipelined(self, plan, wl, pool, graph, entries,
+                                coarse_fn) -> None:
         """Two-stage round: dispatch round t without blocking, overlap the
         host-side plan+pack of round t+1 with the in-flight device work,
         then commit — block on t's arenas, scatter, feed. A commit failure
@@ -957,11 +1273,11 @@ class ServeEngine:
         re-planned round t+1 both see rolled-back state. The commit reads
         round t's arenas before round t+1 is dispatched, so a replay of the
         same graph cannot overwrite them first."""
-        rd = self._dispatch_lm(graph, pool)
+        rd = self._dispatch_lm(graph, pool, coarse_fn)
         if rd is None:
             self._contained()
             return self._isolate_lm_round(plan, wl, True)
-        handle, tier, qkey = rd
+        handle, tier, qkey, jobsig = rd
         if self.pipeline and handle.pending:
             self._speculate_next(plan, entries)
         try:
@@ -985,6 +1301,7 @@ class ServeEngine:
             self._contained()
             return self._isolate_lm_round(plan, wl, True)
         self._note_tier(tier)
+        self._note_hotswap(jobsig, "lm")
         if tier == "bucketed":
             self.stats.n_pipelined_rounds += 1
         with self.tracer.span("round.scatter"):
@@ -1081,6 +1398,7 @@ class ServeEngine:
             with self.tracer.span("round.pack", promoted=True):
                 if graph is not None:
                     self._refresh_feed_aux(graph, entries)
+                    self._seen_lm_counts.add(len(graph) // 4)
         else:
             if feed_mode:
                 with self.tracer.span("round.feed_stage"):
@@ -1088,6 +1406,11 @@ class ServeEngine:
             with self.tracer.span("round.pack"):
                 if feed_mode:
                     graph, entries = build_lm_feed_round_graph(plan)
+                    if graph is not None:
+                        # Padded entry count (4 nodes per R,E,C,O
+                        # fragment): the warmset descriptor for this
+                        # round's signature.
+                        self._seen_lm_counts.add(len(graph) // 4)
                 else:
                     graph = build_lm_round_graph(
                         plan,
@@ -1097,11 +1420,20 @@ class ServeEngine:
                                if e.req is not None]
         if graph is None:
             return
+        coarse_fn = None
+        if feed_mode and self._compiler is not None:
+            # Bridge-tier rebuild: the same plan padded to a coarser count
+            # bucket (real entries keep their node ids, dummies append), so
+            # the scatter below reads the same o/cell nodes either way.
+            def coarse_fn(count):
+                return build_lm_feed_round_graph(plan, count=count)[0]
         if self.pipeline and feed_mode:
             return self._run_lm_round_pipelined(plan, wl, pool, graph,
-                                                entries)
+                                                entries, coarse_fn)
         try:
-            res, tier = self._exec_graph("lm", graph, params={"slots": pool})
+            res, tier = self._exec_graph("lm", graph,
+                                         params={"slots": pool},
+                                         coarse_fn=coarse_fn)
             if self._injector is not None:
                 # Commit-fault parity with the pipelined path: the serial
                 # loop's commit boundary sits right after execution.
@@ -1226,32 +1558,61 @@ class ServeEngine:
 
     def _fold_exec_stats(self) -> None:
         s = self.stats
+        b = self._base   # restored absolute counters (empty unless restored)
         s.requests_rejected = self.queue.rejected
         # Idempotent: absolute recompute, not accumulation.
-        agg = ServeStats.merged(self._shard_stats)
+        agg = ServeStats.merged(self._shard_stats + self._retired_shard_stats)
         s.tokens_out = agg.tokens_out
         s.outputs_out = agg.outputs_out
         s.requests_done = agg.requests_done
         s.latency_s = agg.latency_s
         s.ttft_s = agg.ttft_s
         es_all = self._exec_stats.values()
-        s.n_batches = sum(es.n_batches for es in es_all)
-        s.n_launches = sum(es.n_launches for es in es_all)
-        s.n_compiles = sum(es.n_compiles for es in es_all)
-        s.schedule_s = sum(es.schedule_time for es in es_all)
-        s.exec_s = sum(es.exec_time for es in es_all)
-        s.lower_s = sum(es.lower_time for es in es_all)
+        s.n_batches = b.get("n_batches", 0) + sum(
+            es.n_batches for es in es_all)
+        s.n_launches = b.get("n_launches", 0) + sum(
+            es.n_launches for es in es_all)
+        s.n_compiles = b.get("n_compiles", 0) + sum(
+            es.n_compiles for es in es_all)
+        s.schedule_s = b.get("schedule_s", 0.0) + sum(
+            es.schedule_time for es in es_all)
+        s.exec_s = b.get("exec_s", 0.0) + sum(es.exec_time for es in es_all)
+        s.lower_s = b.get("lower_s", 0.0) + sum(
+            es.lower_time for es in es_all)
+        # Background builds live in their own bucket: async builds never
+        # touch ExecStats.lower_time (rounds only run ready graphs), so
+        # lower_s stays "time the serve loop paid".
+        cst = self._compiler.stats if self._compiler is not None else {}
+        s.lower_bg_s = b.get("lower_bg_s", 0.0) + (
+            self._compiler.total_compile_s
+            if self._compiler is not None else 0.0)
+        s.compile_jobs_submitted = (b.get("compile_jobs_submitted", 0)
+                                    + cst.get("submitted", 0))
+        s.compile_jobs_landed = (b.get("compile_jobs_landed", 0)
+                                 + cst.get("landed", 0))
+        s.compile_jobs_retried = (b.get("compile_jobs_retried", 0)
+                                  + cst.get("retries", 0))
+        s.compile_jobs_timed_out = (b.get("compile_jobs_timed_out", 0)
+                                    + cst.get("timeouts", 0))
+        s.compile_jobs_quarantined = (b.get("compile_jobs_quarantined", 0)
+                                      + cst.get("quarantined", 0))
         s.n_graph_captures = sum(getattr(ex, "n_captures", 0)
                                  for ex in self._executors.values())
         s.n_graph_replays = sum(getattr(ex, "n_replays", 0)
                                 for ex in self._executors.values())
         ph, pm, sh, sm, bh, bm = self._cache_base
-        s.plan_cache_hits = self.plan_cache.hits - ph
-        s.plan_cache_misses = self.plan_cache.misses - pm
-        s.sched_cache_hits = self.schedule_cache.hits - sh
-        s.sched_cache_misses = self.schedule_cache.misses - sm
-        s.bucket_cache_hits = self.bucket_cache.hits - bh
-        s.bucket_cache_misses = self.bucket_cache.misses - bm
+        s.plan_cache_hits = (self.plan_cache.hits - ph
+                             + b.get("plan_cache_hits", 0))
+        s.plan_cache_misses = (self.plan_cache.misses - pm
+                               + b.get("plan_cache_misses", 0))
+        s.sched_cache_hits = (self.schedule_cache.hits - sh
+                              + b.get("sched_cache_hits", 0))
+        s.sched_cache_misses = (self.schedule_cache.misses - sm
+                                + b.get("sched_cache_misses", 0))
+        s.bucket_cache_hits = (self.bucket_cache.hits - bh
+                               + b.get("bucket_cache_hits", 0))
+        s.bucket_cache_misses = (self.bucket_cache.misses - bm
+                                 + b.get("bucket_cache_misses", 0))
         # Fold-time absolutes mirror into gauges (idempotent set, not
         # accumulation) so a metrics snapshot carries the same timing
         # decomposition as ServeStats.

@@ -7,6 +7,8 @@ PyTorch is installed:
 
 Every test needs a CUDA device and skips without one."""
 
+from collections import Counter
+
 import numpy as np
 import pytest
 
@@ -1121,4 +1123,288 @@ def test_cuda_routes_raise_under_grad_mode(cuda, name):
     with torch.no_grad():
         fn(args)
     fn([a.detach() for a in args])
+    torch.cuda.synchronize()
+
+
+# -- background capture: a worker thread builds while the loop serves ------
+
+
+def _lm_buckets(cuda, counts=(8, 16)):
+    """ChainLM impls, slot-pool params, policy and one feed-round graph per
+    padded entry count in ``counts`` (one bucket signature each)."""
+    from repro_torch.serve.scheduler import (RoundPlan,
+                                             build_lm_feed_round_graph)
+
+    impls, graphs, params, policy = _bucket_case("ChainLM", cuda)
+    rng = np.random.default_rng(1)
+    out = [graphs[0]]
+    for count in counts[1:]:
+        g, _ = build_lm_feed_round_graph(RoundPlan(), count=count)
+        for n in g.nodes:
+            if n.type == "R":
+                n.attrs["aux"] = (n.id // 4) % 8
+            elif n.type == "E":
+                n.attrs["aux"] = int(rng.integers(0, 256))
+        out.append(g)
+    return impls, out, params, policy
+
+
+def _slow_capture(monkeypatch, impls, inside, release, fail_once=False,
+                  pause=0.0):
+    """Make the cells' fused path, while its thread captures, signal
+    ``inside``, wait for ``release`` and sleep ``pause`` s (and with
+    ``fail_once`` then sync the host, which invalidates the capture, the
+    first time)."""
+    import time
+
+    failed = []
+
+    def wrap(fn):
+        def fused(params, bufs, idxs, aux):
+            if torch.cuda.is_current_stream_capturing():
+                inside.set()
+                assert release.wait(30)
+                time.sleep(pause)
+                if fail_once and not failed:
+                    failed.append(1)
+                    idxs[0].sum().item()
+            return fn(params, bufs, idxs, aux)
+        return fused
+
+    for impl in impls.values():
+        if impl.fused_gather is not None:
+            monkeypatch.setattr(impl, "fused_gather", wrap(impl.fused_gather))
+
+
+def _capture_beside_the_loop(cuda, monkeypatch):
+    """A worker captures bucket B while the main thread replays bucket A
+    three times, copies each result to the host and allocates 256 MB.
+    Returns what each thread saw, the launch counts over the window and one
+    run's counts of each bucket."""
+    import threading
+
+    from repro_torch.core.plan import BucketedPlanExecutor
+    from repro_torch.kernels import launches
+
+    impls, (ga, gb), params, policy = _lm_buckets(cuda)
+    eager = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda,
+                                 capture=False)
+    ex = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda)
+    want = {}
+    one = {}
+    for name, g in (("a", ga), ("b", gb)):
+        eager.run(g, policy)
+        before = launches.snapshot()
+        want[name] = _outputs(eager.run(g, policy), g)
+        one[name] = launches.delta(before, launches.snapshot())
+    ex.run(ga, policy)                       # A captured on this thread
+    pack_b = ex.pack_for(gb, policy)
+    inside, release = threading.Event(), threading.Event()
+    _slow_capture(monkeypatch, impls, inside, release)
+    errors = []
+
+    def worker():
+        try:
+            ex.build_executable(pack_b, params)
+        except BaseException as exc:   # reported by the test
+            errors.append(exc)
+
+    torch.cuda.synchronize()
+    before = launches.snapshot()
+    t = threading.Thread(target=worker)
+    t.start()
+    try:
+        assert inside.wait(30)
+        got_a = []
+        for _ in range(3):
+            res = _outputs(ex.run(ga, policy), ga)
+            got_a.append({k: v.cpu() for k, v in res.items()})
+            big = torch.empty(64 << 20, device=cuda)
+            big.fill_(1.0)
+            assert big[-1].item() == 1.0
+            del big
+    finally:
+        release.set()
+        t.join(60)
+    assert not t.is_alive()
+    torch.cuda.synchronize()
+    window = launches.delta(before, launches.snapshot())
+    got_b = _outputs(ex.run(gb, policy), gb)
+    return dict(errors=errors, got_a=got_a, got_b=got_b, want=want,
+                window=window, one=one, ex=ex)
+
+
+def test_capture_on_a_worker_beside_replays_copies_and_allocation(
+        cuda, monkeypatch):
+    """The worker's capture is held to the capture's rules on its thread
+    only: while it is open the main thread replays another bucket, copies
+    the results to the host and allocates. The capture lands, and both
+    buckets equal their eager runs bit for bit."""
+    run = _capture_beside_the_loop(cuda, monkeypatch)
+    assert not run["errors"], run["errors"]
+    assert run["ex"].n_captures == 2
+    for got in run["got_a"]:
+        assert all(torch.equal(got[k], t.cpu())
+                   for k, t in run["want"]["a"].items())
+    assert all(torch.equal(run["got_b"][k], t)
+               for k, t in run["want"]["b"].items())
+
+
+def test_launch_counters_equal_what_ran_beside_a_capture(cuda, monkeypatch):
+    """Over the window of a worker's capture the counters move by what
+    ran: the main thread's three replays of A and the worker's eager
+    warm-up of B; the capture itself adds nothing, and takes nothing
+    away."""
+    run = _capture_beside_the_loop(cuda, monkeypatch)
+    assert not run["errors"], run["errors"]
+    one, window = run["one"], run["window"]
+    for name in ("gather_rows", "fused_gather_lstm_cell"):
+        assert one["a"][name] > 0 and one["b"][name] > 0
+        assert window[name] == 3 * one["a"][name] + one["b"][name], name
+    assert window["gather_shapes"] == Counter(
+        {k: 3 * n for k, n in one["a"]["gather_shapes"].items()}) \
+        + one["b"]["gather_shapes"]
+
+
+def test_weight_copies_built_on_a_worker_stream_are_waited_for(cuda):
+    """A worker builds a cell's blocked and packed weights on its own
+    stream behind a long ``_sleep`` (in memory it first filled with NaN and
+    freed); the main thread then runs the cell on its stream through the
+    same cache while the worker's stream still sleeps. It waits for the
+    copies: both runs equal an untouched twin's bit for bit."""
+    import threading
+
+    from repro_torch.core.executor import derived_copies
+    from repro_torch.kernels.fused_cell import packed_weights
+
+    def cell_of(impls):
+        return next(i for i in impls.values() if i.fused_gather is not None)
+
+    impls0, _, _, _ = _lm_buckets(cuda, counts=(8,))
+    impls, _, _, _ = _lm_buckets(cuda, counts=(8,))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    H = cell_of(impls0).out_fields["h_out"][0]
+    # the buffer holds the (E + H) x 4H gate weights and the 4H biases
+    E = cell_of(impls0).params["pbuf"].numel() // (4 * H) - H - 1
+    bufs = [torch.randn((40, n), generator=g, device=cuda)
+            for n in (E, H, H)]
+    idxs = [torch.randint(0, 40, (16,), generator=g, device=cuda,
+                          dtype=torch.int32) for _ in range(3)]
+    with derived_copies() as found:
+        want = cell_of(impls0).fused_gather(None, bufs, idxs, None)
+    sizes = {(t.shape, t.dtype) for _, _, (w, b) in found
+             for t in (w, b, packed_weights(w))}
+    del found
+    torch.cuda.synchronize()
+    theirs = []
+
+    def worker():
+        side = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(side):
+            junk = [torch.full(shape, float("nan"), dtype=dtype, device=cuda)
+                    for shape, dtype in sizes for _ in range(4)]
+            del junk
+            torch.cuda._sleep(2_000_000_000)
+            theirs.append(cell_of(impls).fused_gather(None, bufs, idxs, None))
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(60)            # the worker queued its work and is gone
+    assert not t.is_alive()
+    mine = cell_of(impls).fused_gather(None, bufs, idxs, None)
+    torch.cuda.synchronize()
+    for got in (mine, theirs[0]):
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+
+
+def test_two_workers_capturing_at_once_both_land(cuda, monkeypatch):
+    """Three workers start builds together: two signatures, one of them
+    twice. The builds take turns under the build lock; each signature is
+    captured once (the duplicate takes the entry its twin built), both
+    land, and each replays what its eager run computes."""
+    import threading
+
+    from repro_torch.core.plan import BucketedPlanExecutor
+
+    impls, (ga, gb), params, policy = _lm_buckets(cuda)
+    eager = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda,
+                                 capture=False)
+    want = [_outputs(eager.run(g, policy), g) for g in (ga, gb)]
+    ex = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda)
+    packs = [ex.pack_for(g, policy) for g in (ga, ga, gb)]
+    inside, release = threading.Event(), threading.Event()
+    release.set()
+    _slow_capture(monkeypatch, impls, inside, release, pause=0.2)
+    start = threading.Barrier(3)
+    got, errors = [None] * 3, []
+
+    def worker(i):
+        try:
+            start.wait(10)
+            got[i] = ex.build_executable(packs[i], params)[1]
+        except BaseException as exc:   # reported by the test
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+        assert not t.is_alive()
+    assert not errors, errors
+    assert ex.n_captures == 2 and got[0] is got[1] is not got[2]
+    assert all(e.graph is not None for e in got)
+    for g, w in zip((ga, gb), want):
+        res = _outputs(ex.run(g, policy), g)
+        assert all(torch.equal(res[k], t) for k, t in w.items())
+    assert ex.n_captures == 2
+
+
+def test_an_abandoned_capture_leaves_the_card_usable(cuda, monkeypatch):
+    """A build job times out inside its capture and is abandoned (no
+    retry); the capture then fails (a host sync invalidates it) on the
+    abandoned worker. The late failure is not counted, and the card still
+    draws random numbers and captures on the loop's thread."""
+    import threading
+    import time
+
+    from repro_torch.core.plan import BucketedPlanExecutor
+    from repro_torch.serve.compiler import CompileService
+
+    impls, (ga, gb), params, policy = _lm_buckets(cuda)
+    eager = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda,
+                                 capture=False)
+    want = [_outputs(eager.run(g, policy), g) for g in (ga, gb)]
+    ex = BucketedPlanExecutor(impls, params, ladder=(8,), device=cuda)
+    pack = ex.pack_for(ga, policy)
+    inside, release = threading.Event(), threading.Event()
+    _slow_capture(monkeypatch, impls, inside, release, fail_once=True)
+    svc = CompileService(workers=1, timeout_s=0.5, max_retries=0)
+
+    def build(job, span_args, abort):
+        return ex.build_executable(pack, params, abort_check=abort)[2]
+
+    stream = torch.cuda.current_stream(cuda)
+    svc.submit("a", build)
+    assert inside.wait(30)
+    deadline = time.monotonic() + 30
+    while not svc.stats["timeouts"] and time.monotonic() < deadline:
+        svc.poll()
+        time.sleep(0.05)
+    assert svc.stats["timeouts"] == svc.stats["quarantined"] == 1
+    release.set()
+    svc._abandoned[0].thread.join(30)     # its capture has failed by now
+    assert not svc._abandoned[0].thread.is_alive()
+    assert svc.poll() == [] and svc.stats["failures"] == 0
+    assert svc.stats["landed"] == svc.stats["late_lands"] == 0
+    svc.shutdown()
+    assert not torch.cuda.is_current_stream_capturing()
+    assert torch.cuda.current_stream(cuda) == stream
+    torch.randn(4, device=cuda)          # the generator left capture mode
+    assert ex.n_captures == 0
+    for g, w in zip((ga, gb), want):     # both captured here, anew
+        res = _outputs(ex.run(g, policy), g)
+        assert all(torch.equal(res[k], t) for k, t in w.items())
+    assert ex.n_captures == 2
     torch.cuda.synchronize()

@@ -25,7 +25,7 @@ VERBATIM = ["core/graph.py", "core/cache.py", "core/batching.py",
             "obs/metrics.py", "obs/flight.py", "obs/__init__.py",
             "serve/queue.py", "serve/traces.py", "serve/registry.py",
             "serve/checkpoint.py", "serve/faults.py", "serve/scheduler.py",
-            "arch/config.py"] + sorted(
+            "serve/compiler.py", "arch/config.py"] + sorted(
     str(p.relative_to(ROOT / "src" / "repro"))
     for p in (ROOT / "src" / "repro" / "configs").glob("*.py"))
 
@@ -98,6 +98,32 @@ def test_verbatim_copy_in_step(rel):
     assert len(differing) <= 1, differing
 
 
+# The reference's ``launch/jaxcache.py`` functions that ``launch/cache.py``
+# copies (the XLA cache itself has no counterpart).
+CACHE_FUNCTIONS = ["QUARANTINE_SUBDIR", "WARMSET_NAME", "warmset_path",
+                   "load_warmset", "save_warmset", "audit_cache_dir"]
+
+
+def _definitions(path: Path) -> dict:
+    """Top-level functions and assignments of a module, by name, as
+    ``_code`` dumps them."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = node
+        elif isinstance(node, ast.Assign):
+            out[node.targets[0].id] = node
+    return {name: _code(ast.unparse(node)) for name, node in out.items()}
+
+
+@pytest.mark.parametrize("name", CACHE_FUNCTIONS)
+def test_cache_functions_copied_unchanged(name):
+    original = _definitions(ROOT / "src" / "repro" / "launch" / "jaxcache.py")
+    copy = _definitions(PORT / "launch" / "cache.py")
+    assert copy[name] == original[name]
+    assert "enable_compilation_cache" not in copy
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -110,6 +136,7 @@ def _entry_points():
     from repro_torch.configs import get_config
     from repro_torch.models.workloads import make_workload
     from repro_torch.serve import engine as serve_engine
+    from repro_torch.launch.serve import main as launch_serve
     from repro_torch.serve.lm_wave import ServeEngine, serve_wave
 
     cfg = get_config("qwen2-0.5b").reduced(d_model=32)
@@ -131,6 +158,8 @@ def _entry_points():
         "serve_wave": lambda: serve_wave(TransformerLM(cfg, device="cpu"), {},
                                          [[1, 2]]),
         "serve engine": lambda: serve_engine.ServeEngine(),
+        "serve launcher": lambda: launch_serve(["--model-size", "8",
+                                                "--requests", "1"]),
     }
 
 
@@ -138,7 +167,8 @@ def _entry_points():
                                   "make_workload lattice", "DynamicExecutor",
                                   "PlanExecutor", "BucketedPlanExecutor",
                                   "TransformerLM", "ServeEngine",
-                                  "serve_wave", "serve engine"])
+                                  "serve_wave", "serve engine",
+                                  "serve launcher"])
 def test_entry_points_default_to_cuda(no_cuda, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()

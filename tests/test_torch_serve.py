@@ -176,23 +176,18 @@ def test_shared_cache_does_not_alias_different_weights(stacks):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(n_shards=2), dict(mesh=object()), dict(async_compile=True),
-    dict(checkpoint_every=2), dict(steal_threshold=1)],
-    ids=["n_shards", "mesh", "async_compile", "checkpoint_every",
-         "steal_threshold"])
+    dict(n_shards=2), dict(mesh=object()), dict(steal_threshold=1)],
+    ids=["n_shards", "mesh", "steal_threshold"])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="sharding slice"):
         serve.ServeEngine(device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("call", [
-    lambda e: e.checkpoint("x"), lambda e: serve.ServeEngine.restore("x"),
-    lambda e: e.lose_shard(0), lambda e: e.regrow_shard(),
-    lambda e: e.warmset(), lambda e: e.prewarm({})],
-    ids=["checkpoint", "restore", "lose_shard", "regrow_shard", "warmset",
-         "prewarm"])
+    lambda e: e.lose_shard(0), lambda e: e.regrow_shard()],
+    ids=["lose_shard", "regrow_shard"])
 def test_unported_methods_raise(call):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="sharding slice"):
         call(serve.ServeEngine(device="cpu"))
 
 
@@ -305,28 +300,36 @@ def test_executable_key_tracks_the_tensors_a_graph_reads():
 
 
 def test_replay_launch_count_bookkeeping():
-    """A capture moves the counts though nothing ran: they are set back,
-    and each replay adds the capture's delta (the gather's shapes too)."""
+    """Launches counted while a thread captures move no count: they go to
+    the capture's tally (the gather's shapes too), another thread's
+    launches meanwhile count as usual, and each replay adds the tally."""
+    import threading
+
+    from repro_torch.kernels import counting
     from repro_torch.kernels.fused_gather_cell import fused_gather_lstm_cell
     from repro_torch.kernels.gather_batch import gather_rows
 
     start = launches.snapshot()
     try:
-        gather_rows.launches += 3
-        gather_rows.shapes[(16, 2048)] += 2
-        gather_rows.shapes[(1, 2048)] += 1
-        fused_gather_lstm_cell.launches += 5
-        captured = launches.snapshot()
-        d = launches.delta(start, captured)
+        with launches.captured() as d:
+            for shape in [(16, 2048), (16, 2048), (1, 2048)]:
+                counting.count(gather_rows, shape)
+            for _ in range(5):
+                counting.count(fused_gather_lstm_cell)
+            other = threading.Thread(
+                target=lambda: counting.count(gather_rows, (4, 64)))
+            other.start()
+            other.join()
         assert d["gather_rows"] == 3 and d["fused_gather_lstm_cell"] == 5
         assert d["ssd_scan"] == d["flash_attention"] == 0
         assert d["gather_shapes"] == {(16, 2048): 2, (1, 2048): 1}
-        launches.restore(start)
-        assert launches.snapshot() == start
+        now = launches.delta(start, launches.snapshot())
+        assert now["gather_rows"] == 1 and now["fused_gather_lstm_cell"] == 0
+        assert now["gather_shapes"] == {(4, 64): 1}
         for _ in range(4):
             launches.add(d)
         now = launches.snapshot()
-        assert now["gather_rows"] == start["gather_rows"] + 12
+        assert now["gather_rows"] == start["gather_rows"] + 13
         assert now["fused_gather_lstm_cell"] == \
             start["fused_gather_lstm_cell"] + 20
         assert now["gather_shapes"][(16, 2048)] == \
