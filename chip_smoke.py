@@ -99,6 +99,27 @@ Phases, in order; any failure raises and exits non-zero:
    bit-equality printed) and the slot pool at the addresses it was made
    at. (d) A fresh engine prewarms the async engine's warm set: its first
    lm round runs bucketed; prints time to first token, cold and warm.
+8. The sharded serve engine at model_size=512 with phase 6's FSMs on the
+   mixed trace (24 requests, 4 a round, 12 new tokens, 16 slots in all):
+   K = 1, 2 and 4 replicas on the card (one captured graph replay serves
+   all K shards of a round), each a first, a steady, a profiled and a
+   traced pass (the engine's host spans per round);
+   then (a) K = 2 losing shard 1 at round 3 and regrowing at round 7, (b)
+   K = 2 with ``steal_threshold=0`` on the reference's work-stealing trace
+   (the mixed trace stays balanced), beside a clean run and the CPU, (c)
+   the launcher with ``--devices 2 --inject-faults crash=8,shard_lost=5*1``
+   (exit 1), then ``--restore`` (exit 0), (d) K = 4 with async compile
+   (sharded captures on the workers). Every request completes; lm tokens
+   equal the CPU's and K = 1's (a flip only at a near-tie, margin
+   printed); tree and lattice outputs within 1e-4 of the CPU and 1e-6 of
+   K = 1 on the card; steady sharded passes run every round sharded and
+   replayed; the gather and gather-cell counters rise in the K = 4 steady
+   pass and equal the profiler's counts in every profiled pass; (a) logs
+   one shrink and one grow, (b) steals and keeps the tokens, (a) and (c)
+   give the clean K = 2 run's outputs. Prints a ``serve sharded K=<k>:``
+   line per run (tok/s, ms per round median and p90, busy share, device
+   events per round, captures, replays, fallback rounds, sharded
+   dispatches); writes under ``build/chip_smoke/sharded/``.
 
 Phases 2 and 4 hold the kernels other than the gather to 1e-4 of the
 largest magnitude of their plain versions' outputs. The line before the
@@ -1196,7 +1217,8 @@ def serve_passes(torch, wls, policies, trace: str, caches: dict,
                       **caches, **kw)
     fields = ("tokens_out", "n_rounds", "wall_s", "lower_s",
               "n_graph_captures", "n_graph_replays", "n_contained_errors",
-              "n_quarantine_events")
+              "n_quarantine_events", "n_sharded_dispatches",
+              "n_shard_fallback_rounds")
     out = {}
     for name in passes:
         reqs = synth_trace(fams, n, rate, max_new, wls, SEED, **args)
@@ -1727,13 +1749,275 @@ def launcher_phase(torch, drive, card: str, policies: dict) -> dict:
     return counts
 
 
+# -- phase 8 --------------------------------------------------------------
+
+
+# The sharded engine on phase 6's mixed trace (the launcher's defaults),
+# K replicas at the same 16 slots in all; phase 6's FSMs.
+SHARDED_KS = (1, 2, 4)
+SHARDED_DIR = ROOT / "build" / "chip_smoke" / "sharded"
+
+
+def steal_trace(mod):
+    """The reference's work-stealing trace (``tests/test_resilience.py``):
+    staggered lm lengths leave the later wave imbalanced across two
+    shards. The mixed trace stays balanced, so it steals nothing."""
+    return [mod.lm_request([i + 1, i + 2], 3 + (i % 3) * 2,
+                           arrival=float(i)) for i in range(10)]
+
+
+def sharded_line(label: str, k: int, run: dict, prof: dict | None,
+                 card: str) -> dict:
+    """Log one ``serve sharded K=<k>`` line for ``run`` (a pass of
+    :func:`serve_passes`) and return its numbers; ``prof`` is a profiled
+    pass of the same engine, or None (busy share not measured)."""
+    from repro_torch.obs.metrics import percentile
+
+    line = {
+        "k": k, "tok_per_s": run["tok_per_s"], "rounds": run["n_rounds"],
+        "ms_per_round_median": percentile(run["round_s"], 50) * 1e3,
+        "ms_per_round_p90": percentile(run["round_s"], 90) * 1e3,
+        "ms_per_round_max": max(run["round_s"]) * 1e3,
+        "wall_ms": run["wall_s"] * 1e3,
+        "captures": run["n_graph_captures"],
+        "replays": run["n_graph_replays"],
+        "fallback_rounds": run["n_shard_fallback_rounds"],
+        "sharded_dispatches": run["n_sharded_dispatches"],
+        "lower_s": run["lower_s"], "tier_rounds": run["tier_rounds"]}
+    if prof is not None:
+        line["busy_share"] = prof["profile"]["busy_share"]
+        line["device_events_per_round"] = (prof["profile"]["device_events"]
+                                           / prof["n_rounds"])
+        line["device_ms_per_round"] = (prof["profile"]["device_ms"]
+                                       / prof["n_rounds"])
+    busy = (f"busy share {line['busy_share']:.3f}, device events per round "
+            f"{line['device_events_per_round']:.1f}" if prof is not None
+            else "busy share not measured")
+    log(f"serve sharded K={k}: {label}: {line['tok_per_s']:.1f} tok/s, "
+        f"{line['rounds']} rounds, ms per round median "
+        f"{line['ms_per_round_median']:.3f} p90 "
+        f"{line['ms_per_round_p90']:.3f} max {line['ms_per_round_max']:.3f}"
+        f" (wall {line['wall_ms']:.1f} ms), {busy}, captures "
+        f"{line['captures']}, replays {line['replays']}, fallback rounds "
+        f"{line['fallback_rounds']}, sharded dispatches "
+        f"{line['sharded_dispatches']}, lowering on the loop "
+        f"{line['lower_s']:.3f} s, tiers {line['tier_rounds']} ({card})")
+    return line
+
+
+def sharded_phase(torch, drive, card: str, policies: dict) -> dict:
+    """The sharded serve engine (section 8 of the module docstring);
+    returns the launches of the row gather and the gather cell during the
+    K = 4 steady pass."""
+    import shutil
+
+    from repro_torch import serve as tserve
+    from repro_torch.core.cache import FIFOCache, LRUCache
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import PolicyRegistry, ServeEngine
+    from repro_torch.serve.checkpoint import latest_checkpoint, read_checkpoint
+    from repro_torch.serve.faults import FaultInjector
+
+    wls = serve_workloads("cuda")
+    cpu_wls = serve_workloads("cpu")
+    cpu_wl = cpu_wls["lm"]
+    want = serve_passes(torch, cpu_wls, policies, "mixed", {},
+                        passes=("first",))["first"]["reqs"]
+    # room for every engine's packs: K = 1, 2 and 4 pack other topologies
+    host = dict(plan_cache=FIFOCache(2048), schedule_cache=FIFOCache(2048))
+    runs, lines = {}, {}
+    for k in SHARDED_KS:
+        runs[k] = serve_passes(torch, wls, policies, "mixed",
+                               dict(host, bucket_cache=LRUCache(256)),
+                               drive if k == 4 else None,
+                               passes=("first", "steady", "profiled",
+                                       "traced"),
+                               n_shards=k)
+        vs_cpu = max(serve_agrees(f"sharded K={k} {name} pass",
+                                  runs[k][name]["reqs"], want,
+                                  cpu_wl)["max_abs_err_vs_cpu"]
+                     for name in ("first", "steady", "profiled"))
+        seen = own_counts_seen(f"sharded K={k} profiled pass",
+                               runs[k]["profiled"])
+        steady = runs[k]["steady"]
+        tier = "sharded" if k > 1 else "bucketed"
+        if (steady["n_contained_errors"] or steady["n_quarantine_events"]
+                or set(steady["tier_rounds"]) != {tier}
+                or steady["n_graph_captures"] or not steady["n_graph_replays"]
+                or (k > 1 and not steady["n_sharded_dispatches"])):
+            fail(f"serve sharded K={k} steady pass: {steady['tier_rounds']}, "
+                 f"contained {steady['n_contained_errors']}, captures "
+                 f"{steady['n_graph_captures']}, replays "
+                 f"{steady['n_graph_replays']}, sharded dispatches "
+                 f"{steady['n_sharded_dispatches']}")
+        lines[k] = sharded_line("steady", k, steady, runs[k]["profiled"],
+                                card)
+        lines[k]["first"] = sharded_line("first", k, runs[k]["first"], None,
+                                         card)
+        lines[k]["profiled_launches_seen"] = seen
+        lines[k]["max_abs_err_vs_cpu"] = vs_cpu
+        lines[k]["host_span_ms_per_round"] = runs[k]["traced"][
+            "span_ms_per_round"]
+        log(f"serve sharded K={k} host ms per round (traced pass): "
+            + ", ".join(f"{n} {v:.3f}" for n, v in
+                        lines[k]["host_span_ms_per_round"].items()))
+    base = runs[1]["first"]["reqs"]
+    for k in SHARDED_KS[1:]:
+        for name in ("first", "steady", "profiled"):
+            lines[k].setdefault("vs_k1", {})[name] = outputs_agree(
+                f"sharded K={k} {name} pass against K=1 on the card",
+                runs[k][name]["reqs"], base, cpu_wl, 1e-6)
+    launches = runs[4]["steady"]["launches"]
+    for kernel in ("gather_rows", "fused_gather_lstm_cell"):
+        if launches[kernel] <= 0:
+            fail(f"{kernel} was not launched during serve sharded K=4")
+
+    def one_pass(label, k, reqs, **kw):
+        eng = ServeEngine(dict(wls), policies=policies, max_slots=16,
+                          n_shards=k, device="cuda", **host, **kw)
+        eng.submit_many(reqs)
+        t0 = time.perf_counter()
+        stats = eng.run()
+        torch.cuda.synchronize()
+        eng.close()
+        bad = [r.status for r in reqs if r.status != "COMPLETED"]
+        if bad:
+            fail(f"serve sharded {label}: {len(bad)} requests ended "
+                 f"{set(bad)}")
+        log(f"serve sharded K={k}: {label}: {stats.tokens_out / stats.wall_s:.1f}"
+            f" tok/s, {stats.n_rounds} rounds, {time.perf_counter() - t0:.2f}"
+            f" s, busy share not measured, captures {stats.n_graph_captures}"
+            f", replays {stats.n_graph_replays}, fallback rounds "
+            f"{stats.n_shard_fallback_rounds}, sharded dispatches "
+            f"{stats.n_sharded_dispatches}, tiers {stats.tier_rounds} "
+            f"({card})")
+        return eng, stats
+
+    from repro_torch.serve import synth_trace
+    fams, n, rate, max_new, _, args = SERVE_TRACES["mixed"]
+
+    def mixed():
+        return synth_trace(fams, n, rate, max_new, wls, SEED, **args)
+
+    # (a) shard loss at round 3 and regrowth at round 7
+    reqs = mixed()
+    eng, _ = one_pass("(a) loss at round 3, regrowth at round 7", 2, reqs,
+                      fault_injector=FaultInjector(shard_lost={3: 1},
+                                                   shard_back_rounds=[7]))
+    log_ = [(e["old"], e["new"]) for e in eng.resize_log]
+    if log_ != [(2, 1), (1, 2)]:
+        fail(f"serve sharded (a): resize log {eng.resize_log}")
+    outputs_agree("sharded (a) against the clean K=2 run", reqs,
+                  runs[2]["first"]["reqs"], cpu_wl, 1e-6)
+    lines["a"] = {"resize_log": eng.resize_log,
+                  "evacuated": eng.stats.n_entries_evacuated}
+
+    # (b) work stealing, beside a clean run of the same trace
+    clean = steal_trace(tserve)
+    eng_c = ServeEngine({"lm": wls["lm"]}, policies=policies, max_slots=4,
+                        n_shards=2, device="cuda")
+    eng_c.submit_many(clean)
+    eng_c.run()
+    stolen = steal_trace(tserve)
+    eng_s = ServeEngine({"lm": wls["lm"]}, policies=policies, max_slots=4,
+                        n_shards=2, device="cuda", steal_threshold=0)
+    eng_s.submit_many(stolen)
+    st = eng_s.run()
+    torch.cuda.synchronize()
+    if st.n_entries_stolen < 1 or any(r.status != "COMPLETED"
+                                      for r in stolen + clean):
+        fail(f"serve sharded (b): stolen {st.n_entries_stolen}")
+    for a, b in zip(stolen, clean):
+        if a.out != b.out:
+            fail(f"serve sharded (b): lm request {a.rid} tokens {a.out} "
+                 f"!= {b.out} without stealing")
+    cpu_steal = steal_trace(tserve)
+    eng_cpu = ServeEngine({"lm": cpu_wls["lm"]}, policies=policies,
+                          max_slots=4, n_shards=2, device="cpu",
+                          steal_threshold=0)
+    eng_cpu.submit_many(cpu_steal)
+    eng_cpu.run()
+    flips = serve_agrees("sharded (b) against the CPU", stolen, cpu_steal,
+                         cpu_wl)["near_tie_flips"]
+    log(f"serve sharded K=2: (b) steal_threshold=0: {st.n_entries_stolen} "
+        f"entries stolen, {st.n_rounds} rounds, tokens equal the clean "
+        f"run's, near-tie flips against the CPU {flips}, captures "
+        f"{st.n_graph_captures}, replays {st.n_graph_replays}, sharded "
+        f"dispatches {st.n_sharded_dispatches} ({card})")
+    lines["b"] = {"stolen": st.n_entries_stolen}
+
+    # (c) a crash on a shrunken mesh through the launcher, then --restore
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    registry = PolicyRegistry(str(SHARDED_DIR / "registry"))
+    for fam, policy in policies.items():
+        registry.save(fam, policy)
+    ckpt = SHARDED_DIR / "ckpt"
+    common = ["--model-size", str(MODEL_SIZE), "--seed", str(SEED),
+              "--registry", str(SHARDED_DIR / "registry")]
+    code = launcher.main(common + [
+        "--devices", "2", "--checkpoint-dir", str(ckpt),
+        "--inject-faults", "crash=8,shard_lost=5*1"])
+    if code != 1:
+        fail(f"serve sharded (c): the injected crash exited {code}, not 1")
+    path = latest_checkpoint(str(ckpt))
+    doc = read_checkpoint(path)
+    code, restored = launcher.serve(launcher.parse_args(
+        common + ["--restore", str(ckpt)]))
+    if code != 0:
+        fail(f"serve sharded (c): --restore exited {code}")
+    led = [restored.requests[rid] for rid in sorted(restored.requests)]
+    if [r.status for r in led] != ["COMPLETED"] * len(want):
+        fail(f"serve sharded (c): restored statuses "
+             f"{[r.status for r in led]}")
+    res = outputs_agree("sharded (c) restored against the uninterrupted "
+                        "K=2 run", led, runs[2]["first"]["reqs"], cpu_wl,
+                        1e-6)
+    log(f"serve sharded K=2: (c) crash exit 1 at round "
+        f"{doc['clock']['round']} on a mesh of {doc['config']['n_shards']} "
+        f"(excluded {doc['config']['excluded_devices']}), --restore exit 0 "
+        f"on {restored.n_shards} replica(s) of {restored._n_shards0}; tokens "
+        f"equal the uninterrupted run's, outputs max abs err "
+        f"{res['max_abs_err']:.3e} (bit-equal {res['bit_equal']}) ({card})")
+    lines["c"] = {"crash_round": doc["clock"]["round"],
+                  "n_shards_at_crash": doc["config"]["n_shards"]}
+
+    # (d) K = 4 with async compile: sharded builds on the workers
+    runs_d = serve_passes(torch, wls, policies, "mixed",
+                          dict(host, bucket_cache=LRUCache(256)),
+                          passes=("first", "steady"), n_shards=4,
+                          async_compile=True)
+    for name in ("first", "steady"):
+        outputs_agree(f"sharded (d) async {name} pass against K=1",
+                      runs_d[name]["reqs"], base, cpu_wl, 1e-6)
+    d = runs_d["steady"]
+    if (not d["n_graph_replays"] or d["n_graph_captures"]
+            or set(d["tier_rounds"]) != {"sharded"}):
+        fail(f"serve sharded (d) steady pass: {d['tier_rounds']}, captures "
+             f"{d['n_graph_captures']}, replays {d['n_graph_replays']}")
+    lines["d"] = sharded_line("(d) async compile, first pass", 4,
+                              runs_d["first"], None, card)
+    sharded_line("(d) async compile, steady pass", 4, d, None, card)
+    log(f"serve sharded detail: {json.dumps(lines, default=str)}")
+    one, two, four = (lines[k] for k in SHARDED_KS)
+    log(f"serve sharded K=1/2/4 steady: ms per round median "
+        f"{one['ms_per_round_median']:.3f} / {two['ms_per_round_median']:.3f}"
+        f" / {four['ms_per_round_median']:.3f}, busy share "
+        f"{one['busy_share']:.3f} / {two['busy_share']:.3f} / "
+        f"{four['busy_share']:.3f}, device events per round "
+        f"{one['device_events_per_round']:.1f} / "
+        f"{two['device_events_per_round']:.1f} / "
+        f"{four['device_events_per_round']:.1f}; K=4 steady launches "
+        f"{launches} ({card})")
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="phases to run after phase 1 (comma-separated); "
-                         "the result lines are printed only for all seven")
+                         "the result lines are printed only for all eight")
     ap.add_argument("--workloads", default=",".join(TREES_LATTICES),
                     help="phase 5's workloads (comma-separated)")
     args = ap.parse_args(argv)
@@ -1846,7 +2130,7 @@ def main(argv: list[str] | None = None) -> int:
             f"{tl['batch_lower_bound']}), ms per run {tl['ms_per_run']}, "
             f"lowering s {tl['lower_s']}, bucketed busy share {busy:.3f}, "
             f"launches {counts}, {time.perf_counter() - t0:.1f} s ({card})")
-    if phases & {6, 7}:
+    if phases & {6, 7, 8}:
         t0 = time.perf_counter()
         policies = serve_policies(serve_workloads("cpu"))
         log(f"serve policies learned: {time.perf_counter() - t0:.1f} s")
@@ -1866,8 +2150,15 @@ def main(argv: list[str] | None = None) -> int:
             f"(a)): {launcher_launches['gather_rows']}, "
             f"{launcher_launches['fused_gather_lstm_cell']}; launcher done: "
             f"{time.perf_counter() - t0:.1f} s")
+    if 8 in phases:
+        t0 = time.perf_counter()
+        sharded_launches = sharded_phase(torch, drive, card, policies)
+        log(f"sharded launches of the row gather and the gather cell (K=4 "
+            f"steady pass): {sharded_launches['gather_rows']}, "
+            f"{sharded_launches['fused_gather_lstm_cell']}; sharded done: "
+            f"{time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
-    if phases != set(range(1, 8)) or set(workloads) != set(TREES_LATTICES):
+    if phases != set(range(1, 9)) or set(workloads) != set(TREES_LATTICES):
         log(f"partial run (phases {sorted(phases)}, workloads {workloads}): "
             f"no result lines")
         return 0

@@ -30,6 +30,13 @@ execution plan*, at two levels of specialization:
   gather→cell kernel (:mod:`repro_torch.kernels.fused_gather_cell`)
   straight off the arenas.
 
+- **Sharded bucketed execution** (:class:`ShardedBucketedPlanExecutor`):
+  K data-parallel replicas of one bucket program over a leading replica
+  axis on one card — the reference's ``shard_map`` over a ``("data",)``
+  mesh. Every shard runs the single-device body verbatim over its row of
+  the stacked static buffers, all inside one captured CUDA graph, so one
+  replay serves all K.
+
 Eager PyTorch has no whole-program compile: in this port a "compile" (the
 ``n_compiles`` / ``compile_time_s`` counters and the ``xla.compile`` span,
 kept in their reference places) is the build of a program object — the
@@ -50,7 +57,7 @@ import hashlib
 import threading
 import time
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable
 
 import numpy as np
@@ -455,6 +462,10 @@ class PlanResult:
     def arena_rows(self, fld: str, ids) -> tuple[torch.Tensor, np.ndarray]:
         """(arena, row-index vector) for ``fld`` at ``ids`` — the raw
         ingredients of :meth:`field`."""
+        key, rows = self._key_rows(fld, ids)
+        return self.arenas[key], rows
+
+    def _key_rows(self, fld: str, ids) -> tuple[ArenaKey, np.ndarray]:
         keys = set()
         for i in ids:
             impl = self._impls[self._graph.nodes[i].type]
@@ -466,8 +477,8 @@ class PlanResult:
                 f"field {fld!r} has mixed shapes "
                 f"{sorted(k[1] for k in keys)} across the requested nodes")
         key = keys.pop()
-        rows = np.asarray([self._row_of[(key, i)] for i in ids], np.int32)
-        return self.arenas[key], rows
+        return key, np.asarray([self._row_of[(key, i)] for i in ids],
+                               np.int32)
 
 
 def _write(arenas: dict, key: ArenaKey, rows: int, val: torch.Tensor
@@ -712,8 +723,8 @@ class BucketSpec:
     Two topologies with equal specs share one program.
 
     ``n_shards`` is 1 for the single-device program; the sharded executor
-    (a later slice of the port) re-keys the same signature at its replica
-    count.
+    (:class:`ShardedBucketedPlanExecutor`) re-keys the same signature at its
+    replica count.
     """
 
     steps: tuple[BucketStepSpec, ...]
@@ -934,7 +945,7 @@ class _Bucket:
     as the reference's undonated runs return fresh arrays."""
 
     def __init__(self, prog: _BucketProgram, impls: dict,
-                 device: torch.device):
+                 device: torch.device, lead: tuple[int, ...] = ()):
         self.prog = prog
         self.impls = impls
         self.pool: dict = {}
@@ -946,11 +957,12 @@ class _Bucket:
         self.loaded: BucketedPack | None = None
         self.streams: set[int] = set()   # streams it was replayed on
         spec = prog.spec
-        self.idx = torch.zeros(spec.n_index_lanes, dtype=torch.int32,
-                               device=device)
-        self.idx_long = torch.zeros(spec.n_index_lanes, dtype=torch.int64,
-                                    device=device)
-        self.aux = torch.zeros(spec.n_aux_lanes, dtype=torch.int32,
+        # ``lead``: the sharded entry's leading shard axis
+        self.idx = torch.zeros(lead + (spec.n_index_lanes,),
+                               dtype=torch.int32, device=device)
+        self.idx_long = torch.zeros(lead + (spec.n_index_lanes,),
+                                    dtype=torch.int64, device=device)
+        self.aux = torch.zeros(lead + (spec.n_aux_lanes,), dtype=torch.int32,
                                device=device)
 
     def load(self, pack: BucketedPack, aux: np.ndarray) -> None:
@@ -966,6 +978,17 @@ class _Bucket:
         """False once a buffer that a copy read by the graph was derived
         from has been updated in place since the capture."""
         return all(t._version == v for t, v in self.sources)
+
+    def _body(self, params: Any, arenas: dict) -> dict:
+        """The program over the static buffers, writing into ``arenas``
+        (allocated at their first writes where absent)."""
+        return self.prog.body(params, self.idx, self.idx_long, self.aux,
+                              arenas)
+
+    def _static_arenas(self, warm: dict) -> dict:
+        """The arenas a capture writes into, made before it from the
+        warm-up's: none for one shard, whose capture allocates its own."""
+        return {}
 
     def capture(self, params: Any) -> None:
         """Warm up, then capture the body into a CUDA graph. The warm-up
@@ -984,7 +1007,7 @@ class _Bucket:
         side.wait_stream(torch.cuda.current_stream(dev))
         with derived_copies() as found:
             with torch.cuda.stream(side):
-                self.prog.body(params, self.idx, self.idx_long, self.aux, {})
+                arenas = self._static_arenas(self._body(params, {}))
             side.synchronize()
             graph = torch.cuda.CUDAGraph()
             try:
@@ -993,13 +1016,13 @@ class _Bucket:
                 with launches.captured() as counts, torch.cuda.stream(side):
                     graph.capture_begin(capture_error_mode="thread_local")
                     try:
-                        out = self.prog.body(params, self.idx, self.idx_long,
-                                             self.aux, {})
+                        out = self._body(params, arenas)
                     finally:
                         graph.capture_end()
             except BaseException:
                 _release_generator(dev)
                 raise
+        self.pinned.extend(arenas.values())
         # one entry a buffer: every step of both passes reports its copies
         for src, version, copies in {id(f[0]): f for f in found}.values():
             self.pinned.extend(copies)
@@ -1017,8 +1040,7 @@ class _Bucket:
         not handed out while a replay may still read it."""
         self.load(pack, aux)
         if self.graph is None:
-            return self.prog.body(params, self.idx, self.idx_long, self.aux,
-                                  self.pool if donate else {})
+            return self._body(params, self.pool if donate else {})
         stream = torch.cuda.current_stream(self.idx.device)
         if stream.cuda_stream not in self.streams:
             for t in self.pinned + [self.idx, self.idx_long, self.aux]:
@@ -1350,3 +1372,311 @@ class InFlightDispatch:
         self._result = PlanResult(self._graph, ex.impls, self._arenas,
                                   self._pack.row_of)
         return self._result
+
+
+# ---------------------------------------------------------------------------
+# Sharded bucketed execution (data-parallel replicas on one card)
+# ---------------------------------------------------------------------------
+
+
+def _merge_params(replicated: Any, per_shard: Any) -> Any:
+    """Combine the replicated params with a shard's slice of the sharded
+    params. Dicts merge key-wise (sharded keys win); otherwise exactly one
+    side may be non-None."""
+    if per_shard is None:
+        return replicated
+    if replicated is None:
+        return per_shard
+    if isinstance(replicated, dict) and isinstance(per_shard, dict):
+        merged = dict(replicated)
+        merged.update(per_shard)
+        return merged
+    raise TypeError(
+        "params and shard_params can only be combined when both are dicts; "
+        f"got {type(replicated).__name__} and {type(per_shard).__name__}")
+
+
+def _shard_slice(x: Any, s: int) -> Any:
+    """Row ``s`` of every tensor in a nest of dicts, lists and tuples: views,
+    so a graph captured over them reads the stacked tensors in place."""
+    if isinstance(x, torch.Tensor):
+        return x[s]
+    if isinstance(x, dict):
+        return {k: _shard_slice(v, s) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_shard_slice(v, s) for v in x)
+    return x
+
+
+class _ShardedBucket(_Bucket):
+    """One sharded bucket signature's entry: the static buffers gain a
+    leading shard axis (``(K, lanes)``), the body runs the single-device
+    program once per shard over that shard's rows and its slice of the
+    sharded params, and the arenas are stacked ``(K, rows, *row)``. On the
+    card all K bodies are captured into one CUDA graph, so one replay
+    serves every shard. The capture writes into stacked arenas made before
+    it (zeroed at the start of every run, as a one-shard capture's fresh
+    arenas are), which the entry pins."""
+
+    def __init__(self, prog: _BucketProgram, impls: dict,
+                 device: torch.device, n_shards: int):
+        super().__init__(prog, impls, device, lead=(n_shards,))
+        self.n_shards = n_shards
+        self.loaded = [None] * n_shards
+
+    def load(self, packs: list[BucketedPack], aux: np.ndarray) -> None:
+        """Copy each shard's index vectors where its pack differs from the
+        last run's, and every shard's aux in one copy."""
+        for s, pack in enumerate(packs):
+            if self.loaded[s] is not pack:
+                self.idx[s].copy_(pack.idxpack)
+                self.idx_long[s].copy_(pack.idxpack_long)
+                self.loaded[s] = pack
+        self.aux.copy_(torch.from_numpy(aux))
+
+    def _body(self, params: Any, arenas: dict) -> dict:
+        rep, sharded = params
+        if not arenas:
+            outs = [self.prog.body(_merge_params(rep, _shard_slice(sharded, s)),
+                                   self.idx[s], self.idx_long[s], self.aux[s],
+                                   {})
+                    for s in range(self.n_shards)]
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        for v in arenas.values():
+            v.zero_()
+        for s in range(self.n_shards):
+            self.prog.body(_merge_params(rep, _shard_slice(sharded, s)),
+                           self.idx[s], self.idx_long[s], self.aux[s],
+                           {k: v[s] for k, v in arenas.items()})
+        return arenas
+
+    def _static_arenas(self, warm: dict) -> dict:
+        return {k: torch.zeros_like(v) for k, v in warm.items()}
+
+
+class ShardPlanResult(PlanResult):
+    """Shard ``shard``'s view of a sharded run: ``arenas`` are that shard's
+    rows of the stacked arenas (``stacked``), which :meth:`stacked_rows`
+    addresses flat, so a caller can read every shard's rows in one gather."""
+
+    def __init__(self, graph: Graph, impls: dict[TypeId, NodeImpl],
+                 stacked: dict[ArenaKey, torch.Tensor], shard: int,
+                 row_of: dict[tuple[ArenaKey, int], int]):
+        super().__init__(graph, impls, {k: v[shard] for k, v in stacked.items()},
+                         row_of)
+        self.stacked = stacked
+        self.shard = shard
+
+    def stacked_rows(self, fld: str, ids) -> tuple[torch.Tensor, np.ndarray]:
+        """(flat stacked arena ``(K * rows, *row)``, row-index vector into
+        it) for ``fld`` at ``ids`` of this shard."""
+        key, rows = self._key_rows(fld, ids)
+        v = self.stacked[key]
+        return v.view((-1,) + tuple(v.shape[2:])), rows + self.shard * v.shape[1]
+
+
+class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
+    """Data-parallel counterpart of :class:`BucketedPlanExecutor`: K shards'
+    runtime operands (index packs, aux vectors, per-shard params such as
+    the serve engine's stacked lm slot pool) are stacked on a leading
+    replica axis and the *same* bucket program runs once per shard — the
+    reference's ``shard_map`` over a 1-D ``("data",)`` mesh, here K
+    replicas on the one card of the mesh (``launch/mesh.py``). On the card
+    the K bodies are captured into one CUDA graph: one replay, K replicas.
+
+    The per-shard computation is the single-device program verbatim, so
+    shard results equal running each shard's graph through
+    :class:`BucketedPlanExecutor` alone. Entries are cached by the bucket
+    signature re-keyed at ``n_shards=K`` — the same LRU cache, build lock
+    and capture rules as the single-device path. Replicated ``params`` (the
+    weights) stay one copy; each shard reads its row of ``shard_params``.
+
+    ``run_sharded`` requires every shard's pack to share one bucket
+    signature (the serve scheduler pads shards to a common signature for
+    lm rounds). When signatures diverge or some shards are idle, it
+    degrades to per-shard sequential execution through the inherited
+    single-device path (still bucketed, still cached; counted in
+    ``n_fallback_rounds``). A shard's slice of ``shard_params`` is a view
+    with its own address, so one signature may capture up to K
+    single-device graphs there.
+    """
+
+    def __init__(self, impls: dict[TypeId, NodeImpl], params: Any, *,
+                 mesh: Any = None, n_shards: int | None = None, **kwargs):
+        super().__init__(impls, params, **kwargs)
+        if mesh is None:
+            from repro_torch.launch.mesh import make_data_mesh
+            mesh = make_data_mesh(n_shards, device=self.device)
+        if len(mesh.axis_names) != 1:
+            raise ValueError(
+                f"sharded plan execution needs a 1-D data mesh, got axes "
+                f"{mesh.axis_names}")
+        self.mesh = mesh
+        self.n_shards = int(mesh.devices.size)
+        if n_shards is not None and n_shards != self.n_shards:
+            raise ValueError(f"mesh has {self.n_shards} devices, "
+                             f"n_shards={n_shards}")
+        self.n_sharded_dispatches = 0
+        self.n_fallback_rounds = 0
+
+    # -- sharded program ------------------------------------------------------
+
+    def sharded_executable_key(self, sspec: BucketSpec, params: Any,
+                               shard_params: Any) -> tuple:
+        """The reference's ``(namespace, spec, params kind, shard params
+        kind)``; with ``capture`` also the data pointers of every threaded
+        tensor (replicated and sharded) and the weights' pointers and
+        versions, as :meth:`BucketedPlanExecutor.executable_key`."""
+        key = (self._ns, sspec, _params_kind(params),
+               _params_kind(shard_params))
+        if not self.capture:
+            return key + ("eager",)
+        return key + ("static",
+                      tuple(t.data_ptr() for t in _tensors(params)),
+                      tuple(t.data_ptr() for t in _tensors(shard_params)),
+                      tuple((t.data_ptr(), t._version)
+                            for t in self._weights()))
+
+    def sharded_executable_ready(self, sspec: BucketSpec, params: Any,
+                                 shard_params: Any) -> bool:
+        """True when the sharded program is already cached — a pure probe
+        (no build, no LRU refresh), the sharded twin of
+        :meth:`BucketedPlanExecutor.executable_ready`."""
+        entry = self._exes.peek(
+            self.sharded_executable_key(sspec, params, shard_params))
+        return entry is not None and entry.current()
+
+    def build_sharded_executable(self, sspec: BucketSpec, params: Any,
+                                 shard_params: Any,
+                                 span_args: dict | None = None,
+                                 abort_check: Callable[[], bool] | None = None,
+                                 packs: list[BucketedPack] | None = None,
+                                 aux: np.ndarray | None = None
+                                 ) -> tuple[Any, _ShardedBucket, float]:
+        """Build (or fetch) the sharded program for ``sspec``; returns
+        ``(key, entry, compile_s)``. Safe from a background compile worker,
+        by the rules of :meth:`BucketedPlanExecutor.build_executable`: the
+        compile hook and ``abort_check`` run before the build, builds take
+        turns under the process-wide build lock, and on the card the
+        capture (after an eager warm-up on a side stream) holds only the
+        calling thread to its rules and hands back the random generator
+        when it fails. It captures over ``packs``' indices and ``aux``
+        (``(K, n_aux_lanes)``) where given, else zeros."""
+        key = self.sharded_executable_key(sspec, params, shard_params)
+        entry = self._exes.get(key)
+        if entry is not None and entry.current():
+            return key, entry, 0.0
+        ctx = {"kind": "sharded", "sig": _sig_digest(sspec)}
+        ctx.update(span_args or {})
+        if abort_check is not None:
+            ctx["abort"] = abort_check
+        if self.compile_hook is not None:
+            _call_compile_hook(self.compile_hook, key, ctx)
+        if abort_check is not None and abort_check():
+            raise RuntimeError(
+                f"compile of sharded bucket {_sig_digest(sspec)} aborted "
+                f"(job abandoned before the build)")
+        capture = self.capture and self.device.type == "cuda"
+        with self.tracer.span("xla.compile", cat="compile", kind="sharded",
+                              bucket=_sig_digest(sspec),
+                              steps=len(sspec.steps),
+                              shards=sspec.n_shards, capture=capture,
+                              **(span_args or {})) as sp, \
+                _build_lock(abort_check):
+            entry = self._exes.peek(key)
+            if entry is not None and entry.current():
+                return key, entry, 0.0
+            t0 = time.perf_counter()
+            prog = _BucketProgram(sspec, self.impls, fused=self.fused)
+            entry = _ShardedBucket(prog, self.impls, self.device,
+                                   self.n_shards)
+            if self.capture:
+                entry.pinned = (_tensors(params) + _tensors(shard_params)
+                                + self._weights())
+            if capture:
+                if packs is not None:
+                    entry.load(packs, aux if aux is not None else np.zeros(
+                        (self.n_shards, sspec.n_aux_lanes), np.int32))
+                entry.capture((params, shard_params))
+                self.n_captures += 1
+            self._exes[key] = entry
+            dt = time.perf_counter() - t0
+            sp.set(lower_s=dt)
+        self.n_bucket_compiles += 1
+        self.compile_time_s += dt
+        return key, entry, dt
+
+    # -- execution ------------------------------------------------------------
+
+    def _run_fallback(self, graphs, policy, stats: ExecStats, params: Any,
+                      shard_params: Any) -> list[PlanResult | None]:
+        self.n_fallback_rounds += 1
+        results: list[PlanResult | None] = []
+        for s, g in enumerate(graphs):
+            if g is None:
+                results.append(None)
+                continue
+            mine = _shard_slice(shard_params, s)
+            results.append(super().run(g, policy, stats,
+                                       params=_merge_params(params, mine)))
+        return results
+
+    def run_sharded(self, graphs, policy: Policy | Callable[[Graph], Schedule],
+                    stats: ExecStats | None = None, params: Any = None,
+                    shard_params: Any = None) -> list[PlanResult | None]:
+        """Run one graph per shard (``None`` = idle shard) in one replay.
+
+        ``params`` is replicated across shards; ``shard_params`` is a nest
+        whose tensors carry a leading ``n_shards`` axis (e.g. the serve
+        engine's stacked lm slot pool), row ``s`` read by shard ``s``.
+        Returns one :class:`ShardPlanResult` per shard, viewing that
+        shard's rows of the stacked arenas (copies of the graph's, unless
+        the executor donates).
+        """
+        stats = stats if stats is not None else ExecStats()
+        tr = self.tracer
+        params = params if params is not None else self.params
+        if len(graphs) != self.n_shards:
+            raise ValueError(f"expected {self.n_shards} graphs (one per "
+                             f"shard, None for idle), got {len(graphs)}")
+        with tr.span("plan.pack", cat="plan"):
+            packs = [self.pack_for(g, policy, stats) if g is not None
+                     else None for g in graphs]
+        specs = {p.spec for p in packs if p is not None}
+        if not specs:
+            return [None] * self.n_shards
+        if any(p is None for p in packs) or len(specs) != 1:
+            return self._run_fallback(graphs, policy, stats, params,
+                                      shard_params)
+
+        sspec = replace(packs[0].spec, n_shards=self.n_shards)
+        with tr.span("plan.h2d", cat="plan"):
+            aux = np.stack([_node_aux_np(g, p.aux_perm)
+                            for g, p in zip(graphs, packs)])
+        key, entry, compile_s = self.build_sharded_executable(
+            sspec, params, shard_params, packs=packs, aux=aux)
+        if compile_s > 0:
+            # Charged to the pack that triggered the build, as the
+            # single-device path does.
+            packs[0].stats.n_compiles += 1
+            packs[0].stats.compile_time_s += compile_s
+        t1 = time.perf_counter()
+        with tr.span("plan.dispatch", cat="plan"):
+            arenas = entry.run(packs, aux, (params, shard_params),
+                               self.donate)
+            if entry.graph is not None:
+                self.n_replays += 1
+        with tr.span("plan.block", cat="plan"):
+            block(self.device)
+        dt = time.perf_counter() - t1
+        if self.donate:
+            entry.pool = arenas
+        if compile_s > 0:
+            stats.lower_time += compile_s
+            stats.n_compiles += 1
+        stats.exec_time += dt
+        stats.n_batches += sum(p.stats.n_steps for p in packs)
+        stats.n_launches += 1
+        self.n_sharded_dispatches += 1
+        return [ShardPlanResult(g, self.impls, arenas, s, p.row_of)
+                for s, (g, p) in enumerate(zip(graphs, packs))]

@@ -18,9 +18,13 @@ latency-percentile stats. It runs on the card unless ``--device cpu``.
         --checkpoint-dir runs/ckpt --inject-faults crash=8
     PYTHONPATH=src python -m repro_torch.launch.serve --restore runs/ckpt
 
+    # 4 data-parallel replicas on the one card (one graph replay a round)
+    PYTHONPATH=src python -m repro_torch.launch.serve --devices 4 \
+        --requests 32 --arrivals poisson
+
 The defaults are the reference's: bucketed plans (on the card each bucket
 signature is captured once as a CUDA graph), async compile (the captures
-run on background workers), pipelined continuous rounds, one device.
+run on background workers), pipelined continuous rounds, one replica.
 ``--cache-dir DIR`` holds ``warmset.json`` (``launch/cache.py``);
 ``--warm-start`` captures its signatures again in the background before
 the first request arrives.
@@ -32,9 +36,8 @@ single-shot entries use ``{"family": "tree", "arrival": ..., "size": 8}``
 
 ``--legacy-arch qwen2-0.5b`` serves one wave through the wave-by-wave
 TransformerLM engine (``repro_torch.serve.lm_wave``) on the reduced config
-instead. Not ported yet, and refused: ``--devices > 1`` (the sharding
-slice) and ``--checkpoint`` weights for the legacy path (the training
-slice).
+instead. Not ported yet, and refused: ``--checkpoint`` weights for the
+legacy path (the training slice).
 """
 
 from __future__ import annotations
@@ -56,8 +59,6 @@ from repro_torch.serve import (InjectedCrash, PolicyRegistry, ServeEngine,
                                graph_request, latest_checkpoint, lm_request,
                                synth_trace)
 
-SHARDING = ("the sharding slice (ShardedBucketedPlanExecutor and the data "
-            "mesh), which is not ported yet")
 TRAINING = "the training slice (train/checkpoint.py), which is not ported yet"
 
 
@@ -150,8 +151,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--burst-size", type=int, default=4,
                     help="requests per burst for --arrivals burst")
     ap.add_argument("--devices", type=int, default=1,
-                    help="data-parallel replicas; only 1 until the sharding "
-                         "slice is ported")
+                    help="data-parallel replicas: shard bucketed plan "
+                         "execution over a 1-D ('data',) mesh of this many "
+                         "replicas (bucketed plan mode only). In this port "
+                         "they share the card named by --device, and one "
+                         "graph replay serves all of them")
     ap.add_argument("--device", default="cuda",
                     help="where the engine serves: cuda (the default) or "
                          "cpu (every kernel runs its plain PyTorch version)")
@@ -206,12 +210,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--inject-faults", default="", metavar="SPEC",
                     help="deterministic fault injection, e.g. "
                          "'compile_fail=2,exec_rounds=3:7,slow=5*4.0,"
-                         "poison=2,crash=8' — fail the first N builds, "
-                         "raise at the listed engine rounds, burn extra "
-                         "virtual time at a round, mix in N malformed "
-                         "request graphs, crash the process at a round "
-                         "boundary (checkpoint first when --checkpoint-dir "
-                         "is set)")
+                         "poison=2,crash=8,shard_lost=5*1,shard_back=12' — "
+                         "fail the first N builds, raise at the listed "
+                         "engine rounds, burn extra virtual time at a round, "
+                         "mix in N malformed request graphs, crash the "
+                         "process at a round boundary (checkpoint first when "
+                         "--checkpoint-dir is set), kill replica S at round "
+                         "R, and recover it at the listed rounds")
     ap.add_argument("--checkpoint-dir", default="",
                     help="write versioned serve-session checkpoints here "
                          "(periodic via --checkpoint-every and on injected "
@@ -224,8 +229,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "the latest in a checkpoint directory) instead of "
                          "submitting a fresh trace")
     ap.add_argument("--steal-threshold", type=int, default=-1,
-                    help="work stealing between replicas; only -1 (off) "
-                         "until the sharding slice is ported")
+                    help="round-boundary work stealing: migrate lm entries "
+                         "from the most- to the least-loaded replica while "
+                         "the active-count spread exceeds this. -1 disables")
     ap.add_argument("--trace", default="", help="JSON trace file")
     ap.add_argument("--registry", default="", help="policy registry dir")
     ap.add_argument("--train-policy", action="store_true",
@@ -257,11 +263,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     construction."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.devices > 1:
-        ap.error(f"--devices {args.devices}: serving more than one replica "
-                 f"comes with {SHARDING}")
-    if args.steal_threshold >= 0:
-        ap.error(f"--steal-threshold: work stealing comes with {SHARDING}")
+    if args.devices > 1 and args.plan != "bucketed":
+        ap.error("--devices > 1 requires --plan bucketed (replicas shard "
+                 "the bucketed executable)")
     if args.warm_start and not _use_async(args):
         ap.error("--warm-start needs async compile "
                  "(--plan bucketed without --no-async-compile)")
@@ -324,10 +328,13 @@ def make_engine(args, workloads, registry=None, obs=None,
                        max_slots=args.max_slots,
                        model_size=args.model_size,
                        seed=args.seed, registry=registry,
+                       n_shards=args.devices,
                        queue_cap=args.queue_cap or None,
                        fault_injector=injector, obs=obs,
                        checkpoint_dir=args.checkpoint_dir or None,
                        checkpoint_every=args.checkpoint_every,
+                       steal_threshold=(None if args.steal_threshold < 0
+                                        else args.steal_threshold),
                        async_compile=use_async,
                        compile_workers=args.compile_workers,
                        compile_timeout_s=args.compile_timeout,
@@ -419,6 +426,10 @@ def serve(args, workloads: dict | None = None
     print(f"{stats.requests_done} requests ({stats.tokens_out} tokens, "
           f"{stats.outputs_out} single-shot outputs) in {stats.wall_s:.2f}s "
           f"= {stats.tok_per_s:.1f} tok/s over {stats.n_rounds} rounds")
+    if stats.n_shards > 1:
+        print(f"{stats.n_shards} replicas: {stats.n_sharded_dispatches} "
+              f"sharded dispatches, {stats.n_shard_fallback_rounds} "
+              f"fallback rounds, per-shard tokens {stats.shard_tokens}")
     print(f"batches {stats.n_batches}, device launches {stats.n_launches}, "
           f"builds {stats.n_compiles}, CUDA graphs "
           f"{stats.n_graph_captures} captured / {stats.n_graph_replays} "
@@ -439,13 +450,19 @@ def serve(args, workloads: dict | None = None
           f"rejected {stats.requests_rejected}; "
           f"{stats.n_contained_errors} contained errors, "
           f"{stats.n_quarantine_events} quarantine events")
-    if stats.n_pipelined_rounds or stats.n_spec_cancelled:
+    if (stats.n_pipelined_rounds or stats.n_spec_cancelled
+            or stats.n_merge_aligned_rounds):
         print(f"pipeline: {stats.n_pipelined_rounds} overlapped round(s) "
               f"({stats.n_overlapped_packs} pack(s) hidden behind dispatch), "
-              f"{stats.n_spec_cancelled} speculation(s) cancelled")
-    if stats.n_checkpoints or stats.n_restores:
+              f"{stats.n_spec_cancelled} speculation(s) cancelled, "
+              f"{stats.n_merge_aligned_rounds} merge-aligned sharded "
+              f"round(s)")
+    if (stats.n_checkpoints or stats.n_restores or stats.n_resize_events
+            or stats.n_entries_stolen):
         print(f"durability: {stats.n_checkpoints} checkpoint(s), "
-              f"{stats.n_restores} restore(s)")
+              f"{stats.n_restores} restore(s), {stats.n_resize_events} "
+              f"resize event(s) ({stats.n_entries_evacuated} entries "
+              f"evacuated), {stats.n_entries_stolen} stolen")
     if eng.async_compile:
         firsts = [r.t_first - t_serve0 for r in eng.requests.values()
                   if r.t_first >= t_serve0]

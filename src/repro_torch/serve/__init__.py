@@ -4,19 +4,17 @@
 - ``scheduler``  — continuous folding of arrivals into in-flight waves,
                    wave-as-graph builders
 - ``engine``     — round-driven engine: compiled plan path (one CUDA-graph
-                   replay per bucket signature on the card), slot pools,
-                   shared FIFO caches, ``ServeStats``
+                   replay per bucket signature on the card, one for all K
+                   replicas of a sharded engine), slot pools, shared FIFO
+                   caches, ``ServeStats``
 - ``registry``   — persistent FSM policy registry (content fingerprints)
 - ``traces``     — synthetic request traces
 - ``faults``     — error codes, validation, quarantine, fault injection
 - ``checkpoint`` — versioned, fingerprinted session snapshots (atomic IO)
-- ``resilience`` — snapshot and restore of a single-shard engine
+- ``resilience`` — snapshot/restore, elastic mesh resize, work stealing
 - ``compiler``   — supervised background build service (async compile:
                    bucket graphs captured on worker threads)
 - ``lm_wave``    — wave-by-wave TransformerLM engine (baseline)
-
-The reference's elastic mesh and work stealing come with the sharding
-slice and raise ``NotImplementedError`` here.
 """
 
 from .checkpoint import (CheckpointError, latest_checkpoint, list_checkpoints,

@@ -1,7 +1,7 @@
 """Continuous-batching serve engine on compiled execution plans.
 
 The port of the reference's round-driven engine over the typed-graph
-executors, on one device:
+executors, on one card:
 
 - an :class:`~repro_torch.serve.queue.AdmissionQueue` feeds a
   :class:`~repro_torch.serve.scheduler.ContinuousScheduler` that folds newly
@@ -23,7 +23,16 @@ executors, on one device:
   :class:`~repro_torch.serve.registry.PolicyRegistry` (auto-selected at
   construction), or default to the sufficient-condition heuristic,
 - schedule and plan caches are **shared, FIFO-capped** objects keyed by
-  (family namespace, topology fingerprint, policy fingerprint).
+  (family namespace, topology fingerprint, policy fingerprint),
+- ``n_shards > 1`` serves K data-parallel replicas through
+  :class:`repro_torch.core.plan.ShardedBucketedPlanExecutor`: each round
+  the scheduler partitions work across shards (lm slots pinned to a home
+  shard, single-shot graphs balanced by node count), every shard's round
+  graph pads to one shared bucket signature, and the whole round is one
+  graph replay on the card (the K replicas are rows of a leading replica
+  axis, ``launch/mesh.py``). The slot pool gains a leading shard axis;
+  per-shard ServeStats merge into the engine totals (``shard_tokens``
+  shows the balance).
 
 LM recurrent state lives in a fixed slot pool threaded through executor
 ``params`` (see ``models/chains.py:ChainLM``), so one captured graph serves
@@ -33,7 +42,8 @@ place (``index_fill_`` / ``index_copy_``) where the reference rebinds it.
 
 The engine is fault-isolated rather than fail-stop: requests are validated
 at admission and failures are contained at request granularity; rounds
-degrade down a ladder (bucketed -> interpreted, with failing bucket
+degrade down a ladder (sharded -> per-shard bucketed -> interpreted, with
+failing bucket
 signatures quarantined under capped-retry backoff; a failed capture counts
 as a failed compile) instead of aborting; per-request deadlines are
 enforced at round boundaries; a bounded admission queue sheds load with an
@@ -50,16 +60,19 @@ copies the slot pool into the engine's own, which its graphs read in
 place. ``warmset()`` records the lm signatures served, which ``prewarm()``
 builds again in the background.
 
-Not ported yet, and raising ``NotImplementedError`` where asked for: more
-than one shard and the data mesh (the sharded executor), shard loss and
-regrowth and work stealing.
+The mesh is elastic (``serve/resilience.py``): a lost replica's slot rows
+evacuate into survivors, a recovered one grows the mesh back, and work
+stealing rebalances slots across replicas. The stacked slot pool is made
+once for the configured replica count and every mesh size views it
+(``pool[:K]``, ``pool[0]`` for one shard), so a resize moves rows in place
+and the graphs captured before a shrink replay again after the regrow.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any
 
 import numpy as np
@@ -71,7 +84,7 @@ from repro_torch.core.cache import FIFOCache, LRUCache
 from repro_torch.core.device import resolve_device
 from repro_torch.core.executor import DynamicExecutor, ExecStats
 from repro_torch.core.plan import (BucketedPlanExecutor, PlanExecutor,
-                                   _sig_digest)
+                                   ShardedBucketedPlanExecutor, _sig_digest)
 from repro_torch.kernels.gather_batch import gather_rows
 from repro_torch.models.workloads import SERVE_FAMILIES, make_workload
 from repro_torch.obs import FlightRecorder, Obs, Tracer
@@ -82,19 +95,11 @@ from .faults import (BAD_TOPOLOGY, DEADLINE_EXCEEDED, EXEC_ERROR,
                      validate_request)
 from .queue import (COMPLETED, FAILED, TIMED_OUT, AdmissionQueue,
                     ServeRequest)
-from .scheduler import (ContinuousScheduler, RoundPlan, bucket_len,
+from .scheduler import (COUNT_BUCKET_MIN, ContinuousScheduler, RoundPlan,
+                        align_single_shot_groups, bucket_len,
                         build_lm_feed_round_graph, build_lm_round_graph,
-                        merge_request_graphs, next_feed_token)
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with {where}, a later slice "
-        f"of the port")
-
-
-SHARDING = ("the sharding slice (ShardedBucketedPlanExecutor, the data "
-            "mesh, shard loss, regrowth and work stealing)")
+                        merge_request_graphs, next_feed_token,
+                        partition_singles)
 
 
 @dataclass
@@ -119,22 +124,22 @@ class ServeStats:
     bucket_cache_hits: int = 0    # bucketed path: executable-cache hits
     bucket_cache_misses: int = 0
     n_shards: int = 1
-    n_sharded_dispatches: int = 0   # rounds served by one shard_map dispatch
-    n_shard_fallback_rounds: int = 0  # rounds degraded to per-shard dispatch
-    # Fault accounting. ``tier_rounds`` maps degradation tier ("bucketed" /
-    # "plan" / "interpreted") to family-rounds served at that tier.
+    n_sharded_dispatches: int = 0   # rounds served by one sharded run
+    n_shard_fallback_rounds: int = 0  # rounds degraded to per-shard runs
+    # Fault accounting. ``tier_rounds`` maps degradation tier ("sharded" /
+    # "bucketed" / "plan" / "interpreted") to family-rounds served at that
+    # tier.
     requests_failed: int = 0      # terminal FAILED (validation / exec / drain)
     requests_timed_out: int = 0   # terminal TIMED_OUT (deadline passed)
     requests_rejected: int = 0    # shed by the bounded admission queue
     n_contained_errors: int = 0   # exceptions absorbed at a fault boundary
     n_quarantine_events: int = 0  # bucket-signature quarantine bookings
-    # Durability & elasticity accounting (the mesh fields stay 0 on one
-    # shard).
+    # Durability & elasticity accounting.
     n_checkpoints: int = 0        # snapshots written (periodic + crash)
     n_restores: int = 0           # engine lifetimes resumed from a snapshot
-    n_resize_events: int = 0
-    n_entries_evacuated: int = 0
-    n_entries_stolen: int = 0
+    n_resize_events: int = 0      # mesh shrink/grow transitions
+    n_entries_evacuated: int = 0  # slot rows migrated off a dead shard
+    n_entries_stolen: int = 0     # slot rows moved by work stealing
     # Async compile service accounting. ``lower_s`` keeps its meaning —
     # lowering and builds paid *on* the serve loop — while background
     # builds (pack, warm-up, capture) land in ``lower_bg_s``.
@@ -155,6 +160,9 @@ class ServeStats:
     n_pipelined_rounds: int = 0
     n_overlapped_packs: int = 0
     n_spec_cancelled: int = 0
+    # Sharded single-shot rounds whose diverging shard specs were padded
+    # back onto one shared bucket signature instead of degrading to
+    # per-shard runs.
     n_merge_aligned_rounds: int = 0
     # CUDA graphs: bucket signatures captured, and replays of them.
     n_graph_captures: int = 0
@@ -174,13 +182,16 @@ class ServeStats:
                "n_pipelined_rounds", "n_overlapped_packs",
                "n_spec_cancelled", "n_merge_aligned_rounds",
                "n_graph_captures", "n_graph_replays")
+    # Shards serve the same rounds concurrently, so wall-clock style fields
+    # take the max across parts (like n_rounds), never the sum.
     _MAXED = ("n_rounds", "n_shards", "wall_s", "schedule_s", "lower_s",
               "lower_bg_s", "exec_s")
 
     @classmethod
     def merged(cls, parts) -> "ServeStats":
-        """Fold several ServeStats into one: counters sum, latency samples
-        concatenate, rounds and wall-clock fields take the max."""
+        """Fold several ServeStats (e.g. per-shard sub-stats) into one:
+        counters sum, latency samples concatenate, rounds and wall-clock
+        fields take the max (shards serve the same rounds)."""
         out = cls()
         for p in parts:
             for f in cls._MAXED:
@@ -291,7 +302,9 @@ class ServeEngine:
     bucket runs eagerly on the card). ``async_compile`` moves those builds
     to ``compile_workers`` background threads (``serve/compiler.py``);
     ``checkpoint_dir``/``checkpoint_every`` write session snapshots that
-    :meth:`restore` resumes from.
+    :meth:`restore` resumes from. ``n_shards`` replicas (or a ``mesh``
+    from ``launch/mesh.py``) serve on the one card, sharing its weights;
+    ``steal_threshold`` turns on work stealing between them.
     """
 
     def __init__(self, families: dict[str, Any] | None = None, *,
@@ -317,15 +330,16 @@ class ServeEngine:
                  compile_timeout_s: float = 30.0,
                  pipeline: bool = True,
                  device=None, capture: bool = True):
-        if int(n_shards) > 1 or mesh is not None:
-            raise _not_ported("serving on more than one shard", SHARDING)
-        if steal_threshold is not None:
-            raise _not_ported("work stealing", SHARDING)
         self.device = resolve_device(device)
         self.capture = bool(capture)
         self.compiled = compiled
         self.bucketed = bucketed
-        self.n_shards = 1
+        self.n_shards = int(n_shards)
+        self._mesh = mesh
+        if self.n_shards > 1 and not (compiled and bucketed):
+            raise ValueError(
+                "multi-shard serving runs on the bucketed compiled-plan "
+                "path; pass compiled=True, bucketed=True (or n_shards=1)")
         # Serving widths bucket with a floor (default 8): decode counts 1..8
         # and single-chain cell batches all land on one rung, so a server's
         # whole decode phase shares one captured graph. Past the floor the
@@ -360,7 +374,9 @@ class ServeEngine:
         # whose graph has not landed degrade (coarse bucket -> interpreted
         # floor) instead of blocking on the build, and hot-swap at a later
         # round boundary. Library default OFF; the serve launcher turns it
-        # on.
+        # on. The sharded (K>1) path submits whole sharded builds as single
+        # jobs and serves per-shard degraded rounds until the collective
+        # graph lands.
         self.async_compile = bool(async_compile and compiled and bucketed)
         self.compile_workers = int(compile_workers)
         self.compile_timeout_s = float(compile_timeout_s)
@@ -383,8 +399,10 @@ class ServeEngine:
         # snapshot) for round t+1; ``_promoted`` hands the packed graph to
         # ``_run_lm_round`` once the plan is promoted at commit. A bail-out
         # on any predicted completion/deadline/park keeps outputs
-        # bit-identical to the serial loop.
-        self.pipeline = bool(pipeline and compiled and bucketed)
+        # bit-identical to the serial loop. Speculation is only provably
+        # safe on the single-shard bucketed feed path.
+        self.pipeline = bool(pipeline and compiled and bucketed
+                             and self.n_shards == 1)
         self._spec: Any = None
         self._promoted: Any = None
         self._interp_executors: dict[str, Any] = {}
@@ -392,9 +410,12 @@ class ServeEngine:
         # scheduler's decode-count padding would only compound.
         self.scheduler = ContinuousScheduler(
             max_slots=max_slots, continuous=continuous,
-            pad_decode=not (compiled and bucketed))
-        self.stats = ServeStats()
-        self._shard_stats = [ServeStats()]
+            pad_decode=not (compiled and bucketed), n_shards=self.n_shards)
+        self.stats = ServeStats(n_shards=self.n_shards)
+        # Per-shard sub-stats (tokens, outputs, latency): merged into
+        # ``stats`` when a run completes, and surfaced as ``shard_tokens``
+        # so load balance across replicas is visible.
+        self._shard_stats = [ServeStats() for _ in range(self.n_shards)]
         # Shared, capped caches. On the bucketed path ``plan_cache`` holds
         # host-side topology packs (cheap) and ``bucket_cache`` the built
         # bucket programs and their CUDA graphs, keyed by bucket signature
@@ -411,13 +432,17 @@ class ServeEngine:
         self._executors: dict[str, Any] = {}
         self._exec_stats: dict[str, ExecStats] = {}
         self._pool: dict[str, torch.Tensor] | None = None
+        # The stacked pool's storage, (replicas, slots_per_shard, h), made
+        # once; ``_pool`` views it at the current shard count.
+        self._pool_stack: dict[str, torch.Tensor] | None = None
         self._now = 0.0
         self._round = 0
-        # Durability: the request ledger holds every request ever submitted
-        # (what a checkpoint snapshots); ``_base`` carries restored absolute
-        # counters that fold-time recomputation would otherwise lose
-        # (restored executors and caches restart from zero). The mesh
-        # fields stay at one shard and are kept for the checkpoint format.
+        # Durability & elasticity: the request ledger holds every request
+        # ever submitted (what a checkpoint snapshots); ``_base`` carries
+        # restored absolute counters that fold-time recomputation would
+        # otherwise lose (restored executors and caches restart from zero);
+        # retired shard stats keep a dead replica's token accounting in the
+        # totals.
         self.checkpoint_every = int(checkpoint_every)
         self.checkpoint_dir = checkpoint_dir
         self.steal_threshold = steal_threshold
@@ -472,7 +497,18 @@ class ServeEngine:
             ns = (name, id(wl.impls))
             hook = (self._injector.on_compile if self._injector is not None
                     else None)
-            if self.compiled and self.bucketed:
+            if self.compiled and self.bucketed and self.n_shards > 1:
+                # n_shards rides along so the executor validates it against
+                # the mesh size at construction.
+                ex = ShardedBucketedPlanExecutor(
+                    wl.impls, None, mesh=self._data_mesh(),
+                    n_shards=self.n_shards,
+                    layout=self.layout, donate=self.donate,
+                    ladder=self.bucket_ladder, pack_cache=self.plan_cache,
+                    exe_cache=self.bucket_cache, namespace=ns,
+                    compile_hook=hook, tracer=self.tracer,
+                    device=self.device, capture=self.capture)
+            elif self.compiled and self.bucketed:
                 ex = BucketedPlanExecutor(wl.impls, None, layout=self.layout,
                                           donate=self.donate,
                                           ladder=self.bucket_ladder,
@@ -493,6 +529,8 @@ class ServeEngine:
                                      namespace=ns, tracer=self.tracer,
                                      device=self.device)
             self._executors[name] = ex
+            # setdefault, not assignment: a mesh resize rebuilds executors
+            # but must keep the family's accumulated ExecStats.
             self._exec_stats.setdefault(name, ExecStats())
         return ex
 
@@ -514,6 +552,8 @@ class ServeEngine:
         return iex
 
     def _primary_tier(self) -> str:
+        if self.n_shards > 1:
+            return "sharded"
         if self.compiled and self.bucketed:
             return "bucketed"
         if self.compiled:
@@ -569,10 +609,41 @@ class ServeEngine:
                               compile_s=round(job.compile_s, 6),
                               round=self._round)
 
+    def _data_mesh(self):
+        """The shared 1-D data mesh, built lazily (first executor)."""
+        if self._mesh is None:
+            from repro_torch.launch.mesh import make_data_mesh
+            self._mesh = make_data_mesh(
+                self.n_shards, exclude=tuple(self._excluded_devices),
+                device=self.device)
+        return self._mesh
+
     def _lm_pool(self):
         if self._pool is None:
-            self._pool = self.family("lm").init_slots(self.scheduler.max_slots)
+            wl = self.family("lm")
+            replicas = max(self.n_shards, self._n_shards0)
+            if replicas > 1:
+                # Stacked per-shard pools, (replicas, slots_per_shard, h),
+                # made once for the configured replica count and viewed at
+                # the current one: a slot's recurrent state lives on its
+                # home shard's row for the whole request lifetime, and a
+                # resize moves rows in place. Stacking (not zeros)
+                # preserves any non-zero initial state the workload
+                # defines.
+                base = wl.init_slots(self.scheduler.slots_per_shard)
+                self._pool_stack = {f: torch.stack([v] * replicas)
+                                    for f, v in base.items()}
+                self._pool = self._pool_view(self.n_shards)
+            else:
+                self._pool = wl.init_slots(self.scheduler.max_slots)
         return self._pool
+
+    def _pool_view(self, k: int) -> dict[str, torch.Tensor]:
+        """The stacked pool at ``k`` shards: ``[:k]``, or row 0 unstacked
+        for one shard, as the reference's one-shard pool has no shard
+        axis."""
+        return {f: (v[0] if k == 1 else v[:k])
+                for f, v in self._pool_stack.items()}
 
     # -- request intake ------------------------------------------------------
 
@@ -641,14 +712,23 @@ class ServeEngine:
         """One scheduler round: admit, build wave graphs, execute, feed back."""
         self._poll_compiles()
         if self._injector is not None:
-            for kind, _ in self._injector.shard_events(self._round):
-                if kind == "back":
+            # Elastic-mesh fault hooks fire at the round boundary, before
+            # any of this round's work: a lost replica resizes the mesh (its
+            # slot-pinned entries evacuate to survivors), a recovered one
+            # grows it back, and an injected crash snapshots then abandons
+            # the process (InjectedCrash deliberately escapes containment).
+            for kind, shard in self._injector.shard_events(self._round):
+                if kind == "lost" and self.n_shards > 1:
+                    self.lose_shard(shard)
+                elif kind == "back":
                     self.regrow_shard()
             if self._injector.crash_due(self._round):
                 if self.checkpoint_dir:
                     self.checkpoint(reason="crash")
                 raise InjectedCrash(
                     f"injected process crash at round {self._round}")
+        if self.steal_threshold is not None and self.n_shards > 1:
+            self._steal()
         tr = self.tracer
         tr.mark_round(self._round)
         t_round = time.perf_counter()
@@ -736,10 +816,24 @@ class ServeEngine:
         return resilience.restore_engine(source, families, **kwargs)
 
     def lose_shard(self, shard: int) -> None:
-        raise _not_ported("lose_shard()", SHARDING)
+        """Take replica ``shard`` out of the mesh: its slot-pinned lm
+        entries evacuate into survivors and executors rebuild over K-1."""
+        from . import resilience
+        if self.n_shards <= 1:
+            raise ValueError("cannot lose the last shard")
+        resilience.resize_mesh(self, self.n_shards - 1, dead_shard=shard)
 
     def regrow_shard(self) -> None:
-        raise _not_ported("regrow_shard()", SHARDING)
+        """Grow the mesh back by one replica (capped at the configured
+        shard count); a no-op when already at full strength."""
+        from . import resilience
+        if self.n_shards >= self._n_shards0:
+            return
+        resilience.resize_mesh(self, self.n_shards + 1)
+
+    def _steal(self) -> None:
+        from . import resilience
+        resilience.steal_work(self, self.steal_threshold)
 
     # -- fault boundaries ----------------------------------------------------
 
@@ -985,6 +1079,62 @@ class ServeEngine:
         self.tracer.event("compile.hotswap", cat="compile", sig=jobsig,
                           family=fam, round=self._round)
 
+    def _sharded_jobsig(self, fam: str, graphs, ex) -> str:
+        return _sig_digest(("csjob", fam,
+                            tuple(g.topology_key() if g is not None else None
+                                  for g in graphs),
+                            policy_cache_key(self.policy_for(fam)),
+                            ex.n_shards))
+
+    def _submit_sharded_job(self, fam: str, ex, pol, graphs, jobsig: str,
+                            shard_params: Any) -> bool:
+        """Queue the background build of the *collective* sharded graph —
+        the K>1 twin of ``_submit_compile_job``. One job owns the whole
+        sharded lowering (per-shard packs, then the build: on the card the
+        warm-up and the capture of all K bodies, under the build lock): a
+        sharded round cannot run partially built."""
+        if self._compiler is None or self._compiler.in_flight(jobsig):
+            return False
+        describe = {}
+        g0 = graphs[0] if graphs else None
+        if fam == "lm" and g0 is not None and len(g0) % 4 == 0:
+            describe = {"family": "lm", "count": len(g0) // 4,
+                        "sharded": True}
+
+        def build(job, span_args, abort):
+            scratch = ExecStats()
+            packs = [ex.pack_for(g, pol, scratch) for g in graphs
+                     if g is not None]
+            sspec = replace(packs[0].spec, n_shards=ex.n_shards)
+            job.qkey = (fam, sspec)
+            _, _, dt = ex.build_sharded_executable(
+                sspec, ex.params, shard_params, span_args=span_args,
+                abort_check=abort,
+                packs=packs if len(packs) == ex.n_shards else None)
+            return scratch.lower_time + dt
+
+        return self._compiler.submit(jobsig, build, family=fam,
+                                     kind="sharded", describe=describe)
+
+    def _lm_sharded_ready(self, ex, graphs, pool) -> tuple[bool, str]:
+        """Pure probe for the sharded lm round: True when every shard's
+        host pack and the collective sharded graph are cached. Otherwise
+        the build is submitted (deduped inside the service) and the caller
+        serves this round per-shard degraded."""
+        pol = self.policy_for("lm")
+        shard_params = {"slots": pool}
+        jobsig = self._sharded_jobsig("lm", graphs, ex)
+        packs = [ex.pack_ready(g, pol) for g in graphs]
+        if (all(p is not None for p in packs)
+                and len({p.spec for p in packs}) == 1):
+            sspec = replace(packs[0].spec, n_shards=ex.n_shards)
+            if ex.sharded_executable_ready(sspec, ex.params, shard_params):
+                return True, jobsig
+        self._submit_sharded_job("lm", ex, pol, list(graphs), jobsig,
+                                 shard_params)
+        self._awaiting.add(jobsig)
+        return False, jobsig
+
     # -- warm starts ----------------------------------------------------------
 
     def warmset(self) -> dict:
@@ -1024,6 +1174,19 @@ class ServeEngine:
         pol = self.policy_for("lm")
         params = {"slots": self._lm_pool()}
         self._seen_lm_counts.add(count)
+        if self.n_shards > 1:
+            # The warm target is the collective sharded graph (one
+            # identical all-dummy graph per shard shares its signature with
+            # any real round of this padded count).
+            graphs = [g] * self.n_shards
+            pack = ex.pack_ready(g, pol)
+            if pack is not None:
+                sspec = replace(pack.spec, n_shards=ex.n_shards)
+                if ex.sharded_executable_ready(sspec, ex.params, params):
+                    return 0
+            jobsig = self._sharded_jobsig("lm", graphs, ex)
+            return int(self._submit_sharded_job("lm", ex, pol, graphs,
+                                                jobsig, params))
         pack = ex.pack_ready(g, pol)
         if pack is not None and ex.executable_ready(pack, params):
             return 0
@@ -1354,14 +1517,27 @@ class ServeEngine:
                             self.scheduler.prefill_bucket_min)
             req.feed = ([0] * (Lb - len(req.prompt)) + list(req.prompt))
             req.n_fed = 0
+        # A parked entry is an evacuee from a mesh resize re-entering the
+        # slot pool: its recurrent state (and feed progress) resumes from
+        # the stashed rows instead of re-zeroing.
         if fresh:
-            # One batched zeroing per state field, in place.
-            slots = np.asarray([e.slot for e in fresh], np.int32)
-            _fused_zero(slots, [pool[f] for f in wl.state_fields])
+            # One batched zeroing per state field, in place; a stacked pool
+            # is addressed flat, (shard, slot) -> shard * slots + slot.
+            slots = np.asarray([e.slot for e in fresh], np.int64)
+            pools = [pool[f] for f in wl.state_fields]
+            if self.n_shards > 1:
+                slots = slots + self.scheduler.slots_per_shard * np.asarray(
+                    [e.shard for e in fresh], np.int64)
+                pools = [p.view((-1,) + p.shape[2:]) for p in pools]
+            _fused_zero(slots, pools)
         for e in parked:
             state, e.req.park = e.req.park, None
             for f in wl.state_fields:
-                pool[f][e.slot].copy_(torch.as_tensor(np.asarray(state[f])))
+                row = torch.as_tensor(np.asarray(state[f]))
+                if self.n_shards > 1:
+                    pool[f][e.shard, e.slot].copy_(row)
+                else:
+                    pool[f][e.slot].copy_(row)
 
     def _feed_tokens(self, entries, toks, now: float, st: ServeStats) -> None:
         for e, tok in zip(entries, toks):
@@ -1383,6 +1559,8 @@ class ServeEngine:
                 self._finish(req, now, st)
 
     def _run_lm_round(self, plan) -> None:
+        if self.n_shards > 1:
+            return self._run_lm_round_sharded(plan)
         wl = self.family("lm")
         pool = self._lm_pool()
         feed_mode = self.compiled and self.bucketed
@@ -1491,9 +1669,122 @@ class ServeEngine:
                     self._fail(e.req, EXEC_ERROR,
                                f"isolated lm round failed: {exc!r}")
 
+    def _run_lm_round_sharded(self, plan) -> None:
+        """One graph replay for every shard's lm fragments: per-shard
+        entry lists pad to the max count bucket across shards (idle shards
+        run all-dummy graphs) so all K round graphs share one topology and
+        therefore one bucket signature."""
+        wl = self.family("lm")
+        pool = self._lm_pool()
+        with self.tracer.span("round.feed_stage"):
+            self._start_feed(plan, wl, pool)
+        with self.tracer.span("round.pack"):
+            shard_plans = [RoundPlan() for _ in range(self.n_shards)]
+            for e in plan.prefills:
+                shard_plans[e.shard].prefills.append(e)
+            for e in plan.decodes:
+                shard_plans[e.shard].decodes.append(e)
+            counts = [len(sp.prefills) + len(sp.decodes)
+                      for sp in shard_plans]
+            if not any(counts):
+                return
+            target = max(bucket_len(c, COUNT_BUCKET_MIN) for c in counts)
+            built = [build_lm_feed_round_graph(sp, count=target)
+                     for sp in shard_plans]
+        ex = self._executor("lm")
+        jobsig = None
+        if self._compiler is not None:
+            # Async sharded build: the collective capture runs on a compile
+            # worker; until it lands, rounds serve per shard through the
+            # degraded path instead of blocking the loop.
+            ready, jobsig = self._lm_sharded_ready(ex, [g for g, _ in built],
+                                                   pool)
+            if not ready:
+                return self._lm_round_sharded_degrade(ex, built, wl, pool)
+        try:
+            if self._injector is not None:
+                self._injector.on_exec(self._round, "sharded")
+            results = ex.run_sharded([g for g, _ in built],
+                                     self.policy_for("lm"),
+                                     self._exec_stats["lm"],
+                                     shard_params={"slots": pool})
+            self._note_tier("sharded")
+            self._note_hotswap(jobsig, "lm")
+        except Exception:
+            # First rung of the ladder: retry shard by shard through the
+            # inherited single-device bucketed path.
+            self._contained()
+            return self._lm_round_sharded_degrade(ex, built, wl, pool)
+        now = time.perf_counter()
+        with self.tracer.span("round.scatter"):
+            live = [(s, results[s], entries)
+                    for s, (_, entries) in enumerate(built) if entries]
+            toks = self._sharded_commit(live, wl, pool)
+        with self.tracer.span("round.feed"):
+            for (s, _, entries), t in zip(live, toks):
+                self._feed_tokens(entries, t, now, self._shard_stats[s])
+
+    def _sharded_commit(self, live, wl, pool) -> list[np.ndarray]:
+        """Commit a sharded lm round: one argmax and one state copy per
+        field across all shards, addressing the stacked arenas and the
+        stacked pool flat. ``live`` holds ``(shard, result, entries)``;
+        returns each one's next tokens. (Every shard's round graph has
+        one topology, so the run is never a per-shard fallback.)"""
+        fields = list(wl.state_fields)
+        spp = self.scheduler.slots_per_shard
+        y_rows, slots = [], []
+        state_rows: list[list[np.ndarray]] = [[] for _ in fields]
+        arenas = None
+        for s, res, entries in live:
+            y_arena, r = res.stacked_rows("y", [e.o_node for e in entries])
+            y_rows.append(r)
+            slots.append(s * spp + np.asarray([e.slot for e in entries]))
+            cells = [e.cell_node for e in entries]
+            found = [res.stacked_rows(f, cells) for f in fields]
+            for k, (_, r) in enumerate(found):
+                state_rows[k].append(r)
+            arenas = [a for a, _ in found]
+        toks = _fused_commit(
+            y_arena, np.concatenate(y_rows), np.concatenate(slots), arenas,
+            [np.concatenate(r) for r in state_rows],
+            [pool[f].view((-1,) + pool[f].shape[2:]) for f in fields])
+        out, i = [], 0
+        for _, _, entries in live:
+            out.append(toks[i:i + len(entries)])
+            i += len(entries)
+        return out
+
+    def _lm_round_sharded_degrade(self, ex, built, wl, pool) -> None:
+        """Per-shard bucketed retry after a failed (or not yet built)
+        sharded run. A shard whose retry also fails takes only its own live
+        entries down (FAILED + evicted) — recurrent state is pinned to the
+        home shard, so other shards' requests are untouched."""
+        pol = self.policy_for("lm")
+        es = self._exec_stats["lm"]
+        self._note_tier("bucketed")
+        now = time.perf_counter()
+        fields = list(wl.state_fields)
+        for s, (g, entries) in enumerate(built):
+            if g is None or not entries:
+                continue
+            st = self._shard_stats[s]
+            mine = {f: pool[f][s] for f in fields}
+            try:
+                res = ex.run(g, pol, es, params={"slots": mine})
+            except Exception as exc:
+                self._contained()
+                for e in entries:
+                    self._fail(e.req, EXEC_ERROR,
+                               f"shard {s} bucketed retry failed: {exc!r}")
+                continue
+            toks = self._scatter_commit(res, entries, wl, mine)
+            self._feed_tokens(entries, toks, now, st)
+
     def _run_single_shot(self, fam: str, reqs: list[ServeRequest]) -> None:
         if not reqs:
             return
+        if self.n_shards > 1:
+            return self._run_single_shot_sharded(fam, reqs)
         graph, out_ids = merge_request_graphs(reqs)
         try:
             res, tier = self._exec_graph(fam, graph)
@@ -1508,6 +1799,106 @@ class ServeEngine:
             req.t_first = now
             st.outputs_out += len(ids)
             self._finish(req, now, st)
+
+    def _run_single_shot_sharded(self, fam: str,
+                                 reqs: list[ServeRequest]) -> None:
+        """Single-shot graphs balance across shards by node count. Rounds
+        whose shard merges don't land on one bucket signature (diverging
+        topology mixes, idle shards) re-merge through
+        ``align_single_shot_groups`` — dummy-padded toward one shared spec
+        — so the round still runs collectively instead of degrading per
+        shard. With the async service the collective build runs on a
+        compile worker and rounds serve per shard until it lands."""
+        groups = partition_singles(reqs, self.n_shards)
+        built = [merge_request_graphs(grp) if grp else (None, [])
+                 for grp in groups]
+        ex = self._executor(fam)
+        pol = self.policy_for(fam)
+        es = self._exec_stats[fam]
+        try:
+            packs = [ex.pack_for(g, pol, es) if g is not None else None
+                     for g, _ in built]
+            if (any(p is None for p in packs)
+                    or len({p.spec for p in packs if p is not None}) != 1):
+                built = align_single_shot_groups(groups)
+                self.stats.n_merge_aligned_rounds += 1
+                self.tracer.event("round.merge_aligned", cat="round",
+                                  family=fam, round=self._round)
+        except Exception:
+            # Alignment is an optimization: any failure falls back to the
+            # original merges and the normal ladder below.
+            self._contained()
+        jobsig = None
+        if self._compiler is not None:
+            ready, jobsig = self._single_shot_sharded_ready(fam, ex, built)
+            if not ready:
+                return self._single_shot_sharded_degrade(fam, ex, groups,
+                                                         built)
+        try:
+            if self._injector is not None:
+                self._injector.on_exec(self._round, "sharded")
+            results = ex.run_sharded([g for g, _ in built], pol, es)
+            self._note_tier("sharded")
+            self._note_hotswap(jobsig, fam)
+        except Exception:
+            # Ladder: per-shard bucketed retry, then per-request isolation
+            # on the interpreted floor for any shard that still fails.
+            self._contained()
+            return self._single_shot_sharded_degrade(fam, ex, groups, built)
+        now = time.perf_counter()
+        for s, (grp, (_, out_ids)) in enumerate(zip(groups, built)):
+            res, st = results[s], self._shard_stats[s]
+            for req, ids in zip(grp, out_ids):
+                req.result = res.field("y", ids).cpu().numpy()
+                req.t_first = now
+                st.outputs_out += len(ids)
+                self._finish(req, now, st)
+
+    def _single_shot_sharded_ready(self, fam: str, ex,
+                                   built) -> tuple[bool, str | None]:
+        """Probe the collective single-shot graph; submit the build when
+        absent. Shard merges that (still) diverge have no collective build
+        to wait for — ``run_sharded`` falls back internally — so they count
+        as ready."""
+        pol = self.policy_for(fam)
+        es = self._exec_stats[fam]
+        graphs = [g for g, _ in built]
+        packs = [ex.pack_for(g, pol, es) if g is not None else None
+                 for g in graphs]
+        specs = {p.spec for p in packs if p is not None}
+        if any(p is None for p in packs) or len(specs) != 1:
+            return True, None
+        jobsig = self._sharded_jobsig(fam, graphs, ex)
+        sspec = replace(packs[0].spec, n_shards=ex.n_shards)
+        if ex.sharded_executable_ready(sspec, ex.params, None):
+            return True, jobsig
+        self._submit_sharded_job(fam, ex, pol, graphs, jobsig, None)
+        self._awaiting.add(jobsig)
+        return False, jobsig
+
+    def _single_shot_sharded_degrade(self, fam: str, ex, groups,
+                                     built) -> None:
+        """Per-shard bucketed retry (also the bridge tier while the
+        collective build is in flight); shards that still fail isolate per
+        request on the interpreted floor."""
+        pol = self.policy_for(fam)
+        es = self._exec_stats[fam]
+        self._note_tier("bucketed")
+        for s, (grp, (g, out_ids)) in enumerate(zip(groups, built)):
+            if not grp:
+                continue
+            st = self._shard_stats[s]
+            try:
+                res = ex.run(g, pol, es)
+                now = time.perf_counter()
+                for req, ids in zip(grp, out_ids):
+                    req.result = res.field("y", ids).cpu().numpy()
+                    req.t_first = now
+                    st.outputs_out += len(ids)
+                    self._finish(req, now, st)
+            except Exception:
+                self._contained()
+                self._isolate_single_shot(fam, grp, st)
 
     def _isolate_single_shot(self, fam: str, reqs: list[ServeRequest],
                              st: ServeStats | None = None) -> None:
@@ -1560,13 +1951,24 @@ class ServeEngine:
         s = self.stats
         b = self._base   # restored absolute counters (empty unless restored)
         s.requests_rejected = self.queue.rejected
-        # Idempotent: absolute recompute, not accumulation.
+        # Per-request accounting lives in per-shard sub-stats (shard 0 on a
+        # single-shard engine); retired stats keep a dead replica's share in
+        # the totals after a mesh shrink. Idempotent: absolute recompute,
+        # not accumulation.
         agg = ServeStats.merged(self._shard_stats + self._retired_shard_stats)
         s.tokens_out = agg.tokens_out
         s.outputs_out = agg.outputs_out
         s.requests_done = agg.requests_done
         s.latency_s = agg.latency_s
         s.ttft_s = agg.ttft_s
+        if self.n_shards > 1 or self._retired_shard_stats:
+            s.shard_tokens = [p.tokens_out for p in self._shard_stats]
+        s.n_sharded_dispatches = b.get("n_sharded_dispatches", 0) + sum(
+            getattr(ex, "n_sharded_dispatches", 0)
+            for ex in self._executors.values())
+        s.n_shard_fallback_rounds = b.get("n_shard_fallback_rounds", 0) + sum(
+            getattr(ex, "n_fallback_rounds", 0)
+            for ex in self._executors.values())
         es_all = self._exec_stats.values()
         s.n_batches = b.get("n_batches", 0) + sum(
             es.n_batches for es in es_all)
@@ -1596,10 +1998,11 @@ class ServeEngine:
                                     + cst.get("timeouts", 0))
         s.compile_jobs_quarantined = (b.get("compile_jobs_quarantined", 0)
                                       + cst.get("quarantined", 0))
-        s.n_graph_captures = sum(getattr(ex, "n_captures", 0)
-                                 for ex in self._executors.values())
-        s.n_graph_replays = sum(getattr(ex, "n_replays", 0)
-                                for ex in self._executors.values())
+        # A mesh resize drops the executors; their counts move to _base.
+        s.n_graph_captures = b.get("n_graph_captures", 0) + sum(
+            getattr(ex, "n_captures", 0) for ex in self._executors.values())
+        s.n_graph_replays = b.get("n_graph_replays", 0) + sum(
+            getattr(ex, "n_replays", 0) for ex in self._executors.values())
         ph, pm, sh, sm, bh, bm = self._cache_base
         s.plan_cache_hits = (self.plan_cache.hits - ph
                              + b.get("plan_cache_hits", 0))

@@ -1,9 +1,10 @@
-"""Durable serving: snapshot and restore of a single-shard engine.
+"""Durable elastic serving: snapshot/restore, mesh resize, work stealing.
 
 - **Checkpointing** (:func:`snapshot_engine` / :func:`restore_engine`):
   a snapshot captures the *entire* serve session — request ledger with
   partial token streams and feed progress, admission-queue heap, scheduler
-  pinning tables, the LM slot pool pulled to the host (bit-exact), virtual
+  pinning tables, the (per-shard) LM slot pool pulled to the host
+  (bit-exact), virtual
   clock, quarantine bookings, ServeStats, and the compile service's
   in-flight builds and warm set — so a restored engine's ``run()`` resumes
   mid-trace and, because every engine decision is deterministic given that
@@ -15,10 +16,23 @@
 - A restore **copies into** the engine's slot pool and never rebinds it:
   the captured CUDA graphs read the pool at the addresses they were
   captured over. It does so before the in-flight builds are submitted
-  again.
+  again. A K-shard snapshot (and one taken on a shrunken mesh) restores
+  into the stacked pool made for the configured replica count.
 
-- **Elastic mesh resize** and **work stealing** move slot rows between
-  shards; they come with the sharding slice and raise here.
+- **Elastic mesh resize** (:func:`resize_mesh`): a lost replica's
+  slot-pinned lm entries evacuate into survivors — one slot-row copy each
+  — and the sharded executor rebuilds lazily over a K-1 mesh
+  (``BucketSpec`` keys on ``n_shards``). Entries that don't fit a
+  survivor's free slots are *parked*: their state rides on the request
+  (``req.park``) and re-enters the pool, fully resumed, when a slot frees
+  up. Recovery re-grows the mesh by the same path. The new layout is
+  written into the same stacked pool in place, so the graphs captured at
+  the old replica count replay again when the mesh grows back to it.
+
+- **Work stealing** (:func:`steal_work`): the same one-row migration,
+  triggered by a load-imbalance threshold instead of a death — the
+  most-loaded shard's youngest request moves to the lightest shard with a
+  free slot until the spread closes.
 """
 
 from __future__ import annotations
@@ -28,16 +42,18 @@ import time
 from collections import deque
 from typing import Any
 
+import numpy as np
 import torch
 
 from .checkpoint import (CheckpointError, decode_array, decode_request,
                          encode_array, encode_request, read_checkpoint)
-from .engine import SHARDING, ServeEngine, ServeStats, _not_ported
+from .engine import ServeEngine, ServeStats
 from .queue import reserve_rids
 
 # ``_fold_exec_stats`` recomputes these absolutely from live executors and
-# caches, which restart from zero after a restore — so restored values
-# become additive baselines in ``engine._base``.
+# caches, which restart from zero after a restore (and lose dispatch
+# counters after a resize rebuild) — so restored values become additive
+# baselines in ``engine._base``.
 _BASE_FIELDS = ("n_batches", "n_launches", "n_compiles", "schedule_s",
                 "exec_s", "lower_s", "lower_bg_s", "plan_cache_hits",
                 "plan_cache_misses", "sched_cache_hits", "sched_cache_misses",
@@ -295,13 +311,224 @@ def restore_engine(source, families: dict[str, Any] | None = None, *,
     return eng
 
 
-# -- the sharding slice -------------------------------------------------------
+# -- elastic mesh resize ------------------------------------------------------
+
+
+def _survivor_id(excluded: list[int], shard: int) -> int:
+    """The replica id of ``shard``: the mesh over K shards takes the first K
+    ids not excluded, so shard s is the s-th of those."""
+    i = n = 0
+    while True:
+        if i not in excluded:
+            if n == shard:
+                return i
+            n += 1
+        i += 1
+
+
+def _place_pool(eng: ServeEngine, new_k: int, new_host: dict) -> None:
+    """Write the resized pool into the engine's stacked pool in place,
+    viewed at ``new_k`` shards; only a grow past the stack's rows (or a
+    first resize of an unstacked one-shard pool) makes a new stack."""
+    stack = eng._pool_stack
+    if stack is None or next(iter(stack.values())).shape[0] < new_k:
+        eng._pool_stack = {
+            f: torch.empty((new_k,) + v.shape[1:], dtype=eng._pool[f].dtype,
+                           device=eng._pool[f].device)
+            for f, v in new_host.items()}
+    eng._pool = eng._pool_view(new_k)
+    for f, v in new_host.items():
+        eng._pool[f].copy_(torch.from_numpy(v[0] if new_k == 1 else v))
 
 
 def resize_mesh(eng: ServeEngine, new_k: int,
                 dead_shard: int | None = None) -> dict:
-    raise _not_ported("resize_mesh()", SHARDING)
+    """Resize the serve mesh to ``new_k`` shards at a round boundary.
+
+    Shrink (``dead_shard`` given): survivors renumber past the dead shard,
+    keeping their slot coordinates; the dead shard's slot-pinned entries
+    evacuate — one host-side slot-row copy each — into survivors' free
+    slots, and any overflow parks its state on the request and rejoins the
+    waiting line (front, preserving admission order). Grow: every current
+    shard keeps its rows, the new shard starts from the workload's initial
+    slot state. Executors are dropped and rebuild lazily over the new mesh
+    on the next run (``slots_per_shard`` is held fixed, so bucket
+    signatures differ only in ``n_shards``, and the pool keeps its
+    addresses: the old-K graphs stay in the LRU for a cheap regrow).
+
+    Returns the resize-log event dict."""
+    old_k = eng.n_shards
+    if new_k == old_k:
+        return {}
+    if dead_shard is not None and not (0 <= dead_shard < old_k):
+        raise ValueError(f"dead_shard {dead_shard} out of range for "
+                         f"{old_k} shards")
+    sched = eng.scheduler
+    spp = sched.slots_per_shard
+    wl = eng.family("lm")
+
+    if dead_shard is None:
+        def mapping(s):
+            return s
+    else:
+        def mapping(s):
+            if s == dead_shard:
+                return None
+            return s if s < dead_shard else s - 1
+
+    with eng.tracer.span("mesh.resize", old=old_k, new=new_k,
+                         dead=(-1 if dead_shard is None else dead_shard),
+                         round=eng._round):
+        # Pull the pool host-side in the *old* layout (a 1-shard pool has
+        # no leading shard axis — normalize to one).
+        host = None
+        if eng._pool is not None:
+            host = {f: v.cpu().numpy() for f, v in eng._pool.items()}
+            if old_k == 1:
+                host = {f: v[None] for f, v in host.items()}
+
+        displaced = sched.resize(new_k, mapping)
+
+        new_host = None
+        if host is not None:
+            covered = {mapping(s) for s in range(old_k)} - {None}
+            base = ({f: v.cpu().numpy()
+                     for f, v in wl.init_slots(spp).items()}
+                    if len(covered) < new_k else None)
+            new_host = {}
+            for f, v in host.items():
+                out = np.empty((new_k,) + v.shape[1:], v.dtype)
+                for s2 in range(new_k):
+                    if s2 in covered:
+                        continue
+                    out[s2] = base[f]
+                for s in range(old_k):
+                    s2 = mapping(s)
+                    if s2 is not None:
+                        out[s2] = v[s]
+                new_host[f] = out
+
+        evacuated, parked_reqs = 0, []
+        for req, old_s, old_slot in displaced:
+            dest = sched.freest_shard()
+            slot = sched.take_slot(dest) if dest is not None else None
+            if slot is not None:
+                sched.assign(req, dest, slot)
+                if new_host is not None:
+                    for f in new_host:
+                        new_host[f][dest, slot] = host[f][old_s, old_slot]
+                evacuated += 1
+                eng.tracer.event("mesh.evacuate", cat="mesh", rid=req.rid,
+                                 src=old_s, dst=dest, round=eng._round)
+            else:
+                if host is not None:
+                    req.park = {f: host[f][old_s, old_slot].copy()
+                                for f in host}
+                parked_reqs.append(req)
+                eng.tracer.event("mesh.park", cat="mesh", rid=req.rid,
+                                 src=old_s, round=eng._round)
+        if parked_reqs:
+            # Front of the waiting line, original order: evacuees were
+            # admitted before anything still waiting.
+            sched.waiting_lm.extendleft(reversed(parked_reqs))
+
+        if new_host is not None:
+            _place_pool(eng, new_k, new_host)
+
+        # Per-shard stats follow the renumbering; a dead shard's stats are
+        # retired (its tokens stay in the totals), a fresh shard starts at
+        # zero.
+        new_stats: list[ServeStats | None] = [None] * new_k
+        for s in range(old_k):
+            s2 = mapping(s)
+            if s2 is not None:
+                new_stats[s2] = eng._shard_stats[s]
+            else:
+                eng._retired_shard_stats.append(eng._shard_stats[s])
+        eng._shard_stats = [st if st is not None else ServeStats()
+                            for st in new_stats]
+
+        # Replica bookkeeping: the mesh over K shards uses the first K
+        # non-excluded replica ids, so dead shard s maps to the s-th of
+        # those.
+        if dead_shard is not None:
+            eng._excluded_devices.append(
+                _survivor_id(eng._excluded_devices, dead_shard))
+        elif eng._excluded_devices:
+            eng._excluded_devices.pop()
+
+        # Executors rebuild lazily over the new mesh; their counters fold
+        # from ``_base`` so pre-resize rounds stay counted.
+        for f, attr in (("n_sharded_dispatches", "n_sharded_dispatches"),
+                        ("n_shard_fallback_rounds", "n_fallback_rounds"),
+                        ("n_graph_captures", "n_captures"),
+                        ("n_graph_replays", "n_replays")):
+            eng._base[f] = eng._base.get(f, 0) + sum(
+                getattr(ex, attr, 0) for ex in eng._executors.values())
+        eng._executors.clear()
+        eng._mesh = None
+        eng.n_shards = new_k
+        eng.stats.n_shards = max(eng.stats.n_shards, new_k)
+
+    ev = {"round": eng._round, "old": old_k, "new": new_k,
+          "dead": dead_shard, "evacuated": evacuated,
+          "parked": len(parked_reqs)}
+    eng.resize_log.append(ev)
+    eng.stats.n_resize_events += 1
+    eng.stats.n_entries_evacuated += evacuated + len(parked_reqs)
+    m = eng._metrics
+    m.counter("serve.resize_events").inc()
+    if evacuated + len(parked_reqs):
+        m.counter("serve.entries_evacuated").inc(evacuated + len(parked_reqs))
+    eng.tracer.event("mesh.resized", cat="mesh", old=old_k, new=new_k,
+                     dead=(-1 if dead_shard is None else dead_shard),
+                     evacuated=evacuated, parked=len(parked_reqs),
+                     round=eng._round)
+    return ev
+
+
+# -- work stealing ------------------------------------------------------------
 
 
 def steal_work(eng: ServeEngine, threshold: int) -> int:
-    raise _not_ported("steal_work()", SHARDING)
+    """Round-boundary re-balance: while the most-loaded shard exceeds the
+    lightest shard (with a free slot) by more than ``max(threshold, 1)``,
+    move the loaded shard's youngest request over — the same one-slot-row
+    migration as evacuation, in place in the stacked pool. Returns entries
+    moved."""
+    sched = eng.scheduler
+    if sched.n_shards < 2 or eng._pool is None:
+        return 0
+    wl = eng.family("lm")
+    pool = eng._pool
+    moved = 0
+    while True:
+        loads = sched.shard_load()
+        hi = max(range(sched.n_shards), key=lambda s: (loads[s], -s))
+        cands = [s for s in range(sched.n_shards)
+                 if s != hi and sched._free[s]]
+        if not cands:
+            break
+        lo = min(cands, key=lambda s: (loads[s], s))
+        # A move only narrows the spread when it exceeds 1; a bare
+        # threshold=0 check would oscillate a request back and forth.
+        if loads[hi] - loads[lo] <= max(threshold, 1):
+            break
+        victims = [r for r in sched.active
+                   if sched.slot_of[r.rid][0] == hi]
+        if not victims:
+            break
+        req = max(victims, key=lambda r: r.rid)   # youngest: least sunk work
+        old_shard, old_slot = sched.slot_of.pop(req.rid)
+        new_slot = sched.take_slot(lo)
+        sched.slot_of[req.rid] = (lo, new_slot)
+        sched._free[old_shard].append(old_slot)
+        for f in wl.state_fields:
+            pool[f][lo, new_slot].copy_(pool[f][old_shard, old_slot])
+        moved += 1
+        eng.tracer.event("mesh.steal", cat="mesh", rid=req.rid,
+                         src=old_shard, dst=lo, round=eng._round)
+    if moved:
+        eng.stats.n_entries_stolen += moved
+        eng._metrics.counter("serve.entries_stolen").inc(moved)
+    return moved

@@ -1408,3 +1408,235 @@ def test_an_abandoned_capture_leaves_the_card_usable(cuda, monkeypatch):
         assert all(torch.equal(res[k], t) for k, t in w.items())
     assert ex.n_captures == 2
     torch.cuda.synchronize()
+
+
+# -- the sharded bucketed path ------------------------------------------------
+
+
+def _sharded_case(cuda, counts=(8, 16), k=2):
+    """ChainLM impls, a stacked (k, 8, 64) slot pool, the policy and, per
+    padded entry count in ``counts``, one feed-round graph per shard (one
+    sharded bucket signature each; the shards read other slots and
+    tokens)."""
+    from repro_torch.serve.scheduler import (RoundPlan,
+                                             build_lm_feed_round_graph)
+
+    impls, _, params, policy = _bucket_case("ChainLM", cuda)
+    rng = np.random.default_rng(2)
+    pool = {f: torch.stack([v] + [torch.as_tensor(
+        rng.standard_normal(v.shape), dtype=v.dtype, device=cuda)
+        for _ in range(k - 1)]) for f, v in params["slots"].items()}
+    rounds = []
+    for count in counts:
+        graphs = []
+        for s in range(k):
+            g, _ = build_lm_feed_round_graph(RoundPlan(), count=count)
+            for n in g.nodes:
+                if n.type == "R":
+                    n.attrs["aux"] = (n.id // 4 + s) % 8
+                elif n.type == "E":
+                    n.attrs["aux"] = int(rng.integers(0, 256))
+            graphs.append(g)
+        rounds.append(graphs)
+    return impls, rounds, {"slots": pool}, policy
+
+
+def _shard_outputs(results, graphs):
+    return [_outputs(r, g) for r, g in zip(results, graphs)]
+
+
+def test_sharded_replay_equals_the_single_shard_replays(cuda):
+    """One replay runs both shards' bodies: each shard equals the
+    single-device captured run over its row of the pool (the same kernels
+    at the same shapes) within 1e-6, and an eager sharded run bit for
+    bit."""
+    from repro_torch.core.plan import (BucketedPlanExecutor,
+                                       ShardedBucketedPlanExecutor)
+
+    impls, (graphs, _), sp, policy = _sharded_case(cuda)
+    ex = ShardedBucketedPlanExecutor(impls, None, n_shards=2, ladder=(8,),
+                                     device=cuda)
+    eager = ShardedBucketedPlanExecutor(impls, None, n_shards=2, ladder=(8,),
+                                        device=cuda, capture=False)
+    single = BucketedPlanExecutor(impls, None, ladder=(8,), device=cuda)
+    ex.run_sharded(graphs, policy, shard_params=sp)
+    got = _shard_outputs(ex.run_sharded(graphs, policy, shard_params=sp),
+                         graphs)
+    assert ex.n_captures == 1 and ex.n_replays == 2
+    want = _shard_outputs(eager.run_sharded(graphs, policy, shard_params=sp),
+                          graphs)
+    for s, g in enumerate(graphs):
+        mine = {"slots": {f: v[s] for f, v in sp["slots"].items()}}
+        one = _outputs(single.run(g, policy, params=mine), g)
+        for key, t in got[s].items():
+            assert torch.equal(t, want[s][key]), (s, key)
+            assert float((t - one[key]).abs().max()) <= 1e-6, (s, key)
+
+
+def test_in_place_stacked_pool_update_is_seen_by_the_next_sharded_replay(
+        cuda):
+    """The sharded graph reads each shard's row of the stacked pool at its
+    captured address: an in-place update of the stack is read by the next
+    replay (no new capture), equal to an eager run over the updated
+    pool."""
+    from repro_torch.core.plan import ShardedBucketedPlanExecutor
+
+    impls, (graphs, _), sp, policy = _sharded_case(cuda)
+    ex = ShardedBucketedPlanExecutor(impls, None, n_shards=2, ladder=(8,),
+                                     device=cuda)
+    eager = ShardedBucketedPlanExecutor(impls, None, n_shards=2, ladder=(8,),
+                                        device=cuda, capture=False)
+    before = _shard_outputs(ex.run_sharded(graphs, policy, shard_params=sp),
+                            graphs)
+    for t in sp["slots"].values():
+        t[1].mul_(-0.5).add_(0.25)
+    got = _shard_outputs(ex.run_sharded(graphs, policy, shard_params=sp),
+                         graphs)
+    want = _shard_outputs(eager.run_sharded(graphs, policy, shard_params=sp),
+                          graphs)
+    assert ex.n_captures == 1 and ex.n_replays == 2
+    for s in range(2):
+        assert all(torch.equal(got[s][k], t) for k, t in want[s].items())
+    assert all(torch.equal(got[0][k], t) for k, t in before[0].items())
+    assert not all(torch.equal(got[1][k], t) for k, t in before[1].items())
+
+
+def test_sharded_captures_are_reused_after_shrink_and_regrow(cuda):
+    """The engine's stacked pool keeps its addresses across a shrink and a
+    regrow, so the K = 2 graphs captured before the loss replay again
+    after the regrow (no new capture), and the tokens equal a clean K = 2
+    run's."""
+    from repro_torch.models.workloads import make_workload
+    from repro_torch.serve import ServeEngine, lm_request
+
+    wls = {"lm": make_workload("ChainLM", 64, 0, device=cuda)}
+
+    def engine():
+        eng = ServeEngine(dict(wls), max_slots=8, n_shards=2, device=cuda)
+        reqs = [lm_request([i + 1, i + 2, i + 3], 10, arrival=0.0)
+                for i in range(6)]
+        eng.submit_many(reqs)
+        return eng, reqs
+
+    clean, clean_reqs = engine()
+    clean.run()
+    eng, reqs = engine()
+    for _ in range(4):
+        eng.step()
+    eng._fold_exec_stats()
+    captured_k2 = eng.stats.n_graph_captures
+    assert captured_k2 >= 1 and eng.stats.n_sharded_dispatches == 4
+    eng.lose_shard(1)
+    for _ in range(3):
+        eng.step()
+    eng.regrow_shard()
+    eng._fold_exec_stats()
+    captures, dispatches = (eng.stats.n_graph_captures,
+                            eng.stats.n_sharded_dispatches)
+    eng.step()
+    eng._fold_exec_stats()
+    assert eng.n_shards == 2
+    assert eng.stats.n_sharded_dispatches == dispatches + 1
+    assert eng.stats.n_graph_captures == captures
+    eng.run()
+    assert [r.out for r in reqs] == [r.out for r in clean_reqs]
+
+
+def test_background_sharded_capture_beside_the_loop(cuda, monkeypatch):
+    """A worker captures sharded bucket B (both shards' bodies) while the
+    main thread replays sharded bucket A three times, copies each result
+    to the host and allocates 256 MB. The capture lands, both buckets
+    equal their eager runs bit for bit, and the launch counters over the
+    window move by the three replays of A and the worker's warm-up of B."""
+    import threading
+    from dataclasses import replace
+
+    from repro_torch.core.plan import ShardedBucketedPlanExecutor
+    from repro_torch.kernels import launches
+
+    impls, (ga, gb), sp, policy = _sharded_case(cuda)
+    eager = ShardedBucketedPlanExecutor(impls, None, n_shards=2, ladder=(8,),
+                                        device=cuda, capture=False)
+    ex = ShardedBucketedPlanExecutor(impls, None, n_shards=2, ladder=(8,),
+                                     device=cuda)
+    want, one = {}, {}
+    for name, gs in (("a", ga), ("b", gb)):
+        eager.run_sharded(gs, policy, shard_params=sp)
+        before = launches.snapshot()
+        want[name] = _shard_outputs(
+            eager.run_sharded(gs, policy, shard_params=sp), gs)
+        one[name] = launches.delta(before, launches.snapshot())
+    ex.run_sharded(ga, policy, shard_params=sp)     # A captured here
+    packs_b = [ex.pack_for(g, policy) for g in gb]
+    sspec_b = replace(packs_b[0].spec, n_shards=2)
+    inside, release = threading.Event(), threading.Event()
+    _slow_capture(monkeypatch, impls, inside, release)
+    errors = []
+
+    def worker():
+        try:
+            ex.build_sharded_executable(sspec_b, None, sp, packs=packs_b)
+        except BaseException as exc:   # reported by the test
+            errors.append(exc)
+
+    torch.cuda.synchronize()
+    before = launches.snapshot()
+    t = threading.Thread(target=worker)
+    t.start()
+    try:
+        assert inside.wait(30)
+        got_a = []
+        for _ in range(3):
+            res = _shard_outputs(ex.run_sharded(ga, policy, shard_params=sp),
+                                 ga)
+            got_a.append([{k: v.cpu() for k, v in r.items()} for r in res])
+            big = torch.empty(64 << 20, device=cuda)
+            big.fill_(1.0)
+            assert big[-1].item() == 1.0
+            del big
+    finally:
+        release.set()
+        t.join(60)
+    assert not t.is_alive()
+    torch.cuda.synchronize()
+    window = launches.delta(before, launches.snapshot())
+    assert not errors, errors
+    assert ex.n_captures == 2
+    got_b = _shard_outputs(ex.run_sharded(gb, policy, shard_params=sp), gb)
+    for got in got_a:
+        for s in range(2):
+            assert all(torch.equal(got[s][k], t.cpu())
+                       for k, t in want["a"][s].items())
+    for s in range(2):
+        assert all(torch.equal(got_b[s][k], t)
+                   for k, t in want["b"][s].items())
+    for name in ("gather_rows", "fused_gather_lstm_cell"):
+        assert one["a"][name] > 0 and one["b"][name] > 0
+        assert window[name] == 3 * one["a"][name] + one["b"][name], name
+
+
+def test_sharded_engine_commits_into_the_pool_its_graph_reads(cuda):
+    """Each sharded lm round writes the entries' state into the stacked
+    pool in place, where the next round's replay reads it: a K = 2
+    engine's tokens equal a K = 1 engine's, its steady rounds replay
+    without capturing, and the pool keeps its addresses."""
+    from repro_torch.models.workloads import make_workload
+    from repro_torch.serve import ServeEngine, lm_request
+
+    wls = {"lm": make_workload("ChainLM", 64, 0, device=cuda)}
+
+    def serve(k):
+        eng = ServeEngine(dict(wls), max_slots=8, n_shards=k, device=cuda)
+        reqs = [lm_request([i + 1, i + 2, i + 3], 8, arrival=float(i // 3))
+                for i in range(6)]
+        eng.submit_many(reqs)
+        ptrs = {f: t.data_ptr() for f, t in eng._lm_pool().items()}
+        stats = eng.run()
+        assert {f: t.data_ptr() for f, t in eng._pool.items()} == ptrs
+        return [r.out for r in reqs], stats
+
+    one, _ = serve(1)
+    two, stats = serve(2)
+    assert two == one
+    assert stats.n_sharded_dispatches == stats.tier_rounds["sharded"] > 4
+    assert stats.n_graph_replays > stats.n_graph_captures

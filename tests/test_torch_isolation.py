@@ -131,7 +131,9 @@ def no_cuda(monkeypatch):
 
 def _entry_points():
     from repro_torch.core.executor import DynamicExecutor
-    from repro_torch.core.plan import BucketedPlanExecutor, PlanExecutor
+    from repro_torch.core.plan import (BucketedPlanExecutor, PlanExecutor,
+                                       ShardedBucketedPlanExecutor)
+    from repro_torch.launch.mesh import make_data_mesh
     from repro_torch.arch.model import TransformerLM
     from repro_torch.configs import get_config
     from repro_torch.models.workloads import make_workload
@@ -153,11 +155,15 @@ def _entry_points():
         "DynamicExecutor": lambda: DynamicExecutor({}, None),
         "PlanExecutor": lambda: PlanExecutor({}, None),
         "BucketedPlanExecutor": lambda: BucketedPlanExecutor({}, None),
+        "ShardedBucketedPlanExecutor": lambda: ShardedBucketedPlanExecutor(
+            {}, None, n_shards=2),
+        "make_data_mesh": lambda: make_data_mesh(2),
         "TransformerLM": lambda: TransformerLM(get_config("qwen2-0.5b")),
         "ServeEngine": engine,
         "serve_wave": lambda: serve_wave(TransformerLM(cfg, device="cpu"), {},
                                          [[1, 2]]),
         "serve engine": lambda: serve_engine.ServeEngine(),
+        "sharded serve engine": lambda: serve_engine.ServeEngine(n_shards=2),
         "serve launcher": lambda: launch_serve(["--model-size", "8",
                                                 "--requests", "1"]),
     }
@@ -166,9 +172,11 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["make_workload", "make_workload tree",
                                   "make_workload lattice", "DynamicExecutor",
                                   "PlanExecutor", "BucketedPlanExecutor",
+                                  "ShardedBucketedPlanExecutor",
+                                  "make_data_mesh",
                                   "TransformerLM", "ServeEngine",
                                   "serve_wave", "serve engine",
-                                  "serve launcher"])
+                                  "sharded serve engine", "serve launcher"])
 def test_entry_points_default_to_cuda(no_cuda, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()

@@ -3,7 +3,8 @@ CPU at model size 8: its defaults (bucketed plans, async compile,
 pipelined continuous rounds, one device) give the JAX engine's tokens; an
 injected crash exits 1 and ``--restore`` finishes with an uninterrupted
 run's outputs; the warm set round-trips through ``--cache-dir``;
-``--devices 2`` is refused; ``--legacy-arch`` serves one wave; importing
+``--devices 2`` serves two replicas (and is refused off bucketed plans);
+``--legacy-arch`` serves one wave; importing
 the launcher loads no jax; and ``--perf-profile`` re-execs the process at
 most once (``launch/env.py``)."""
 
@@ -95,14 +96,35 @@ def test_warm_set_round_trips_through_the_cache_dir(tmp_path, capsys):
         launcher.parse_args(CPU + ["--warm-start", "--no-async-compile"])
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"],
-                                   ["--steal-threshold", "1"]],
-                         ids=["devices", "steal_threshold"])
-def test_sharded_flags_are_refused(flags, capsys):
+def test_devices_serve_replicas_on_one_device(tmp_path, capsys):
+    """``--devices 2`` serves two replicas on the CPU (one sharded run a
+    round) with the single-replica run's tokens; ``--devices 4
+    --steal-threshold 0`` serves too."""
+    one = tmp_path / "one.json"
+    two = tmp_path / "two.json"
+    assert launcher.main(CPU + ["--no-async-compile", "--out",
+                                str(one)]) == 0
+    assert launcher.main(CPU + ["--devices", "2", "--no-async-compile",
+                                "--out", str(two)]) == 0
+    out = capsys.readouterr().out
+    assert "2 replicas:" in out
+    a, b = json.loads(one.read_text()), json.loads(two.read_text())
+    assert b["n_shards"] == 2 and b["n_sharded_dispatches"] > 0
+    assert b["requests_done"] == a["requests_done"] == 24
+    assert b["tokens_out"] == a["tokens_out"]
+    assert sum(b["shard_tokens"]) == b["tokens_out"]
+    args = launcher.parse_args(CPU + ["--devices", "4", "--steal-threshold",
+                                      "0"])
+    code, eng = launcher.serve(args)
+    assert code == 0 and eng.n_shards == 4 and eng.steal_threshold == 0
+    assert all(r.status == COMPLETED for r in eng.requests.values())
+
+
+def test_devices_need_bucketed_plans(capsys):
     with pytest.raises(SystemExit) as e:
-        launcher.main(CPU + flags)
+        launcher.main(CPU + ["--devices", "2", "--plan", "compiled"])
     assert e.value.code == 2
-    assert "sharding slice" in capsys.readouterr().err
+    assert "--devices > 1 requires --plan bucketed" in capsys.readouterr().err
 
 
 def test_legacy_arch_serves_one_wave(capsys):

@@ -31,8 +31,7 @@ from repro_torch.serve.checkpoint import CheckpointError  # noqa: E402
 from repro_torch.serve.faults import FaultInjector, Quarantine  # noqa: E402
 from repro_torch.serve.queue import COMPLETED, AdmissionQueue  # noqa: E402
 from repro_torch.serve.resilience import (restore_engine,  # noqa: E402
-                                          resize_mesh, snapshot_engine,
-                                          steal_work)
+                                          snapshot_engine)
 
 MODEL_SIZE = 8
 FAMILIES = ["lm", "tree", "lattice"]
@@ -225,14 +224,6 @@ def test_restore_mismatch_dumps_flight_recorder(workloads, tmp_path):
     assert obs.flight.dumps
     assert obs.flight.dumps[-1]["reason"] == "restore_mismatch"
     assert obs.flight.dumps[-1]["info"]["path"] == p
-
-
-@pytest.mark.parametrize("fn", [lambda e: resize_mesh(e, 2),
-                                lambda e: steal_work(e, 1)],
-                         ids=["resize_mesh", "steal_work"])
-def test_mesh_moves_wait_for_the_sharding_slice(workloads, fn):
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        fn(_engine(workloads))
 
 
 # -- across packages -------------------------------------------------------------

@@ -175,22 +175,6 @@ def test_shared_cache_does_not_alias_different_weights(stacks):
     assert out_b == out_b_alone != out_a
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(n_shards=2), dict(mesh=object()), dict(steal_threshold=1)],
-    ids=["n_shards", "mesh", "steal_threshold"])
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        serve.ServeEngine(device="cpu", **kwargs)
-
-
-@pytest.mark.parametrize("call", [
-    lambda e: e.lose_shard(0), lambda e: e.regrow_shard()],
-    ids=["lose_shard", "regrow_shard"])
-def test_unported_methods_raise(call):
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        call(serve.ServeEngine(device="cpu"))
-
-
 # -- the bucketed executor's static buffers ---------------------------------
 
 
