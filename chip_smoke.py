@@ -120,11 +120,40 @@ Phases, in order; any failure raises and exits non-zero:
    line per run (tok/s, ms per round median and p90, busy share, device
    events per round, captures, replays, fallback rounds, sharded
    dispatches); writes under ``build/chip_smoke/sharded/``.
+9. The trainer. (a) Flash attention's backward kernel against autograd
+   of the plain attention on the card, TF32 off, within 1e-4 of the
+   largest |gradient| (the trainer's shape, q (8, 128, 14, 64) with k/v
+   (8, 128, 2, 64); S = 1, 37, 200; G = 1 and 7; D = 64 and 128; a
+   window with rows that see no key; cross attention; q/k/v strided in a
+   packed projection); the forward with the lse must write the output
+   without it bit for bit; at the trainer's shape the backward is timed
+   cold beside the plain backward and the backward of
+   ``scaled_dot_product_attention`` with K/V expanded (a yardstick), and
+   the forward with the lse beside the forward without. (b)
+   ``repro_torch.launch.train.main`` in-process at the reference
+   launcher's defaults (``--batch 8 --seq 128``) on Qwen2-0.5B at full
+   width and depth, random weights from the seed, TRAIN_STEPS
+   steps (10): every loss finite, the flash forward and backward counters
+   up by 24 a step; prints ms per step (median of steps 2 on; host clock,
+   each step ending in the loss read), tokens/s, peak memory and one
+   profiled step's busy share and device events (``train (b)`` line). (c)
+   Depth 2 at full width, batch 2 x 32, card against the CPU: the loss
+   within 1e-4 relative and every gradient leaf within 2e-3 of its largest
+   |gradient| after one step; three steps' losses within 1e-3 relative.
+   (d) A reduced Qwen2 trained two steps on the card and saved
+   (``--checkpoint``) restores bit-equal, and ``python -m
+   repro_torch.launch.serve --legacy-arch qwen2-0.5b --checkpoint`` serves
+   from it on the card and on the CPU: the served tokens must agree (a
+   differing token only at a near-tie, as in phase 4) and the restored
+   model's prefill logits on the card within 2e-3 of the largest |logit|
+   of the CPU's (writes under ``build/chip_smoke/train/``).
 
 Phases 2 and 4 hold the kernels other than the gather to 1e-4 of the
-largest magnitude of their plain versions' outputs. The line before the
+largest magnitude of their plain versions' outputs, phase 9 the backward
+kernel to 1e-4 of the largest |gradient|. The line before the
 last is ``{"kernels": [...]}`` (per kernel: launches in the phase that
-drives its path, max abs error, kernel / plain / bound / library ms);
+drives its path, max abs error, kernel / plain / bound / library ms; the
+five forward kernels and flash attention's backward);
 phase 2 logs each bound's byte and operation times and the peak it
 divides by (3xTF32 on the tensor cores for every kernel with products) on
 a ``<kernel> bound:`` line; the last line is ``{"ok": true, "device":
@@ -548,17 +577,17 @@ def check_fused_dense(torch, timer) -> dict:
 
 def library_kernels(torch, fn) -> list:
     """Names of the device kernels one call of ``fn`` launches, from one
-    profiled call."""
-    from torch.autograd import DeviceType
+    profiled call (the window padded as ``profile_run``'s)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        pad_profiler(torch)
         fn()
         torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events()
-                   if e.device_type == DeviceType.CUDA})
+        pad_profiler(torch)
+    return sorted({e.name for e in device_events(prof)})
 
 
 def check_flash(torch, timer) -> dict:
@@ -761,11 +790,49 @@ def y_logits(res):
     return res.field("y", ids).double().cpu(), len(ids)
 
 
-# Empty kernels launched at the start of every profile window, and left out
-# of what it reports: once the process has run a large profile (phase 4's
-# waves), a session drops its first few kernel records (a serve pass saw
-# 425 of the 428 gathers it launched; with the window primed, every one).
-PROFILE_PRIME = 256
+# Empty kernels launched at both edges of every profile window, each batch
+# followed by a pause on the host, and left out of what the window reports.
+# The profiler keeps only the device records that fall inside its window on
+# its own clock, and drops a few kernels next to an edge: a serve pass saw
+# 425 of the 428 gathers it launched with no padding, and 424 of them, late
+# in a run, with the opening batch alone.
+PROFILE_PAD = 256
+PROFILE_GAP_S = 0.02
+
+
+def pad_profiler(torch) -> None:
+    """Launches PROFILE_PAD empty kernels, waits for them and pauses
+    PROFILE_GAP_S; opens and closes every profile window."""
+    from repro_torch.kernels import build
+
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(PROFILE_PAD):
+        build.check(lib.empty_kernel_launch(stream), "empty_kernel")
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_GAP_S)
+
+
+def device_events(prof) -> list:
+    """The profiled window's events on the card, the padding left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and "empty_kernel" not in e.name]
+
+
+def pads_seen(prof, events: list) -> list:
+    """How many of the opening and of the closing PROFILE_PAD empty
+    kernels the profiler kept: fewer than all says that it dropped
+    records at that edge."""
+    from torch.autograd import DeviceType
+
+    pads = [e.time_range.start for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "empty_kernel" in e.name]
+    if not events:
+        return [len(pads), 0]
+    first = min(e.time_range.start for e in events)
+    return [sum(t < first for t in pads), sum(t >= first for t in pads)]
 
 
 def profile_run(torch, fn) -> dict:
@@ -773,27 +840,21 @@ def profile_run(torch, fn) -> dict:
     run on one stream and do not overlap) over the wall time, and the six
     event names that took the most device time, as [name, count, ms]. The
     wall time includes the profiler's own host cost, so the busy share is a
-    lower bound. The window opens with PROFILE_PRIME empty kernels, which
-    finish before the run and are not counted."""
-    from torch.autograd import DeviceType
+    lower bound. The window opens and closes with PROFILE_PAD empty
+    kernels (``pad_profiler``), which are not counted; ``pads_seen`` says
+    how many of each batch the profiler kept."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import build
-
-    lib = build.library()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        stream = torch.cuda.current_stream().cuda_stream
-        for _ in range(PROFILE_PRIME):
-            build.check(lib.empty_kernel_launch(stream), "empty_kernel")
-        torch.cuda.synchronize()
+        pad_profiler(torch)
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and "empty_kernel" not in e.name]
+        pad_profiler(torch)
+    events = device_events(prof)
     device_us = sum(e.time_range.elapsed_us() for e in events)
     names: dict[str, list] = {}
     for e in events:
@@ -812,7 +873,7 @@ def profile_run(torch, fn) -> dict:
     return {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
             "busy_share": device_us / wall_us if events else None,
             "device_events": len(events), "top_events": top,
-            "own_kernels": own}
+            "own_kernels": own, "pads_seen": pads_seen(prof, events)}
 
 
 # wrapper -> the names of its device kernels
@@ -820,6 +881,10 @@ OWN_KERNELS = {"gather_rows": ("gather_rows_kernel",),
                "fused_gather_lstm_cell": ("fused_gather_lstm_cell_kernel",),
                "fused_lstm_cell": ("fused_lstm_cell_kernel",),
                "flash_attention": ("flash_attention_kernel",),
+               # the backward's three kernels, apart
+               "flash_attention_bwd_rowdot": ("flash_attention_bwd_rowdot",),
+               "flash_attention_bwd_dkdv": ("flash_attention_bwd_dkdv",),
+               "flash_attention_bwd_dq": ("flash_attention_bwd_dq",),
                "ssd_scan": ("ssd_scan_kernel",)}
 
 
@@ -1545,7 +1610,8 @@ def own_counts_seen(label: str, run: dict) -> dict:
         if run["counted"][kernel] != seen[kernel]:
             fail(f"launcher {label}: {kernel} counted "
                  f"{run['counted'][kernel]} launches, the profiler saw "
-                 f"{seen[kernel]}")
+                 f"{seen[kernel]} (and of the {PROFILE_PAD} empty kernels "
+                 f"at each edge, {run['profile']['pads_seen']})")
     return seen
 
 
@@ -2011,13 +2077,344 @@ def sharded_phase(torch, drive, card: str, policies: dict) -> dict:
     return launches
 
 
+# -- phase 9 --------------------------------------------------------------
+
+
+# The trainer at the reference launcher's defaults (--batch 8 --seq 128,
+# src/repro/launch/train.py:31-32) on full-width, full-depth Qwen2-0.5B.
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ)]
+TRAIN_STEPS = 10
+TRAIN_DIR = ROOT / "build" / "chip_smoke" / "train"
+GRAD_TOL = 1e-4       # backward kernel vs its plain version, of max |grad|
+
+
+def grad_rel_err(got, want) -> float:
+    """Max abs error over the largest |gradient| of the plain version."""
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def grad_rel_errs(got: list, want: list) -> list:
+    """:func:`grad_rel_err` of each of (dq, dk, dv); a gradient that is
+    zero in the plain version (one key: the softmax is constant) is held
+    to the largest |gradient| of the three."""
+    top = max(float(w.abs().max()) for w in want)
+    return [float((g - w).abs().max()) / (float(w.abs().max()) or top)
+            for g, w in zip(got, want)]
+
+
+def check_flash_backward(torch, timer) -> dict:
+    """Phase 9 (a): the backward kernel against autograd of the plain
+    attention on the card, at the trainer's shape and the edge cases, then
+    timed cold beside the plain backward and the backward of
+    ``scaled_dot_product_attention`` (K/V expanded; a yardstick the port
+    never calls), and the forward with the lse beside the forward
+    without."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_forward)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    cases = [  # (label, B, Sq, Skv, H, KV, D, causal, window, packed)
+        ("trainer B=8 S=128 G=7", 8, 128, 128, 14, 2, 64, True, 0, False),
+        ("S=1 G=7", 2, 1, 1, 14, 2, 64, True, 0, False),
+        ("S=37 G=1", 2, 37, 37, 4, 4, 64, True, 0, False),
+        ("S=200 G=7", 1, 200, 200, 14, 2, 64, True, 0, False),
+        ("S=37 D=128 G=7", 1, 37, 37, 14, 2, 128, True, 0, False),
+        ("S=200 D=128 G=1", 1, 200, 200, 2, 2, 128, True, 0, False),
+        ("window 16 S=200 G=7", 1, 200, 200, 14, 2, 64, True, 16, False),
+        ("window 4 Sq=17 Skv=9, rows with no key", 1, 17, 9, 14, 2, 16,
+         True, 4, False),
+        ("cross Sq=40 Skv=77", 2, 40, 77, 6, 3, 64, False, 0, False),
+        ("packed q/k/v S=128 G=7", 2, 128, 128, 14, 2, 64, True, 0, True),
+    ]
+    worst = 0.0
+    for label, B, Sq, Skv, H, KV, D, causal, window, packed in cases:
+        if packed:
+            qkv = torch.randn((B, Sq, (H + 2 * KV) * D), generator=g,
+                              device="cuda")
+            q = qkv[..., :H * D].view(B, Sq, H, D)
+            k = qkv[..., H * D:(H + KV) * D].view(B, Sq, KV, D)
+            v = qkv[..., (H + KV) * D:].view(B, Sq, KV, D)
+        else:
+            q = torch.randn((B, Sq, H, D), generator=g, device="cuda")
+            k = torch.randn((B, Skv, KV, D), generator=g, device="cuda")
+            v = torch.randn((B, Skv, KV, D), generator=g, device="cuda")
+        dout = torch.randn((B, Sq, H, D), generator=g, device="cuda")
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        flash_attention(*leaves, causal=causal, window=window).backward(dout)
+        want = ref.flash_attention_backward_ref(q, k, v, dout, causal, window)
+        torch.cuda.synchronize()
+        errs = grad_rel_errs([t.grad for t in leaves], want)
+        if not all(e <= GRAD_TOL for e in errs):
+            fail(f"flash_attention_backward {label}: relative err (dq, dk, "
+                 f"dv) {errs} > {GRAD_TOL}")
+        worst = max([worst] + [float((t.grad - w).abs().max())
+                               for t, w in zip(leaves, want)])
+        log(f"flash_attention_backward {label}: relative err dq "
+            f"{errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}")
+
+    B, S, H, KV, D = 8, 128, 14, 2, 64     # the trainer's attention
+    q = torch.randn((B, S, H, D), generator=g, device="cuda")
+    k = torch.randn((B, S, KV, D), generator=g, device="cuda")
+    v = torch.randn((B, S, KV, D), generator=g, device="cuda")
+    dout = torch.randn((B, S, H, D), generator=g, device="cuda")
+    out, lse = flash_attention_forward(q, k, v, True, 0, with_lse=True)
+    plain_out, _ = flash_attention_forward(q, k, v, True, 0)
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain_out):
+        fail("flash_attention: the output with the lse differs from the "
+             "output without it")
+    ms = timer(lambda: flash_attention_backward(q, k, v, out, dout, lse))
+    plain_ms = timer(lambda: ref.flash_attention_backward_ref(q, k, v, dout))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+              .contiguous().requires_grad_(True) for t in (k, v))
+    ot = sdpa(qt, kt, vt, is_causal=True)
+    dt = dout.transpose(1, 2).contiguous()
+
+    def library():
+        torch.autograd.grad(ot, (qt, kt, vt), dt, retain_graph=True)
+
+    library_ms = timer(library)
+    log(f"scaled_dot_product_attention backward runs: "
+        f"{library_kernels(torch, library)}")
+    fwd_ms = timer(lambda: flash_attention_forward(q, k, v, True, 0))
+    fwd_lse_ms = timer(lambda: flash_attention_forward(q, k, v, True, 0,
+                                                       with_lse=True))
+    log(f"flash_attention_backward trainer shape ms: cold kernel {ms:.4f}, "
+        f"plain autograd {plain_ms:.4f}, scaled_dot_product_attention "
+        f"backward {library_ms:.4f}; forward cold {fwd_ms:.4f} without lse, "
+        f"{fwd_lse_ms:.4f} with")
+    pairs = B * H * S * (S + 1) // 2          # causal (row, column) pairs
+    return {"name": "flash_attention_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:65",
+            "shape": f"q/o/dO ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {KV}, "
+                     f"{D}) float32, causal",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            # q, o, dO, lse read and dq written; k, v read, dk, dv written
+            **bound("flash_attention_backward",
+                    (4 * B * S * H * D + 4 * B * S * KV * D + B * H * S) * 4,
+                    5 * 2 * D * pairs, "3xTF32 on the tensor cores"),
+            "library_ms": library_ms, "forward_ms": fwd_ms,
+            "forward_lse_ms": fwd_lse_ms}
+
+
+def train_phase(torch, drive, card: str, steps: int) -> dict:
+    """Phase 9 (b)-(d) (module docstring); returns the flash forward and
+    backward launches of (b)'s run."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as launcher
+    from repro_torch.serve import lm_wave
+    from repro_torch.train.checkpoint import load_checkpoint
+    from repro_torch.train.loop import make_train_step, train
+    from repro_torch.train.optimizer import AdamWConfig, leaves, unflatten
+
+    cfg = get_config("qwen2-0.5b")
+    # (b) the launcher in-process at full width and depth
+    stamps = []
+
+    def record(line):
+        stamps.append(time.perf_counter())
+        log(f"train (b): {line}")
+
+    torch.cuda.reset_peak_memory_stats()
+    state, counts = drive(lambda: launcher.main(
+        TRAIN_ARGS + ["--steps", str(steps), "--log-every", "1"],
+        log_fn=record))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = state.history
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"train (b): losses {losses} (want {steps} finite)")
+    per_step = cfg.n_layers * steps
+    for name in ("flash_attention", "flash_attention_backward"):
+        if counts[name] != per_step:
+            fail(f"train (b): {name} launched {counts[name]} times in "
+                 f"{steps} steps, not {cfg.n_layers} a step")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    ms = statistics.median(step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(t.numel() for t in leaves(state.params))
+
+    model = TransformerLM(cfg, device="cuda")
+    step_fn = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5,
+                                                 total_steps=steps))
+    corpus = SyntheticCorpus(PipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=SEED))
+    batch = {k: torch.as_tensor(a, device="cuda")
+             for k, a in corpus.batch(steps).items()}
+    before = (flash_attention.launches, flash_attention_backward.launches)
+    prof = profile_run(torch, lambda: step_fn(state.params, state.opt, batch))
+    moved = (flash_attention.launches - before[0],
+             flash_attention_backward.launches - before[1])
+    if moved != (cfg.n_layers, cfg.n_layers):
+        fail(f"train (b): the profiled step launched {moved} flash forward "
+             f"and backward kernels, not {cfg.n_layers} each")
+    own_us = {k: round(v["device_us"], 1)
+              for k, v in prof["own_kernels"].items()}
+    report = {"n_params": n_params, "steps": steps, "losses": losses,
+              "step_ms": step_ms, "ms_per_step": ms,
+              "tokens_per_s": tokens / ms * 1e3, "peak_bytes": peak,
+              "launches": counts, "profile": prof}
+    log(f"train (b) qwen2-0.5b full width and depth ({n_params} params), "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: {ms:.2f} ms per step (median "
+        f"of steps 2-{steps}), {tokens / ms * 1e3:.1f} tokens/s, peak memory {peak / 2**30:.2f} "
+        f"GiB, losses {[round(x, 4) for x in losses]}; profiled step: busy "
+        f"share {prof['busy_share']:.3f} ({prof['device_ms']:.2f} ms device "
+        f"of {prof['wall_ms']:.2f} wall), {prof['device_events']} device "
+        f"events, top {prof['top_events']}; flash kernels' device us "
+        f"{own_us}; flash launches {counts} ({card})")
+    del state
+
+    # (c) card against CPU at depth 2, full width, a small batch
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cpu_model = TransformerLM(cfg2, device="cpu")
+    card_model = TransformerLM(cfg2, device="cuda")
+    params = cpu_model.init_params(torch.Generator().manual_seed(SEED))
+    corpus = SyntheticCorpus(PipelineConfig(vocab=cfg2.vocab, seq_len=32,
+                                            batch_size=2, seed=SEED))
+    batches = [corpus.batch(i) for i in range(3)]
+
+    def grads(model, device):
+        flat = [t.detach().to(device).requires_grad_(True)
+                for t in leaves(params)]
+        loss = model.loss(unflatten(params, flat),
+                          {k: torch.as_tensor(a, device=device)
+                           for k, a in batches[0].items()})
+        gs = torch.autograd.grad(loss, flat)
+        return float(loss.detach()), [g.cpu() for g in gs]
+
+    card_loss, card_grads = grads(card_model, "cuda")
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = grads(cpu_model, "cpu")
+    cpu_grad_s = time.perf_counter() - t0
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_errs = [grad_rel_err(a, b) for a, b in zip(card_grads, cpu_grads)]
+    if not loss_err <= 1e-4 or not max(grad_errs) <= 2e-3:
+        fail(f"train (c): card against CPU, loss {loss_err}, gradients "
+             f"{max(grad_errs)} (bars 1e-4, 2e-3)")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=3)
+    card_hist = train(card_model, tree_map(lambda t: t.to("cuda"), params),
+                      iter(batches), 3, opt, log_every=1,
+                      log_fn=lambda line: None).history
+    t0 = time.perf_counter()
+    cpu_hist = train(cpu_model, params, iter(batches), 3, opt, log_every=1,
+                     log_fn=lambda line: None).history
+    cpu_train_s = time.perf_counter() - t0
+    hist_err = max(abs(a - b) / abs(b) for a, b in zip(card_hist, cpu_hist))
+    if not hist_err <= 1e-3:
+        fail(f"train (c): three steps' losses {card_hist} on the card, "
+             f"{cpu_hist} on the CPU: relative {hist_err} > 1e-3")
+    report["card_vs_cpu"] = {"loss_rel_err": loss_err,
+                             "grad_rel_err_max": max(grad_errs),
+                             "losses_card": card_hist, "losses_cpu": cpu_hist,
+                             "loss_rel_err_3_steps": hist_err,
+                             "cpu_grad_s": cpu_grad_s,
+                             "cpu_train_s": cpu_train_s}
+    log(f"train (c) depth 2, full width, batch 2 x 32: loss relative err "
+        f"{loss_err:.3e}, worst gradient leaf {max(grad_errs):.3e} of its "
+        f"max |grad|, three steps {card_hist} (card) against {cpu_hist} "
+        f"(CPU), relative {hist_err:.3e}; CPU gradients {cpu_grad_s:.1f} s, "
+        f"three CPU steps {cpu_train_s:.1f} s")
+    del params, cpu_grads, card_grads
+
+    # (d) a checkpoint written on the card, restored by the serve launcher
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(TRAIN_DIR / "qwen2-0.5b-reduced.npz")
+    small = launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--steps",
+                           "2", "--batch", "2", "--seq", "32", "--log-every",
+                           "1", "--checkpoint", path],
+                          log_fn=lambda line: log(f"train (d): {line}"))
+    p2, o2, step, _ = load_checkpoint(path, small.params, small.opt)
+    same = all(torch.equal(a, b) for a, b in zip(
+        leaves(p2) + leaves(o2), leaves(small.params) + leaves(small.opt)))
+    if step != 2 or not same:
+        fail(f"train (d): the checkpoint gave step {step}, equal {same}")
+    served = {}
+    generate = lm_wave.ServeEngine.generate
+
+    def recording(self, prompts, max_new, *a, **kw):
+        res = generate(self, prompts, max_new, *a, **kw)
+        served[str(self.device)] = (self, prompts, res[0])
+        return res
+
+    lm_wave.ServeEngine.generate = recording
+    try:
+        for device in ("cuda", "cpu"):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = serve_launcher.main(
+                    ["--legacy-arch", "qwen2-0.5b", "--checkpoint", path,
+                     "--requests", "3", "--max-new", "4", "--device", device])
+            text = out.getvalue()
+            log(f"train (d) serve on {device}: {text.strip()}")
+            if rc != 0 or f"restored step 2 from {path}" not in text:
+                fail(f"train (d): --legacy-arch --checkpoint on {device} "
+                     f"exited {rc}")
+    finally:
+        lm_wave.ServeEngine.generate = generate
+    # the restored weights served on the card against the CPU, as phase 4
+    (eng, prompts, outs), (cpu_eng, _, cpu_outs) = served["cuda"], \
+        served["cpu"]
+    flips = []
+    for r, (got, want) in enumerate(zip(outs, cpu_outs)):
+        if got == want:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        margin, scale = top2_margin(torch, cpu_eng.model, cpu_eng.params,
+                                    prompts[r], want[:t])
+        log(f"train (d) request {r}: token {t} is {got[t]} on the card, "
+            f"{want[t]} on the CPU; CPU top-2 margin {margin:.3e} "
+            f"(tolerance {LOGIT_TOL * scale:.3e})")
+        if margin > LOGIT_TOL * scale:
+            fail(f"train (d): request {r} differs from the CPU serve at "
+                 f"token {t} beyond a near-tie")
+        flips.append([r, t, margin])
+    with torch.no_grad():
+        lg = eng.model.prefill(eng.params, torch.tensor([prompts[0]],
+                                                        device="cuda"),
+                               eng.cache_len)[0].cpu()
+        lg_cpu = cpu_eng.model.prefill(cpu_eng.params,
+                                       torch.tensor([prompts[0]]),
+                                       cpu_eng.cache_len)[0]
+    err = rel_err(lg, lg_cpu)
+    if not torch.isfinite(lg).all() or not err <= LOGIT_TOL:
+        fail(f"train (d): the restored model's prefill logits differ from "
+             f"the CPU's by {err} of the largest |logit| (bar {LOGIT_TOL})")
+    report["checkpoint"] = {"path": path, "bit_equal": same,
+                            "prefill_logits_rel_err_vs_cpu": err,
+                            "near_tie_flips": flips,
+                            "tokens_equal_cpu": not flips}
+    log(f"train (d): checkpoint restored bit-equal; served from it, prefill "
+        f"logits within {err:.3e} of the CPU's, tokens equal the CPU's: "
+        f"{not flips}")
+    log(f"train: {json.dumps(report, default=str)}")
+    return counts
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="phases to run after phase 1 (comma-separated); "
-                         "the result lines are printed only for all eight")
+                         "the result lines are printed only for all nine")
     ap.add_argument("--workloads", default=",".join(TREES_LATTICES),
                     help="phase 5's workloads (comma-separated)")
     args = ap.parse_args(argv)
@@ -2157,8 +2554,18 @@ def main(argv: list[str] | None = None) -> int:
             f"steady pass): {sharded_launches['gather_rows']}, "
             f"{sharded_launches['fused_gather_lstm_cell']}; sharded done: "
             f"{time.perf_counter() - t0:.1f} s")
+    if 9 in phases:
+        t0 = time.perf_counter()
+        rows.append(check_flash_backward(torch, timer))
+        train_launches = train_phase(torch, drive, card, TRAIN_STEPS)
+        launches["flash_attention_backward"] = \
+            train_launches["flash_attention_backward"]
+        log(f"train launches of the flash forward and backward kernels (run "
+            f"(b)): {train_launches['flash_attention']}, "
+            f"{train_launches['flash_attention_backward']}; train done: "
+            f"{time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
-    if phases != set(range(1, 9)) or set(workloads) != set(TREES_LATTICES):
+    if phases != set(range(1, 10)) or set(workloads) != set(TREES_LATTICES):
         log(f"partial run (phases {sorted(phases)}, workloads {workloads}): "
             f"no result lines")
         return 0

@@ -10,8 +10,9 @@ configuration and the device; parameters are a tree of tensors made by
 :meth:`TransformerLM.init_params` (or installed from the reference's tree by
 :mod:`repro_torch.arch.convert`) and passed to every call.
 
-Three entry points:
+Four entry points:
   ``forward``      full-sequence logits (+ MoE aux, always 0 here)
+  ``loss``         mean next-token NLL of a batch (the trainer's objective)
   ``prefill``      full sequence -> (last logits, decode caches)
   ``decode_step``  one token against the caches, updated in place
 """
@@ -39,6 +40,15 @@ def tree_map(fn, tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _unbind(tree, n: int) -> list:
+    """A tree whose leaves have a leading axis of ``n`` as ``n`` trees of
+    the leaves' slices (views, from one ``unbind`` per leaf)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: p[r] for k, p in parts.items()} for r in range(n)]
+    return list(tree.unbind(0))
 
 
 def _stack(trees: list):
@@ -122,12 +132,31 @@ class TransformerLM(nn.Module):
         B, S_ = tokens.shape
         x = params["embed"][tokens]
         positions = self._positions(B, S_)
+        # Each stacked leaf unbound once: under autograd one unbind's
+        # backward stacks the repeats' gradients, where a select per repeat
+        # would write a full-size zero gradient of the leaf for each.
+        repeats = [_unbind(blk, cfg.n_repeats) for blk in params["blocks"]]
         for r in range(cfg.n_repeats):
-            for spec, blk in zip(cfg.pattern, params["blocks"]):
-                x = self._apply_layer(x, tree_map(lambda a: a[r], blk), spec,
-                                      positions)
+            for spec, layers in zip(cfg.pattern, repeats):
+                x = self._apply_layer(x, layers[r], spec, positions)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return x @ params["lm_head"], torch.zeros((), device=self.device)
+
+    def loss(self, params, batch):
+        """Mean next-token NLL over ``batch["labels"]`` under
+        ``batch["loss_mask"]`` (all ones if absent) plus 0.01 x the MoE
+        aux loss (0 here), as the reference's ``loss``. ``batch`` holds
+        tensors on the model's device: ``tokens`` and ``labels`` (B, S)
+        integer. The NLL is the logsumexp minus the gold logit, gathered
+        (no (B, S, V) one-hot)."""
+        logits, aux = self.forward(params, batch["tokens"])
+        logits32 = logits.float()
+        lse = torch.logsumexp(logits32, dim=-1)
+        gold = logits32.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        nll = lse - gold
+        mask = batch.get("loss_mask")
+        mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0) + 0.01 * aux
 
     # -- serving -------------------------------------------------------------
 

@@ -1,7 +1,11 @@
 // Blockwise (flash) attention with grouped KV heads, fp32:
 //   o[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h / G] * D^-0.5) v[b, j, h / G]
 // with column j masked (score -1e30) when causal and j > i, or when a
-// window is set and i - j >= window.
+// window is set and i - j >= window. Given an `lse` pointer it also writes
+// each row's log-sum-exp of the scaled, masked scores (natural log,
+// (B, H, Sq) fp32), which the backward kernel (flash_attention_bwd.cu)
+// recomputes the softmax from; without one it writes nothing else and
+// its output is unchanged.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py:flash_attention_kernel (grid
@@ -61,6 +65,7 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int BQ = 16 * WARPS;   // query rows per block
 constexpr float MASKED = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Tile {
@@ -73,7 +78,8 @@ struct Tile {
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int64_t Sq,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int64_t Sq,
     int64_t Skv, int64_t H, int64_t G, int64_t qsb, int64_t qss, int64_t qsh,
     int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
     int64_t vsh, int causal, int64_t window, float scale_log2) {
@@ -269,14 +275,22 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
       *reinterpret_cast<float2*>(ob + i1 * H * D + c) =
           make_float2(acc[nt][2] * inv1, acc[nt][3] * inv1);
   }
+  // The running max and sum are in base 2 (log2(e) is in the scale):
+  // lse = (m + log2 l) ln 2. A row that sees no key has m = -1e30 and
+  // averages every key; its scores are all -1e30, and so is its lse.
+  if (lse != nullptr && t == 0) {
+    float* lb = lse + (b * H + h) * Sq;
+    if (i0 < Sq) lb[i0] = m0 <= MASKED ? MASKED : (m0 + log2f(l0)) * LN2;
+    if (i1 < Sq) lb[i1] = m1 <= MASKED ? MASKED : (m1 + log2f(l1)) * LN2;
+  }
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
-           int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t G,
-           int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,
-           int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh, int causal,
-           int64_t window, cudaStream_t stream) {
+           float* lse, int64_t B, int64_t Sq, int64_t Skv, int64_t H,
+           int64_t G, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
+           int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
+           int causal, int64_t window, cudaStream_t stream) {
   constexpr int smem = Tile<D>::SMEM;
   // The shared-memory limit is a per-device attribute: set it once on each
   // device a launch reaches.
@@ -295,41 +309,42 @@ int launch(const float* q, const float* k, const float* v, float* o,
   const dim3 grid(static_cast<unsigned>(B * H),
                   static_cast<unsigned>((Sq + BQ - 1) / BQ));
   flash_attention_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, Sq, Skv, H, G, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-      causal, window, LOG2E / sqrtf(static_cast<float>(D)));
+      q, k, v, o, lse, Sq, Skv, H, G, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+      vsh, causal, window, LOG2E / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int64_t B,
-    int64_t Sq, int64_t Skv, int64_t H, int64_t KV, int64_t D, int64_t qsb,
-    int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
-    int64_t vsb, int64_t vss, int64_t vsh, int64_t causal, int64_t window,
-    void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t KV, int64_t D,
+    int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,
+    int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh, int64_t causal,
+    int64_t window, void* stream) {
   if (KV <= 0 || H % KV != 0 || (Sq + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(o);
+  auto* lf = static_cast<float*>(lse);   // may be null: no lse written
   const int64_t G = H / KV;
   const auto st = static_cast<cudaStream_t>(stream);
   const int cz = causal ? 1 : 0;
   switch (D) {
     case 16:
-      return launch<16>(qf, kf, vf, of, B, Sq, Skv, H, G, qsb, qss, qsh, ksb,
-                        kss, ksh, vsb, vss, vsh, cz, window, st);
+      return launch<16>(qf, kf, vf, of, lf, B, Sq, Skv, H, G, qsb, qss, qsh,
+                        ksb, kss, ksh, vsb, vss, vsh, cz, window, st);
     case 32:
-      return launch<32>(qf, kf, vf, of, B, Sq, Skv, H, G, qsb, qss, qsh, ksb,
-                        kss, ksh, vsb, vss, vsh, cz, window, st);
+      return launch<32>(qf, kf, vf, of, lf, B, Sq, Skv, H, G, qsb, qss, qsh,
+                        ksb, kss, ksh, vsb, vss, vsh, cz, window, st);
     case 64:
-      return launch<64>(qf, kf, vf, of, B, Sq, Skv, H, G, qsb, qss, qsh, ksb,
-                        kss, ksh, vsb, vss, vsh, cz, window, st);
+      return launch<64>(qf, kf, vf, of, lf, B, Sq, Skv, H, G, qsb, qss, qsh,
+                        ksb, kss, ksh, vsb, vss, vsh, cz, window, st);
     case 128:
-      return launch<128>(qf, kf, vf, of, B, Sq, Skv, H, G, qsb, qss, qsh, ksb,
-                         kss, ksh, vsb, vss, vsh, cz, window, st);
+      return launch<128>(qf, kf, vf, of, lf, B, Sq, Skv, H, G, qsb, qss, qsh,
+                         ksb, kss, ksh, vsb, vss, vsh, cz, window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

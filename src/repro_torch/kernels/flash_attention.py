@@ -1,41 +1,36 @@
-"""Blockwise (flash) attention with grouped KV heads.
+"""Blockwise (flash) attention with grouped KV heads, and its backward.
 
-Every self-attention of a prefill (and a cross-attention, non-causal with
-``Sq != Skv``) runs here. On the card it is the hand-written kernel in
-``csrc/flash_attention.cu``: one block per (batch, head, 64 query rows),
-four warps of 16 rows running Q K^T and P V on the tensor cores (3xTF32,
-fp32 accuracy) with the online softmax on the accumulators, looping over
-64-row K/V tiles double-buffered by cp.async, reading the KV head
-``h // G`` in place (no seven-fold copy of K and V for Qwen2's 14/2 heads)
-and stopping at the diagonal when causal. For tensors on the CPU the
-wrapper runs the plain version in :mod:`repro_torch.kernels.ref`.
+Every self-attention of a prefill or a training step (and a
+cross-attention, non-causal with ``Sq != Skv``) runs here. On the card the
+forward is the hand-written kernel in ``csrc/flash_attention.cu``: one
+block per (batch, head, 64 query rows), four warps of 16 rows running
+Q K^T and P V on the tensor cores (3xTF32, fp32 accuracy) with the online
+softmax on the accumulators, looping over 64-row K/V tiles double-buffered
+by cp.async, reading the KV head ``h // G`` in place (no seven-fold copy
+of K and V for Qwen2's 14/2 heads) and stopping at the diagonal when
+causal. Asked for it, it also writes each row's log-sum-exp.
+
+When autograd records the call (grad mode on and an input that requires
+grad), the wrapper runs :class:`FlashAttentionFunction`: the forward with
+the log-sum-exp, and as its backward the kernels of
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_backward`).
+Otherwise nothing is saved. For tensors on the CPU the wrappers run the
+plain versions in :mod:`repro_torch.kernels.ref`, which autograd
+differentiates.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from . import build, counting, guard, ref
+from . import build, counting, ref
 
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Skv, KV, D), ``H % KV == 0`` ->
-    (B, Sq, H, D), equal to :func:`ref.flash_attention_ref`. ``causal``
-    masks column ``j > i`` (both counted from 0) and ``window`` (causal
-    only; 0 = none) also masks ``i - j >= window``. On the card: float32,
-    ``D`` in :data:`HEAD_DIMS`, the last dim contiguous, every other stride
-    a multiple of 4 elements and 16-byte aligned pointers."""
-    if window and not causal:
-        raise ValueError("flash_attention: a window needs causal=True")
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal, window)
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
-    guard.check_no_grad("flash_attention", q, k, v)
+def _check(q, k, v):
+    """Raise on what the kernels do not take; returns the shapes."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: q, k and v must be 4-D")
     B, Sq, H, D = q.shape
@@ -47,29 +42,153 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: {H} heads over {KV} kv heads")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    _check_layout(q.device, zip("qkv", (q, k, v)))
+    return B, Sq, Skv, H, KV, D
+
+
+def _check_layout(dev, named) -> None:
+    for name, t in named:
         if t.dtype != torch.float32 or t.device != dev:
             raise ValueError(f"flash_attention: {name} must be float32 on "
                              f"{dev}, got {t.dtype} on {t.device}")
-        if (t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3])
-                or t.data_ptr() % 16):
+        if not _fits(t):
             raise ValueError(f"flash_attention: {name} needs a contiguous "
                              f"last dim, strides in multiples of 4 and a "
                              f"16-byte aligned pointer; got strides "
                              f"{t.stride()}")
+
+
+def _fits(t: torch.Tensor) -> bool:
+    """The kernels' layout rule for a (B, S, heads, D) operand."""
+    return (t.stride(3) == 1 and not any(s % 4 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def flash_attention_forward(q, k, v, causal: bool = True, window: int = 0,
+                            with_lse: bool = False):
+    """The forward alone, recording nothing for autograd: ``(out, lse)``
+    with ``lse`` the rows' log-sum-exp of the scaled, masked scores
+    (natural log, (B, H, Sq) float32; -1e30 for a row that sees no key)
+    when ``with_lse``, else None. Without it the output is the same,
+    bit for bit. Inputs as :func:`flash_attention`."""
+    if window and not causal:
+        raise ValueError("flash_attention: a window needs causal=True")
+    if q.device.type == "cpu":
+        with torch.no_grad():
+            out = ref.flash_attention_ref(q, k, v, causal, window)
+            lse = (ref.flash_attention_lse_ref(q, k, causal, window)
+                   if with_lse else None)
+        return out, lse
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    B, Sq, Skv, H, KV, D = _check(q, k, v)
     out = torch.empty((B, Sq, H, D), dtype=torch.float32, device=dev)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     if Skv == 0:
         raise ValueError("flash_attention: no keys to attend to")
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None,
         B, Sq, Skv, H, KV, D, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], int(causal), window, stream), "flash_attention")
     counting.count(flash_attention)
-    return out
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
+                             window: int = 0):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention` at ``q, k, v``
+    for the output gradient ``dout``, given the forward's ``out`` and
+    ``lse`` (:func:`flash_attention_forward` with ``with_lse``). On the
+    card the three kernels of ``csrc/flash_attention_bwd.cu``, counted as
+    one launch; ``dout`` in another layout than the kernels take is copied
+    contiguous first. On the CPU the plain version
+    (:func:`ref.flash_attention_backward_ref`; ``out`` and ``lse`` are not
+    read)."""
+    if window and not causal:
+        raise ValueError("flash_attention: a window needs causal=True")
+    if q.device.type == "cpu":
+        return ref.flash_attention_backward_ref(q, k, v, dout, causal, window)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    B, Sq, Skv, H, KV, D = _check(q, k, v)
+    if tuple(out.shape) != (B, Sq, H, D) or \
+            tuple(dout.shape) != (B, Sq, H, D):
+        raise ValueError(f"flash_attention backward: out {tuple(out.shape)} "
+                         f"and dout {tuple(dout.shape)} must be "
+                         f"{(B, Sq, H, D)}")
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous() or lse.device != dev:
+        raise ValueError(f"flash_attention backward: lse must be a "
+                         f"contiguous float32 {(B, H, Sq)} tensor on {dev}")
+    if dout.dtype == torch.float32 and not _fits(dout):
+        dout = dout.contiguous()
+    _check_layout(dev, (("out", out), ("dout", dout)))
+    dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device=dev)
+    dk = torch.empty((B, Skv, KV, D), dtype=torch.float32, device=dev)
+    dv = torch.empty((B, Skv, KV, D), dtype=torch.float32, device=dev)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KV, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], *dout.stride()[:3], int(causal), window, stream),
+        "flash_attention_backward")
+    counting.count(flash_attention_backward)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The card's differentiable route: the forward kernel with the rows'
+    log-sum-exp, saved with q, k, v and the output, and the backward
+    kernels as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = flash_attention_forward(q, k, v, causal, window,
+                                           with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, lse,
+                                              ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Skv, KV, D), ``H % KV == 0`` ->
+    (B, Sq, H, D), equal to :func:`ref.flash_attention_ref`. ``causal``
+    masks column ``j > i`` (both counted from 0) and ``window`` (causal
+    only; 0 = none) also masks ``i - j >= window``. On the card: float32,
+    ``D`` in :data:`HEAD_DIMS`, the last dim contiguous, every other stride
+    a multiple of 4 elements and 16-byte aligned pointers; differentiable
+    through :class:`FlashAttentionFunction` when autograd records."""
+    if window and not causal:
+        raise ValueError("flash_attention: a window needs causal=True")
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, causal, window)
+    return flash_attention_forward(q, k, v, causal, window)[0]
 
 
 flash_attention.launches = 0
+flash_attention_backward.launches = 0

@@ -1,10 +1,14 @@
-"""The check every CUDA route makes before it launches its kernel.
+"""The check a CUDA route without a backward kernel makes before it
+launches its kernel.
 
 A wrapper writes its outputs through ``data_ptr()`` into fresh tensors, so
 on the card its result has no autograd graph: a gradient through it would
-be lost without a word. Until the kernels have backward kernels, each CUDA
-route raises instead when autograd would record the call. The CPU route
-runs the plain, differentiable version and needs no check.
+be lost without a word. Flash attention has a backward kernel and is
+differentiable on the card (``kernels/flash_attention.py``); the SSD scan
+(whose backward is the next training slice), the row gather and both LSTM
+cells do not, and each of their CUDA routes raises instead when autograd
+would record the call. The CPU routes run the plain, differentiable
+versions and need no check.
 """
 
 from __future__ import annotations
@@ -12,12 +16,14 @@ from __future__ import annotations
 import torch
 
 
-def check_no_grad(name: str, *tensors) -> None:
+def check_no_grad(name: str, *tensors, until: str = "") -> None:
     """Raise if grad mode is on and any of ``tensors`` (``None`` skipped)
-    requires grad."""
+    requires grad; ``until`` names the work that brings the backward."""
     if not torch.is_grad_enabled():
         return
     if any(t is not None and t.requires_grad for t in tensors):
+        later = f" (it comes with {until})" if until else ""
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward, and an input requires "
-            f"grad; call it under torch.no_grad(), or detach the inputs")
+            f"{name}: the CUDA kernel has no backward{later}, and an input "
+            f"requires grad; call it under torch.no_grad(), or detach the "
+            f"inputs")

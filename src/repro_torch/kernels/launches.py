@@ -14,7 +14,7 @@ import contextlib
 from collections import Counter
 
 from . import counting
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_backward
 from .fused_cell import fused_lstm_cell
 from .fused_gather_cell import fused_gather_lstm_cell
 from .gather_batch import gather_rows
@@ -23,7 +23,9 @@ from .ssd_scan import ssd_scan
 WRAPPERS = {"gather_rows": gather_rows,
             "fused_gather_lstm_cell": fused_gather_lstm_cell,
             "fused_lstm_cell": fused_lstm_cell,
-            "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+            "flash_attention": flash_attention,
+            "flash_attention_backward": flash_attention_backward,
+            "ssd_scan": ssd_scan}
 
 
 def snapshot() -> dict:

@@ -48,19 +48,45 @@ def attention_mask(Sq: int, Skv: int, window: int = 0, device=None):
     return m
 
 
-def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0):
-    """q: (B, Sq, H, D); k, v: (B, Skv, KV, D) with H a multiple of KV
-    (query head h reads kv head h // (H // KV)) -> (B, Sq, H, D).
-    Scores in fp32, scale ``D ** -0.5``, masked scores ``-1e30``: the
-    function of the reference's ``_sdpa`` and its flash kernel."""
+def _attention_scores(q, k, causal: bool, window: int):
+    """(B, KV, G, Sq, Skv) fp32 scores of :func:`flash_attention_ref`,
+    scaled and masked."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, D)
     s = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * (D ** -0.5)
     if causal:
         s = s.masked_fill(~attention_mask(Sq, Skv, window, q.device), -1e30)
-    w = torch.softmax(s, dim=-1).to(v.dtype)
+    return s
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0):
+    """q: (B, Sq, H, D); k, v: (B, Skv, KV, D) with H a multiple of KV
+    (query head h reads kv head h // (H // KV)) -> (B, Sq, H, D).
+    Scores in fp32, scale ``D ** -0.5``, masked scores ``-1e30``: the
+    function of the reference's ``_sdpa`` and its flash kernel."""
+    B, Sq, H, D = q.shape
+    w = torch.softmax(_attention_scores(q, k, causal, window),
+                      dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkd->bskgd", w, v).reshape(B, Sq, H, D)
+
+
+def flash_attention_lse_ref(q, k, causal: bool = True, window: int = 0):
+    """The rows' log-sum-exp of :func:`flash_attention_ref`'s scaled,
+    masked scores: (B, H, Sq) float32, natural log."""
+    B, Sq, H, _ = q.shape
+    return torch.logsumexp(_attention_scores(q, k, causal, window),
+                           dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_backward_ref(q, k, v, dout, causal: bool = True,
+                                 window: int = 0):
+    """``(dq, dk, dv)``: autograd of :func:`flash_attention_ref` at
+    ``q, k, v`` for the output gradient ``dout``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal, window)
+        return torch.autograd.grad(out, leaves, dout)
 
 
 def _segsum(x):

@@ -33,7 +33,9 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {dev}")
-    guard.check_no_grad("ssd_scan", x, dt, A, B, C, init_state)
+    guard.check_no_grad("ssd_scan", x, dt, A, B, C, init_state,
+                        until="the SSD scan's backward kernel, the next "
+                              "training slice")
     if x.ndim != 4 or dt.ndim != 3 or A.ndim != 1 or B.ndim != 4:
         raise ValueError("ssd_scan: x, B, C must be 4-D, dt 3-D and A 1-D")
     b, l, h, p = x.shape

@@ -36,8 +36,9 @@ single-shot entries use ``{"family": "tree", "arrival": ..., "size": 8}``
 
 ``--legacy-arch qwen2-0.5b`` serves one wave through the wave-by-wave
 TransformerLM engine (``repro_torch.serve.lm_wave``) on the reduced config
-instead. Not ported yet, and refused: ``--checkpoint`` weights for the
-legacy path (the training slice).
+instead, from ``--checkpoint`` weights when given (an npz of
+``python -m repro_torch.launch.train --reduced --checkpoint``, or of the
+reference's trainer).
 """
 
 from __future__ import annotations
@@ -58,8 +59,6 @@ from repro_torch.obs.tracer import default_tracer
 from repro_torch.serve import (InjectedCrash, PolicyRegistry, ServeEngine,
                                graph_request, latest_checkpoint, lm_request,
                                synth_trace)
-
-TRAINING = "the training slice (train/checkpoint.py), which is not ported yet"
 
 
 def load_trace(path: str, workloads, max_new_default: int):
@@ -116,14 +115,14 @@ def legacy_wave(arch: str, requests: int, max_new: int, seed: int,
     from repro_torch.arch.model import TransformerLM
     from repro_torch.configs import get_config
     from repro_torch.serve.lm_wave import ServeEngine as LMWaveEngine
+    from repro_torch.train.checkpoint import load_checkpoint
 
-    if checkpoint:
-        raise NotImplementedError(
-            f"--checkpoint {checkpoint}: restoring TransformerLM weights "
-            f"comes with {TRAINING}")
     cfg = get_config(arch).reduced()
     model = TransformerLM(cfg, device=device)
     params = model.init_params(torch.Generator().manual_seed(seed))
+    if checkpoint:
+        params, _, step, _ = load_checkpoint(checkpoint, params)
+        print(f"restored step {step} from {checkpoint}")
     nrng = np.random.default_rng(seed)
     prompts = [list(nrng.integers(0, cfg.vocab, int(nrng.integers(4, 24))))
                for _ in range(requests)]
@@ -250,8 +249,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve one wave through the legacy TransformerLM "
                          "engine instead (e.g. qwen2-0.5b)")
     ap.add_argument("--checkpoint", default="",
-                    help="restore TransformerLM weights (legacy path only; "
-                         "comes with the training slice)")
+                    help="restore TransformerLM weights from a training "
+                         "checkpoint (legacy path only)")
     from repro_torch.launch.env import add_perf_profile_arg
     add_perf_profile_arg(ap)
     return ap

@@ -150,8 +150,8 @@ int main() {
   for (int rep = 0; rep < 5; ++rep) {
     cudaEventRecord(e0);
     const int rc = flash_attention_launch(
-        q, k, v, o, B, S, S, H, KV, D, S * H * D, H * D, D, S * KV * D,
-        KV * D, D, S * KV * D, KV * D, D, 1, 0, 0);
+        q, k, v, o, nullptr, B, S, S, H, KV, D, S * H * D, H * D, D,
+        S * KV * D, KV * D, D, S * KV * D, KV * D, D, 1, 0, 0);
     cudaEventRecord(e1); cudaEventSynchronize(e1);
     float ms; cudaEventElapsedTime(&ms, e0, e1);
     printf("flash phases: launch %d rc %d, %.4f ms\n", rep, rc, ms);

@@ -1,0 +1,121 @@
+"""AdamW and the cosine learning-rate schedule, with the reference's
+numerics (``src/repro/train/optimizer.py``): clipping by the global norm
+with ``gnorm + 1e-9`` in the denominator, bias-corrected moments and
+decoupled weight decay, all in float32. ``torch.optim.AdamW`` and
+``clip_grad_norm_`` are not used: their epsilons sit elsewhere.
+
+Parameters, gradients and moments are trees of tensors (dicts, tuples,
+lists); the state is ``{"mu", "nu", "step"}`` as in the reference, with
+``step`` a 0-d int32 tensor. ``adamw_update`` is functional, as the
+reference's: it returns new trees and leaves its inputs alone.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from ..arch.model import tree_map
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    grad_clip: float = 1.0
+
+
+def leaves(tree) -> list:
+    """The tensors of a tree in the reference's order (``jax.tree.leaves``:
+    dict keys sorted, sequences in order)."""
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in leaves(tree[key])]
+    if isinstance(tree, (tuple, list)):
+        return [x for sub in tree for x in leaves(sub)]
+    return [tree]
+
+
+def unflatten(tree, flat: list):
+    """A tree of ``tree``'s structure holding ``flat`` (in :func:`leaves`
+    order)."""
+    it = iter(flat)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {key: build(node[key]) for key in sorted(node)}
+            return {key: built[key] for key in node}
+        if isinstance(node, (tuple, list)):
+            return type(node)(build(sub) for sub in node)
+        return next(it)
+
+    return build(tree)
+
+
+def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup to ``cfg.lr``, then cosine down to ``min_lr_ratio`` of
+    it at ``total_steps``: a float32 tensor on ``step``'s device."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = cfg.lr * step / max(cfg.warmup_steps, 1)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0, 1)
+    cos = cfg.lr * (cfg.min_lr_ratio
+                    + (1 - cfg.min_lr_ratio) * 0.5
+                    * (1 + torch.cos(math.pi * prog)))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_opt_state(params) -> dict[str, Any]:
+    """Zero moments in float32 beside each parameter, and step 0."""
+    first = leaves(params)[0]
+    return {"mu": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                           params),
+            "nu": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                           params),
+            "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32."""
+    total = 0
+    for x in leaves(tree):
+        total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(torch.as_tensor(total))
+
+
+def adamw_update(cfg: AdamWConfig, params, grads, state):
+    """One AdamW step. Returns ``(new_params, new_state, metrics)`` with
+    metrics ``{"lr", "grad_norm"}`` (tensors, not synchronised)."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    lr = lr_at(cfg, step)
+    bc1 = 1 - cfg.b1 ** step.float()
+    bc2 = 1 - cfg.b2 ** step.float()
+
+    def upd(p, g, mu, nu):
+        g32 = (g * scale).float()
+        mu2 = cfg.b1 * mu + (1 - cfg.b1) * g32
+        nu2 = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g32)
+        mhat = mu2 / bc1
+        nhat = nu2 / bc2
+        delta = mhat / (torch.sqrt(nhat) + cfg.eps) \
+            + cfg.weight_decay * p.float()
+        return (p - lr * delta.to(p.dtype)).to(p.dtype), mu2, nu2
+
+    out = [upd(p, g, m, n) for p, g, m, n in zip(
+        leaves(params), leaves(grads), leaves(state["mu"]),
+        leaves(state["nu"]))]
+    new_state = {"mu": unflatten(params, [o[1] for o in out]),
+                 "nu": unflatten(params, [o[2] for o in out]),
+                 "step": step}
+    return (unflatten(params, [o[0] for o in out]), new_state,
+            {"lr": lr, "grad_norm": gnorm})

@@ -1110,10 +1110,9 @@ def _grad_cases(device):
 
 
 @pytest.mark.parametrize("name", ["gather_rows", "fused_gather_lstm_cell",
-                                  "fused_lstm_cell", "flash_attention",
-                                  "ssd_scan"])
+                                  "fused_lstm_cell", "ssd_scan"])
 def test_cuda_routes_raise_under_grad_mode(cuda, name):
-    """The kernels have no backward: with grad mode on and an input that
+    """These kernels have no backward: with grad mode on and an input that
     requires grad, each CUDA route raises instead of returning a result
     with no autograd graph; under no_grad it runs."""
     fn, args = _grad_cases(cuda)[name]
@@ -1124,6 +1123,183 @@ def test_cuda_routes_raise_under_grad_mode(cuda, name):
         fn(args)
     fn([a.detach() for a in args])
     torch.cuda.synchronize()
+
+
+def test_flash_attention_route_differentiates_under_grad_mode(cuda):
+    """Flash attention has a backward kernel: under grad mode with an input
+    that requires grad the CUDA route records the autograd Function (the
+    forward counted once, the backward once), and under no_grad or with
+    detached inputs it runs the forward alone."""
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+
+    fn, args = _grad_cases(cuda)["flash_attention"]
+    args[0].requires_grad_(True)
+    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    out = fn(args)
+    assert out.requires_grad
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert args[0].grad is not None and torch.isfinite(args[0].grad).all()
+    assert (flash_attention.launches, flash_attention_backward.launches) == \
+        (fwd + 1, bwd + 1)
+    with torch.no_grad():
+        assert not fn(args).requires_grad
+    assert not fn([a.detach() for a in args]).requires_grad
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == bwd + 1
+
+
+# -- flash attention's backward kernel -------------------------------------
+
+
+def _attn_grads(q, k, v, dout, causal, window):
+    """The card's gradients through the autograd Function."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal, window=window)
+    out.backward(dout)
+    return out.detach(), [t.grad for t in leaves]
+
+
+def _grad_err(got, want, top: float = 0.0) -> float:
+    """Max abs error over the largest |gradient| of the plain version, or
+    over ``top`` where that gradient is zero (with one key the softmax is
+    constant and dq is 0: the error is held to the largest |gradient| of
+    dq, dk and dv)."""
+    return float((got - want).abs().max()) / (float(want.abs().max())
+                                              or top or 1e-30)
+
+
+# (B, Sq, Skv, H, KV, D, causal, window): the trainer's shape, S around the
+# tiles (1, 37, 200), G = 1 and 7, both large head dims, windows (with
+# rows that see no key), and cross attention.
+_BWD_CASES = {
+    "trainer B=8 S=128 G=7": (8, 128, 128, 14, 2, 64, True, 0),
+    "S=1 G=7": (2, 1, 1, 14, 2, 64, True, 0),
+    "S=37 G=1": (2, 37, 37, 4, 4, 64, True, 0),
+    "S=200 G=7": (1, 200, 200, 14, 2, 64, True, 0),
+    "S=37 D=128 G=7": (1, 37, 37, 7, 1, 128, True, 0),
+    "S=200 D=128 G=1": (1, 200, 200, 2, 2, 128, True, 0),
+    "S=130 D=16 G=2": (2, 130, 130, 4, 2, 16, True, 0),
+    "S=70 D=32 G=7": (1, 70, 70, 14, 2, 32, True, 0),
+    "window 16 S=200 G=7": (1, 200, 200, 14, 2, 64, True, 16),
+    "window 1 S=37": (1, 37, 37, 2, 1, 32, True, 1),
+    "window 4 Sq=17 Skv=9, rows with no key": (1, 17, 9, 14, 2, 16, True, 4),
+    "window 8 Sq=100 Skv=77": (1, 100, 77, 2, 2, 64, True, 8),
+    "causal Sq=1 Skv=77": (2, 1, 77, 14, 2, 64, True, 0),
+    "cross Sq=40 Skv=77": (2, 40, 77, 6, 3, 64, False, 0),
+    "cross Sq=17 Skv=9 D=128": (1, 17, 9, 2, 2, 128, False, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BWD_CASES))
+def test_flash_attention_backward_kernel_within_1e4(cuda, case):
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+
+    B, Sq, Skv, H, KV, D, causal, window = _BWD_CASES[case]
+    q, k, v = _attn_inputs(B, Sq, Skv, H, KV, D, cuda, seed=Sq + 3 * Skv)
+    dout = _attn_inputs(B, Sq, Sq, H, H, D, cuda, seed=7)[0]
+    before = flash_attention_backward.launches
+    out, grads = _attn_grads(q, k, v, dout, causal, window)
+    want = ref.flash_attention_backward_ref(q, k, v, dout, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == before + 1
+    assert _rel_err(out, ref.flash_attention_ref(q, k, v, causal,
+                                                 window)) <= 1e-4
+    top = max(float(w.abs().max()) for w in want)
+    for name, g, w in zip("qkv", grads, want):
+        assert torch.isfinite(g).all(), name
+        assert _grad_err(g, w, top) <= 1e-4, (name, _grad_err(g, w, top))
+
+
+def test_flash_attention_backward_reads_strided_views(cuda):
+    """q, k, v as slices of one packed projection, and a dO that is not
+    contiguous (the kernel gets a contiguous copy): the gradients flow
+    back into the packed tensor."""
+    B, S, H, KV, D = 2, 50, 14, 2, 64
+    rng = np.random.default_rng(5)
+    packed = torch.as_tensor(rng.standard_normal((B, S, (H + 2 * KV) * D)),
+                             dtype=torch.float32, device=cuda)
+    packed.requires_grad_(True)
+    q = packed[..., :H * D].view(B, S, H, D)
+    k = packed[..., H * D:(H + KV) * D].view(B, S, KV, D)
+    v = packed[..., (H + KV) * D:].view(B, S, KV, D)
+    dout = torch.as_tensor(rng.standard_normal((B, H, S, D)),
+                           dtype=torch.float32, device=cuda).transpose(1, 2)
+    assert not q.is_contiguous() and not dout.is_contiguous()
+    flash_attention(q, k, v).backward(dout)
+    want = ref.flash_attention_backward_ref(q, k, v, dout)
+    torch.cuda.synchronize()
+    got = [packed.grad[..., :H * D].view(B, S, H, D),
+           packed.grad[..., H * D:(H + KV) * D].view(B, S, KV, D),
+           packed.grad[..., (H + KV) * D:].view(B, S, KV, D)]
+    for name, g, w in zip("qkv", got, want):
+        assert _grad_err(g, w) <= 1e-4, name
+
+
+def test_flash_attention_lse_leaves_the_output_bit_equal(cuda):
+    """The forward with the rows' log-sum-exp writes the same output bit for
+    bit, and the lse agrees with the plain one (-1e30 for rows that see no
+    key)."""
+    from repro_torch.kernels.flash_attention import flash_attention_forward
+
+    for B, Sq, Skv, H, KV, D, causal, window in (
+            (8, 128, 128, 14, 2, 64, True, 0), (1, 17, 9, 14, 2, 16, True, 4),
+            (2, 40, 77, 6, 3, 128, False, 0)):
+        q, k, v = _attn_inputs(B, Sq, Skv, H, KV, D, cuda)
+        plain, none = flash_attention_forward(q, k, v, causal, window)
+        out, lse = flash_attention_forward(q, k, v, causal, window,
+                                           with_lse=True)
+        want = ref.flash_attention_lse_ref(q, k, causal, window)
+        torch.cuda.synchronize()
+        assert none is None and torch.equal(out, plain)
+        assert lse.shape == (B, H, Sq)
+        seen = want > -1e29
+        assert torch.equal(lse[~seen], want[~seen])
+        assert float((lse[seen] - want[seen]).abs().max()) <= 1e-4
+
+
+def test_transformer_loss_gradients_on_the_card_match_the_cpu(cuda):
+    """Qwen2 (reduced) loss and gradients on the card, through the flash
+    forward and backward kernels, against the plain CPU run."""
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.train.optimizer import leaves, unflatten
+
+    cfg = get_config("qwen2-0.5b").reduced()
+    cpu = TransformerLM(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    card = TransformerLM(cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 37)),
+             "labels": rng.integers(0, cfg.vocab, (2, 37))}
+
+    def grads(model, p, device):
+        flat = [t.to(device).requires_grad_(True) for t in leaves(p)]
+        loss = model.loss(unflatten(p, flat),
+                          {k: torch.as_tensor(a, device=device)
+                           for k, a in batch.items()})
+        return loss, torch.autograd.grad(loss, flat)
+
+    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    loss, got = grads(card, params, cuda)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - fwd == cfg.n_layers
+    assert flash_attention_backward.launches - bwd == cfg.n_layers
+    want_loss, want = grads(cpu, tree_map(lambda t: t.clone(), params), "cpu")
+    loss, want_loss = float(loss.detach()), float(want_loss.detach())
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    for g, w in zip(got, want):
+        assert _grad_err(g.cpu(), w) <= 2e-3
+
+
+def test_mamba2_training_on_the_card_raises_naming_the_next_slice(cuda):
+    from repro_torch.launch import train as train_launcher
+
+    with pytest.raises(RuntimeError, match="SSD scan's backward kernel"):
+        train_launcher.main(["--arch", "mamba2-130m", "--reduced", "--steps",
+                             "1", "--batch", "1", "--seq", "16"],
+                            log_fn=lambda line: None)
 
 
 # -- background capture: a worker thread builds while the loop serves ------

@@ -25,7 +25,8 @@ VERBATIM = ["core/graph.py", "core/cache.py", "core/batching.py",
             "obs/metrics.py", "obs/flight.py", "obs/__init__.py",
             "serve/queue.py", "serve/traces.py", "serve/registry.py",
             "serve/checkpoint.py", "serve/faults.py", "serve/scheduler.py",
-            "serve/compiler.py", "arch/config.py"] + sorted(
+            "serve/compiler.py", "arch/config.py",
+            "data/pipeline.py"] + sorted(
     str(p.relative_to(ROOT / "src" / "repro"))
     for p in (ROOT / "src" / "repro" / "configs").glob("*.py"))
 
@@ -51,6 +52,21 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 20, r.stdout
+
+
+@pytest.mark.parametrize("module", ["repro_torch.train",
+                                    "repro_torch.train.loop",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.data.pipeline"])
+def test_trainer_modules_load_no_jax(module):
+    code = (f"import sys\nimport {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def _port_files():
@@ -139,6 +155,7 @@ def _entry_points():
     from repro_torch.models.workloads import make_workload
     from repro_torch.serve import engine as serve_engine
     from repro_torch.launch.serve import main as launch_serve
+    from repro_torch.launch.train import main as launch_train
     from repro_torch.serve.lm_wave import ServeEngine, serve_wave
 
     cfg = get_config("qwen2-0.5b").reduced(d_model=32)
@@ -166,6 +183,8 @@ def _entry_points():
         "sharded serve engine": lambda: serve_engine.ServeEngine(n_shards=2),
         "serve launcher": lambda: launch_serve(["--model-size", "8",
                                                 "--requests", "1"]),
+        "train launcher": lambda: launch_train(["--arch", "qwen2-0.5b",
+                                                "--reduced", "--steps", "1"]),
     }
 
 
@@ -176,7 +195,8 @@ def _entry_points():
                                   "make_data_mesh",
                                   "TransformerLM", "ServeEngine",
                                   "serve_wave", "serve engine",
-                                  "sharded serve engine", "serve launcher"])
+                                  "sharded serve engine", "serve launcher",
+                                  "train launcher"])
 def test_entry_points_default_to_cuda(no_cuda, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()

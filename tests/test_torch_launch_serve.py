@@ -4,7 +4,8 @@ pipelined continuous rounds, one device) give the JAX engine's tokens; an
 injected crash exits 1 and ``--restore`` finishes with an uninterrupted
 run's outputs; the warm set round-trips through ``--cache-dir``;
 ``--devices 2`` serves two replicas (and is refused off bucketed plans);
-``--legacy-arch`` serves one wave; importing
+``--legacy-arch`` serves one wave (from a checkpoint the port's trainer
+wrote, with the reference's tokens over the same file); importing
 the launcher loads no jax; and ``--perf-profile`` re-execs the process at
 most once (``launch/env.py``)."""
 
@@ -127,14 +128,46 @@ def test_devices_need_bucketed_plans(capsys):
     assert "--devices > 1 requires --plan bucketed" in capsys.readouterr().err
 
 
-def test_legacy_arch_serves_one_wave(capsys):
+def _record_generate(monkeypatch, cls, outs: dict, key: str) -> None:
+    """Keep the tokens of ``cls.generate``'s calls in ``outs[key]``."""
+    generate = cls.generate
+
+    def recording(self, prompts, max_new, *a, **kw):
+        res = generate(self, prompts, max_new, *a, **kw)
+        outs[key] = [[int(t) for t in toks] for toks in res[0]]
+        return res
+
+    monkeypatch.setattr(cls, "generate", recording)
+
+
+def test_legacy_arch_serves_one_wave(tmp_path, capsys, monkeypatch):
+    """One wave on random weights; then a reduced model trained two steps
+    on the CPU and saved is served from ``--checkpoint`` with the tokens
+    the reference's wave engine gives over the same file."""
+    from repro.launch import serve as jlauncher
+    from repro.serve import lm_wave as jlm_wave
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.serve import lm_wave
+
     assert launcher.main(CPU + ["--legacy-arch", "qwen2-0.5b",
                                 "--requests", "2", "--max-new", "2"]) == 0
     assert "[legacy qwen2-0.5b] 2 requests, 4 tokens" in \
         capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="training slice"):
-        launcher.main(CPU + ["--legacy-arch", "qwen2-0.5b",
-                             "--checkpoint", "w.npz"])
+    path = str(tmp_path / "w.npz")
+    train_launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--steps", "2",
+                         "--batch", "2", "--seq", "16", "--device", "cpu",
+                         "--checkpoint", path], log_fn=lambda line: None)
+    outs = {}
+    _record_generate(monkeypatch, lm_wave.ServeEngine, outs, "port")
+    _record_generate(monkeypatch, jlm_wave.ServeEngine, outs, "reference")
+    assert launcher.main(CPU + ["--legacy-arch", "qwen2-0.5b",
+                                "--checkpoint", path, "--requests", "3",
+                                "--max-new", "4"]) == 0
+    assert f"restored step 2 from {path}" in capsys.readouterr().out
+    assert jlauncher.legacy_wave("qwen2-0.5b", 3, 4, 0, path) == 0
+    assert f"restored step 2 from {path}" in capsys.readouterr().out
+    assert len(outs["port"]) == 3
+    assert outs["port"] == outs["reference"]
 
 
 def test_import_loads_no_jax():
