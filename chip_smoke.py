@@ -10,7 +10,8 @@ Phases, in order; any failure raises and exits non-zero:
    nvcc into ``build/repro_torch/`` and prints the build seconds and the
    ptxas resource lines.
 2. Kernels: counts the tensor-core (``HMMA``) instructions of the
-   attention, scan and both LSTM-cell kernels in the built library
+   attention (forward, and the backward's dk/dv and dq), scan and both
+   LSTM-cell kernels in the built library
    (``cuobjdump -sass``, where the toolkit has it; none fails). Times an
    empty kernel launched through the library in the same timer as the
    kernels (the ``launch floor:`` line). Then each kernel against its
@@ -123,11 +124,14 @@ Phases, in order; any failure raises and exits non-zero:
 9. The trainer. (a) Flash attention's backward kernel against autograd
    of the plain attention on the card, TF32 off, within 1e-4 of the
    largest |gradient| (the trainer's shape, q (8, 128, 14, 64) with k/v
-   (8, 128, 2, 64); S = 1, 37, 200; G = 1 and 7; D = 64 and 128; a
-   window with rows that see no key; cross attention; q/k/v strided in a
-   packed projection); the forward with the lse must write the output
-   without it bit for bit; at the trainer's shape the backward is timed
-   cold beside the plain backward and the backward of
+   (8, 128, 2, 64); S = 1, 37, 200; G = 1, 3, 4, 7 and 16 (dk/dv
+   clusters of 1, 3, 4, 7 ranks, and 8 ranks of two heads); D = 64 and
+   128; a window with rows that see no key; cross attention at G = 2 and
+   7; q/k/v strided in a packed projection); two runs at the trainer's
+   shape must be bit-equal, and the forward with the lse must write the
+   output without it bit for bit; at the trainer's shape the backward is
+   timed cold, and its rowdot, dk/dv and dq kernels each alone, beside
+   the plain backward and the backward of
    ``scaled_dot_product_attention`` with K/V expanded (a yardstick), and
    the forward with the lse beside the forward without. (b)
    ``repro_torch.launch.train.main`` in-process at the reference
@@ -835,9 +839,23 @@ def pads_seen(prof, events: list) -> list:
     return [sum(t < first for t in pads), sum(t >= first for t in pads)]
 
 
+def busy_us(events) -> float:
+    """Microseconds in which at least one of ``events`` ran on the card: the
+    union of their intervals (kernels of one stream overlap only where one
+    is launched as another's programmatic dependent, as flash attention's
+    dq kernel is beside dk/dv)."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
 def profile_run(torch, fn) -> dict:
-    """One traced run: device time (kernel and copy events on the card, which
-    run on one stream and do not overlap) over the wall time, and the six
+    """One traced run: device time (the union of the kernel and copy events
+    on the card) over the wall time, and the six
     event names that took the most device time, as [name, count, ms]. The
     wall time includes the profiler's own host cost, so the busy share is a
     lower bound. The window opens and closes with PROFILE_PAD empty
@@ -855,7 +873,7 @@ def profile_run(torch, fn) -> dict:
         wall_us = (time.perf_counter() - t) * 1e6
         pad_profiler(torch)
     events = device_events(prof)
-    device_us = sum(e.time_range.elapsed_us() for e in events)
+    device_us = busy_us(events)
     names: dict[str, list] = {}
     for e in events:
         entry = names.setdefault(e.name[:60], [0, 0.0])
@@ -865,11 +883,11 @@ def profile_run(torch, fn) -> dict:
                  key=lambda t: -t[2])[:6]
     own = {}
     for kernel, names in OWN_KERNELS.items():
-        us = [e.time_range.elapsed_us() for e in events
-              if any(n in e.name for n in names)]
-        if us:
-            own[kernel] = {"launches": len(us), "device_us": sum(us),
-                           "share": sum(us) / device_us}
+        mine = [e for e in events if any(n in e.name for n in names)]
+        if mine:
+            us = busy_us(mine)
+            own[kernel] = {"launches": len(mine), "device_us": us,
+                           "share": us / device_us}
     return {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
             "busy_share": device_us / wall_us if events else None,
             "device_events": len(events), "top_events": top,
@@ -881,7 +899,9 @@ OWN_KERNELS = {"gather_rows": ("gather_rows_kernel",),
                "fused_gather_lstm_cell": ("fused_gather_lstm_cell_kernel",),
                "fused_lstm_cell": ("fused_lstm_cell_kernel",),
                "flash_attention": ("flash_attention_kernel",),
-               # the backward's three kernels, apart
+               # the backward's three kernels together (dq overlaps
+               # dk/dv), then apart
+               "flash_attention_backward": ("flash_attention_bwd_",),
                "flash_attention_bwd_rowdot": ("flash_attention_bwd_rowdot",),
                "flash_attention_bwd_dkdv": ("flash_attention_bwd_dkdv",),
                "flash_attention_bwd_dq": ("flash_attention_bwd_dq",),
@@ -2114,7 +2134,8 @@ def check_flash_backward(torch, timer) -> dict:
     without."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_backward, flash_attention_forward)
+        BACKWARD_PARTS, backward_kernels, flash_attention,
+        flash_attention_backward, flash_attention_forward)
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
     cases = [  # (label, B, Sq, Skv, H, KV, D, causal, window, packed)
@@ -2129,6 +2150,12 @@ def check_flash_backward(torch, timer) -> dict:
          True, 4, False),
         ("cross Sq=40 Skv=77", 2, 40, 77, 6, 3, 64, False, 0, False),
         ("packed q/k/v S=128 G=7", 2, 128, 128, 14, 2, 64, True, 0, True),
+        # dk/dv clusters of 3 and 4 ranks (phi4-mini's head map), beyond
+        # one cluster (16 heads: 8 ranks of 2), and cross attention at G = 7
+        ("G=3 D=128 S=128", 2, 128, 128, 24, 8, 128, True, 0, False),
+        ("G=4 D=128 S=128", 1, 128, 128, 32, 8, 128, True, 0, False),
+        ("G=16 S=128", 1, 128, 128, 16, 1, 64, True, 0, False),
+        ("cross G=7 Sq=40 Skv=77", 2, 40, 77, 14, 2, 64, False, 0, False),
     ]
     worst = 0.0
     for label, B, Sq, Skv, H, KV, D, causal, window, packed in cases:
@@ -2167,7 +2194,28 @@ def check_flash_backward(torch, timer) -> dict:
     if not torch.equal(out, plain_out):
         fail("flash_attention: the output with the lse differs from the "
              "output without it")
+    first = flash_attention_backward(q, k, v, out, dout, lse)
+    again = flash_attention_backward(q, k, v, out, dout, lse)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail("flash_attention_backward: two runs at the trainer's shape "
+             "differ")
     ms = timer(lambda: flash_attention_backward(q, k, v, out, dout, lse))
+    # each kernel alone, cold, into fresh buffers a full run filled first
+    # (dk/dv and dq read rowdot's D); they must end as the full run's
+    buffers = (torch.empty((B, H, S), device="cuda"),
+               *(torch.empty_like(t) for t in first))
+    backward_kernels(q, k, v, out, dout, lse, True, 0, buffers)
+    parts_ms = {name: timer(lambda: backward_kernels(
+        q, k, v, out, dout, lse, True, 0, buffers, part))
+        for name, part in BACKWARD_PARTS.items()}
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, buffers[1:])):
+        fail("flash_attention_backward: the kernels run apart differ from "
+             "a full run")
+    log(f"flash_attention_backward trainer shape: two runs bit-equal; "
+        f"kernels apart cold ms {parts_ms} (sum "
+        f"{sum(parts_ms.values()):.4f})")
     plain_ms = timer(lambda: ref.flash_attention_backward_ref(q, k, v, dout))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt = q.transpose(1, 2).contiguous().requires_grad_(True)
@@ -2201,7 +2249,8 @@ def check_flash_backward(torch, timer) -> dict:
                     (4 * B * S * H * D + 4 * B * S * KV * D + B * H * S) * 4,
                     5 * 2 * D * pairs, "3xTF32 on the tensor cores"),
             "library_ms": library_ms, "forward_ms": fwd_ms,
-            "forward_lse_ms": fwd_lse_ms}
+            "forward_lse_ms": fwd_lse_ms,
+            **{f"{name}_ms": t for name, t in parts_ms.items()}}
 
 
 def train_phase(torch, drive, card: str, steps: int) -> dict:
@@ -2439,7 +2488,9 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timer = ColdTimer(torch)
-    hmma = hmma_counts(("flash_attention_kernel", "ssd_scan_kernel",
+    hmma = hmma_counts(("flash_attention_kernel",
+                        "flash_attention_bwd_dkdv_kernel",
+                        "flash_attention_bwd_dq_kernel", "ssd_scan_kernel",
                         "fused_gather_lstm_cell_kernel",
                         "fused_lstm_cell_kernel"))
     if hmma is None:

@@ -21,255 +21,423 @@
 //
 // Bound on the H100: at the trainer's shape (Qwen2-0.5B, B = 8, S = 128,
 // 14 query heads over 2 KV heads, D = 64, causal, fp32) it reads q, o, dO,
-// k, v and lse and writes dq, dk, dv: about 16.8 MB, 5.0 us at 3.35 TB/s;
-// the five products over the causal pairs are about 0.59 GFLOP, 3.6 us at
-// the card's fp32-accurate product rate (3xTF32 on the tensor cores,
-// 165 TFLOP/s; 8.8 us at the 67 TFLOP/s of fp32 on the CUDA cores, which
-// this kernel uses). So it is bound by bytes.
+// k, v and lse and writes dq, dk, dv: about 16.8 MB, 5.03 us at
+// 3.35 TB/s; the five products over the causal pairs are about
+// 0.59 GFLOP, 3.6 us at the card's fp32-accurate product rate (3xTF32 on
+// the tensor cores, 165 TFLOP/s). So it is bound by bytes.
 //
-// Design, simple and deterministic (no atomics): three kernels on one
-// stream.
-//   1. rowdot: D[i] = dO[i] . o[i], one warp a row.
-//   2. dkdv: one block per (batch, kv head, 32 key rows) holds its K and V
-//      tile in shared memory and its dk, dv sums in registers, and loops
-//      over the G query heads of the kv head and, for each, the 64-row
-//      query tiles that reach its keys (from the diagonal when causal, up
-//      to the window's reach, plus rows that see no key). Each step
-//      recomputes S and dO V^T for the 64 x 32 pair tile, forms P and dS
-//      in shared memory, and adds P^T dO and dS^T Q.
-//   3. dq: one block per (batch, head, 64 query rows) holds Q and dO and
-//      loops over the 32-row key tiles the rows can see, adding dS K.
-// Every product is fp32 FMA on the CUDA cores (no tensor cores), each
-// thread a small register tile of the block's product over shared-memory
-// operands whose rows are padded by one float so that both the row and
-// the column reads of a warp hit distinct banks. The dkdv grid is small
-// at the trainer's shape (B * KV * ceil(S / 32) = 64 blocks for 132 SMs)
-// and each block walks the G heads in turn; the tensor cores (3xTF32 or
-// wgmma), TMA and a split over the heads are left for later work.
+// Design: three kernels on one stream, every product a 3xTF32 m16n8k8
+// `mma.sync` (mma_tf32x3.cuh), deterministic (no atomics).
+//   1. rowdot: D[i] = dO[i] . o[i], D / 4 lanes a row, 16-byte loads.
+//   2. dkdv: one CTA of 4 warps per (batch, query head, 64 keys), each warp
+//      16 keys; the G CTAs of a kv head form one thread-block cluster.
+//      The CTA holds its K and V tile in shared memory and loops over the
+//      64-row query tiles that reach its keys (from the diagonal when
+//      causal, up to the window's reach, plus rows that see no key), with
+//      Q, dO, lse and D double-buffered by cp.async. Each warp computes
+//      the transposed pair tile in registers, S^T = K Q^T and
+//      dP^T = V dO^T (K and V rows as the A operand, Q and dO rows as B),
+//      forms P^T and dS^T on the accumulators, and feeds them straight
+//      back as the A operand of dV += P^T dO and dK += dS^T Q. At the end
+//      each rank leaves its partial dK and dV in its shared memory, and
+//      after a cluster barrier rank r sums a 1/C slice of the tile over
+//      ranks 0, 1, ..., C - 1 in that order (distributed shared memory)
+//      and writes it out. Up to G = 8 a rank is a head; beyond that each
+//      rank takes ceil(G / 8) heads in order, so clusters stay portable.
+//      The key tiles nearest the start, which most queries reach when
+//      causal, are launched first.
+//   3. dq: one CTA of 4 warps per (batch, head, 64 query rows), the
+//      forward's layout: Q and dO in shared memory, K/V tiles (64 rows, 32
+//      at D = 128) double-buffered by cp.async; S = Q K^T and dP = dO V^T
+//      again, then dQ += dS K with dS fed from the accumulators. It stops
+//      at the diagonal when causal and starts at the window's first key;
+//      the query tiles with the most keys are launched first. It reads
+//      nothing dk/dv writes, so it is launched as its programmatic
+//      dependent: it starts on the SMs dk/dv leaves free.
+// What this does about the six limits of the first version (fp32 FMA on
+// the CUDA cores): (1) the products run on the tensor cores, B operands
+// read once per warp per tile; (2) 224 dk/dv CTAs where there were 64
+// blocks walking 7 heads each; (3) every tile is loaded by cp.async one
+// step ahead; (4) P^T and dS^T never leave the registers; (5) S and dP are
+// still computed twice (dk/dv and dq), the price of a deterministic dq with
+// no atomics, now on the tensor cores and overlapping dk/dv; (6) causal
+// warps skip the 8-query columns before their first key, and the heavy
+// tiles start first. Rows are padded to D + 4 floats, so every fragment
+// read hits 32 banks. TMA, wgmma and folding dq into the dk/dv pass are
+// left for later work.
 //
 // C interface: launches on the given stream, does not synchronise,
 // allocates nothing (the wrapper passes D's (B, H, Sq) scratch) and
-// returns the first non-zero cudaGetLastError().
+// returns the first non-zero error. `parts` picks the kernels (1 rowdot,
+// 2 dkdv, 4 dq; 7 all), so that each can be timed alone.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <math.h>
 
+#include "mma_tf32x3.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BQ = 64;          // query rows per tile
-constexpr int BKV = 32;         // key rows per tile
-constexpr int LDP = BKV + 1;    // padded row of a P or dS tile, in floats
+using namespace tf32x3;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWDOT_THREADS = 256;
+constexpr int BQ = 64;           // query rows per tile
+constexpr int BKV = 16 * WARPS;  // keys per dk/dv CTA
+constexpr int MAX_CLUSTER = 8;   // the portable cluster size
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
   const float *q, *k, *v, *o, *dout, *lse;
   float *dvec, *dq, *dk, *dv;
-  int64_t Sq, Skv, H, KV, G;
+  int64_t B, Sq, Skv, H, KV, G;
   int64_t qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   int64_t osb, oss, osh, dsb, dss, dsh;
   int causal;
   int64_t window;
+  int cluster, heads_per_rank;   // dk/dv: C ranks of ceil(G / 8) heads
   float scale, scale_log2;
 };
 
-// D[(b * H + h) * Sq + i] = dO[b, i, h] . o[b, i, h]: one warp a row, the
-// rows (b, i, h) in memory order.
-__global__ void flash_attention_bwd_rowdot_kernel(Args a, int D,
-                                                  int64_t rows) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (THREADS / 32) +
-                      threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;   // the whole warp leaves together
+template <int D>
+struct Tile {
+  static constexpr int LD = D + 4;               // padded row, in floats
+  static constexpr int QN = D <= 64 ? 64 : 32;   // dkdv: queries a pass
+  static constexpr int BK = D <= 64 ? 64 : 32;   // dq: keys per tile
+  // dkdv: K, V; two stages of Q, dO; two of the rows' lse and D
+  static constexpr int DKDV_BYTES = 4 * (2 * BKV * LD + 4 * BQ * LD + 4 * BQ);
+  // dq: Q, dO; two stages of K and V
+  static constexpr int DQ_BYTES = 4 * (2 * BQ * LD + 4 * BK * LD);
+};
+
+// D[(b * H + h) * Sq + i] = dO[b, i, h] . o[b, i, h]: D / 4 lanes a row,
+// the rows (b, i, h) in memory order.
+template <int D>
+__global__ void __launch_bounds__(ROWDOT_THREADS)
+    flash_attention_bwd_rowdot_kernel(Args a, int64_t rows) {
+  constexpr int L = D / 4;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (ROWDOT_THREADS / L) +
+                      threadIdx.x / L;
+  const int c = threadIdx.x % L;
+  const bool ok = row < rows;
   const int64_t h = row % a.H, i = row / a.H % a.Sq, b = row / (a.H * a.Sq);
-  const float* o = a.o + b * a.osb + i * a.oss + h * a.osh;
-  const float* d = a.dout + b * a.dsb + i * a.dss + h * a.dsh;
   float s = 0.f;
-  for (int c = lane; c < D; c += 32) s = fmaf(o[c], d[c], s);
+  if (ok) {
+    const float4 x = *reinterpret_cast<const float4*>(
+        a.o + b * a.osb + i * a.oss + h * a.osh + 4 * c);
+    const float4 y = *reinterpret_cast<const float4*>(
+        a.dout + b * a.dsb + i * a.dss + h * a.dsh + 4 * c);
+    s = x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+  }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = L / 2; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) a.dvec[(b * a.H + h) * a.Sq + i] = s;
+  if (ok && c == 0) a.dvec[(b * a.H + h) * a.Sq + i] = s;
 }
 
-// `rows` rows of D floats from row r0 of `src` (row stride rs) into
-// shared memory at a padded stride of D + 1, zero past row n.
+// `rows` rows of D floats from row r0 of `src` (row stride rs) into shared
+// memory at a stride of LD, by cp.async, zero-filled past row n.
 template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
                                           int64_t rs, int64_t r0, int64_t n,
                                           int rows) {
-  for (int e = threadIdx.x; e < rows * D; e += THREADS) {
-    const int r = e / D, c = e % D;
+  constexpr int C4 = D / 4, LD = Tile<D>::LD;
+  for (int e = threadIdx.x; e < rows * C4; e += THREADS) {
+    const int r = e / C4, c = e % C4;
     const int64_t row = r0 + r;
-    dst[r * (D + 1) + c] = row < n ? src[row * rs + c] : 0.f;
+    const bool valid = row < n;
+    cp_async16(dst + r * LD + 4 * c, src + (valid ? row : 0) * rs + 4 * c,
+               valid);
   }
 }
 
-// The block's M x N product over K, each thread a TM x TN register tile:
-// acc[x][y] += sum_kk A(m, kk) B(n, kk) with m = tm + x * (M / TM),
-// n = tn + y * (N / TN), A(m, kk) = A[m * am + kk * ak] and
-// B(n, kk) = B[n * bn + kk * bk] in shared memory.
-template <int M, int N, int TM, int TN, int K>
-__device__ __forceinline__ void block_mm(float (&acc)[TM][TN],
-                                         const float* A, int am, int ak,
-                                         const float* B, int bn, int bk) {
-  static_assert((M / TM) * (N / TN) == THREADS, "one tile a thread");
-  constexpr int NT = N / TN;
-  const int tm = threadIdx.x / NT, tn = threadIdx.x % NT;
-#pragma unroll 4
-  for (int kk = 0; kk < K; ++kk) {
-    float av[TM], bv[TN];
-#pragma unroll
-    for (int x = 0; x < TM; ++x) av[x] = A[(tm + x * (M / TM)) * am + kk * ak];
-#pragma unroll
-    for (int y = 0; y < TN; ++y) bv[y] = B[(tn + y * NT) * bn + kk * bk];
-#pragma unroll
-    for (int x = 0; x < TM; ++x)
-#pragma unroll
-      for (int y = 0; y < TN; ++y) acc[x][y] = fmaf(av[x], bv[y], acc[x][y]);
+// The query tiles a dk/dv CTA at key j0 visits for each of its heads:
+// n1 from qa, then the rest from s2, in steps of BQ. Those are the tiles
+// from the diagonal (causal) that the window reaches, and the tiles that
+// hold a row that sees no key.
+struct QueryTiles {
+  int64_t qa, n1, s2, n;
+  __device__ int64_t at(int64_t idx) const {
+    return idx < n1 ? qa + idx * BQ : s2 + (idx - n1) * BQ;
   }
-}
-
-// P and dS of the BQ x BKV pair tile (query rows from i0, keys from j0)
-// into shared memory, from Q, dO (BQ rows), K, V (BKV rows), the rows'
-// base-2 lse and D.
-template <int D>
-__device__ __forceinline__ void pair_tile(const Args& a, const float* Qs,
-                                          const float* dOs, const float* Ks,
-                                          const float* Vs, const float* lse2s,
-                                          const float* dvs, int64_t i0,
-                                          int64_t j0, float* Ps, float* dSs) {
-  constexpr int LD = D + 1, TM = 4, TN = 2, NT = BKV / TN;
-  float s[TM][TN] = {}, dp[TM][TN] = {};
-  block_mm<BQ, BKV, TM, TN, D>(s, Qs, LD, 1, Ks, LD, 1);
-  block_mm<BQ, BKV, TM, TN, D>(dp, dOs, LD, 1, Vs, LD, 1);
-  const int tm = threadIdx.x / NT, tn = threadIdx.x % NT;
-#pragma unroll
-  for (int x = 0; x < TM; ++x) {
-#pragma unroll
-    for (int y = 0; y < TN; ++y) {
-      const int r = tm + x * (BQ / TM), c = tn + y * NT;
-      const int64_t i = i0 + r, j = j0 + c;
-      float p = 0.f, ds = 0.f;
-      if (i < a.Sq && j < a.Skv) {
-        bool seen = true, nokey = false;
-        if (a.causal) {
-          seen = j <= i && (a.window == 0 || i - j < a.window);
-          nokey = a.window > 0 && i >= a.Skv - 1 + a.window;
-        }
-        if (nokey) {
-          p = 1.f / static_cast<float>(a.Skv);
-        } else if (seen) {
-          p = exp2f(s[x][y] * a.scale_log2 - lse2s[r]);
-          ds = p * (dp[x][y] - dvs[r]);
-        }
-      }
-      Ps[r * LDP + c] = p;
-      dSs[r * LDP + c] = ds;
-    }
-  }
-}
-
-// Q, dO, base-2 lse and D of the query tile at i0 of head h.
-template <int D>
-__device__ __forceinline__ void load_query_tile(const Args& a, int64_t b,
-                                                int64_t h, int64_t i0,
-                                                float* Qs, float* dOs,
-                                                float* lse2s, float* dvs) {
-  load_rows<D>(Qs, a.q + b * a.qsb + h * a.qsh, a.qss, i0, a.Sq, BQ);
-  load_rows<D>(dOs, a.dout + b * a.dsb + h * a.dsh, a.dss, i0, a.Sq, BQ);
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    const int64_t i = i0 + r, at = (b * a.H + h) * a.Sq + i;
-    lse2s[r] = i < a.Sq ? a.lse[at] * LOG2E : 0.f;
-    dvs[r] = i < a.Sq ? a.dvec[at] : 0.f;
-  }
-}
-
-template <int D>
-struct Smem {
-  // K, V (BKV rows), Q, dO (BQ rows), P, dS, then the rows' lse and D
-  static constexpr int FLOATS =
-      (2 * BKV + 2 * BQ) * (D + 1) + 2 * BQ * LDP + 2 * BQ;
-  static constexpr int BYTES = FLOATS * 4;
 };
+
+__device__ QueryTiles query_tiles(const Args& a, int64_t j0,
+                                  int64_t nokey) {
+  int64_t qa = 0, qhi = a.Sq;
+  if (a.causal) {
+    qa = j0 / BQ * BQ;
+    if (a.window > 0 && j0 + BKV - 1 + a.window < a.Sq)
+      qhi = j0 + BKV - 1 + a.window;
+  }
+  QueryTiles r;
+  r.qa = qa;
+  r.n1 = qhi > qa ? (qhi - qa + BQ - 1) / BQ : 0;
+  const int64_t e1 = qa + r.n1 * BQ;
+  int64_t s2 = nokey - BQ + 1;   // the first tile with i0 + BQ > nokey
+  s2 = s2 > 0 ? (s2 + BQ - 1) / BQ * BQ : 0;
+  r.s2 = s2 > e1 ? s2 : e1;
+  r.n = r.n1 + (r.s2 < a.Sq ? (a.Sq - r.s2 + BQ - 1) / BQ : 0);
+  return r;
+}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_attention_bwd_dkdv_kernel(Args a) {
-  constexpr int LD = D + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BKV * LD;
-  float* Qs = Vs + BKV * LD;
-  float* dOs = Qs + BQ * LD;
-  float* Ps = dOs + BQ * LD;
-  float* dSs = Ps + BQ * LDP;
-  float* lse2s = dSs + BQ * LDP;
-  float* dvs = lse2s + BQ;
+  using T = Tile<D>;
+  constexpr int LD = T::LD, QN = T::QN, NQ = QN / 8, KT = D / 8;
+  constexpr int C4 = D / 4, STAGE = BQ * LD;
+  constexpr int GR = KT < 4 ? KT : 4;   // dK, dV tiles issued together
+  static_assert(NQ % 4 == 0 && KT % GR == 0, "tiles issued in groups");
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                  // [BKV][LD]
+  float* vs = ks + BKV * LD;         // [BKV][LD]
+  float* qs = vs + BKV * LD;         // [2][BQ][LD]
+  float* dos = qs + 2 * STAGE;       // [2][BQ][LD]
+  float* lses = dos + 2 * STAGE;     // [2][BQ], natural log
+  float* dvs = lses + 2 * BQ;        // [2][BQ]
 
-  const int64_t b = blockIdx.x / a.KV, kvh = blockIdx.x % a.KV;
-  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * BKV;
-  load_rows<D>(Ks, a.k + b * a.ksb + kvh * a.ksh, a.kss, j0, a.Skv, BKV);
-  load_rows<D>(Vs, a.v + b * a.vsb + kvh * a.vsh, a.vss, j0, a.Skv, BKV);
+  // dq, launched next, reads nothing this kernel writes: let it start on
+  // the SMs this grid leaves free.
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t cid = blockIdx.x / a.cluster;
+  const int64_t kvh = cid % a.KV, b = cid / a.KV % a.B;
+  const int64_t j0 = cid / (a.KV * a.B) * BKV;
+  const int64_t jw = j0 + 16 * warp;   // the warp's first key
+  const int64_t h0 = kvh * a.G + rank * a.heads_per_rank;
+  const int64_t left = a.G - rank * a.heads_per_rank;
+  const int64_t nh = left < a.heads_per_rank ? left : a.heads_per_rank;
+  const int64_t nokey = a.causal && a.window > 0 ? a.Skv - 1 + a.window
+                                                 : a.Sq;
+  const QueryTiles tiles = query_tiles(a, j0, nokey);
+  const int64_t n_it = nh * tiles.n;
+  const float inv_skv = 1.f / static_cast<float>(a.Skv);
 
-  // Query rows that reach this key tile: [qlo, qhi) and the rows from
-  // `nokey` on, which see no key and so average every key.
-  int64_t qlo = 0, qhi = a.Sq, nokey = a.Sq;
-  if (a.causal) {
-    qlo = j0;
-    if (a.window > 0) {
-      qhi = j0 + BKV - 1 + a.window < a.Sq ? j0 + BKV - 1 + a.window : a.Sq;
-      nokey = a.Skv - 1 + a.window;
+  copy_rows<D>(ks, a.k + b * a.ksb + kvh * a.ksh, a.kss, j0, a.Skv, BKV);
+  copy_rows<D>(vs, a.v + b * a.vsb + kvh * a.vsh, a.vss, j0, a.Skv, BKV);
+  auto load_tile = [&](int64_t it, int stage) {
+    const int64_t h = h0 + it / tiles.n, i0 = tiles.at(it % tiles.n);
+    copy_rows<D>(qs + stage * STAGE, a.q + b * a.qsb + h * a.qsh, a.qss, i0,
+                 a.Sq, BQ);
+    copy_rows<D>(dos + stage * STAGE, a.dout + b * a.dsb + h * a.dsh, a.dss,
+                 i0, a.Sq, BQ);
+    const int64_t at = (b * a.H + h) * a.Sq;
+    for (int r = tid; r < BQ; r += THREADS) {
+      const bool valid = i0 + r < a.Sq;
+      const int64_t src = at + (valid ? i0 + r : 0);
+      cp_async4(lses + stage * BQ + r, a.lse + src, valid);
+      cp_async4(dvs + stage * BQ + r, a.dvec + src, valid);
     }
-  }
-  constexpr int TM = 2, TN = D / 16;   // 16 x 16 threads over BKV x D
-  float dk[TM][TN] = {}, dv[TM][TN] = {};
-  for (int64_t hh = 0; hh < a.G; ++hh) {
-    const int64_t h = kvh * a.G + hh;
-    for (int64_t i0 = qlo / BQ * BQ; i0 < a.Sq; i0 += BQ) {
-      if (i0 >= qhi && i0 + BQ <= nokey) continue;
-      __syncthreads();   // the last step's products are done with the tiles
-      load_query_tile<D>(a, b, h, i0, Qs, dOs, lse2s, dvs);
-      __syncthreads();
-      pair_tile<D>(a, Qs, dOs, Ks, Vs, lse2s, dvs, i0, j0, Ps, dSs);
-      __syncthreads();
-      block_mm<BKV, D, TM, TN, BQ>(dv, Ps, 1, LDP, dOs, 1, LD);
-      block_mm<BKV, D, TM, TN, BQ>(dk, dSs, 1, LDP, Qs, 1, LD);
-    }
-  }
-  constexpr int NT = D / TN;
-  const int tm = threadIdx.x / NT, tn = threadIdx.x % NT;
+    cp_async_commit();
+  };
+
+  float dk[KT][4], dv[KT][4];
 #pragma unroll
-  for (int x = 0; x < TM; ++x) {
-    const int64_t j = j0 + tm + x * (BKV / TM);
-    if (j >= a.Skv) continue;
-    const int64_t row = ((b * a.Skv + j) * a.KV + kvh) * D;
+  for (int n = 0; n < KT; ++n)
 #pragma unroll
-    for (int y = 0; y < TN; ++y) {
-      a.dk[row + tn + y * NT] = dk[x][y] * a.scale;
-      a.dv[row + tn + y * NT] = dv[x][y];
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  if (n_it > 0)
+    load_tile(0, 0);   // one group with the K/V tile
+  else
+    cp_async_commit();
+  for (int64_t it = 0; it < n_it; ++it) {
+    const int stage = static_cast<int>(it & 1);
+    if (it + 1 < n_it)
+      load_tile(it + 1, stage ^ 1);
+    else
+      cp_async_commit();   // an empty group keeps the wait count uniform
+    cp_async_wait<1>();    // tile it has landed
+    __syncthreads();
+
+    const int64_t i0 = tiles.at(it % tiles.n);
+    const float* qt = qs + stage * STAGE;
+    const float* dot = dos + stage * STAGE;
+    const float* lt = lses + stage * BQ;
+    const float* dt = dvs + stage * BQ;
+    // Causal: the 8-query columns below the warp's first key see none of
+    // its keys.
+    int nlo = 0;
+    if (a.causal && jw > i0)
+      nlo = jw - i0 >= BQ ? BQ / 8 : static_cast<int>((jw - i0) / 8);
+    bool need_mask = i0 + BQ > a.Sq;
+    if (a.causal)
+      need_mask = need_mask || i0 < j0 + BKV - 1 ||
+                  (a.window > 0 &&
+                   (i0 + BQ - 1 - j0 >= a.window || i0 + BQ > nokey));
+    if (jw < a.Skv && nlo < BQ / 8) {
+#pragma unroll 1
+      for (int q0 = 0; q0 < BQ; q0 += QN) {
+        const int nlo_q = nlo - q0 / 8;   // in this pass's columns
+        if (nlo_q >= NQ) continue;
+        float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+        // S^T = K Q^T and dP^T = V dO^T over D
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+          const FragA ka = load_a(ks, LD, 16 * warp, kk * 8, lane);
+          const FragA va = load_a(vs, LD, 16 * warp, kk * 8, lane);
+#pragma unroll
+          for (int nb = 0; nb < NQ; nb += 4) {
+            if (nb + 3 < nlo_q) continue;
+            FragB fb[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              fb[u] = load_b_nk(qt, LD, q0 + (nb + u) * 8, kk * 8, lane);
+            mma3_row<4>(&st[nb], ka, fb);
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              fb[u] = load_b_nk(dot, LD, q0 + (nb + u) * 8, kk * 8, lane);
+            mma3_row<4>(&dpt[nb], va, fb);
+          }
+        }
+        // P^T and dS^T on the accumulators: c0, c1 are key g, queries 2t
+        // and 2t + 1 of the 8-query column; c2, c3 key g + 8.
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          const int qc = q0 + n * 8 + 2 * t;
+          const float l0 = lt[qc] * LOG2E, l1 = lt[qc + 1] * LOG2E;
+          const float d0 = dt[qc], d1 = dt[qc + 1];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = fast_exp2(st[n][e] * a.scale_log2 - (e & 1 ? l1 : l0));
+            float ds = p * (dpt[n][e] - (e & 1 ? d1 : d0));
+            if (need_mask) {
+              const int64_t i = i0 + qc + (e & 1);
+              const int64_t j = jw + g + (e & 2 ? 8 : 0);
+              if (i >= a.Sq) {
+                p = ds = 0.f;
+              } else if (a.causal) {
+                if (i >= nokey) {
+                  p = inv_skv;
+                  ds = 0.f;
+                } else if (j > i || (a.window > 0 && i - j >= a.window)) {
+                  p = ds = 0.f;
+                }
+              }
+            }
+            st[n][e] = p;
+            dpt[n][e] = ds;
+          }
+        }
+        // dV += P^T dO and dK += dS^T Q over the pass's queries
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          if (n < nlo_q) continue;
+          const FragA pa = acc_as_a(st[n]);
+          const FragA sa = acc_as_a(dpt[n]);
+#pragma unroll
+          for (int nb = 0; nb < KT; nb += GR) {
+            FragB fb[GR];
+#pragma unroll
+            for (int u = 0; u < GR; ++u)
+              fb[u] = load_b_paired(dot, LD, q0 + n * 8, (nb + u) * 8, lane);
+            mma3_row<GR>(&dv[nb], pa, fb);
+#pragma unroll
+            for (int u = 0; u < GR; ++u)
+              fb[u] = load_b_paired(qt, LD, q0 + n * 8, (nb + u) * 8, lane);
+            mma3_row<GR>(&dk[nb], sa, fb);
+          }
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this Q/dO stage
+  }
+
+  // The cluster's sum: partial dK, dV into this rank's shared memory (the
+  // Q/dO stages are free), then rank r sums its slice over the ranks.
+  cp_async_wait<0>();
+  __syncthreads();
+  float* part = qs;   // [2][BKV][LD]: dK, then dV
+#pragma unroll
+  for (int n = 0; n < KT; ++n) {
+    const int row = 16 * warp + g, col = n * 8 + 2 * t;
+    *reinterpret_cast<float2*>(part + row * LD + col) =
+        make_float2(dk[n][0], dk[n][1]);
+    *reinterpret_cast<float2*>(part + (row + 8) * LD + col) =
+        make_float2(dk[n][2], dk[n][3]);
+    *reinterpret_cast<float2*>(part + (BKV + row) * LD + col) =
+        make_float2(dv[n][0], dv[n][1]);
+    *reinterpret_cast<float2*>(part + (BKV + row + 8) * LD + col) =
+        make_float2(dv[n][2], dv[n][3]);
+  }
+  cluster.sync();   // every rank's partials are written
+  {
+    const int total = 2 * BKV * C4;   // float4s of the dK and dV tiles
+    const int lo = total * rank / a.cluster;
+    const int hi = total * (rank + 1) / a.cluster;
+    for (int e = lo + tid; e < hi; e += THREADS) {
+      const int which = e / (BKV * C4), r = e / C4 % BKV, c = e % C4;
+      const int off = (which * BKV + r) * LD + 4 * c;
+      float4 x[MAX_CLUSTER];   // every rank's loads in flight, then summed
+#pragma unroll
+      for (int rr = 0; rr < MAX_CLUSTER; ++rr)
+        if (rr < a.cluster)
+          x[rr] = *reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(part + off, rr));
+      float4 s = x[0];
+#pragma unroll
+      for (int rr = 1; rr < MAX_CLUSTER; ++rr) {
+        if (rr >= a.cluster) break;
+        s.x += x[rr].x;
+        s.y += x[rr].y;
+        s.z += x[rr].z;
+        s.w += x[rr].w;
+      }
+      const int64_t j = j0 + r;
+      if (j >= a.Skv) continue;
+      const float w = which ? 1.f : a.scale;
+      *reinterpret_cast<float4*>((which ? a.dv : a.dk) +
+                                 ((b * a.Skv + j) * a.KV + kvh) * D + 4 * c) =
+          make_float4(s.x * w, s.y * w, s.z * w, s.w * w);
     }
   }
+  cluster.sync();   // no rank leaves while another reads its partials
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_attention_bwd_dq_kernel(Args a) {
-  constexpr int LD = D + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BKV * LD;
-  float* Qs = Vs + BKV * LD;
-  float* dOs = Qs + BQ * LD;
-  float* Ps = dOs + BQ * LD;
-  float* dSs = Ps + BQ * LDP;
-  float* lse2s = dSs + BQ * LDP;
-  float* dvs = lse2s + BQ;
+  using T = Tile<D>;
+  constexpr int LD = T::LD, BK = T::BK, NK = BK / 8, KT = D / 8;
+  constexpr int STAGE = BK * LD;
+  constexpr int GR = KT < 4 ? KT : 4;   // dQ tiles issued together
+  static_assert(NK % 4 == 0 && KT % GR == 0, "tiles issued in groups");
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;               // [BQ][LD]
+  float* dos = qs + BQ * LD;      // [BQ][LD]
+  float* ks = dos + BQ * LD;      // [2][BK][LD]
+  float* vs = ks + 2 * STAGE;     // [2][BK][LD]
 
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int64_t b = blockIdx.x / a.H, h = blockIdx.x % a.H, kvh = h / a.G;
-  const int64_t i0 = static_cast<int64_t>(blockIdx.y) * BQ;
-  load_query_tile<D>(a, b, h, i0, Qs, dOs, lse2s, dvs);
+  // the last query tiles see the most keys: they go first
+  const int64_t i0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * BQ;
+  const int64_t r0 = i0 + 16 * warp;       // the warp's first row
+  const int64_t ia = r0 + g, ib = ia + 8;  // the lane's two rows
+  const int64_t nokey = a.causal && a.window > 0 ? a.Skv - 1 + a.window
+                                                 : a.Sq;
+
+  copy_rows<D>(qs, a.q + b * a.qsb + h * a.qsh, a.qss, i0, a.Sq, BQ);
+  copy_rows<D>(dos, a.dout + b * a.dsb + h * a.dsh, a.dss, i0, a.Sq, BQ);
+  // the rows' base-2 lse and D (0 past Sq, where Q and dO are 0 too)
+  const int64_t at = (b * a.H + h) * a.Sq;
+  const float lse_a = ia < a.Sq ? a.lse[at + ia] * LOG2E : 0.f;
+  const float lse_b = ib < a.Sq ? a.lse[at + ib] * LOG2E : 0.f;
+  const float d_a = ia < a.Sq ? a.dvec[at + ia] : 0.f;
+  const float d_b = ib < a.Sq ? a.dvec[at + ib] : 0.f;
 
   // Key tiles the rows see: up to the diagonal when causal, from the
   // window's first key with one (a row that sees no key has dS = 0).
@@ -279,32 +447,128 @@ __global__ void __launch_bounds__(THREADS)
     hi = last + 1 < a.Skv ? last + 1 : a.Skv;
     if (a.window > 0) {
       const int64_t first = i0 - a.window + 1;
-      lo = first > 0 ? first / BKV * BKV : 0;
+      lo = first > 0 ? first / BK * BK : 0;
     }
   }
-  constexpr int TM = 4, TN = D / 16;   // 16 x 16 threads over BQ x D
-  float dq[TM][TN] = {};
   const float* kb = a.k + b * a.ksb + kvh * a.ksh;
   const float* vb = a.v + b * a.vsb + kvh * a.vsh;
-  for (int64_t j0 = lo; j0 < hi; j0 += BKV) {
-    __syncthreads();   // the last step's product is done with K and dS
-    load_rows<D>(Ks, kb, a.kss, j0, a.Skv, BKV);
-    load_rows<D>(Vs, vb, a.vss, j0, a.Skv, BKV);
-    __syncthreads();
-    pair_tile<D>(a, Qs, dOs, Ks, Vs, lse2s, dvs, i0, j0, Ps, dSs);
-    __syncthreads();
-    block_mm<BQ, D, TM, TN, BKV>(dq, dSs, LDP, 1, Ks, 1, LD);
-  }
-  constexpr int NT = D / TN;
-  const int tm = threadIdx.x / NT, tn = threadIdx.x % NT;
+  auto load_tile = [&](int64_t j0, int stage) {
+    copy_rows<D>(ks + stage * STAGE, kb, a.kss, j0, a.Skv, BK);
+    copy_rows<D>(vs + stage * STAGE, vb, a.vss, j0, a.Skv, BK);
+    cp_async_commit();
+  };
+
+  float dq[KT][4];
 #pragma unroll
-  for (int x = 0; x < TM; ++x) {
-    const int64_t i = i0 + tm + x * (BQ / TM);
-    if (i >= a.Sq) continue;
-    const int64_t row = ((b * a.Sq + i) * a.H + h) * D;
+  for (int n = 0; n < KT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  const int64_t ntiles = lo < hi ? (hi - lo + BK - 1) / BK : 0;
+  if (ntiles > 0)
+    load_tile(lo, 0);   // one group with Q and dO
+  else
+    cp_async_commit();
+  for (int64_t it = 0; it < ntiles; ++it) {
+    const int64_t j0 = lo + it * BK;
+    const int stage = static_cast<int>(it & 1);
+    if (it + 1 < ntiles)
+      load_tile(j0 + BK, stage ^ 1);
+    else
+      cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const bool live =
+        r0 < a.Sq && !(a.causal && j0 > r0 + 15) &&
+        !(a.causal && a.window > 0 && r0 - (j0 + BK - 1) >= a.window);
+    if (live) {
+      const float* kt = ks + stage * STAGE;
+      const float* vt = vs + stage * STAGE;
+      // causal: the 8-key columns past the warp's last row are masked
+      int nhi = NK;
+      if (a.causal && r0 + 15 - j0 < BK - 8)
+        nhi = static_cast<int>((r0 + 15 - j0) / 8) + 1;
+      float s[NK][4], dp[NK][4];
 #pragma unroll
-    for (int y = 0; y < TN; ++y) a.dq[row + tn + y * NT] = dq[x][y] * a.scale;
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        const FragA qa = load_a(qs, LD, 16 * warp, kk * 8, lane);
+        const FragA oa = load_a(dos, LD, 16 * warp, kk * 8, lane);
+#pragma unroll
+        for (int nb = 0; nb < NK; nb += 4) {
+          if (nb >= nhi) continue;
+          FragB fb[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            fb[u] = load_b_nk(kt, LD, (nb + u) * 8, kk * 8, lane);
+          mma3_row<4>(&s[nb], qa, fb);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            fb[u] = load_b_nk(vt, LD, (nb + u) * 8, kk * 8, lane);
+          mma3_row<4>(&dp[nb], oa, fb);
+        }
+      }
+      bool need_mask = j0 + BK > a.Skv;
+      if (a.causal)
+        need_mask = need_mask || j0 + BK - 1 > r0 ||
+                    (a.window > 0 &&
+                     (r0 + 15 - j0 >= a.window || r0 + 15 >= nokey));
+      // dS on the accumulators: c0, c1 are row ia, keys 2t and 2t + 1 of
+      // the 8-key column; c2, c3 row ib.
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              fast_exp2(s[n][e] * a.scale_log2 - (e & 2 ? lse_b : lse_a));
+          float ds = p * (dp[n][e] - (e & 2 ? d_b : d_a));
+          if (need_mask) {
+            const int64_t i = e & 2 ? ib : ia;
+            const int64_t j = j0 + n * 8 + 2 * t + (e & 1);
+            if (j >= a.Skv ||
+                (a.causal && (i >= nokey || j > i ||
+                              (a.window > 0 && i - j >= a.window))))
+              ds = 0.f;
+          }
+          s[n][e] = ds;
+        }
+      }
+      // dQ += dS K
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        if (n >= nhi) continue;
+        const FragA sa = acc_as_a(s[n]);
+#pragma unroll
+        for (int nb = 0; nb < KT; nb += GR) {
+          FragB fb[GR];
+#pragma unroll
+          for (int u = 0; u < GR; ++u)
+            fb[u] = load_b_paired(kt, LD, n * 8, (nb + u) * 8, lane);
+          mma3_row<GR>(&dq[nb], sa, fb);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this K/V stage
   }
+  cp_async_wait<0>();
+
+  float* out = a.dq + (b * a.Sq * a.H + h) * D;
+#pragma unroll
+  for (int n = 0; n < KT; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (ia < a.Sq)
+      *reinterpret_cast<float2*>(out + ia * a.H * D + c) =
+          make_float2(dq[n][0] * a.scale, dq[n][1] * a.scale);
+    if (ib < a.Sq)
+      *reinterpret_cast<float2*>(out + ib * a.H * D + c) =
+          make_float2(dq[n][2] * a.scale, dq[n][3] * a.scale);
+  }
+  // Started early beside dk/dv (programmatic dependent launch): finish
+  // only after it has, so that what follows on the stream finds dk and dv
+  // written. A no-op when launched on its own.
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 // The shared-memory limit is a per-device attribute: set it once on each
@@ -319,37 +583,65 @@ cudaError_t configure() {
   if (device < MAX_DEVICES && configured[device]) return cudaSuccess;
   err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Smem<D>::BYTES);
+                             Tile<D>::DKDV_BYTES);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Smem<D>::BYTES);
+                             Tile<D>::DQ_BYTES);
   if (err != cudaSuccess) return err;
   if (device < MAX_DEVICES) configured[device] = true;
   return cudaSuccess;
 }
 
 template <int D>
-int launch(const Args& a, int64_t B, cudaStream_t stream) {
+int launch(const Args& a, int64_t parts, cudaStream_t stream) {
   cudaError_t err = configure<D>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t rows = B * a.Sq * a.H;
-  flash_attention_bwd_rowdot_kernel<<<
-      static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32)),
-      THREADS, 0, stream>>>(a, D, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_dkdv_kernel<D><<<
-      dim3(static_cast<unsigned>(B * a.KV),
-           static_cast<unsigned>((a.Skv + BKV - 1) / BKV)),
-      THREADS, Smem<D>::BYTES, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_dq_kernel<D><<<
-      dim3(static_cast<unsigned>(B * a.H),
-           static_cast<unsigned>((a.Sq + BQ - 1) / BQ)),
-      THREADS, Smem<D>::BYTES, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (parts & 1) {
+    constexpr int RPB = ROWDOT_THREADS / (D / 4);   // rows a block
+    const int64_t rows = a.B * a.Sq * a.H;
+    flash_attention_bwd_rowdot_kernel<D>
+        <<<static_cast<unsigned>((rows + RPB - 1) / RPB), ROWDOT_THREADS, 0,
+           stream>>>(a, rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (parts & 2) {
+    // clusters (key tile, batch, kv head), key tile slowest: j0 = 0 first
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(
+        (a.Skv + BKV - 1) / BKV * a.B * a.KV * a.cluster));
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = Tile<D>::DKDV_BYTES;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(a.cluster);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, flash_attention_bwd_dkdv_kernel<D>, a);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (parts & 4) {
+    // right after dk/dv, as its programmatic dependent: the two overlap
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(a.B * a.H),
+                       static_cast<unsigned>((a.Sq + BQ - 1) / BQ));
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = Tile<D>::DQ_BYTES;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = parts & 2 ? 1 : 0;
+    err = cudaLaunchKernelEx(&cfg, flash_attention_bwd_dq_kernel<D>, a);
+    if (err == cudaSuccess) err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -361,9 +653,10 @@ extern "C" int flash_attention_bwd_launch(
     int64_t D, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
     int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
     int64_t osb, int64_t oss, int64_t osh, int64_t dsb, int64_t dss,
-    int64_t dsh, int64_t causal, int64_t window, void* stream) {
+    int64_t dsh, int64_t causal, int64_t window, int64_t parts,
+    void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0 ||
-      (Sq + BQ - 1) / BQ > 65535 || (Skv + BKV - 1) / BKV > 65535)
+      (Sq + BQ - 1) / BQ > 65535 || parts < 0 || parts > 7)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = static_cast<const float*>(q);
@@ -376,6 +669,7 @@ extern "C" int flash_attention_bwd_launch(
   a.dq = static_cast<float*>(dq);
   a.dk = static_cast<float*>(dk);
   a.dv = static_cast<float*>(dv);
+  a.B = B;
   a.Sq = Sq;
   a.Skv = Skv;
   a.H = H;
@@ -388,18 +682,23 @@ extern "C" int flash_attention_bwd_launch(
   a.dsb = dsb, a.dss = dss, a.dsh = dsh;
   a.causal = causal ? 1 : 0;
   a.window = window;
+  // ceil(G / 8) heads a rank, so that a cluster has at most 8 ranks
+  a.heads_per_rank =
+      static_cast<int>((a.G + MAX_CLUSTER - 1) / MAX_CLUSTER);
+  a.cluster = static_cast<int>((a.G + a.heads_per_rank - 1) /
+                               a.heads_per_rank);
   a.scale = 1.f / sqrtf(static_cast<float>(D));
   a.scale_log2 = LOG2E / sqrtf(static_cast<float>(D));   // as the forward's
   const auto st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16>(a, B, st);
+      return launch<16>(a, parts, st);
     case 32:
-      return launch<32>(a, B, st);
+      return launch<32>(a, parts, st);
     case 64:
-      return launch<64>(a, B, st);
+      return launch<64>(a, parts, st);
     case 128:
-      return launch<128>(a, B, st);
+      return launch<128>(a, parts, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

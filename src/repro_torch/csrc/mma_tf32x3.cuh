@@ -1,6 +1,6 @@
 // fp32 matrix products on the tensor cores: 3xTF32 `mma.sync` steps, and
 // the `cp.async` copies that feed them. Included by flash_attention.cu,
-// ssd_scan.cu and lstm_cell_tile.cuh.
+// flash_attention_bwd.cu, ssd_scan.cu and lstm_cell_tile.cuh.
 //
 // A TF32 product keeps 10 mantissa bits, about three decimal digits, which
 // does not meet the kernels' bar of 1e-4 of fp32. So each fp32 operand a is
@@ -98,6 +98,17 @@ __device__ __forceinline__ void mma3_row(float (*d)[4], const FragA& a,
   for (int i = 0; i < N; ++i) mma(d[i], a.big, b[i].small);
 #pragma unroll
   for (int i = 0; i < N; ++i) mma(d[i], a.big, b[i].big);
+}
+
+// A fragment (16 x 8) of an M x K row-major array in shared memory, in the
+// natural k order: a0 = s[m0 + g][k0 + t], a1 = s[m0 + g + 8][k0 + t],
+// a2 = s[m0 + g][k0 + t + 4], a3 = s[m0 + g + 8][k0 + t + 4]. Conflict-free
+// at a stride of 4 mod 32.
+__device__ __forceinline__ FragA load_a(const float* s, int ld, int m0,
+                                        int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = s + (m0 + g) * ld + k0 + t;
+  return split_a(p[0], p[8 * ld], p[4], p[8 * ld + 4]);
 }
 
 // A fragment (16 x 8) of the transpose of a K x M row-major array in

@@ -106,9 +106,10 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention` at ``q, k, v``
     for the output gradient ``dout``, given the forward's ``out`` and
     ``lse`` (:func:`flash_attention_forward` with ``with_lse``). On the
-    card the three kernels of ``csrc/flash_attention_bwd.cu``, counted as
-    one launch; ``dout`` in another layout than the kernels take is copied
-    contiguous first. On the CPU the plain version
+    card the three kernels of ``csrc/flash_attention_bwd.cu`` (rowdot;
+    dk/dv in thread-block clusters over a kv head's query heads; dq),
+    counted as one launch; ``dout`` in another layout than the kernels
+    take is copied contiguous first. On the CPU the plain version
     (:func:`ref.flash_attention_backward_ref`; ``out`` and ``lse`` are not
     read)."""
     if window and not causal:
@@ -137,17 +138,36 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    backward_kernels(q, k, v, out, dout, lse, causal, window,
+                     (dvec, dq, dk, dv))
+    counting.count(flash_attention_backward)
+    return dq, dk, dv
+
+
+BACKWARD_PARTS = {"rowdot": 1, "dkdv": 2, "dq": 4}
+
+
+def backward_kernels(q, k, v, out, dout, lse, causal, window, buffers,
+                     parts: int = 7) -> None:
+    """Launch the backward's kernels picked by ``parts`` (a sum of
+    :data:`BACKWARD_PARTS`; 7 all three, in order) on the current stream,
+    into ``buffers`` = (D scratch (B, H, Sq), dq, dk, dv), all contiguous
+    float32 on the card. Checks nothing and counts nothing:
+    :func:`flash_attention_backward` checks, allocates and counts; this is
+    also how one kernel is timed alone (each reads what the earlier ones
+    wrote)."""
+    dvec, dq, dk, dv = buffers
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
     lib = build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KV, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], *dout.stride()[:3], int(causal), window, stream),
-        "flash_attention_backward")
-    counting.count(flash_attention_backward)
-    return dq, dk, dv
+        *out.stride()[:3], *dout.stride()[:3], int(causal), window, parts,
+        stream), "flash_attention_backward")
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -14,7 +14,18 @@ with no PyTorch in them:
    kernel with ``clock64`` stamps between its phases (lane 0 of every
    warp; each stamp first waits on the phase's last result), run five
    times on fixed inputs; prints each launch's ms (CUDA events) and, for
-   a few blocks, every warp's cycles per phase from the last run.
+   a few blocks, every warp's cycles per phase from the last run. And
+   the dk/dv kernel of ``csrc/flash_attention_bwd.cu`` at the trainer's
+   shape (q/o/dO (8, 128, 14, 64), causal): every warp's cycles to its
+   K/V and first query tile landed, the first tile's S^T and dP^T
+   products, its P^T/dS^T epilogue and its dV and dK products, the later
+   tiles, the cluster barrier and the reduction over the ranks, for the
+   ranks of the first cluster and one rank of the last key tile; and each
+   of the backward's kernels timed alone (CUDA events, five launches).
+   Then copies of the backward with its register tiles rewritten (the
+   dk/dv pass at 32 or 64 queries, the dq tile at 32 or 64 keys), each
+   timed cold and warm at that shape, all three kernels, dk/dv and dq
+   alone, and all three with dq launched after dk/dv instead of beside it.
 3. **The LSTM-cell tile** (``csrc/lstm_cell_tile.cuh`` through
    ``csrc/fused_gather_lstm_cell.cu``) at the tagger's shape (B = 16,
    E = H = 512): a stamped copy (every warp's cycles, from its CTA's first
@@ -172,6 +183,79 @@ int main() {
              t[1] - t[0], t[2] - t[1], t[3] - t[2], t[4] - t[3],
              t[5] - t[4], t[6] - t[5], t[6] - t[0]);
     }
+  return 0;
+}
+"""
+
+# the dk/dv kernel of the backward, at the trainer's shape
+BWD_STAMPS = [
+    ("  const float inv_skv = 1.f / static_cast<float>(a.Skv);\n",
+     "+  const int pidx = blockIdx.x * 4 + warp;\n  STAMP(0, 0.f);\n"),
+    ("    const int64_t i0 = tiles.at(it % tiles.n);\n",
+     "    if (it == 0) STAMP(1, 0.f);\n"),
+    ("        // P^T and dS^T on the accumulators",
+     "        if (it == 0 && q0 == 0)\n"
+     "          STAMP(2, st[NQ - 1][3] + dpt[NQ - 1][3]);\n"),
+    ("        // dV += P^T dO and dK += dS^T Q over the pass's queries",
+     "        if (it == 0 && q0 == 0)\n"
+     "          STAMP(3, st[NQ - 1][3] + dpt[NQ - 1][3]);\n"),
+    ("    __syncthreads();   // every warp is done with this Q/dO stage\n",
+     "    if (it == 0) STAMP(4, dk[KT - 1][3] + dv[KT - 1][3]);\n"),
+    ("  // The cluster's sum: partial dK, dV",
+     "  STAMP(5, dk[KT - 1][3] + dv[KT - 1][3]);\n"),
+    ("  cluster.sync();   // every rank's partials are written\n",
+     "+  STAMP(6, 0.f);\n"),
+    ("  cluster.sync();   // no rank leaves while another reads its partials\n",
+     "  STAMP(7, 0.f);\n"),
+]
+BWD_MAIN = r"""
+#include <cstdio>
+#include <vector>
+int main() {
+  const int B = 8, S = 128, H = 14, KV = 2, D = 64;
+  const size_t nq = size_t(B) * S * H * D, nk = size_t(B) * S * KV * D;
+  const size_t nl = size_t(B) * H * S;
+  std::vector<float> hq(nq), hk(nk), hl(nl, 5.f);
+  for (size_t i = 0; i < nq; ++i) hq[i] = (i * 2654435761u % 1000) / 1e3f - .5f;
+  for (size_t i = 0; i < nk; ++i) hk[i] = (i * 40503u % 1000) / 1e3f - .5f;
+  float *q, *k, *v, *o, *dout, *lse, *dvec, *dq, *dk, *dv;
+  for (float** p : {&q, &o, &dout, &dq}) cudaMalloc(p, nq * 4);
+  for (float** p : {&k, &v, &dk, &dv}) cudaMalloc(p, nk * 4);
+  cudaMalloc(&lse, nl * 4); cudaMalloc(&dvec, nl * 4);
+  for (float* p : {q, o, dout})
+    cudaMemcpy(p, hq.data(), nq * 4, cudaMemcpyHostToDevice);
+  for (float* p : {k, v})
+    cudaMemcpy(p, hk.data(), nk * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(lse, hl.data(), nl * 4, cudaMemcpyHostToDevice);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0); cudaEventCreate(&e1);
+  const char* names[] = {"", "rowdot", "dkdv", "", "dq", "", "", "all"};
+  for (int parts : {1, 4, 7, 2}) for (int rep = 0; rep < 5; ++rep) {
+    cudaEventRecord(e0);
+    const int rc = flash_attention_bwd_launch(
+        q, k, v, o, dout, lse, dvec, dq, dk, dv, B, S, S, H, KV, D,
+        S * H * D, H * D, D, S * KV * D, KV * D, D, S * KV * D, KV * D, D,
+        S * H * D, H * D, D, S * H * D, H * D, D, 1, 0, parts, 0);
+    cudaEventRecord(e1); cudaEventSynchronize(e1);
+    float ms; cudaEventElapsedTime(&ms, e0, e1);
+    printf("bwd phases: %s launch %d rc %d, %.4f ms\n", names[parts], rep,
+           rc, ms);
+  }
+  static long long hp[4096][20];
+  cudaMemcpyFromSymbol(hp, g_prof, sizeof(hp));
+  // cluster 0 (keys 0-63 of batch 0, kv head 0: ranks = query heads 0-6)
+  // and rank 0 of cluster 16 (keys 64-127)
+  for (int cta : {0, 1, 6, 112}) for (int w = 0; w < 4; ++w) {
+    const long long* t = hp[cta * 4 + w];
+    const long long first = t[2] ? t[2] - t[1] : 0;
+    const long long ep = t[3] ? t[3] - t[2] : 0;
+    printf("bwd phases: dkdv CTA %d warp %d cycles: K/V and first Q/dO tile "
+           "landed %lld, S^T and dP^T %lld, P^T and dS^T %lld, dV and dK "
+           "%lld, later tiles %lld, cluster barrier %lld, reduction %lld, "
+           "total %lld\n", cta, w, t[1] - t[0], first, ep,
+           t[3] ? t[4] - t[3] : 0, t[5] - t[4], t[6] - t[5], t[7] - t[6],
+           t[7] - t[0]);
+  }
   return 0;
 }
 """
@@ -461,6 +545,63 @@ int main() {
 EARLY_LINE = "constexpr int EARLY = 2;\n"
 
 
+# The backward's two register-tile constants: queries a dk/dv pass, keys a
+# dq tile (both 64 at D = 64).
+BWD_QN_LINE = "  static constexpr int QN = D <= 64 ? 64 : 32;"
+BWD_BK_LINE = "  static constexpr int BK = D <= 64 ? 64 : 32;"
+
+BWD_VARIANTS_MAIN = TIMING + r"""
+int main() {
+  const int B = 8, S = 128, H = 14, KV = 2, D = 64;
+  const size_t nq = size_t(B) * S * H * D, nk = size_t(B) * S * KV * D;
+  const size_t nl = size_t(B) * H * S;
+  std::vector<float> hq(nq), hk(nk), hl(nl, 5.f);
+  for (size_t i = 0; i < nq; ++i) hq[i] = (i * 2654435761u % 1000) / 1e3f - .5f;
+  for (size_t i = 0; i < nk; ++i) hk[i] = (i * 40503u % 1000) / 1e3f - .5f;
+  float *q, *k, *v, *o, *dout, *lse, *dvec, *dq, *dk, *dv;
+  for (float** p : {&q, &o, &dout, &dq}) cudaMalloc(p, nq * 4);
+  for (float** p : {&k, &v, &dk, &dv}) cudaMalloc(p, nk * 4);
+  cudaMalloc(&lse, nl * 4); cudaMalloc(&dvec, nl * 4);
+  for (float* p : {q, o, dout})
+    cudaMemcpy(p, hq.data(), nq * 4, cudaMemcpyHostToDevice);
+  for (float* p : {k, v})
+    cudaMemcpy(p, hk.data(), nk * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(lse, hl.data(), nl * 4, cudaMemcpyHostToDevice);
+  time_floor("bwd @TAG@");
+  auto launch = [&](int parts) {
+    flash_attention_bwd_launch(
+        q, k, v, o, dout, lse, dvec, dq, dk, dv, B, S, S, H, KV, D,
+        S * H * D, H * D, D, S * KV * D, KV * D, D, S * KV * D, KV * D, D,
+        S * H * D, H * D, D, S * H * D, H * D, D, 1, 0, parts, 0);
+  };
+  const char* names[] = {"", "rowdot", "dkdv", "", "dq", "", "", "all"};
+  for (int parts : {7, 2, 4}) {
+    auto run = [&] { launch(parts); };
+    printf("bwd @TAG@: %s ms cold %.5f, warm %.5f\n", names[parts],
+           time_ms(run, true), time_ms(run, false));
+  }
+  // the same kernels with dq launched on its own after dk/dv, not beside it
+  auto serial = [&] { launch(3); launch(4); };
+  printf("bwd @TAG@: all, dq after dk/dv ms cold %.5f, warm %.5f\n",
+         time_ms(serial, true), time_ms(serial, false));
+  printf("bwd @TAG@: %s\n", cudaGetErrorString(cudaGetLastError()));
+  return 0;
+}
+"""
+
+
+def bwd_variant(qn: int, bk: int) -> str:
+    """flash_attention_bwd.cu with its dk/dv pass at ``qn`` queries and its
+    dq tile at ``bk`` keys (at every D), timed at the trainer's shape."""
+    text = (CSRC / "flash_attention_bwd.cu").read_text()
+    for line, value in ((BWD_QN_LINE, qn), (BWD_BK_LINE, bk)):
+        if text.count(line) != 1:
+            raise RuntimeError(f"flash_attention_bwd.cu: line not found "
+                               f"once: {line!r}")
+        text = text.replace(line, line.split("=")[0] + f"= {value};")
+    return text + BWD_VARIANTS_MAIN.replace("@TAG@", f"QN={qn} BK={bk}")
+
+
 def cell_with_tile(tile: str) -> str:
     """fused_gather_lstm_cell.cu with ``tile`` (a copy of
     lstm_cell_tile.cuh) inlined in place of its include."""
@@ -718,13 +859,17 @@ def main() -> None:
             ("hmma_rate", HMMA_RATE),
             ("flash_phases", instrument("flash_attention.cu", FLASH_STAMPS,
                                         FLASH_MAIN)),
+            ("bwd_phases", instrument("flash_attention_bwd.cu", BWD_STAMPS,
+                                      BWD_MAIN)),
             ("ssd_phases", instrument("ssd_scan.cu", SSD_STAMPS, SSD_MAIN)),
             ("cell_phases", instrument_cell()),
             ("cell_clusters", cell_clusters_main()),
             ("cell_floors", cell_floors_main()),
             ("gather_variants", gather_main()),
             ("cell_early_0", cell_clusters_main(4, 0)),
-            ("cell_early_8", cell_clusters_main(4, 8))):
+            ("cell_early_8", cell_clusters_main(4, 8)),
+            *((f"bwd_qn{qn}_bk{bk}", bwd_variant(qn, bk))
+              for qn, bk in ((64, 64), (32, 64), (64, 32), (32, 32)))):
         print(build_and_run(name, source), end="", flush=True)
 
 

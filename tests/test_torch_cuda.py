@@ -1188,6 +1188,12 @@ _BWD_CASES = {
     "causal Sq=1 Skv=77": (2, 1, 77, 14, 2, 64, True, 0),
     "cross Sq=40 Skv=77": (2, 40, 77, 6, 3, 64, False, 0),
     "cross Sq=17 Skv=9 D=128": (1, 17, 9, 2, 2, 128, False, 0),
+    # dk/dv clusters of 3 and 4 ranks (phi4-mini's head map, D = 128),
+    # beyond one cluster (16 heads: 8 ranks of 2), and cross at G = 7
+    "G=3 D=128 S=128": (2, 128, 128, 24, 8, 128, True, 0),
+    "G=4 D=128 S=128": (1, 128, 128, 32, 8, 128, True, 0),
+    "G=16 S=128": (1, 128, 128, 16, 1, 64, True, 0),
+    "cross G=7 Sq=40 Skv=77": (2, 40, 77, 14, 2, 64, False, 0),
 }
 
 
@@ -1209,6 +1215,22 @@ def test_flash_attention_backward_kernel_within_1e4(cuda, case):
     for name, g, w in zip("qkv", grads, want):
         assert torch.isfinite(g).all(), name
         assert _grad_err(g, w, top) <= 1e-4, (name, _grad_err(g, w, top))
+
+
+def test_flash_attention_backward_is_bit_equal_between_runs(cuda):
+    """No atomics: the dk/dv cluster sums its ranks in a fixed order, so two
+    runs at the trainer's shape give the same gradients bit for bit."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
+
+    q, k, v = _attn_inputs(8, 128, 128, 14, 2, 64, cuda, seed=11)
+    dout = _attn_inputs(8, 128, 128, 14, 14, 64, cuda, seed=12)[0]
+    out, lse = flash_attention_forward(q, k, v, True, 0, with_lse=True)
+    first = flash_attention_backward(q, k, v, out, dout, lse)
+    second = flash_attention_backward(q, k, v, out, dout, lse)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a, b), name
 
 
 def test_flash_attention_backward_reads_strided_views(cuda):

@@ -2,8 +2,8 @@
 
 ``repro_torch.tools.kernel_phases`` builds its copies on the card by
 inserting ``clock64`` stamps at fixed lines of ``csrc/flash_attention.cu``,
-``csrc/ssd_scan.cu`` and ``csrc/lstm_cell_tile.cuh`` (through
-``csrc/fused_gather_lstm_cell.cu``) and calls each launch function from a
+``csrc/flash_attention_bwd.cu``, ``csrc/ssd_scan.cu`` and
+``csrc/lstm_cell_tile.cuh`` (through ``csrc/fused_gather_lstm_cell.cu``) and calls each launch function from a
 host program of its own. These tests run on the CPU, with no compiler:
 each anchor line is found exactly once in today's source, every stamp goes
 in, and each host program passes as many arguments as the launch function
@@ -28,6 +28,12 @@ _KERNELS = {
         lambda: kernel_phases.instrument("flash_attention.cu",
                                          kernel_phases.FLASH_STAMPS,
                                          kernel_phases.FLASH_MAIN)),
+    "flash_attention_bwd": (
+        "flash_attention_bwd.cu", kernel_phases.BWD_STAMPS,
+        kernel_phases.BWD_MAIN,
+        lambda: kernel_phases.instrument("flash_attention_bwd.cu",
+                                         kernel_phases.BWD_STAMPS,
+                                         kernel_phases.BWD_MAIN)),
     "ssd_scan": (
         "ssd_scan.cu", kernel_phases.SSD_STAMPS, kernel_phases.SSD_MAIN,
         lambda: kernel_phases.instrument("ssd_scan.cu",
@@ -76,6 +82,25 @@ def test_early_copies_rewrite_the_tiles_constant(early):
     assert kernel_phases.EARLY_LINE not in copy
     assert '#include "lstm_cell_tile.cuh"' not in copy
     assert "fused_gather_lstm_cell_launch(" in copy
+
+
+@pytest.mark.parametrize("qn,bk", [(32, 64), (64, 32)])
+def test_backward_variants_rewrite_the_register_tiles(qn, bk):
+    """The tool's backward copies rewrite the one QN and the one BK line
+    and call the launch function with all its arguments."""
+    text = (CSRC / "flash_attention_bwd.cu").read_text()
+    for line in (kernel_phases.BWD_QN_LINE, kernel_phases.BWD_BK_LINE):
+        assert text.count(line) == 1
+    copy = kernel_phases.bwd_variant(qn, bk)
+    assert f"static constexpr int QN = {qn};" in copy
+    assert f"static constexpr int BK = {bk};" in copy
+    assert copy.endswith(kernel_phases.BWD_VARIANTS_MAIN.replace(
+        "@TAG@", f"QN={qn} BK={bk}"))
+    call = re.search(r"flash_attention_bwd_launch\((.*?)\);$",
+                     kernel_phases.BWD_VARIANTS_MAIN, re.S | re.M)
+    assert call is not None
+    assert _top_level_args(call.group(1)) == \
+        len(SIGNATURES["flash_attention_bwd_launch"])
 
 
 def _top_level_args(call: str) -> int:

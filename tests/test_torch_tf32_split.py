@@ -19,7 +19,14 @@ reported beside the split and only held to be worse than it.
 
 The fragment layout of an ``m16n8k8`` step and the header's paired k
 order (an accumulator fed back as the A operand with no shuffle) are
-checked lane by lane.
+checked lane by lane, and so are the banks each fragment loader reads at
+the kernels' row strides.
+
+The backward of the attention (``csrc/flash_attention_bwd.cu``) is
+rehearsed the same way: its seven products (S^T, dP^T, P^T dO, dS^T Q for
+dk/dv; S, dP, dS K for dq) split, the accumulators fed back in the paired
+k order, the cluster's per-rank partials summed in rank order, held to
+1e-4 of the largest |gradient| of the fp64 plain backward.
 """
 
 import numpy as np
@@ -163,6 +170,39 @@ def test_transposed_b_operand_in_natural_order():
     b = np.stack([K[g, t], K[g, t + 4]], axis=1)
     got = _a_matrix(a) @ _b_matrix(b)
     np.testing.assert_allclose(got, Q @ K.T, rtol=1e-12, atol=1e-12)
+
+
+def test_natural_a_operand_from_a_row_major_tile():
+    """``load_a`` (a0 = K[g][t], a1 = K[g+8][t], a2 = K[g][t+4],
+    a3 = K[g+8][t+4]) with ``load_b_nk`` on Q gives K Q^T: the backward's
+    transposed scores S^T and dP^T, K and V rows as the A operand."""
+    rng = np.random.default_rng(9)
+    K, Q = rng.standard_normal((16, 8)), rng.standard_normal((8, 8))
+    g, t = _lanes()
+    a = np.stack([K[g, t], K[g + 8, t], K[g, t + 4], K[g + 8, t + 4]],
+                 axis=1)
+    b = np.stack([Q[g, t], Q[g, t + 4]], axis=1)
+    np.testing.assert_array_equal(_a_matrix(a), K)
+    np.testing.assert_allclose(_a_matrix(a) @ _b_matrix(b), K @ Q.T,
+                               rtol=1e-12, atol=1e-12)
+
+
+# lane -> word offsets each loader reads (one array per load instruction)
+def _loader_offsets(ld: int) -> dict:
+    g, t = _lanes()
+    return {"load_a": [g * ld + t, (g + 8) * ld + t, g * ld + t + 4,
+                       (g + 8) * ld + t + 4],
+            "load_b_nk": [g * ld + t, g * ld + t + 4],
+            "load_b_paired": [2 * t * ld + g, (2 * t + 1) * ld + g]}
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_fragment_loads_hit_32_banks_at_the_padded_stride(D):
+    """Rows padded to D + 4 floats (attention forward and backward): every
+    load instruction of every fragment loader reads 32 distinct banks."""
+    for name, reads in _loader_offsets(D + 4).items():
+        for words in reads:
+            assert len(set(words % 32)) == 32, (name, D)
 
 
 # -- the kernels' algorithms with split products ----------------------------
@@ -376,3 +416,130 @@ def test_split_algorithms_in_fp32_are_the_plain_versions():
     h, c2 = cell_split(xh, w, b, c, lambda a, bm: (a @ bm,), 4)
     h_want, c_want = ref.fused_lstm_cell_ref(xh, w, b, c)
     assert rel_err(h, h_want) <= 1e-5 and rel_err(c2, c_want) <= 1e-5
+
+
+# -- the backward of the attention -------------------------------------------
+
+
+def _paired(n: int) -> torch.Tensor:
+    """The paired k order over n (padded to a multiple of 8): in each block
+    of 8, logical k = t reads physical 2t and k = t + 4 reads 2t + 1."""
+    m = -(-n // 8) * 8
+    return torch.tensor([b + p for b in range(0, m, 8) for p in PAIRED])
+
+
+def _fed_back(acc, rows, mm):
+    """``acc @ rows`` with the accumulator fed back as the A operand: the k
+    axis (acc's last, rows' first but one) taken in the paired order."""
+    n = acc.shape[-1]
+    pad = -(-n // 8) * 8 - n
+    acc = torch.nn.functional.pad(acc, (0, pad))
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, pad))
+    perm = _paired(n)
+    return mm(acc[..., perm], rows[..., perm, :])
+
+
+def attention_backward_split(q, k, v, dout, causal, window, mm):
+    """The backward kernels' arithmetic, every product through ``mm``:
+    dk/dv from the transposed tiles S^T = K Q^T, dP^T = V dO^T, with
+    P^T = exp2(S^T scale log2(e) - lse2[query]) and dS^T = P^T (dP^T -
+    D[query]) fed back for dV = P^T dO and dK = dS^T Q, the per-head sums
+    added per cluster rank (ceil(G / 8) heads a rank, in order) and the
+    ranks in order; dq from S = Q K^T, dP = dO V^T and dQ = dS K."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    qh, oh = (t.permute(0, 2, 1, 3) for t in (q, dout))   # (B, H, Sq, D)
+    kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+              for t in (k, v))
+    out = ref.flash_attention_ref(q, k, v, causal, window)
+    lse2 = ref.flash_attention_lse_ref(q, k, causal, window) * LOG2E
+    dvec = (dout * out).sum(-1).permute(0, 2, 1)          # (B, H, Sq)
+    seen = torch.ones(Sq, Skv, dtype=torch.bool)
+    nokey = torch.zeros(Sq, 1, dtype=torch.bool)
+    if causal:
+        seen = ref.attention_mask(Sq, Skv, window)
+        if window:
+            nokey = (torch.arange(Sq) >= Skv - 1 + window)[:, None]
+    seen = seen & ~nokey
+
+    st = mm(kh, qh.transpose(-1, -2)) * (scale * LOG2E)   # (B, H, Skv, Sq)
+    dpt = mm(vh, oh.transpose(-1, -2))
+    pt = torch.exp2(st - lse2[:, :, None, :])
+    pt = torch.where(nokey.T, torch.full_like(pt, 1.0 / Skv),
+                     torch.where(seen.T, pt, torch.zeros_like(pt)))
+    dst = torch.where(seen.T, pt * (dpt - dvec[:, :, None, :]),
+                      torch.zeros_like(pt))
+    dv_h, dk_h = _fed_back(pt, oh, mm), _fed_back(dst, qh, mm)
+    per = -(-G // 8)
+
+    def cluster_sum(x):   # (B, H, Skv, D) -> (B, Skv, KV, D)
+        x = x.reshape(B, KV, G, Skv, D)
+        total = None
+        for r0 in range(0, G, per):                   # the ranks, in order
+            part = x[:, :, r0]
+            for hh in range(r0 + 1, min(G, r0 + per)):   # its heads, in order
+                part = part + x[:, :, hh]
+            total = part if total is None else total + part
+        return total.permute(0, 2, 1, 3)
+
+    dk, dv = cluster_sum(dk_h) * scale, cluster_sum(dv_h)
+
+    s = mm(qh, kh.transpose(-1, -2)) * (scale * LOG2E)    # (B, H, Sq, Skv)
+    dp = mm(oh, vh.transpose(-1, -2))
+    p = torch.exp2(s - lse2[..., None])
+    ds = torch.where(seen, p * (dp - dvec[..., None]), torch.zeros_like(p))
+    dq = (_fed_back(ds, kh, mm) * scale).permute(0, 2, 1, 3)
+    return dq, dk, dv
+
+
+# (B, Sq, Skv, H, KV, D, causal, window): the trainer's shape, and a window
+# with rows that see no key.
+ATTN_BWD_CASES = {
+    "trainer B=8 S=128 G=7": (8, 128, 128, 14, 2, 64, True, 0),
+    "window 8 Sq=100 Skv=77 G=2": (2, 100, 77, 4, 2, 32, True, 8),
+}
+
+
+def _bwd_inputs(B, Sq, Skv, H, KV, D, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+            for shape in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D),
+                          (B, Sq, H, D))]
+
+
+def _grad_err(got, want) -> float:
+    """Worst of (dq, dk, dv): max abs error over the largest |gradient|."""
+    return max(float((g - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_BWD_CASES))
+def test_attention_backward_with_split_products_meets_the_bar(case):
+    B, Sq, Skv, H, KV, D, causal, window = ATTN_BWD_CASES[case]
+    q, k, v, dout = _bwd_inputs(B, Sq, Skv, H, KV, D, seed=Sq + H)
+    want = ref.flash_attention_backward_ref(
+        *(t.double() for t in (q, k, v, dout)), causal, window)
+    err3 = _grad_err(attention_backward_split(q, k, v, dout, causal, window,
+                                              mm3), want)
+    err1 = _grad_err(attention_backward_split(q, k, v, dout, causal, window,
+                                              mm1), want)
+    print(f"attention backward {case}: 3xTF32 {err3:.3e}, TF32 {err1:.3e}")
+    assert err3 <= BAR
+    assert err3 < err1
+
+
+def test_backward_split_algorithm_in_fp64_is_the_plain_backward():
+    """With exact products the backward's algorithm (transposed tiles, fed
+    back in the paired order, per-rank sums; G = 16 takes two heads a rank)
+    is autograd's backward, so the bar measures the split alone."""
+    for B, Sq, Skv, H, KV, D, causal, window in (
+            (1, 40, 40, 16, 1, 16, True, 0), (1, 37, 29, 6, 2, 16, True, 4),
+            (1, 20, 33, 6, 3, 16, False, 0)):
+        q, k, v, dout = (t.double() for t in _bwd_inputs(
+            B, Sq, Skv, H, KV, D, seed=Sq))
+        got = attention_backward_split(q, k, v, dout, causal, window,
+                                       lambda a, b: a @ b)
+        want = ref.flash_attention_backward_ref(q, k, v, dout, causal, window)
+        assert _grad_err(got, want) <= 1e-6
