@@ -150,14 +150,46 @@ Phases, in order; any failure raises and exits non-zero:
    from it on the card and on the CPU: the served tokens must agree (a
    differing token only at a near-tie, as in phase 4) and the restored
    model's prefill logits on the card within 2e-3 of the largest |logit|
-   of the CPU's (writes under ``build/chip_smoke/train/``).
+   of the CPU's (writes under ``build/chip_smoke/train/``). (e) The SSD
+   scan's backward kernels (``csrc/ssd_scan_bwd.cu``) against autograd of
+   the plain scan on the card, within 1e-4 of the largest |gradient| of
+   each of dx, ddt, dA, dB, dC and the initial state's: the trainer's
+   shape (x (8, 128, 24, 64), one chunk), two chunks from an initial state
+   with a final-state gradient, two groups, n = 40 at l = chunk, x/B/C as
+   views of a packed projection (its gradient), ragged tiles; two runs
+   bit-equal each; the forward with the chunks' start states bit-equal to
+   the forward without; timed cold at the trainer's shape beside the plain
+   backward (no PyTorch call computes it). (f) ``launch.train.main`` on
+   Mamba2-130m at full width and depth, ``--batch 8 --seq 128``,
+   TRAIN_STEPS steps: losses finite and falling, the scan's forward and
+   backward counters up by 24 a step; ``train (f)`` line as (b)'s; then
+   depth 2 at full width, batch 2 x 256 (two chunks carry the state),
+   card against the CPU: loss within 1e-4, every gradient leaf within 2e-3
+   of its largest |gradient|.
+10. Gradients through the dynamic-graph executors. (a) The row gather's
+   backward kernels (``csrc/gather_rows_bwd.cu``) against the plain
+   version on the card: src (2048, 512) at K = 1, 16, 256, 512 bit-equal;
+   repeated and negative indices, MV-RNN-like (d, d) rows and rows of 68
+   bytes (4-byte units) within 1e-6 of the largest |gradient|; K = 5000
+   (merged sort tiles) bit-equal; two runs bit-equal each; timed cold at
+   K = 256 beside the plain version and ``zeros`` + ``index_add_`` (a
+   yardstick). (b) TreeGRU at model_size=512, 16 trees a step, phase 5's
+   FSM, EXEC_TRAIN_STEPS (5) SGD steps of ``examples/
+   tree_classifier_torch.py``'s loss through ``DynamicExecutor`` on the
+   card and on the CPU: losses within 1e-4, gradients within 2e-3 of their
+   max; the gather backward's counter rises; the same steps through
+   ``CompiledPlan`` on the card give DynamicExecutor's gradients within
+   1e-4; prints ms per step and the launches. (c) ``examples/
+   tree_classifier_torch.py`` on the card: its loss improves.
 
 Phases 2 and 4 hold the kernels other than the gather to 1e-4 of the
 largest magnitude of their plain versions' outputs, phase 9 the backward
-kernel to 1e-4 of the largest |gradient|. The line before the
+kernels to 1e-4 of the largest |gradient|. The line before the
 last is ``{"kernels": [...]}`` (per kernel: launches in the phase that
 drives its path, max abs error, kernel / plain / bound / library ms; the
-five forward kernels and flash attention's backward);
+five forward kernels and the three backward kernels: flash attention's
+and the scan's over the training steps of phase 9, the gather's over
+phase 10 (b));
 phase 2 logs each bound's byte and operation times and the peak it
 divides by (3xTF32 on the tensor cores for every kernel with products) on
 a ``<kernel> bound:`` line; the last line is ``{"ok": true, "device":
@@ -905,7 +937,9 @@ OWN_KERNELS = {"gather_rows": ("gather_rows_kernel",),
                "flash_attention_bwd_rowdot": ("flash_attention_bwd_rowdot",),
                "flash_attention_bwd_dkdv": ("flash_attention_bwd_dkdv",),
                "flash_attention_bwd_dq": ("flash_attention_bwd_dq",),
-               "ssd_scan": ("ssd_scan_kernel",)}
+               "ssd_scan": ("ssd_scan_kernel",),
+               "ssd_scan_backward": ("ssd_bwd_",),
+               "gather_rows_backward": ("gather_bwd_",)}
 
 
 EXECUTORS = ("interpreted", "per_topology", "bucketed")
@@ -2457,13 +2491,441 @@ def train_phase(torch, drive, card: str, steps: int) -> dict:
     return counts
 
 
+def ssd_bwd_flops(b: int, l: int, h: int, p: int, n: int,
+                  carried: bool) -> int:
+    """The fewest FLOPs that compute the scan's gradients, which do not
+    depend on the chunk size: the least over every chunk size q (a ragged
+    last chunk allowed) of the chunked backward's count, and the
+    sequential recurrence's. Per (batch, head) and chunk of m steps the
+    chunked count is five products over the m(m+1)/2 causal pairs (C B^T,
+    dy x^T, dx, dC, dB: 6n + 4p each), and, where a state is carried
+    across the chunk's edges (more than one chunk, or a state carried in
+    or out: ``carried``), the carried state's five per step (dS0, G B,
+    x G, dy S0, S0 C: 2np each) and G's decay (np); the recurrence's is
+    about ten per step and (p, n) state entry (the state's gradient
+    carried back, dx, dB, dC and ddt, a multiply-add each)."""
+    def chunk(m: int, state: bool) -> int:
+        return m * (m + 1) * (3 * n + 2 * p) + (
+            10 * m * n * p + n * p if state else 0)
+
+    def chunked(q: int) -> int:
+        full, rest = divmod(l, q)
+        state = carried or full + (1 if rest else 0) > 1
+        return full * chunk(q, state) + (chunk(rest, state) if rest else 0)
+
+    least = min(min(chunked(q) for q in range(1, l + 1)), 10 * l * p * n)
+    return b * h * least
+
+
+def check_ssd_backward(torch, timer) -> dict:
+    """Phase 9 (e): the scan's backward kernels against autograd of the
+    plain scan on the card at the trainer's shape and the edge cases, two
+    runs bit-equal, the forward with the chunks' start states bit-equal to
+    the forward without, then timed cold at the trainer's shape beside the
+    plain backward (``ref.ssd_scan_bwd_ref``); no single PyTorch call
+    computes it."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_backward,
+                                              ssd_scan_forward)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def inputs(b, l, h, p, grp, n):
+        dt = torch.rand((b, l, h), generator=g, device="cuda") * 0.5
+        A = -torch.rand((h,), generator=g, device="cuda") * 0.5
+        return randn(b, l, h, p), dt, A, randn(b, l, grp, n), \
+            randn(b, l, grp, n)
+
+    def unpack(xbc, h, p, grp, n):
+        """x, B and C as views of one projection at an odd offset."""
+        b, l, o = xbc.shape[0], xbc.shape[1], 1 + h * p
+        return (xbc[..., 1:o].view(b, l, h, p),
+                xbc[..., o:o + grp * n].view(b, l, grp, n),
+                xbc[..., o + grp * n:].view(b, l, grp, n))
+
+    cases = [  # (label, b, l, h, p, groups, n, chunk, init, dfinal, packed)
+        ("trainer b=8 l=128", 8, 128, 24, 64, 1, 128, 128, False, False,
+         False),
+        ("two chunks, init state, final grad (3, 256)", 3, 256, 24, 64, 1,
+         128, 128, True, True, False),
+        ("groups 2", 2, 256, 24, 64, 2, 128, 128, True, True, False),
+        ("n=40 l=chunk", 2, 128, 24, 64, 1, 40, 128, False, False, False),
+        ("packed projection, two chunks", 2, 256, 24, 64, 1, 128, 128,
+         False, True, True),
+        ("ragged p=21 n=33 chunk 24 groups 2, init", 2, 48, 4, 21, 2, 33,
+         24, True, False, False),
+    ]
+    worst = 0.0
+    for label, b, l, h, p, grp, n, q, init, dfin, packed in cases:
+        x, dt, A, B, C = inputs(b, l, h, p, grp, n)
+        s0 = randn(b, h, p, n) if init else None
+        dy = randn(b, l, h, p)
+        dfinal = randn(b, h, p, n) if dfin else None
+        # the leaves: x, B and C, or the projection they are views of
+        xbc = randn(b, l, 1 + h * p + 2 * grp * n) if packed else None
+        ins = [t.detach().clone().requires_grad_(True)
+               for t in ((xbc,) if packed else (x, B, C)) + (dt, A)
+               + ((s0,) if init else ())]
+
+        def grads(fn):
+            x_, B_, C_ = unpack(ins[0], h, p, grp, n) if packed else ins[:3]
+            dt_, A_ = ins[-2 - init:len(ins) - init]
+            y, final = fn(x_, dt_, A_, B_, C_, q, ins[-1] if init else None)
+            outs = [y] + ([final] if dfin else [])
+            return torch.autograd.grad(outs, ins, [dy] + (
+                [dfinal] if dfin else []))
+        got = grads(ssd_scan)
+        want = grads(ref.ssd_scan_ref)
+        again = grads(ssd_scan)
+        torch.cuda.synchronize()
+        errs = grad_rel_errs(got, want)
+        names = (("dxbc",) if packed else ("dx", "dB", "dC")) + (
+            "ddt", "dA") + (("dinit",) if init else ())
+        if not all(e <= GRAD_TOL for e in errs):
+            fail(f"ssd_scan_backward {label}: relative err "
+                 f"{dict(zip(names, errs))} > {GRAD_TOL}")
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"ssd_scan_backward {label}: two runs differ")
+        worst = max([worst] + [float((a - w).abs().max())
+                               for a, w in zip(got, want)])
+        log(f"ssd_scan_backward {label}: relative err "
+            + ", ".join(f"{k} {e:.3e}" for k, e in zip(names, errs))
+            + "; two runs bit-equal")
+
+    b, l, h, p, n, q = 3, 256, 24, 64, 128, 128
+    x, dt, A, B, C = inputs(b, l, h, p, 1, n)
+    s0 = randn(b, h, p, n)
+    y0, f0, _ = ssd_scan_forward(x, dt, A, B, C, q, s0)
+    y1, f1, _ = ssd_scan_forward(x, dt, A, B, C, q, s0, with_states=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(y0, y1) and torch.equal(f0, f1)):
+        fail("ssd_scan: the forward with the chunks' states differs from "
+             "the forward without")
+
+    b, l = TRAIN_BATCH, TRAIN_SEQ             # the trainer's scan
+    x, dt, A, B, C = inputs(b, l, h, p, 1, n)
+    dy = randn(b, l, h, p)
+    ms = timer(lambda: ssd_scan_backward(x, dt, A, B, C, q, None, dy))
+    plain_ms = timer(lambda: ref.ssd_scan_bwd_ref(x, dt, A, B, C, q, None,
+                                                  dy))
+    fwd_ms = timer(lambda: ssd_scan(x, dt, A, B, C, q))
+    log(f"ssd_scan_backward trainer shape ms: cold kernels {ms:.4f}, plain "
+        f"{plain_ms:.4f}; forward cold {fwd_ms:.4f}")
+    # x, dt, B, C, dy read; dx, ddt, dB, dC, dA written
+    nbytes = 4 * (3 * b * l * h * p + 2 * b * l * h + 4 * b * l * n + 2 * h)
+    return {"name": "ssd_scan_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:64",
+            "shape": f"x/dy ({b}, {l}, {h}, {p}), B/C ({b}, {l}, 1, {n}), "
+                     f"chunk {q}, float32",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **bound("ssd_scan_backward", nbytes,
+                    ssd_bwd_flops(b, l, h, p, n, False),
+                    "3xTF32 on the tensor cores"),
+            "library_ms": None, "forward_ms": fwd_ms}
+
+
+SSM_TRAIN_ARGS = ["--arch", "mamba2-130m", "--batch", str(TRAIN_BATCH),
+                  "--seq", str(TRAIN_SEQ)]
+
+
+def train_ssm_phase(torch, drive, card: str, steps: int) -> dict:
+    """Phase 9 (f): ``launch.train.main`` on Mamba2-130m at full width and
+    depth (losses finite and falling, the scan's forward and backward
+    kernels 24 a step; ms per step, tokens/s, peak memory, a profiled
+    step), and the card against the CPU at depth 2, batch 2 x 256 (two
+    chunks carry the state). Returns (b)'s launch counts."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.arch.model import TransformerLM
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import AdamWConfig, leaves, unflatten
+
+    cfg = get_config("mamba2-130m")
+    stamps = []
+
+    def record(line):
+        stamps.append(time.perf_counter())
+        log(f"train (f): {line}")
+
+    torch.cuda.reset_peak_memory_stats()
+    state, counts = drive(lambda: launcher.main(
+        SSM_TRAIN_ARGS + ["--steps", str(steps), "--log-every", "1"],
+        log_fn=record))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = state.history
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"train (f): losses {losses} (want {steps} finite)")
+    if not losses[-1] < losses[0]:
+        fail(f"train (f): the loss did not fall: {losses}")
+    for name in ("ssd_scan", "ssd_scan_backward"):
+        if counts[name] != cfg.n_layers * steps:
+            fail(f"train (f): {name} launched {counts[name]} times in "
+                 f"{steps} steps, not {cfg.n_layers} a step")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    ms = statistics.median(step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(t.numel() for t in leaves(state.params))
+    model = TransformerLM(cfg, device="cuda")
+    step_fn = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5,
+                                                 total_steps=steps))
+    corpus = SyntheticCorpus(PipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=SEED))
+    batch = {k: torch.as_tensor(a, device="cuda")
+             for k, a in corpus.batch(steps).items()}
+    before = (ssd_scan.launches, ssd_scan_backward.launches)
+    prof = profile_run(torch, lambda: step_fn(state.params, state.opt, batch))
+    moved = (ssd_scan.launches - before[0],
+             ssd_scan_backward.launches - before[1])
+    if moved != (cfg.n_layers, cfg.n_layers):
+        fail(f"train (f): the profiled step launched {moved} scan forward "
+             f"and backward kernels, not {cfg.n_layers} each")
+    own_us = {k: round(v["device_us"], 1)
+              for k, v in prof["own_kernels"].items()}
+    report = {"n_params": n_params, "steps": steps, "losses": losses,
+              "step_ms": step_ms, "ms_per_step": ms,
+              "tokens_per_s": tokens / ms * 1e3, "peak_bytes": peak,
+              "launches": counts, "profile": prof}
+    log(f"train (f) mamba2-130m full width and depth ({n_params} params), "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: {ms:.2f} ms per step (median "
+        f"of steps 2-{steps}), {tokens / ms * 1e3:.1f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB, losses {[round(x, 4) for x in losses]}; "
+        f"profiled step: busy share {prof['busy_share']:.3f} "
+        f"({prof['device_ms']:.2f} ms device of {prof['wall_ms']:.2f} wall), "
+        f"{prof['device_events']} device events, top {prof['top_events']}; "
+        f"scan kernels' device us {own_us}; scan launches "
+        f"{counts['ssd_scan']}, {counts['ssd_scan_backward']} ({card})")
+    del state
+
+    # card against CPU at depth 2, full width, two chunks of 128
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cpu_model = TransformerLM(cfg2, device="cpu")
+    card_model = TransformerLM(cfg2, device="cuda")
+    params = cpu_model.init_params(torch.Generator().manual_seed(SEED))
+    corpus = SyntheticCorpus(PipelineConfig(vocab=cfg2.vocab, seq_len=256,
+                                            batch_size=2, seed=SEED))
+    batch = corpus.batch(0)
+
+    def grads(model, device):
+        flat = [t.detach().to(device).requires_grad_(True)
+                for t in leaves(params)]
+        loss = model.loss(unflatten(params, flat),
+                          {k: torch.as_tensor(a, device=device)
+                           for k, a in batch.items()})
+        gs = torch.autograd.grad(loss, flat)
+        return float(loss.detach()), [g.cpu() for g in gs]
+
+    card_loss, card_grads = grads(card_model, "cuda")
+    cpu_loss, cpu_grads = grads(cpu_model, "cpu")
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_errs = [grad_rel_err(a, b) for a, b in zip(card_grads, cpu_grads)]
+    if not loss_err <= 1e-4 or not max(grad_errs) <= 2e-3:
+        fail(f"train (f): card against CPU at depth 2, loss {loss_err}, "
+             f"gradients {max(grad_errs)} (bars 1e-4, 2e-3)")
+    report["card_vs_cpu"] = {"loss_rel_err": loss_err,
+                             "grad_rel_err_max": max(grad_errs)}
+    log(f"train (f) depth 2, full width, batch 2 x 256 (two chunks): loss "
+        f"relative err {loss_err:.3e}, worst gradient leaf "
+        f"{max(grad_errs):.3e} of its max |grad|")
+    log(f"train ssm: {json.dumps(report, default=str)}")
+    return counts
+
+
+# -- phase 10 -------------------------------------------------------------
+
+
+# TreeGRU at phase 5's width on 16-instance minibatches, trained as
+# examples/tree_classifier_torch.py trains it (its internal cell's buffer,
+# SGD at lr 0.05), five steps.
+EXEC_TRAIN_STEPS = 5
+
+
+def check_gather_backward(torch, timer) -> dict:
+    """Phase 10 (a): the gather's backward kernels against the plain
+    version on the card, then timed cold beside the plain version and
+    ``torch.zeros(...).index_add_`` (a yardstick the port never calls)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gather_batch import gather_rows_backward
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    cases = [  # (label, src shape, K, repeats)
+        ("path K=1", (2048, MODEL_SIZE), 1, False),
+        ("path K=16", (2048, MODEL_SIZE), 16, False),
+        ("path K=256", (2048, MODEL_SIZE), 256, False),
+        ("path K=512", (2048, MODEL_SIZE), 512, False),
+        ("K=256 repeated and negative", (2048, MODEL_SIZE), 256, True),
+        ("flat (d, d) rows", (512, 32, 32), 128, True),
+        ("4-byte units D=17", (512, 17), 100, True),
+        ("K=5000, past one sort tile", (8192, 16), 5000, False),
+    ]
+    worst = 0.0
+    for label, shape, K, repeats in cases:
+        if repeats:
+            idx = torch.randint(0, shape[0], (K,), generator=g,
+                                device="cuda", dtype=torch.int32)
+            idx[: K // 3] = idx[0]
+            idx[K // 3] = -1
+            idx[K // 3 + 1] = -shape[0]
+        else:
+            idx = torch.randperm(shape[0], generator=g, device="cuda")[
+                :K].to(torch.int32)
+        dout = torch.randn((K,) + shape[1:], generator=g, device="cuda")
+        got = gather_rows_backward(dout, idx, shape[0])
+        again = gather_rows_backward(dout, idx, shape[0])
+        want = ref.gather_rows_bwd_ref(dout, idx, shape[0])
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"gather_rows_backward {label}: two runs differ")
+        err = grad_rel_err(got, want)
+        worst = max(worst, float((got - want).abs().max()))
+        if repeats and not err <= 1e-6:
+            fail(f"gather_rows_backward {label}: relative err {err} > 1e-6")
+        if not repeats and not torch.equal(got, want):
+            fail(f"gather_rows_backward {label}: not bit-equal to the plain "
+                 f"version (relative err {err})")
+        log(f"gather_rows_backward {label}: {tuple(shape)} K={K} "
+            + (f"relative err {err:.3e}" if repeats else "bit-equal")
+            + "; two runs bit-equal")
+
+    N, D, K = 2048, MODEL_SIZE, 256
+    idx = torch.randint(0, N, (K,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    idx_long = idx.long()
+    dout = torch.randn((K, D), generator=g, device="cuda")
+    ms = timer(lambda: gather_rows_backward(dout, idx, N))
+    plain_ms = timer(lambda: ref.gather_rows_bwd_ref(dout, idx, N))
+    library_ms = timer(lambda: torch.zeros((N, D), device="cuda").index_add_(
+        0, idx_long, dout))
+    log(f"gather_rows_backward ({N}, {D}) K={K} ms: cold kernels {ms:.5f}, "
+        f"plain {plain_ms:.5f}, zeros + index_add_ {library_ms:.5f}")
+    return {"name": "gather_rows_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/gather_rows_bwd.cu",
+            "replaces": "src/repro/kernels/gather_batch.py:26",
+            "shape": f"dout ({K}, {D}) float32 into dsrc ({N}, {D})",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            # dout and idx read once, dsrc written once
+            **bound("gather_rows_backward", 4 * (K * D + K + N * D), 0),
+            "library_ms": library_ms}
+
+
+def executor_train_phase(torch, drive, card: str) -> dict:
+    """Phase 10 (b) and (c): TreeGRU at width 512 trained through
+    DynamicExecutor on the card against the CPU, CompiledPlan's gradients
+    against DynamicExecutor's on the card, and the tree_classifier example
+    on the card. Returns (b)'s launch counts."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+
+    from repro_torch.core.batching import resolve_schedule
+    from repro_torch.core.executor import DynamicExecutor
+    from repro_torch.core.plan import CompiledPlan
+    from repro_torch.core.rl import RLConfig, train_fsm
+    from repro_torch.models.workloads import make_workload
+
+    spec = importlib.util.spec_from_file_location(
+        "tree_classifier_torch", ROOT / "examples" / "tree_classifier_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    rl_iters = TREES_LATTICES["TreeGRU"][0]
+    rng = random.Random(SEED)
+    cpu_wl = make_workload("TreeGRU", MODEL_SIZE, SEED, device="cpu")
+    card_wl = make_workload("TreeGRU", MODEL_SIZE, SEED, device="cuda")
+    policy = train_fsm([cpu_wl.sample_graph(rng, 2) for _ in range(3)],
+                       RLConfig(max_iters=rl_iters, seed=SEED)).policy
+    graphs = [cpu_wl.sample_graph(rng, BATCH)
+              for _ in range(EXEC_TRAIN_STEPS)]
+    init = cpu_wl.cells["TreeGRU-Internal"].init_params(
+        np.random.default_rng(1), device="cpu")
+
+    def steps(wl, device, executor):
+        """EXEC_TRAIN_STEPS SGD steps; losses, gradients and ms a step."""
+        params = init.to(device)
+        losses, grads, ms = [], [], []
+        for g in graphs:
+            roots, labels = example.labelled_roots(g)
+            leaf = params.detach().requires_grad_(True)
+            t = time.perf_counter()
+            out = executor(wl, g)({"I": leaf})
+            logp = torch.log_softmax(out.field("y", roots), dim=-1)
+            labels = torch.as_tensor(labels, device=device)
+            loss = -logp[torch.arange(len(roots), device=device),
+                         labels].mean()
+            gr, = torch.autograd.grad(loss, [leaf])
+            params = leaf.detach() - 0.05 * gr
+            losses.append(float(loss.detach()))
+            ms.append((time.perf_counter() - t) * 1e3)
+            grads.append(gr.cpu())
+        return losses, grads, ms
+
+    def dynamic(wl, g):
+        ex = DynamicExecutor(wl.impls, None, device=wl_device(wl))
+        return lambda p: ex.run(g, policy, params=p)
+
+    def compiled(wl, g):
+        plan = CompiledPlan(g, resolve_schedule(g, policy), wl.impls,
+                            device=wl_device(wl))
+        return lambda p: plan.execute(g, params=p)
+
+    def wl_device(wl):
+        return "cpu" if wl is cpu_wl else "cuda"
+
+    (card_l, card_g, card_ms), counts = drive(
+        lambda: steps(card_wl, "cuda", dynamic))
+    if counts["gather_rows_backward"] <= 0:
+        fail("gather_rows_backward was not launched while TreeGRU trained "
+             "through DynamicExecutor")
+    cpu_l, cpu_g, cpu_ms = steps(cpu_wl, "cpu", dynamic)
+    loss_errs = [abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l)]
+    grad_errs = [grad_rel_err(a, b) for a, b in zip(card_g, cpu_g)]
+    if not max(loss_errs) <= 1e-4 or not max(grad_errs) <= 2e-3:
+        fail(f"train (10b): card against CPU, losses {max(loss_errs)}, "
+             f"gradients {max(grad_errs)} (bars 1e-4, 2e-3)")
+    plan_l, plan_g, plan_ms = steps(card_wl, "cuda", compiled)
+    plan_errs = [grad_rel_err(a, b) for a, b in zip(plan_g, card_g)]
+    if not max(plan_errs) <= 1e-4:
+        fail(f"train (10b): CompiledPlan's gradients {max(plan_errs)} of "
+             f"DynamicExecutor's (bar 1e-4)")
+    log(f"train (10b) TreeGRU width {MODEL_SIZE}, {BATCH} trees a step, "
+        f"{EXEC_TRAIN_STEPS} SGD steps through DynamicExecutor: losses "
+        f"{[round(x, 5) for x in card_l]} (card), relative to the CPU "
+        f"{max(loss_errs):.3e}, gradients {max(grad_errs):.3e} of their max; "
+        f"ms per step (forward and backward, host clock) card "
+        f"{[round(x, 2) for x in card_ms]}, CPU {[round(x, 1) for x in cpu_ms]}"
+        f"; CompiledPlan on the card {[round(x, 2) for x in plan_ms]} ms "
+        f"(each step lowers its graph), gradients {max(plan_errs):.3e} of "
+        f"DynamicExecutor's; launches {counts} ({card})")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        losses = example.main(["--device", "cuda"])
+    log("train (10c) examples/tree_classifier_torch.py on the card: "
+        + " | ".join(out.getvalue().strip().splitlines()))
+    if not losses[-1] < losses[0]:
+        fail(f"train (10c): the example's loss did not improve: "
+             f"{losses[0]} -> {losses[-1]}")
+    return counts
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="phases to run after phase 1 (comma-separated); "
-                         "the result lines are printed only for all nine")
+                         "the result lines are printed only for all ten")
     ap.add_argument("--workloads", default=",".join(TREES_LATTICES),
                     help="phase 5's workloads (comma-separated)")
     args = ap.parse_args(argv)
@@ -2615,8 +3077,26 @@ def main(argv: list[str] | None = None) -> int:
             f"(b)): {train_launches['flash_attention']}, "
             f"{train_launches['flash_attention_backward']}; train done: "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rows.append(check_ssd_backward(torch, timer))
+        ssm_launches = train_ssm_phase(torch, drive, card, TRAIN_STEPS)
+        launches["ssd_scan_backward"] = ssm_launches["ssd_scan_backward"]
+        log(f"train launches of the scan's forward and backward kernels (run "
+            f"(f)): {ssm_launches['ssd_scan']}, "
+            f"{ssm_launches['ssd_scan_backward']}; ssm train done: "
+            f"{time.perf_counter() - t0:.1f} s")
+    if 10 in phases:
+        t0 = time.perf_counter()
+        rows.append(check_gather_backward(torch, timer))
+        exec_launches = executor_train_phase(torch, drive, card)
+        launches["gather_rows_backward"] = \
+            exec_launches["gather_rows_backward"]
+        log(f"executor training launches of the gather and its backward "
+            f"(run (10b)): {exec_launches['gather_rows']}, "
+            f"{exec_launches['gather_rows_backward']}; done: "
+            f"{time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
-    if phases != set(range(1, 10)) or set(workloads) != set(TREES_LATTICES):
+    if phases != set(range(1, 11)) or set(workloads) != set(TREES_LATTICES):
         log(f"partial run (phases {sorted(phases)}, workloads {workloads}): "
             f"no result lines")
         return 0

@@ -415,6 +415,16 @@ def _tensors(x: Any) -> list[torch.Tensor]:
     return []
 
 
+def _recording(params: Any, impls: dict[TypeId, NodeImpl]) -> bool:
+    """Whether autograd records a run: grad mode on and a threaded or an
+    impl's own parameter that requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    return any(t.requires_grad for t in _tensors(params)) or any(
+        t.requires_grad for impl in impls.values()
+        for t in _tensors(impl.params))
+
+
 def _node_aux_np(graph: Graph, perm: np.ndarray) -> np.ndarray:
     """Host-side flat aux vector: node ``aux`` attrs in plan order."""
     if perm.size == 0:
@@ -552,6 +562,12 @@ class CompiledPlan:
               arenas: dict[ArenaKey, torch.Tensor], rows: dict
               ) -> dict[ArenaKey, torch.Tensor]:
         arenas = dict(arenas)
+        # When autograd records, every write makes a new arena (as the
+        # reference's functional updates do): a slice read earlier is a view
+        # that a later step's backward may have saved, and an in-place write
+        # to its arena would fail autograd's version check. The values are
+        # the same either way.
+        functional = _recording(params, self.impls)
         for si, step in enumerate(self.steps):
             impl = self.impls[step.type]
             k = step.k
@@ -570,7 +586,13 @@ class CompiledPlan:
             for oi, (f, opd) in enumerate(step.outputs):
                 val = out[f]
                 buf = _write(arenas, opd.arena, self.arena_rows[opd.arena], val)
-                if opd.mode == SLICE:
+                if functional and opd.mode == SLICE:
+                    arenas[opd.arena] = buf.slice_scatter(
+                        val.to(buf.dtype), 0, opd.start, opd.start + k)
+                elif functional:
+                    arenas[opd.arena] = buf.index_copy(
+                        0, rows[("out", si, oi)], val.to(buf.dtype))
+                elif opd.mode == SLICE:
                     buf[opd.start:opd.start + k] = val
                 else:
                     buf.index_copy_(0, rows[("out", si, oi)],
@@ -1281,6 +1303,21 @@ class BucketedPlanExecutor:
             pack = self.pack_for(graph, policy, stats)
         return self.run_packed(graph, pack, stats, params=params)
 
+    def _refuse_grad(self, params: Any) -> None:
+        """On the card a bucket replays a captured graph and runs the fused
+        LSTM cells, whose kernels have no backward: raise when autograd
+        would record the run (differentiate through ``DynamicExecutor`` or
+        ``CompiledPlan`` instead). On the CPU the plain versions run and
+        autograd differentiates them."""
+        if self.device.type == "cuda" and _recording(params, self.impls):
+            raise RuntimeError(
+                "BucketedPlanExecutor: on the card its buckets replay "
+                "captured graphs and run the fused LSTM cells, which have "
+                "no backward kernel (it comes with the fused cells' "
+                "backward, dW = [x; h]^T dgates with dx, dh and dc scattered "
+                "back); run under torch.no_grad(), or differentiate through "
+                "DynamicExecutor or CompiledPlan")
+
     def run_packed(self, graph: Graph, pack: BucketedPack,
                    stats: ExecStats | None = None,
                    params: Any = None) -> PlanResult:
@@ -1302,6 +1339,7 @@ class BucketedPlanExecutor:
         stats = stats if stats is not None else ExecStats()
         tr = self.tracer
         params = params if params is not None else self.params
+        self._refuse_grad(params)
         with tr.span("plan.h2d", cat="plan"):
             aux = _node_aux_np(graph, pack.aux_perm)
         key, entry, compile_s = self._ensure_executable(pack, params, aux)
@@ -1636,6 +1674,7 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
         stats = stats if stats is not None else ExecStats()
         tr = self.tracer
         params = params if params is not None else self.params
+        self._refuse_grad((params, shard_params))
         if len(graphs) != self.n_shards:
             raise ValueError(f"expected {self.n_shards} graphs (one per "
                              f"shard, None for idle), got {len(graphs)}")

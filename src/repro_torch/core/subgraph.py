@@ -324,16 +324,29 @@ class CompiledCell:
         return torch.stack([sbuf[:, o:o + s].reshape((B,) + op.elem_shape)
                             for o, s in op.indices], dim=1)
 
-    def _write(self, sbuf, op: OperandPlan, value) -> None:
+    @staticmethod
+    def _put(sbuf, o: int, flat, functional: bool):
+        """``sbuf`` with columns ``o:`` set to ``flat`` (B, w): in place,
+        or as a new buffer when ``functional``."""
+        if functional:
+            return sbuf.slice_scatter(flat.to(sbuf.dtype), 1, o,
+                                      o + flat.shape[1])
+        sbuf[:, o:o + flat.shape[1]] = flat
+        return sbuf
+
+    def _write(self, sbuf, op: OperandPlan, value, functional: bool):
         # In place: ``sbuf`` is the fresh buffer of one ``apply`` call, and
-        # every view read from it is consumed before the next write.
+        # every view read from it is consumed before the next write. When
+        # autograd records (``functional``), each write makes a new buffer
+        # instead: an op's backward may have saved a view read earlier,
+        # and an in-place write would fail autograd's version check.
         B = sbuf.shape[0]
         if op.mode == "slice":
-            flat = value.reshape(B, -1)
-            sbuf[:, op.offset:op.offset + flat.shape[1]] = flat
-            return
+            return self._put(sbuf, op.offset, value.reshape(B, -1),
+                             functional)
         for j, (o, s) in enumerate(op.indices):
-            sbuf[:, o:o + s] = value[:, j].reshape(B, s)
+            sbuf = self._put(sbuf, o, value[:, j].reshape(B, s), functional)
+        return sbuf
 
     def apply(self, pbuf, inputs: dict[str, torch.Tensor]
               ) -> dict[str, torch.Tensor]:
@@ -343,17 +356,20 @@ class CompiledCell:
         B = next(iter(inputs.values())).shape[0]
         sbuf = torch.zeros((B, self.state_size), dtype=self.dtype,
                            device=pbuf.device)
+        functional = torch.is_grad_enabled() and (
+            pbuf.requires_grad
+            or any(t.requires_grad for t in inputs.values()))
         for name in prog.inputs:
             var = prog.vars[name]
-            off = self.offsets[name]
-            sbuf[:, off:off + var.size] = inputs[name].reshape(B, var.size)
+            sbuf = self._put(sbuf, self.offsets[name],
+                             inputs[name].reshape(B, var.size), functional)
         for bp in self.batch_plans:
             srcs = [self._read(pbuf, sbuf, s) for s in bp.sources]
             out = OPS[bp.kind].fn(*srcs)
             # op fns may return (1, k, ...) for pure-param ops; broadcast
             if out.shape[0] == 1 and B != 1:
                 out = out.expand((B,) + out.shape[1:])
-            self._write(sbuf, bp.result, out)
+            sbuf = self._write(sbuf, bp.result, out, functional)
         return {name: sbuf[:, self.offsets[name]:
                            self.offsets[name] + prog.vars[name].size].reshape(
                                (B,) + prog.vars[name].shape)

@@ -1,0 +1,254 @@
+// The row gather's backward: dsrc[r] = sum of dout[k] over the k whose
+// idx[k] means row r (a negative index counts from the end, as in
+// src[idx]), in ascending k; zero for a row no index means. fp32.
+//
+// Replaces: the TPU kernel src/repro/kernels/gather_batch.py:
+// gather_rows_kernel has no backward; the JAX package differentiates the
+// gather (jnp.take) wherever it trains through the executors
+// (examples/tree_classifier.py). The plain version is
+// kernels/ref.py:gather_rows_bwd_ref.
+//
+// Bound on the H100: bytes. dout is read once (k rows) and dsrc written
+// once (n_src rows), no arithmetic to speak of beyond the sums of
+// duplicate rows: (k + n_src) * row_bytes over 3.35 TB/s.
+//
+// Design: the indices are turned into sorted keys (row << 32 | k), unique,
+// so any sort of them gives the same order: row by row, ascending k within
+// a row. A block sorts each tile of up to 2048 keys in shared memory
+// (bitonic, the tile the next power of two of k where k is smaller, half
+// as many threads); tiles are then merged pairwise, one thread a key
+// placing it by a binary search in the partner run, until one run holds
+// them all (no pass at k <= 2048). Then every row of dsrc is written by
+// the threads that own it, with the gather's own launch geometry
+// (kernels/gather_batch.py:gather_geometry, over n_src rows): each block
+// copies the sorted keys into shared memory where they fit (k <= 4096),
+// each thread finds its row's run of keys by two binary searches there
+// and sums those rows of dout, in order, in 16-byte units where rows and
+// pointers allow, else 4. The row kernel is the sort's programmatic
+// dependent: it is launched while the sort runs and waits for it only
+// before reading the keys, so its launch hides under the sort.
+// A row's sources are thus found in O(log k), not by scanning every index
+// for every row, and duplicates (an embedding's repeated tokens, the
+// bucketed pad lanes' trash row) are summed in a fixed order with no
+// floating-point atomics: two runs are bit-equal.
+//
+// C interface: launches on the given stream, does not synchronise,
+// allocates nothing, and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <cassert>
+#include <cstdint>
+
+namespace {
+
+constexpr int SORT_THREADS = 1024;
+constexpr int SORT_TILE = 2 * SORT_THREADS;
+constexpr int SMEM_KEYS = 4096;   // keys the row kernel stages (32 KB)
+constexpr unsigned long long PAD = ~0ull;
+
+// Sorts tiles of `tile` keys (a power of two, at most SORT_TILE) with
+// blockDim.x >= tile / 2 threads.
+__global__ void __launch_bounds__(SORT_THREADS) gather_bwd_sort_kernel(
+    const int32_t* __restrict__ idx, unsigned long long* __restrict__ keys,
+    int64_t n_src, int64_t k, int tile) {
+  __shared__ unsigned long long s[SORT_TILE];
+  // the row kernel may launch now; it waits for this grid's keys
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int tid = threadIdx.x;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
+  for (int i = tid; i < tile; i += blockDim.x) {
+    const int64_t j = base + i;
+    unsigned long long key = PAD;
+    if (j < k) {
+      int64_t row = idx[j];
+      if (row < 0) row += n_src;
+      assert(row >= 0 && row < n_src);
+      key = (static_cast<unsigned long long>(row) << 32) |
+            static_cast<unsigned long long>(j);
+    }
+    s[i] = key;
+  }
+  __syncthreads();
+  for (int size = 2; size <= tile; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (tid < tile / 2) {
+        const int lo = 2 * tid - (tid & (stride - 1));
+        const int hi = lo + stride;
+        const bool up = (lo & size) == 0;
+        const unsigned long long a = s[lo], b = s[hi];
+        if ((a > b) == up) {
+          s[lo] = b;
+          s[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = tid; i < tile; i += blockDim.x)
+    if (base + i < k) keys[base + i] = s[i];
+}
+
+// Merge runs of `width` sorted keys pairwise into runs of 2 width.
+__global__ void gather_bwd_merge_kernel(
+    const unsigned long long* __restrict__ in,
+    unsigned long long* __restrict__ out, int64_t k, int64_t width) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= k) return;
+  const unsigned long long key = in[i];
+  const int64_t run = i / width, j = i - run * width;
+  const int64_t other = run ^ 1, os = other * width;
+  int64_t lo = 0, hi = os < k ? (k - os < width ? k - os : width) : 0;
+  while (lo < hi) {   // keys of the other run below this one
+    const int64_t mid = (lo + hi) >> 1;
+    if (in[os + mid] < key) lo = mid + 1;
+    else hi = mid;
+  }
+  out[(run < other ? run : other) * width + j + lo] = key;
+}
+
+__device__ __forceinline__ int64_t lower_bound(
+    const unsigned long long* keys, int64_t k, unsigned long long key) {
+  int64_t lo = 0, hi = k;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (keys[mid] < key) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ void add(float& acc, float v) { acc += v; }
+__device__ __forceinline__ void add(float4& acc, float4 v) {
+  acc.x += v.x;
+  acc.y += v.y;
+  acc.z += v.z;
+  acc.w += v.w;
+}
+template <typename T> __device__ __forceinline__ T zero_unit();
+template <> __device__ __forceinline__ float zero_unit<float>() { return 0.f; }
+template <> __device__ __forceinline__ float4 zero_unit<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Thread (x, y) of a (tc, r) block owns row r0 + y of dsrc and its units
+// x, x + tc, ..., x + (V - 1) tc of each tile it visits.
+template <typename T, int V>
+__global__ void __launch_bounds__(256) gather_bwd_sum_kernel(
+    const T* __restrict__ dout, const unsigned long long* __restrict__ gkeys,
+    T* __restrict__ dsrc, int64_t n_src, int64_t k, int64_t units_per_row,
+    int64_t row_tiles, int64_t unit_tiles) {
+  extern __shared__ unsigned long long skeys[];
+  const int tc = blockDim.x, r = blockDim.y;
+  asm volatile("griddepcontrol.wait;" ::: "memory");   // the sorted keys
+  const unsigned long long* keys = gkeys;
+  if (k <= SMEM_KEYS) {
+    for (int64_t i = threadIdx.y * tc + threadIdx.x; i < k; i += tc * r)
+      skeys[i] = gkeys[i];
+    __syncthreads();
+    keys = skeys;
+  }
+  for (int64_t rt = blockIdx.x; rt < row_tiles; rt += gridDim.x) {
+    const int64_t row = rt * r + threadIdx.y;
+    if (row >= n_src) continue;
+    const unsigned long long first = static_cast<unsigned long long>(row)
+                                     << 32;
+    const int64_t lo = lower_bound(keys, k, first);
+    const int64_t hi = lower_bound(keys, k, first + (1ull << 32));
+    T* to = dsrc + row * units_per_row;
+    for (int64_t ut = blockIdx.y; ut < unit_tiles; ut += gridDim.y) {
+      const int64_t u0 = ut * tc * V + threadIdx.x;
+      T acc[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] = zero_unit<T>();
+      for (int64_t e = lo; e < hi; ++e) {
+        const T* from = dout + static_cast<int64_t>(keys[e] & 0xffffffffull) *
+                                   units_per_row;
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (u0 + j * tc < units_per_row) add(acc[j], from[u0 + j * tc]);
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (u0 + j * tc < units_per_row) to[u0 + j * tc] = acc[j];
+    }
+  }
+}
+
+// The row kernel, as the programmatic dependent of the kernel before it.
+template <typename T>
+cudaError_t launch_sum(const void* dout, const unsigned long long* keys,
+                       void* dsrc, int64_t n_src, int64_t k, int64_t upr,
+                       int tc, int r, int v, int64_t row_tiles,
+                       int64_t unit_tiles, dim3 grid, cudaStream_t stream) {
+  const auto* from = static_cast<const T*>(dout);
+  auto* to = static_cast<T*>(dsrc);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(tc, r);
+  cfg.dynamicSmemBytes = k <= SMEM_KEYS ? k * sizeof(unsigned long long) : 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err;
+  switch (v) {
+    case 1: err = cudaLaunchKernelEx(&cfg, gather_bwd_sum_kernel<T, 1>, from, keys, to, n_src, k, upr, row_tiles, unit_tiles); break;
+    case 2: err = cudaLaunchKernelEx(&cfg, gather_bwd_sum_kernel<T, 2>, from, keys, to, n_src, k, upr, row_tiles, unit_tiles); break;
+    case 4: err = cudaLaunchKernelEx(&cfg, gather_bwd_sum_kernel<T, 4>, from, keys, to, n_src, k, upr, row_tiles, unit_tiles); break;
+    case 8: err = cudaLaunchKernelEx(&cfg, gather_bwd_sum_kernel<T, 8>, from, keys, to, n_src, k, upr, row_tiles, unit_tiles); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dout: (k, row) fp32, dsrc: (n_src, row) fp32; keys_a, keys_b: k 8-byte
+// scratch words each. unit: 16 or 4 bytes; tc, r, v (1, 2, 4 or 8),
+// row_tiles, unit_tiles and the grid: gather_geometry's over n_src rows.
+extern "C" int gather_rows_bwd_launch(
+    const void* dout, const void* idx, void* dsrc, void* keys_a, void* keys_b,
+    int64_t n_src, int64_t k, int64_t row_bytes, int64_t unit, int64_t tc,
+    int64_t r, int64_t v, int64_t row_tiles, int64_t unit_tiles,
+    int64_t grid_x, int64_t grid_y, void* stream) {
+  if (tc < 1 || r < 1 || tc * r > 256 || n_src >= (1ll << 31) ||
+      k >= (1ll << 32) || (unit != 16 && unit != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* a = static_cast<unsigned long long*>(keys_a);
+  auto* b = static_cast<unsigned long long*>(keys_b);
+  if (k > 0) {
+    int tile = 2;   // the next power of two of k, at most SORT_TILE
+    while (tile < k && tile < SORT_TILE) tile *= 2;
+    const int64_t tiles = (k + tile - 1) / tile;
+    const int threads = tile / 2 < 32 ? 32 : tile / 2;
+    gather_bwd_sort_kernel<<<static_cast<unsigned>(tiles), threads, 0, s>>>(
+        static_cast<const int32_t*>(idx), a, n_src, k, tile);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    for (int64_t width = SORT_TILE; width < k; width *= 2) {
+      gather_bwd_merge_kernel<<<static_cast<unsigned>((k + 255) / 256), 256, 0,
+                                s>>>(a, b, k, width);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      unsigned long long* t = a;
+      a = b;
+      b = t;
+    }
+  }
+  const int64_t upr = row_bytes / unit;
+  const dim3 grid(static_cast<unsigned>(grid_x), static_cast<unsigned>(grid_y));
+  const int t = static_cast<int>(tc), rr = static_cast<int>(r),
+            vv = static_cast<int>(v);
+  cudaError_t err =
+      unit == 16
+          ? launch_sum<float4>(dout, a, dsrc, n_src, k, upr, t, rr, vv,
+                               row_tiles, unit_tiles, grid, s)
+          : launch_sum<float>(dout, a, dsrc, n_src, k, upr, t, rr, vv,
+                              row_tiles, unit_tiles, grid, s);
+  return static_cast<int>(err);
+}

@@ -4,7 +4,10 @@
 //   y[t]   = sum_{s <= t in chunk} (C_t . B_s) exp(cum_t - cum_s) dt_s x_s
 //            + exp(cum_t) S C_t
 //   S     <- S exp(cum_end) + sum_s x_s dt_s exp(cum_end - cum_s) B_s^T
-// chunk after chunk; the final S is written out for the decode cache.
+// chunk after chunk; the final S is written out for the decode cache, and,
+// when asked (for the backward, csrc/ssd_scan_bwd.cu), the S each chunk
+// starts from. Those writes read the state and change nothing else, so y
+// and the final S are the same bit for bit with and without them.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan.py:ssd_scan_pallas
 // (grid (batch, head blocks, chunks) with the chunk axis sequential and
@@ -97,7 +100,8 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
     const float* __restrict__ Cm, const float* __restrict__ init_state,
-    float* __restrict__ y, float* __restrict__ final_state, int64_t L,
+    float* __restrict__ y, float* __restrict__ final_state,
+    float* __restrict__ states, int64_t L,
     int64_t H, int64_t P, int64_t G, int64_t N, int64_t Q, int64_t x_sb,
     int64_t x_sl, int64_t dt_sb, int64_t dt_sl, int64_t b_sb, int64_t b_sl,
     int64_t c_sb, int64_t c_sl, int vec_b, int vec_x) {
@@ -135,6 +139,13 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
 
   for (int64_t c0 = 0; c0 < L; c0 += Q) {
     __syncthreads();   // the previous chunk's reads are done
+
+    // -- the chunk's start state, (batch, chunk, head, p, n) ---------------
+    if (states != nullptr) {
+      float* dst = states + (((b * (L / Q) + c0 / Q) * H + h) * P + p0) * N;
+      for (int i = tid; i < pvalid * nn; i += THREADS)
+        dst[(i / nn) * N + i % nn] = sm.st[i / nn][i % nn];
+    }
 
     // -- stage B, x and dt of the chunk ------------------------------------
     // Rows up to the chunk's last 16-row tile and every column of B are
@@ -375,7 +386,7 @@ __global__ void __launch_bounds__(THREADS, 2) ssd_scan_kernel(
 extern "C" int ssd_scan_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* init_state, void* y, void* final_state,
-    int64_t batch, int64_t L, int64_t H, int64_t P, int64_t G, int64_t N,
+    void* states, int64_t batch, int64_t L, int64_t H, int64_t P, int64_t G, int64_t N,
     int64_t Q, int64_t x_sb, int64_t x_sl, int64_t dt_sb, int64_t dt_sl,
     int64_t b_sb, int64_t b_sl, int64_t c_sb, int64_t c_sl, void* stream) {
   if (Q <= 0 || Q > MAXQ || N <= 0 || N > MAXN || L % Q != 0 || G <= 0 ||
@@ -410,7 +421,8 @@ extern "C" int ssd_scan_launch(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(Bm),
       static_cast<const float*>(Cm), static_cast<const float*>(init_state),
-      static_cast<float*>(y), static_cast<float*>(final_state), L, H, P, G, N,
+      static_cast<float*>(y), static_cast<float*>(final_state),
+      static_cast<float*>(states), L, H, P, G, N,
       Q, x_sb, x_sl, dt_sb, dt_sl, b_sb, b_sl, c_sb, c_sl, vec_b, vec_x);
   return static_cast<int>(cudaGetLastError());
 }

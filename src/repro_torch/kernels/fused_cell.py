@@ -122,7 +122,8 @@ def fused_lstm_cell(xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     dev = xh.device
     if dev.type != "cuda":
         raise ValueError(f"fused_lstm_cell: unsupported device {dev}")
-    guard.check_no_grad("fused_lstm_cell", xh, w, b, c)
+    guard.check_no_grad("fused_lstm_cell", xh, w, b, c,
+                        until="the fused cells' backward kernel")
     if xh.ndim != 2 or w.ndim != 2 or w.shape[1] % 4:
         raise ValueError(f"fused_lstm_cell: xh must be (B, K) and w (K, 4H), "
                          f"got {tuple(xh.shape)} and {tuple(w.shape)}")

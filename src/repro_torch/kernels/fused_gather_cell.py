@@ -44,7 +44,8 @@ def fused_gather_lstm_cell(x_src, h_src, c_src, ix, ih, ic, w, b):
     dev = x_src.device
     if dev.type != "cuda":
         raise ValueError(f"fused_gather_lstm_cell: unsupported device {dev}")
-    guard.check_no_grad("fused_gather_lstm_cell", x_src, h_src, c_src, w, b)
+    guard.check_no_grad("fused_gather_lstm_cell", x_src, h_src, c_src, w, b,
+                        until="the fused cells' backward kernel")
     if x_src.ndim != 2 or h_src.ndim != 2 or c_src.ndim != 2 or ix.ndim != 1:
         raise ValueError("fused_gather_lstm_cell: sources must be 2-D and "
                          "indices 1-D")

@@ -1,4 +1,5 @@
-"""Row gather: the staging copy ED-Batch's memory planner optimizes away.
+"""Row gather: the staging copy ED-Batch's memory planner optimizes away,
+and its backward.
 
 When an operand is not contiguous in its arena (an unplanned layout, a
 batch the planner erased, or any operand of the bucketed executor, whose
@@ -7,6 +8,14 @@ buffer before the batched cell runs. On the card that copy is the
 hand-written kernel in ``csrc/gather_rows.cu``, launched with the geometry
 of :func:`gather_geometry`; for a tensor on the CPU the wrapper runs the
 plain version in :mod:`repro_torch.kernels.ref`.
+
+When autograd records the call (grad mode on and a ``src`` that requires
+grad), the wrapper runs :class:`GatherRowsFunction`, whose backward is the
+kernel of ``csrc/gather_rows_bwd.cu`` (:func:`gather_rows_backward`): the
+rows of the output gradient summed back into their source rows,
+duplicates in ascending order. It saves the index vector and ``src``'s
+shape, never ``src``: the executors write their arenas in place after
+later gathers have read them.
 """
 
 from __future__ import annotations
@@ -15,8 +24,9 @@ import math
 from collections import Counter
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from . import build, counting, guard, ref
+from . import build, counting, ref
 
 
 THREADS = 256          # at most, per block (csrc/gather_rows.cu)
@@ -61,12 +71,23 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     of more than one dim are gathered as flat rows. Indices mean what they
     mean to ``src[idx]``: a negative one counts from the end; one outside
     ``[-N, N)`` raises (on the card as a device-side assert, surfacing as
-    a CUDA error at the next synchronisation, as ``src[idx]`` does there)."""
+    a CUDA error at the next synchronisation, as ``src[idx]`` does there).
+    On the card differentiable through :class:`GatherRowsFunction` when
+    autograd records (``src`` float32)."""
     if src.device.type == "cpu":
         return ref.gather_rows_ref(src, idx)
+    if torch.is_grad_enabled() and src.requires_grad:
+        if src.dtype != torch.float32:
+            raise ValueError(f"gather_rows: the backward kernel takes "
+                             f"float32, got {src.dtype} that requires grad")
+        return GatherRowsFunction.apply(src, idx)
+    return _gather(src, idx)
+
+
+def _gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's launch, recording nothing for autograd."""
     if src.device.type != "cuda":
         raise ValueError(f"gather_rows: unsupported device {src.device}")
-    guard.check_no_grad("gather_rows", src)
     if idx.device != src.device:
         raise ValueError(f"gather_rows: idx on {idx.device}, src on {src.device}")
     if idx.dtype != torch.int32 or idx.ndim != 1:
@@ -97,5 +118,72 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def gather_rows_backward(dout: torch.Tensor, idx: torch.Tensor,
+                         n_rows: int) -> torch.Tensor:
+    """The gradient of ``gather_rows(src, idx)`` at a ``src`` of ``n_rows``
+    rows for the output gradient ``dout`` (K, *row): ``dsrc`` (n_rows,
+    *row), each row the sum of the ``dout`` rows its indices chose
+    (ascending in K), zero where none did. On the card the kernels of
+    ``csrc/gather_rows_bwd.cu`` (the keys sorted, then every row of dsrc
+    written with :func:`gather_geometry` over ``n_rows`` rows), counted as
+    one launch; float32 only, ``dout`` copied contiguous where it is not.
+    On the CPU the plain version (:func:`ref.gather_rows_bwd_ref`)."""
+    if dout.device.type == "cpu":
+        return ref.gather_rows_bwd_ref(dout, idx, n_rows)
+    dev = dout.device
+    if dev.type != "cuda":
+        raise ValueError(f"gather_rows backward: unsupported device {dev}")
+    if dout.dtype != torch.float32:
+        raise ValueError(f"gather_rows backward: dout must be float32, got "
+                         f"{dout.dtype}")
+    if idx.device != dev or idx.dtype != torch.int32 or idx.ndim != 1 or \
+            not idx.is_contiguous() or dout.ndim < 1 or \
+            dout.shape[0] != idx.shape[0]:
+        raise ValueError(f"gather_rows backward: idx must be a contiguous "
+                         f"1-D int32 tensor on {dev} of dout's "
+                         f"{dout.shape[0]} rows, got {tuple(idx.shape)} "
+                         f"{idx.dtype} on {idx.device}")
+    dout = dout.contiguous()
+    dsrc = torch.empty((n_rows,) + tuple(dout.shape[1:]), dtype=torch.float32,
+                       device=dev)
+    if dsrc.numel() == 0:
+        return dsrc
+    row_bytes = math.prod(dout.shape[1:]) * 4
+    aligned = (row_bytes % 16 == 0 and dout.data_ptr() % 16 == 0
+               and dsrc.data_ptr() % 16 == 0)
+    unit = 16 if aligned else 4
+    geo = gather_geometry(n_rows, row_bytes, unit)
+    keys = torch.empty((2, max(idx.shape[0], 1)), dtype=torch.int64,
+                       device=dev)
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(lib.gather_rows_bwd_launch(
+        dout.data_ptr(), idx.data_ptr(), dsrc.data_ptr(), keys[0].data_ptr(),
+        keys[1].data_ptr(), n_rows, idx.shape[0], row_bytes, unit, geo["tc"],
+        geo["r"], geo["v"], geo["row_tiles"], geo["unit_tiles"], *geo["grid"],
+        stream), "gather_rows_backward")
+    counting.count(gather_rows_backward)
+    return dsrc
+
+
+class GatherRowsFunction(torch.autograd.Function):
+    """The card's differentiable gather: the forward kernel, saving the
+    index vector and ``src``'s shape (never ``src``), and the backward
+    kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.save_for_backward(idx)
+        ctx.src_shape = tuple(src.shape)
+        return gather_rows(src, idx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        idx, = ctx.saved_tensors
+        return gather_rows_backward(dout, idx, ctx.src_shape[0]), None
+
+
 gather_rows.launches = 0
 gather_rows.shapes = Counter()   # (K, row bytes) -> launches
+gather_rows_backward.launches = 0

@@ -3,12 +3,12 @@ launches its kernel.
 
 A wrapper writes its outputs through ``data_ptr()`` into fresh tensors, so
 on the card its result has no autograd graph: a gradient through it would
-be lost without a word. Flash attention has a backward kernel and is
-differentiable on the card (``kernels/flash_attention.py``); the SSD scan
-(whose backward is the next training slice), the row gather and both LSTM
-cells do not, and each of their CUDA routes raises instead when autograd
-would record the call. The CPU routes run the plain, differentiable
-versions and need no check.
+be lost without a word. Flash attention, the SSD scan and the row gather
+have backward kernels and are differentiable on the card (their autograd
+``Function``s in ``kernels/flash_attention.py``, ``ssd_scan.py`` and
+``gather_batch.py``); the two LSTM cells do not, and each of their CUDA
+routes raises instead when autograd would record the call. The CPU routes
+run the plain, differentiable versions and need no check.
 """
 
 from __future__ import annotations

@@ -17,15 +17,17 @@ from . import counting
 from .flash_attention import flash_attention, flash_attention_backward
 from .fused_cell import fused_lstm_cell
 from .fused_gather_cell import fused_gather_lstm_cell
-from .gather_batch import gather_rows
-from .ssd_scan import ssd_scan
+from .gather_batch import gather_rows, gather_rows_backward
+from .ssd_scan import ssd_scan, ssd_scan_backward
 
 WRAPPERS = {"gather_rows": gather_rows,
+            "gather_rows_backward": gather_rows_backward,
             "fused_gather_lstm_cell": fused_gather_lstm_cell,
             "fused_lstm_cell": fused_lstm_cell,
             "flash_attention": flash_attention,
             "flash_attention_backward": flash_attention_backward,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan,
+            "ssd_scan_backward": ssd_scan_backward}
 
 
 def snapshot() -> dict:

@@ -3,7 +3,10 @@
 Each wrapper in this package calls its plain version for a tensor on the
 CPU; on the card the kernel runs, and these are what it is held against.
 ``ssd_scan_seq_ref`` is not a kernel's plain version: it is the sequential
-recurrence the tests hold the chunked scan against.
+recurrence the tests hold the chunked scan against. The two backward kernels'
+plain versions (``gather_rows_bwd_ref``, ``ssd_scan_bwd_ref``) are written
+out step by step, as the kernels compute them, and the tests hold them
+against autograd of the forward's plain version.
 """
 
 from __future__ import annotations
@@ -13,6 +16,22 @@ import torch
 
 def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return src[idx]
+
+
+def gather_rows_bwd_ref(dout: torch.Tensor, idx: torch.Tensor,
+                        n_rows: int) -> torch.Tensor:
+    """The gradient of ``src[idx]`` for a ``src`` of ``n_rows`` rows:
+    ``dsrc`` (n_rows, *row) of ``dout``'s dtype, row ``r`` the sum of the
+    ``dout[k]`` whose ``idx[k]`` means ``r`` (a negative index counts from
+    the end, as in ``src[idx]``), zero where no index means it. On the CPU
+    the sum runs in ascending ``k``."""
+    if idx.numel() and not bool(((idx >= -n_rows) & (idx < n_rows)).all()):
+        raise IndexError(f"gather_rows backward: an index is outside "
+                         f"[-{n_rows}, {n_rows})")
+    rows = torch.where(idx < 0, idx + n_rows, idx).long()
+    dsrc = torch.zeros((n_rows,) + tuple(dout.shape[1:]), dtype=dout.dtype,
+                       device=dout.device)
+    return dsrc.index_add_(0, rows, dout)
 
 
 def fused_lstm_cell_ref(xh, w, b, c):
@@ -164,3 +183,121 @@ def ssd_scan_seq_ref(x, dt, A, B, C):
             "bh,bhn,bhp->bhpn", dt[:, t], B[:, t], x[:, t])
         ys.append(torch.einsum("bhn,bhpn->bhp", C[:, t], state))
     return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def ssd_chunk_states(x, dt, A, B, chunk: int, init_state=None):
+    """The state each chunk of :func:`ssd_scan_ref` starts from: (b, c, h,
+    p, n) float32 (float64 for float64 inputs) for c = l // chunk chunks,
+    the first ``init_state`` (or zero). These are what the forward kernel writes for the backward."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    c, q = l // chunk, chunk
+    f = torch.promote_types(x.dtype, torch.float32)
+    xs = x.reshape(b, c, q, h, p).to(f)
+    dts = dt.reshape(b, c, q, h).to(f)
+    Bs = B.reshape(b, c, q, g, n).to(f).repeat_interleave(h // g, dim=3)
+    cum = torch.cumsum(dts * A.to(f), dim=2)
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dts               # (b,c,q,h)
+    adds = torch.einsum("bcqhn,bcqh,bcqhp->bchpn", Bs, w, xs)
+    carry = (torch.zeros((b, h, p, n), dtype=f, device=x.device)
+             if init_state is None else init_state.to(f))
+    out = []
+    for ci in range(c):
+        out.append(carry)
+        carry = carry * torch.exp(cum[:, ci, -1])[:, :, None, None] + \
+            adds[:, ci]
+    return torch.stack(out, dim=1)
+
+
+def ssd_scan_bwd_ref(x, dt, A, B, C, chunk: int, init_state, dy,
+                     dfinal=None, states=None):
+    """Gradients ``(dx, ddt, dA, dB, dC, dinit)`` of :func:`ssd_scan_ref`'s
+    ``(y, final_state)`` for the output gradients ``dy`` and ``dfinal``
+    (None: zero); ``dinit`` is None when ``init_state`` is. ``states``:
+    the chunks' start states (:func:`ssd_chunk_states`, recomputed when
+    None). The chunked backward, step by step, as the kernels of
+    ``csrc/ssd_scan_bwd.cu`` compute it. Per (batch, chunk, head), with
+    cum the within-chunk cumulative sum of dt A, S0 the chunk's start
+    state, G the gradient reaching its end state, L_ts = exp(cum_t -
+    cum_s) for s <= t (else 0), K = (C B^T) o L and dP = dy x^T:
+
+    1. G over the chunks, last to first: G of the last chunk is
+       ``dfinal``; the chunk before gets dS0 = exp(cum_Q) G +
+       sum_t exp(cum_t) dy_t C_t^T, and the first chunk's dS0 is
+       ``dinit``.
+    2. Within a chunk, with w_s = exp(cum_Q - cum_s) dt_s and GB_s = G B_s:
+       dx_s = sum_t K_ts dt_s dy_t + w_s GB_s;
+       dC_t = sum_s dP_ts L_ts dt_s B_s + exp(cum_t) S0^T dy_t;
+       dB_s = dt_s sum_t dP_ts L_ts C_t + w_s G^T x_s;
+       ddt_s = sum_t K_ts dP_ts + exp(cum_Q - cum_s) x_s . GB_s, and
+       through cum, with W = K o dt_s o dP and V_s = dt_s exp(cum_Q -
+       cum_s) x_s . GB_s: dcum_t = sum_s W_ts - sum_s W_st + exp(cum_t)
+       dy_t . (S0 C_t) - V_s, plus sum_s V_s + exp(cum_Q) <S0, G> at the
+       chunk's last step; d(dt A)_u = sum_{t >= u} dcum_t; ddt_u +=
+       A d(dt A)_u and dA gains sum_u dt_u d(dt A)_u.
+    3. dB and dC of a group sum its heads' in ascending order, dA sums
+       over batch and chunks."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if l % chunk:
+        raise ValueError(f"ssd_scan: length {l} is not a multiple of the "
+                         f"chunk {chunk}")
+    c, q = l // chunk, chunk
+    rep = h // g
+    if states is None:
+        states = ssd_chunk_states(x, dt, A, B, chunk, init_state)
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    xs = x.reshape(b, c, q, h, p).to(f32)
+    dys = dy.reshape(b, c, q, h, p).to(f32)
+    dts = dt.reshape(b, c, q, h).to(f32)
+    Bs = B.reshape(b, c, q, g, n).to(f32).repeat_interleave(rep, dim=3)
+    Cs = C.reshape(b, c, q, g, n).to(f32).repeat_interleave(rep, dim=3)
+    cum = torch.cumsum(dts * A.to(f32), dim=2)                 # (b,c,q,h)
+    cum_end = cum[:, :, -1, :]                                 # (b,c,h)
+    e_t = torch.exp(cum)                                       # exp(cum_t)
+
+    # 1. the gradient reaching each chunk's end state, last chunk first
+    G = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+         if dfinal is None else dfinal.to(f32))
+    Gs = [None] * c
+    for ci in reversed(range(c)):
+        Gs[ci] = G
+        G = G * torch.exp(cum_end[:, ci])[:, :, None, None] + torch.einsum(
+            "bqh,bqhp,bqhn->bhpn", e_t[:, ci], dys[:, ci], Cs[:, ci])
+    dinit = None if init_state is None else G
+    Gs = torch.stack(Gs, dim=1)                                # (b,c,h,p,n)
+
+    # 2. within each chunk
+    ct = cum.permute(0, 1, 3, 2)                               # (b,c,h,q)
+    keep = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    L = torch.exp((ct[..., :, None] - ct[..., None, :])
+                  .masked_fill(~keep, float("-inf")))          # (b,c,h,t,s)
+    dt_s = dts.permute(0, 1, 3, 2)[..., None, :]               # (b,c,h,1,s)
+    K = torch.einsum("bcthn,bcshn->bchts", Cs, Bs) * L
+    dP = torch.einsum("bcthp,bcshp->bchts", dys, xs)
+    dPm = dP * L
+    w = torch.exp(cum_end[:, :, None, :] - cum) * dts          # (b,c,q,h)
+    GB = torch.einsum("bchpn,bcshn->bcshp", Gs, Bs)
+    xGB = (xs * GB).sum(-1)                                    # (b,c,q,h)
+    dx = torch.einsum("bchts,bcthp->bcshp", K * dt_s, dys) + w[..., None] * GB
+    dC = (torch.einsum("bchts,bcshn->bcthn", dPm * dt_s, Bs)
+          + e_t[..., None] * torch.einsum("bcthp,bchpn->bcthn", dys, states))
+    dB = (torch.einsum("bchts,bcthn->bcshn", dPm, Cs) * dts[..., None]
+          + w[..., None] * torch.einsum("bcshp,bchpn->bcshn", xs, Gs))
+    ddt = (torch.einsum("bchts,bchts->bchs", K, dP).permute(0, 1, 3, 2)
+           + torch.exp(cum_end[:, :, None, :] - cum) * xGB)
+    W = K * dt_s * dP
+    V = dts * torch.exp(cum_end[:, :, None, :] - cum) * xGB    # (b,c,q,h)
+    S0C = torch.einsum("bchpn,bcthn->bcthp", states, Cs)
+    dcum = (W.sum(-1).permute(0, 1, 3, 2) - W.sum(-2).permute(0, 1, 3, 2)
+            + e_t * (dys * S0C).sum(-1) - V)
+    dcum[:, :, -1, :] += V.sum(2) + torch.exp(cum_end) * (
+        states * Gs).sum((-2, -1))
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+    ddt = ddt + A.to(f32) * ddA
+    dA = (dts * ddA).sum((0, 1, 2))
+
+    # 3. group sums
+    dB = dB.reshape(b, l, g, rep, n).sum(3)
+    dC = dC.reshape(b, l, g, rep, n).sum(3)
+    return (dx.reshape(b, l, h, p), ddt.reshape(b, l, h), dA, dB, dC, dinit)

@@ -1,41 +1,40 @@
-"""Chunked SSD scan (Mamba-2).
+"""Chunked SSD scan (Mamba-2), and its backward.
 
-Every SSM layer of a prefill runs its sequence through here. On the card it
-is the hand-written kernel in ``csrc/ssd_scan.cu``: one block per (batch,
-head, 32 rows of the head dim) carries its slice of the state, seeded from
-``init_state`` or zero, through a loop over the chunks, runs each chunk's
-four matrix products on the tensor cores (3xTF32, fp32 accuracy) and
-writes the final state for the decode cache. For tensors on the CPU the
-wrapper runs the plain chunked version in :mod:`repro_torch.kernels.ref`.
+Every SSM layer of a prefill or a training step runs its sequence through
+here. On the card the forward is the hand-written kernel in
+``csrc/ssd_scan.cu``: one block per (batch, head, 32 rows of the head dim)
+carries its slice of the state, seeded from ``init_state`` or zero,
+through a loop over the chunks, runs each chunk's four matrix products on
+the tensor cores (3xTF32, fp32 accuracy) and writes the final state for
+the decode cache. Asked for them, it also writes the state each chunk
+starts from.
+
+When autograd records the call (grad mode on and an input that requires
+grad), the wrapper runs :class:`SsdScanFunction`: the forward, saving the
+chunks' start states where any can be nonzero (more than one chunk, or an
+initial state), and as its backward the kernels of
+``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_backward`). Otherwise nothing is
+saved. For tensors on the CPU the wrappers run the plain versions in
+:mod:`repro_torch.kernels.ref`, which autograd differentiates.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from . import build, counting, guard, ref
+from . import build, counting, ref
 
 MAX_CHUNK = 128
 MAX_STATE = 128
+MAX_HEAD_DIM_BACKWARD = 64   # csrc/ssd_scan_bwd.cu: MAXP
 
 
-def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
-    """x: (b, l, h, p); dt: (b, l, h); A: (h,); B, C: (b, l, g, n), the g
-    groups shared by ``h // g`` heads each; ``l % chunk == 0``. Returns
-    ``(y (b, l, h, p), final_state (b, h, p, n) float32)``, equal to
-    :func:`ref.ssd_scan_ref`. On the card: float32, ``chunk`` and ``n`` at
-    most 128, ``init_state`` (if given) a contiguous (b, h, p, n) float32
-    tensor, and each other tensor contiguous within a position (the batch
-    and length strides are free, so slices of a packed projection need no
-    copy)."""
-    if x.device.type == "cpu":
-        return ref.ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
+def _check(x, dt, A, B, C, chunk: int, init_state) -> tuple:
+    """Raise on what the kernels do not take; returns (b, l, h, p, g, n)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {dev}")
-    guard.check_no_grad("ssd_scan", x, dt, A, B, C, init_state,
-                        until="the SSD scan's backward kernel, the next "
-                              "training slice")
     if x.ndim != 4 or dt.ndim != 3 or A.ndim != 1 or B.ndim != 4:
         raise ValueError("ssd_scan: x, B, C must be 4-D, dt 3-D and A 1-D")
     b, l, h, p = x.shape
@@ -74,11 +73,31 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
                              f"float32 {(b, h, p, n)} tensor on {dev}, got "
                              f"{init_state.dtype} {tuple(init_state.shape)} "
                              f"on {init_state.device}")
+    return b, l, h, p, g, n
+
+
+def ssd_scan_forward(x, dt, A, B, C, chunk: int, init_state=None,
+                     with_states: bool = False):
+    """The forward alone, recording nothing for autograd: ``(y, final,
+    states)`` with ``states`` the state each chunk starts from ((b, l //
+    chunk, h, p, n) float32, the first ``init_state`` or zero) when
+    ``with_states``, else None. Without them ``y`` and ``final`` are the
+    same, bit for bit. Inputs as :func:`ssd_scan`."""
+    if x.device.type == "cpu":
+        with torch.no_grad():
+            y, final = ref.ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
+            states = (ref.ssd_chunk_states(x, dt, A, B, chunk, init_state)
+                      if with_states else None)
+        return y, final, states
+    b, l, h, p, g, n = _check(x, dt, A, B, C, chunk, init_state)
+    dev = x.device
     y = torch.empty((b, l, h, p), dtype=torch.float32, device=dev)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    if y.numel() == 0:
+    states = (torch.empty((b, l // chunk, h, p, n), dtype=torch.float32,
+                          device=dev) if with_states else None)
+    if y.numel() == 0:   # then states is empty too
         return y, (final.zero_() if init_state is None
-                   else final.copy_(init_state))
+                   else final.copy_(init_state)), states
     lib = build.library()
     with torch.cuda.device(dev):   # the launch goes to the current device
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -86,12 +105,135 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(),
             None if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), final.data_ptr(), b, l, h, p, g, n,
+            y.data_ptr(), final.data_ptr(),
+            None if states is None else states.data_ptr(), b, l, h, p, g, n,
             chunk, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
             B.stride(0), B.stride(1), C.stride(0), C.stride(1), stream),
             "ssd_scan")
     counting.count(ssd_scan)
-    return y, final
+    return y, final, states
+
+
+def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
+                      dfinal=None, states=None):
+    """Gradients ``(dx, ddt, dA, dB, dC, dinit)`` of :func:`ssd_scan` at
+    its inputs for the output gradients ``dy`` and ``dfinal`` (None: zero);
+    ``dinit`` is None when ``init_state`` is. ``states``: the forward's
+    chunk start states (:func:`ssd_scan_forward` with ``with_states``), or
+    None where they are all zero (one chunk and no initial state). On the
+    card the kernels of ``csrc/ssd_scan_bwd.cu`` (the state pass over the
+    chunks, where it is needed; the chunk kernel; the group sums), counted
+    as one launch, with the head dim at most 64; ``dy`` and ``dfinal`` in
+    another layout are copied contiguous first. The gradients are dense.
+    On the CPU the plain version (:func:`ref.ssd_scan_bwd_ref`)."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_bwd_ref(x, dt, A, B, C, chunk, init_state, dy,
+                                    dfinal, states)
+    b, l, h, p, g, n = _check(x, dt, A, B, C, chunk, init_state)
+    dev = x.device
+    if p > MAX_HEAD_DIM_BACKWARD:
+        raise ValueError(f"ssd_scan backward: head dim {p} is above "
+                         f"{MAX_HEAD_DIM_BACKWARD}")
+    nc = l // chunk
+    wants = {"dy": (dy, (b, l, h, p)), "dfinal": (dfinal, (b, h, p, n)),
+             "states": (states, (b, nc, h, p, n))}
+    for name, (t, shape) in wants.items():
+        if t is None:
+            continue
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != dev):
+            raise ValueError(f"ssd_scan backward: {name} must be a float32 "
+                             f"{shape} tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if states is None and (nc > 1 or init_state is not None):
+        raise ValueError("ssd_scan backward: the chunks' start states are "
+                         "needed with more than one chunk or an initial "
+                         "state")
+    dy = dy.contiguous()
+    dfinal = None if dfinal is None else dfinal.contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((b, l, h, p), **f32)
+    ddt = torch.empty((b, l, h), **f32)
+    dA = torch.empty((h,), **f32)
+    dB = torch.empty((b, l, g, n), **f32)
+    dC = torch.empty((b, l, g, n), **f32)
+    dinit = (None if init_state is None
+             else torch.empty((b, h, p, n), **f32))
+    if dx.numel() == 0:
+        return (dx, ddt, dA.zero_(), dB.zero_(), dC.zero_(),
+                None if dinit is None else
+                (dinit.zero_() if dfinal is None else dinit.copy_(dfinal)))
+    state_pass = nc > 1 or dfinal is not None or dinit is not None
+    gbuf = torch.empty((b, nc, h, p, n) if state_pass else (0,), **f32)
+    dbh = torch.empty((b, l, h, n), **f32)
+    dch = torch.empty((b, l, h, n), **f32)
+    dapart = torch.empty((b * nc, h), **f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        build.check(lib.ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), ptr(dfinal), ptr(states),
+            gbuf.data_ptr(), dbh.data_ptr(), dch.data_ptr(),
+            dapart.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), ptr(dinit), b, l, h, p, g, n,
+            chunk, int(init_state is not None), x.stride(0), x.stride(1),
+            dt.stride(0), dt.stride(1), B.stride(0), B.stride(1),
+            C.stride(0), C.stride(1), stream), "ssd_scan_backward")
+    counting.count(ssd_scan_backward)
+    return dx, ddt, dA, dB, dC, dinit
+
+
+class SsdScanFunction(torch.autograd.Function):
+    """The card's differentiable route: the forward kernel, saving x, dt,
+    A, B, C, the initial state and, where any can be nonzero, the chunks'
+    start states; the backward kernels as its gradient. A final state
+    whose gradient never arrives counts as zero gradient, and an
+    ``init_state`` that was None gets None."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int, init_state):
+        with_states = x.shape[1] > chunk or init_state is not None
+        y, final, states = ssd_scan_forward(x, dt, A, B, C, chunk,
+                                            init_state, with_states)
+        ctx.save_for_backward(x, dt, A, B, C, init_state, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dfinal):
+        x, dt, A, B, C, init_state, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx, ddt, dA, dB, dC, dinit = ssd_scan_backward(
+            x, dt, A, B, C, ctx.chunk, init_state, dy, dfinal, states)
+        return dx, ddt, dA, dB, dC, None, dinit
+
+
+def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
+    """x: (b, l, h, p); dt: (b, l, h); A: (h,); B, C: (b, l, g, n), the g
+    groups shared by ``h // g`` heads each; ``l % chunk == 0``. Returns
+    ``(y (b, l, h, p), final_state (b, h, p, n) float32)``, equal to
+    :func:`ref.ssd_scan_ref`. On the card: float32, ``chunk`` and ``n`` at
+    most 128, ``init_state`` (if given) a contiguous (b, h, p, n) float32
+    tensor, and each other tensor contiguous within a position (the batch
+    and length strides are free, so slices of a packed projection need no
+    copy); differentiable through :class:`SsdScanFunction` when autograd
+    records (head dim at most 64)."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, B, C, init_state)):
+        return SsdScanFunction.apply(x, dt, A, B, C, chunk, init_state)
+    return ssd_scan_forward(x, dt, A, B, C, chunk, init_state)[:2]
 
 
 ssd_scan.launches = 0
+ssd_scan_backward.launches = 0

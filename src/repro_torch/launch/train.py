@@ -10,8 +10,8 @@ instead of falling back to the CPU) and ``--log-every``.
 Random initial weights come from ``torch.Generator().manual_seed(--seed)``
 on the CPU and are copied to the device, so a CPU and a card run start
 from the same weights. On the card attention is differentiated through
-the flash-attention backward kernel; an SSM layer's scan has no backward
-kernel yet, so ``--arch mamba2-130m`` trains only with ``--device cpu``.
+the flash-attention backward kernel and an SSM layer's scan through the
+SSD scan's (``--arch mamba2-130m`` trains there at full width and depth).
 """
 
 from __future__ import annotations

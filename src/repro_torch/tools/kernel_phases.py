@@ -309,9 +309,9 @@ int main() {
   cudaEventCreate(&e0); cudaEventCreate(&e1);
   for (int rep = 0; rep < 5; ++rep) {
     cudaEventRecord(e0);
-    const int rc = ssd_scan_launch(x, dt, A, B, C, nullptr, y, fs, b, L, H,
-                                   P, 1, N, Q, L * H * P, H * P, L * H, H,
-                                   L * N, N, L * N, N, 0);
+    const int rc = ssd_scan_launch(x, dt, A, B, C, nullptr, y, fs, nullptr,
+                                   b, L, H, P, 1, N, Q, L * H * P, H * P,
+                                   L * H, H, L * N, N, L * N, N, 0);
     cudaEventRecord(e1); cudaEventSynchronize(e1);
     float ms; cudaEventElapsedTime(&ms, e0, e1);
     printf("ssd phases: launch %d rc %d, %.4f ms\n", rep, rc, ms);

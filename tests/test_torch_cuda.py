@@ -1109,20 +1109,51 @@ def _grad_cases(device):
     }
 
 
-@pytest.mark.parametrize("name", ["gather_rows", "fused_gather_lstm_cell",
-                                  "fused_lstm_cell", "ssd_scan"])
+@pytest.mark.parametrize("name", ["fused_gather_lstm_cell",
+                                  "fused_lstm_cell"])
 def test_cuda_routes_raise_under_grad_mode(cuda, name):
     """These kernels have no backward: with grad mode on and an input that
     requires grad, each CUDA route raises instead of returning a result
-    with no autograd graph; under no_grad it runs."""
+    with no autograd graph, naming the fused cells' backward; under no_grad
+    it runs."""
     fn, args = _grad_cases(cuda)[name]
     args[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="no backward.*fused cells"):
         fn(args)
     with torch.no_grad():
         fn(args)
     fn([a.detach() for a in args])
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["gather_rows", "ssd_scan"])
+def test_gather_and_scan_routes_differentiate_under_grad_mode(cuda, name):
+    """The row gather and the SSD scan have backward kernels: under grad
+    mode with an input that requires grad each CUDA route records its
+    autograd Function (the forward counted once, the backward once), and
+    under no_grad or with detached inputs it runs the forward alone."""
+    from repro_torch.kernels.gather_batch import gather_rows_backward
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward
+
+    fwd_fn, bwd_fn = {"gather_rows": (gather_rows, gather_rows_backward),
+                      "ssd_scan": (ssd_scan, ssd_scan_backward)}[name]
+    fn, args = _grad_cases(cuda)[name]
+    args[0].requires_grad_(True)
+    fwd, bwd = fwd_fn.launches, bwd_fn.launches
+    out = fn(args)
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.requires_grad
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert args[0].grad is not None and torch.isfinite(args[0].grad).all()
+    assert (fwd_fn.launches, bwd_fn.launches) == (fwd + 1, bwd + 1)
+    with torch.no_grad():
+        res = fn(args)
+        assert not (res[0] if isinstance(res, tuple) else res).requires_grad
+    res = fn([a.detach() for a in args])
+    assert not (res[0] if isinstance(res, tuple) else res).requires_grad
+    torch.cuda.synchronize()
+    assert bwd_fn.launches == bwd + 1
 
 
 def test_flash_attention_route_differentiates_under_grad_mode(cuda):
@@ -1315,13 +1346,298 @@ def test_transformer_loss_gradients_on_the_card_match_the_cpu(cuda):
         assert _grad_err(g.cpu(), w) <= 2e-3
 
 
-def test_mamba2_training_on_the_card_raises_naming_the_next_slice(cuda):
+def test_mamba2_loss_gradients_on_the_card_match_the_cpu(cuda):
+    """Mamba2 (reduced, two chunks of the sequence) loss and gradients on
+    the card, through the SSD scan's forward and backward kernels, against
+    the plain CPU run."""
+    from repro_torch.arch.model import TransformerLM
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward
+    from repro_torch.train.optimizer import leaves, unflatten
+
+    cfg = get_config("mamba2-130m").reduced()
+    cpu = TransformerLM(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    card = TransformerLM(cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    L = 2 * cfg.ssm_chunk
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, L)),
+             "labels": rng.integers(0, cfg.vocab, (2, L))}
+
+    def grads(model, device):
+        flat = [t.to(device).requires_grad_(True) for t in leaves(params)]
+        loss = model.loss(unflatten(params, flat),
+                          {k: torch.as_tensor(a, device=device)
+                           for k, a in batch.items()})
+        return loss, torch.autograd.grad(loss, flat)
+
+    fwd, bwd = ssd_scan.launches, ssd_scan_backward.launches
+    loss, got = grads(card, cuda)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches - fwd == cfg.n_layers
+    assert ssd_scan_backward.launches - bwd == cfg.n_layers
+    want_loss, want = grads(cpu, "cpu")
+    loss, want_loss = float(loss.detach()), float(want_loss.detach())
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    for g, w in zip(got, want):
+        assert _grad_err(g.cpu(), w) <= 2e-3
+
+
+def test_mamba2_trains_through_the_launcher_on_the_card(cuda):
+    """``launch.train.main`` on a reduced Mamba2 on the card: finite losses,
+    the scan's forward and backward kernels launched once a layer a
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward
     from repro_torch.launch import train as train_launcher
 
-    with pytest.raises(RuntimeError, match="SSD scan's backward kernel"):
-        train_launcher.main(["--arch", "mamba2-130m", "--reduced", "--steps",
-                             "1", "--batch", "1", "--seq", "16"],
-                            log_fn=lambda line: None)
+    cfg = get_config("mamba2-130m").reduced()
+    fwd, bwd = ssd_scan.launches, ssd_scan_backward.launches
+    state = train_launcher.main(["--arch", "mamba2-130m", "--reduced",
+                                 "--steps", "3", "--batch", "2", "--seq",
+                                 str(2 * cfg.ssm_chunk), "--log-every", "1"],
+                                log_fn=lambda line: None)
+    assert len(state.history) == 3 and np.isfinite(state.history).all()
+    assert ssd_scan.launches - fwd == 3 * cfg.n_layers
+    assert ssd_scan_backward.launches - bwd == 3 * cfg.n_layers
+
+
+# -- the SSD scan's backward kernel -----------------------------------------
+
+
+def _ssd_grads_card(x, dt, A, B, C, chunk, s0, dy, dfinal):
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, dt, A, B, C) + ((s0,) if s0 is not None else ())]
+    y, final = ssd_scan(*leaves[:5], chunk,
+                        leaves[5] if s0 is not None else None)
+    outs, grads = [y], [dy]
+    if dfinal is not None:
+        outs.append(final)
+        grads.append(dfinal)
+    return torch.autograd.grad(outs, leaves, grads)
+
+
+# (b, l, h, p, g, n, chunk, initial state, final-state gradient): the
+# trainer's shape, the prefill's two chunks with a state in and a gradient
+# out, two groups, n < 128 with l = chunk, ragged tiles.
+_SSD_BWD_CASES = {
+    "trainer b=8 l=128": (8, 128, 24, 64, 1, 128, 128, False, False),
+    "two chunks, init state, final grad": (3, 256, 24, 64, 1, 128, 128,
+                                           True, True),
+    "groups 2": (2, 64, 8, 16, 2, 16, 16, False, True),
+    "n=40 l=chunk": (1, 128, 4, 64, 1, 40, 128, False, False),
+    "ragged p=21 n=33 chunk 24 groups 2, init": (2, 48, 4, 21, 2, 33, 24,
+                                                 True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SSD_BWD_CASES))
+def test_ssd_scan_backward_kernel_within_1e4(cuda, case):
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward
+
+    b, l, h, p, g, n, chunk, init, dfin = _SSD_BWD_CASES[case]
+    x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, cuda, seed=l + n)
+    rng = np.random.default_rng(9)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32, device=cuda)
+    s0 = t(b, h, p, n) if init else None
+    dy = t(b, l, h, p)
+    dfinal = t(b, h, p, n) if dfin else None
+    before = ssd_scan_backward.launches
+    got = _ssd_grads_card(x, dt, A, B, C, chunk, s0, dy, dfinal)
+    want = ref.ssd_scan_bwd_ref(x, dt, A, B, C, chunk, s0, dy, dfinal)
+    torch.cuda.synchronize()
+    assert ssd_scan_backward.launches == before + 1
+    for name, gg, w in zip(("dx", "ddt", "dA", "dB", "dC", "dinit"), got,
+                           want):
+        assert torch.isfinite(gg).all(), name
+        assert _grad_err(gg, w) <= 1e-4, (name, _grad_err(gg, w))
+
+
+def test_ssd_scan_backward_is_bit_equal_between_runs(cuda):
+    """No floating-point atomics: the group and dA sums run in a fixed
+    order, so two runs give the same gradients bit for bit."""
+    from repro_torch.kernels.ssd_scan import (ssd_scan_backward,
+                                              ssd_scan_forward)
+
+    x, dt, A, B, C = _ssd_inputs(3, 256, 24, 64, 1, 128, cuda, seed=4)
+    dy = _ssd_inputs(3, 256, 24, 64, 1, 128, cuda, seed=5)[0]
+    s0 = torch.randn((3, 24, 64, 128), device=cuda)
+    _, _, states = ssd_scan_forward(x, dt, A, B, C, 128, s0,
+                                    with_states=True)
+    first = ssd_scan_backward(x, dt, A, B, C, 128, s0, dy, None, states)
+    second = ssd_scan_backward(x, dt, A, B, C, 128, s0, dy, None, states)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_ssd_scan_states_leave_the_outputs_bit_equal(cuda):
+    """The forward that also writes the chunks' start states writes the
+    same y and final state bit for bit, and the states agree with the
+    plain ones."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_forward
+
+    x, dt, A, B, C = _ssd_inputs(3, 256, 24, 64, 1, 128, cuda, seed=8)
+    s0 = torch.randn((3, 24, 64, 128), device=cuda)
+    y, final, none = ssd_scan_forward(x, dt, A, B, C, 128, s0)
+    y2, final2, states = ssd_scan_forward(x, dt, A, B, C, 128, s0,
+                                          with_states=True)
+    want = ref.ssd_chunk_states(x, dt, A, B, 128, s0)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(y, y2) and torch.equal(final, final2)
+    assert _rel_err(states, want) <= 1e-4
+
+
+def test_ssd_scan_backward_reads_slices_of_a_packed_projection(cuda):
+    """x, B and C as views of one packed projection, as the SSM block
+    gives them: the gradients flow back into the packed tensor."""
+    b, l, h, p, n = 2, 256, 24, 64, 128
+    rng = np.random.default_rng(7)
+    xbc = torch.as_tensor(rng.standard_normal((b, l, 1 + h * p + 2 * n)),
+                          dtype=torch.float32, device=cuda)
+    xbc.requires_grad_(True)
+    o = 1 + h * p
+    x = xbc[..., 1:o].view(b, l, h, p)
+    B = xbc[..., o:o + n].view(b, l, 1, n)
+    C = xbc[..., o + n:].view(b, l, 1, n)
+    _, dt, A, _, _ = _ssd_inputs(b, l, h, p, 1, n, cuda, seed=6)
+    dy = torch.as_tensor(rng.standard_normal((b, l, h, p)),
+                         dtype=torch.float32, device=cuda)
+    y, _ = ssd_scan(x, dt, A, B, C, 128)
+    y.backward(dy)
+    want = ref.ssd_scan_bwd_ref(x.detach(), dt, A, B.detach(), C.detach(),
+                                128, None, dy)
+    torch.cuda.synchronize()
+    got = [xbc.grad[..., 1:o].view(b, l, h, p),
+           xbc.grad[..., o:o + n].view(b, l, 1, n),
+           xbc.grad[..., o + n:].view(b, l, 1, n)]
+    for gg, w in zip(got, (want[0], want[3], want[4])):
+        assert _grad_err(gg, w) <= 1e-4
+
+
+# -- the row gather's backward kernel ----------------------------------------
+
+
+# (src shape, K, repeats): the path's rows (2 KB) at K = 1, 16, 256, 512,
+# repeated and negative indices, MV-RNN's flat (d, d) rows, and a row
+# length that takes the 4-byte unit path; K past one sort tile.
+_GATHER_BWD_CASES = {
+    "K=1": ((2048, 512), 1, False),
+    "K=16": ((2048, 512), 16, False),
+    "K=256": ((2048, 512), 256, False),
+    "K=512": ((2048, 512), 512, False),
+    "K=256 repeats and negatives": ((2048, 512), 256, True),
+    "flat (d, d) rows": ((300, 24, 24), 77, True),
+    "4-byte rows D=17": ((512, 17), 100, True),
+    "K=5000 repeats": ((400, 8), 5000, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_GATHER_BWD_CASES))
+def test_gather_backward_kernel_against_its_plain_version(cuda, case):
+    """Bit-equal where no index repeats; within 1e-6 of the largest
+    |gradient| where indices repeat (the plain version's index_add_ sums
+    on the card in another order); two runs bit-equal."""
+    from repro_torch.kernels.gather_batch import gather_rows_backward
+
+    shape, K, repeats = _GATHER_BWD_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(K)
+    if repeats:
+        idx = torch.randint(0, shape[0], (K,), generator=g, device=cuda,
+                            dtype=torch.int32)
+        idx[: K // 3] = idx[0]
+        idx[K // 3] = -1
+        idx[K // 3 + 1] = -shape[0]
+    else:
+        idx = torch.randperm(shape[0], generator=g, device=cuda)[:K].to(
+            torch.int32)
+    dout = torch.randn((K,) + shape[1:], generator=g, device=cuda)
+    before = gather_rows_backward.launches
+    got = gather_rows_backward(dout, idx, shape[0])
+    again = gather_rows_backward(dout, idx, shape[0])
+    want = ref.gather_rows_bwd_ref(dout, idx, shape[0])
+    torch.cuda.synchronize()
+    assert gather_rows_backward.launches == before + 2
+    assert torch.equal(got, again)
+    if repeats:
+        assert _grad_err(got, want) <= 1e-6
+    else:
+        assert torch.equal(got, want)
+
+
+def test_gather_backward_through_an_in_place_written_buffer(cuda):
+    """The Function saves idx only: a buffer gathered from and then written
+    in place (as DynamicExecutor writes its stores) still differentiates."""
+    src = torch.randn((20, 16), device=cuda, requires_grad=True)
+    buf = src * 2.0
+    idx = torch.tensor([3, 3, -1, 0], dtype=torch.int32, device=cuda)
+    out = gather_rows(buf, idx)
+    buf.index_copy_(0, torch.tensor([5], device=cuda),
+                    torch.ones((1, 16), device=cuda))
+    out.sum().backward()
+    want = torch.zeros((20, 16), device=cuda)
+    want[3] = 4.0
+    want[19] = 2.0
+    want[0] = 2.0
+    torch.cuda.synchronize()
+    assert torch.equal(src.grad, want)
+
+
+# -- gradients through the dynamic-graph executors ---------------------------
+
+
+def test_dynamic_executor_gradients_on_the_card_match_the_cpu(cuda):
+    """TreeGRU (model_size 32, four trees) through DynamicExecutor with
+    threaded params: the loss and the gradient of the internal cell's
+    buffer on the card against the CPU, and CompiledPlan's on the card
+    against DynamicExecutor's; BucketedPlanExecutor refuses under grad,
+    naming the fused cells' backward."""
+    import random
+
+    from repro_torch.core.batching import resolve_schedule
+    from repro_torch.core.executor import DynamicExecutor
+    from repro_torch.core.plan import BucketedPlanExecutor, CompiledPlan
+    from repro_torch.core.rl import RLConfig, train_fsm
+    from repro_torch.kernels.gather_batch import gather_rows_backward
+    from repro_torch.models.workloads import make_workload
+
+    rng = random.Random(0)
+    cpu_wl = make_workload("TreeGRU", 32, 0, device="cpu")
+    card_wl = make_workload("TreeGRU", 32, 0, device=cuda)
+    policy = train_fsm([cpu_wl.sample_graph(rng, 2) for _ in range(3)],
+                       RLConfig(max_iters=60)).policy
+    g = cpu_wl.sample_graph(rng, 4)
+    roots = [n.id for n in g.nodes if n.type == "O"][-2:]
+    pbuf = cpu_wl.cells["TreeGRU-Internal"].init_params(
+        np.random.default_rng(1), device="cpu")
+
+    def grad(run, device):
+        leaf = pbuf.detach().clone().to(device).requires_grad_(True)
+        y = run({"I": leaf}).field("y", roots)
+        loss = (y * torch.linspace(-1, 1, y.numel(), device=device)
+                .view_as(y)).sum()
+        return float(loss.detach()), torch.autograd.grad(loss, leaf)[0]
+
+    before = gather_rows_backward.launches
+    card_ex = DynamicExecutor(card_wl.impls, None, device=cuda)
+    loss, got = grad(lambda p: card_ex.run(g, policy, params=p), cuda)
+    torch.cuda.synchronize()
+    assert gather_rows_backward.launches > before
+    cpu_ex = DynamicExecutor(cpu_wl.impls, None, device="cpu")
+    want_loss, want = grad(lambda p: cpu_ex.run(g, policy, params=p), "cpu")
+    assert abs(loss - want_loss) <= 1e-4 * max(abs(want_loss), 1.0)
+    assert _grad_err(got.cpu(), want) <= 2e-3
+    plan = CompiledPlan(g, resolve_schedule(g, policy), card_wl.impls,
+                        max_pq_vars=48, device=cuda)
+    plan_loss, plan_got = grad(lambda p: plan.execute(g, params=p), cuda)
+    assert abs(plan_loss - loss) <= 1e-4 * max(abs(loss), 1.0)
+    assert _grad_err(plan_got, got) <= 1e-4
+    bucketed = BucketedPlanExecutor(card_wl.impls, None, device=cuda)
+    with pytest.raises(RuntimeError, match="fused cells' backward"):
+        bucketed.run(g, policy, params={"I": pbuf.to(cuda).requires_grad_()})
 
 
 # -- background capture: a worker thread builds while the loop serves ------

@@ -70,7 +70,25 @@ def test_trainer_modules_load_no_jax(module):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
+
+
+@pytest.mark.parametrize("name", ["train_lm_torch", "tree_classifier_torch"])
+def test_port_examples_load_no_jax(name):
+    """Loading a port example (without running it) imports neither jax nor
+    the JAX package."""
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('ex', "
+            f"'examples/{name}.py')\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -185,7 +203,18 @@ def _entry_points():
                                                 "--requests", "1"]),
         "train launcher": lambda: launch_train(["--arch", "qwen2-0.5b",
                                                 "--reduced", "--steps", "1"]),
+        "tree classifier example": lambda: _tree_classifier().main([]),
     }
+
+
+def _tree_classifier():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "tree_classifier_torch", ROOT / "examples" / "tree_classifier_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.mark.parametrize("name", ["make_workload", "make_workload tree",
@@ -196,7 +225,8 @@ def _entry_points():
                                   "TransformerLM", "ServeEngine",
                                   "serve_wave", "serve engine",
                                   "sharded serve engine", "serve launcher",
-                                  "train launcher"])
+                                  "train launcher",
+                                  "tree classifier example"])
 def test_entry_points_default_to_cuda(no_cuda, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()
