@@ -10,8 +10,9 @@ Phases, in order; any failure raises and exits non-zero:
    nvcc into ``build/repro_torch/`` and prints the build seconds and the
    ptxas resource lines.
 2. Kernels: counts the tensor-core (``HMMA``) instructions of the
-   attention (forward, and the backward's dk/dv and dq), scan and both
-   LSTM-cell kernels in the built library
+   attention (forward, and the backward's dk/dv and dq), scan (forward,
+   and the backward's chunk kernel) and both LSTM-cell kernels in the
+   built library
    (``cuobjdump -sass``, where the toolkit has it; none fails). Times an
    empty kernel launched through the library in the same timer as the
    kernels (the ``launch floor:`` line). Then each kernel against its
@@ -166,21 +167,28 @@ Phases, in order; any failure raises and exits non-zero:
    depth 2 at full width, batch 2 x 256 (two chunks carry the state),
    card against the CPU: loss within 1e-4, every gradient leaf within 2e-3
    of its largest |gradient|.
-10. Gradients through the dynamic-graph executors. (a) The row gather's
-   backward kernels (``csrc/gather_rows_bwd.cu``) against the plain
-   version on the card: src (2048, 512) at K = 1, 16, 256, 512 bit-equal;
-   repeated and negative indices, MV-RNN-like (d, d) rows and rows of 68
-   bytes (4-byte units) within 1e-6 of the largest |gradient|; K = 5000
-   (merged sort tiles) bit-equal; two runs bit-equal each; timed cold at
-   K = 256 beside the plain version and ``zeros`` + ``index_add_`` (a
-   yardstick). (b) TreeGRU at model_size=512, 16 trees a step, phase 5's
-   FSM, EXEC_TRAIN_STEPS (5) SGD steps of ``examples/
-   tree_classifier_torch.py``'s loss through ``DynamicExecutor`` on the
-   card and on the CPU: losses within 1e-4, gradients within 2e-3 of their
-   max; the gather backward's counter rises; the same steps through
-   ``CompiledPlan`` on the card give DynamicExecutor's gradients within
-   1e-4; prints ms per step and the launches. (c) ``examples/
-   tree_classifier_torch.py`` on the card: its loss improves.
+10. Gradients through the dynamic-graph executors. (b) TreeGRU at
+   model_size=512, 16 trees a step, phase 5's FSM, EXEC_TRAIN_STEPS (5)
+   SGD steps of ``examples/tree_classifier_torch.py``'s loss through
+   ``DynamicExecutor`` on the card and on the CPU: losses within 1e-4,
+   gradients within 2e-3 of their max; the gather backward's counter
+   rises, and its (K, n_src, row bytes) histogram is printed; the same
+   steps through ``CompiledPlan`` on the card give DynamicExecutor's
+   gradients within 1e-4; prints ms per step and the launches. (a) Then
+   the row gather's backward kernel (``csrc/gather_rows_bwd.cu``, one
+   launch up to its threshold, the sort past it) against the plain
+   version: bit-equal to the CPU's everywhere; on the card src (2048, 512)
+   at K = 1, 16, 256, 512 bit-equal; repeated and negative indices,
+   MV-RNN-like (d, d) rows, rows of 68 bytes (4-byte units), K = 2048 (the
+   threshold) and 2049 (sorted) and a last block of fewer rows within 1e-6
+   of the largest |gradient| (every index on one row and the trash row,
+   whose sums the card's index_add_ orders anew each run, to the CPU's
+   bits alone);
+   K = 5000 (merged sort tiles) bit-equal; two runs bit-equal each; timed
+   cold at K = 1, 16, 256, 512, 2048, 2049 and at (b)'s commonest shape,
+   each beside ``zeros`` + ``index_add_`` (a yardstick), and the plain
+   version at K = 256. (c) ``examples/tree_classifier_torch.py`` on the
+   card: its loss improves.
 
 Phases 2 and 4 hold the kernels other than the gather to 1e-4 of the
 largest magnitude of their plain versions' outputs, phase 9 the backward
@@ -2750,35 +2758,63 @@ def train_ssm_phase(torch, drive, card: str, steps: int) -> dict:
 EXEC_TRAIN_STEPS = 5
 
 
-def check_gather_backward(torch, timer) -> dict:
-    """Phase 10 (a): the gather's backward kernels against the plain
-    version on the card, then timed cold beside the plain version and
-    ``torch.zeros(...).index_add_`` (a yardstick the port never calls)."""
+def check_gather_backward(torch, timer, path_shape) -> dict:
+    """Phase 10 (a): the gather's backward kernel against the plain
+    version on the card (bit-equal to the plain version on the CPU, whose
+    ``index_add_`` sums in ascending k as both of the kernel's paths do),
+    at the path's shapes, the one-launch path's edges and past them; then
+    timed cold at the path's rows (K = 1, 16, 256, 512, and 2048 and 2049,
+    the threshold's edges) and at ``path_shape``, the commonest (K, n_src,
+    row bytes) of phase 10 (b), each beside ``torch.zeros(...).index_add_``
+    (a yardstick the port never calls)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.gather_batch import gather_rows_backward
+    from repro_torch.kernels.gather_batch import (backward_geometry,
+                                                  gather_rows_backward)
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
-    cases = [  # (label, src shape, K, repeats)
-        ("path K=1", (2048, MODEL_SIZE), 1, False),
-        ("path K=16", (2048, MODEL_SIZE), 16, False),
-        ("path K=256", (2048, MODEL_SIZE), 256, False),
-        ("path K=512", (2048, MODEL_SIZE), 512, False),
-        ("K=256 repeated and negative", (2048, MODEL_SIZE), 256, True),
-        ("flat (d, d) rows", (512, 32, 32), 128, True),
-        ("4-byte units D=17", (512, 17), 100, True),
-        ("K=5000, past one sort tile", (8192, 16), 5000, False),
+    cases = [  # (label, src shape, K, indices)
+        ("path K=1", (2048, MODEL_SIZE), 1, "perm"),
+        ("path K=16", (2048, MODEL_SIZE), 16, "perm"),
+        ("path K=256", (2048, MODEL_SIZE), 256, "perm"),
+        ("path K=512", (2048, MODEL_SIZE), 512, "perm"),
+        ("K=256 repeated and negative", (2048, MODEL_SIZE), 256, "repeats"),
+        ("flat (d, d) rows", (512, 32, 32), 128, "repeats"),
+        ("4-byte units D=17", (512, 17), 100, "repeats"),
+        ("K=2048, the one-launch threshold", (2048, MODEL_SIZE), 2048,
+         "random"),
+        ("K=2049, one above: sorted", (2048, MODEL_SIZE), 2049, "random"),
+        ("n_src not a multiple of a block's rows", (2047, MODEL_SIZE), 300,
+         "repeats"),
+        ("every index on one row", (2048, MODEL_SIZE), 256, "one row"),
+        ("trash row (-1)", (1001, MODEL_SIZE), 256, "trash"),
+        ("K=5000, past one sort tile", (8192, 16), 5000, "perm"),
     ]
-    worst = 0.0
-    for label, shape, K, repeats in cases:
-        if repeats:
-            idx = torch.randint(0, shape[0], (K,), generator=g,
-                                device="cuda", dtype=torch.int32)
+
+    def indices(n, K, kind):
+        if kind == "perm":
+            return torch.randperm(n, generator=g, device="cuda")[:K].to(
+                torch.int32)
+        idx = torch.randint(0, n, (K,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        if kind == "one row":
+            idx[:] = idx[0]
+        elif kind == "trash":
+            idx[torch.rand((K,), generator=g, device="cuda") < 0.5] = -1
+        elif kind == "repeats":
             idx[: K // 3] = idx[0]
             idx[K // 3] = -1
-            idx[K // 3 + 1] = -shape[0]
-        else:
-            idx = torch.randperm(shape[0], generator=g, device="cuda")[
-                :K].to(torch.int32)
+            idx[K // 3 + 1] = -n
+        return idx
+
+    def path_of(K, n, row_bytes):
+        plan = backward_geometry(K, n, row_bytes, 16 if row_bytes % 16 == 0
+                                 else 4)
+        return plan["path"] + (f", {plan['rows_per_block']} rows a block"
+                               if plan["path"] == "one pass" else "")
+
+    worst = 0.0
+    for label, shape, K, kind in cases:
+        idx = indices(shape[0], K, kind)
         dout = torch.randn((K,) + shape[1:], generator=g, device="cuda")
         got = gather_rows_backward(dout, idx, shape[0])
         again = gather_rows_backward(dout, idx, shape[0])
@@ -2786,27 +2822,55 @@ def check_gather_backward(torch, timer) -> dict:
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             fail(f"gather_rows_backward {label}: two runs differ")
+        if not torch.equal(got.cpu(), ref.gather_rows_bwd_ref(
+                dout.cpu(), idx.cpu(), shape[0])):
+            fail(f"gather_rows_backward {label}: not bit-equal to the plain "
+                 f"version on the CPU")
         err = grad_rel_err(got, want)
         worst = max(worst, float((got - want).abs().max()))
-        if repeats and not err <= 1e-6:
+        # the card's index_add_ sums repeats in another order each run: a
+        # pile of hundreds on one row (one row, trash) moves its sum by up
+        # to about 1e-6, so those are held to the CPU's bits alone
+        repeats = kind != "perm"
+        if kind in ("repeats", "random") and not err <= 1e-6:
             fail(f"gather_rows_backward {label}: relative err {err} > 1e-6")
         if not repeats and not torch.equal(got, want):
             fail(f"gather_rows_backward {label}: not bit-equal to the plain "
                  f"version (relative err {err})")
+        row_bytes = 4 * dout[0].numel()
         log(f"gather_rows_backward {label}: {tuple(shape)} K={K} "
-            + (f"relative err {err:.3e}" if repeats else "bit-equal")
+            f"({path_of(K, shape[0], row_bytes)}): bit-equal to the CPU; "
+            + (f"relative err {err:.3e} to the card's index_add_"
+               if repeats else "bit-equal to the card's index_add_")
             + "; two runs bit-equal")
 
-    N, D, K = 2048, MODEL_SIZE, 256
+    N, D = 2048, MODEL_SIZE
+    timed = [(K, N, 4 * D) for K in (1, 16, 256, 512, 2048, 2049)]
+    if path_shape is not None and path_shape not in timed:
+        timed.append(path_shape)
+    times = {}
+    for K, n, row_bytes in timed:
+        idx = torch.randint(0, n, (K,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        idx_long = idx.long()
+        dout = torch.randn((K, row_bytes // 4), generator=g, device="cuda")
+        ms = timer(lambda: gather_rows_backward(dout, idx, n))
+        library_ms = timer(lambda: torch.zeros(
+            (n, row_bytes // 4), device="cuda").index_add_(0, idx_long, dout))
+        times[(K, n, row_bytes)] = (ms, library_ms)
+        log(f"gather_rows_backward timed K={K} into ({n}, {row_bytes // 4}) "
+            f"({path_of(K, n, row_bytes)}"
+            + (", the path's commonest" if (K, n, row_bytes) == path_shape
+               else "")
+            + f"): cold kernel {ms:.5f} ms, zeros + index_add_ "
+            f"{library_ms:.5f} ms")
+    K = 256
     idx = torch.randint(0, N, (K,), generator=g, device="cuda",
                         dtype=torch.int32)
-    idx_long = idx.long()
     dout = torch.randn((K, D), generator=g, device="cuda")
-    ms = timer(lambda: gather_rows_backward(dout, idx, N))
     plain_ms = timer(lambda: ref.gather_rows_bwd_ref(dout, idx, N))
-    library_ms = timer(lambda: torch.zeros((N, D), device="cuda").index_add_(
-        0, idx_long, dout))
-    log(f"gather_rows_backward ({N}, {D}) K={K} ms: cold kernels {ms:.5f}, "
+    ms, library_ms = times[(K, N, 4 * D)]
+    log(f"gather_rows_backward ({N}, {D}) K={K} ms: cold kernel {ms:.5f}, "
         f"plain {plain_ms:.5f}, zeros + index_add_ {library_ms:.5f}")
     return {"name": "gather_rows_backward", "route": "cuda",
             "source": "src/repro_torch/csrc/gather_rows_bwd.cu",
@@ -2882,11 +2946,17 @@ def executor_train_phase(torch, drive, card: str) -> dict:
     def wl_device(wl):
         return "cpu" if wl is cpu_wl else "cuda"
 
+    from repro_torch.kernels.gather_batch import gather_rows_backward
+
     (card_l, card_g, card_ms), counts = drive(
         lambda: steps(card_wl, "cuda", dynamic))
     if counts["gather_rows_backward"] <= 0:
         fail("gather_rows_backward was not launched while TreeGRU trained "
              "through DynamicExecutor")
+    bwd_shapes = gather_rows_backward.shapes.most_common()
+    log(f"gather backward shapes TreeGRU [K, n_src, row bytes, launches]: "
+        f"{[list(k) + [v] for k, v in bwd_shapes]}")
+    counts["commonest_backward_shape"] = bwd_shapes[0][0]
     cpu_l, cpu_g, cpu_ms = steps(cpu_wl, "cpu", dynamic)
     loss_errs = [abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l)]
     grad_errs = [grad_rel_err(a, b) for a, b in zip(card_g, cpu_g)]
@@ -2953,6 +3023,7 @@ def main(argv: list[str] | None = None) -> int:
     hmma = hmma_counts(("flash_attention_kernel",
                         "flash_attention_bwd_dkdv_kernel",
                         "flash_attention_bwd_dq_kernel", "ssd_scan_kernel",
+                        "ssd_bwd_chunk_kernel",
                         "fused_gather_lstm_cell_kernel",
                         "fused_lstm_cell_kernel"))
     if hmma is None:
@@ -2969,7 +3040,8 @@ def main(argv: list[str] | None = None) -> int:
                 check_ssd(torch, timer)]
         log(f"kernel checks done: {time.perf_counter() - t_start:.1f} s")
 
-    from repro_torch.kernels.gather_batch import gather_rows
+    from repro_torch.kernels.gather_batch import (gather_rows,
+                                                  gather_rows_backward)
     from repro_torch.kernels.launches import WRAPPERS as wrappers
 
     def drive(fn):
@@ -2979,6 +3051,7 @@ def main(argv: list[str] | None = None) -> int:
         for w in wrappers.values():
             w.launches = 0
         gather_rows.shapes.clear()
+        gather_rows_backward.shapes.clear()
         out = fn()
         return out, {name: w.launches for name, w in wrappers.items()}
 
@@ -3087,10 +3160,11 @@ def main(argv: list[str] | None = None) -> int:
             f"{time.perf_counter() - t0:.1f} s")
     if 10 in phases:
         t0 = time.perf_counter()
-        rows.append(check_gather_backward(torch, timer))
         exec_launches = executor_train_phase(torch, drive, card)
         launches["gather_rows_backward"] = \
             exec_launches["gather_rows_backward"]
+        rows.append(check_gather_backward(
+            torch, timer, exec_launches["commonest_backward_shape"]))
         log(f"executor training launches of the gather and its backward "
             f"(run (10b)): {exec_launches['gather_rows']}, "
             f"{exec_launches['gather_rows_backward']}; done: "

@@ -10,27 +10,49 @@
 //
 // Bound on the H100: bytes. dout is read once (k rows) and dsrc written
 // once (n_src rows), no arithmetic to speak of beyond the sums of
-// duplicate rows: (k + n_src) * row_bytes over 3.35 TB/s.
+// duplicate rows: (k + n_src) * row_bytes over 3.35 TB/s. At the path's
+// sizes (2 KB rows, a few thousand at most) that is about a microsecond;
+// what the card spends is the launch and the dependent trips to memory.
 //
-// Design: the indices are turned into sorted keys (row << 32 | k), unique,
-// so any sort of them gives the same order: row by row, ascending k within
-// a row. A block sorts each tile of up to 2048 keys in shared memory
-// (bitonic, the tile the next power of two of k where k is smaller, half
-// as many threads); tiles are then merged pairwise, one thread a key
-// placing it by a binary search in the partner run, until one run holds
-// them all (no pass at k <= 2048). Then every row of dsrc is written by
-// the threads that own it, with the gather's own launch geometry
-// (kernels/gather_batch.py:gather_geometry, over n_src rows): each block
-// copies the sorted keys into shared memory where they fit (k <= 4096),
-// each thread finds its row's run of keys by two binary searches there
-// and sums those rows of dout, in order, in 16-byte units where rows and
-// pointers allow, else 4. The row kernel is the sort's programmatic
-// dependent: it is launched while the sort runs and waits for it only
-// before reading the keys, so its launch hides under the sort.
-// A row's sources are thus found in O(log k), not by scanning every index
-// for every row, and duplicates (an embedding's repeated tokens, the
-// bucketed pad lanes' trash row) are summed in a fixed order with no
-// floating-point atomics: two runs are bit-equal.
+// Two paths; the wrapper picks one (kernels/gather_batch.py:
+// backward_geometry) and passes rows_per_block, 0 for the second.
+//
+// 1. One launch, no sort, for k <= ONE_MAX_K where the index reads stay
+//    small. Each block owns rows_per_block consecutive rows of dsrc and
+//    reads the whole index vector, coalesced (k * 4 bytes; from L2 after
+//    the first blocks). It compacts the (local row, k) pairs that land in
+//    its rows, in ascending k, by warp ballots and one prefix over the
+//    (chunk, warp) groups in k order: no atomics decide an order. A stable
+//    counting sort by local row (counts, their prefix, then one warp
+//    placing the pairs 32 at a time in list order with __match_any_sync)
+//    gives each row its run of k, ascending. Then the block's threads write
+//    every unit of its rows, the sum of the run's dout rows in order (zero
+//    for an empty run), in 16-byte units where rows and pointers allow, 4
+//    bytes otherwise. The zero fill, the duplicate sums and the sort are
+//    one pass; no scratch, no second launch. A block reads k indices where
+//    the kernel must move (k + n_src) * row_bytes: the wrapper takes this
+//    path while blocks * k * 4 is at most half of that, doubling the rows a
+//    block owns (up to 8 units a thread) before it gives up, so at the
+//    path's 2 KB rows every k up to ONE_MAX_K (the pairs a block can hold
+//    in shared memory) takes it, and a large k over narrow rows does not.
+// 2. Past that, the sort: the indices are turned into keys (row << 32 |
+//    k), unique, so any sort of them gives the same order: row by row,
+//    ascending k within a row. A block sorts each tile of up to 2048 keys
+//    in shared memory (bitonic, the tile the next power of two of k where
+//    k is smaller, half as many threads); tiles are then merged pairwise,
+//    one thread a key placing it by a binary search in the partner run,
+//    until one run holds them all (no pass at k <= 2048). Then every row
+//    of dsrc is written by the threads that own it, with the gather's own
+//    launch geometry (kernels/gather_batch.py:gather_geometry, over n_src
+//    rows): each block copies the sorted keys into shared memory where they
+//    fit (k <= 4096), each thread finds its row's run of keys by two binary
+//    searches there and sums those rows of dout, in order, in 16-byte
+//    units where rows and pointers allow, else 4. The row kernel is the
+//    sort's programmatic dependent: it is launched while the sort runs and
+//    waits for it only before reading the keys.
+// Both sum a row's duplicates (an embedding's repeated tokens, the
+// bucketed pad lanes' trash row) in ascending k with no floating-point
+// atomics, so the two paths give the same bits and two runs are bit-equal.
 //
 // C interface: launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -175,6 +197,126 @@ __global__ void __launch_bounds__(256) gather_bwd_sum_kernel(
   }
 }
 
+// -- path 1: one launch --------------------------------------------------
+
+constexpr int ONE_THREADS = 256;
+constexpr int ONE_MAX_K = 2048;                 // pairs a block holds
+constexpr int ONE_KPT = ONE_MAX_K / ONE_THREADS;  // indices a thread reads
+constexpr int ONE_GROUPS = ONE_MAX_K / 32;      // (chunk, warp) groups
+constexpr int ONE_MAX_ROWS = 2048;              // rows a block owns
+static_assert(ONE_GROUPS == 64, "a warp scans the groups two a lane");
+
+// Block b owns rows [b * rows, b * rows + rows) of dsrc.
+template <typename T>
+__global__ void __launch_bounds__(ONE_THREADS) gather_bwd_one_kernel(
+    const T* __restrict__ dout, const int32_t* __restrict__ idx,
+    T* __restrict__ dsrc, int64_t n_src, int k, int64_t upr, int rows) {
+  __shared__ uint32_t list[ONE_MAX_K];   // (local row << 16 | k), k order
+  __shared__ uint16_t runk[ONE_MAX_K];   // the k of each run, row by row
+  __shared__ int start[ONE_MAX_ROWS + 1];  // each row's run; its count first
+  __shared__ int group_at[ONE_GROUPS];   // first list slot of each group
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows;
+  const int nrows = static_cast<int>(n_src - r0 < rows ? n_src - r0 : rows);
+  const unsigned below = (1u << lane) - 1u;
+
+  // The pairs landing here: index k = i * ONE_THREADS + tid, so groups
+  // (i, warp) in ascending order hold ascending k.
+  int local[ONE_KPT];
+  unsigned hit[ONE_KPT];
+#pragma unroll
+  for (int i = 0; i < ONE_KPT; ++i) {
+    const int kk = i * ONE_THREADS + tid;
+    int lr = -1;
+    if (kk < k) {
+      int64_t row = idx[kk];
+      if (row < 0) row += n_src;
+      assert(row >= 0 && row < n_src);
+      if (row >= r0 && row < r0 + nrows) lr = static_cast<int>(row - r0);
+    }
+    local[i] = lr;
+    hit[i] = __ballot_sync(0xffffffffu, lr >= 0);
+    if (lane == 0) group_at[i * (ONE_THREADS / 32) + warp] = __popc(hit[i]);
+  }
+  for (int r = tid; r <= nrows; r += ONE_THREADS) start[r] = 0;
+  __syncthreads();
+  // every warp scans the 64 group counts in order (two a lane) for the
+  // first list slot of its own groups: no second barrier
+  const int ca = group_at[2 * lane], cb = group_at[2 * lane + 1];
+  int incl = ca + cb;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += up;
+  }
+  const int m = __shfl_sync(0xffffffffu, incl, 31);
+#pragma unroll
+  for (int i = 0; i < ONE_KPT; ++i) {
+    const int grp = i * (ONE_THREADS / 32) + warp;   // lane grp / 2 holds it
+    const int before = __shfl_sync(0xffffffffu, incl - ca - cb, grp >> 1);
+    const int first = __shfl_sync(0xffffffffu, ca, grp >> 1);
+    const int at0 = before + (grp & 1 ? first : 0);
+    if (local[i] >= 0) {
+      const int at = at0 + __popc(hit[i] & below);
+      list[at] = (static_cast<uint32_t>(local[i]) << 16) |
+                 static_cast<uint32_t>(i * ONE_THREADS + tid);
+      atomicAdd(&start[local[i] + 1], 1);   // an integer count
+    }
+  }
+  __syncthreads();
+  if (m > 0 && warp == 0) {
+    // the counts' inclusive prefix gives each row's first slot
+    int carry = 0;
+    for (int r0w = 0; r0w <= nrows; r0w += 32) {
+      const int r = r0w + lane;
+      int v = r <= nrows ? start[r] : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v += up;
+      }
+      if (r <= nrows) start[r] = v + carry;
+      carry += __shfl_sync(0xffffffffu, v, 31);
+    }
+    __syncwarp();
+    // stable placement: 32 pairs at a time, in list order; equal rows
+    // within the 32 take consecutive slots by lane, the first of them
+    // moving the row's cursor (start[lr], restored below) past them all
+    for (int base = 0; base < m; base += 32) {
+      const int i = base + lane;
+      const uint32_t e = i < m ? list[i] : 0xffffffffu;
+      const int lr = static_cast<int>(e >> 16);
+      const unsigned same = __match_any_sync(0xffffffffu, lr);
+      if (i < m) runk[start[lr] + __popc(same & below)] =
+          static_cast<uint16_t>(e & 0xffffu);
+      __syncwarp();
+      if (i < m && (same & below) == 0) start[lr] += __popc(same);
+      __syncwarp();
+    }
+    // every cursor now sits at its row's end, start[lr + 1]'s old value:
+    // shift back by one row
+    for (int top = nrows; top > 0; top -= 32) {
+      const int r = top - lane;
+      const int v = r > 0 ? start[r - 1] : 0;
+      __syncwarp();
+      if (r > 0) start[r] = v;
+      __syncwarp();
+    }
+    if (lane == 0) start[0] = 0;
+  }
+  __syncthreads();
+  // units fit in an int: the launch keeps rows * upr below 2^31
+  const int units = nrows * static_cast<int>(upr), up = static_cast<int>(upr);
+  T* to = dsrc + r0 * upr;
+  for (int e = tid; e < units; e += ONE_THREADS) {
+    const int lr = e / up, u = e - lr * up;
+    T acc = zero_unit<T>();
+    for (int j = start[lr], end = start[lr + 1]; j < end; ++j)
+      add(acc, dout[static_cast<int64_t>(runk[j]) * upr + u]);
+    to[e] = acc;
+  }
+}
+
 // The row kernel, as the programmatic dependent of the kernel before it.
 template <typename T>
 cudaError_t launch_sum(const void* dout, const unsigned long long* keys,
@@ -207,18 +349,44 @@ cudaError_t launch_sum(const void* dout, const unsigned long long* keys,
 
 }  // namespace
 
-// dout: (k, row) fp32, dsrc: (n_src, row) fp32; keys_a, keys_b: k 8-byte
-// scratch words each. unit: 16 or 4 bytes; tc, r, v (1, 2, 4 or 8),
-// row_tiles, unit_tiles and the grid: gather_geometry's over n_src rows.
+// dout: (k, row) fp32, dsrc: (n_src, row) fp32; unit: 16 or 4 bytes.
+// rows_per_block > 0: path 1, blocks of rows_per_block rows (k at most
+// ONE_MAX_K, rows_per_block at most ONE_MAX_ROWS); the key scratch and the
+// row geometry are not read. 0: path 2; keys_a, keys_b: k 8-byte scratch
+// words each; tc, r, v (1, 2, 4 or 8), row_tiles, unit_tiles and the grid:
+// gather_geometry's over n_src rows.
 extern "C" int gather_rows_bwd_launch(
     const void* dout, const void* idx, void* dsrc, void* keys_a, void* keys_b,
-    int64_t n_src, int64_t k, int64_t row_bytes, int64_t unit, int64_t tc,
-    int64_t r, int64_t v, int64_t row_tiles, int64_t unit_tiles,
-    int64_t grid_x, int64_t grid_y, void* stream) {
-  if (tc < 1 || r < 1 || tc * r > 256 || n_src >= (1ll << 31) ||
-      k >= (1ll << 32) || (unit != 16 && unit != 4))
+    int64_t n_src, int64_t k, int64_t row_bytes, int64_t unit,
+    int64_t rows_per_block, int64_t tc, int64_t r, int64_t v,
+    int64_t row_tiles, int64_t unit_tiles, int64_t grid_x, int64_t grid_y,
+    void* stream) {
+  if (n_src >= (1ll << 31) || k >= (1ll << 32) || (unit != 16 && unit != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
+  const int64_t upr = row_bytes / unit;
+  if (rows_per_block > 0) {
+    if (k > ONE_MAX_K || rows_per_block > ONE_MAX_ROWS ||
+        rows_per_block * upr >= (1ll << 31))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t blocks = (n_src + rows_per_block - 1) / rows_per_block;
+    if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+    const int ki = static_cast<int>(k), rb = static_cast<int>(rows_per_block);
+    const auto* ix = static_cast<const int32_t*>(idx);
+    if (unit == 16)
+      gather_bwd_one_kernel<float4>
+          <<<static_cast<unsigned>(blocks), ONE_THREADS, 0, s>>>(
+              static_cast<const float4*>(dout), ix, static_cast<float4*>(dsrc),
+              n_src, ki, upr, rb);
+    else
+      gather_bwd_one_kernel<float>
+          <<<static_cast<unsigned>(blocks), ONE_THREADS, 0, s>>>(
+              static_cast<const float*>(dout), ix, static_cast<float*>(dsrc),
+              n_src, ki, upr, rb);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (tc < 1 || r < 1 || tc * r > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto* a = static_cast<unsigned long long*>(keys_a);
   auto* b = static_cast<unsigned long long*>(keys_b);
   if (k > 0) {
@@ -240,7 +408,6 @@ extern "C" int gather_rows_bwd_launch(
       b = t;
     }
   }
-  const int64_t upr = row_bytes / unit;
   const dim3 grid(static_cast<unsigned>(grid_x), static_cast<unsigned>(grid_y));
   const int t = static_cast<int>(tc), rr = static_cast<int>(r),
             vv = static_cast<int>(v);

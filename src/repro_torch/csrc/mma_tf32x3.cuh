@@ -1,6 +1,7 @@
 // fp32 matrix products on the tensor cores: 3xTF32 `mma.sync` steps, and
 // the `cp.async` copies that feed them. Included by flash_attention.cu,
-// flash_attention_bwd.cu, ssd_scan.cu and lstm_cell_tile.cuh.
+// flash_attention_bwd.cu, ssd_scan.cu, ssd_scan_bwd.cu and
+// lstm_cell_tile.cuh.
 //
 // A TF32 product keeps 10 mantissa bits, about three decimal digits, which
 // does not meet the kernels' bar of 1e-4 of fp32. So each fp32 operand a is
@@ -100,6 +101,19 @@ __device__ __forceinline__ void mma3_row(float (*d)[4], const FragA& a,
   for (int i = 0; i < N; ++i) mma(d[i], a.big, b[i].big);
 }
 
+// 3xTF32 steps d[i] += a[i] * b for N tiles that share their B operand,
+// term by term as mma3_row.
+template <int N>
+__device__ __forceinline__ void mma3_col(float (*d)[4], const FragA* a,
+                                         const FragB& b) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma(d[i], a[i].small, b.big);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma(d[i], a[i].big, b.small);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma(d[i], a[i].big, b.big);
+}
+
 // A fragment (16 x 8) of an M x K row-major array in shared memory, in the
 // natural k order: a0 = s[m0 + g][k0 + t], a1 = s[m0 + g + 8][k0 + t],
 // a2 = s[m0 + g][k0 + t + 4], a3 = s[m0 + g + 8][k0 + t + 4]. Conflict-free
@@ -130,6 +144,16 @@ __device__ __forceinline__ FragB load_b_nk(const float* s, int ld, int n0,
   const int g = lane >> 2, t = lane & 3;
   const float* p = s + (n0 + g) * ld + k0 + t;
   return split_b(p[0], p[4]);
+}
+
+// B fragment (8 x 8) read from a K x N row-major array in the natural k
+// order: b0 = s[k0 + t][n0 + g], b1 = s[k0 + t + 4][n0 + g]. Conflict-free
+// at a stride of 8 mod 32; two lanes a bank at 4 mod 32.
+__device__ __forceinline__ FragB load_b_kn(const float* s, int ld, int k0,
+                                           int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = s + (k0 + t) * ld + n0 + g;
+  return split_b(p[0], p[4 * ld]);
 }
 
 // B fragment read from a K x N row-major array with the paired k order of

@@ -65,6 +65,44 @@ def gather_geometry(k: int, row_bytes: int, unit: int,
             "grid": (min(row_tiles, grid_cap), min(unit_tiles, grid_cap))}
 
 
+# csrc/gather_rows_bwd.cu, path 1 (one launch, no sort)
+ONE_PASS_THREADS = 256
+ONE_PASS_BLOCK_BYTES = 8192   # of dsrc a block writes, where rows allow
+ONE_PASS_MAX_K = 2048       # (row, k) pairs a block holds in shared memory
+ONE_PASS_MAX_ROWS = 2048    # rows a block owns
+ONE_PASS_UNITS = 8          # most units a thread writes
+
+
+def backward_geometry(k: int, n_src: int, row_bytes: int, unit: int) -> dict:
+    """Which path of ``csrc/gather_rows_bwd.cu`` the backward takes for
+    ``k`` output-gradient rows summed into ``n_src`` rows of ``row_bytes``
+    bytes, in units of ``unit`` bytes: ``{"path": "one pass",
+    "rows_per_block": R, "blocks": n}`` or ``{"path": "sort"}``.
+
+    One pass: each block owns ``R`` rows of dsrc and reads all ``k``
+    indices, so the blocks read ``blocks * k * 4`` bytes of indices where
+    the kernel must move ``(k + n_src) * row_bytes``. ``R`` starts at about
+    ``ONE_PASS_BLOCK_BYTES`` of rows a block (at the path's 2 KB rows four
+    rows, two 16-byte units a thread, beat one, two, eight and sixteen
+    rows cold at K = 1 to 2048: PERF.md section 6) and doubles, up to
+    ``ONE_PASS_UNITS`` units a thread, while the index reads exceed half of
+    those bytes; the sort takes over where they still do, or where ``k``
+    is above the pairs a block can hold (``ONE_PASS_MAX_K``)."""
+    if k > ONE_PASS_MAX_K:
+        return {"path": "sort"}
+    upr = row_bytes // unit
+    rows = max(1, min(ONE_PASS_MAX_ROWS, ONE_PASS_BLOCK_BYTES // row_bytes))
+    while True:
+        blocks = -(-n_src // rows)
+        if 2 * blocks * k * 4 <= (k + n_src) * row_bytes:
+            return {"path": "one pass", "rows_per_block": rows,
+                    "blocks": blocks}
+        if (2 * rows * upr > ONE_PASS_THREADS * ONE_PASS_UNITS
+                or 2 * rows > ONE_PASS_MAX_ROWS):
+            return {"path": "sort"}
+        rows *= 2
+
+
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``src[idx]`` along axis 0: ``src`` is ``(N, *row)``, ``idx`` is a
     ``(K,)`` int32 tensor on the same device; returns ``(K, *row)``. Rows
@@ -123,11 +161,14 @@ def gather_rows_backward(dout: torch.Tensor, idx: torch.Tensor,
     """The gradient of ``gather_rows(src, idx)`` at a ``src`` of ``n_rows``
     rows for the output gradient ``dout`` (K, *row): ``dsrc`` (n_rows,
     *row), each row the sum of the ``dout`` rows its indices chose
-    (ascending in K), zero where none did. On the card the kernels of
-    ``csrc/gather_rows_bwd.cu`` (the keys sorted, then every row of dsrc
-    written with :func:`gather_geometry` over ``n_rows`` rows), counted as
-    one launch; float32 only, ``dout`` copied contiguous where it is not.
-    On the CPU the plain version (:func:`ref.gather_rows_bwd_ref`)."""
+    (ascending in K), zero where none did. On the card the kernel of
+    ``csrc/gather_rows_bwd.cu``: one launch where
+    :func:`backward_geometry` allows it, else the keys sorted and every row
+    of dsrc written with :func:`gather_geometry` over ``n_rows`` rows;
+    counted as one launch either way, with its ``(K, n_rows, row bytes)``
+    in ``gather_rows_backward.shapes``; float32 only, ``dout`` copied
+    contiguous where it is not. On the CPU the plain version
+    (:func:`ref.gather_rows_bwd_ref`)."""
     if dout.device.type == "cpu":
         return ref.gather_rows_bwd_ref(dout, idx, n_rows)
     dev = dout.device
@@ -148,21 +189,31 @@ def gather_rows_backward(dout: torch.Tensor, idx: torch.Tensor,
                        device=dev)
     if dsrc.numel() == 0:
         return dsrc
+    k = idx.shape[0]
     row_bytes = math.prod(dout.shape[1:]) * 4
     aligned = (row_bytes % 16 == 0 and dout.data_ptr() % 16 == 0
                and dsrc.data_ptr() % 16 == 0)
     unit = 16 if aligned else 4
-    geo = gather_geometry(n_rows, row_bytes, unit)
-    keys = torch.empty((2, max(idx.shape[0], 1)), dtype=torch.int64,
-                       device=dev)
+    plan = backward_geometry(k, n_rows, row_bytes, unit)
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(lib.gather_rows_bwd_launch(
-        dout.data_ptr(), idx.data_ptr(), dsrc.data_ptr(), keys[0].data_ptr(),
-        keys[1].data_ptr(), n_rows, idx.shape[0], row_bytes, unit, geo["tc"],
-        geo["r"], geo["v"], geo["row_tiles"], geo["unit_tiles"], *geo["grid"],
-        stream), "gather_rows_backward")
+    if plan["path"] == "one pass":
+        status = lib.gather_rows_bwd_launch(
+            dout.data_ptr(), idx.data_ptr(), dsrc.data_ptr(), None, None,
+            n_rows, k, row_bytes, unit, plan["rows_per_block"], 0, 0, 0, 0,
+            0, 0, 0, stream)
+    else:
+        geo = gather_geometry(n_rows, row_bytes, unit)
+        keys = torch.empty((2, max(k, 1)), dtype=torch.int64, device=dev)
+        status = lib.gather_rows_bwd_launch(
+            dout.data_ptr(), idx.data_ptr(), dsrc.data_ptr(),
+            keys[0].data_ptr(), keys[1].data_ptr(), n_rows, k, row_bytes,
+            unit, 0, geo["tc"], geo["r"], geo["v"], geo["row_tiles"],
+            geo["unit_tiles"], *geo["grid"], stream)
+    build.check(status, "gather_rows_backward")
     counting.count(gather_rows_backward)
+    with counting.LOCK:
+        gather_rows_backward.shapes[(k, n_rows, row_bytes)] += 1
     return dsrc
 
 
@@ -187,3 +238,4 @@ class GatherRowsFunction(torch.autograd.Function):
 gather_rows.launches = 0
 gather_rows.shapes = Counter()   # (K, row bytes) -> launches
 gather_rows_backward.launches = 0
+gather_rows_backward.shapes = Counter()   # (K, n_rows, row bytes) -> launches

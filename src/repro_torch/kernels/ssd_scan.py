@@ -122,8 +122,9 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
     chunk start states (:func:`ssd_scan_forward` with ``with_states``), or
     None where they are all zero (one chunk and no initial state). On the
     card the kernels of ``csrc/ssd_scan_bwd.cu`` (the state pass over the
-    chunks, where it is needed; the chunk kernel; the group sums), counted
-    as one launch, with the head dim at most 64; ``dy`` and ``dfinal`` in
+    chunks, where it is needed; C B^T once per group of heads; the chunk
+    kernel on the tensor cores; the group sums), counted as one launch,
+    with the head dim at most 64; ``dy`` and ``dfinal`` in
     another layout are copied contiguous first. The gradients are dense.
     On the CPU the plain version (:func:`ref.ssd_scan_bwd_ref`)."""
     if x.device.type == "cpu":
@@ -165,6 +166,8 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
                 (dinit.zero_() if dfinal is None else dinit.copy_(dfinal)))
     state_pass = nc > 1 or dfinal is not None or dinit is not None
     gbuf = torch.empty((b, nc, h, p, n) if state_pass else (0,), **f32)
+    s16 = -(-chunk // 16)
+    cbuf = torch.empty((b * nc * g, s16, 2 * s16, 32, 4), **f32)
     dbh = torch.empty((b, l, h, n), **f32)
     dch = torch.empty((b, l, h, n), **f32)
     dapart = torch.empty((b * nc, h), **f32)
@@ -178,7 +181,7 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
         build.check(lib.ssd_scan_bwd_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), dy.data_ptr(), ptr(dfinal), ptr(states),
-            gbuf.data_ptr(), dbh.data_ptr(), dch.data_ptr(),
+            gbuf.data_ptr(), cbuf.data_ptr(), dbh.data_ptr(), dch.data_ptr(),
             dapart.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
             dB.data_ptr(), dC.data_ptr(), ptr(dinit), b, l, h, p, g, n,
             chunk, int(init_state is not None), x.stride(0), x.stride(1),

@@ -22,6 +22,14 @@ with no PyTorch in them:
    tiles, the cluster barrier and the reduction over the ranks, for the
    ranks of the first cluster and one rank of the last key tile; and each
    of the backward's kernels timed alone (CUDA events, five launches).
+   And the chunk kernel of ``csrc/ssd_scan_bwd.cu`` at the trainer's
+   shape (x (8, 128, 24, 64), one chunk of 128): every warp's cycles to
+   its dy landed (dt loaded, cp.async issued, the tile list and barrier,
+   the cum scan, the wait), M = dP o L, the wait for B, C and C B^T
+   (kernel 2a),
+   its dx strips, its dC and dB tiles, the barrier after them, and warp
+   0's dcum scan, for three blocks; the backward's kernels timed together
+   and the group sums (kernel 3) alone.
    Then copies of the backward with its register tiles rewritten (the
    dk/dv pass at 32 or 64 queries, the dq tile at 32 or 64 keys), each
    timed cold and warm at that shape, all three kernels, dk/dv and dq
@@ -43,11 +51,14 @@ with no PyTorch in them:
 4. **The row gather**: ``csrc/gather_rows.cu`` at the wrapper's geometry
    and at other block shapes, timed the same way at the path's shapes
    (K = 1, 16, 256, 512 rows of 2048 bytes) beside an empty kernel, and
-   checked bit-equal.
+   checked bit-equal; and its backward's one-launch path
+   (``csrc/gather_rows_bwd.cu``) at 1, 2, 4, 8 and 16 rows a block, K = 1
+   to 2048 into (2048, 512), checked bit-equal to four rows.
 
 The copies are made from the sources by inserting stamps at fixed lines,
 or rewriting them; if a source changes so that a line is not found, the
-script says which.
+script says which. Names on the command line (``ssd_bwd_phases``,
+``gather_variants``, ...) run only those programs.
 """
 
 from __future__ import annotations
@@ -797,6 +808,141 @@ int main() {
 """
 
 
+# the row gather's backward, one-launch path, by rows a block
+GATHER_BWD_MAIN = TIMING + r"""
+int main() {
+  const int n = 2048, row_bytes = 2048, D = row_bytes / 4;
+  float *dout, *dsrc, *want;
+  int32_t* idx;
+  cudaMalloc(&dout, size_t(2048) * row_bytes);
+  cudaMalloc(&dsrc, size_t(n) * row_bytes);
+  cudaMalloc(&want, size_t(n) * row_bytes);
+  cudaMalloc(&idx, 2048 * 4);
+  std::vector<float> hd(size_t(2048) * D);
+  for (size_t i = 0; i < hd.size(); ++i)
+    hd[i] = (i * 2654435761u % 1000) / 1e3f - .5f;
+  std::vector<int32_t> hi(2048);
+  for (int i = 0; i < 2048; ++i) hi[i] = (i * 7919) % n - (i % 3 ? 0 : n);
+  cudaMemcpy(dout, hd.data(), hd.size() * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(idx, hi.data(), 2048 * 4, cudaMemcpyHostToDevice);
+  time_floor("gather bwd variants");
+  for (long long k : {1, 16, 256, 512, 2048}) {
+    // the reference: four rows a block, the wrapper's choice at these K
+    gather_rows_bwd_launch(dout, idx, want, nullptr, nullptr, n, k,
+                           row_bytes, 16, 4, 0, 0, 0, 0, 0, 0, 0, 0);
+    for (long long rows : {1, 2, 4, 8, 16}) {
+      auto f = [&] {
+        gather_rows_bwd_launch(dout, idx, dsrc, nullptr, nullptr, n, k,
+                               row_bytes, 16, rows, 0, 0, 0, 0, 0, 0, 0, 0);
+      };
+      f();
+      cudaDeviceSynchronize();
+      std::vector<float> a(size_t(n) * D), b(a.size());
+      cudaMemcpy(a.data(), dsrc, a.size() * 4, cudaMemcpyDeviceToHost);
+      cudaMemcpy(b.data(), want, b.size() * 4, cudaMemcpyDeviceToHost);
+      printf("gather bwd variants: K=%lld into (%d, %d), %lld rows a "
+             "block: ms cold %.5f, warm %.5f; bit-equal to four rows %s\n",
+             k, n, D, rows, time_ms(f, true), time_ms(f, false),
+             a == b ? "yes" : "NO");
+    }
+  }
+  printf("gather bwd variants: %s\n",
+         cudaGetErrorString(cudaGetLastError()));
+  return 0;
+}
+"""
+
+
+# the scan's backward chunk kernel, at the trainer's shape
+SSD_BWD_STAMPS = [
+    ("  const float* ssrc = has_s ? a.states + slot : nullptr;\n",
+     "+  const int pidx = (blockIdx.y * gridDim.x + blockIdx.x) * WARPS + warp;"
+     "\n  STAMP(0, 0.f);\n"),
+    ("  stage_async<MAXP>(sm.ys, LDP, Q16, yb, a.H * a.P, q, pp, a.vec_y);\n",
+     "  STAMP(8, dtv);\n"),
+    ("  if (tid == 0) {\n    // dC tiles (8 t wide", "  STAMP(9, 0.f);\n"),
+    ("  if (warp == 0) {\n    // cum (inclusive scan", "  STAMP(10, 0.f);\n"),
+    ("  cp_async_wait<1>();   // dy\n", "  STAMP(11, 0.f);\n"),
+    ("  // -- a. M = (dy x^T) o L, s-major, by strips", "  STAMP(1, 0.f);\n"),
+    ("  cp_async_wait<0>();   // B and C\n", "  STAMP(7, 0.f);\n"),
+    ("  __syncthreads();   // M is whole\n", "+  STAMP(2, 0.f);\n"),
+    ("  // -- b. the dC and dB tiles, drawn longest first",
+     "  STAMP(3, 0.f);\n"),
+    ("  __syncthreads();\n\n  // -- c. <S0, G>", "  STAMP(4, 0.f);\n"),
+    ("  float sg = 0.f;\n  if (has_g && has_s) {", "  STAMP(5, 0.f);\n"),
+    ("    if (lane == 0) a.dapart[bc * a.H + h] = da;\n",
+     "+    STAMP(6, da);\n"),
+]
+SSD_BWD_MAIN = r"""
+#include <cstdio>
+#include <vector>
+int main() {
+  const int b = 8, L = 128, H = 24, P = 64, N = 128, Q = 128;
+  const size_t nx = size_t(b) * L * H * P, nd = size_t(b) * L * H;
+  const size_t nb = size_t(b) * L * N, nh = size_t(b) * L * H * N;
+  std::vector<float> hx(nx), hd(nd), ha(H), hb(nb);
+  for (size_t i = 0; i < nx; ++i) hx[i] = (i * 2654435761u % 1000) / 1e3f - .5f;
+  for (size_t i = 0; i < nd; ++i) hd[i] = (i * 40503u % 1000) / 2e3f;
+  for (int i = 0; i < H; ++i) ha[i] = -0.1f * (i % 5 + 1);
+  for (size_t i = 0; i < nb; ++i) hb[i] = (i * 7919u % 1000) / 1e3f - .5f;
+  float *x, *dt, *A, *B, *C, *dy, *dbh, *dch, *dap, *dx, *ddt, *dA, *dB, *dC;
+  float* cbuf;   // (b, S16 = 8, 16 tiles, 32 lanes, 4)
+  cudaMalloc(&cbuf, size_t(b) * 8 * 16 * 32 * 4 * 4);
+  for (float** q : {&x, &dy, &dx}) cudaMalloc(q, nx * 4);
+  for (float** q : {&dt, &ddt}) cudaMalloc(q, nd * 4);
+  for (float** q : {&B, &C, &dB, &dC}) cudaMalloc(q, nb * 4);
+  for (float** q : {&dbh, &dch}) cudaMalloc(q, nh * 4);
+  cudaMalloc(&A, H * 4); cudaMalloc(&dA, H * 4); cudaMalloc(&dap, b * H * 4);
+  for (float* q : {x, dy}) cudaMemcpy(q, hx.data(), nx * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(dt, hd.data(), nd * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(A, ha.data(), H * 4, cudaMemcpyHostToDevice);
+  for (float* q : {B, C}) cudaMemcpy(q, hb.data(), nb * 4, cudaMemcpyHostToDevice);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0); cudaEventCreate(&e1);
+  for (int rep = 0; rep < 5; ++rep) {
+    cudaEventRecord(e0);
+    const int rc = ssd_scan_bwd_launch(
+        x, dt, A, B, C, dy, nullptr, nullptr, nullptr, cbuf, dbh, dch, dap, dx,
+        ddt, dA, dB, dC, nullptr, b, L, H, P, 1, N, Q, 0, L * H * P, H * P,
+        L * H, H, L * N, N, L * N, N, 0);
+    cudaEventRecord(e1); cudaEventSynchronize(e1);
+    float ms; cudaEventElapsedTime(&ms, e0, e1);
+    printf("ssd bwd phases: all four kernels, launch %d rc %d, %.4f ms\n",
+           rep, rc, ms);
+  }
+  for (int rep = 0; rep < 5; ++rep) {
+    cudaEventRecord(e0);
+    ssd_bwd_sum_kernel<float4><<<(b * L * N / 4 + 255) / 256, 256>>>(
+        reinterpret_cast<const float4*>(dbh),
+        reinterpret_cast<const float4*>(dch), dap,
+        reinterpret_cast<float4*>(dB), reinterpret_cast<float4*>(dC), dA,
+        b * L, H, 1, N / 4, b);
+    cudaEventRecord(e1); cudaEventSynchronize(e1);
+    float ms; cudaEventElapsedTime(&ms, e0, e1);
+    printf("ssd bwd phases: the group sums alone (kernel 3, %.1f MB of "
+           "per-head scratch read), launch %d, %.4f ms\n",
+           2.0 * nh * 4 / 1e6, rep, ms);
+  }
+  static long long hp[4096][20];
+  cudaMemcpyFromSymbol(hp, g_prof, sizeof(hp));
+  for (int blk : {0, 100, 191}) for (int w = 0; w < 16; ++w) {
+    const long long* t = hp[blk * 16 + w];
+    printf("ssd bwd phases: block %d warp %d start cycles: dt loaded "
+           "%lld, cp.async issued %lld, tile list and barrier %lld, cum "
+           "%lld, dy's wait and barrier %lld\n", blk, w, t[8] - t[0],
+           t[9] - t[8], t[10] - t[9], t[11] - t[10], t[1] - t[11]);
+    printf("ssd bwd phases: block %d warp %d cycles: dy landed %lld, "
+           "M = dP o L %lld, B, C and kernel 2a waited for %lld, dx strips "
+           "(K o dt, dx) %lld, dC and dB tiles %lld, barrier %lld, dcum scan "
+           "%lld, total %lld\n", blk, w, t[1] - t[0], t[7] - t[1],
+           t[2] - t[7], t[3] - t[2], t[4] - t[3], t[5] - t[4],
+           t[6] ? t[6] - t[5] : 0, (t[6] ? t[6] : t[5]) - t[0]);
+  }
+  return 0;
+}
+"""
+
+
 def gather_main() -> str:
     """gather_rows.cu at the path's shapes (K = 1, 16, 256, 512 rows of
     2048 bytes): with the geometry the wrapper computes, and with other
@@ -854,7 +1000,11 @@ def build_and_run(name: str, source: str) -> str:
                           text=True, timeout=300).stdout
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
+    """Builds and runs every program, or those named in ``argv``."""
+    import sys
+
+    only = set(sys.argv[1:] if argv is None else argv)
     for name, source in (
             ("hmma_rate", HMMA_RATE),
             ("flash_phases", instrument("flash_attention.cu", FLASH_STAMPS,
@@ -862,15 +1012,20 @@ def main() -> None:
             ("bwd_phases", instrument("flash_attention_bwd.cu", BWD_STAMPS,
                                       BWD_MAIN)),
             ("ssd_phases", instrument("ssd_scan.cu", SSD_STAMPS, SSD_MAIN)),
+            ("ssd_bwd_phases", instrument("ssd_scan_bwd.cu", SSD_BWD_STAMPS,
+                                          SSD_BWD_MAIN)),
             ("cell_phases", instrument_cell()),
             ("cell_clusters", cell_clusters_main()),
             ("cell_floors", cell_floors_main()),
             ("gather_variants", gather_main()),
+            ("gather_bwd_variants",
+             '#include "gather_rows_bwd.cu"\n' + GATHER_BWD_MAIN),
             ("cell_early_0", cell_clusters_main(4, 0)),
             ("cell_early_8", cell_clusters_main(4, 8)),
             *((f"bwd_qn{qn}_bk{bk}", bwd_variant(qn, bk))
               for qn, bk in ((64, 64), (32, 64), (64, 32), (32, 32)))):
-        print(build_and_run(name, source), end="", flush=True)
+        if not only or name in only:
+            print(build_and_run(name, source), end="", flush=True)
 
 
 if __name__ == "__main__":

@@ -123,14 +123,46 @@ def _dq_tile(q, k, v, dout, lse, dvec, b, h, kvh, i0, j0, bk, causal,
     return ds, kt
 
 
+def _scores64(q, k, causal, window):
+    """:func:`ref.flash_attention_ref`'s scaled, masked scores, (B, KV, G,
+    Sq, Skv), left in the inputs' dtype: the plain version takes them in
+    float32 (``.float()``)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, D)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k) * (D ** -0.5)
+    if causal:
+        s = s.masked_fill(~ref.attention_mask(Sq, Skv, window, q.device),
+                          -1e30)
+    return s
+
+
+def attention64(q, k, v, causal, window):
+    """The plain attention with its softmax in the inputs' dtype."""
+    B, Sq, H, D = q.shape
+    w = torch.softmax(_scores64(q, k, causal, window), dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", w, v).reshape(B, Sq, H, D)
+
+
+def backward64(q, k, v, dout, causal, window):
+    """Autograd's (dq, dk, dv) of :func:`attention64`: the replay's
+    yardstick, with no float32 arithmetic in it."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        out = attention64(*leaves, causal, window)
+        return torch.autograd.grad(out, leaves, dout)
+
+
 def replay_backward(q, k, v, dout, causal, window):
-    """The kernels' loops, step by step; returns (dq, dk, dv) and the number
-    of pair tiles the dk/dv and dq CTAs formed."""
+    """The kernels' loops, step by step, in the inputs' dtype (the output
+    and its log-sum-exp too); returns (dq, dk, dv) and the number of pair
+    tiles the dk/dv and dq CTAs formed."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
-    out = ref.flash_attention_ref(q, k, v, causal, window)
-    lse = ref.flash_attention_lse_ref(q, k, causal, window)
+    out = attention64(q, k, v, causal, window)
+    lse = torch.logsumexp(_scores64(q, k, causal, window),
+                          dim=-1).reshape(B, H, Sq)
     dvec = (dout * out).sum(-1).permute(0, 2, 1)           # (B, H, Sq)
     dq = torch.zeros_like(q)
     dk = torch.zeros_like(k)
@@ -211,8 +243,9 @@ def test_replayed_backward_tiles_give_autograds_gradients(case):
     B, Sq, Skv, H, KV, D, causal, window = _CASES[case]
     q, k, v, dout = _inputs(B, Sq, Skv, H, KV, D, seed=Sq + Skv)
     got, tiles = replay_backward(q, k, v, dout, causal, window)
-    want = ref.flash_attention_backward_ref(q, k, v, dout, causal, window)
-    # the plain version takes its softmax in float32 (``.float()``)
+    # both sides in float64: the float32 softmax of the plain version put
+    # its own rounding (2e-7 of the 1e-6 bar here) into the comparison
+    want = backward64(q, k, v, dout, causal, window)
     for name, g, w in zip("qkv", got, want):
         err = float((g - w).abs().max() / w.abs().max().clamp_min(1.0))
         assert err <= 1e-6, f"d{name} ({case}): {err}"

@@ -3,9 +3,12 @@ dynamic-graph executors.
 
 The plain backward (``kernels/ref.py:gather_rows_bwd_ref``) against
 autograd of ``src[idx]`` and against ``jax.vjp`` of the JAX package's
-``gather_rows``; a replay of ``csrc/gather_rows_bwd.cu`` in torch (the
-2048-key bitonic tiles, the pairwise merges by binary search, and the row
-sums over each row's run of keys, in ascending k); the autograd
+``gather_rows``; replays of ``csrc/gather_rows_bwd.cu``'s two paths in
+torch (one launch: each block's compaction of the pairs landing in its
+rows in ascending k, the stable counting sort by row, the row sums; the
+sort: the 2048-key bitonic tiles, the pairwise merges by binary search,
+and the row sums over each row's run of keys, in ascending k), and where
+:func:`backward_geometry` puts the threshold between them; the autograd
 ``Function``'s bookkeeping (it saves the index vector and never ``src``);
 and TreeGRU trained through ``DynamicExecutor`` (``examples/
 tree_classifier_torch.py``) against the same steps through the JAX
@@ -13,6 +16,7 @@ package's executor with ``jax.value_and_grad``, and through
 ``CompiledPlan``."""
 
 import importlib.util
+import math
 import random
 from pathlib import Path
 
@@ -26,7 +30,8 @@ jnp = jax.numpy
 from repro.kernels import gather_batch as jax_gather  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.gather_batch import (  # noqa: E402
-    GatherRowsFunction, gather_geometry, gather_rows, gather_rows_backward)
+    ONE_PASS_MAX_K, ONE_PASS_THREADS, GatherRowsFunction, backward_geometry,
+    gather_geometry, gather_rows, gather_rows_backward)
 
 ROOT = Path(__file__).resolve().parents[1]
 SORT_TILE = 2048    # csrc/gather_rows_bwd.cu: most keys a sort block takes
@@ -118,6 +123,63 @@ def replay_backward(dout, idx, n_rows):
     return dsrc
 
 
+def replay_one_pass(dout, idx, n_rows, rows):
+    """csrc/gather_rows_bwd.cu's one-launch path, block by block: the pairs
+    (local row, k) landing in the block's ``rows`` rows, compacted in the
+    order of the (chunk, warp) groups (chunk i, warp w holding k = 256 i +
+    32 w + lane), lanes in order within a group; each row's count and its
+    prefix; the pairs placed 32 at a time in list order, equal rows within
+    the 32 in lane order; then each row the sum of its run in order (zero
+    for an empty run)."""
+    K = idx.shape[0]
+    assert K <= ONE_PASS_MAX_K
+    flat = dout.reshape(K, math.prod(dout.shape[1:]))
+    target = torch.where(idx < 0, idx + n_rows, idx).long()
+    assert bool(((target >= 0) & (target < n_rows)).all())
+    dsrc = torch.empty((n_rows, flat.shape[1]), dtype=dout.dtype)
+    warps = ONE_PASS_THREADS // 32
+    for r0 in range(0, n_rows, rows):
+        nrows = min(rows, n_rows - r0)
+        pairs = []
+        for i in range(ONE_PASS_MAX_K // ONE_PASS_THREADS):
+            for w in range(warps):
+                for lane in range(32):
+                    kk = i * ONE_PASS_THREADS + 32 * w + lane
+                    if kk < K and r0 <= int(target[kk]) < r0 + nrows:
+                        pairs.append((int(target[kk]) - r0, kk))
+        ks = [kk for _, kk in pairs]
+        assert ks == sorted(ks)   # the compaction keeps ascending k
+        start = [0] * (nrows + 1)
+        for lr, _ in pairs:
+            start[lr + 1] += 1
+        for r in range(nrows):
+            start[r + 1] += start[r]
+        cursor, runk = list(start), [None] * len(pairs)
+        for base in range(0, len(pairs), 32):
+            chunk = pairs[base:base + 32]
+            for lane, (lr, kk) in enumerate(chunk):
+                rank = sum(1 for lr2, _ in chunk[:lane] if lr2 == lr)
+                runk[cursor[lr] + rank] = kk
+            for lr in {lr for lr, _ in chunk}:
+                cursor[lr] += sum(1 for lr2, _ in chunk if lr2 == lr)
+        assert cursor[:nrows] == start[1:]
+        for lr in range(nrows):
+            acc = torch.zeros(flat.shape[1], dtype=dout.dtype)
+            for j in range(start[lr], start[lr + 1]):
+                acc = acc + flat[runk[j]]
+            dsrc[r0 + lr] = acc
+    return dsrc.reshape((n_rows,) + tuple(dout.shape[1:]))
+
+
+def threshold(n_rows, row_bytes, unit=16) -> int:
+    """The largest K that takes the one-launch path at this shape."""
+    k = 0
+    while k < ONE_PASS_MAX_K and backward_geometry(
+            k + 1, n_rows, row_bytes, unit)["path"] == "one pass":
+        k += 1
+    return k
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_backward_matches_autograd_within_1e5(case):
     shape, K, rep, neg = CASES[case]
@@ -154,6 +216,106 @@ def test_replayed_kernel_is_bit_equal_to_the_plain_backward(case):
     src, idx, dout = make(shape, K, rep, neg, seed=2)
     got = replay_backward(dout, idx, shape[0])
     assert torch.equal(got, ref.gather_rows_bwd_ref(dout, idx, shape[0]))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_replayed_one_pass_is_bit_equal_to_the_plain_backward(case):
+    """The one-launch path sums each row's run in ascending k too: float32
+    results bit-equal to the plain version's CPU ``index_add_``, at the
+    rows a block takes at this shape (and, past the pairs a block holds,
+    at the largest K it takes)."""
+    shape, K, rep, neg = CASES[case]
+    K = min(K, ONE_PASS_MAX_K)
+    src, idx, dout = make(shape, K, rep, neg, seed=4)
+    row_bytes = 4 * src[0].numel()
+    unit = 16 if row_bytes % 16 == 0 else 4
+    plan = backward_geometry(K, shape[0], row_bytes, unit)
+    rows = plan.get("rows_per_block", 3)
+    got = replay_one_pass(dout, idx, shape[0], rows)
+    assert torch.equal(got, ref.gather_rows_bwd_ref(dout, idx, shape[0]))
+
+
+# (n_src, row floats, K, index pattern): the threshold's edges, a last
+# block holding fewer rows, every index on one row, negative indices, the
+# bucketed executor's trash row (the last, as -1)
+EDGES = {
+    "K at the threshold, 64-byte rows": (300, 16, None, "repeats"),
+    "K one above the threshold, 64-byte rows": (300, 16, 1, "repeats"),
+    "n_src not a multiple of a block's rows": (301, 16, 200, "repeats"),
+    "every index on one row": (150, 16, 300, "one row"),
+    "negative indices": (97, 12, 150, "negatives"),
+    "trash row": (130, 16, 180, "trash"),
+}
+
+
+def edge_inputs(n_src, width, K, pattern, seed=5):
+    rng = np.random.default_rng(seed)
+    if pattern == "one row":
+        idx = np.full(K, rng.integers(0, n_src))
+    elif pattern == "trash":
+        idx = rng.integers(0, n_src - 1, K)
+        idx[rng.random(K) < 0.5] = -1
+    else:
+        idx = rng.integers(0, n_src, K)
+        if pattern == "negatives":
+            idx = np.where(rng.random(K) < 0.5, idx - n_src, idx)
+    dout = torch.as_tensor(rng.standard_normal((K, width)),
+                           dtype=torch.float32)
+    return torch.as_tensor(idx, dtype=torch.int32), dout
+
+
+@pytest.mark.parametrize("case", sorted(EDGES))
+def test_one_pass_edges_are_bit_equal_to_the_plain_backward(case):
+    """At the threshold the one-launch path, one above it the sort; both
+    give the plain version's bits."""
+    n_src, width, K, pattern = EDGES[case]
+    row_bytes = 4 * width
+    if "threshold" in case:
+        K = threshold(n_src, row_bytes) + (K or 0)
+    idx, dout = edge_inputs(n_src, width, K, pattern)
+    plan = backward_geometry(K, n_src, row_bytes, 16)
+    want = ref.gather_rows_bwd_ref(dout, idx, n_src)
+    if plan["path"] == "one pass":
+        got = replay_one_pass(dout, idx, n_src, plan["rows_per_block"])
+    else:
+        got = replay_backward(dout, idx, n_src)
+    assert torch.equal(got, want)
+    if "above" in case:
+        assert plan["path"] == "sort"
+    else:
+        assert plan["path"] == "one pass"
+        if case.startswith("n_src"):
+            assert n_src % plan["rows_per_block"] != 0
+
+
+def test_backward_paths_at_the_paths_shapes():
+    """2 KB rows into 2048: one launch, four rows a block, at every K a
+    block can hold (the index rule's bound is 2048 there too); into 4096
+    rows four a block up to the index rule's 1365, eight past it; the sort
+    past 2048 and for 5000 indices into narrow rows (phase 10 (a)'s
+    cases)."""
+    def path(k, n=2048, row_bytes=2048):
+        return backward_geometry(k, n, row_bytes, 16)
+    assert path(1) == path(256) == path(2048) == {
+        "path": "one pass", "rows_per_block": 4, "blocks": 512}
+    assert path(1365, 4096) == {
+        "path": "one pass", "rows_per_block": 4, "blocks": 1024}
+    assert path(1366, 4096) == {
+        "path": "one pass", "rows_per_block": 8, "blocks": 512}
+    assert path(2049) == {"path": "sort"}
+    assert path(5000, 8192, 64) == {"path": "sort"}
+    assert threshold(2048, 2048) == threshold(300, 64) == ONE_PASS_MAX_K
+    # where the index reads decide: 4-byte rows, many of them, 2048 a block
+    # at most: 49 blocks read 196 K bytes against 4 (K + 100000)
+    assert threshold(100000, 4, unit=4) == 1030
+    assert backward_geometry(1030, 100000, 4, 4) == {
+        "path": "one pass", "rows_per_block": 2048, "blocks": 49}
+    for k, n, rb in ((7, 300, 64), (0, 5, 4096), (2048, 1, 4)):
+        plan = path(k, n, rb)
+        if plan["path"] == "one pass":
+            assert 2 * plan["blocks"] * k * 4 <= (k + n) * rb
+            assert plan["rows_per_block"] * (rb // 16) <= 8 * 256 or \
+                plan["rows_per_block"] == 1
 
 
 def test_plain_backward_raises_on_an_index_out_of_range():

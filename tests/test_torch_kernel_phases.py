@@ -2,8 +2,8 @@
 
 ``repro_torch.tools.kernel_phases`` builds its copies on the card by
 inserting ``clock64`` stamps at fixed lines of ``csrc/flash_attention.cu``,
-``csrc/flash_attention_bwd.cu``, ``csrc/ssd_scan.cu`` and
-``csrc/lstm_cell_tile.cuh`` (through ``csrc/fused_gather_lstm_cell.cu``) and calls each launch function from a
+``csrc/flash_attention_bwd.cu``, ``csrc/ssd_scan.cu``,
+``csrc/ssd_scan_bwd.cu`` and ``csrc/lstm_cell_tile.cuh`` (through ``csrc/fused_gather_lstm_cell.cu``) and calls each launch function from a
 host program of its own. These tests run on the CPU, with no compiler:
 each anchor line is found exactly once in today's source, every stamp goes
 in, and each host program passes as many arguments as the launch function
@@ -39,6 +39,12 @@ _KERNELS = {
         lambda: kernel_phases.instrument("ssd_scan.cu",
                                          kernel_phases.SSD_STAMPS,
                                          kernel_phases.SSD_MAIN)),
+    "ssd_scan_bwd": (
+        "ssd_scan_bwd.cu", kernel_phases.SSD_BWD_STAMPS,
+        kernel_phases.SSD_BWD_MAIN,
+        lambda: kernel_phases.instrument("ssd_scan_bwd.cu",
+                                         kernel_phases.SSD_BWD_STAMPS,
+                                         kernel_phases.SSD_BWD_MAIN)),
     "fused_gather_lstm_cell": (
         "lstm_cell_tile.cuh", kernel_phases.CELL_STAMPS,
         kernel_phases.CELL_MAIN, kernel_phases.instrument_cell),
@@ -132,3 +138,14 @@ def test_host_program_passes_every_launch_argument(name):
     decl = re.search(rf"int {name}_launch\((.*?)\)\s*\{{", source, re.S)
     assert decl is not None
     assert _top_level_args(decl.group(1)) == len(SIGNATURES[f"{name}_launch"])
+
+
+def test_backward_gather_variants_pass_every_launch_argument():
+    """The backward gather's block-size program calls the launch function
+    with all its arguments, each time, and includes its source."""
+    calls = re.findall(r"gather_rows_bwd_launch\((.*?)\);",
+                       kernel_phases.GATHER_BWD_MAIN, re.S)
+    assert len(calls) == 2
+    for call in calls:
+        assert _top_level_args(call) == \
+            len(SIGNATURES["gather_rows_bwd_launch"])

@@ -4,12 +4,21 @@ a replay of the backward kernels in torch.
 
 The CUDA kernels (``csrc/ssd_scan_bwd.cu``) cannot run here, so
 ``replay_backward`` walks them step by step over flat buffers laid out as
-their shared memory is (rows padded to 129 and 65 floats), with the same
-staging, the same product calls (each an operand address ``r * ar + k *
-ak`` against ``c * bc + k * bk``, the strides the kernel passes), the same
-masks and the same order of sums: the state pass over the chunks, last to
-first; the chunk kernel's three roles per (batch, chunk, head); the group
-and dA sums. It must give autograd's gradients of the plain scan, at the
+their shared memory is: the state pass over the chunks, last to first
+(rows padded to 129 and 65 floats, each product an operand address ``r *
+ar + k * ak`` against ``c * bc + k * bk``, the strides the kernel
+passes); then per (batch, chunk, head) the chunk kernel's tiles (rows
+padded to 132 and 68 floats, M = dP o L kept strip by strip with only the
+columns on or past each strip's diagonal, an unwritten entry NaN so that
+a read past what was written shows): the 16 x 8 tiles of M on or below the
+diagonal; C B^T of each (batch, chunk, group) by strips of s, once for the
+group's heads (kernel 2a); dx by strips split evenly over pairs of
+warps, 8-wide tiles of t, K o dt and W = CB o M o dt formed from kernel
+2a's tiles, W's row and column sums from the same terms, the first
+half's partial added to the second's; the dC^T tiles (64 n x 8 t, over s <= t)
+with their rows' C . dC; the dB tiles (16 s x 32 n, over t >= s); the
+triangle's masks; dcum's suffix scan four steps a lane; then the group and
+dA sums. It must give autograd's gradients of the plain scan, at the
 shapes the card tests use (small here: h = 4, p = 8, n = 16). Keep it in
 step with the kernels."""
 
@@ -27,7 +36,9 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 
 MAXQ = MAXN = 128
 MAXP = 64
-LDN, LDP = MAXN + 1, MAXP + 1
+LDS, LDY = MAXN + 1, MAXP + 1     # the state pass's rows
+LDN, LDP = MAXN + 4, MAXP + 4     # the chunk kernel's B, C and dy rows
+WARPS = 16
 
 # (b, l, h, p, groups, n, chunk, initial state, final-state gradient)
 CASES = {
@@ -107,12 +118,6 @@ def chunk_cum(dts, a, q):
     return cum, ecum
 
 
-def tril(q):
-    t = torch.arange(MAXQ)[:, None]
-    s = torch.arange(MAXQ)[None, :]
-    return (s <= t) & (t < q)
-
-
 def replay_state_pass(dt, A, C, dy, dfinal, chunk, want_dinit):
     """Kernel 1: G of every chunk (b, c, h, p, n) and dinit (or None)."""
     b, l, h, p = dy.shape
@@ -123,124 +128,267 @@ def replay_state_pass(dt, A, C, dy, dfinal, chunk, want_dinit):
     for bb in range(b):
         for hh in range(h):
             grp = hh // (h // g)
-            gs = torch.zeros(MAXP * LDN, dtype=f)
-            stage(gs, LDN, MAXP, MAXN,
+            gs = torch.zeros(MAXP * LDS, dtype=f)
+            stage(gs, LDS, MAXP, MAXN,
                   dfinal[bb, hh] if dfinal is not None else None,
                   p if dfinal is not None else 0, n)
             for ci in reversed(range(nc)):
                 c0 = ci * q
-                gbuf[bb, ci, hh] = gs.view(MAXP, LDN)[:p, :n]
+                gbuf[bb, ci, hh] = gs.view(MAXP, LDS)[:p, :n]
                 dts = torch.zeros(MAXQ, dtype=f)
                 dts[:q] = dt[bb, c0:c0 + q, hh]
-                cs = torch.zeros(MAXQ * LDN, dtype=f)
-                stage(cs, LDN, MAXQ, MAXN, C[bb, c0:c0 + q, grp], q, n)
+                cs = torch.zeros(MAXQ * LDS, dtype=f)
+                stage(cs, LDS, MAXQ, MAXN, C[bb, c0:c0 + q, grp], q, n)
                 cum, ecum = chunk_cum(dts, A[hh], q)
-                ys = torch.zeros(MAXQ * LDP, dtype=f)
-                stage(ys, LDP, MAXQ, MAXP, dy[bb, c0:c0 + q, hh], q, p, ecum)
-                acc = torch.exp(cum[q - 1]) * gs.view(MAXP, LDN)[:, :MAXN]
-                mm(acc, ys, 1, LDP, cs, 1, LDN, q)
-                gs.view(MAXP, LDN)[:, :MAXN] = acc
-            dinit[bb, hh] = gs.view(MAXP, LDN)[:p, :n]
+                ys = torch.zeros(MAXQ * LDY, dtype=f)
+                stage(ys, LDY, MAXQ, MAXP, dy[bb, c0:c0 + q, hh], q, p, ecum)
+                acc = torch.exp(cum[q - 1]) * gs.view(MAXP, LDS)[:, :MAXN]
+                mm(acc, ys, 1, LDY, cs, 1, LDS, q)
+                gs.view(MAXP, LDS)[:, :MAXN] = acc
+            dinit[bb, hh] = gs.view(MAXP, LDS)[:p, :n]
     return gbuf, (dinit if want_dinit else None)
 
 
-def replay_chunk(role, x, dt, A, B, C, dy, states, gbuf, g_last_zero,
+def band_ld(j):
+    """Row length of M's strip j (columns t >= 16 j), 4 mod 8."""
+    return MAXQ - 16 * j + 4
+
+
+def band_off(j):
+    return 16 * (j * (MAXQ + 4) - 8 * j * (j - 1))
+
+
+class Bands:
+    """M = dP o L, s-major, strip j (rows 16 j .. 16 j + 15) holding only
+    columns t >= 16 j, as the kernel's shared memory does; an entry not
+    yet written is NaN, and a read outside a strip's columns fails."""
+
+    def __init__(self, f):
+        self.buf = torch.full((band_off(MAXQ // 16),), float("nan"),
+                              dtype=f)
+
+    def _at(self, s, t):
+        j = s // 16
+        assert bool((t >= 16 * j).all()) and bool((t < MAXQ).all())
+        return band_off(j) + (s - 16 * j) * band_ld(j) + (t - 16 * j)
+
+    def write(self, s, t, v):
+        self.buf[self._at(s, t)] = v
+
+    def read(self, s, t):
+        return self.buf[self._at(s, t)]
+
+
+def replay_cb(B, C, chunk):
+    """Kernel 2a: C B^T of each (batch, chunk, group) and 16-row strip j of
+    s, for the 8-wide tiles of t from 2 j, as transposed tiles (16 s x 8
+    t); NaN where no tile is formed. (b * nc * g, S16, 2 S16, 16, 8)."""
+    b, l, g, n = B.shape
+    nc, q, f = l // chunk, chunk, B.dtype
+    S16 = -(-q // 16)
+    cbuf = torch.full((b * nc * g, S16, 2 * S16, 16, 8), float("nan"),
+                      dtype=f)
+    for bcg in range(b * nc * g):
+        bb, ci, gg = bcg // (nc * g), (bcg // g) % nc, bcg % g
+        bq = torch.zeros((16 * S16, n), dtype=f)
+        bq[:q] = B[bb, ci * q:(ci + 1) * q, gg]
+        cq = torch.zeros((16 * S16, n), dtype=f)
+        cq[:q] = C[bb, ci * q:(ci + 1) * q, gg]
+        for j in range(S16):
+            for tt in range(2 * j, 2 * S16):
+                cbuf[bcg, j, tt] = bq[16 * j:16 * j + 16] @ \
+                    cq[8 * tt:8 * tt + 8].T
+    return cbuf
+
+
+def replay_chunk(x, dt, A, B, C, dy, states, gbuf, cbuf, g_last_zero,
                  has_init, b_, ci, hh, chunk, out):
-    """Kernel 2, one block: writes its role's outputs into ``out``."""
+    """Kernel 2, one block: writes dx, ddt, its heads' dB and dC rows and
+    its dA share into ``out``."""
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     nc, q, f = l // chunk, chunk, x.dtype
     c0, grp = ci * q, hh // (h // g)
+    S16, T8 = -(-q // 16), -(-q // 8)
+    Q16, NK, PK = 16 * S16, -(-n // 8), -(-p // 8)
     has_g = gbuf is not None and not (g_last_zero and ci == nc - 1)
     has_s = states is not None and not (ci == 0 and not has_init)
-    r0 = torch.zeros(MAXQ * LDN, dtype=f)
-    r1 = torch.zeros(MAXQ * LDN, dtype=f)
-    xs = torch.zeros(MAXQ * LDP, dtype=f)
-    ys = torch.zeros(MAXQ * LDP, dtype=f)
+    nan = float("nan")
+    G = gbuf[b_, ci, hh] if has_g else None
+    S0 = states[b_, ci, hh] if has_s else None
+    # staged by cp.async: rows < Q16, zero past q, n and p
+    bs = torch.full((MAXQ * LDN,), float("nan"), dtype=f)
+    cs = torch.full((MAXQ * LDN,), float("nan"), dtype=f)
+    ys = torch.full((MAXQ * LDP,), float("nan"), dtype=f)
+    stage(bs, LDN, Q16, MAXN, B[b_, c0:c0 + q, grp], q, n)
+    stage(cs, LDN, Q16, MAXN, C[b_, c0:c0 + q, grp], q, n)
+    stage(ys, LDP, Q16, MAXP, dy[b_, c0:c0 + q, hh], q, p)
+    bs2, cs2 = bs.view(MAXQ, LDN), cs.view(MAXQ, LDN)
+    ys2 = ys.view(MAXQ, LDP)
+    xq = torch.zeros((MAXQ, 8 * KP_ALL), dtype=f)
+    xq[:q, :p] = x[b_, c0:c0 + q, hh]
     dts = torch.zeros(MAXQ, dtype=f)
     dts[:q] = dt[b_, c0:c0 + q, hh]
-    stage(xs, LDP, MAXQ, MAXP, x[b_, c0:c0 + q, hh], q, p)
-    stage(ys, LDP, MAXQ, MAXP, dy[b_, c0:c0 + q, hh], q, p)
-    stage(r1, LDN, MAXQ, MAXN, (C if role == 2 else B)[b_, c0:c0 + q, grp],
-          q, n)
-    if role == 0:
-        stage(r0, LDN, MAXQ, MAXN, C[b_, c0:c0 + q, grp], q, n)
     cum, ecum = chunk_cum(dts, A[hh], q)
-    cum_end = cum[q - 1]
+    cum_end = cum[MAXQ - 1]
     wq = torch.where(torch.arange(MAXQ) < q, torch.exp(cum_end - cum),
                      torch.zeros_like(cum))
-    dp = torch.zeros((MAXQ, MAXQ), dtype=f)
-    mm(dp, ys, LDP, 1, xs, LDP, 1, p)
-    mask = tril(q)
-    decay = torch.exp(torch.where(mask, cum[:, None] - cum[None, :],
-                                  torch.zeros_like(dp)))
-    if role == 0:
-        kt = torch.zeros((MAXQ, MAXQ), dtype=f)
-        mm(kt, r0, LDN, 1, r1, LDN, 1, n)
-        kt = torch.where(mask, kt * decay, torch.zeros_like(kt))
-        kd = kt * dp
-        w = kd * dts[None, :]
-        roww, colw, ddtd = w.sum(1), w.sum(0), kd.sum(0)
-        t2 = torch.zeros(MAXQ, dtype=f)
-        t5 = torch.zeros(MAXQ, dtype=f)
-        r0.view(MAXQ, LDN)[:, :MAXQ] = kt * dts[None, :]
-        dxa = torch.zeros((MAXQ, MAXP), dtype=f)
-        mm(dxa, r0, 1, LDN, ys, 1, LDP, q)
-        sg = 0.0
-        if has_g:
-            stage(r0, LDN, MAXP, MAXN, gbuf[b_, ci, hh], p, n)
-            gb = torch.zeros((MAXQ, MAXP), dtype=f)
-            mm(gb, r1, LDN, 1, r0, LDN, 1, n)
-            dxa += (wq * dts)[:, None] * gb
-            xg = (xs.view(MAXQ, LDP)[:, :MAXP] * gb).sum(1)
-            t2 = wq * xg
-        if has_s:
-            stage(r1, LDN, MAXP, MAXN, states[b_, ci, hh], p, n)
+
+    def decay(s, t):
+        """e^(cum_t - cum_s) where s <= t < q, else 0 (and no exponent)."""
+        keep = (s <= t) & (t < q)
+        return keep, torch.where(keep, torch.exp(torch.where(
+            keep, cum[t] - cum[s], torch.zeros((), dtype=f))),
+            torch.zeros((), dtype=f))
+
+    # a. M's 16 x 8 tiles on or below the diagonal, strip by strip, split
+    # evenly over the warps (each warp's run up to four tiles at a time)
+    M = Bands(f)
+    tiles = 0
+    flat = [(j, tt) for j in range(S16) for tt in range(2 * j, 2 * S16)]
+    assert len(flat) == S16 * (S16 + 1)
+    for w in range(WARPS):
+        run = flat[len(flat) * w // WARPS:len(flat) * (w + 1) // WARPS]
+        for j, tt in run:
+            s0, t0 = 16 * j, 8 * tt
+            s = torch.arange(s0, s0 + 16)[:, None]
+            t = torch.arange(t0, t0 + 8)[None, :]
+            assert t0 + 7 >= s0   # never wholly above the diagonal
+            acc = xq[s0:s0 + 16, :8 * PK] @ ys2[t0:t0 + 8, :8 * PK].T
+            keep, L = decay(s, t)
+            M.write(s, t, torch.where(keep, acc * L, 0.0))
+            tiles += 1
+    out["m_tiles"] += tiles
+
+    # b. dx by strips: a segment of strip j over t in [16 u0, 16 u1); W
+    # formed once for its row and column sums
+    ddtd = torch.zeros(MAXQ, dtype=f)
+    colw = torch.zeros(MAXQ, dtype=f)
+    roww = torch.full((MAXQ // 16, MAXQ), nan, dtype=f)
+    t2 = torch.zeros(MAXQ, dtype=f)
+
+    def segment(j, tb, te):
+        """Strip j over the 8-wide tiles of t from tb to te."""
+        s0 = 16 * j
+        s = torch.arange(s0, s0 + 16)
+        dxa = torch.zeros((16, 8 * KP_ALL), dtype=f)
+        dd = torch.zeros(16, dtype=f)
+        cw = torch.zeros(16, dtype=f)
+        if tb == 2 * j and has_g:
+            gb = bs2[s0:s0 + 16, :8 * NK] @ torch.nn.functional.pad(
+                G, (0, 8 * NK - n, 0, 8 * KP_ALL - p)).T[:8 * NK]
+            t2[s0:s0 + 16] = wq[s] * (xq[s0:s0 + 16] * gb).sum(1)
+            dxa = gb * (wq[s] * dts[s])[:, None]
+        for tt in range(tb, te):
+            t = torch.arange(8 * tt, 8 * tt + 8)
+            cbt = cbuf[(b_ * nc + ci) * g + grp, j, tt]   # kernel 2a's
+            assert not torch.isnan(cbt).any()
+            mv = M.read(s[:, None], t[None, :])
+            kd = cbt * mv
+            w = kd * dts[s][:, None]
+            dd += kd.sum(1)
+            cw += w.sum(1)
+            roww[j, 8 * tt:8 * tt + 8] = w.sum(0)
+            keep, L = decay(s[:, None], t[None, :])
+            kv = torch.where(keep, cbt * L * dts[s][:, None], 0.0)
+            dxa[:, :8 * PK] += kv @ ys2[8 * tt:8 * tt + 8, :8 * PK]
+        return dxa, dd, cw
+
+    def dx_out(j, dxa, dd, cw):
+        s0 = 16 * j
+        rows = min(16, q - s0)
+        out["dx"][b_, c0 + s0:c0 + s0 + rows, hh] = dxa[:rows, :p]
+        ddtd[s0:s0 + 16] = dd
+        colw[s0:s0 + 16] = cw
+
+    # strip j holds tiles [2 j, 2 S16); a pair (m, S16 - 1 - m) holds
+    # 2 S16 + 2 of them, S16 + 1 a warp, as the middle strip alone does
+    pairs, half = S16 // 2, S16 + 1
+    assert S16 <= WARPS
+    for w in range(S16):           # the dx warps, in any order
+        m = w // 2
+        if w >= 2 * pairs:
+            assert 2 * S16 - 2 * pairs == half
+            dx_out(pairs, *segment(pairs, 2 * pairs, 2 * S16))
+        elif w % 2 == 1:
+            jb = S16 - 1 - m
+            assert (2 * S16 - 2 * jb) + (2 * S16 - 2 * m - half) == half
+            dx_out(jb, *segment(jb, 2 * jb, 2 * S16))
+            first = segment(m, 2 * m, 2 * m + half)   # the even warp's
+            rest = segment(m, 2 * m + half, 2 * S16)
+            dx_out(m, *(a_ + b_ for a_, b_ in zip(first, rest)))
+
+    # b. the dC^T tiles (64 n x 8 t; s < 8 (i8 + 1)) and dB tiles
+    # (16 s x 32 n; t >= 16 j), longest first
+    items = []
+    for length in range(2 * S16, 0, -1):
+        if length <= T8:
+            items += [("dC", nh, length - 1) for nh in range(2)
+                      if 64 * nh < n]
+        if length % 2 == 0:
+            items += [("dB", nq, S16 - length // 2) for nq in range(4)
+                      if 32 * nq < n]
+    t5 = torch.zeros((2, MAXQ), dtype=f)
+    for kind, sub, idx in items:
+        if kind == "dC":
+            t0, n0 = 8 * idx, 64 * sub
+            s = torch.arange(0, 8 * (idx + 1))
+            t = torch.arange(t0, t0 + 8)
+            mdt = M.read(s[:, None], t[None, :]) * dts[s][:, None]
+            acc = bs2[:8 * (idx + 1), n0:n0 + 64].T @ mdt   # (64 n, 8 t)
+            if has_s:
+                s0t = torch.zeros((8 * KP_ALL, 64), dtype=f)
+                cols = max(0, min(64, n - n0))
+                s0t[:p, :cols] = S0[:, n0:n0 + cols]
+                sd = ecum[t][None, :] * (s0t[:8 * PK].T
+                                         @ ys2[t0:t0 + 8, :8 * PK].T)
+                acc = acc + sd
+                live = torch.arange(n0, n0 + 64) < n
+                t5[sub, t0:t0 + 8] = (cs2[t0:t0 + 8, n0:n0 + 64].T
+                                      * sd)[live].sum(0)
+            live = torch.arange(n0, n0 + 64) < n
+            for tt in range(t0, min(t0 + 8, q)):
+                out["dch"][b_, c0 + tt, hh, n0:n0 + 64][:max(0, n - n0)] = \
+                    acc[live, tt - t0]
+        else:
+            s0, n0 = 16 * idx, 32 * sub
+            s = torch.arange(s0, s0 + 16)
+            t = torch.arange(s0, Q16)
+            acc = M.read(s[:, None], t[None, :]) @ cs2[s0:Q16, n0:n0 + 32]
+            acc = acc * dts[s][:, None]
             if has_g:
-                sg = float((r1.view(MAXQ, LDN)[:MAXP, :MAXN]
-                            * r0.view(MAXQ, LDN)[:MAXP, :MAXN]).sum())
-            stage(r0, LDN, MAXQ, MAXN, C[b_, c0:c0 + q, grp], q, n)
-            sc = torch.zeros((MAXQ, MAXP), dtype=f)
-            mm(sc, r0, LDN, 1, r1, LDN, 1, n)
-            t5 = ecum * (ys.view(MAXQ, LDP)[:, :MAXP] * sc).sum(1)
-        # thread 0, in order
-        vsum = sum(float(dts[s] * t2[s]) for s in range(q))
-        run, da = 0.0, 0.0
-        dda = torch.zeros(MAXQ, dtype=f)
-        for t in reversed(range(q)):
-            d = float(roww[t] - colw[t] + t5[t] - dts[t] * t2[t])
-            if t == q - 1:
-                d += vsum + float(torch.exp(cum_end)) * sg
-            run += d
-            dda[t] = run
-            da += float(dts[t]) * run
-        out["dapart"][b_ * nc + ci, hh] = da
-        out["ddt"][b_, c0:c0 + q, hh] = (ddtd + t2 + A[hh] * dda)[:q]
-        out["dx"][b_, c0:c0 + q, hh] = dxa[:q, :p]
-        return
-    v = torch.where(mask, dp * decay, torch.zeros_like(dp))
-    if role == 1:
-        v = v * dts[None, :]
-    r0.view(MAXQ, LDN)[:, :MAXQ] = v
-    acc = torch.zeros((MAXQ, MAXN), dtype=f)
-    if role == 1:
-        mm(acc, r0, LDN, 1, r1, 1, LDN, q)
-        if has_s:
-            stage(r0, LDN, MAXP, MAXN, states[b_, ci, hh], p, n)
-            ys.view(MAXQ, LDP)[:, :MAXP] *= ecum[:, None]
-            mm(acc, ys, LDP, 1, r0, 1, LDN, p)
-        out["dch"][b_, c0:c0 + q, hh] = acc[:q, :n]
-    else:
-        mm(acc, r0, 1, LDN, r1, 1, LDN, q)
-        acc *= dts[:, None]
-        if has_g:
-            stage(r0, LDN, MAXP, MAXN, gbuf[b_, ci, hh], p, n)
-            xs.view(MAXQ, LDP)[:, :MAXP] *= (wq * dts)[:, None]
-            mm(acc, xs, LDP, 1, r0, 1, LDN, p)
-        out["dbh"][b_, c0:c0 + q, hh] = acc[:q, :n]
+                gpad = torch.zeros((8 * KP_ALL, 32), dtype=f)
+                cols = max(0, min(32, n - n0))
+                gpad[:p, :cols] = G[:, n0:n0 + cols]
+                acc = acc + (xq[s0:s0 + 16] * (wq[s] * dts[s])[:, None]) \
+                    @ gpad
+            rows, cols = min(16, q - s0), max(0, min(32, n - n0))
+            if rows > 0 and cols > 0:
+                out["dbh"][b_, c0 + s0:c0 + s0 + rows, hh,
+                           n0:n0 + cols] = acc[:rows, :cols]
+
+    # c. dcum, its suffix scan (four steps a lane, then across lanes),
+    # ddt and the dA share
+    sg = float((S0 * G).sum()) if has_g and has_s else 0.0
+    vs = float((dts * t2).sum())
+    d = torch.zeros(MAXQ, dtype=f)
+    for t in range(q):   # the strips' row sums, in strip order
+        d[t] = sum(roww[j, t] for j in range(t // 16 + 1))
+    d[:q] += (-colw + (t5[0] + t5[1]) - dts * t2)[:q]
+    d[q - 1] += vs + float(torch.exp(cum[q - 1])) * sg
+    lanes = d.view(32, 4)
+    suf = lanes.flip(1).cumsum(1).flip(1)
+    incl = suf[:, 0].flip(0).cumsum(0).flip(0)
+    after = torch.cat([incl[1:], torch.zeros(1, dtype=f)])
+    dda = (suf + after[:, None]).reshape(MAXQ)
+    out["ddt"][b_, c0:c0 + q, hh] = (ddtd + t2 + A[hh] * dda)[:q]
+    out["dapart"][b_ * nc + ci, hh] = (dts * dda)[:q].sum()
 
 
-def replay_backward(x, dt, A, B, C, chunk, s0, dy, dfinal):
+KP_ALL = MAXP // 8
+
+
+def replay_backward(x, dt, A, B, C, chunk, s0, dy, dfinal, counts=None):
     """All three kernels; returns (dx, ddt, dA, dB, dC, dinit)."""
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -251,17 +399,21 @@ def replay_backward(x, dt, A, B, C, chunk, s0, dy, dfinal):
     gbuf, dinit = (replay_state_pass(dt, A, C, dy, dfinal, chunk,
                                      s0 is not None)
                    if state_pass else (None, None))
-    out = {"dx": torch.zeros((b, l, h, p), dtype=f),
-           "ddt": torch.zeros((b, l, h), dtype=f),
-           "dbh": torch.zeros((b, l, h, n), dtype=f),
-           "dch": torch.zeros((b, l, h, n), dtype=f),
-           "dapart": torch.zeros((b * nc, h), dtype=f)}
-    for role in range(3):
-        for hh in range(h):
-            for bc in range(b * nc):
-                replay_chunk(role, x, dt, A, B, C, dy, states, gbuf,
-                             dfinal is None, s0 is not None, bc // nc,
-                             bc % nc, hh, chunk, out)
+    nan = float("nan")
+    cbuf = replay_cb(B, C, chunk)
+    out = {"dx": torch.full((b, l, h, p), nan, dtype=f),
+           "ddt": torch.full((b, l, h), nan, dtype=f),
+           "dbh": torch.full((b, l, h, n), nan, dtype=f),
+           "dch": torch.full((b, l, h, n), nan, dtype=f),
+           "dapart": torch.full((b * nc, h), nan, dtype=f),
+           "m_tiles": 0}
+    for hh in range(h):
+        for bc in range(b * nc):
+            replay_chunk(x, dt, A, B, C, dy, states, gbuf, cbuf,
+                         dfinal is None, s0 is not None, bc // nc, bc % nc,
+                         hh, chunk, out)
+    if counts is not None:
+        counts["m_tiles"] = out["m_tiles"]
     rep = h // g
     dB = torch.zeros((b, l, g, n), dtype=f)
     dC = torch.zeros((b, l, g, n), dtype=f)
@@ -442,3 +594,24 @@ def test_mamba2_reduced_gradients_match_autograd_of_the_plain_model():
     top = max(float(w.abs().max()) for w in want)
     for gg, w in zip(got, want):
         assert float((gg - w).abs().max()) <= 1e-5 * top
+
+
+@pytest.mark.parametrize("chunk", [128, 24])
+def test_replay_forms_only_the_causal_triangles_tiles(chunk):
+    """dP's 16 x 8 tiles (and 2a's C B^T tiles) cover the causal triangle
+    of each chunk and nothing wholly above it: S16 (S16 + 1) a chunk and
+    head, against 2 S16^2 for whole tiles; the gradients still autograd's."""
+    b, l, h, p, g, n = 1, 2 * chunk, 2, 8, 1, 16
+    x, dt, A, B, C, s0, dy, dfinal = make_inputs(b, l, h, p, g, n, False,
+                                                 False, seed=6,
+                                                 dtype=torch.float64)
+    counts = {}
+    got = replay_backward(x, dt, A, B, C, chunk, None, dy, None, counts)
+    s16 = -(-chunk // 16)
+    assert counts["m_tiles"] == b * (l // chunk) * h * s16 * (s16 + 1)
+    cb = replay_cb(B, C, chunk)
+    formed = (~torch.isnan(cb)).all(-1).all(-1)
+    assert int(formed.sum()) == b * (l // chunk) * g * s16 * (s16 + 1)
+    want = autograd_grads(x, dt, A, B, C, chunk, None, dy, None)
+    for gg, w in zip(got[:5], want[:5]):
+        assert rel(gg, w) <= 1e-10
