@@ -33,9 +33,13 @@ Phases, in order; any failure raises and exits non-zero:
 3. The slice: BiLSTM-Tagger at model_size=512 on CUDA. An FSM policy is
    learned on small graphs, then fresh 16-sentence minibatches (and one
    repeat) run through the interpreted, per-topology and bucketed
-   executors (the bucketed one captures each bucket signature as a CUDA
-   graph and replays it). All three must agree within 1e-4 on every tag
-   logit ``y``,
+   executors (the per-topology one captures each topology's plan, and the
+   bucketed one each bucket signature, as a CUDA graph and replays it),
+   and the per-topology plan with ``capture=False`` beside them. All must
+   agree within 1e-4 on every tag logit ``y``, the replayed plan with its
+   eager run within 1e-6; one more run of the captured plan must be one
+   counted launch and one replay and move the kernels' counters by what
+   its capture counted;
    the first minibatch must match a plain-PyTorch run of the same seed on
    the CPU, and the gather and fused-cell launch counters must rise during
    the slice. Prints steady-state ms per run for each executor, the plan
@@ -46,11 +50,17 @@ Phases, in order; any failure raises and exits non-zero:
    depth (random weights from the seed, made on the CPU and copied to the
    card) through the port's wave ``ServeEngine``: six requests, eight new
    tokens each. The flash-attention (Qwen2) and SSD-scan (Mamba2) launch
-   counters must rise during the wave; the tokens must equal the same wave
-   on the CPU (plain versions only), apart from a near-tie flip within the
-   logit tolerance, and one prefill batch's logits must agree with the CPU
+   counters must rise during the wave. The engine captures its prefill
+   (one graph per batch and length) and decode step (one per batch) at the
+   first wave, whose steps are the captures' warm-ups, and replays them in
+   a second wave; an engine with ``capture=False`` serves the same waves.
+   The tokens must equal the eager engine's and the same wave's on the CPU
+   (plain versions only), apart from a near-tie flip within the logit
+   tolerance, and one prefill batch's logits must agree with the CPU
    within 2e-3 of the largest |logit|. Prints tokens/s, ms per prefill
-   batch and per decode wave, the batch counts and a profiler summary.
+   batch and per decode wave (a replay, and the eager step), the batch
+   counts and a profiler summary (busy share, device events) for both
+   engines.
 5. Trees and lattices at model_size=512: TreeLSTM and LatticeLSTM as the
    tagger runs (two fresh 16-instance minibatches and a repeat through the
    three executors), TreeGRU, MV-RNN, TreeLSTM-2Type and LatticeGRU one
@@ -138,10 +148,21 @@ Phases, in order; any failure raises and exits non-zero:
    ``repro_torch.launch.train.main`` in-process at the reference
    launcher's defaults (``--batch 8 --seq 128``) on Qwen2-0.5B at full
    width and depth, random weights from the seed, TRAIN_STEPS
-   steps (10): every loss finite, the flash forward and backward counters
-   up by 24 a step; prints ms per step (median of steps 2 on; host clock,
-   each step ending in the loss read), tokens/s, peak memory and one
-   profiled step's busy share and device events (``train (b)`` line). (c)
+   steps (10), the step captured as a CUDA graph (step 1 its warm-up, then
+   replays): every loss finite, the flash forward and backward counters
+   up by 24 a step; the same steps eagerly (``train(...,
+   capture=False)``) from the same seed: each step's loss within 1e-4
+   relative, and the worst parameter leaf within 1e-4 of its largest
+   |value| after the last; the in-place multi-tensor AdamW held to the
+   functional one (the reference's form) over the same ten steps at full
+   width (``adamw_forms``): fed the same gradients, every leaf within
+   1e-4 of its largest |value|; fed its own, the worst leaf and the worst
+   over the elements whose gradient stayed above SCALE_FREE of their
+   leaf's largest printed (no bar: the trajectory's feedback, not the
+   update); prints ms per step (median of steps 2 on; host
+   clock, each step ending in the loss read), tokens/s and peak memory of
+   both, and one profiled replayed step's busy share and device events
+   (``train (b)`` line). (c)
    Depth 2 at full width, batch 2 x 32, card against the CPU: the loss
    within 1e-4 relative and every gradient leaf within 2e-3 of its largest
    |gradient| after one step; three steps' losses within 1e-3 relative.
@@ -163,7 +184,8 @@ Phases, in order; any failure raises and exits non-zero:
    backward (no PyTorch call computes it). (f) ``launch.train.main`` on
    Mamba2-130m at full width and depth, ``--batch 8 --seq 128``,
    TRAIN_STEPS steps: losses finite and falling, the scan's forward and
-   backward counters up by 24 a step; ``train (f)`` line as (b)'s; then
+   backward counters up by 24 a step; captured against eager, the AdamW
+   forms and the ``train (f)`` line as (b)'s; then
    depth 2 at full width, batch 2 x 256 (two chunks carry the state),
    card against the CPU: loss within 1e-4, every gradient leaf within 2e-3
    of its largest |gradient|.
@@ -173,7 +195,8 @@ Phases, in order; any failure raises and exits non-zero:
    ``DynamicExecutor`` on the card and on the CPU: losses within 1e-4,
    gradients within 2e-3 of their max; the gather backward's counter
    rises, and its (K, n_src, row bytes) histogram is printed; the same
-   steps through ``CompiledPlan`` on the card give DynamicExecutor's
+   steps through ``CompiledPlan`` on the card (eagerly: autograd records
+   them, and a replayed graph records nothing) give DynamicExecutor's
    gradients within 1e-4; prints ms per step and the launches. (a) Then
    the row gather's backward kernel (``csrc/gather_rows_bwd.cu``, one
    launch up to its threshold, the sort past it) against the plain
@@ -950,7 +973,11 @@ OWN_KERNELS = {"gather_rows": ("gather_rows_kernel",),
                "gather_rows_backward": ("gather_bwd_",)}
 
 
-EXECUTORS = ("interpreted", "per_topology", "bucketed")
+# "per_topology" captures each topology's plan as a CUDA graph and replays
+# it, "per_topology_eager" runs the same plan eagerly (capture=False)
+EXECUTORS = ("interpreted", "per_topology", "per_topology_eager",
+             "bucketed")
+REPLAY_TOL = 1e-6     # a replayed plan against the same plan run eagerly
 
 
 def run_slice(device: str, name: str = "BiLSTM-Tagger",
@@ -995,6 +1022,8 @@ def run_slice(device: str, name: str = "BiLSTM-Tagger",
         "interpreted": lambda: DynamicExecutor(wl.impls, None, device=device),
         "per_topology": lambda: PlanExecutor(wl.impls, None, donate=True,
                                              device=device),
+        "per_topology_eager": lambda: PlanExecutor(
+            wl.impls, None, donate=True, device=device, capture=False),
         "bucketed": lambda: BucketedPlanExecutor(wl.impls, None,
                                                  device=device),
     }
@@ -1004,7 +1033,7 @@ def run_slice(device: str, name: str = "BiLSTM-Tagger",
               for _ in range(n_fresh)]
     if repeat:
         graphs.append(graphs[0])                 # one repeat topology
-    worst = 0.0
+    worst = replay_worst = 0.0
     for gi, g in enumerate(graphs):
         ys = {}
         for ename, ex in execs.items():
@@ -1020,6 +1049,13 @@ def run_slice(device: str, name: str = "BiLSTM-Tagger",
             if not err <= 1e-4:
                 fail(f"{name} {ename} vs {executors[0]} on minibatch {gi}: "
                      f"max abs err {err} > 1e-4")
+        if {"per_topology", "per_topology_eager"} <= set(executors):
+            err = float((ys["per_topology"]
+                         - ys["per_topology_eager"]).abs().max())
+            replay_worst = max(replay_worst, err)
+            if not err <= REPLAY_TOL:
+                fail(f"{name} per-topology replay vs its eager run on "
+                     f"minibatch {gi}: max abs err {err} > {REPLAY_TOL}")
         if gi == 0:
             cpu_wl = make_workload(name, model_size, SEED, device="cpu")
             y_ref, _ = y_logits(DynamicExecutor(
@@ -1034,6 +1070,8 @@ def run_slice(device: str, name: str = "BiLSTM-Tagger",
         log(f"{name} minibatch {gi}: {len(g)} nodes, executors agree "
             f"(max abs err {worst:.3e})")
     report["max_abs_err_executors"] = worst
+    if "per_topology_eager" in execs:
+        report["max_abs_err_replay_vs_eager"] = replay_worst
     report["lower_s"] = {k: st.lower_time for k, st in stats.items()}
 
     g = graphs[0]
@@ -1050,6 +1088,9 @@ def run_slice(device: str, name: str = "BiLSTM-Tagger",
     if "per_topology" in execs:
         plan = execs["per_topology"].plan_for(g, policy)
         report["plan_stats"] = plan.stats.as_dict()
+        if dev.type == "cuda":
+            report["per_topology_replay"] = check_plan_replay(
+                name, execs["per_topology"], g, policy)
     if "bucketed" in execs:
         report["bucketed_stats"] = (execs["bucketed"].pack_for(g, policy)
                                     .stats.as_dict())
@@ -1058,6 +1099,32 @@ def run_slice(device: str, name: str = "BiLSTM-Tagger",
         report["float64"] = check_float64(wl, cpu_wl, g, policy, execs,
                                           y_first, y_cpu)
     return report
+
+
+def check_plan_replay(name: str, ex, g, policy) -> dict:
+    """One more run of the captured per-topology plan on ``g``: it must be
+    one counted launch and one graph replay, and move the kernels'
+    counters by exactly the launches its capture counted."""
+    from repro_torch.core.executor import ExecStats
+    from repro_torch.kernels import launches
+
+    plan = ex.plan_for(g, policy)
+    entry = plan._exes.peek(plan.executable_key(None))
+    if entry is None or entry.graph is None:
+        fail(f"{name}: the per-topology plan was not captured")
+    st, replays = ExecStats(), ex.n_replays
+    before = launches.snapshot()
+    ex.run(g, policy, st)
+    moved = launches.delta(before, launches.snapshot())
+    if (st.n_launches, ex.n_replays - replays) != (1, 1):
+        fail(f"{name}: a per-topology run was {st.n_launches} launches and "
+             f"{ex.n_replays - replays} replays, not one of each")
+    if moved != entry.counts:
+        fail(f"{name}: a replay moved the launch counters by {moved}, its "
+             f"capture counted {entry.counts}")
+    return {"captures": ex.n_captures, "replays": ex.n_replays,
+            "launches_per_replay": {k: v for k, v in moved.items()
+                                    if k != "gather_shapes" and v}}
 
 
 def to_float64(wl) -> None:
@@ -1124,14 +1191,40 @@ def top2_margin(torch, model, params, prompt, prefix) -> tuple:
     return float(top[0] - top[1]), float(logits.abs().max())
 
 
+def token_flips(torch, label: str, name: str, got: list, want: list,
+                model, params, prompts) -> list:
+    """Where two runs' token streams differ: each first differing token
+    must be a near-tie of ``model`` (top-2 margin within the logit
+    tolerance of the largest |logit|); returns [request, token, margin]
+    for each."""
+    flips = []
+    for r, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        margin, scale = top2_margin(torch, model, params, prompts[r], b[:t])
+        log(f"{name} request {r}: token {t} is {a[t]} {label}, {b[t]} in "
+            f"the reference run; top-2 margin {margin:.3e} (tolerance "
+            f"{LOGIT_TOL * scale:.3e})")
+        if margin > LOGIT_TOL * scale:
+            fail(f"{name}: request {r} differs {label} at token {t} beyond "
+                 f"a near-tie")
+        flips.append([r, t, margin])
+    return flips
+
+
 def lm_wave(name: str, wrappers: dict) -> dict:
-    """One LM at full width through the port's wave server on the card:
-    one counted wave (the kernels' launch counts are read around it), a
-    timed repeat and a profiled one; then the same first wave on the CPU,
-    where every kernel is its plain version, with the same weights. Tokens
-    must match (a differing token is accepted only at a near-tie, top-2
-    margin within the logit tolerance), and one prefill batch's logits
-    must agree within 2e-3 of the largest |logit|."""
+    """One LM at full width through the port's wave server on the card,
+    its prefill and decode steps captured as CUDA graphs: one counted wave
+    (the kernels' launch counts are read around it; it captures each
+    program once), a timed repeat (every step a replay) and a profiled
+    one; the same waves through an engine with ``capture=False``; then the
+    same first wave on the CPU, where every kernel is its plain version,
+    with the same weights. The captured engine's tokens must equal the
+    eager engine's and the CPU's (a differing token is accepted only at a
+    near-tie, top-2 margin within the logit tolerance), and one prefill
+    batch's logits must agree with the CPU within 2e-3 of the largest
+    |logit|."""
     import numpy as np
     import torch
     from repro_torch.arch.model import TransformerLM, tree_map
@@ -1157,7 +1250,11 @@ def lm_wave(name: str, wrappers: dict) -> dict:
                for _ in range(n_req)]
     report["prompt_lengths"] = [len(p) for p in prompts]
 
-    eng = ServeEngine(model, params, cache_len=cache_len, device=dev)
+    engines = {"captured": ServeEngine(model, params, cache_len=cache_len,
+                                       device=dev),
+               "eager": ServeEngine(model, params, cache_len=cache_len,
+                                    device=dev, capture=False)}
+    eng = engines["captured"]
     for fn in wrappers.values():
         fn.launches = 0
     stats = ServeStats()
@@ -1165,37 +1262,65 @@ def lm_wave(name: str, wrappers: dict) -> dict:
     block(dev)
     report["launches"] = {k: fn.launches for k, fn in wrappers.items()}
     report["first_wave_s"] = stats.wall_s
+    report["first_wave_graphs"] = [stats.n_captures, stats.n_replays]
     if any(len(o) != max_new for o in outs):
         fail(f"{name}: a request did not get {max_new} tokens")
+    if stats.n_captures != stats.n_prefill_batches + 1:
+        fail(f"{name}: the first wave captured {stats.n_captures} graphs, "
+             f"not one a prefill length and one decode step")
 
-    warm = ServeStats()
-    outs_again, _ = eng.generate(prompts, max_new=max_new, stats=warm)
-    if outs_again != outs:
-        fail(f"{name}: a repeat of the wave gave other tokens")
-    report.update(tok_per_s=warm.tok_per_s, wave_ms=warm.wall_s * 1e3,
-                  n_batches=warm.n_batches,
-                  n_prefill_batches=warm.n_prefill_batches,
-                  n_decode_batches=warm.n_decode_batches,
-                  sched_cache_hits=warm.sched_cache_hits)
+    by_mode = {}
+    for mode, e in engines.items():
+        warm = ServeStats()
+        again, _ = e.generate(prompts, max_new=max_new, stats=warm)
+        if mode == "captured" and again != outs:
+            fail(f"{name}: a replayed repeat of the wave gave other tokens")
+        if mode == "captured" and (warm.n_captures, warm.n_replays) != \
+                (0, warm.n_batches):
+            fail(f"{name}: the repeat wave captured {warm.n_captures} and "
+                 f"replayed {warm.n_replays} of {warm.n_batches} steps")
+        by_mode[mode] = {"outs": again, "tok_per_s": warm.tok_per_s,
+                         "wave_ms": warm.wall_s * 1e3,
+                         "n_batches": warm.n_batches,
+                         "n_prefill_batches": warm.n_prefill_batches,
+                         "n_decode_batches": warm.n_decode_batches,
+                         "sched_cache_hits": warm.sched_cache_hits}
+    report["replay_vs_eager_flips"] = token_flips(
+        torch, "replayed", name, outs, by_mode["eager"].pop("outs"),
+        cpu_model, cpu_params, prompts)
+    by_mode["captured"].pop("outs")
+    report.update(by_mode["captured"])
+    report["eager"] = by_mode["eager"]
 
-    # ms per prefill batch (each length bucket) and per decode wave
+    # ms per prefill batch (each length bucket) and per decode wave: one
+    # replay of the engine's program, and the same step run eagerly
     by_len: dict[int, list] = {}
     for p in prompts:
         by_len.setdefault(len(p), []).append(p)
+    scratch = ServeStats()
     with torch.no_grad():
-        prefill_ms = {}
+        prefill_ms, eager_prefill_ms = {}, {}
         for L_, group in sorted(by_len.items()):
-            toks = torch.tensor(group, device=dev)
-            prefill_ms[f"L={L_} B={len(group)}"] = timed(
-                dev, lambda: model.prefill(params, toks, cache_len))
-        caches = model.init_cache(n_req, cache_len)
-        tok = torch.zeros(n_req, dtype=torch.int64, device=dev)
-        pos = torch.full((n_req,), 100, dtype=torch.int64, device=dev)
-        decode_ms = timed(dev, lambda: model.decode_step(params, tok, caches,
-                                                         pos))
+            toks = np.asarray(group, np.int64)
+            key = f"L={L_} B={len(group)}"
+            prefill_ms[key] = timed(dev, lambda: eng._prefill(
+                len(group), L_).run(scratch, toks))
+            eager_prefill_ms[key] = timed(dev, lambda: engines["eager"]
+                                          ._prefill(len(group), L_)
+                                          .run(scratch, toks))
+        tok = np.zeros(n_req, np.int64)
+        pos = np.full(n_req, 100, np.int64)
+        decode_ms = timed(dev, lambda: eng._decode(n_req).run(scratch, tok,
+                                                              pos))
+        eager_decode_ms = timed(dev, lambda: engines["eager"]._decode(
+            n_req).run(scratch, tok, pos))
     report.update(prefill_ms=prefill_ms, decode_wave_ms=decode_ms)
+    report["eager"].update(prefill_ms=eager_prefill_ms,
+                           decode_wave_ms=eager_decode_ms)
     report["profile"] = profile_run(
         torch, lambda: eng.generate(prompts, max_new=max_new))
+    report["eager"]["profile"] = profile_run(
+        torch, lambda: engines["eager"].generate(prompts, max_new=max_new))
 
     # the same first wave on the CPU, plain versions only
     t0 = time.perf_counter()
@@ -1206,20 +1331,8 @@ def lm_wave(name: str, wrappers: dict) -> dict:
     if (cpu_stats.n_prefill_batches, cpu_stats.n_decode_batches) != \
             (stats.n_prefill_batches, stats.n_decode_batches):
         fail(f"{name}: batch counts differ from the CPU run")
-    flips = []
-    for r, (got, want) in enumerate(zip(outs, cpu_outs)):
-        if got == want:
-            continue
-        t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-        margin, scale = top2_margin(torch, cpu_model, cpu_params, prompts[r],
-                                    want[:t])
-        log(f"{name} request {r}: token {t} is {got[t]} on the card, "
-            f"{want[t]} on the CPU; CPU top-2 margin {margin:.3e} "
-            f"(tolerance {LOGIT_TOL * scale:.3e})")
-        if margin > LOGIT_TOL * scale:
-            fail(f"{name}: request {r} differs from the CPU run at token {t} "
-                 f"beyond a near-tie")
-        flips.append([r, t, margin])
+    flips = token_flips(torch, "on the card", name, outs, cpu_outs,
+                        cpu_model, cpu_params, prompts)
     report["near_tie_flips"] = flips
 
     group = by_len[len(prompts[0])]
@@ -1237,6 +1350,7 @@ def lm_wave(name: str, wrappers: dict) -> dict:
         fail(f"{name}: prefill logits differ from the CPU run by {err} of "
              f"the largest |logit|")
     report["tokens_equal_cpu"] = not flips
+    report["tokens_equal_eager"] = not report["replay_vs_eager_flips"]
     return report
 
 
@@ -2145,6 +2259,9 @@ def sharded_phase(torch, drive, card: str, policies: dict) -> dict:
 # The trainer at the reference launcher's defaults (--batch 8 --seq 128,
 # src/repro/launch/train.py:31-32) on full-width, full-depth Qwen2-0.5B.
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
+# phase 9's AdamW forms: a gradient element below this share of its leaf's
+# largest |entry| still takes an lr-sized Adam step (the closed-loop reading)
+SCALE_FREE = 1e-3
 TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--batch", str(TRAIN_BATCH),
               "--seq", str(TRAIN_SEQ)]
 TRAIN_STEPS = 10
@@ -2295,6 +2412,201 @@ def check_flash_backward(torch, timer) -> dict:
             **{f"{name}_ms": t for name, t in parts_ms.items()}}
 
 
+def eager_train(torch, arch: str, steps: int, log_fn):
+    """``launch.train.main``'s run at its defaults (seed 0, --lr 1e-3,
+    batch TRAIN_BATCH x TRAIN_SEQ) with the step run eagerly
+    (``train(..., capture=False)``): the same weights, batches and
+    schedule as the launcher's captured run. Returns (state, peak bytes
+    above what was allocated at its start, ms per logged step)."""
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.train.loop import train
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config(arch)
+    model = TransformerLM(cfg, device="cuda")
+    params = tree_map(lambda t: t.to("cuda"), TransformerLM(
+        cfg, device="cpu").init_params(torch.Generator().manual_seed(0)))
+    pipe = SyntheticCorpus(PipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=0,
+        n_image_tokens=cfg.n_image_tokens, d_model=cfg.d_model))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=max(steps // 20, 5),
+                      total_steps=steps)
+    stamps = []
+
+    def record(line):
+        stamps.append(time.perf_counter())
+        log_fn(line)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = train(model, params, iter(pipe), steps, opt, log_every=1,
+                  log_fn=record, capture=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return state, peak, [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+
+def leaf_names(tree, path: str = "") -> list[str]:
+    """The paths of a tree's leaves, in ``train.optimizer.leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for key in sorted(tree)
+                for n in leaf_names(tree[key], f"{path}/{key}")]
+    if isinstance(tree, (tuple, list)):
+        return [n for i, sub in enumerate(tree)
+                for n in leaf_names(sub, f"{path}/{i}")]
+    return [path.lstrip("/")]
+
+
+def adamw_forms(torch, label: str, arch: str, steps: int) -> dict:
+    """The trainer's in-place multi-tensor AdamW (``adamw_update_``) held
+    to the functional one (``adamw_update``, the reference's form) at full
+    width, from ``launch.train.main``'s weights, batches and schedule.
+    Open loop: both take the same gradients, those at the functional
+    run's parameters, for ``steps`` steps; every parameter leaf must stay
+    within 1e-4 of its largest |value| (the worst leaf is named). Closed
+    loop, a reading with no bar: the in-place form takes the gradients at
+    its own parameters, as the trainer does, so step 1's rounding feeds
+    back through the model. Adam's step is about lr whatever a gradient's
+    size, so an element whose gradient is a small share of its leaf's
+    largest moves with its gradient's small changes, and a leaf that
+    starts at zero (a bias) spans only a few lr steps: the worst leaf is
+    named with its largest |value|, beside the worst over the elements
+    whose |gradient| stayed above SCALE_FREE of their leaf's largest at
+    every step. Returns the report."""
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                             adamw_update_, init_opt_state,
+                                             leaves, unflatten)
+
+    cfg = get_config(arch)
+    model = TransformerLM(cfg, device="cuda")
+    tree = tree_map(lambda t: t.to("cuda"), TransformerLM(
+        cfg, device="cpu").init_params(torch.Generator().manual_seed(0)))
+    names = leaf_names(tree)
+    corpus = SyntheticCorpus(PipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=0,
+        n_image_tokens=cfg.n_image_tokens, d_model=cfg.d_model))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=max(steps // 20, 5),
+                      total_steps=steps)
+
+    def grads_at(flat, batch):
+        flat = [p.detach().requires_grad_(True) for p in flat]
+        with torch.enable_grad():
+            loss = model.loss(unflatten(tree, flat), batch)
+            return list(torch.autograd.grad(loss, flat))
+
+    def moments(flat):
+        return ([torch.zeros_like(p) for p in flat],
+                [torch.zeros_like(p) for p in flat],
+                torch.zeros((), dtype=torch.int32, device="cuda"))
+
+    fun, fun_state = tree, init_opt_state(tree)
+    open_p = [p.clone() for p in leaves(tree)]
+    closed_p = [p.clone() for p in leaves(tree)]
+    open_m, closed_m = moments(open_p), moments(closed_p)
+    small = [torch.zeros_like(p, dtype=torch.bool) for p in open_p]
+    with torch.no_grad():
+        for t in range(steps):
+            batch = {k: torch.as_tensor(v).to("cuda")
+                     for k, v in corpus.batch(t).items()}
+            g = grads_at(leaves(fun), batch)
+            for below, x in zip(small, g):
+                below |= x.abs() <= SCALE_FREE * x.abs().max()
+            adamw_update_(opt, open_p, [x.clone() for x in g], *open_m)
+            adamw_update_(opt, closed_p, grads_at(closed_p, batch),
+                          *closed_m)
+            fun, fun_state, _ = adamw_update(opt, fun, unflatten(tree, g),
+                                             fun_state)
+            del g
+    want = leaves(fun)
+    scale = [float(b.abs().max().clamp_min(1e-30)) for b in want]
+
+    def worst(got, drop=None):
+        e = [float(((a - b).abs() if d is None
+                    else (a - b).abs() * ~d).max()) / m
+             for a, b, m, d in zip(got, want, scale,
+                                   drop or [None] * len(got))]
+        i = max(range(len(e)), key=e.__getitem__)
+        return {"leaf": names[i], "err": e[i], "leaf_max": scale[i]}
+
+    out = {"open": worst(open_p), "closed": worst(closed_p),
+           "closed_above_scale_free": worst(closed_p, small),
+           "scale_free_share": sum(int(d.sum()) for d in small)
+           / sum(d.numel() for d in small)}
+    o, c, a = out["open"], out["closed"], out["closed_above_scale_free"]
+    log(f"{label} AdamW forms, {steps} steps at full width: open loop "
+        f"(same gradients) worst leaf {o['leaf']} {o['err']:.3e} of its "
+        f"max; closed loop (own gradients) worst leaf {c['leaf']} "
+        f"{c['err']:.3e} of its max {c['leaf_max']:.3e}, over elements "
+        f"whose |gradient| stayed above {SCALE_FREE} of their leaf's max "
+        f"({1 - out['scale_free_share']:.4f} of all) worst leaf "
+        f"{a['leaf']} {a['err']:.3e} (bar 1e-4 on the open loop)")
+    if not o["err"] <= 1e-4:
+        fail(f"{label}: adamw_update_ against adamw_update on the same "
+             f"gradients, leaf {o['leaf']} {o['err']} of its max (bar 1e-4)")
+    return out
+
+
+def captured_vs_eager(torch, label: str, arch: str, state, steps: int,
+                      kernels: tuple[str, ...]) -> dict:
+    """Phase 9's comparison of the launcher's captured run (``state``)
+    with the same steps run eagerly: each step's loss within 1e-4
+    relative, and after the last step the worst parameter leaf within 1e-4
+    of its largest |value|. Then one replayed step of a
+    ``StaticTrainStep`` over the trained state, profiled: its busy share
+    and device events, and ``kernels``' counters moved by one step's
+    launches (a layer each). Returns the report."""
+    from repro_torch.arch.model import TransformerLM
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.kernels.launches import WRAPPERS
+    from repro_torch.train.loop import StaticTrainStep
+    from repro_torch.train.optimizer import AdamWConfig, leaves
+
+    cfg = get_config(arch)
+    eager, peak, step_ms = eager_train(torch, arch, steps,
+                                       lambda line: None)
+    loss_errs = [abs(a - b) / abs(b)
+                 for a, b in zip(state.history, eager.history)]
+    leaf_errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                 for a, b in zip(leaves(state.params), leaves(eager.params))]
+    if len(loss_errs) != steps or not max(loss_errs) <= 1e-4 or \
+            not max(leaf_errs) <= 1e-4:
+        fail(f"{label}: captured against eager steps, losses "
+             f"{state.history} against {eager.history} (worst relative "
+             f"{max(loss_errs)}), worst parameter leaf {max(leaf_errs)} of "
+             f"its max (bars 1e-4)")
+    del eager
+    ms = statistics.median(step_ms)
+    out = {"loss_rel_err_max": max(loss_errs),
+           "param_leaf_rel_err_max": max(leaf_errs),
+           "eager_step_ms": step_ms, "eager_ms_per_step": ms,
+           "eager_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+           "eager_peak_bytes": peak,
+           "adamw_forms": adamw_forms(torch, label, arch, steps)}
+    model = TransformerLM(cfg, device="cuda")
+    step = StaticTrainStep(model, AdamWConfig(lr=1e-3, warmup_steps=5,
+                                              total_steps=steps),
+                           state.params, state.opt)
+    corpus = SyntheticCorpus(PipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=SEED))
+    batch = corpus.batch(steps)
+    step(batch)                                  # warm-up and capture
+    before = {k: WRAPPERS[k].launches for k in kernels}
+    prof = profile_run(torch, lambda: step(batch))
+    moved = {k: WRAPPERS[k].launches - before[k] for k in kernels}
+    if any(v != cfg.n_layers for v in moved.values()):
+        fail(f"{label}: the profiled replayed step moved the counters by "
+             f"{moved}, not {cfg.n_layers} each")
+    out.update(replayed_step_profile=prof, replayed_step_launches=moved)
+    return out
+
+
 def train_phase(torch, drive, card: str, steps: int) -> dict:
     """Phase 9 (b)-(d) (module docstring); returns the flash forward and
     backward launches of (b)'s run."""
@@ -2307,13 +2619,11 @@ def train_phase(torch, drive, card: str, steps: int) -> dict:
     from repro_torch.arch.model import TransformerLM, tree_map
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_backward)
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import train as launcher
     from repro_torch.serve import lm_wave
     from repro_torch.train.checkpoint import load_checkpoint
-    from repro_torch.train.loop import make_train_step, train
+    from repro_torch.train.loop import train
     from repro_torch.train.optimizer import AdamWConfig, leaves, unflatten
 
     cfg = get_config("qwen2-0.5b")
@@ -2325,6 +2635,7 @@ def train_phase(torch, drive, card: str, steps: int) -> dict:
         log(f"train (b): {line}")
 
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     state, counts = drive(lambda: launcher.main(
         TRAIN_ARGS + ["--steps", str(steps), "--log-every", "1"],
         log_fn=record))
@@ -2343,32 +2654,30 @@ def train_phase(torch, drive, card: str, steps: int) -> dict:
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n_params = sum(t.numel() for t in leaves(state.params))
 
-    model = TransformerLM(cfg, device="cuda")
-    step_fn = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5,
-                                                 total_steps=steps))
-    corpus = SyntheticCorpus(PipelineConfig(
-        vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=SEED))
-    batch = {k: torch.as_tensor(a, device="cuda")
-             for k, a in corpus.batch(steps).items()}
-    before = (flash_attention.launches, flash_attention_backward.launches)
-    prof = profile_run(torch, lambda: step_fn(state.params, state.opt, batch))
-    moved = (flash_attention.launches - before[0],
-             flash_attention_backward.launches - before[1])
-    if moved != (cfg.n_layers, cfg.n_layers):
-        fail(f"train (b): the profiled step launched {moved} flash forward "
-             f"and backward kernels, not {cfg.n_layers} each")
+    cmp = captured_vs_eager(torch, "train (b)", "qwen2-0.5b", state, steps,
+                            ("flash_attention", "flash_attention_backward"))
+    prof = cmp["replayed_step_profile"]
     own_us = {k: round(v["device_us"], 1)
               for k, v in prof["own_kernels"].items()}
     report = {"n_params": n_params, "steps": steps, "losses": losses,
               "step_ms": step_ms, "ms_per_step": ms,
               "tokens_per_s": tokens / ms * 1e3, "peak_bytes": peak,
-              "launches": counts, "profile": prof}
+              "peak_bytes_above_start": peak - base,
+              "launches": counts, "profile": prof, "eager": cmp}
     log(f"train (b) qwen2-0.5b full width and depth ({n_params} params), "
-        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: {ms:.2f} ms per step (median "
-        f"of steps 2-{steps}), {tokens / ms * 1e3:.1f} tokens/s, peak memory {peak / 2**30:.2f} "
-        f"GiB, losses {[round(x, 4) for x in losses]}; profiled step: busy "
-        f"share {prof['busy_share']:.3f} ({prof['device_ms']:.2f} ms device "
-        f"of {prof['wall_ms']:.2f} wall), {prof['device_events']} device "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, the step captured (step 1 its "
+        f"warm-up, then replays): {ms:.2f} ms per step (median of steps "
+        f"2-{steps}), {tokens / ms * 1e3:.1f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above its "
+        f"start), losses {[round(x, 4) for x in losses]}; eager: "
+        f"{cmp['eager_ms_per_step']:.2f} ms per step, "
+        f"{cmp['eager_tokens_per_s']:.1f} tokens/s, peak above its start "
+        f"{cmp['eager_peak_bytes'] / 2**30:.2f} GiB; captured against "
+        f"eager: losses within {cmp['loss_rel_err_max']:.3e} relative, "
+        f"worst parameter leaf {cmp['param_leaf_rel_err_max']:.3e} of its "
+        f"max; profiled replayed step: busy share "
+        f"{prof['busy_share']:.3f} ({prof['device_ms']:.2f} ms device of "
+        f"{prof['wall_ms']:.2f} wall), {prof['device_events']} device "
         f"events, top {prof['top_events']}; flash kernels' device us "
         f"{own_us}; flash launches {counts} ({card})")
     del state
@@ -2653,10 +2962,8 @@ def train_ssm_phase(torch, drive, card: str, steps: int) -> dict:
     from repro_torch.arch.model import TransformerLM
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward
     from repro_torch.launch import train as launcher
-    from repro_torch.train.loop import make_train_step
-    from repro_torch.train.optimizer import AdamWConfig, leaves, unflatten
+    from repro_torch.train.optimizer import leaves, unflatten
 
     cfg = get_config("mamba2-130m")
     stamps = []
@@ -2666,6 +2973,7 @@ def train_ssm_phase(torch, drive, card: str, steps: int) -> dict:
         log(f"train (f): {line}")
 
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     state, counts = drive(lambda: launcher.main(
         SSM_TRAIN_ARGS + ["--steps", str(steps), "--log-every", "1"],
         log_fn=record))
@@ -2684,35 +2992,33 @@ def train_ssm_phase(torch, drive, card: str, steps: int) -> dict:
     ms = statistics.median(step_ms)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n_params = sum(t.numel() for t in leaves(state.params))
-    model = TransformerLM(cfg, device="cuda")
-    step_fn = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=5,
-                                                 total_steps=steps))
-    corpus = SyntheticCorpus(PipelineConfig(
-        vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH, seed=SEED))
-    batch = {k: torch.as_tensor(a, device="cuda")
-             for k, a in corpus.batch(steps).items()}
-    before = (ssd_scan.launches, ssd_scan_backward.launches)
-    prof = profile_run(torch, lambda: step_fn(state.params, state.opt, batch))
-    moved = (ssd_scan.launches - before[0],
-             ssd_scan_backward.launches - before[1])
-    if moved != (cfg.n_layers, cfg.n_layers):
-        fail(f"train (f): the profiled step launched {moved} scan forward "
-             f"and backward kernels, not {cfg.n_layers} each")
+    cmp = captured_vs_eager(torch, "train (f)", "mamba2-130m", state, steps,
+                            ("ssd_scan", "ssd_scan_backward"))
+    prof = cmp["replayed_step_profile"]
     own_us = {k: round(v["device_us"], 1)
               for k, v in prof["own_kernels"].items()}
     report = {"n_params": n_params, "steps": steps, "losses": losses,
               "step_ms": step_ms, "ms_per_step": ms,
               "tokens_per_s": tokens / ms * 1e3, "peak_bytes": peak,
-              "launches": counts, "profile": prof}
+              "peak_bytes_above_start": peak - base,
+              "launches": counts, "profile": prof, "eager": cmp}
     log(f"train (f) mamba2-130m full width and depth ({n_params} params), "
-        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: {ms:.2f} ms per step (median "
-        f"of steps 2-{steps}), {tokens / ms * 1e3:.1f} tokens/s, peak memory "
-        f"{peak / 2**30:.2f} GiB, losses {[round(x, 4) for x in losses]}; "
-        f"profiled step: busy share {prof['busy_share']:.3f} "
-        f"({prof['device_ms']:.2f} ms device of {prof['wall_ms']:.2f} wall), "
-        f"{prof['device_events']} device events, top {prof['top_events']}; "
-        f"scan kernels' device us {own_us}; scan launches "
-        f"{counts['ssd_scan']}, {counts['ssd_scan_backward']} ({card})")
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, the step captured (step 1 its "
+        f"warm-up, then replays): {ms:.2f} ms per step (median of steps "
+        f"2-{steps}), {tokens / ms * 1e3:.1f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above its "
+        f"start), losses {[round(x, 4) for x in losses]}; eager: "
+        f"{cmp['eager_ms_per_step']:.2f} ms per step, "
+        f"{cmp['eager_tokens_per_s']:.1f} tokens/s, peak above its start "
+        f"{cmp['eager_peak_bytes'] / 2**30:.2f} GiB; captured against "
+        f"eager: losses within {cmp['loss_rel_err_max']:.3e} relative, "
+        f"worst parameter leaf {cmp['param_leaf_rel_err_max']:.3e} of its "
+        f"max; profiled replayed step: busy share "
+        f"{prof['busy_share']:.3f} ({prof['device_ms']:.2f} ms device of "
+        f"{prof['wall_ms']:.2f} wall), {prof['device_events']} device "
+        f"events, top {prof['top_events']}; scan kernels' device us "
+        f"{own_us}; scan launches {counts['ssd_scan']}, "
+        f"{counts['ssd_scan_backward']} ({card})")
     del state
 
     # card against CPU at depth 2, full width, two chunks of 128
@@ -2975,7 +3281,9 @@ def executor_train_phase(torch, drive, card: str) -> dict:
         f"ms per step (forward and backward, host clock) card "
         f"{[round(x, 2) for x in card_ms]}, CPU {[round(x, 1) for x in cpu_ms]}"
         f"; CompiledPlan on the card {[round(x, 2) for x in plan_ms]} ms "
-        f"(each step lowers its graph), gradients {max(plan_errs):.3e} of "
+        f"(each step lowers its graph, and runs eagerly: autograd records "
+        f"it, and a replayed graph records nothing), gradients "
+        f"{max(plan_errs):.3e} of "
         f"DynamicExecutor's; launches {counts} ({card})")
 
     out = io.StringIO()
@@ -3064,6 +3372,14 @@ def main(argv: list[str] | None = None) -> int:
             launches[name] = slice_counts[name]
         log(f"slice: {json.dumps(report, default=str)}")
         log(f"slice ms per run: {report['ms_per_run']} ({card})")
+        log("slice per executor (ms per run, busy share, device events): "
+            + "; ".join(
+                f"{ename} {report['ms_per_run'][ename]:.3f} ms, busy "
+                f"{prof['busy_share']:.3f}, {prof['device_events']} events"
+                for ename, prof in report["profile"].items())
+            + f"; per-topology replay vs eager max abs err "
+            f"{report['max_abs_err_replay_vs_eager']:.3e}, "
+            f"{report['per_topology_replay']} ({card})")
         log(f"gather shapes BiLSTM-Tagger [K, row bytes, launches]: "
             f"{shape_histogram(gather_rows.shapes)}")
         prof = report["profile"]["bucketed"]
@@ -3084,12 +3400,21 @@ def main(argv: list[str] | None = None) -> int:
             fail(f"{kernel} was not launched during the {name} wave")
         launches[kernel] = lm["launches"][kernel]
         log(f"lm wave {name}: {json.dumps(lm, default=str)}")
-        log(f"lm wave {name}: {lm['tok_per_s']:.1f} tok/s, "
-            f"{lm['wave_ms']:.1f} ms per wave of {lm['n_batches']} batches "
-            f"({lm['n_prefill_batches']} prefill, {lm['n_decode_batches']} "
-            f"decode), prefill ms {lm['prefill_ms']}, decode wave ms "
-            f"{lm['decode_wave_ms']:.2f}, tokens equal the CPU run: "
-            f"{lm['tokens_equal_cpu']} ({card})")
+        for mode, r in (("captured", lm), ("eager", lm["eager"])):
+            log(f"lm wave {name} {mode}: {r['tok_per_s']:.1f} tok/s, "
+                f"{r['wave_ms']:.1f} ms per wave of {r['n_batches']} batches "
+                f"({r['n_prefill_batches']} prefill, "
+                f"{r['n_decode_batches']} decode), prefill ms "
+                f"{r['prefill_ms']}, decode wave ms "
+                f"{r['decode_wave_ms']:.3f}; profiled wave: busy share "
+                f"{r['profile']['busy_share']:.3f}, "
+                f"{r['profile']['device_events']} device events, "
+                f"{r['profile']['device_ms']:.2f} ms device of "
+                f"{r['profile']['wall_ms']:.2f} wall ({card})")
+        log(f"lm wave {name}: first wave captured, replayed "
+            f"{lm['first_wave_graphs']}; tokens equal the eager engine's: "
+            f"{lm['tokens_equal_eager']}, the CPU run's: "
+            f"{lm['tokens_equal_cpu']}")
     log(f"lm waves done: {time.perf_counter() - t_start:.1f} s")
 
     for name, (rl_iters, run) in TREES_LATTICES.items():

@@ -44,10 +44,13 @@ def init_ssm(gen, cfg: ArchConfig, device=None):
 def ssd_decode_step(x, dt, A, B, C, state):
     """One-token update. x: (b,h,p); dt: (b,h); B/C: (b,g,n);
     state: (b,h,p,n) -> (y (b,h,p), new_state)."""
-    g = B.shape[1]
+    b, g, n = B.shape
     rep = A.shape[0] // g
-    Bh = B.repeat_interleave(rep, dim=1)                       # (b,h,n)
-    Ch = C.repeat_interleave(rep, dim=1)
+    # each group's row repeated for its heads, as ``repeat_interleave``
+    # would, by an expand and a reshape, which read nothing back to the
+    # host: a captured decode step holds them
+    Bh = B[:, :, None].expand(b, g, rep, n).reshape(b, g * rep, n)  # (b,h,n)
+    Ch = C[:, :, None].expand(b, g, rep, n).reshape(b, g * rep, n)
     dA = torch.exp(dt * A)                                     # (b,h)
     new = state * dA[:, :, None, None] + \
         torch.einsum("bh,bhn,bhp->bhpn", dt, Bh, x)

@@ -40,21 +40,20 @@ execution plan*, at two levels of specialization:
 Eager PyTorch has no whole-program compile: in this port a "compile" (the
 ``n_compiles`` / ``compile_time_s`` counters and the ``xla.compile`` span,
 kept in their reference places) is the build of a program object — the
-step structure plus its index tensors uploaded to the device.  A
-per-topology run is one eager pass of that program on the current stream.
-A bucket signature's program is built once more on the card: run once
-eagerly (a warm-up that builds what is built once), then captured into a
-CUDA graph whose static input buffers each run refills before one replay —
-the counterpart of the reference's one XLA executable per bucket
-signature (:class:`_Bucket`).  The interpreted executor remains the
-reference path.
+step structure plus its index tensors uploaded to the device.  On the
+card a program is built once more: run once eagerly (a warm-up that builds
+what is built once), then captured into a CUDA graph whose static input
+buffers each run refills before one replay — the counterpart of the
+reference's one XLA executable per topology (:class:`CompiledPlan`) and
+per bucket signature (:class:`_Bucket`), by the rules of
+:mod:`repro_torch.core.capture`.  ``capture=False``, the CPU, and a
+per-topology run that autograd records run the same body eagerly.  The
+interpreted executor remains the reference path.
 """
 
 from __future__ import annotations
 
-import contextlib
 import hashlib
-import threading
 import time
 import warnings
 from dataclasses import dataclass, replace
@@ -63,7 +62,6 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.kernels import launches
 from repro_torch.kernels.gather_batch import gather_rows
 from repro_torch.obs.tracer import Tracer, default_tracer
 
@@ -71,7 +69,8 @@ from . import memplan
 from .batching import Policy, Schedule, policy_cache_key, resolve_schedule
 from .cache import FIFOCache, LRUCache
 from .device import block, resolve_device
-from .executor import ExecStats, NodeImpl, derived_copies
+from .capture import CapturedGraph, build_lock, tensors_of
+from .executor import ExecStats, NodeImpl
 from .graph import Graph, TypeId
 
 ArenaKey = tuple[str, tuple[int, ...]]  # (field name, element shape)
@@ -403,16 +402,20 @@ def _params_kind(params: Any) -> tuple:
     return ("params", _kind(params))
 
 
-def _tensors(x: Any) -> list[torch.Tensor]:
-    """Every tensor in a nest of dicts, lists and tuples, in ``_kind``'s
-    order."""
-    if isinstance(x, torch.Tensor):
-        return [x]
-    if isinstance(x, dict):
-        return [t for k in sorted(x, key=repr) for t in _tensors(x[k])]
-    if isinstance(x, (list, tuple)):
-        return [t for v in x for t in _tensors(v)]
-    return []
+def _weights(impls: dict[TypeId, NodeImpl]) -> list[torch.Tensor]:
+    """Every impl's own tensors, which a captured graph reads in place
+    (directly, or through copies built once from them)."""
+    return tensors_of([impls[n].params for n in sorted(impls, key=repr)])
+
+
+def _static_key(impls: dict[TypeId, NodeImpl], *threaded: Any) -> tuple:
+    """The part of a captured entry's key that its graph reads in place:
+    ``"static"``, the data pointers of each of ``threaded``'s tensors, and
+    the pointers and version counters of the impls' weights."""
+    return (("static",)
+            + tuple(tuple(t.data_ptr() for t in tensors_of(x))
+                    for x in threaded)
+            + (tuple((t.data_ptr(), t._version) for t in _weights(impls)),))
 
 
 def _recording(params: Any, impls: dict[TypeId, NodeImpl]) -> bool:
@@ -420,9 +423,9 @@ def _recording(params: Any, impls: dict[TypeId, NodeImpl]) -> bool:
     impl's own parameter that requires grad."""
     if not torch.is_grad_enabled():
         return False
-    return any(t.requires_grad for t in _tensors(params)) or any(
+    return any(t.requires_grad for t in tensors_of(params)) or any(
         t.requires_grad for impl in impls.values()
-        for t in _tensors(impl.params))
+        for t in tensors_of(impl.params))
 
 
 def _node_aux_np(graph: Graph, perm: np.ndarray) -> np.ndarray:
@@ -432,12 +435,6 @@ def _node_aux_np(graph: Graph, perm: np.ndarray) -> np.ndarray:
     aux_all = np.asarray([n.attrs.get("aux", 0) for n in graph.nodes],
                          np.int32)
     return aux_all[perm]
-
-
-def _node_aux(graph: Graph, perm: np.ndarray, device: torch.device
-              ) -> torch.Tensor:
-    """The flat per-run aux operand: node ``aux`` attrs in plan order."""
-    return torch.as_tensor(_node_aux_np(graph, perm), device=device)
 
 
 class PlanResult:
@@ -502,14 +499,40 @@ def _write(arenas: dict, key: ArenaKey, rows: int, val: torch.Tensor
     return buf
 
 
+class _PlanEntry(CapturedGraph):
+    """One executable of a per-topology plan: the device row vectors of its
+    gathered reads and scattered writes (built once), the static aux buffer
+    every run refills, the arena pool donation rotates and, on the card,
+    the CUDA graph captured over them (by the rules of
+    :class:`~repro_torch.core.capture.CapturedGraph`)."""
+
+    def __init__(self, rows: dict, n_aux: int, device: torch.device):
+        super().__init__(device)
+        self.rows = rows
+        self.aux = torch.zeros(n_aux, dtype=torch.int32, device=device)
+        self.pool: dict = {}
+        self.statics = [self.aux] + list(rows.values())
+
+
 class CompiledPlan:
     """A schedule + memory plan lowered to one program whose row indices
     are fixed when it is built (one program per topology).
 
+    ``capture`` (default on): on the card the program is captured once per
+    executable key (:meth:`executable_key`) into a CUDA graph, after a
+    warm-up run, and each run copies its aux vector into the entry's
+    static buffer and replays the graph: one device dispatch a run, as the
+    reference's one ``jax.jit`` dispatch. ``capture=False``, or the CPU,
+    runs the same body eagerly over the same static buffers. While
+    autograd records a run (a threaded or an impl's parameter requires
+    grad) it runs eagerly and writes functionally, as the reference's
+    ``.at[].set`` does: a replay records no autograd graph.
+
     ``donate=True`` reuses the arena pool in place: no per-run allocation,
     but running the plan overwrites the arenas returned by the *previous*
     run, so only enable it in throughput loops that consume each result
-    immediately.  With ``donate=False`` every run gets fresh arenas.
+    immediately.  With ``donate=False`` every run gets fresh arenas (a
+    replayed run, copies of the graph's).
     """
 
     def __init__(self, graph: Graph, sched: Schedule,
@@ -517,11 +540,13 @@ class CompiledPlan:
                  max_pq_vars: int = 512, pq_chunk: bool = True,
                  donate: bool = False,
                  compile_hook: Callable[[Any], None] | None = None,
-                 tracer: Tracer | None = None, device=None):
+                 tracer: Tracer | None = None, device=None,
+                 capture: bool = True):
         t0 = time.perf_counter()
         self.impls = impls
         self.donate = donate
         self.device = resolve_device(device)
+        self.capture = bool(capture)
         # Called with the cache key on every program-cache miss, before the
         # build runs; raising aborts the build with no cache entry written.
         # The serve fault injector hangs off this.
@@ -535,10 +560,12 @@ class CompiledPlan:
         self.arena_rows = low.arena_rows
         self.stats = low.stats
         self.stats.lower_time_s = time.perf_counter() - t0
-        # Built programs + arena pools, keyed by the params kind so eval
+        # Built programs + arena pools, keyed by executable_key so eval
         # (None) and training (dict) runs coexist. FIFO-capped.
         self._exes: FIFOCache = FIFOCache(4)
         self.n_dispatches = 0     # program runs made by execute()
+        self.n_captures = 0       # CUDA graphs captured
+        self.n_replays = 0        # and replayed
 
     # -- the program -------------------------------------------------------
 
@@ -601,42 +628,85 @@ class CompiledPlan:
 
     # -- execution ---------------------------------------------------------
 
-    def _aux_flat(self, graph: Graph) -> torch.Tensor:
-        return _node_aux(graph, self.aux_perm, self.device)
-
-    def _ensure_executable(self, params: Any) -> tuple:
+    def executable_key(self, params: Any) -> tuple:
+        """The params kind, and the run mode: ``"recording"`` while autograd
+        records (always eager), ``"eager"`` without ``capture``, else
+        ``"static"`` with the data pointers of the threaded params'
+        tensors and the pointers and version counters of the impls'
+        weights, as :meth:`BucketedPlanExecutor.executable_key`: a graph
+        reads the tensors it was captured over, so another tensor, or a
+        weight updated in place, needs another entry."""
         key = _params_kind(params)
+        if _recording(params, self.impls):
+            return key + ("recording",)
+        if not self.capture:
+            return key + ("eager",)
+        return key + _static_key(self.impls, params)
+
+    def _ensure_executable(self, params: Any, aux: np.ndarray) -> _PlanEntry:
+        """The entry for ``params``, built on a miss (or when the cached
+        one is stale): on the card with ``capture`` and autograd not
+        recording, a warm-up and a capture over ``aux``, under the build
+        lock. The build's seconds go to
+        ``stats.compile_time_s``; a failed capture raises and caches
+        nothing."""
+        key = self.executable_key(params)
         entry = self._exes.get(key)
-        if entry is not None:
-            return key
+        if entry is not None and entry.current():
+            return entry
         if self.compile_hook is not None:
             _call_compile_hook(self.compile_hook, key,
                                {"kind": "plan", "sig": _sig_digest(key)})
+        capture = (self.capture and self.device.type == "cuda"
+                   and not _recording(params, self.impls))
         with self.tracer.span("xla.compile", cat="compile", kind="plan",
-                              sig=_sig_digest(key)) as sp:
+                              sig=_sig_digest(key), capture=capture) as sp:
             t0 = time.perf_counter()
-            # The pool starts empty; the first run allocates it at the
+            # The pool starts empty; an eager run allocates it at the
             # arenas' first writes, and with donation later runs reuse it.
-            self._exes[key] = (self._build(), {})
+            entry = _PlanEntry(self._build(), len(self.aux_perm), self.device)
+            if capture:
+                entry.pinned = tensors_of(params) + _weights(self.impls)
+                entry.aux.copy_(torch.from_numpy(aux))
+                with build_lock():
+                    entry.capture_graph(
+                        lambda: self._body(params, entry.aux, {}, entry.rows),
+                        lambda _: self._body(params, entry.aux, {},
+                                             entry.rows))
+                self.n_captures += 1
+            self._exes[key] = entry
             self.stats.n_compiles += 1
             dt = time.perf_counter() - t0
             self.stats.compile_time_s += dt
             sp.set(lower_s=dt)
-        return key
+        return entry
 
     def execute(self, graph: Graph, params: Any = None) -> PlanResult:
-        """Run the plan on ``graph`` (same topology, any aux values): one
-        eager pass on the current stream, not synchronised."""
+        """Run the plan on ``graph`` (same topology, any aux values) on the
+        current stream, not synchronised: one graph replay where one was
+        captured, else one eager pass."""
         with self.tracer.span("plan.h2d", cat="plan"):
-            aux_flat = self._aux_flat(graph)
-        key = self._ensure_executable(params)
-        rows, pool = self._exes[key]
+            aux = _node_aux_np(graph, self.aux_perm)
+        entry = self._ensure_executable(params, aux)
         with self.tracer.span("plan.dispatch", cat="plan"):
-            arenas = self._body(params, aux_flat,
-                                pool if self.donate else {}, rows)
+            if _recording(params, self.impls):
+                # autograd may save what the run reads (an embedding's index
+                # vector): a fresh aux, not the buffer the next run refills
+                aux_flat = torch.as_tensor(aux, device=self.device)
+            else:
+                aux_flat = entry.aux.copy_(torch.from_numpy(aux))
+            if entry.graph is None:
+                arenas = self._body(params, aux_flat,
+                                    entry.pool if self.donate else {},
+                                    entry.rows)
+            else:
+                entry.replay()
+                self.n_replays += 1
+                arenas = (dict(entry.out) if self.donate else
+                          {k: v.clone() for k, v in entry.out.items()})
         self.n_dispatches += 1
         if self.donate:
-            self._exes[key] = (rows, arenas)
+            entry.pool = arenas
         return PlanResult(graph, self.impls, arenas, self.row_of)
 
 
@@ -645,7 +715,8 @@ class PlanExecutor:
 
     Plans are cached per ``(topology, policy)`` exactly like the interpreted
     executor's schedules; a cache hit costs one aux upload and one program
-    run.
+    run: on the card with ``capture`` (the default) one replay of the
+    plan's CUDA graph (:class:`CompiledPlan`).
     """
 
     def __init__(self, impls: dict[TypeId, NodeImpl], params: Any, *,
@@ -653,7 +724,8 @@ class PlanExecutor:
                  pq_chunk: bool = True, donate: bool = False,
                  cache: FIFOCache | None = None, namespace: Any = None,
                  compile_hook: Callable[[Any], None] | None = None,
-                 tracer: Tracer | None = None, device=None):
+                 tracer: Tracer | None = None, device=None,
+                 capture: bool = True):
         self.impls = impls
         self.params = params
         self.layout = layout
@@ -661,11 +733,15 @@ class PlanExecutor:
         self.pq_chunk = pq_chunk
         self.donate = donate
         self.device = resolve_device(device)
+        self.capture = bool(capture)
         self.compile_hook = compile_hook
         self.tracer = tracer if tracer is not None else default_tracer()
+        self.n_captures = 0       # CUDA graphs captured by this executor
+        self.n_replays = 0        # and replayed
         # FIFO-capped: each entry pins a policy, the lowered steps, built
-        # programs, and arena pools — an unbounded topology stream must not
-        # grow host/device memory forever.
+        # programs (on the card captured graphs), and arena pools — an
+        # unbounded topology stream must not grow host/device memory
+        # forever.
         self._plans = cache if cache is not None else FIFOCache(32)
         self._ns = namespace
 
@@ -690,7 +766,8 @@ class PlanExecutor:
                                     pq_chunk=self.pq_chunk,
                                     donate=self.donate,
                                     compile_hook=self.compile_hook,
-                                    tracer=self.tracer, device=self.device)
+                                    tracer=self.tracer, device=self.device,
+                                    capture=self.capture)
             self._plans[key] = plan
             if stats is not None:
                 stats.schedule_time += t1 - t0
@@ -703,6 +780,7 @@ class PlanExecutor:
         with self.tracer.span("plan.pack", cat="plan"):
             plan = self.plan_for(graph, policy, stats)
         compile_before = plan.stats.compile_time_s
+        graphs_before = (plan.n_captures, plan.n_replays)
         t1 = time.perf_counter()
         res = plan.execute(graph, params if params is not None else self.params)
         with self.tracer.span("plan.block", cat="plan"):
@@ -719,6 +797,8 @@ class PlanExecutor:
         stats.exec_time += dt
         stats.n_batches += plan.stats.n_steps
         stats.n_launches += 1
+        self.n_captures += plan.n_captures - graphs_before[0]
+        self.n_replays += plan.n_replays - graphs_before[1]
         return res
 
 
@@ -936,21 +1016,12 @@ class _BucketProgram:
         return arenas
 
 
-def _release_generator(dev: torch.device) -> None:
-    """A capture that fails inside its body ends without taking the card's
-    default random generator out of capture mode, and the generator's next
-    draw outside a capture raises. Give it a copy of its state, which is
-    not in capture mode (no bucket program draws random numbers)."""
-    gen = torch.cuda.default_generators[
-        dev.index if dev.index is not None else torch.cuda.current_device()]
-    gen.graphsafe_set_state(gen.clone_state())
-
-
-class _Bucket:
+class _Bucket(CapturedGraph):
     """One bucket signature's entry in the executable cache: its program,
     the impls it pins (shared caches namespace on ``id(impls)``), the arena
     pool donation rotates, the static input buffers every run refills and,
-    on the card, the CUDA graph captured over them.
+    on the card, the CUDA graph captured over them (by the rules of
+    :class:`~repro_torch.core.capture.CapturedGraph`).
 
     The captured graph reads fixed addresses: the static buffers, the
     arenas its capture allocated (its outputs, ``out``), the impls' weights,
@@ -968,16 +1039,11 @@ class _Bucket:
 
     def __init__(self, prog: _BucketProgram, impls: dict,
                  device: torch.device, lead: tuple[int, ...] = ()):
+        super().__init__(device)
         self.prog = prog
         self.impls = impls
         self.pool: dict = {}
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self.out: dict[ArenaKey, torch.Tensor] | None = None
-        self.counts: dict | None = None   # launch counts of one replay
-        self.pinned: list[torch.Tensor] = []
-        self.sources: list[tuple[torch.Tensor, int]] = []
         self.loaded: BucketedPack | None = None
-        self.streams: set[int] = set()   # streams it was replayed on
         spec = prog.spec
         # ``lead``: the sharded entry's leading shard axis
         self.idx = torch.zeros(lead + (spec.n_index_lanes,),
@@ -986,6 +1052,7 @@ class _Bucket:
                                     dtype=torch.int64, device=device)
         self.aux = torch.zeros(lead + (spec.n_aux_lanes,), dtype=torch.int32,
                                device=device)
+        self.statics = [self.idx, self.idx_long, self.aux]
 
     def load(self, pack: BucketedPack, aux: np.ndarray) -> None:
         """Copy a run's operands into the static buffers; the index vectors
@@ -995,11 +1062,6 @@ class _Bucket:
             self.idx_long.copy_(pack.idxpack_long)
             self.loaded = pack
         self.aux.copy_(torch.from_numpy(aux))
-
-    def current(self) -> bool:
-        """False once a buffer that a copy read by the graph was derived
-        from has been updated in place since the capture."""
-        return all(t._version == v for t, v in self.sources)
 
     def _body(self, params: Any, arenas: dict) -> dict:
         """The program over the static buffers, writing into ``arenas``
@@ -1013,89 +1075,28 @@ class _Bucket:
         return {}
 
     def capture(self, params: Any) -> None:
-        """Warm up, then capture the body into a CUDA graph. The warm-up
-        runs the body once eagerly on a side stream, so that what is built
-        once (the blocked and packed cell weights, the kernels' attributes)
-        is built there and not captured into every replay; the entry pins
-        those copies and records what they were derived from. Only the
-        calling thread is held to the capture's rules (another thread may
-        replay, copy to the host or allocate meanwhile), and its launch
-        counts during the capture, though nothing ran, go to a tally of
-        their own: the counts each replay adds. The caller holds the
-        build lock (:func:`_build_lock`); the side stream has finished all
-        of this when the method returns."""
-        dev = self.idx.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with derived_copies() as found:
-            with torch.cuda.stream(side):
-                arenas = self._static_arenas(self._body(params, {}))
-            side.synchronize()
-            graph = torch.cuda.CUDAGraph()
-            try:
-                # Not ``torch.cuda.graph``: when the capture is invalidated
-                # its exit raises before it restores the current stream.
-                with launches.captured() as counts, torch.cuda.stream(side):
-                    graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        out = self._body(params, arenas)
-                    finally:
-                        graph.capture_end()
-            except BaseException:
-                _release_generator(dev)
-                raise
+        """Warm up, then capture the body into a CUDA graph
+        (:meth:`~repro_torch.core.capture.CapturedGraph.capture_graph`):
+        the warm-up's run is thrown away, and the entry pins the arenas
+        the capture writes into. The caller holds the build lock
+        (:func:`~repro_torch.core.capture.build_lock`)."""
+        arenas = self.capture_graph(
+            lambda: self._static_arenas(self._body(params, {})),
+            lambda arenas: self._body(params, arenas))
         self.pinned.extend(arenas.values())
-        # one entry a buffer: every step of both passes reports its copies
-        for src, version, copies in {id(f[0]): f for f in found}.values():
-            self.pinned.extend(copies)
-            self.sources.append((src, version))
-        self.counts = counts
-        self.graph, self.out = graph, out
 
     def run(self, pack: BucketedPack, aux: np.ndarray, params: Any,
             donate: bool) -> dict[ArenaKey, torch.Tensor]:
         """One run of the bucket on ``pack``'s operands, queued on the
         current stream: refill the static buffers, then replay the graph
-        where one was captured, else run the body eagerly over them. The
-        first replay on a stream marks what the graph reads as used there,
-        so that memory freed with the entry (on another thread, say) is
-        not handed out while a replay may still read it."""
+        where one was captured, else run the body eagerly over them."""
         self.load(pack, aux)
         if self.graph is None:
             return self._body(params, self.pool if donate else {})
-        stream = torch.cuda.current_stream(self.idx.device)
-        if stream.cuda_stream not in self.streams:
-            for t in self.pinned + [self.idx, self.idx_long, self.aux]:
-                t.record_stream(stream)
-            self.streams.add(stream.cuda_stream)
-        self.graph.replay()
-        launches.add(self.counts)
+        self.replay()
         if donate:
             return dict(self.out)
         return {k: v.clone() for k, v in self.out.items()}
-
-
-# One build at a time in the process: two capture workers never capture at
-# once, and a worker that finds the entry built by another while it waited
-# takes that one. Lowering and packing run outside it, in parallel.
-_BUILD_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def _build_lock(abort_check: Callable[[], bool] | None = None):
-    """Hold the process-wide build lock; a job abandoned while it waits (or
-    once it has the lock) raises before it builds, so nothing is cached."""
-    while not _BUILD_LOCK.acquire(timeout=0.05):
-        if abort_check is not None and abort_check():
-            raise RuntimeError("build aborted (job abandoned while waiting "
-                               "for the build lock)")
-    try:
-        if abort_check is not None and abort_check():
-            raise RuntimeError("build aborted (job abandoned before the "
-                               "build)")
-        yield
-    finally:
-        _BUILD_LOCK.release()
 
 
 class BucketedPlanExecutor:
@@ -1197,12 +1198,6 @@ class BucketedPlanExecutor:
         lad = self.ladder if ladder is None else tuple(ladder)
         return self._packs.peek(self._pack_key(graph, policy, lad))
 
-    def _weights(self) -> list[torch.Tensor]:
-        """Every impl's own tensors, which a captured graph reads in place
-        (directly, or through copies built once from them)."""
-        return _tensors([self.impls[n].params
-                         for n in sorted(self.impls, key=repr)])
-
     def executable_key(self, pack: BucketedPack, params: Any) -> tuple:
         """The reference's ``(namespace, spec, params kind)``, and the run
         mode. With ``capture`` also the data pointers of the threaded
@@ -1218,10 +1213,7 @@ class BucketedPlanExecutor:
         key = (self._ns, pack.spec, _params_kind(params))
         if not self.capture:
             return key + ("eager",)
-        return key + ("static",
-                      tuple(t.data_ptr() for t in _tensors(params)),
-                      tuple((t.data_ptr(), t._version)
-                            for t in self._weights()))
+        return key + _static_key(self.impls, params)
 
     def executable_ready(self, pack: BucketedPack, params: Any) -> bool:
         """True when the bucket program is already in the shared cache — a
@@ -1270,7 +1262,7 @@ class BucketedPlanExecutor:
                               steps=len(pack.spec.steps),
                               shards=pack.spec.n_shards, capture=capture,
                               **(span_args or {})) as sp, \
-                _build_lock(abort_check):
+                build_lock(abort_check):
             # another worker may have built it while this one waited
             entry = self._exes.peek(key)
             if entry is not None and entry.current():
@@ -1281,7 +1273,7 @@ class BucketedPlanExecutor:
             # their first writes, and with donation later runs reuse them.
             entry = _Bucket(prog, self.impls, self.device)
             if self.capture:
-                entry.pinned = _tensors(params) + self._weights()
+                entry.pinned = tensors_of(params) + _weights(self.impls)
             if capture:
                 entry.load(pack, aux if aux is not None else
                            np.zeros(pack.spec.n_aux_lanes, np.int32))
@@ -1569,11 +1561,7 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
                _params_kind(shard_params))
         if not self.capture:
             return key + ("eager",)
-        return key + ("static",
-                      tuple(t.data_ptr() for t in _tensors(params)),
-                      tuple(t.data_ptr() for t in _tensors(shard_params)),
-                      tuple((t.data_ptr(), t._version)
-                            for t in self._weights()))
+        return key + _static_key(self.impls, params, shard_params)
 
     def sharded_executable_ready(self, sspec: BucketSpec, params: Any,
                                  shard_params: Any) -> bool:
@@ -1620,7 +1608,7 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
                               steps=len(sspec.steps),
                               shards=sspec.n_shards, capture=capture,
                               **(span_args or {})) as sp, \
-                _build_lock(abort_check):
+                build_lock(abort_check):
             entry = self._exes.peek(key)
             if entry is not None and entry.current():
                 return key, entry, 0.0
@@ -1629,8 +1617,8 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
             entry = _ShardedBucket(prog, self.impls, self.device,
                                    self.n_shards)
             if self.capture:
-                entry.pinned = (_tensors(params) + _tensors(shard_params)
-                                + self._weights())
+                entry.pinned = (tensors_of(params) + tensors_of(shard_params)
+                                + _weights(self.impls))
             if capture:
                 if packs is not None:
                     entry.load(packs, aux if aux is not None else np.zeros(

@@ -63,12 +63,13 @@ def add(counts: dict) -> None:
 
 
 @contextlib.contextmanager
-def captured():
-    """The launches the calling thread queues inside the block, counted
-    apart: no count moves, and the yielded dict holds them, in the form of
-    a :func:`delta`, once the block ends."""
+def captured(stream=None):
+    """The launches the calling thread queues inside the block, and any
+    thread's on ``stream``, counted apart: no count moves, and the yielded
+    dict holds them, in the form of a :func:`delta`, once the block
+    ends."""
     out: dict = {}
-    with counting.captured() as tally:
+    with counting.captured(stream) as tally:
         try:
             yield out
         finally:

@@ -297,9 +297,10 @@ class ServeEngine:
     Omitted families are built on demand from ``SERVE_FAMILIES`` with
     ``model_size``/``seed``/``layout`` on ``device`` (``None`` = CUDA,
     raising when CUDA is absent; pass ``"cpu"`` to run on the CPU).
-    ``capture`` is the bucketed executor's: on the card each bucket
-    signature is captured once as a CUDA graph and replayed (False: every
-    bucket runs eagerly on the card). ``async_compile`` moves those builds
+    ``capture`` is the compiled executors': on the card each bucket
+    signature (or, with ``bucketed=False``, each topology's plan) is
+    captured once as a CUDA graph and replayed (False: every bucket or
+    plan runs eagerly on the card). ``async_compile`` moves those builds
     to ``compile_workers`` background threads (``serve/compiler.py``);
     ``checkpoint_dir``/``checkpoint_every`` write session snapshots that
     :meth:`restore` resumes from. ``n_shards`` replicas (or a ``mesh``
@@ -522,7 +523,8 @@ class ServeEngine:
                 ex = PlanExecutor(wl.impls, None, layout=self.layout,
                                   donate=self.donate, cache=self.plan_cache,
                                   namespace=ns, compile_hook=hook,
-                                  tracer=self.tracer, device=self.device)
+                                  tracer=self.tracer, device=self.device,
+                                  capture=self.capture)
             else:
                 ex = DynamicExecutor(wl.impls, None,
                                      schedule_cache=self.schedule_cache,

@@ -14,7 +14,22 @@ request-graph topology.
 
 Decoding is continuous-batching style: one pooled cache, per-slot
 positions. Prefill caches are copied into the pool in place, and each
-decode step updates the pool in place.
+decode step updates the pool in place. The pool of a wave of B requests
+belongs to the decode step of B slots and is kept with it (one per ``(B,
+cache_len)``, FIFO-capped with the prefills), where the reference makes
+one a wave: a prefill overwrites its slots' whole rows, and a slot's row
+is read only by its own request. So one engine serves one wave at a time:
+two threads calling :meth:`ServeEngine.generate` on one engine would
+share a pool.
+
+The reference jits the prefill and the decode step. On the card (with
+``capture``, the default) each is one CUDA graph: a prefill per ``(B, L,
+cache_len)``, a decode step per ``(B, cache_len)``, captured by the rules
+of :mod:`repro_torch.core.capture` over static token (and position)
+buffers, with the argmax inside the graph, so that the host reads only the
+tokens after a replay. The first run of each is its eager warm-up, and
+the graphs replay from the second on. ``capture=False``, or the CPU, runs
+the same bodies eagerly over the same static buffers.
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ from ..arch.model import TransformerLM
 from ..core.batching import (SufficientConditionPolicy, policy_cache_key,
                              resolve_schedule)
 from ..core.cache import FIFOCache
+from ..core.capture import CapturedGraph, tensors_of
 from ..core.device import resolve_device
 from ..core.graph import Graph, Node
 
@@ -49,6 +65,8 @@ class ServeStats:
     schedule_s: float = 0.0      # wave-scheduling time (0 on cache hits)
     sched_cache_hits: int = 0
     tokens_out: int = 0
+    n_captures: int = 0          # CUDA graphs captured (prefill, decode)
+    n_replays: int = 0           # and replayed
 
     @property
     def tok_per_s(self) -> float:
@@ -75,11 +93,47 @@ def request_graph(reqs: list[Request]) -> Graph:
     return Graph(nodes)
 
 
+class _WaveProgram(CapturedGraph):
+    """One of the wave's programs (a prefill of B prompts of L tokens, or a
+    decode step over B slots and their ``pool``): ``body()`` over the
+    static input buffers ``statics``. With ``capture`` its first run is the
+    eager warm-up of a capture, and later runs replay the graph; else every
+    run is ``body()`` eagerly."""
+
+    def __init__(self, body, statics: list[torch.Tensor],
+                 device: torch.device, capture: bool, pool=None):
+        super().__init__(device)
+        self.body = body
+        self.statics = statics
+        self.capture = capture
+        self.pool = pool
+
+    def run(self, stats: ServeStats, *inputs: np.ndarray):
+        """Copy ``inputs`` into the static buffers and run; returns the
+        body's outputs (a replay's are the graph's own, overwritten by the
+        next replay)."""
+        for buf, x in zip(self.statics, inputs):
+            buf.copy_(torch.from_numpy(x))
+        if not self.capture:
+            return self.body()
+        if self.graph is None:
+            stats.n_captures += 1
+        else:
+            stats.n_replays += 1
+        return self.run_captured(self.body, reclaim=True)
+
+
 class ServeEngine:
+    """Serves waves of requests, one wave at a time: the decode pool of B
+    slots is kept across waves, so two threads must not call
+    :meth:`generate` on one engine at once."""
+
     def __init__(self, model: TransformerLM, params, cache_len: int = 256,
-                 policy=None, device=None):
+                 policy=None, device=None, capture: bool = True):
         """``device``: where the engine serves; ``None`` means CUDA (and
-        raises without it). It must be the model's device."""
+        raises without it). It must be the model's device. ``capture``
+        (on the card): the prefill and the decode step run as captured
+        CUDA graphs (module docstring); False runs them eagerly."""
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(f"ServeEngine on {self.device} was given a "
@@ -88,11 +142,17 @@ class ServeEngine:
         self.params = params
         self.cache_len = cache_len
         self.policy = policy or SufficientConditionPolicy()
+        self.capture = bool(capture) and self.device.type == "cuda"
         # Wave schedules cached per request-graph topology: recurring traffic
         # shapes (same mix of prompt buckets and decode lengths) skip the
         # Alg. 1 walk entirely. FIFO-capped: long-running processes see an
         # unbounded stream of distinct wave shapes.
         self._sched_cache = FIFOCache(256)
+        # The wave's programs for the params they were built for, each with
+        # its graph and its pool (a decode step with its slots' caches too),
+        # capped like the schedules.
+        self._programs = FIFOCache(32)
+        self._built_for: tuple = ()
 
     def generate(self, prompts: list[list[int]], max_new: int = 16,
                  stats: ServeStats | None = None):
@@ -113,13 +173,14 @@ class ServeEngine:
             stats.sched_cache_hits += 1
 
         B = len(reqs)
-        dev = self.device
-        caches = None
+        self._check_params()
         pos = np.zeros(B, np.int64)
         last_tok = np.zeros(B, np.int64)
         slot_of = {i: i for i in range(B)}
 
         with torch.no_grad():
+            decode = self._decode(B)
+            pool = decode.pool
             for ty, ids in sched:
                 stats.n_batches += 1
                 req_ids = [g.nodes[i].attrs["req"] for i in ids]
@@ -130,14 +191,10 @@ class ServeEngine:
                     for j, ri in enumerate(req_ids):
                         p = reqs[ri].prompt
                         toks[j, L - len(p):] = p   # left-pad into the bucket
-                    logits, cc = self.model.prefill(
-                        self.params, torch.as_tensor(toks, device=dev),
-                        cache_len=self.cache_len)
-                    nxt = torch.argmax(logits, -1).cpu().numpy()
-                    if caches is None:
-                        caches = self._alloc(B)
+                    nxt, cc = self._prefill(len(req_ids), L).run(stats, toks)
                     for j, ri in enumerate(req_ids):
-                        self._copy_slot(caches, cc, slot_of[ri], j)
+                        self._copy_slot(pool, cc, slot_of[ri], j)
+                    nxt = nxt.cpu().numpy()
                     for j, ri in enumerate(req_ids):
                         tok = int(nxt[j])
                         reqs[ri].out.append(tok)
@@ -146,10 +203,8 @@ class ServeEngine:
                         stats.tokens_out += 1
                 else:
                     stats.n_decode_batches += 1
-                    logits, caches = self.model.decode_step(
-                        self.params, torch.as_tensor(last_tok, device=dev),
-                        caches, torch.as_tensor(pos, device=dev))
-                    nxt = torch.argmax(logits, -1).cpu().numpy()
+                    nxt = decode.run(stats, last_tok, pos)
+                    nxt = nxt.cpu().numpy()
                     for ri in req_ids:
                         s = slot_of[ri]
                         tok = int(nxt[s])
@@ -160,16 +215,66 @@ class ServeEngine:
         stats.wall_s += time.perf_counter() - t0
         return [r.out for r in reqs], stats
 
-    # -- cache plumbing ------------------------------------------------------
+    # -- the wave's programs -------------------------------------------------
 
-    def _alloc(self, B: int):
-        return self.model.init_cache(B, self.cache_len)
+    def _check_params(self) -> None:
+        """Drop the programs (captured over the params' tensors) once
+        ``params`` holds other tensors."""
+        ptrs = tuple(t.data_ptr() for t in tensors_of(self.params))
+        if ptrs != self._built_for:
+            self._programs.clear()
+            self._built_for = ptrs
+
+    def _prefill(self, B: int, L: int) -> _WaveProgram:
+        """The prefill of B prompts of L tokens: (next tokens (B,), the
+        decode caches of its rows)."""
+        key = ("prefill", B, L, self.cache_len)
+        prog = self._programs.get(key)
+        if prog is None:
+            # the body holds what it reads, not the engine: an engine in a
+            # reference cycle with its graphs would be freed by Python's
+            # cyclic collector, at any time, another capture's included
+            model, params, cache_len = self.model, self.params, self.cache_len
+            toks = torch.zeros((B, L), dtype=torch.int64, device=self.device)
+
+            def body():
+                logits, cc = model.prefill(params, toks, cache_len=cache_len)
+                return torch.argmax(logits, -1), cc
+
+            prog = self._programs[key] = _WaveProgram(
+                body, [toks], self.device, self.capture)
+            prog.pinned = tensors_of(params)
+        return prog
+
+    def _decode(self, B: int) -> _WaveProgram:
+        """One decode step of B slots: next tokens (B,); its ``pool``, the
+        slots' decode caches, made with it, updated in place."""
+        key = ("decode", B, self.cache_len)
+        prog = self._programs.get(key)
+        if prog is None:
+            model, params = self.model, self.params   # as in _prefill
+            tok = torch.zeros(B, dtype=torch.int64, device=self.device)
+            pos = torch.zeros(B, dtype=torch.int64, device=self.device)
+            pool = model.init_cache(B, self.cache_len)
+
+            def body():
+                logits, _ = model.decode_step(params, tok, pool, pos)
+                return torch.argmax(logits, -1)
+
+            prog = self._programs[key] = _WaveProgram(
+                body, [tok, pos], self.device, self.capture, pool)
+            prog.pinned = tensors_of(params) + tensors_of(pool)
+        return prog
+
+    # -- cache plumbing ------------------------------------------------------
 
     @staticmethod
     def _copy_slot(pool, src, slot: int, j: int) -> None:
         """Copy request j's prefill caches into pool slot ``slot``, in
-        place. Cache leaves are (R, B, ...); prefill happens once per
-        request."""
+        place: the slot's whole row of every leaf (each repeat's k and v,
+        ring slots included; the SSM conv and state caches), so that
+        nothing of an earlier wave's request stays in it. Cache leaves are
+        (R, B, ...); prefill happens once per request."""
         for dst_c, src_c in zip(pool, src):
             for key, dst in dst_c.items():
                 dst[:, slot].copy_(src_c[key][:, j])

@@ -7,7 +7,11 @@ decoupled weight decay, all in float32. ``torch.optim.AdamW`` and
 Parameters, gradients and moments are trees of tensors (dicts, tuples,
 lists); the state is ``{"mu", "nu", "step"}`` as in the reference, with
 ``step`` a 0-d int32 tensor. ``adamw_update`` is functional, as the
-reference's: it returns new trees and leaves its inputs alone.
+reference's: it returns new trees and leaves its inputs alone, one leaf
+at a time. ``adamw_update_`` is the same step in place over flat lists
+of leaves, each stage one multi-tensor (``torch._foreach_*``) operation
+over all of them, and reads nothing back to the host: the step the
+trainer captures (``train/loop.py``), where XLA fuses the reference's.
 """
 
 from __future__ import annotations
@@ -119,3 +123,35 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
                  "step": step}
     return (unflatten(params, [o[0] for o in out]), new_state,
             {"lr": lr, "grad_norm": gnorm})
+
+
+def adamw_update_(cfg: AdamWConfig, params: list, grads: list, mu: list,
+                  nu: list, step: torch.Tensor) -> dict[str, torch.Tensor]:
+    """One AdamW step in place over flat lists of leaves (:func:`leaves`
+    order): ``params``, ``mu``, ``nu`` and the 0-d ``step`` counter are
+    updated in place, and ``grads`` are scaled in place (they are the
+    step's scratch). The per-element formula is :func:`adamw_update`'s: the
+    clip scale ``min(1, clip / (gnorm + 1e-9))``, bias corrections ``1 -
+    b^step``, decoupled decay, ``lr_at`` of the new step, all as device
+    tensors. Returns the metrics ``{"lr", "grad_norm"}`` (not
+    synchronised)."""
+    step.add_(1)
+    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    lr = lr_at(cfg, step)
+    bc1 = 1 - cfg.b1 ** step.float()
+    bc2 = 1 - cfg.b2 ** step.float()
+    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_(mu, cfg.b1)
+    torch._foreach_add_(mu, grads, alpha=1 - cfg.b1)
+    torch._foreach_mul_(nu, cfg.b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - cfg.b2)
+    denom = torch._foreach_div(nu, bc2)             # nhat
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, cfg.eps)
+    delta = torch._foreach_div(mu, bc1)             # mhat
+    torch._foreach_div_(delta, denom)
+    torch._foreach_add_(delta, params, alpha=cfg.weight_decay)
+    torch._foreach_mul_(delta, lr)
+    torch._foreach_sub_(params, delta)
+    return {"lr": lr, "grad_norm": gnorm}

@@ -2178,3 +2178,405 @@ def test_sharded_engine_commits_into_the_pool_its_graph_reads(cuda):
     assert two == one
     assert stats.n_sharded_dispatches == stats.tier_rounds["sharded"] > 4
     assert stats.n_graph_replays > stats.n_graph_captures
+
+
+# -- the captured per-topology plan, LM wave and train step -------------------
+
+
+def _plan_case(name, cuda):
+    """(impls, two graphs of one topology with other aux, params, policy)
+    from :func:`_bucket_case`: a ChainLM feed round's two graphs share one
+    topology; a tagger's or a TreeLSTM's graph is paired with itself."""
+    impls, graphs, params, policy = _bucket_case(name, cuda)
+    assert graphs[0].topology_key() == graphs[1].topology_key()
+    return impls, graphs, params, policy
+
+
+@pytest.mark.parametrize("name", ["BiLSTM-Tagger", "TreeLSTM", "ChainLM"])
+def test_captured_plan_replay_equals_eager_bit_for_bit(cuda, name):
+    """A per-topology plan captured once replays what the eager plan
+    computes, bit for bit, on every node output; each run is one counted
+    launch and one replay, and each replay adds to the kernels' counters
+    exactly what one eager run launches."""
+    from repro_torch.core.executor import ExecStats
+    from repro_torch.core.plan import PlanExecutor
+    from repro_torch.kernels import launches
+
+    impls, graphs, params, policy = _plan_case(name, cuda)
+    ex = PlanExecutor(impls, params, device=cuda)
+    eager = PlanExecutor(impls, params, device=cuda, capture=False)
+    stats = ExecStats()
+    for g in graphs + graphs:
+        got = _outputs(ex.run(g, policy, stats), g)
+        want = _outputs(eager.run(g, policy), g)
+        for k, t in want.items():
+            assert torch.equal(got[k], t), k
+    assert (ex.n_captures, ex.n_replays) == (1, 4)
+    assert eager.n_captures == eager.n_replays == 0
+    assert (stats.n_launches, stats.n_compiles) == (4, 1)
+    g = graphs[0]
+    before = launches.snapshot()
+    eager.run(g, policy)
+    one = launches.delta(before, launches.snapshot())
+    before = launches.snapshot()
+    ex.run(g, policy)
+    assert launches.delta(before, launches.snapshot()) == one
+    assert ex.plan_for(g, policy)._exes.peek(
+        ex.plan_for(g, policy).executable_key(params)).counts == one
+
+
+def test_captured_plan_is_built_again_after_an_in_place_weight_update(cuda):
+    """The key carries the weights' versions: a weight updated in place
+    makes another entry, captured over the new values, which equals the
+    eager plan's run on them."""
+    from repro_torch.core.plan import PlanExecutor
+
+    impls, graphs, params, policy = _plan_case("TreeLSTM", cuda)
+    g = graphs[0]
+    ex = PlanExecutor(impls, params, device=cuda)
+    eager = PlanExecutor(impls, params, device=cuda, capture=False)
+    first = _outputs(ex.run(g, policy), g)
+    weight = next(t for impl in impls.values() for t in impl.params.values())
+    weight.mul_(0.5)
+    got = _outputs(ex.run(g, policy), g)
+    want = _outputs(eager.run(g, policy), g)
+    assert ex.n_captures == 2
+    assert all(torch.equal(got[k], t) for k, t in want.items())
+    assert not all(torch.equal(got[k], t) for k, t in first.items())
+
+
+def test_failed_plan_capture_raises_and_leaves_the_card_usable(
+        cuda, monkeypatch):
+    """A plan body that syncs the host only while it is captured fails
+    inside the capture: the run raises, nothing is cached, the stream is
+    the one before, the generator draws again, and the eager plan still
+    runs; the serve engine's per-topology tier books it as a failed build
+    and serves the rounds on the interpreted floor."""
+    from repro_torch.core.plan import PlanExecutor
+    from repro_torch.models.workloads import make_workload
+    from repro_torch.serve import ServeEngine, lm_request
+
+    impls, graphs, params, policy = _plan_case("TreeLSTM", cuda)
+    g = graphs[0]
+    want = _outputs(PlanExecutor(impls, params, device=cuda,
+                                 capture=False).run(g, policy), g)
+
+    def syncing(apply):
+        def inner(p, inputs, aux):
+            if torch.cuda.is_current_stream_capturing():
+                aux.sum().item()
+            return apply(p, inputs, aux)
+        return inner
+
+    for impl in impls.values():
+        monkeypatch.setattr(impl, "apply", syncing(impl.apply))
+    ex = PlanExecutor(impls, params, device=cuda)
+    stream = torch.cuda.current_stream(cuda)
+    with pytest.raises(RuntimeError):
+        ex.run(g, policy)
+    assert not torch.cuda.is_current_stream_capturing()
+    assert torch.cuda.current_stream(cuda) == stream
+    torch.randn(4, device=cuda)          # the generator left capture mode
+    p = ex.plan_for(g, policy)
+    assert p._exes.peek(p.executable_key(params)) is None
+    assert ex.n_captures == 0
+    got = _outputs(PlanExecutor(impls, params, device=cuda,
+                                capture=False).run(g, policy), g)
+    assert all(torch.equal(got[k], t) for k, t in want.items())
+
+    def serve(wl):
+        eng = ServeEngine({"lm": wl}, max_slots=4, bucketed=False,
+                          device=cuda)
+        reqs = [lm_request([1, 2, 3], 4), lm_request([7, 5], 4)]
+        eng.submit_many(reqs)
+        return reqs, eng.run()
+
+    clean, clean_stats = serve(make_workload("ChainLM", 64, 0, device=cuda))
+    assert set(clean_stats.tier_rounds) == {"plan"}
+    assert clean_stats.n_graph_captures >= 1
+    assert clean_stats.n_graph_replays >= 1
+    wl = make_workload("ChainLM", 64, 0, device=cuda)
+    for impl in wl.impls.values():
+        monkeypatch.setattr(impl, "apply", syncing(impl.apply))
+    reqs, stats = serve(wl)
+    assert all(r.status == "COMPLETED" for r in reqs)
+    assert [r.out for r in reqs] == [r.out for r in clean]
+    assert stats.n_quarantine_events >= 1
+    assert stats.tier_rounds.get("interpreted", 0) >= 1
+    assert stats.n_graph_captures == 0
+    torch.cuda.synchronize()
+
+
+def test_a_second_thread_replays_a_captured_plan(cuda):
+    """A plan captured on the main thread replays on a worker thread, on
+    a stream of its own, while the main thread allocates and frees: the
+    worker's results equal the eager plan's bit for bit."""
+    import threading
+
+    from repro_torch.core.plan import PlanExecutor
+
+    impls, graphs, params, policy = _plan_case("BiLSTM-Tagger", cuda)
+    g = graphs[0]
+    ex = PlanExecutor(impls, params, device=cuda)
+    want = _outputs(PlanExecutor(impls, params, device=cuda,
+                                 capture=False).run(g, policy), g)
+    ex.run(g, policy)
+    got, errors = [], []
+
+    def worker():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                for _ in range(3):
+                    res = _outputs(ex.run(g, policy), g)
+                    got.append({k: v.cpu() for k, v in res.items()})
+        except BaseException as exc:   # reported by the test
+            errors.append(exc)
+
+    t = threading.Thread(target=worker)
+    t.start()
+    for _ in range(3):
+        big = torch.empty(64 << 20, device=cuda)
+        big.fill_(1.0)
+        del big
+    t.join(60)
+    assert not t.is_alive() and not errors, errors
+    assert ex.n_captures == 1 and ex.n_replays == 4
+    for res in got:
+        assert all(torch.equal(res[k], t.cpu()) for k, t in want.items())
+
+
+def _lm_pair(name, cuda):
+    """A reduced LM on the card and its params (Mamba2 at a chunk of 32)."""
+    import dataclasses
+
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name).reduced()
+    if cfg.ssm_state:
+        cfg = dataclasses.replace(cfg, ssm_chunk=32)
+    model = TransformerLM(cfg, device=cuda)
+    params = TransformerLM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    return model, tree_map(lambda t: t.to(cuda), params)
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-130m"])
+def test_lm_wave_replays_give_the_eager_tokens(cuda, name):
+    """Two waves of the same shape, the requests' lengths swapped between
+    slots, through one engine whose prefill and decode steps are captured,
+    beside an eager engine: equal tokens (the second wave's slots still
+    hold the first's caches until their prefill); the first wave captures
+    each program once and replays the rest, the second only replays; and
+    the kernels' counters move by the same launches in both engines (each
+    warm-up is a real step)."""
+    from repro_torch.kernels import launches
+    from repro_torch.serve.lm_wave import ServeEngine, ServeStats
+
+    model, params = _lm_pair(name, cuda)
+    rng = np.random.default_rng(0)
+    waves = [[rng.integers(0, model.cfg.vocab, n).tolist() for n in lengths]
+             for lengths in ((32, 64, 32), (32, 32, 64))]
+    engines = {mode: ServeEngine(model, params, cache_len=80, device=cuda,
+                                 capture=mode == "captured")
+               for mode in ("captured", "eager")}
+    for w, prompts in enumerate(waves):
+        outs, moved = {}, {}
+        for mode, eng in engines.items():
+            stats = ServeStats()
+            before = launches.snapshot()
+            outs[mode], _ = eng.generate(prompts, 5, stats=stats)
+            torch.cuda.synchronize()
+            moved[mode] = launches.delta(before, launches.snapshot())
+            if mode == "eager":
+                assert stats.n_captures == stats.n_replays == 0
+            elif w == 0:
+                assert stats.n_captures == 3       # two prefills, a decode
+                assert stats.n_replays == 3        # decodes 2-4
+            else:
+                assert stats.n_captures == 0 and stats.n_replays == 6
+        assert outs["captured"] == outs["eager"]
+        assert moved["captured"] == moved["eager"]
+        kernel = "ssd_scan" if model.cfg.ssm_state else "flash_attention"
+        assert moved["captured"][kernel] > 0
+
+
+def test_failed_decode_capture_raises_and_leaves_the_card_usable(
+        cuda, monkeypatch):
+    """A decode step that syncs the host while it is captured fails inside
+    its capture: the wave raises (no eager fallback), the stream is the one
+    before and the generator draws again."""
+    from repro_torch.serve.lm_wave import ServeEngine
+
+    model, params = _lm_pair("qwen2-0.5b", cuda)
+    decode = model.decode_step
+
+    def syncing(p, token, caches, pos):
+        if torch.cuda.is_current_stream_capturing():
+            pos.sum().item()
+        return decode(p, token, caches, pos)
+
+    monkeypatch.setattr(model, "decode_step", syncing)
+    stream = torch.cuda.current_stream(cuda)
+    eng = ServeEngine(model, params, cache_len=48, device=cuda)
+    with pytest.raises(RuntimeError):
+        eng.generate([[1, 2, 3], [4, 5, 6]], 3)
+    assert not torch.cuda.is_current_stream_capturing()
+    assert torch.cuda.current_stream(cuda) == stream
+    torch.randn(4, device=cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-130m"])
+def test_train_step_replays_equal_eager_steps_bit_for_bit(cuda, name):
+    """Four static train steps captured (the first the warm-up, then
+    three replays) beside four eager ones over the same buffers: equal
+    losses and parameters bit for bit (the backward kernels' programmatic
+    dependents keep their edges in the graph), and each replay adds to the
+    counters what an eager step launches, the backward kernels (queued by
+    autograd's thread) included."""
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.kernels import launches
+    from repro_torch.train.loop import StaticTrainStep
+    from repro_torch.train.optimizer import AdamWConfig
+
+    model, params = _lm_pair(name, cuda)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=4)
+    seq = 64
+    runs = {}
+    for mode in ("captured", "eager"):
+        step = StaticTrainStep(model, opt, params,
+                               capture=mode == "captured")
+        corpus = SyntheticCorpus(PipelineConfig(
+            vocab=model.cfg.vocab, seq_len=seq, batch_size=2, seed=1))
+        losses, moved = [], []
+        for _ in range(4):
+            before = launches.snapshot()
+            m = step(corpus.batch())
+            losses.append(float(m["loss"]))
+            moved.append(launches.delta(before, launches.snapshot()))
+        runs[mode] = (losses, moved, step)
+    (lc, mc, sc), (le, me, se) = runs["captured"], runs["eager"]
+    assert len(sc._graphs) == 1 and not se._graphs
+    assert lc == le
+    assert mc == me
+    kernel = ("ssd_scan_backward" if model.cfg.ssm_state
+              else "flash_attention_backward")
+    assert mc[-1][kernel] == model.cfg.n_layers
+    for a, b in zip(sc.params + sc.mu + sc.nu, se.params + se.mu + se.nu):
+        assert torch.equal(a, b)
+    assert int(sc.step) == int(se.step) == 4
+
+
+def test_failed_train_step_capture_raises_and_leaves_the_card_usable(
+        cuda, monkeypatch):
+    """A loss that syncs the host while it is captured fails inside the
+    train step's capture: the step raises, the stream is the one before,
+    the generator draws again, and an eager step still runs."""
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.train.loop import StaticTrainStep
+    from repro_torch.train.optimizer import AdamWConfig
+
+    model, params = _lm_pair("qwen2-0.5b", cuda)
+    loss = model.loss
+
+    def syncing(p, batch):
+        if torch.cuda.is_current_stream_capturing():
+            batch["tokens"].sum().item()
+        return loss(p, batch)
+
+    monkeypatch.setattr(model, "loss", syncing)
+    batch = SyntheticCorpus(PipelineConfig(vocab=model.cfg.vocab, seq_len=32,
+                                           batch_size=2, seed=0)).batch(0)
+    stream = torch.cuda.current_stream(cuda)
+    with pytest.raises(RuntimeError):
+        StaticTrainStep(model, AdamWConfig(), params)(batch)
+    assert not torch.cuda.is_current_stream_capturing()
+    assert torch.cuda.current_stream(cuda) == stream
+    torch.randn(4, device=cuda)
+    m = StaticTrainStep(model, AdamWConfig(), params, capture=False)(batch)
+    assert np.isfinite(float(m["loss"]))
+
+
+def test_only_the_large_programs_empty_the_cache_before_a_capture(
+        cuda, monkeypatch):
+    """A capture cannot give cached memory back to the card, so the train
+    step and the LM wave's steps empty the cache (and collect garbage)
+    after their warm-up and before their capture; a per-topology plan does
+    not, since emptying the cache synchronises the card and serve workers
+    capture while the engine serves."""
+    from repro_torch.core.plan import PlanExecutor
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.serve.lm_wave import ServeEngine, ServeStats
+    from repro_torch.train.loop import StaticTrainStep
+    from repro_torch.train.optimizer import AdamWConfig
+
+    emptied = []
+    empty = torch.cuda.empty_cache
+    monkeypatch.setattr(torch.cuda, "empty_cache",
+                        lambda: (emptied.append(1), empty()))
+    impls, graphs, params, policy = _plan_case("TreeLSTM", cuda)
+    ex = PlanExecutor(impls, params, device=cuda)
+    ex.run(graphs[0], policy)
+    assert ex.n_captures == 1 and not emptied
+
+    model, lm_params = _lm_pair("qwen2-0.5b", cuda)
+    stats = ServeStats()
+    ServeEngine(model, lm_params, cache_len=48, device=cuda).generate(
+        [[1, 2, 3], [4, 5, 6]], 3, stats=stats)
+    assert stats.n_captures == 2 and len(emptied) == 2
+
+    batch = SyntheticCorpus(PipelineConfig(vocab=model.cfg.vocab, seq_len=32,
+                                           batch_size=2, seed=0)).batch(0)
+    StaticTrainStep(model, AdamWConfig(), lm_params)(batch)
+    assert len(emptied) == 3
+
+
+def test_a_graph_in_a_reference_cycle_is_not_freed_during_a_capture(cuda):
+    """Destroying a CUDA graph while a stream captures invalidates the
+    capture, and Python frees a graph held in a reference cycle whenever
+    its cyclic collector runs. The collector is off while a capture runs:
+    with a graph in a cycle and the collector set to run every few
+    allocations, collections run around a new plan's capture but none
+    while its stream captures; the capture lands and replays its eager
+    run, and the graph in the cycle goes at the next collection."""
+    import gc
+    import weakref
+
+    from repro_torch.core.plan import PlanExecutor
+
+    impls, graphs, params, policy = _plan_case("TreeLSTM", cuda)
+    g = graphs[0]
+    ex = PlanExecutor(impls, params, device=cuda)
+    ex.run(g, policy)
+    p = ex.plan_for(g, policy)
+    entry = p._exes.peek(p.executable_key(params))
+    assert entry.graph is not None
+    entry.cycle = entry                    # a cycle holding the graph
+    gone = weakref.ref(entry)
+    del entry, p, ex
+    capturing = []
+
+    def started(phase, info):
+        if phase == "start":
+            capturing.append(torch.cuda.is_current_stream_capturing())
+
+    enabled, thresholds = gc.isenabled(), gc.get_threshold()
+    gc.enable()
+    gc.set_threshold(10)
+    gc.callbacks.append(started)
+    try:
+        fresh = PlanExecutor(impls, params, device=cuda)
+        got = _outputs(fresh.run(g, policy), g)
+    finally:
+        gc.callbacks.remove(started)
+        gc.set_threshold(*thresholds)
+        if not enabled:
+            gc.disable()
+    assert capturing and not any(capturing)
+    assert fresh.n_captures == 1
+    gc.collect()
+    assert gone() is None
+    want = _outputs(PlanExecutor(impls, params, device=cuda,
+                                 capture=False).run(g, policy), g)
+    assert all(torch.equal(got[k], t) for k, t in want.items())

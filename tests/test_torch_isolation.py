@@ -74,7 +74,9 @@ def _port_files():
             + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
-@pytest.mark.parametrize("name", ["train_lm_torch", "tree_classifier_torch"])
+@pytest.mark.parametrize("name", ["train_lm_torch", "tree_classifier_torch",
+                                  "quickstart_torch", "lattice_ner_torch",
+                                  "serve_batched_torch"])
 def test_port_examples_load_no_jax(name):
     """Loading a port example (without running it) imports neither jax nor
     the JAX package."""

@@ -3,6 +3,9 @@ JAX package's ``repro.serve.lm_wave`` with the same parameters and prompts:
 identical token streams (a mismatch reports the top-2 logit margin at the
 first differing step) and identical batch counts."""
 
+import gc
+import weakref
+
 import numpy as np
 import pytest
 
@@ -136,3 +139,59 @@ def test_engine_refuses_a_model_on_another_device():
     model = TransformerLM(cfg, device="cpu")
     with pytest.raises(ValueError, match="model on cpu"):
         lm_wave.ServeEngine(model, {}, device="meta")
+
+
+@pytest.mark.parametrize("name,waves,cache_len", [
+    ("qwen2-0.5b", [(5, 9, 5), (9, 3, 7)], 24),
+    ("mamba2-130m", [(16, 32, 16), (32, 16, 16)], 48),
+])
+def test_successive_waves_share_the_pool_and_match_reference(name, waves,
+                                                             cache_len):
+    """Two waves of three requests through one engine: the second reuses
+    the first's pool (its slots still hold the first wave's caches) and
+    the programs built for it, and each wave's tokens equal the
+    reference's, whose engine makes a fresh pool every wave."""
+    jm, jparams, m, params = _pair(name)
+    jeng = jwave.ServeEngine(jm, jparams, cache_len=cache_len)
+    eng = lm_wave.ServeEngine(m, params, cache_len=cache_len, device="cpu")
+    rng = np.random.default_rng(2)
+    pools = []
+    for lengths in waves:
+        prompts = [list(rng.integers(0, m.cfg.vocab, n)) for n in lengths]
+        jouts, jstats = jeng.generate(prompts, max_new=4)
+        outs, stats = eng.generate(prompts, max_new=4)
+        _assert_same_streams(outs, jouts, m, params, prompts)
+        assert (stats.n_prefill_batches, stats.n_decode_batches) == \
+            (jstats.n_prefill_batches, jstats.n_decode_batches)
+        assert stats.n_captures == stats.n_replays == 0   # no card here
+        pools.append(eng._decode(len(lengths)).pool)
+    assert pools[0] is pools[1]
+    assert set(eng._programs) >= {("decode", 3, cache_len)}
+
+
+def test_wave_programs_are_capped_and_a_pool_goes_with_its_decode_step():
+    """The engine keeps its programs in one FIFO-capped cache, each decode
+    step holding its slots' pool: past the cap the oldest go, a pool with
+    the decode step that reads it, and later waves rebuild what they need
+    and still give the reference's tokens."""
+    jm, jparams, m, params = _pair("qwen2-0.5b", d_model=32)
+    jeng = jwave.ServeEngine(jm, jparams, cache_len=24)
+    eng = lm_wave.ServeEngine(m, params, cache_len=24, device="cpu")
+    eng._programs.maxsize = 3
+    rng = np.random.default_rng(4)
+    first_pool = None   # a weak reference to a tensor of the first pool
+    for lengths in [(5, 9), (4, 6, 8), (3, 7), (5, 9)]:
+        prompts = [list(rng.integers(0, m.cfg.vocab, n)) for n in lengths]
+        jouts, _ = jeng.generate(prompts, max_new=3)
+        outs, _ = eng.generate(prompts, max_new=3)
+        _assert_same_streams(outs, jouts, m, params, prompts)
+        assert len(eng._programs) <= 3
+        pools = {k: p.pool for k, p in eng._programs.items()}
+        assert all((p is None) == (k[0] == "prefill")
+                   for k, p in pools.items())
+        if first_pool is None:
+            pool = eng._decode(2).pool
+            first_pool = weakref.ref(pool[0][next(iter(pool[0]))])
+            del pool
+    gc.collect()
+    assert first_pool() is None

@@ -95,5 +95,6 @@ def test_chip_smoke_slice_runs_on_cpu():
     assert report["max_abs_err_executors"] <= 1e-4
     assert report["max_abs_err_vs_cpu"] == 0.0
     assert set(report["ms_per_run"]) == {"interpreted", "per_topology",
-                                         "bucketed"}
+                                         "per_topology_eager", "bucketed"}
+    assert report["max_abs_err_replay_vs_eager"] == 0.0
     assert report["plan_stats"]["n_steps"] == report["n_batches"]
