@@ -29,7 +29,18 @@ Phases, in order; any failure raises and exits non-zero:
    both cells cold and warm at B = 1, 16, 32, attention and scan at both
    prefill shapes of their LM wave. The dense LSTM cell is also checked on
    gathered rows against the gather cell; no model path launches it, so
-   its launches are those of its checks.
+   its launches are those of its checks. Then the MoE layer
+   (``check_moe``) at Granite-MoE-1B-A400M's and OLMoE-1B-7B's widths, at
+   a wave's decode step (6 rows, one group), a 4 x 96 prefill and
+   Granite's 8 x 128 train step: with the gather kernel against the same
+   layer with the plain gathers, routing equal, outputs within 1e-6 of
+   their largest |value|, two runs bit-equal, two gathers a call; the
+   train shape's gradients (the gather backward's sort path) within 1e-6
+   of the plain gathers'; the card's routing against the CPU's (tokens
+   routed differently, smallest top-K gap); then the dispatch and combine
+   gathers and their backwards timed cold at Granite's train shape and
+   OLMoE's prefill shape beside ``index_select`` and ``zeros`` +
+   ``index_add_`` (the backwards the CPU plain version's bits).
 3. The slice: BiLSTM-Tagger at model_size=512 on CUDA. An FSM policy is
    learned on small graphs, then fresh 16-sentence minibatches (and one
    repeat) run through the interpreted, per-topology and bucketed
@@ -46,10 +57,12 @@ Phases, in order; any failure raises and exits non-zero:
    stats, the gather's ``(K, row bytes)`` launch histogram, and the device
    us of the gather and cell kernels in the profiled bucketed run with
    their share of its device time.
-4. The LM wave: Qwen2-0.5B, then Mamba2-130m, at full published width and
-   depth (random weights from the seed, made on the CPU and copied to the
+4. The LM wave: Qwen2-0.5B, Mamba2-130m, Granite-MoE-1B-A400M and
+   OLMoE-1B-7B, at full published width and depth (random weights from
+   the seed, made on the CPU and copied to the card; OLMoE's made on the
    card) through the port's wave ``ServeEngine``: six requests, eight new
-   tokens each. The flash-attention (Qwen2) and SSD-scan (Mamba2) launch
+   tokens each. The flash-attention (Qwen2, the MoE models), SSD-scan
+   (Mamba2) and row-gather (the MoE models' dispatch and combine) launch
    counters must rise during the wave. The engine captures its prefill
    (one graph per batch and length) and decode step (one per batch) at the
    first wave, whose steps are the captures' warm-ups, and replays them in
@@ -57,7 +70,13 @@ Phases, in order; any failure raises and exits non-zero:
    The tokens must equal the eager engine's and the same wave's on the CPU
    (plain versions only), apart from a near-tie flip within the logit
    tolerance, and one prefill batch's logits must agree with the CPU
-   within 2e-3 of the largest |logit|. Prints tokens/s, ms per prefill
+   within 2e-3 of the largest |logit|. OLMoE is held to the CPU at two
+   layers (LM_CPU_REPEATS: its weights' first two repeats, on both). An
+   MoE model's routing is recorded in an eager card wave and the CPU wave
+   (``RoutingRecorder``): a token or logit beyond those bars is accepted
+   only where the routings first differ at a top-K gap within
+   ROUTING_TIE (1e-5), printed with the smallest gap of the wave. Prints
+   tokens/s, ms per prefill
    batch and per decode wave (a replay, and the eager step), the batch
    counts and a profiler summary (busy share, device events) for both
    engines.
@@ -151,9 +170,8 @@ Phases, in order; any failure raises and exits non-zero:
    steps (10), the step captured as a CUDA graph (step 1 its warm-up, then
    replays): every loss finite, the flash forward and backward counters
    up by 24 a step; the same steps eagerly (``train(...,
-   capture=False)``) from the same seed: each step's loss within 1e-4
-   relative, and the worst parameter leaf within 1e-4 of its largest
-   |value| after the last; the in-place multi-tensor AdamW held to the
+   capture=False)``) from the same seed: each step's loss and, after the
+   last, every parameter leaf bit-equal; the in-place multi-tensor AdamW held to the
    functional one (the reference's form) over the same ten steps at full
    width (``adamw_forms``): fed the same gradients, every leaf within
    1e-4 of its largest |value|; fed its own, the worst leaf and the worst
@@ -188,7 +206,15 @@ Phases, in order; any failure raises and exits non-zero:
    forms and the ``train (f)`` line as (b)'s; then
    depth 2 at full width, batch 2 x 256 (two chunks carry the state),
    card against the CPU: loss within 1e-4, every gradient leaf within 2e-3
-   of its largest |gradient|.
+   of its largest |gradient|. (g) ``launch.train.main`` on
+   Granite-MoE-1B-A400M at full width and depth, ``--batch 8 --seq 128``,
+   TRAIN_STEPS steps, the step captured: losses finite and falling; flash
+   attention's forward and backward once a layer a step, the row gather
+   and its backward (on its sort path: K = 10240 and 8192) twice; the same
+   steps eagerly, every loss and leaf bit-equal; ms per step, tokens/s,
+   peak memory, a profiled replayed step (busy share, device events,
+   launches by kernel); then depth 2 at full width, batch 2 x 32, card
+   against the CPU (loss 1e-4, gradients 2e-3, or a routing near-tie).
 10. Gradients through the dynamic-graph executors. (b) TreeGRU at
    model_size=512, 16 trees a step, phase 5's FSM, EXEC_TRAIN_STEPS (5)
    SGD steps of ``examples/tree_classifier_torch.py``'s loss through
@@ -212,6 +238,21 @@ Phases, in order; any failure raises and exits non-zero:
    each beside ``zeros`` + ``index_add_`` (a yardstick), and the plain
    version at K = 256. (c) ``examples/tree_classifier_torch.py`` on the
    card: its loss improves.
+11. Cross-attention: Llama-3.2-Vision-11B. (a) At full width and depth
+   (weights made on the card from the seed), image embeddings drawn from
+   the seed: a prefill of 2 prompts of 64 tokens, then eight greedy
+   decode steps, eager, through ``prefill`` and ``decode_step`` (flash
+   attention once a layer, the 8 cross layers' non-causal over 1024 image
+   tokens); ms of a prefill and a decode step. (b) One pattern repeat (5
+   layers) of the same weights on the card against the CPU, the CPU fed
+   the card's tokens: logits of the prefill and every step within 2e-3 of
+   the largest |logit|, a differing argmax only at a near-tie; one loss
+   and its gradients at batch 1 x 32 within 1e-4 and 2e-3. (c) Five steps
+   at one repeat, the launcher's batch (8 x 128, 1024 image tokens), the
+   step captured, beside the same steps eagerly: losses finite and
+   falling, bit-equal; flash attention's forward and backward once a layer
+   a step; ms per step, tokens/s, peak memory. Each model is freed before
+   the next.
 
 Phases 2 and 4 hold the kernels other than the gather to 1e-4 of the
 largest magnitude of their plain versions' outputs, phase 9 the backward
@@ -220,7 +261,10 @@ last is ``{"kernels": [...]}`` (per kernel: launches in the phase that
 drives its path, max abs error, kernel / plain / bound / library ms; the
 five forward kernels and the three backward kernels: flash attention's
 and the scan's over the training steps of phase 9, the gather's over
-phase 10 (b));
+phase 10 (b); ``launches_by_path`` each kernel's launches on every path
+that drives it, this slice's MoE waves, Granite's training and the
+vision model's included; the gather's and its backward's ``moe_shapes``
+the MoE timings of phase 2);
 phase 2 logs each bound's byte and operation times and the peak it
 divides by (3xTF32 on the tensor cores for every kernel with products) on
 a ``<kernel> bound:`` line; the last line is ``{"ok": true, "device":
@@ -232,6 +276,7 @@ then print no result lines.
 
 from __future__ import annotations
 
+import gc
 import json
 import random
 import statistics
@@ -1177,7 +1222,14 @@ def check_float64(wl, cpu_wl, g, policy, execs, ys, y_cpu) -> dict:
 LM_RUNS = {  # name: (prompt lengths to draw from, requests, max_new, cache)
     "qwen2-0.5b": ((32, 48, 96), 6, 8, 256),
     "mamba2-130m": ((128, 256), 6, 8, 256),
+    "granite-moe-1b-a400m": ((32, 48, 96), 6, 8, 256),
+    "olmoe-1b-7b": ((32, 48, 96), 6, 8, 256),
 }
+# Models whose weights are made on the card (from a CUDA generator): the
+# CPU holds them at this many pattern repeats, and the card's wave and
+# prefill are held to the CPU's at that depth (the full depth's tokens to
+# the eager engine's).
+LM_CPU_REPEATS = {"olmoe-1b-7b": 2}
 LOGIT_TOL = 2e-3    # prefill vs forward bar of the reference's own tests
 
 
@@ -1192,11 +1244,13 @@ def top2_margin(torch, model, params, prompt, prefix) -> tuple:
 
 
 def token_flips(torch, label: str, name: str, got: list, want: list,
-                model, params, prompts) -> list:
+                model, params, prompts, routing: dict | None = None) -> list:
     """Where two runs' token streams differ: each first differing token
     must be a near-tie of ``model`` (top-2 margin within the logit
-    tolerance of the largest |logit|); returns [request, token, margin]
-    for each."""
+    tolerance of the largest |logit|), or, for an MoE model, follow a
+    routing that differs between the runs first at a near-tie
+    (``routing``, from :func:`routing_divergence`: top-K gap within
+    ROUTING_TIE); returns [request, token, margin] for each."""
     flips = []
     for r, (a, b) in enumerate(zip(got, want)):
         if a == b:
@@ -1207,8 +1261,13 @@ def token_flips(torch, label: str, name: str, got: list, want: list,
             f"the reference run; top-2 margin {margin:.3e} (tolerance "
             f"{LOGIT_TOL * scale:.3e})")
         if margin > LOGIT_TOL * scale:
-            fail(f"{name}: request {r} differs {label} at token {t} beyond "
-                 f"a near-tie")
+            if not routing_tie(routing):
+                fail(f"{name}: request {r} differs {label} at token {t} "
+                     f"beyond a near-tie (routing {routing})")
+            log(f"{name} request {r}: accepted at a routing near-tie: MoE "
+                f"call {routing['first_differing_call']} routes "
+                f"{routing['tokens_differing']} tokens differently at a "
+                f"top-K gap of {routing['gap_at_flip']:.3e}")
         flips.append([r, t, margin])
     return flips
 
@@ -1225,6 +1284,8 @@ def lm_wave(name: str, wrappers: dict) -> dict:
     near-tie, top-2 margin within the logit tolerance), and one prefill
     batch's logits must agree with the CPU within 2e-3 of the largest
     |logit|."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch.arch.model import TransformerLM, tree_map
@@ -1236,10 +1297,22 @@ def lm_wave(name: str, wrappers: dict) -> dict:
     cfg = get_config(name)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    cpu_model = TransformerLM(cfg, device="cpu")
-    cpu_params = cpu_model.init_params(torch.Generator().manual_seed(SEED))
     model = TransformerLM(cfg, device=dev)
-    params = tree_map(lambda t: t.to(dev), cpu_params)
+    repeats = LM_CPU_REPEATS.get(name)
+    if repeats is None:
+        cpu_model = TransformerLM(cfg, device="cpu")
+        cpu_params = cpu_model.init_params(
+            torch.Generator().manual_seed(SEED))
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        cmp_model, cmp_params = model, params
+    else:
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(SEED))
+        cut = dataclasses.replace(cfg, n_layers=repeats * len(cfg.pattern))
+        cmp_model = TransformerLM(cut, device=dev)
+        cmp_params = cut_params(params, repeats)
+        cpu_model = TransformerLM(cut, device="cpu")
+        cpu_params = tree_map(lambda t: t.cpu(), cmp_params)
     sizes = []
     tree_map(lambda t: sizes.append(t.numel()), params)
     report = {"model": name, "n_layers": cfg.n_layers,
@@ -1287,7 +1360,8 @@ def lm_wave(name: str, wrappers: dict) -> dict:
                          "sched_cache_hits": warm.sched_cache_hits}
     report["replay_vs_eager_flips"] = token_flips(
         torch, "replayed", name, outs, by_mode["eager"].pop("outs"),
-        cpu_model, cpu_params, prompts)
+        *((cpu_model, cpu_params) if repeats is None else (model, params)),
+        prompts)
     by_mode["captured"].pop("outs")
     report.update(by_mode["captured"])
     report["eager"] = by_mode["eager"]
@@ -1322,33 +1396,60 @@ def lm_wave(name: str, wrappers: dict) -> dict:
     report["eager"]["profile"] = profile_run(
         torch, lambda: engines["eager"].generate(prompts, max_new=max_new))
 
-    # the same first wave on the CPU, plain versions only
+    # the same first wave on the CPU, plain versions only (at the CPU's
+    # depth; the card's wave at that depth beside it where it is cut), an
+    # eager card wave beside it recording the MoE layers' routing
+    if repeats is None:
+        cmp_outs = outs
+    else:
+        cmp_outs, _ = ServeEngine(cmp_model, cmp_params, cache_len=cache_len,
+                                  device=dev).generate(prompts,
+                                                       max_new=max_new)
+    with RoutingRecorder() as card_rec:
+        eager_outs, _ = ServeEngine(cmp_model, cmp_params,
+                                    cache_len=cache_len, device=dev,
+                                    capture=False).generate(
+                                        prompts, max_new=max_new)
+    if eager_outs != cmp_outs:
+        fail(f"{name}: an eager wave gave other tokens than the captured")
     t0 = time.perf_counter()
-    cpu_outs, cpu_stats = ServeEngine(cpu_model, cpu_params,
-                                      cache_len=cache_len, device="cpu"
-                                      ).generate(prompts, max_new=max_new)
+    with RoutingRecorder() as cpu_rec:
+        cpu_outs, cpu_stats = ServeEngine(cpu_model, cpu_params,
+                                          cache_len=cache_len, device="cpu"
+                                          ).generate(prompts, max_new=max_new)
     report["cpu_wave_s"] = time.perf_counter() - t0
+    report["cpu_repeats"] = cpu_model.cfg.n_repeats
+    routing = routing_divergence(card_rec, cpu_rec)
+    report["routing_vs_cpu"] = routing
     if (cpu_stats.n_prefill_batches, cpu_stats.n_decode_batches) != \
             (stats.n_prefill_batches, stats.n_decode_batches):
         fail(f"{name}: batch counts differ from the CPU run")
-    flips = token_flips(torch, "on the card", name, outs, cpu_outs,
-                        cpu_model, cpu_params, prompts)
+    flips = token_flips(torch, "on the card", name, cmp_outs, cpu_outs,
+                        cpu_model, cpu_params, prompts, routing)
     report["near_tie_flips"] = flips
 
     group = by_len[len(prompts[0])]
     with torch.no_grad():
-        lg = model.prefill(params, torch.tensor(group, device=dev),
-                           cache_len)[0].cpu()
-        lg_cpu = cpu_model.prefill(cpu_params, torch.tensor(group),
-                                   cache_len)[0]
+        with RoutingRecorder() as card_rec:
+            lg = cmp_model.prefill(cmp_params, torch.tensor(group, device=dev),
+                                   cache_len=cache_len)[0].cpu()
+        with RoutingRecorder() as cpu_rec:
+            lg_cpu = cpu_model.prefill(cpu_params, torch.tensor(group),
+                                       cache_len=cache_len)[0]
     if tuple(lg.shape) != (len(group), cfg.vocab) or \
             not torch.isfinite(lg).all():
         fail(f"{name}: bad prefill logits {tuple(lg.shape)}")
     err = rel_err(lg, lg_cpu)
     report["prefill_logits_rel_err_vs_cpu"] = err
+    report["prefill_routing_vs_cpu"] = prefill_routing = routing_divergence(
+        card_rec, cpu_rec)
     if not err <= LOGIT_TOL:
-        fail(f"{name}: prefill logits differ from the CPU run by {err} of "
-             f"the largest |logit|")
+        if not routing_tie(prefill_routing):
+            fail(f"{name}: prefill logits differ from the CPU run by {err} "
+                 f"of the largest |logit| (routing {prefill_routing})")
+        log(f"{name}: prefill logits {err:.3e} of the largest |logit| from "
+            f"the CPU's, accepted at a routing near-tie: top-K gap "
+            f"{prefill_routing['gap_at_flip']:.3e}")
     report["tokens_equal_cpu"] = not flips
     report["tokens_equal_eager"] = not report["replay_vs_eager_flips"]
     return report
@@ -1377,8 +1478,9 @@ TREES_LATTICES = {
 
 
 def shape_histogram(shapes) -> list:
-    """A gather's ``(K, row bytes)`` launch counts, most frequent first."""
-    return [[k, row_bytes, n] for (k, row_bytes), n in
+    """A gather's ``(K, row bytes)`` (or its backward's ``(K, n_src, row
+    bytes)``) launch counts, most frequent first."""
+    return [[*shape, n] for shape, n in
             sorted(shapes.items(), key=lambda t: (-t[1], t[0]))]
 
 
@@ -2553,14 +2655,17 @@ def adamw_forms(torch, label: str, arch: str, steps: int) -> dict:
 
 
 def captured_vs_eager(torch, label: str, arch: str, state, steps: int,
-                      kernels: tuple[str, ...]) -> dict:
+                      kernels: dict, forms: bool = True) -> dict:
     """Phase 9's comparison of the launcher's captured run (``state``)
-    with the same steps run eagerly: each step's loss within 1e-4
-    relative, and after the last step the worst parameter leaf within 1e-4
-    of its largest |value|. Then one replayed step of a
-    ``StaticTrainStep`` over the trained state, profiled: its busy share
-    and device events, and ``kernels``' counters moved by one step's
-    launches (a layer each). Returns the report."""
+    with the same steps run eagerly over the same static buffers: every
+    step's loss and, after the last step, every parameter leaf bit-equal;
+    with ``forms``, the AdamW forms held to each other
+    (:func:`adamw_forms`; it holds nine copies of the parameters, so
+    Granite-MoE's 5.5 GB leaves skip it: the optimizer is the same code).
+    Then one replayed step of a ``StaticTrainStep`` over the trained
+    state, profiled: its busy share and device events, and each of
+    ``kernels``' counters moved by its launches a step (``{name:
+    launches}``). Returns the report."""
     from repro_torch.arch.model import TransformerLM
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
@@ -2575,12 +2680,12 @@ def captured_vs_eager(torch, label: str, arch: str, state, steps: int,
                  for a, b in zip(state.history, eager.history)]
     leaf_errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                  for a, b in zip(leaves(state.params), leaves(eager.params))]
-    if len(loss_errs) != steps or not max(loss_errs) <= 1e-4 or \
-            not max(leaf_errs) <= 1e-4:
+    if len(loss_errs) != steps or max(loss_errs) != 0 or \
+            max(leaf_errs) != 0:
         fail(f"{label}: captured against eager steps, losses "
              f"{state.history} against {eager.history} (worst relative "
              f"{max(loss_errs)}), worst parameter leaf {max(leaf_errs)} of "
-             f"its max (bars 1e-4)")
+             f"its max (want bit-equal)")
     del eager
     ms = statistics.median(step_ms)
     out = {"loss_rel_err_max": max(loss_errs),
@@ -2588,7 +2693,8 @@ def captured_vs_eager(torch, label: str, arch: str, state, steps: int,
            "eager_step_ms": step_ms, "eager_ms_per_step": ms,
            "eager_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
            "eager_peak_bytes": peak,
-           "adamw_forms": adamw_forms(torch, label, arch, steps)}
+           "adamw_forms": adamw_forms(torch, label, arch, steps)
+           if forms else None}
     model = TransformerLM(cfg, device="cuda")
     step = StaticTrainStep(model, AdamWConfig(lr=1e-3, warmup_steps=5,
                                               total_steps=steps),
@@ -2600,9 +2706,9 @@ def captured_vs_eager(torch, label: str, arch: str, state, steps: int,
     before = {k: WRAPPERS[k].launches for k in kernels}
     prof = profile_run(torch, lambda: step(batch))
     moved = {k: WRAPPERS[k].launches - before[k] for k in kernels}
-    if any(v != cfg.n_layers for v in moved.values()):
+    if moved != kernels:
         fail(f"{label}: the profiled replayed step moved the counters by "
-             f"{moved}, not {cfg.n_layers} each")
+             f"{moved}, not {kernels}")
     out.update(replayed_step_profile=prof, replayed_step_launches=moved)
     return out
 
@@ -2655,7 +2761,8 @@ def train_phase(torch, drive, card: str, steps: int) -> dict:
     n_params = sum(t.numel() for t in leaves(state.params))
 
     cmp = captured_vs_eager(torch, "train (b)", "qwen2-0.5b", state, steps,
-                            ("flash_attention", "flash_attention_backward"))
+                            {"flash_attention": cfg.n_layers,
+                             "flash_attention_backward": cfg.n_layers})
     prof = cmp["replayed_step_profile"]
     own_us = {k: round(v["device_us"], 1)
               for k, v in prof["own_kernels"].items()}
@@ -2789,10 +2896,10 @@ def train_phase(torch, drive, card: str, steps: int) -> dict:
     with torch.no_grad():
         lg = eng.model.prefill(eng.params, torch.tensor([prompts[0]],
                                                         device="cuda"),
-                               eng.cache_len)[0].cpu()
+                               cache_len=eng.cache_len)[0].cpu()
         lg_cpu = cpu_eng.model.prefill(cpu_eng.params,
                                        torch.tensor([prompts[0]]),
-                                       cpu_eng.cache_len)[0]
+                                       cache_len=cpu_eng.cache_len)[0]
     err = rel_err(lg, lg_cpu)
     if not torch.isfinite(lg).all() or not err <= LOGIT_TOL:
         fail(f"train (d): the restored model's prefill logits differ from "
@@ -2993,7 +3100,8 @@ def train_ssm_phase(torch, drive, card: str, steps: int) -> dict:
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n_params = sum(t.numel() for t in leaves(state.params))
     cmp = captured_vs_eager(torch, "train (f)", "mamba2-130m", state, steps,
-                            ("ssd_scan", "ssd_scan_backward"))
+                            {"ssd_scan": cfg.n_layers,
+                             "ssd_scan_backward": cfg.n_layers})
     prof = cmp["replayed_step_profile"]
     own_us = {k: round(v["device_us"], 1)
               for k, v in prof["own_kernels"].items()}
@@ -3297,13 +3405,646 @@ def executor_train_phase(torch, drive, card: str) -> dict:
     return counts
 
 
+# -- MoE and cross-attention (phases 2, 4, 9 and 11) -------------------------
+
+
+# The MoE layer's shapes on the slice's paths: (label, tokens N, groups G)
+# at a wave's decode step (one group of its six rows), a prefill of 4 x 96
+# prompts and, for Granite, the train step at batch 8 x 128.
+MOE_SHAPES = {
+    "granite-moe-1b-a400m": [("decode B=6", 6, 1), ("prefill 4 x 96", 384, 4),
+                             ("train 8 x 128", 1024, 8)],
+    "olmoe-1b-7b": [("decode B=6", 6, 1), ("prefill 4 x 96", 384, 4)],
+}
+# A routing that differs between the card and the CPU is accepted only
+# where the first layer it differs in chose between two experts whose
+# router probabilities (the K-th and (K+1)-th of a token) were this close.
+ROUTING_TIE = 1e-5
+
+
+class RoutingRecorder:
+    """While active, records every MoE routing (``moe_route``) on the
+    host, in call order: each token's experts, sorted, and the gap between
+    its K-th and (K+1)-th router probability (inf where K = E). Eager runs
+    only: a replayed graph runs no Python."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.arch import layers
+
+        self._route = route = layers.moe_route
+        calls = self.calls
+
+        def recording(p, x, cfg, n_groups=1):
+            r = route(p, x, cfg, n_groups)
+            K = cfg.experts_per_token
+            top = r["probs"].detach().sort(dim=-1, descending=True).values
+            gap = (top[:, K - 1] - top[:, K] if K < cfg.n_experts
+                   else torch.full_like(top[:, 0], float("inf")))
+            calls.append((r["expert_idx"].sort(dim=-1).values.cpu(),
+                          gap.cpu()))
+            return r
+
+        layers.moe_route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.arch import layers
+
+        layers.moe_route = self._route
+
+    def min_gap(self):
+        return min((float(g.min()) for _, g in self.calls), default=None)
+
+
+def routing_divergence(card: RoutingRecorder, cpu: RoutingRecorder) -> dict:
+    """Where two runs of the same schedule first route differently: the
+    index of the first MoE call whose experts differ for some token, how
+    many tokens, and the largest of their gaps on the CPU (None where the
+    routings agree throughout); with the smallest gap of the CPU run."""
+    out = {"calls": len(cpu.calls), "min_gap": cpu.min_gap(),
+           "first_differing_call": None, "tokens_differing": 0,
+           "gap_at_flip": None}
+    if len(card.calls) != len(cpu.calls):
+        fail(f"routing: {len(card.calls)} MoE calls on the card, "
+             f"{len(cpu.calls)} on the CPU")
+    for i, ((a, _), (b, gap)) in enumerate(zip(card.calls, cpu.calls)):
+        rows = (a != b).any(-1)
+        if bool(rows.any()):
+            out.update(first_differing_call=i,
+                       tokens_differing=int(rows.sum()),
+                       gap_at_flip=float(gap[rows].max()))
+            break
+    return out
+
+
+def routing_tie(routing: dict | None) -> bool:
+    """The routings differ, first at a near-tie within ROUTING_TIE."""
+    return bool(routing) and routing["first_differing_call"] is not None \
+        and routing["gap_at_flip"] <= ROUTING_TIE
+
+
+def cut_params(params, repeats: int):
+    """The first ``repeats`` repeats of every block leaf (views)."""
+    from repro_torch.arch.model import tree_map
+
+    return dict(params, blocks=tuple(tree_map(lambda a: a[:repeats], blk)
+                                     for blk in params["blocks"]))
+
+
+def check_moe(torch, timer) -> dict:
+    """Phase 2, the MoE layer at Granite's and OLMoE's widths (random
+    layer weights from the seed, fp32, TF32 off) at each of MOE_SHAPES:
+    the layer with the gather kernel against the same layer with the plain
+    gathers (``ref.gather_rows_ref``): routing equal, outputs within 1e-6
+    of their largest |value|, two runs bit-equal; the card's routing
+    against the CPU's on the same inputs (tokens routed differently and
+    the smallest top-K gap). Granite's train shape also runs backward: the
+    gradient through the kernels' backward (its sort path) against the
+    plain gathers'. Then the dispatch and combine gathers and their
+    backwards are timed cold at Granite's train shape and OLMoE's prefill
+    shape beside ``index_select`` and ``zeros`` + ``index_add_``.
+    Returns {"layer": per case, "gather": timed rows, "backward": ...}."""
+    import dataclasses
+
+    from repro_torch.arch import layers as L
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gather_batch import (backward_geometry,
+                                                  gather_rows,
+                                                  gather_rows_backward)
+
+    out = {"layer": {}, "gather": {}, "backward": {}}
+    for name, shapes in MOE_SHAPES.items():
+        cfg = get_config(name)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+        p = L.init_moe(g, cfg, device="cuda")
+        for label, N, G in shapes:
+            x = torch.randn((N, cfg.d_model), generator=g, device="cuda")
+            train = label.startswith("train")
+            if train:
+                x.requires_grad_(True)
+                for t in p.values():
+                    t.requires_grad_(True)
+            with torch.set_grad_enabled(train):
+                r = L.moe_route(p, x, cfg, G)
+                before = gather_rows.launches
+                y, aux = L.moe(p, x, cfg, G)
+                y2, aux2 = L.moe(p, x, cfg, G)
+                y_plain, aux_plain = L.moe(p, x, cfg, G,
+                                           gather=ref.gather_rows_ref)
+                launched = gather_rows.launches - before
+                r_plain = L.moe_route(p, x, cfg, G)
+            same_route = all(torch.equal(r[k], r_plain[k]) for k in (
+                "expert_idx", "order", "dest", "keep", "dispatch_idx",
+                "combine_idx"))
+            err = rel_err(y.detach(), y_plain.detach())
+            case = {"tokens": N, "groups": r["groups"],
+                    "capacity": r["capacity"],
+                    "slots": int(r["dispatch_idx"].numel()),
+                    "kept": int(r["keep"].sum()),
+                    "assignments": int(r["keep"].numel()),
+                    "rel_err_vs_plain": err,
+                    "runs_bit_equal": torch.equal(y, y2)
+                    and torch.equal(aux, aux2),
+                    "gather_launches": launched}
+            if not same_route or not err <= 1e-6 or \
+                    not case["runs_bit_equal"] or launched != 4:
+                fail(f"moe {name} {label}: routing equal {same_route}, "
+                     f"{err} of the largest |y| from the plain gathers "
+                     f"(bar 1e-6), runs bit-equal {case['runs_bit_equal']}, "
+                     f"{launched} gather launches (want 4)")
+            if train:
+                w = torch.randn(y.shape, generator=g, device="cuda")
+                leaves = [x] + list(p.values())
+                bwd = gather_rows_backward.launches
+                got = torch.autograd.grad((y * w).sum() + aux, leaves)
+                case["backward_launches"] = gather_rows_backward.launches - bwd
+                want = torch.autograd.grad((y_plain * w).sum() + aux_plain,
+                                           leaves)
+                case["grad_rel_err_vs_plain"] = max(
+                    grad_rel_err(a, b) for a, b in zip(got, want))
+                if case["backward_launches"] != 2 or \
+                        not case["grad_rel_err_vs_plain"] <= 1e-6:
+                    fail(f"moe {name} {label}: {case['backward_launches']} "
+                         f"backward launches (want 2), gradients "
+                         f"{case['grad_rel_err_vs_plain']} of their max "
+                         f"from the plain gathers' (bar 1e-6)")
+                x = x.detach()
+                for t in p.values():
+                    t.requires_grad_(False)
+            # the CPU's routing on the same inputs
+            cpu_p = {k: t.detach().cpu() for k, t in p.items()}
+            with RoutingRecorder() as on_card:
+                L.moe_route(p, x.detach(), cfg, G)
+            with RoutingRecorder() as on_cpu:
+                L.moe_route(cpu_p, x.detach().cpu(), cfg, G)
+            case["routing_vs_cpu"] = routing_divergence(on_card, on_cpu)
+            out["layer"][f"{name} {label}"] = case
+            log(f"moe {name} {label}: N={N}, G={case['groups']}, "
+                f"C={case['capacity']}, {case['slots']} slots, "
+                f"{case['kept']} of {case['assignments']} assignments kept; "
+                f"kernel gathers against plain: routing equal, "
+                f"{err:.3e} of max |y|, two runs bit-equal"
+                + (f", gradients {case['grad_rel_err_vs_plain']:.3e} of "
+                   f"their max ({case['backward_launches']} backward "
+                   f"launches)" if train else "")
+                + f"; against the CPU's routing: "
+                f"{case['routing_vs_cpu']['tokens_differing']} tokens "
+                f"differ, smallest top-K gap "
+                f"{case['routing_vs_cpu']['min_gap']:.3e}")
+
+    # the dispatch and combine gathers and their backwards, cold
+    for name, label, N, G in (("granite-moe-1b-a400m", "train 8 x 128",
+                               1024, 8),
+                              ("olmoe-1b-7b", "prefill 4 x 96", 384, 4)):
+        cfg = get_config(name)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+        D = cfg.d_model
+        router = L.init_moe(g, dataclasses.replace(cfg, d_ff_expert=1),
+                            device="cuda")["router"]
+        x = torch.randn((N, D), generator=g, device="cuda")
+        r = L.moe_route({"router": router}, x, cfg, G)
+        slots = r["dispatch_idx"].numel()
+        for part, n_src, idx in (("dispatch", N + slots // cfg.n_experts,
+                                  r["dispatch_idx"]),
+                                 ("combine", slots + N, r["combine_idx"])):
+            K = idx.numel()
+            src = torch.randn((n_src, D), generator=g, device="cuda")
+            dout = torch.randn((K, D), generator=g, device="cuda")
+            idx_long = idx.long()
+            key = f"{name} {label} {part}: K={K} of ({n_src}, {D})"
+            # the rows this run's indices name, each read once
+            rows_read = int(torch.unique(idx).numel())
+            fwd = {"ms": timer(lambda: gather_rows(src, idx)),
+                   "library_ms": timer(lambda: torch.index_select(
+                       src, 0, idx_long)),
+                   **bound(f"gather_rows {part}",
+                           (rows_read + K) * D * 4 + K * 4, 0)}
+            bwd = {"path": backward_geometry(K, n_src, D * 4, 16)["path"],
+                   "ms": timer(lambda: gather_rows_backward(dout, idx,
+                                                            n_src)),
+                   "library_ms": timer(lambda: torch.zeros(
+                       (n_src, D), device="cuda").index_add_(0, idx_long,
+                                                             dout)),
+                   **bound(f"gather_rows_backward {part}",
+                           (K + n_src) * D * 4 + K * 4, 0)}
+            bits = torch.equal(gather_rows_backward(dout, idx, n_src).cpu(),
+                               ref.gather_rows_bwd_ref(dout.cpu(), idx.cpu(),
+                                                       n_src))
+            if not bits:
+                fail(f"gather_rows_backward {key}: not the CPU plain "
+                     f"version's bits")
+            out["gather"][key] = fwd
+            out["backward"][key] = bwd
+            log(f"moe gather {key}: cold kernel {fwd['ms']:.5f} ms, "
+                f"index_select {fwd['library_ms']:.5f}, bound "
+                f"{fwd['bound_ms']:.5f}; backward ({bwd['path']} path, "
+                f"the CPU's bits) {bwd['ms']:.5f} ms, zeros + index_add_ "
+                f"{bwd['library_ms']:.5f}, bound {bwd['bound_ms']:.5f}")
+    return out
+
+
+MOE_TRAIN_ARGS = ["--arch", "granite-moe-1b-a400m", "--batch",
+                  str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+
+
+def card_vs_cpu_grads(torch, label: str, cfg, params, batch) -> dict:
+    """One loss and its gradients of ``cfg`` at ``params`` (a CPU tree) on
+    the card and on the CPU, on ``batch``: the loss within 1e-4 relative
+    and every gradient leaf within 2e-3 of its largest |gradient|, or an
+    MoE routing that differs first at a near-tie (ROUTING_TIE)."""
+    from repro_torch.arch.model import TransformerLM
+    from repro_torch.train.optimizer import leaves, unflatten
+
+    def grads(device):
+        model = TransformerLM(cfg, device=device)
+        flat = [t.detach().to(device).requires_grad_(True)
+                for t in leaves(params)]
+        with RoutingRecorder() as rec:
+            loss = model.loss(unflatten(params, flat),
+                              {k: torch.as_tensor(a, device=device)
+                               for k, a in batch.items()})
+        gs = torch.autograd.grad(loss, flat)
+        return float(loss.detach()), [g.cpu() for g in gs], rec
+
+    card_loss, card_grads, card_rec = grads("cuda")
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads, cpu_rec = grads("cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_errs = [grad_rel_err(a, b) for a, b in zip(card_grads, cpu_grads)]
+    routing = routing_divergence(card_rec, cpu_rec)
+    if not loss_err <= 1e-4 or not max(grad_errs) <= 2e-3:
+        if not routing_tie(routing):
+            fail(f"{label}: card against CPU, loss {loss_err}, gradients "
+                 f"{max(grad_errs)} (bars 1e-4, 2e-3; routing {routing})")
+        log(f"{label}: accepted at a routing near-tie (top-K gap "
+            f"{routing['gap_at_flip']:.3e})")
+    return {"loss_rel_err": loss_err, "grad_rel_err_max": max(grad_errs),
+            "cpu_s": cpu_s, "routing_vs_cpu": routing}
+
+
+def train_moe_phase(torch, drive, card: str, steps: int) -> dict:
+    """Phase 9 (g): ``launch.train.main`` on Granite-MoE-1B-A400M at full
+    width and depth, ``--batch 8 --seq 128``, ``steps`` steps, the step
+    captured: losses finite and falling; a step launches flash attention's
+    forward and backward once a layer and the row gather and its backward
+    twice (the MoE's dispatch and combine); the same steps eagerly,
+    bit-equal (losses and every leaf); ms per step, tokens/s, peak memory,
+    a profiled replayed step. Then depth 2 at full width, batch 2 x 32,
+    card against the CPU. Returns (g)'s launch counts."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.kernels.gather_batch import gather_rows_backward
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.optimizer import leaves
+
+    cfg = get_config("granite-moe-1b-a400m")
+    per_step = {"flash_attention": cfg.n_layers,
+                "flash_attention_backward": cfg.n_layers,
+                "gather_rows": 2 * cfg.n_layers,
+                "gather_rows_backward": 2 * cfg.n_layers}
+    stamps = []
+
+    def record(line):
+        stamps.append(time.perf_counter())
+        log(f"train (g): {line}")
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state, counts = drive(lambda: launcher.main(
+        MOE_TRAIN_ARGS + ["--steps", str(steps), "--log-every", "1"],
+        log_fn=record))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    shapes = dict(gather_rows_backward.shapes)
+    losses = state.history
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"train (g): losses {losses} (want {steps} finite)")
+    if not losses[-1] < losses[0]:
+        fail(f"train (g): the loss did not fall: {losses}")
+    for name, n in per_step.items():
+        if counts[name] != n * steps:
+            fail(f"train (g): {name} launched {counts[name]} times in "
+                 f"{steps} steps, not {n} a step")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    ms = statistics.median(step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(t.numel() for t in leaves(state.params))
+    cmp = captured_vs_eager(torch, "train (g)", cfg.name, state, steps,
+                            per_step, forms=False)
+    prof = cmp["replayed_step_profile"]
+    own_us = {k: round(v["device_us"], 1)
+              for k, v in prof["own_kernels"].items()}
+    report = {"n_params": n_params, "steps": steps, "losses": losses,
+              "step_ms": step_ms, "ms_per_step": ms,
+              "tokens_per_s": tokens / ms * 1e3, "peak_bytes": peak,
+              "peak_bytes_above_start": peak - base,
+              "launches": counts,
+              "backward_gather_shapes": shape_histogram(shapes),
+              "profile": prof, "eager": cmp}
+    log(f"train (g) {cfg.name} full width and depth ({n_params} params), "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, the step captured (step 1 its "
+        f"warm-up, then replays): {ms:.2f} ms per step (median of steps "
+        f"2-{steps}), {tokens / ms * 1e3:.1f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above its "
+        f"start), losses {[round(x, 4) for x in losses]}; eager: "
+        f"{cmp['eager_ms_per_step']:.2f} ms per step, "
+        f"{cmp['eager_tokens_per_s']:.1f} tokens/s, peak above its start "
+        f"{cmp['eager_peak_bytes'] / 2**30:.2f} GiB; captured against "
+        f"eager: bit-equal losses and leaves; profiled replayed step: busy "
+        f"share {prof['busy_share']:.3f} ({prof['device_ms']:.2f} ms device "
+        f"of {prof['wall_ms']:.2f} wall), {prof['device_events']} device "
+        f"events, top {prof['top_events']}; own kernels' device us "
+        f"{own_us}; launches {counts}; backward gather (K, n_src, row "
+        f"bytes): {shape_histogram(shapes)} ({card})")
+    del state, cmp
+
+    # card against CPU at depth 2, full width, a small batch
+    from repro_torch.arch.model import TransformerLM
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = TransformerLM(cfg2, device="cpu").init_params(
+        torch.Generator().manual_seed(SEED))
+    batch = SyntheticCorpus(PipelineConfig(vocab=cfg2.vocab, seq_len=32,
+                                           batch_size=2, seed=SEED)).batch(0)
+    report["card_vs_cpu"] = c = card_vs_cpu_grads(torch, "train (g)", cfg2,
+                                                  params, batch)
+    log(f"train (g) depth 2, full width, batch 2 x 32: loss relative err "
+        f"{c['loss_rel_err']:.3e}, worst gradient leaf "
+        f"{c['grad_rel_err_max']:.3e} of its max |grad|; routing against "
+        f"the CPU: {c['routing_vs_cpu']['tokens_differing']} tokens differ, "
+        f"smallest top-K gap {c['routing_vs_cpu']['min_gap']:.3e}")
+    log(f"train moe: {json.dumps(report, default=str)}")
+    return counts
+
+
+# -- phase 11 -------------------------------------------------------------
+
+
+# Llama-3.2-Vision-11B: a prefill of VISION_BATCH prompts of VISION_LEN
+# tokens with image embeddings drawn from the seed, then VISION_DECODE
+# decode steps, at full width and depth; trained VISION_STEPS steps at
+# full width with one pattern repeat (5 layers) at the launcher's batch.
+VISION = "llama-3.2-vision-11b"
+VISION_BATCH, VISION_LEN, VISION_DECODE = 2, 64, 8
+VISION_STEPS = 5
+
+
+def check_cross_attention(torch, timer) -> dict:
+    """Phase 11's shapes of flash attention's forward (the vision model's
+    2 x 64 prefill) and backward (its 8 x 128 train step), non-causal onto
+    1024 image tokens, 32 query heads over 8 kv heads of 128: each against
+    its plain version within 1e-4, then timed cold beside
+    ``scaled_dot_product_attention`` with K/V expanded (a yardstick).
+    Returns {"forward": ..., "backward": ...}, each with its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    H, KV, D, Skv = 32, 8, 128, 1024
+    out = {}
+    for part, B, Sq in (("forward", 2, 64), ("backward", 8, 128)):
+        q = torch.randn((B, Sq, H, D), generator=g, device="cuda")
+        k, v = (torch.randn((B, Skv, KV, D), generator=g, device="cuda")
+                for _ in range(2))
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True) for t in (k, v))
+        pairs = B * H * Sq * Skv
+        if part == "forward":
+            o = flash_attention_forward(q, k, v, False, 0)[0]
+            err = rel_err(o, ref.flash_attention_ref(q, k, v, causal=False))
+            ms = timer(lambda: flash_attention_forward(q, k, v, False, 0))
+            with torch.no_grad():
+                library_ms = timer(lambda: sdpa(qt, kt, vt))
+            nbytes = (2 * B * Sq * H * D + 2 * B * Skv * KV * D) * 4
+            flops = 4 * D * pairs
+        else:
+            dout = torch.randn((B, Sq, H, D), generator=g, device="cuda")
+            o, lse = flash_attention_forward(q, k, v, False, 0,
+                                             with_lse=True)
+            got = flash_attention_backward(q, k, v, o, dout, lse, False)
+            want = ref.flash_attention_backward_ref(q, k, v, dout,
+                                                    causal=False)
+            err = max(grad_rel_err(a, b) for a, b in zip(got, want))
+            ms = timer(lambda: flash_attention_backward(q, k, v, o, dout,
+                                                        lse, False))
+            ot = sdpa(qt, kt, vt)
+            dt = dout.transpose(1, 2).contiguous()
+            library_ms = timer(lambda: torch.autograd.grad(
+                ot, (qt, kt, vt), dt, retain_graph=True))
+            nbytes = (4 * B * Sq * H * D + 4 * B * Skv * KV * D
+                      + B * H * Sq) * 4
+            flops = 5 * 2 * D * pairs
+        if not err <= 1e-4:
+            fail(f"flash_attention {part} at the vision shape: {err} of "
+                 f"the plain version's largest magnitude (bar 1e-4)")
+        out[part] = {"shape": f"q ({B}, {Sq}, {H}, {D}), k/v ({B}, {Skv}, "
+                              f"{KV}, {D}) float32, non-causal",
+                     "rel_err": err, "ms": ms, "library_ms": library_ms,
+                     **bound(f"flash_attention {part} (vision)", nbytes,
+                             flops, "3xTF32 on the tensor cores")}
+        log(f"flash_attention {part} at the vision shape "
+            f"{out[part]['shape']}: {err:.3e} of the plain version's max; "
+            f"cold kernel {ms:.4f} ms, scaled_dot_product_attention "
+            f"{library_ms:.4f}, bound {out[part]['bound_ms']:.4f} "
+            f"({out[part]['bound_by']})")
+    return out
+
+
+def vision_generate(torch, model, params, toks, img, forced=None):
+    """Prefill ``toks`` (with ``img``), then VISION_DECODE decode steps
+    through the model's entry points, each fed the previous step's argmax
+    (or ``forced[:, t]``). Returns (logits of the prefill and of each
+    step, the tokens fed)."""
+    L_ = toks.shape[1]
+    with torch.no_grad():
+        lg, caches = model.prefill(params, toks, img,
+                                   cache_len=L_ + VISION_DECODE)
+        logits, fed = [lg], []
+        for t in range(VISION_DECODE):
+            nxt = lg.argmax(-1) if forced is None else forced[:, t]
+            fed.append(nxt)
+            lg, caches = model.decode_step(params, nxt, caches, L_ + t)
+            logits.append(lg)
+    return logits, torch.stack(fed, 1)
+
+
+def vision_phase(torch, drive, card: str) -> dict:
+    """Phase 11 (module docstring); returns the launches of (a) and (c)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.core.device import block
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.train.loop import train
+    from repro_torch.train.optimizer import AdamWConfig, leaves
+
+    cfg = get_config(VISION)
+    dev = torch.device("cuda")
+    report = {}
+    # (a) full width and depth: a prefill and eight decode steps
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    toks = torch.randint(0, cfg.vocab, (VISION_BATCH, VISION_LEN),
+                         generator=g, device=dev)
+    img = torch.randn((VISION_BATCH, cfg.n_image_tokens, cfg.d_model),
+                      generator=g, device=dev)
+    block(dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    report["init_s"] = time.perf_counter() - t0
+    (logits, fed), counts = drive(lambda: vision_generate(
+        torch, model, params, toks, img))
+    block(dev)
+    if any(not torch.isfinite(x).all() or tuple(x.shape) != (
+            VISION_BATCH, cfg.vocab) for x in logits):
+        fail(f"vision (a): bad logits")
+    if counts["flash_attention"] != cfg.n_layers:
+        fail(f"vision (a): flash_attention launched "
+             f"{counts['flash_attention']} times, not once a layer")
+    with torch.no_grad():
+        prefill_ms = timed(dev, lambda: model.prefill(
+            params, toks, img, cache_len=VISION_LEN + VISION_DECODE))
+        _, caches = model.prefill(params, toks, img,
+                                  cache_len=VISION_LEN + VISION_DECODE)
+        decode_ms = timed(dev, lambda: model.decode_step(
+            params, fed[:, 0], caches, VISION_LEN))
+    del caches
+    report.update(n_params=n_params, launches=counts, prefill_ms=prefill_ms,
+                  decode_step_ms=decode_ms, peak_bytes=
+                  torch.cuda.max_memory_allocated())
+    log(f"vision (a) {VISION} full width and depth ({n_params} params), "
+        f"B={VISION_BATCH}, {VISION_LEN} tokens, {cfg.n_image_tokens} image "
+        f"tokens: prefill {prefill_ms:.2f} ms, a decode step "
+        f"{decode_ms:.2f} ms (eager), tokens {fed.tolist()}, launches "
+        f"{counts} ({card})")
+
+    # (b) one pattern repeat, card against the CPU, teacher-forced with
+    # the card's tokens: logits within 2e-3, tokens under the near-tie rule
+    cut = dataclasses.replace(cfg, n_layers=len(cfg.pattern))
+    one = tree_map(lambda t: t.clone(), cut_params(params, 1))
+    del params, model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_model = TransformerLM(cut, device=dev)
+    cpu_model = TransformerLM(cut, device="cpu")
+    cpu_params = tree_map(lambda t: t.cpu(), one)
+    card_logits, card_fed = vision_generate(torch, card_model, one, toks, img)
+    t0 = time.perf_counter()
+    cpu_logits, _ = vision_generate(torch, cpu_model, cpu_params, toks.cpu(),
+                                    img.cpu(), forced=card_fed.cpu())
+    cpu_s = time.perf_counter() - t0
+    errs, flips = [], []
+    for t, (a, b) in enumerate(zip(card_logits, cpu_logits)):
+        a = a.cpu()
+        errs.append(rel_err(a, b))
+        for r in range(VISION_BATCH):
+            if int(a[r].argmax()) != int(b[r].argmax()):
+                top = torch.topk(b[r], 2).values
+                margin = float(top[0] - top[1])
+                flips.append([r, t, margin])
+                if margin > LOGIT_TOL * float(b[r].abs().max()):
+                    fail(f"vision (b): row {r} step {t} picks another "
+                         f"token on the card beyond a near-tie ({margin})")
+    if not max(errs) <= LOGIT_TOL:
+        fail(f"vision (b): logits {max(errs)} of the largest |logit| from "
+             f"the CPU's (bar {LOGIT_TOL})")
+    report["one_repeat_vs_cpu"] = {"logit_rel_err_max": max(errs),
+                                   "near_tie_flips": flips, "cpu_s": cpu_s}
+    log(f"vision (b) one repeat ({cut.n_layers} layers), card against the "
+        f"CPU over the prefill and {VISION_DECODE} steps: logits within "
+        f"{max(errs):.3e} of the largest |logit|, near-tie flips {flips}; "
+        f"CPU {cpu_s:.1f} s")
+    # one loss and its gradients, batch 1 x 32
+    batch = SyntheticCorpus(PipelineConfig(
+        vocab=cut.vocab, seq_len=32, batch_size=1, seed=SEED,
+        n_image_tokens=cut.n_image_tokens, d_model=cut.d_model)).batch(0)
+    c = card_vs_cpu_grads(torch, "vision (b)", cut, cpu_params, batch)
+    report["one_repeat_vs_cpu"]["train"] = c
+    log(f"vision (b) one repeat, batch 1 x 32: loss relative err "
+        f"{c['loss_rel_err']:.3e}, worst gradient leaf "
+        f"{c['grad_rel_err_max']:.3e} of its max |grad|; CPU "
+        f"{c['cpu_s']:.1f} s")
+    del cpu_params, card_logits, cpu_logits
+    gc.collect()
+
+    # (c) VISION_STEPS steps at one repeat, the launcher's batch, captured;
+    # the same steps eagerly, bit-equal
+    def run(capture: bool):
+        corpus = SyntheticCorpus(PipelineConfig(
+            vocab=cut.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+            seed=SEED, n_image_tokens=cut.n_image_tokens,
+            d_model=cut.d_model))
+        batches = [corpus.batch(i) for i in range(VISION_STEPS)]
+        opt = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=VISION_STEPS)
+        stamps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state = train(card_model, one, iter(batches), VISION_STEPS, opt,
+                      log_every=1, capture=capture,
+                      log_fn=lambda line: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = statistics.median(b - a for a, b in zip(stamps, stamps[1:]))
+        return (state.history, [t.cpu() for t in leaves(state.params)],
+                ms * 1e3, peak)
+
+    (losses, final, ms, peak), counts_c = drive(lambda: run(True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    e_losses, e_final, e_ms, e_peak = run(False)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"vision (c): losses {losses} (want finite and falling)")
+    for name in ("flash_attention", "flash_attention_backward"):
+        if counts_c[name] != cut.n_layers * VISION_STEPS:
+            fail(f"vision (c): {name} launched {counts_c[name]} times, not "
+                 f"once a layer a step")
+    if losses != e_losses or not all(torch.equal(a, b)
+                                     for a, b in zip(final, e_final)):
+        fail(f"vision (c): captured steps {losses} differ from eager "
+             f"{e_losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    report["train"] = {"losses": losses, "ms_per_step": ms,
+                       "tokens_per_s": tokens / ms * 1e3,
+                       "peak_bytes_above_start": peak, "launches": counts_c,
+                       "eager_ms_per_step": e_ms,
+                       "eager_peak_bytes_above_start": e_peak}
+    log(f"vision (c) one repeat ({sum(t.numel() for t in final)} params), "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} with {cut.n_image_tokens} image "
+        f"tokens, {VISION_STEPS} steps captured: {ms:.2f} ms per step, "
+        f"{tokens / ms * 1e3:.1f} tokens/s, peak {peak / 2**30:.2f} GiB "
+        f"above its start, losses {[round(x, 4) for x in losses]}; eager "
+        f"{e_ms:.2f} ms per step, peak {e_peak / 2**30:.2f} GiB, bit-equal; "
+        f"launches {counts_c} ({card})")
+    log(f"vision: {json.dumps(report, default=str)}")
+    return {"prefill and decode": counts, "train": counts_c}
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="phases to run after phase 1 (comma-separated); "
-                         "the result lines are printed only for all ten")
+                         "the result lines are printed only for all eleven")
     ap.add_argument("--workloads", default=",".join(TREES_LATTICES),
                     help="phase 5's workloads (comma-separated)")
     args = ap.parse_args(argv)
@@ -3346,6 +4087,8 @@ def main(argv: list[str] | None = None) -> int:
         rows = [check_gather(torch, timer), check_fused(torch, timer),
                 check_fused_dense(torch, timer), check_flash(torch, timer),
                 check_ssd(torch, timer)]
+        moe_report = check_moe(torch, timer)
+        rows[0]["moe_shapes"] = moe_report["gather"]
         log(f"kernel checks done: {time.perf_counter() - t_start:.1f} s")
 
     from repro_torch.kernels.gather_batch import (gather_rows,
@@ -3364,11 +4107,20 @@ def main(argv: list[str] | None = None) -> int:
         return out, {name: w.launches for name, w in wrappers.items()}
 
     launches = {"fused_lstm_cell": rows[2]["launches"]} if rows else {}
+    # launches by kernel on each path that drives it, this slice's included
+    by_path: dict[str, dict] = {}
+
+    def on_path(path: str, counts: dict, kernels) -> None:
+        for kernel in kernels:
+            if counts[kernel] <= 0:
+                fail(f"{kernel} was not launched during {path}")
+            by_path.setdefault(kernel, {})[path] = counts[kernel]
+
     if 3 in phases:
         report, slice_counts = drive(lambda: run_slice("cuda"))
+        on_path("the tagger slice", slice_counts,
+                ("gather_rows", "fused_gather_lstm_cell"))
         for name in ("gather_rows", "fused_gather_lstm_cell"):
-            if slice_counts[name] <= 0:
-                fail(f"{name} was not launched during the slice")
             launches[name] = slice_counts[name]
         log(f"slice: {json.dumps(report, default=str)}")
         log(f"slice ms per run: {report['ms_per_run']} ({card})")
@@ -3391,14 +4143,17 @@ def main(argv: list[str] | None = None) -> int:
             + f" ({card})")
         log(f"slice done: {time.perf_counter() - t_start:.1f} s")
 
-    for name, kernel in (("qwen2-0.5b", "flash_attention"),
-                         ("mamba2-130m", "ssd_scan")):
+    for name, kernels in (("qwen2-0.5b", ("flash_attention",)),
+                          ("mamba2-130m", ("ssd_scan",)),
+                          ("granite-moe-1b-a400m",
+                           ("flash_attention", "gather_rows")),
+                          ("olmoe-1b-7b", ("flash_attention", "gather_rows"))):
         if 4 not in phases:
             break
         lm = lm_wave(name, wrappers)
-        if lm["launches"][kernel] <= 0:
-            fail(f"{kernel} was not launched during the {name} wave")
-        launches[kernel] = lm["launches"][kernel]
+        on_path(f"the {name} wave", lm["launches"], kernels)
+        if name in ("qwen2-0.5b", "mamba2-130m"):
+            launches[kernels[0]] = lm["launches"][kernels[0]]
         log(f"lm wave {name}: {json.dumps(lm, default=str)}")
         for mode, r in (("captured", lm), ("eager", lm["eager"])):
             log(f"lm wave {name} {mode}: {r['tok_per_s']:.1f} tok/s, "
@@ -3411,10 +4166,21 @@ def main(argv: list[str] | None = None) -> int:
                 f"{r['profile']['device_events']} device events, "
                 f"{r['profile']['device_ms']:.2f} ms device of "
                 f"{r['profile']['wall_ms']:.2f} wall ({card})")
+        routing = lm["routing_vs_cpu"]
         log(f"lm wave {name}: first wave captured, replayed "
             f"{lm['first_wave_graphs']}; tokens equal the eager engine's: "
-            f"{lm['tokens_equal_eager']}, the CPU run's: "
-            f"{lm['tokens_equal_cpu']}")
+            f"{lm['tokens_equal_eager']}, the CPU run's "
+            f"({lm['cpu_repeats']} repeats): {lm['tokens_equal_cpu']}; "
+            f"prefill logits {lm['prefill_logits_rel_err_vs_cpu']:.3e} of "
+            f"the largest |logit| from the CPU's"
+            + (f"; routing against the CPU: {routing['calls']} MoE calls, "
+               f"first differing call {routing['first_differing_call']}, "
+               f"smallest top-K gap {routing['min_gap']:.3e}"
+               if routing["calls"] else "")
+            + f"; launches {lm['launches']}")
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
     log(f"lm waves done: {time.perf_counter() - t_start:.1f} s")
 
     for name, (rl_iters, run) in TREES_LATTICES.items():
@@ -3471,6 +4237,8 @@ def main(argv: list[str] | None = None) -> int:
         train_launches = train_phase(torch, drive, card, TRAIN_STEPS)
         launches["flash_attention_backward"] = \
             train_launches["flash_attention_backward"]
+        on_path("Qwen2-0.5B training", train_launches,
+                ("flash_attention", "flash_attention_backward"))
         log(f"train launches of the flash forward and backward kernels (run "
             f"(b)): {train_launches['flash_attention']}, "
             f"{train_launches['flash_attention_backward']}; train done: "
@@ -3479,6 +4247,18 @@ def main(argv: list[str] | None = None) -> int:
         rows.append(check_ssd_backward(torch, timer))
         ssm_launches = train_ssm_phase(torch, drive, card, TRAIN_STEPS)
         launches["ssd_scan_backward"] = ssm_launches["ssd_scan_backward"]
+        on_path("Mamba2-130m training", ssm_launches,
+                ("ssd_scan", "ssd_scan_backward"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        moe_launches = train_moe_phase(torch, drive, card, TRAIN_STEPS)
+        on_path("Granite-MoE training", moe_launches,
+                ("flash_attention", "flash_attention_backward",
+                 "gather_rows", "gather_rows_backward"))
+        log(f"moe train done: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
         log(f"train launches of the scan's forward and backward kernels (run "
             f"(f)): {ssm_launches['ssd_scan']}, "
             f"{ssm_launches['ssd_scan_backward']}; ssm train done: "
@@ -3488,19 +4268,38 @@ def main(argv: list[str] | None = None) -> int:
         exec_launches = executor_train_phase(torch, drive, card)
         launches["gather_rows_backward"] = \
             exec_launches["gather_rows_backward"]
+        on_path("TreeGRU training", exec_launches,
+                ("gather_rows", "gather_rows_backward"))
         rows.append(check_gather_backward(
             torch, timer, exec_launches["commonest_backward_shape"]))
+        if 2 in phases:
+            rows[-1]["moe_shapes"] = moe_report["backward"]
         log(f"executor training launches of the gather and its backward "
             f"(run (10b)): {exec_launches['gather_rows']}, "
             f"{exec_launches['gather_rows_backward']}; done: "
             f"{time.perf_counter() - t0:.1f} s")
+    if 11 in phases:
+        t0 = time.perf_counter()
+        cross = check_cross_attention(torch, timer)
+        for row in rows:
+            if row["name"] in ("flash_attention", "flash_attention_backward"):
+                row["vision_shape"] = cross["forward" if row["name"] ==
+                                            "flash_attention" else "backward"]
+        vision = vision_phase(torch, drive, card)
+        on_path("the vision model's prefill and decode",
+                vision["prefill and decode"], ("flash_attention",))
+        on_path("the vision model's training", vision["train"],
+                ("flash_attention", "flash_attention_backward"))
+        log(f"vision done: {time.perf_counter() - t0:.1f} s")
+    log(f"launches by path: {json.dumps(by_path)}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
-    if phases != set(range(1, 11)) or set(workloads) != set(TREES_LATTICES):
+    if phases != set(range(1, 12)) or set(workloads) != set(TREES_LATTICES):
         log(f"partial run (phases {sorted(phases)}, workloads {workloads}): "
             f"no result lines")
         return 0
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = by_path.get(row["name"], {})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,31 @@
 """Transformer building blocks: RMSNorm, RoPE, GQA attention (causal,
-sliding-window or cross), and the SwiGLU and GeLU MLPs.
+sliding-window or cross), the SwiGLU and GeLU MLPs, and MoE with ED-Batch's
+sorted contiguous dispatch.
 
 Parameters are dicts of fp32 tensors made by the matching ``init_*``
 functions from an explicit ``torch.Generator``, with the reference's
 scales (the kernels are fp32). Every
-self-attention over a sequence runs the flash-attention kernel
+attention over a sequence (self or cross) runs the flash-attention kernel
 (:mod:`repro_torch.kernels.flash_attention`); single-token decode against a
 cache stays plain PyTorch, as the reference computes it outside any kernel.
-The MoE layer is not ported yet.
+
+The MoE dispatch is the paper's memory-layout insight applied to expert
+parallelism: assignments sorted by expert id give each expert a contiguous
+slice of the staging buffer, which one row gather
+(:mod:`repro_torch.kernels.gather_batch`) fills in the order the expert
+GEMMs read, and a second gather brings the experts' rows back to their
+tokens (:func:`moe`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
+from ..kernels.gather_batch import gather_rows
 from ..kernels.ref import attention_mask
 from .config import ArchConfig
 
@@ -122,15 +132,23 @@ def self_attention(p, x, cfg: ArchConfig, positions):
     return out.flatten(2).to(x.dtype) @ p["wo"], k, v
 
 
-def attention(p, x, cfg: ArchConfig, positions, kv=None):
-    """Causal self-attention when ``kv`` is None, else non-causal
-    cross-attention onto ``kv`` (no RoPE on the encoder side). Both go
-    through the flash-attention kernel."""
-    if kv is None:
-        return self_attention(p, x, cfg, positions)[0]
+def cross_attention(p, x, cfg: ArchConfig, kv):
+    """Non-causal cross-attention of ``x`` onto ``kv`` (the image
+    embeddings; no RoPE on the encoder side, which carries no order)
+    through the flash-attention kernel. Returns ``(out, k, v)``: K and V
+    are the rows a prefill writes into the cross cache."""
     q, k, v = _project_qkv(p, x, kv, cfg)
     out = flash_attention(q, k, v, causal=False)
-    return out.flatten(2).to(x.dtype) @ p["wo"]
+    return out.flatten(2).to(x.dtype) @ p["wo"], k, v
+
+
+def attention(p, x, cfg: ArchConfig, positions, kv=None):
+    """Causal self-attention when ``kv`` is None, else non-causal
+    cross-attention onto ``kv``. Both go through the flash-attention
+    kernel."""
+    if kv is None:
+        return self_attention(p, x, cfg, positions)[0]
+    return cross_attention(p, x, cfg, kv)[0]
 
 
 def attention_with_cache(p, x, cfg: ArchConfig, cache, pos):
@@ -181,3 +199,127 @@ def mlp(p, x, cfg: ArchConfig):
     # jax.nn.gelu's default is the tanh approximation
     return F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh") @ p["w_out"] \
         + p["b_out"]
+
+
+# -----------------------------------------------------------------------------
+# MoE with sorted contiguous dispatch
+# -----------------------------------------------------------------------------
+
+
+def init_moe(gen, cfg: ArchConfig, device=None):
+    d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    s = d ** -0.5
+    return {"router": _normal(gen, (d, e), s, device),
+            "w_gate": _normal(gen, (e, d, f), s, device),
+            "w_up": _normal(gen, (e, d, f), s, device),
+            "w_down": _normal(gen, (e, f, d), f ** -0.5, device)}
+
+
+def moe_route(p, x, cfg: ArchConfig, n_groups: int = 1) -> dict:
+    """The reference's routing of ``x`` (N, D), computed on ``x``'s device
+    with no host synchronisation: every shape follows from ``(N, G, E, K,
+    C)``. Returns a dict of
+
+    - ``groups`` G (``n_groups`` where it divides N, else 1) and
+      ``capacity`` C = ceil(capacity_factor * (N / G) * K / E);
+    - ``probs`` (N, E), the router's softmax; ``gate_vals`` (N, K), the
+      top K renormalised, and ``expert_idx`` (N, K), in
+      ``jax.lax.top_k``'s order (descending, the lower expert first on a
+      tie);
+    - per group, over its ``(N / G) * K`` assignments (token-major):
+      ``order``, the stable sort by expert; ``dest``, the group-local slot
+      ``expert * C + rank`` of each sorted assignment, or ``E * C`` (the
+      overflow slot) where ``keep`` is False because the expert is full;
+    - the gathers' int32 index vectors: ``dispatch_idx`` (E * G * C,) the
+      row of ``cat([x, zeros(G * C, D)])`` each slot of the expert-major
+      staging buffer takes (slot ``e * G * C + g * C + c``; where no
+      assignment filled it, zero row ``N + g * C + c``), and
+      ``combine_idx`` (N * K,) the slot of each token's K assignments in
+      ascending expert order in ``cat([out, zeros(N, D)])`` (where
+      dropped, token n's zero row ``E * G * C + n``), with ``combine_w``
+      (N, K) their gates times ``keep`` in the same order. The zero rows
+      are spread so that no row of either gather's source is read more
+      than E (dispatch) or K (combine) times: the gather's backward sums
+      each source row's entries in order, one row's run on one thread, so
+      one zero row for every empty slot (thousands of them once a trained
+      router favours a few experts) would be a serial sum of that length.
+    """
+    N = x.shape[0]
+    E, K = cfg.n_experts, cfg.experts_per_token
+    G = n_groups if n_groups > 0 and N % n_groups == 0 else 1
+    Sg = N // G
+    C = math.ceil(cfg.capacity_factor * Sg * K / E)
+    dev = x.device
+    probs = torch.softmax((x @ p["router"]).float(), dim=-1)       # (N, E)
+    # a stable descending sort puts the lower index first on a tie, as
+    # jax.lax.top_k does (torch.topk promises no order among ties)
+    expert_idx = torch.sort(probs.detach(), dim=-1, descending=True,
+                            stable=True).indices[:, :K]
+    gate_vals = probs.gather(1, expert_idx)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+
+    fe = expert_idx.reshape(G, Sg * K)
+    order = torch.argsort(fe, dim=-1, stable=True)             # by expert
+    se = fe.gather(1, order)
+    first = torch.searchsorted(se, se, side="left")
+    pos_in_e = torch.arange(Sg * K, device=dev)[None] - first
+    keep = pos_in_e < C
+    dest = torch.where(keep, se * C + pos_in_e, E * C)
+
+    # expert-major slots over all groups: one expert's G * C rows are
+    # contiguous, so a single bmm over E runs every group's expert GEMMs
+    g = torch.arange(G, device=dev)[:, None]
+    slot = torch.where(keep, se * (G * C) + g * C + pos_in_e, E * G * C)
+    rows = g * Sg + order // K                                 # token in x
+    # every slot starts at its own (g, c) zero row
+    dispatch = (N + torch.arange(G * C, device=dev)).repeat(E)
+    dispatch = torch.cat([dispatch, dispatch.new_zeros(1)])
+    # an integer scatter: kept slots are distinct, and the dropped
+    # assignments all land on the extra last entry, which is cut off
+    dispatch.scatter_(0, slot.flatten(), rows.flatten())
+    # each assignment's slot and keep back in token-major order; a dropped
+    # one reads its token's zero row past the experts' output
+    slot_of = torch.empty_like(slot).scatter_(1, order, slot).view(N, K)
+    keep_of = torch.empty_like(keep).scatter_(1, order, keep).view(N, K)
+    tokens = torch.arange(N, device=dev)[:, None]
+    slot_of = torch.where(keep_of, slot_of, E * G * C + tokens)
+    ascending = expert_idx.argsort(dim=-1)     # a token's experts differ
+    return {"groups": G, "capacity": C, "probs": probs,
+            "gate_vals": gate_vals, "expert_idx": expert_idx,
+            "order": order, "dest": dest, "keep": keep,
+            "dispatch_idx": dispatch[:E * G * C].int(),
+            "combine_idx": slot_of.gather(1, ascending).flatten().int(),
+            "combine_w": (gate_vals * keep_of).gather(1, ascending)}
+
+
+def moe(p, x, cfg: ArchConfig, n_groups: int = 1, gather=gather_rows):
+    """Top-k MoE with grouped sorted dispatch (the reference's ``moe``):
+    x (N, D) flattened tokens -> (y (N, D), aux). Tokens beyond an
+    expert's capacity are dropped (switch-style).
+
+    Where the reference gathers, scatters into a per-group staging buffer
+    and scatter-adds the weighted rows back, this runs two row gathers
+    (``gather``, the kernel's wrapper; on the card differentiable through
+    its backward kernel) and no scatter of floats: the first fills the
+    expert-major staging buffer (:func:`moe_route`), each expert's GEMMs
+    read one contiguous ``(G * C, D)`` slice (one ``bmm`` over E), and the
+    second gathers each token's K output rows in ascending expert order,
+    which are scaled by their gates and summed. Empty slots and dropped
+    assignments read zero rows appended to the gathers' sources. The
+    sum's order is fixed, so two runs, and a captured replay against
+    eager, give the same bits (``index_add_`` sums with atomics on the
+    card)."""
+    N, D = x.shape
+    E = cfg.n_experts
+    r = moe_route(p, x, cfg, n_groups)
+    slots = r["dispatch_idx"].shape[0]
+    hidden = gather(torch.cat([x, x.new_zeros((slots // E, D))]),
+                    r["dispatch_idx"]).view(E, -1, D)
+    h = F.silu(torch.bmm(hidden, p["w_gate"])) * torch.bmm(hidden, p["w_up"])
+    out = torch.bmm(h, p["w_down"]).view(-1, D)
+    rows = gather(torch.cat([out, out.new_zeros((N, D))]), r["combine_idx"])
+    y = (rows.view(N, -1, D) * r["combine_w"][..., None].to(x.dtype)).sum(1)
+    # switch-style load-balance aux loss, differentiable through probs
+    me = r["probs"].mean(0)
+    ce = F.one_hot(r["expert_idx"][:, 0], E).float().mean(0)
+    return y, E * (me * ce).sum()

@@ -1,7 +1,7 @@
-"""Composable LM over the architecture families the port supports so far:
-dense attention with a dense MLP (Qwen2-style) and attention-free SSD
-(Mamba-2), in fp32 (the kernels' type). MoE and cross-attention layers
-are not ported yet.
+"""Composable LM over the six architecture families, in fp32 (the kernels'
+type): layers mix by causal self-attention, cross-attention onto image
+embeddings (the vision model) or SSD (Mamba-2), and feed forward through a
+dense MLP, an MoE layer or nothing.
 
 A model is a repeating block *pattern* (``ArchConfig.pattern``): parameters
 are stacked per pattern position with a leading repeat axis ``R``, as in the
@@ -11,10 +11,16 @@ configuration and the device; parameters are a tree of tensors made by
 :mod:`repro_torch.arch.convert`) and passed to every call.
 
 Four entry points:
-  ``forward``      full-sequence logits (+ MoE aux, always 0 here)
+  ``forward``      full-sequence logits (+ the MoE aux loss)
   ``loss``         mean next-token NLL of a batch (the trainer's objective)
   ``prefill``      full sequence -> (last logits, decode caches)
   ``decode_step``  one token against the caches, updated in place
+
+``forward`` runs its layers repeat-major, ``prefill`` and ``decode_step``
+pattern-major, each as the reference's entry point of the same name does,
+and every MoE layer routes over ``n_groups = B`` groups where a sequence
+has more than one token and over one group of all B rows where it has one
+(a decode step), the reference's rule.
 """
 
 from __future__ import annotations
@@ -29,8 +35,8 @@ from . import layers as L
 from . import ssm as S
 from .config import ArchConfig, LayerSpec
 
-SUPPORTED_MIXERS = ("attn", "ssm")
-SUPPORTED_FFNS = ("dense", "none")
+SUPPORTED_MIXERS = ("attn", "cross_attn", "ssm")
+SUPPORTED_FFNS = ("dense", "moe", "none")
 
 
 def tree_map(fn, tree):
@@ -64,13 +70,13 @@ class TransformerLM(nn.Module):
         super().__init__()
         for spec in cfg.pattern:
             if spec.mixer not in SUPPORTED_MIXERS:
-                raise NotImplementedError(
-                    f"{cfg.name}: layer spec {spec} has mixer "
-                    f"{spec.mixer!r}, which the port does not have yet")
+                raise ValueError(
+                    f"{cfg.name}: layer spec {spec} has an unknown mixer "
+                    f"{spec.mixer!r} (one of {SUPPORTED_MIXERS})")
             if spec.ffn not in SUPPORTED_FFNS:
-                raise NotImplementedError(
-                    f"{cfg.name}: layer spec {spec} has ffn {spec.ffn!r}, "
-                    f"which the port does not have yet")
+                raise ValueError(
+                    f"{cfg.name}: layer spec {spec} has an unknown ffn "
+                    f"{spec.ffn!r} (one of {SUPPORTED_FFNS})")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -81,11 +87,16 @@ class TransformerLM(nn.Module):
         p: dict[str, Any] = {"norm1": torch.ones((cfg.d_model,), device=dev)}
         if spec.mixer == "attn":
             p["attn"] = L.init_attention(gen, cfg, device=dev)
+        elif spec.mixer == "cross_attn":
+            p["attn"] = L.init_attention(gen, cfg, cross=True, device=dev)
         else:
             p["ssm"] = S.init_ssm(gen, cfg, device=dev)
         if spec.ffn == "dense":
             p["norm2"] = torch.ones((cfg.d_model,), device=dev)
             p["mlp"] = L.init_mlp(gen, cfg, device=dev)
+        elif spec.ffn == "moe":
+            p["norm2"] = torch.ones((cfg.d_model,), device=dev)
+            p["moe"] = L.init_moe(gen, cfg, device=dev)
         return p
 
     def init_params(self, gen: torch.Generator):
@@ -108,16 +119,26 @@ class TransformerLM(nn.Module):
     # -- layer application ---------------------------------------------------
 
     def _ffn(self, x, lp, spec: LayerSpec):
+        """The layer's feed-forward half: ``(x + ffn(norm(x)), aux)``, aux
+        the MoE load-balance loss (None without an MoE)."""
         if spec.ffn == "dense":
             x = x + L.mlp(lp["mlp"], L.rmsnorm(x, lp["norm2"],
                                                self.cfg.norm_eps), self.cfg)
-        return x
+        elif spec.ffn == "moe":
+            h = L.rmsnorm(x, lp["norm2"], self.cfg.norm_eps)
+            B_, S_, D_ = h.shape
+            y, aux = L.moe(lp["moe"], h.reshape(B_ * S_, D_), self.cfg,
+                           n_groups=B_ if S_ > 1 else 1)
+            return x + y.view(B_, S_, D_), aux
+        return x, None
 
-    def _apply_layer(self, x, lp, spec: LayerSpec, positions):
+    def _apply_layer(self, x, lp, spec: LayerSpec, positions, image_embeds):
         cfg = self.cfg
         h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
         if spec.mixer == "attn":
             mix = L.attention(lp["attn"], h, cfg, positions)
+        elif spec.mixer == "cross_attn":
+            mix = L.attention(lp["attn"], h, cfg, positions, kv=image_embeds)
         else:
             mix, _ = S.ssm_block(lp["ssm"], h, cfg)
         return self._ffn(x + mix, lp, spec)
@@ -125,31 +146,39 @@ class TransformerLM(nn.Module):
     def _positions(self, B: int, S_: int):
         return torch.arange(S_, device=self.device)[None].expand(B, S_)
 
-    def forward(self, params, tokens):
-        """tokens: (B, S) -> logits (B, S, V), aux_loss scalar (0: no MoE).
-        Layers run repeat-major, as the reference's ``forward`` scans."""
+    def forward(self, params, tokens, image_embeds=None):
+        """tokens: (B, S), image_embeds (B, n_image_tokens, D) for a model
+        with cross-attention layers -> logits (B, S, V), aux_loss scalar
+        (the MoE layers' summed; 0 without them). Layers run repeat-major,
+        as the reference's ``forward`` scans."""
         cfg = self.cfg
         B, S_ = tokens.shape
         x = params["embed"][tokens]
         positions = self._positions(B, S_)
+        aux_total = torch.zeros((), device=self.device)
         # Each stacked leaf unbound once: under autograd one unbind's
         # backward stacks the repeats' gradients, where a select per repeat
         # would write a full-size zero gradient of the leaf for each.
         repeats = [_unbind(blk, cfg.n_repeats) for blk in params["blocks"]]
         for r in range(cfg.n_repeats):
             for spec, layers in zip(cfg.pattern, repeats):
-                x = self._apply_layer(x, layers[r], spec, positions)
+                x, aux = self._apply_layer(x, layers[r], spec, positions,
+                                           image_embeds)
+                if aux is not None:
+                    aux_total = aux_total + aux
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        return x @ params["lm_head"], torch.zeros((), device=self.device)
+        return x @ params["lm_head"], aux_total
 
     def loss(self, params, batch):
         """Mean next-token NLL over ``batch["labels"]`` under
         ``batch["loss_mask"]`` (all ones if absent) plus 0.01 x the MoE
-        aux loss (0 here), as the reference's ``loss``. ``batch`` holds
-        tensors on the model's device: ``tokens`` and ``labels`` (B, S)
-        integer. The NLL is the logsumexp minus the gold logit, gathered
-        (no (B, S, V) one-hot)."""
-        logits, aux = self.forward(params, batch["tokens"])
+        aux loss, as the reference's ``loss``. ``batch`` holds tensors on
+        the model's device: ``tokens`` and ``labels`` (B, S) integer, and
+        ``image_embeds`` for a model with cross-attention layers. The NLL
+        is the logsumexp minus the gold logit, gathered (no (B, S, V)
+        one-hot)."""
+        logits, aux = self.forward(params, batch["tokens"],
+                                   batch.get("image_embeds"))
         logits32 = logits.float()
         lse = torch.logsumexp(logits32, dim=-1)
         gold = logits32.gather(-1, batch["labels"].long()[..., None])[..., 0]
@@ -167,8 +196,9 @@ class TransformerLM(nn.Module):
         R = cfg.n_repeats
         caches = []
         for spec in cfg.pattern:
-            if spec.mixer == "attn":
-                shape = (R, batch, T, cfg.n_kv_heads, cfg.d_head)
+            if spec.mixer in ("attn", "cross_attn"):
+                rows = T if spec.mixer == "attn" else cfg.n_image_tokens
+                shape = (R, batch, rows, cfg.n_kv_heads, cfg.d_head)
                 caches.append({"k": torch.zeros(shape, device=dev),
                                "v": torch.zeros(shape, device=dev)})
             else:
@@ -183,11 +213,16 @@ class TransformerLM(nn.Module):
         h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
         if spec.mixer == "attn":
             mix, _ = L.attention_with_cache(lp["attn"], h, cfg, cache, pos)
+        elif spec.mixer == "cross_attn":
+            # the cross cache holds the projected image K/V: plain SDPA
+            q = L._split_heads(h @ lp["attn"]["wq"], cfg.n_heads, cfg.d_head)
+            mix = L._sdpa(q, cache["k"], cache["v"], None, h.dtype) \
+                @ lp["attn"]["wo"]
         else:
             mix, new = S.ssm_decode(lp["ssm"], h, cfg, cache)
             for key, value in new.items():
                 cache[key].copy_(value)
-        return self._ffn(x + mix, lp, spec)
+        return self._ffn(x + mix, lp, spec)[0]
 
     def decode_step(self, params, token, caches, pos):
         """token: (B,) int64; caches from init_cache/prefill, updated in
@@ -204,10 +239,11 @@ class TransformerLM(nn.Module):
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return x[:, 0] @ params["lm_head"], caches
 
-    def prefill(self, params, tokens, cache_len: int = 0):
+    def prefill(self, params, tokens, image_embeds=None, cache_len: int = 0):
         """Run the full prompt, returning (last-position logits, caches of
-        capacity ``max(cache_len, S)`` for continued decoding). Pattern-
-        major, as the reference's ``prefill`` scans."""
+        capacity ``max(cache_len, S)`` for continued decoding; a cross
+        layer's cache is the projected ``image_embeds``). Pattern-major,
+        as the reference's ``prefill`` scans."""
         cfg = self.cfg
         B, S_ = tokens.shape
         pad = max(cache_len, S_) - S_
@@ -218,13 +254,14 @@ class TransformerLM(nn.Module):
             per_repeat = []
             for r in range(cfg.n_repeats):
                 x, c = self._prefill_layer(x, tree_map(lambda a: a[r], blk),
-                                           spec, positions, pad)
+                                           spec, positions, pad, image_embeds)
                 per_repeat.append(c)
             new_caches.append(_stack(per_repeat))
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return x[:, -1] @ params["lm_head"], tuple(new_caches)
 
-    def _prefill_layer(self, x, lp, spec: LayerSpec, positions, pad: int):
+    def _prefill_layer(self, x, lp, spec: LayerSpec, positions, pad: int,
+                       image_embeds):
         cfg = self.cfg
         h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
         if spec.mixer == "attn":
@@ -233,6 +270,10 @@ class TransformerLM(nn.Module):
                 k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
                 v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
             cache = {"k": k, "v": v}
+        elif spec.mixer == "cross_attn":
+            # no RoPE and no padding: the image rows are the whole cache
+            mix, k, v = L.cross_attention(lp["attn"], h, cfg, image_embeds)
+            cache = {"k": k, "v": v}
         else:
             mix, cache = S.ssm_block(lp["ssm"], h, cfg, return_cache=True)
-        return self._ffn(x + mix, lp, spec), cache
+        return self._ffn(x + mix, lp, spec)[0], cache

@@ -17,10 +17,18 @@ positions. Prefill caches are copied into the pool in place, and each
 decode step updates the pool in place. The pool of a wave of B requests
 belongs to the decode step of B slots and is kept with it (one per ``(B,
 cache_len)``, FIFO-capped with the prefills), where the reference makes
-one a wave: a prefill overwrites its slots' whole rows, and a slot's row
-is read only by its own request. So one engine serves one wave at a time:
-two threads calling :meth:`ServeEngine.generate` on one engine would
-share a pool.
+one a wave; each wave zeroes it in place first, to the reference's
+fresh pool. That matters where a schedule decodes before every prompt is
+prefilled: a decode step runs over all B slots, an unfilled slot's row
+reads its SSM state (or its cross cache), and an MoE layer routes the
+step's rows as one group whose expert capacity they share, so a stale
+row could drop another row's token. One engine serves one wave at a
+time: two threads calling :meth:`ServeEngine.generate` on one engine
+would share a pool.
+
+A model with cross-attention layers is refused: its prefill needs image
+embeddings, which a wave's requests (token prompts) do not carry, as the
+reference's wave passes none.
 
 The reference jits the prefill and the decode step. On the card (with
 ``capture``, the default) each is one CUDA graph: a prefill per ``(B, L,
@@ -135,6 +143,12 @@ class ServeEngine:
         (on the card): the prefill and the decode step run as captured
         CUDA graphs (module docstring); False runs them eagerly."""
         self.device = resolve_device(device)
+        cross = [s for s in model.cfg.pattern if s.mixer == "cross_attn"]
+        if cross:
+            raise ValueError(
+                f"{model.cfg.name}: the wave engine serves token prompts, "
+                f"and a model with cross-attention layers ({len(cross)} "
+                f"of its pattern) needs image embeddings at prefill")
         if self.device != model.device:
             raise ValueError(f"ServeEngine on {self.device} was given a "
                              f"model on {model.device}")
@@ -181,6 +195,9 @@ class ServeEngine:
         with torch.no_grad():
             decode = self._decode(B)
             pool = decode.pool
+            for cache in pool:    # the reference's fresh pool, in place
+                for leaf in cache.values():
+                    leaf.zero_()
             for ty, ids in sched:
                 stats.n_batches += 1
                 req_ids = [g.nodes[i].attrs["req"] for i in ids]

@@ -1,9 +1,12 @@
 """The port's LM architecture (``repro_torch.arch``) against the JAX
 package's ``repro.arch`` on the same numpy-seeded inputs and parameters:
-each layer within 1e-5, the whole model (forward, prefill, decode) within
-1e-4 with the reference's parameters installed by the converter, and the
-reference's own model properties (decode matches forward, prefill then
-decode, sliding window) mirrored on the port."""
+each layer within 1e-5, the whole model (forward, prefill, decode) of all
+ten configurations within 1e-4 with the reference's parameters installed
+by the converter (the MoE and cross-attention layers included; the MoE
+layer alone in ``tests/test_torch_moe.py``), the layer order of a
+two-repeat pattern, and the reference's own model properties (decode
+matches forward, prefill then decode, sliding window) mirrored on the
+port."""
 
 import dataclasses
 
@@ -28,7 +31,7 @@ from repro_torch.configs import ARCHS, get_config  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
-LM_ARCHS = ["qwen2-0.5b", "mamba2-130m"]
+LM_ARCHS = ARCHS     # all ten, reduced
 
 
 def _np_tree(tree):
@@ -203,25 +206,43 @@ def _tokens(cfg, B, S_, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (B, S_))
 
 
+def _image(cfg, B, seed=0):
+    """(B, n_image_tokens, D) image embeddings for a model with
+    cross-attention layers, else None."""
+    if not cfg.n_image_tokens:
+        return None
+    return _rand(np.random.default_rng(seed + 100),
+                 (B, cfg.n_image_tokens, cfg.d_model))
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
 @pytest.mark.parametrize("name", LM_ARCHS)
 def test_model_forward_matches(name):
     jm, jparams, m, params = _models(name)
-    toks = _tokens(m.cfg, 2, 32)
-    logits, aux = m.forward(params, torch.from_numpy(toks))
-    jlogits, _ = jm.forward(jparams, jnp.asarray(toks))
+    toks, img = _tokens(m.cfg, 2, 32), _image(m.cfg, 2)
+    logits, aux = m.forward(params, torch.from_numpy(toks), _t(img))
+    jlogits, jaux = jm.forward(jparams, jnp.asarray(toks), _j(img))
     assert tuple(logits.shape) == (2, 32, m.cfg.vocab)
-    assert float(aux) == 0.0
+    assert (float(aux) == 0.0) == (not m.cfg.n_experts)
     _close(logits, jlogits, MODEL_TOL)
+    _close(aux, jaux, MODEL_TOL)
 
 
 @pytest.mark.parametrize("name", LM_ARCHS)
 def test_model_prefill_and_decode_match(name):
     jm, jparams, m, params = _models(name)
     B, S_, cache_len = 2, 16, 24
-    toks = _tokens(m.cfg, B, S_ + 3, seed=1)
-    lg, caches = m.prefill(params, torch.from_numpy(toks[:, :S_]),
+    toks, img = _tokens(m.cfg, B, S_ + 3, seed=1), _image(m.cfg, B, 1)
+    lg, caches = m.prefill(params, torch.from_numpy(toks[:, :S_]), _t(img),
                            cache_len=cache_len)
-    jlg, jcaches = jm.prefill(jparams, jnp.asarray(toks[:, :S_]),
+    jlg, jcaches = jm.prefill(jparams, jnp.asarray(toks[:, :S_]), _j(img),
                               cache_len=cache_len)
     _close(lg, jlg, MODEL_TOL)
     for c, jc in zip(caches, jcaches):
@@ -237,15 +258,39 @@ def test_model_prefill_and_decode_match(name):
         _close(lg, jlg, MODEL_TOL)
 
 
+def _ample(name):
+    """The reduced config with ``capacity_factor=8.0``, so that no MoE
+    layer drops a token and a decode step (one group of B rows) computes
+    what the sequence (B groups) does, as the reference's own test sets
+    it."""
+    return dataclasses.replace(get_config(name).reduced(),
+                               capacity_factor=8.0)
+
+
+def _fill_cross_caches(m, params, caches, img):
+    """The cross layers' caches of ``init_cache``, zeros, filled with the
+    projected image K/V (the reference's test does the same)."""
+    cfg = m.cfg
+    for spec, blk, cache in zip(cfg.pattern, params["blocks"], caches):
+        if spec.mixer == "cross_attn":
+            for key, w in (("k", "wk"), ("v", "wv")):
+                proj = img[None] @ blk["attn"][w][:, None]   # (R, B, T, KV*Dh)
+                cache[key].copy_(proj.view(cache[key].shape))
+    return caches
+
+
 @pytest.mark.parametrize("name", LM_ARCHS)
 def test_decode_matches_forward(name):
     """Mirror of the reference's property test, on the port alone."""
-    m = TransformerLM(get_config(name).reduced(), device="cpu")
+    m = TransformerLM(_ample(name), device="cpu")
     params = m.init_params(torch.Generator().manual_seed(1))
     B, S_ = 2, 16
     toks = torch.from_numpy(_tokens(m.cfg, B, S_, seed=2))
-    full, _ = m.forward(params, toks)
+    img = _t(_image(m.cfg, B, 2))
+    full, _ = m.forward(params, toks, img)
     caches = m.init_cache(B, S_)
+    if img is not None:
+        caches = _fill_cross_caches(m, params, caches, img)
     outs = []
     for t in range(S_):
         lg, caches = m.decode_step(params, toks[:, t], caches, t)
@@ -256,12 +301,13 @@ def test_decode_matches_forward(name):
 
 @pytest.mark.parametrize("name", LM_ARCHS)
 def test_prefill_then_decode_continues(name):
-    m = TransformerLM(get_config(name).reduced(), device="cpu")
+    m = TransformerLM(_ample(name), device="cpu")
     params = m.init_params(torch.Generator().manual_seed(2))
     B, S_, extra = 2, 16, 16      # forward's length: a multiple of the chunk
     toks = torch.from_numpy(_tokens(m.cfg, B, S_ + extra, seed=3))
-    full, _ = m.forward(params, toks)
-    lg, caches = m.prefill(params, toks[:, :S_], cache_len=S_ + extra)
+    img = _t(_image(m.cfg, B, 3))
+    full, _ = m.forward(params, toks, img)
+    lg, caches = m.prefill(params, toks[:, :S_], img, cache_len=S_ + extra)
     _close(lg, full[:, S_ - 1], dict(rtol=2e-3, atol=2e-3))
     for t in range(S_, S_ + extra):
         lg, caches = m.decode_step(params, toks[:, t], caches, t)
@@ -331,9 +377,47 @@ def test_configs_are_the_references():
             dataclasses.asdict(jax_config(name))
 
 
-@pytest.mark.parametrize("name,missing", [
-    ("olmoe-1b-7b", "moe"), ("jamba-v0.1-52b", "moe"),
-    ("llama-3.2-vision-11b", "cross_attn")])
-def test_unported_layer_specs_raise(name, missing):
-    with pytest.raises(NotImplementedError, match=missing):
-        TransformerLM(get_config(name).reduced(), device="cpu")
+def test_unknown_layer_specs_raise():
+    from repro_torch.arch.config import LayerSpec
+
+    cfg = get_config("qwen2-0.5b").reduced()
+    for spec, what in ((LayerSpec("conv", "dense"), "mixer 'conv'"),
+                       (LayerSpec("attn", "glu"), "ffn 'glu'")):
+        with pytest.raises(ValueError, match=what):
+            TransformerLM(dataclasses.replace(cfg, pattern=(spec,) * 2),
+                          device="cpu")
+
+
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "llama-3.2-vision-11b"])
+def test_two_repeat_layer_order_matches(name):
+    """Two repeats of a pattern of three (Jamba: SSM, SSM with MoE,
+    attention) or two (the vision model: cross-attention, attention)
+    layers: ``forward`` runs them repeat-major and ``prefill`` and
+    ``decode_step`` pattern-major, as the reference's entry points of the
+    same names do, so each is held to its own counterpart, never one to
+    the other."""
+    base = jax_config(name).reduced()
+    over = dict(n_layers=2 * len(base.pattern))
+    jm, jparams, m, params = _models(name, **over)
+    assert m.cfg.n_repeats == 2
+    B, S_ = 2, 16
+    toks, img = _tokens(m.cfg, B, S_ + 2, seed=6), _image(m.cfg, B, 6)
+    logits, aux = m.forward(params, torch.from_numpy(toks[:, :S_]), _t(img))
+    jlogits, jaux = jm.forward(jparams, jnp.asarray(toks[:, :S_]), _j(img))
+    _close(logits, jlogits, MODEL_TOL)
+    _close(aux, jaux, MODEL_TOL)
+    lg, caches = m.prefill(params, torch.from_numpy(toks[:, :S_]), _t(img),
+                           cache_len=S_ + 2)
+    jlg, jcaches = jm.prefill(jparams, jnp.asarray(toks[:, :S_]), _j(img),
+                              cache_len=S_ + 2)
+    _close(lg, jlg, MODEL_TOL)
+    for t in range(S_, S_ + 2):
+        pos = np.full(B, t)
+        lg, caches = m.decode_step(params, torch.from_numpy(toks[:, t]),
+                                   caches, torch.from_numpy(pos))
+        jlg, jcaches = jm.decode_step(jparams, jnp.asarray(toks[:, t]),
+                                      jcaches, jnp.asarray(pos))
+        _close(lg, jlg, MODEL_TOL)
+        for c, jc in zip(caches, jcaches):
+            for k in c:
+                _close(c[k], jc[k], MODEL_TOL)

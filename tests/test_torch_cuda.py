@@ -2361,12 +2361,13 @@ def _lm_pair(name, cuda):
     return model, tree_map(lambda t: t.to(cuda), params)
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-130m"])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-130m",
+                                  "granite-moe-1b-a400m", "jamba-v0.1-52b"])
 def test_lm_wave_replays_give_the_eager_tokens(cuda, name):
     """Two waves of the same shape, the requests' lengths swapped between
     slots, through one engine whose prefill and decode steps are captured,
-    beside an eager engine: equal tokens (the second wave's slots still
-    hold the first's caches until their prefill); the first wave captures
+    beside an eager engine: equal tokens (the second wave zeroes the
+    first's pool in place before it); the first wave captures
     each program once and replays the rest, the second only replays; and
     the kernels' counters move by the same launches in both engines (each
     warm-up is a real step)."""
@@ -2427,7 +2428,9 @@ def test_failed_decode_capture_raises_and_leaves_the_card_usable(
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-130m"])
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-130m",
+                                  "granite-moe-1b-a400m",
+                                  "llama-3.2-vision-11b"])
 def test_train_step_replays_equal_eager_steps_bit_for_bit(cuda, name):
     """Four static train steps captured (the first the warm-up, then
     three replays) beside four eager ones over the same buffers: equal
@@ -2448,7 +2451,9 @@ def test_train_step_replays_equal_eager_steps_bit_for_bit(cuda, name):
         step = StaticTrainStep(model, opt, params,
                                capture=mode == "captured")
         corpus = SyntheticCorpus(PipelineConfig(
-            vocab=model.cfg.vocab, seq_len=seq, batch_size=2, seed=1))
+            vocab=model.cfg.vocab, seq_len=seq, batch_size=2, seed=1,
+            n_image_tokens=model.cfg.n_image_tokens,
+            d_model=model.cfg.d_model))
         losses, moved = [], []
         for _ in range(4):
             before = launches.snapshot()
@@ -2463,6 +2468,10 @@ def test_train_step_replays_equal_eager_steps_bit_for_bit(cuda, name):
     kernel = ("ssd_scan_backward" if model.cfg.ssm_state
               else "flash_attention_backward")
     assert mc[-1][kernel] == model.cfg.n_layers
+    n_moe = sum(s.ffn == "moe" for s in model.cfg.pattern) \
+        * model.cfg.n_repeats
+    assert mc[-1]["gather_rows"] == mc[-1]["gather_rows_backward"] \
+        == 2 * n_moe
     for a, b in zip(sc.params + sc.mu + sc.nu, se.params + se.mu + se.nu):
         assert torch.equal(a, b)
     assert int(sc.step) == int(se.step) == 4
@@ -2580,3 +2589,147 @@ def test_a_graph_in_a_reference_cycle_is_not_freed_during_a_capture(cuda):
     want = _outputs(PlanExecutor(impls, params, device=cuda,
                                  capture=False).run(g, policy), g)
     assert all(torch.equal(got[k], t) for k, t in want.items())
+
+
+# -- the MoE layer and cross-attention ----------------------------------------
+
+
+def _moe_setup(cuda, name, N, seed=0):
+    """An MoE layer at ``name``'s full width and its input of N tokens."""
+    from repro_torch.arch import layers as L
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    p = L.init_moe(g, cfg, device=cuda)
+    x = torch.randn((N, cfg.d_model), generator=g, device=cuda)
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("name,N,G", [
+    ("granite-moe-1b-a400m", 6, 1), ("granite-moe-1b-a400m", 384, 4),
+    ("olmoe-1b-7b", 6, 1), ("olmoe-1b-7b", 384, 4)])
+def test_moe_layer_kernel_gathers_equal_plain_gathers(cuda, name, N, G):
+    """The MoE layer with the row-gather kernel against the same layer
+    with the plain gathers: the same routing, the same bits (a gather
+    copies), two runs bit-equal, and two gather launches a call (the
+    dispatch and the combine)."""
+    from repro_torch.arch import layers as L
+
+    cfg, p, x = _moe_setup(cuda, name, N)
+    before = gather_rows.launches
+    y, aux = L.moe(p, x, cfg, G)
+    y2, aux2 = L.moe(p, x, cfg, G)
+    assert gather_rows.launches == before + 4
+    y_plain, aux_plain = L.moe(p, x, cfg, G, gather=ref.gather_rows_ref)
+    r, r_plain = L.moe_route(p, x, cfg, G), L.moe_route(p, x, cfg, G)
+    torch.cuda.synchronize()
+    for key in ("expert_idx", "order", "dest", "keep", "dispatch_idx",
+                "combine_idx", "combine_w"):
+        assert torch.equal(r[key], r_plain[key]), key
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    assert torch.equal(y, y_plain) and torch.equal(aux, aux_plain)
+    assert torch.isfinite(y).all()
+
+
+def test_moe_gradient_runs_the_gather_backward_on_its_sort_path(cuda):
+    """Granite's layer at the train step's 1024 tokens in 8 groups: the
+    dispatch gathers 10240 slots and the combine 8192 rows, both past the
+    one-launch backward's 2048, so the backward takes its sort path; the
+    gradients equal the plain gathers' within 1e-6 of their max, and two
+    backward runs are bit-equal."""
+    from repro_torch.arch import layers as L
+    from repro_torch.kernels.gather_batch import (backward_geometry,
+                                                  gather_rows_backward)
+
+    cfg, p, x = _moe_setup(cuda, "granite-moe-1b-a400m", 1024, seed=1)
+    r = L.moe_route(p, x, cfg, 8)
+    slots = r["dispatch_idx"].numel()
+    for n_src, idx in ((1024 + slots // cfg.n_experts, r["dispatch_idx"]),
+                       (slots + 1024, r["combine_idx"])):
+        assert backward_geometry(idx.numel(), n_src, 4096, 16)["path"] == \
+            "sort"
+    w = torch.randn(x.shape, generator=torch.Generator(device=cuda)
+                    .manual_seed(2), device=cuda)
+    leaves = [x.requires_grad_(True)] + [t.requires_grad_(True)
+                                         for t in p.values()]
+
+    def grads(gather):
+        y, aux = L.moe(p, x, cfg, 8, gather=gather)
+        return torch.autograd.grad((y * w).sum() + aux, leaves)
+
+    before = gather_rows_backward.launches
+    got, again = grads(gather_rows), grads(gather_rows)
+    assert gather_rows_backward.launches == before + 4
+    want = grads(ref.gather_rows_ref)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert _grad_err(a, c) <= 1e-6
+
+
+@pytest.mark.parametrize("part", ["dispatch", "combine"])
+def test_gather_backward_sort_path_at_moe_shapes_equals_cpu_bits(cuda, part):
+    """The row gather's backward at Granite's train shapes (4 KB rows; the
+    dispatch's index vector reads each token up to K times and each zero
+    row up to E) is the CPU plain version's bits: both sum each row's
+    entries in ascending k."""
+    from repro_torch.arch import layers as L
+    from repro_torch.kernels.gather_batch import gather_rows_backward
+
+    cfg, p, x = _moe_setup(cuda, "granite-moe-1b-a400m", 1024, seed=3)
+    r = L.moe_route(p, x, cfg, 8)
+    slots = r["dispatch_idx"].numel()
+    n_src, idx = ((1024 + slots // cfg.n_experts, r["dispatch_idx"])
+                  if part == "dispatch" else (slots + 1024, r["combine_idx"]))
+    dout = torch.randn((idx.numel(), cfg.d_model), device=cuda)
+    got = gather_rows_backward(dout, idx, n_src)
+    assert torch.equal(got, gather_rows_backward(dout, idx, n_src))
+    assert torch.equal(got.cpu(), ref.gather_rows_bwd_ref(
+        dout.cpu(), idx.cpu(), n_src))
+
+
+def test_lm_wave_refuses_a_cross_attention_model_on_the_card(cuda):
+    from repro_torch.arch.model import TransformerLM
+    from repro_torch.configs import get_config
+    from repro_torch.serve.lm_wave import ServeEngine
+
+    model = TransformerLM(get_config("llama-3.2-vision-11b").reduced(),
+                          device=cuda)
+    with pytest.raises(ValueError, match="cross-attention"):
+        ServeEngine(model, {}, device=cuda)
+
+
+def test_vision_prefill_and_decode_on_the_card_match_the_cpu(cuda):
+    """The vision model, reduced: a prefill with image embeddings (its
+    cross-attention through the flash kernel) and three decode steps
+    (plain attention over the cross cache) on the card within 1e-4 of the
+    CPU's logits."""
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import \
+        flash_attention as flash_wrapper
+
+    cfg = get_config("llama-3.2-vision-11b").reduced()
+    params = TransformerLM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=g)
+    img = torch.randn((2, cfg.n_image_tokens, cfg.d_model), generator=g)
+    outs = {}
+    for device in ("cpu", cuda):
+        model = TransformerLM(cfg, device=device)
+        p = tree_map(lambda t: t.to(device), params)
+        before = flash_wrapper.launches
+        with torch.no_grad():
+            lg, caches = model.prefill(p, toks.to(device), img.to(device),
+                                       cache_len=27)
+            logits = [lg]
+            for t in range(3):
+                lg, caches = model.decode_step(p, toks[:, t].to(device),
+                                               caches, 24 + t)
+                logits.append(lg)
+        outs[str(device)] = [x.cpu() for x in logits]
+        if device == cuda:
+            assert flash_wrapper.launches == before + cfg.n_layers
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

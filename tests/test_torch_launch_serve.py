@@ -170,6 +170,31 @@ def test_legacy_arch_serves_one_wave(tmp_path, capsys, monkeypatch):
     assert outs["port"] == outs["reference"]
 
 
+def test_legacy_arch_serves_an_moe_wave(tmp_path, capsys, monkeypatch):
+    """``--legacy-arch granite-moe-1b-a400m`` serves a reduced wave from a
+    checkpoint the port's trainer wrote, with the tokens the reference's
+    wave engine gives over the same file."""
+    from repro.launch import serve as jlauncher
+    from repro.serve import lm_wave as jlm_wave
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.serve import lm_wave
+
+    name = "granite-moe-1b-a400m"
+    path = str(tmp_path / "w.npz")
+    train_launcher.main(["--arch", name, "--reduced", "--steps", "2",
+                         "--batch", "2", "--seq", "16", "--device", "cpu",
+                         "--checkpoint", path], log_fn=lambda line: None)
+    outs = {}
+    _record_generate(monkeypatch, lm_wave.ServeEngine, outs, "port")
+    _record_generate(monkeypatch, jlm_wave.ServeEngine, outs, "reference")
+    assert launcher.main(CPU + ["--legacy-arch", name, "--checkpoint", path,
+                                "--requests", "3", "--max-new", "4"]) == 0
+    assert f"[legacy {name}] 3 requests, 12 tokens" in capsys.readouterr().out
+    assert jlauncher.legacy_wave(name, 3, 4, 0, path) == 0
+    assert len(outs["port"]) == 3
+    assert outs["port"] == outs["reference"]
+
+
 def test_import_loads_no_jax():
     code = ("import sys\nimport repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules "

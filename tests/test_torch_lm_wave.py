@@ -3,6 +3,7 @@ JAX package's ``repro.serve.lm_wave`` with the same parameters and prompts:
 identical token streams (a mismatch reports the top-2 logit margin at the
 first differing step) and identical batch counts."""
 
+import dataclasses
 import gc
 import weakref
 
@@ -38,7 +39,10 @@ def _top2_margin(m, params, prompt, prefix) -> float:
     """Top-1 minus top-2 logit of the step that produced ``prefix``'s next
     token, recomputed on the port from the full sequence."""
     toks = torch.tensor([list(prompt) + list(prefix)])
-    logits, _ = m.forward(params, toks)
+    try:
+        logits, _ = m.forward(params, toks)
+    except ValueError:     # an SSM's forward takes whole chunks only
+        return float("nan")
     top = torch.topk(logits[0, -1], 2).values
     return float(top[0] - top[1])
 
@@ -134,6 +138,35 @@ def test_engine_with_learned_fsm_policy_matches_reference():
         (jstats.n_prefill_batches, jstats.n_decode_batches)
 
 
+def test_engine_refuses_a_cross_attention_model():
+    """The vision model's prefill needs image embeddings, which a wave of
+    token prompts does not carry (the reference's wave fails inside its
+    prefill): the port refuses the engine up front."""
+    cfg = get_config("llama-3.2-vision-11b").reduced()
+    model = TransformerLM(cfg, device="cpu")
+    with pytest.raises(ValueError, match="cross-attention"):
+        lm_wave.ServeEngine(model, {}, device="cpu")
+
+
+@pytest.mark.parametrize("name,lengths", [
+    ("granite-moe-1b-a400m", (5, 9, 5, 7)),
+    ("olmoe-1b-7b", (6, 3, 6)),
+])
+def test_moe_models_serve_as_the_reference(name, lengths):
+    """MoE models through the wave engine: a decode step routes its B rows
+    as one group, whose expert capacity they share, as the reference's."""
+    jm, jparams, m, params = _pair(name)
+    rng = np.random.default_rng(6)
+    prompts = [list(rng.integers(0, m.cfg.vocab, n)) for n in lengths]
+    jouts, jstats = jwave.ServeEngine(jm, jparams, cache_len=24).generate(
+        prompts, max_new=4)
+    eng = lm_wave.ServeEngine(m, params, cache_len=24, device="cpu")
+    outs, stats = eng.generate(prompts, max_new=4)
+    _assert_same_streams(outs, jouts, m, params, prompts)
+    assert (stats.n_prefill_batches, stats.n_decode_batches) == \
+        (jstats.n_prefill_batches, jstats.n_decode_batches)
+
+
 def test_engine_refuses_a_model_on_another_device():
     cfg = get_config("qwen2-0.5b").reduced(d_model=32)
     model = TransformerLM(cfg, device="cpu")
@@ -148,9 +181,9 @@ def test_engine_refuses_a_model_on_another_device():
 def test_successive_waves_share_the_pool_and_match_reference(name, waves,
                                                              cache_len):
     """Two waves of three requests through one engine: the second reuses
-    the first's pool (its slots still hold the first wave's caches) and
-    the programs built for it, and each wave's tokens equal the
-    reference's, whose engine makes a fresh pool every wave."""
+    the first's pool (zeroed in place) and the programs built for it, and
+    each wave's tokens equal the reference's, whose engine makes a fresh
+    pool every wave."""
     jm, jparams, m, params = _pair(name)
     jeng = jwave.ServeEngine(jm, jparams, cache_len=cache_len)
     eng = lm_wave.ServeEngine(m, params, cache_len=cache_len, device="cpu")
@@ -195,3 +228,57 @@ def test_wave_programs_are_capped_and_a_pool_goes_with_its_decode_step():
             del pool
     gc.collect()
     assert first_pool() is None
+
+
+def _decode_early(graph):
+    """A wave schedule that prefills the last request alone and decodes it
+    twice before the other prompts are prefilled, then decodes in
+    lockstep: the early decode steps run over slots no prompt has filled
+    yet."""
+    chains: dict[int, list] = {}
+    for n in graph.nodes:
+        chains.setdefault(n.attrs["req"], []).append(n)
+    last = max(chains)
+    sched = [(chains[last][0].type, [chains[last][0].id]),
+             ("D", [chains[last][1].id]), ("D", [chains[last][2].id])]
+    sched += [(chains[r][0].type, [chains[r][0].id])
+              for r in sorted(chains) if r != last]
+    done = {r: (3 if r == last else 1) for r in chains}
+    while any(done[r] < len(c) for r, c in chains.items()):
+        ids = [chains[r][done[r]].id for r in sorted(chains)
+               if done[r] < len(chains[r])]
+        for r in chains:
+            done[r] += done[r] < len(chains[r])
+        sched.append(("D", ids))
+    return sched
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_decoding_before_every_prefill_matches_reference_across_waves(
+        capacity_factor):
+    """Jamba (SSM, attention and MoE layers), two waves of four requests
+    through one engine under a schedule that decodes before every prompt
+    is prefilled. The reference decodes its unfilled slots from a fresh
+    zeroed pool; the port keeps its pool across waves, and an unfilled
+    slot's SSM state from the first wave would route its row differently
+    in the second, and so, through the experts' capacity, which the decode
+    step's rows share, drop another real token. Each wave's tokens must
+    equal the reference's."""
+    over = {"capacity_factor": capacity_factor}
+    jcfg = dataclasses.replace(jax_config("jamba-v0.1-52b").reduced(), **over)
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(), **over)
+    jm = JaxLM(jcfg)
+    jparams = jm.init_params(jax.random.PRNGKey(0))
+    m = TransformerLM(cfg, device="cpu")
+    params = m.init_params(torch.Generator().manual_seed(0))
+    install_params(params, jax.tree.map(np.asarray, jparams))
+    jeng = jwave.ServeEngine(jm, jparams, cache_len=48, policy=_decode_early)
+    eng = lm_wave.ServeEngine(m, params, cache_len=48, device="cpu",
+                              policy=_decode_early)
+    rng = np.random.default_rng(5)
+    for lengths in [(32, 16, 32, 16), (16, 32, 16, 32)]:
+        prompts = [list(rng.integers(0, m.cfg.vocab, n)) for n in lengths]
+        jouts, jstats = jeng.generate(prompts, max_new=5)
+        outs, stats = eng.generate(prompts, max_new=5)
+        _assert_same_streams(outs, jouts, m, params, prompts)
+        assert stats.n_decode_batches == jstats.n_decode_batches == 6

@@ -40,7 +40,8 @@ from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train.loop import make_train_step, train  # noqa: E402
 
-LM_ARCHS = ["qwen2-0.5b", "mamba2-130m"]
+LM_ARCHS = ["qwen2-0.5b", "mamba2-130m", "granite-moe-1b-a400m",
+            "llama-3.2-vision-11b"]
 SEQ = 32     # a multiple of the reduced Mamba2's chunk of 16
 
 
@@ -60,8 +61,9 @@ def _models(name):
 
 
 def _batch(cfg, B=2, seed=0, mask=False):
-    b = SyntheticCorpus(PipelineConfig(vocab=cfg.vocab, seq_len=SEQ,
-                                       batch_size=B, seed=seed)).batch(0)
+    b = SyntheticCorpus(PipelineConfig(
+        vocab=cfg.vocab, seq_len=SEQ, batch_size=B, seed=seed,
+        n_image_tokens=cfg.n_image_tokens, d_model=cfg.d_model)).batch(0)
     if mask:
         rng = np.random.default_rng(seed)
         b["loss_mask"] = (rng.random((B, SEQ)) < 0.6).astype(np.float32)
@@ -148,7 +150,8 @@ def test_adamw_update_matches(grad_scale):
 @pytest.mark.parametrize("name", LM_ARCHS)
 def test_five_training_steps_match(name):
     jm, jparams, m, params = _models(name)
-    pc = dict(vocab=m.cfg.vocab, seq_len=SEQ, batch_size=2, seed=3)
+    pc = dict(vocab=m.cfg.vocab, seq_len=SEQ, batch_size=2, seed=3,
+              n_image_tokens=m.cfg.n_image_tokens, d_model=m.cfg.d_model)
     kw = dict(lr=3e-3, warmup_steps=2, total_steps=5)
     lines = []
     state = train(m, params, iter(SyntheticCorpus(PipelineConfig(**pc))), 5,
@@ -247,6 +250,27 @@ def test_launcher_trains_on_the_cpu_and_the_reference_loads_it(tmp_path):
     _bit_equal(state.opt, o)
 
 
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m",
+                                  "llama-3.2-vision-11b"])
+def test_launcher_trains_moe_and_cross_attention_models(tmp_path, name):
+    """``--arch`` an MoE model and the vision model (its batches carry
+    ``image_embeds``) train through the launcher on the CPU, and the
+    reference loads the checkpoint."""
+    path = str(tmp_path / "w.npz")
+    state = launcher.main(["--arch", name, "--reduced", "--steps", "3",
+                           "--batch", "2", "--seq", "16", "--device", "cpu",
+                           "--log-every", "1", "--checkpoint", path],
+                          log_fn=lambda line: None)
+    assert state.step == 3 and len(state.history) == 3
+    assert all(np.isfinite(state.history))
+    jm = JaxLM(jax_config(name).reduced())
+    jparams = jm.init_params(jax.random.PRNGKey(0))
+    p, o, step, _ = jckpt.load_checkpoint(
+        path, jparams, jopt.init_opt_state(jparams))
+    assert step == 3
+    _bit_equal(state.params, p)
+
+
 def test_launcher_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -293,8 +317,9 @@ def test_unbound_forward_equals_per_repeat_selects():
     x = params["embed"][toks]
     pos = m._positions(*toks.shape)
     for r in range(cfg.n_repeats):
-        x = m._apply_layer(x, tree_map(lambda a: a[r], params["blocks"][0]),
-                           cfg.pattern[0], pos)
+        x, _ = m._apply_layer(x, tree_map(lambda a: a[r],
+                                          params["blocks"][0]),
+                              cfg.pattern[0], pos, None)
     want = L.rmsnorm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
     assert torch.equal(logits, want)
     g = torch.randn(logits.shape, generator=torch.Generator().manual_seed(2))
