@@ -253,6 +253,19 @@ Phases, in order; any failure raises and exits non-zero:
    falling, bit-equal; flash attention's forward and backward once a layer
    a step; ms per step, tokens/s, peak memory. Each model is freed before
    the next.
+12. The launch analysis tools (``launch/dryrun.py``). (a) ``dryrun_dynamic``
+   on the card at model_size=512, the reference's batch size 2 and seed 0:
+   all eight Table-1 workloads' weights made on the card, each
+   per-topology plan lowered, captured and replayed once; every row
+   ``ok``; one line per workload (steps, arenas, slice and gather reads,
+   fallback steps, capture and wall seconds); the row gather must launch;
+   every row's plan statistics equal to the JAX package's own
+   ``--dynamic`` rows at its defaults (:data:`DRYRUN_REFERENCE`). (b)
+   ``dryrun.main(["--all", "--out", ...])``: the ten configurations x four
+   shapes on the 16x16 mesh, traced on the meta device at full width and
+   depth, in a process of its own beside (a) (both are host work); 40
+   ``ok`` rows, printed by ``report.render``; the process must exit 0
+   without having initialised CUDA; the sweep's seconds.
 
 Phases 2 and 4 hold the kernels other than the gather to 1e-4 of the
 largest magnitude of their plain versions' outputs, phase 9 the backward
@@ -442,8 +455,16 @@ def bound(name: str, nbytes: float, flops: float,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def cost_bound(name: str, cost: tuple[int, int],
+               units: str = "fp32 on the CUDA cores") -> dict:
+    """:func:`bound` of a launch's ``(flops, bytes)`` as
+    ``kernels/costs.py`` counts them (the dry-run counts the same)."""
+    flops, nbytes = cost
+    return bound(name, nbytes, flops, units)
+
+
 def check_gather(torch, timer) -> dict:
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.gather_batch import gather_rows
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -502,13 +523,13 @@ def check_gather(torch, timer) -> dict:
     log(f"gather_rows warm ms (L2-resident): kernel "
         f"{timer(lambda: gather_rows(src, idx), cold=False):.4f}, plain "
         f"{timer(lambda: ref.gather_rows_ref(src, idx), cold=False):.4f}")
-    nbytes = 2 * K * D * 4 + K * 4
     return {"name": "gather_rows", "route": "cuda",
             "source": "src/repro_torch/csrc/gather_rows.cu",
             "replaces": "src/repro/kernels/gather_batch.py:26",
             "shape": f"src ({N}, {D}) float32, K={K}",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound("gather_rows", nbytes, 0), "library_ms": library_ms,
+            **cost_bound("gather_rows", costs.gather_rows(K, 4 * D, 4)),
+            "library_ms": library_ms,
             "timed_shapes": timed_shapes}
 
 
@@ -529,7 +550,7 @@ def launch_floor(torch, timer) -> dict:
 
 
 def check_fused(torch, timer) -> dict:
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.fused_gather_cell import fused_gather_lstm_cell
 
     E = H = MODEL_SIZE
@@ -577,15 +598,14 @@ def check_fused(torch, timer) -> dict:
             return fused_gather_lstm_cell(x_src, h_src, c_src, jx, jh, jc, w, b)
         log(f"fused_gather_lstm_cell B={Bt} ms: cold {timer(call):.4f}, "
             f"warm (L2-resident) {timer(call, cold=False):.4f}")
-    K = E + H
-    nbytes = (K * 4 * H + 4 * H + B * (E + 2 * H) + 2 * B * H) * 4 + 3 * B * 4
     return {"name": "fused_gather_lstm_cell", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_gather_lstm_cell.cu",
             "replaces": "src/repro/kernels/fused_gather_cell.py:47",
             "shape": f"E=H={E}, B={B}, float32",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound("fused_gather_lstm_cell", nbytes, 2 * B * K * 4 * H,
-                    "3xTF32 on the tensor cores"),
+            **cost_bound("fused_gather_lstm_cell",
+                         costs.fused_gather_lstm_cell(B, E, H),
+                         "3xTF32 on the tensor cores"),
             "library_ms": None}
 
 
@@ -594,7 +614,7 @@ def check_fused_dense(torch, timer) -> dict:
     |output|) at the path's, table5's, the reference tests' and ragged
     shapes, and composed with the row gather against the gather cell. Its
     launches are those of these checks: no model path launches it."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.fused_cell import fused_lstm_cell
     from repro_torch.kernels.fused_gather_cell import fused_gather_lstm_cell
 
@@ -675,15 +695,14 @@ def check_fused_dense(torch, timer) -> dict:
             f"{timer(lambda: fused_lstm_cell(xt, w, b, ct)):.4f}, warm "
             f"(L2-resident) "
             f"{timer(lambda: fused_lstm_cell(xt, w, b, ct), cold=False):.4f}")
-    nbytes = (B * K + K * 4 * H + 4 * H + 3 * B * H) * 4
     return {"name": "fused_lstm_cell", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_lstm_cell.cu",
             "replaces": "src/repro/kernels/fused_cell.py:53",
             "shape": f"B={B}, K={K}, H={H}, float32",
             "launches": launches, "max_abs_err": worst,
             "max_rel_err": worst_rel, "ms": ms, "plain_ms": plain_ms,
-            **bound("fused_lstm_cell", nbytes, 2 * B * K * 4 * H,
-                    "3xTF32 on the tensor cores"),
+            **cost_bound("fused_lstm_cell", costs.fused_lstm_cell(B, K, H),
+                         "3xTF32 on the tensor cores"),
             "library_ms": library_ms}
 
 
@@ -703,7 +722,7 @@ def library_kernels(torch, fn) -> list:
 
 
 def check_flash(torch, timer) -> dict:
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.flash_attention import flash_attention
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -762,7 +781,6 @@ def check_flash(torch, timer) -> dict:
     plain_ms = timer(lambda: ref.flash_attention_ref(q, k, v))
     log(f"scaled_dot_product_attention runs: "
         f"{library_kernels(torch, lambda: sdpa(qt, kt, vt, is_causal=True))}")
-    pairs = B * H * S * (S + 1) // 2          # causal (row, column) pairs
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:65",
@@ -770,36 +788,15 @@ def check_flash(torch, timer) -> dict:
                      f"float32, causal",
             "max_abs_err": worst, "ms": waves[f"S={S} B={B}"]["ms"],
             "plain_ms": plain_ms,
-            **bound("flash_attention",
-                    (2 * B * S * H * D + 2 * B * S * KV * D) * 4,
-                    4 * D * pairs, "3xTF32 on the tensor cores"),
+            **cost_bound("flash_attention",
+                         costs.flash_attention(B, S, S, H, KV, D, True, 0),
+                         "3xTF32 on the tensor cores"),
             "library_ms": waves[f"S={S} B={B}"]["library_ms"],
             "waves": waves}
 
 
-def ssd_flops(b: int, l: int, h: int, p: int, n: int) -> int:
-    """The fewest FLOPs that compute the scan, whose result does not depend
-    on the chunk size: the least over every chunk size q (a ragged last
-    chunk allowed) of the chunked algorithm's count, and the sequential
-    recurrence's. Per (batch, head) and chunk of m steps the chunked count
-    is the masked C.B^T scores and the diagonal block over the m(m+1)/2
-    causal pairs (2n + 2p each), the carried state's contribution and the
-    state update (2np each per step) and the state's decay (np); the
-    recurrence's is, per step and (p, n) state entry, a decay multiply and
-    a multiply-add for the update and a multiply-add for C . state."""
-    def chunk(m: int) -> int:
-        return m * (m + 1) * (n + p) + 4 * m * n * p + n * p
-
-    def chunked(q: int) -> int:
-        full, rest = divmod(l, q)
-        return full * chunk(q) + (chunk(rest) if rest else 0)
-
-    least = min(min(chunked(q) for q in range(1, l + 1)), 5 * l * p * n)
-    return b * h * least
-
-
 def check_ssd(torch, timer) -> dict:
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -878,8 +875,6 @@ def check_ssd(torch, timer) -> dict:
             f", warm {waves[f'l={l} B={b}']['warm_ms']:.4f}")
     # x, dt, A, B, C are the longer wave's from here on
     plain_ms = timer(lambda: ref.ssd_scan_ref(x, dt, A, B, C, q))
-    nbytes = 4 * (2 * b * l * h * p + b * l * h + h + 2 * b * l * n
-                  + b * h * p * n)
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:64",
@@ -887,8 +882,9 @@ def check_ssd(torch, timer) -> dict:
                      f"chunk {q}, float32",
             "max_abs_err": worst, "ms": waves[f"l={l} B={b}"]["ms"],
             "plain_ms": plain_ms,
-            **bound("ssd_scan", nbytes, ssd_flops(b, l, h, p, n),
-                    "3xTF32 on the tensor cores"),
+            **cost_bound("ssd_scan", costs.ssd_scan(
+                b, l, h, p, 1, n, q, False, False),
+                "3xTF32 on the tensor cores"),
             "library_ms": None, "waves": waves}
 
 
@@ -2393,7 +2389,7 @@ def check_flash_backward(torch, timer) -> dict:
     ``scaled_dot_product_attention`` (K/V expanded; a yardstick the port
     never calls), and the forward with the lse beside the forward
     without."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.flash_attention import (
         BACKWARD_PARTS, backward_kernels, flash_attention,
         flash_attention_backward, flash_attention_forward)
@@ -2498,7 +2494,6 @@ def check_flash_backward(torch, timer) -> dict:
         f"plain autograd {plain_ms:.4f}, scaled_dot_product_attention "
         f"backward {library_ms:.4f}; forward cold {fwd_ms:.4f} without lse, "
         f"{fwd_lse_ms:.4f} with")
-    pairs = B * H * S * (S + 1) // 2          # causal (row, column) pairs
     return {"name": "flash_attention_backward", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:65",
@@ -2506,9 +2501,10 @@ def check_flash_backward(torch, timer) -> dict:
                      f"{D}) float32, causal",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             # q, o, dO, lse read and dq written; k, v read, dk, dv written
-            **bound("flash_attention_backward",
-                    (4 * B * S * H * D + 4 * B * S * KV * D + B * H * S) * 4,
-                    5 * 2 * D * pairs, "3xTF32 on the tensor cores"),
+            **cost_bound("flash_attention_backward",
+                         costs.flash_attention_backward(B, S, S, H, KV, D,
+                                                        True, 0),
+                         "3xTF32 on the tensor cores"),
             "library_ms": library_ms, "forward_ms": fwd_ms,
             "forward_lse_ms": fwd_lse_ms,
             **{f"{name}_ms": t for name, t in parts_ms.items()}}
@@ -2915,32 +2911,6 @@ def train_phase(torch, drive, card: str, steps: int) -> dict:
     return counts
 
 
-def ssd_bwd_flops(b: int, l: int, h: int, p: int, n: int,
-                  carried: bool) -> int:
-    """The fewest FLOPs that compute the scan's gradients, which do not
-    depend on the chunk size: the least over every chunk size q (a ragged
-    last chunk allowed) of the chunked backward's count, and the
-    sequential recurrence's. Per (batch, head) and chunk of m steps the
-    chunked count is five products over the m(m+1)/2 causal pairs (C B^T,
-    dy x^T, dx, dC, dB: 6n + 4p each), and, where a state is carried
-    across the chunk's edges (more than one chunk, or a state carried in
-    or out: ``carried``), the carried state's five per step (dS0, G B,
-    x G, dy S0, S0 C: 2np each) and G's decay (np); the recurrence's is
-    about ten per step and (p, n) state entry (the state's gradient
-    carried back, dx, dB, dC and ddt, a multiply-add each)."""
-    def chunk(m: int, state: bool) -> int:
-        return m * (m + 1) * (3 * n + 2 * p) + (
-            10 * m * n * p + n * p if state else 0)
-
-    def chunked(q: int) -> int:
-        full, rest = divmod(l, q)
-        state = carried or full + (1 if rest else 0) > 1
-        return full * chunk(q, state) + (chunk(rest, state) if rest else 0)
-
-    least = min(min(chunked(q) for q in range(1, l + 1)), 10 * l * p * n)
-    return b * h * least
-
-
 def check_ssd_backward(torch, timer) -> dict:
     """Phase 9 (e): the scan's backward kernels against autograd of the
     plain scan on the card at the trainer's shape and the edge cases, two
@@ -2948,7 +2918,7 @@ def check_ssd_backward(torch, timer) -> dict:
     the forward without, then timed cold at the trainer's shape beside the
     plain backward (``ref.ssd_scan_bwd_ref``); no single PyTorch call
     computes it."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_backward,
                                               ssd_scan_forward)
 
@@ -3038,17 +3008,16 @@ def check_ssd_backward(torch, timer) -> dict:
     fwd_ms = timer(lambda: ssd_scan(x, dt, A, B, C, q))
     log(f"ssd_scan_backward trainer shape ms: cold kernels {ms:.4f}, plain "
         f"{plain_ms:.4f}; forward cold {fwd_ms:.4f}")
-    # x, dt, B, C, dy read; dx, ddt, dB, dC, dA written
-    nbytes = 4 * (3 * b * l * h * p + 2 * b * l * h + 4 * b * l * n + 2 * h)
     return {"name": "ssd_scan_backward", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:64",
             "shape": f"x/dy ({b}, {l}, {h}, {p}), B/C ({b}, {l}, 1, {n}), "
                      f"chunk {q}, float32",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound("ssd_scan_backward", nbytes,
-                    ssd_bwd_flops(b, l, h, p, n, False),
-                    "3xTF32 on the tensor cores"),
+            # x, dt, B, C, dy read; dx, ddt, dB, dC, dA written
+            **cost_bound("ssd_scan_backward", costs.ssd_scan_backward(
+                b, l, h, p, 1, n, q, False, False, False),
+                "3xTF32 on the tensor cores"),
             "library_ms": None, "forward_ms": fwd_ms}
 
 
@@ -3181,7 +3150,7 @@ def check_gather_backward(torch, timer, path_shape) -> dict:
     the threshold's edges) and at ``path_shape``, the commonest (K, n_src,
     row bytes) of phase 10 (b), each beside ``torch.zeros(...).index_add_``
     (a yardstick the port never calls)."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.gather_batch import (backward_geometry,
                                                   gather_rows_backward)
 
@@ -3292,7 +3261,8 @@ def check_gather_backward(torch, timer, path_shape) -> dict:
             "shape": f"dout ({K}, {D}) float32 into dsrc ({N}, {D})",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             # dout and idx read once, dsrc written once
-            **bound("gather_rows_backward", 4 * (K * D + K + N * D), 0),
+            **cost_bound("gather_rows_backward",
+                         costs.gather_rows_backward(K, N, 4 * D, 4)),
             "library_ms": library_ms}
 
 
@@ -3512,7 +3482,7 @@ def check_moe(torch, timer) -> dict:
 
     from repro_torch.arch import layers as L
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.gather_batch import (backward_geometry,
                                                   gather_rows,
                                                   gather_rows_backward)
@@ -3630,8 +3600,9 @@ def check_moe(torch, timer) -> dict:
                    "library_ms": timer(lambda: torch.zeros(
                        (n_src, D), device="cuda").index_add_(0, idx_long,
                                                              dout)),
-                   **bound(f"gather_rows_backward {part}",
-                           (K + n_src) * D * 4 + K * 4, 0)}
+                   **cost_bound(f"gather_rows_backward {part}",
+                                costs.gather_rows_backward(K, n_src, D * 4,
+                                                           4))}
             bits = torch.equal(gather_rows_backward(dout, idx, n_src).cpu(),
                                ref.gather_rows_bwd_ref(dout.cpu(), idx.cpu(),
                                                        n_src))
@@ -3806,7 +3777,7 @@ def check_cross_attention(torch, timer) -> dict:
     its plain version within 1e-4, then timed cold beside
     ``scaled_dot_product_attention`` with K/V expanded (a yardstick).
     Returns {"forward": ..., "backward": ...}, each with its bound."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_forward)
 
@@ -3821,15 +3792,13 @@ def check_cross_attention(torch, timer) -> dict:
         qt = q.transpose(1, 2).contiguous().requires_grad_(True)
         kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
                   .contiguous().requires_grad_(True) for t in (k, v))
-        pairs = B * H * Sq * Skv
         if part == "forward":
             o = flash_attention_forward(q, k, v, False, 0)[0]
             err = rel_err(o, ref.flash_attention_ref(q, k, v, causal=False))
             ms = timer(lambda: flash_attention_forward(q, k, v, False, 0))
             with torch.no_grad():
                 library_ms = timer(lambda: sdpa(qt, kt, vt))
-            nbytes = (2 * B * Sq * H * D + 2 * B * Skv * KV * D) * 4
-            flops = 4 * D * pairs
+            cost = costs.flash_attention(B, Sq, Skv, H, KV, D, False, 0)
         else:
             dout = torch.randn((B, Sq, H, D), generator=g, device="cuda")
             o, lse = flash_attention_forward(q, k, v, False, 0,
@@ -3844,17 +3813,16 @@ def check_cross_attention(torch, timer) -> dict:
             dt = dout.transpose(1, 2).contiguous()
             library_ms = timer(lambda: torch.autograd.grad(
                 ot, (qt, kt, vt), dt, retain_graph=True))
-            nbytes = (4 * B * Sq * H * D + 4 * B * Skv * KV * D
-                      + B * H * Sq) * 4
-            flops = 5 * 2 * D * pairs
+            cost = costs.flash_attention_backward(B, Sq, Skv, H, KV, D,
+                                                  False, 0)
         if not err <= 1e-4:
             fail(f"flash_attention {part} at the vision shape: {err} of "
                  f"the plain version's largest magnitude (bar 1e-4)")
         out[part] = {"shape": f"q ({B}, {Sq}, {H}, {D}), k/v ({B}, {Skv}, "
                               f"{KV}, {D}) float32, non-causal",
                      "rel_err": err, "ms": ms, "library_ms": library_ms,
-                     **bound(f"flash_attention {part} (vision)", nbytes,
-                             flops, "3xTF32 on the tensor cores")}
+                     **cost_bound(f"flash_attention {part} (vision)", cost,
+                                  "3xTF32 on the tensor cores")}
         log(f"flash_attention {part} at the vision shape "
             f"{out[part]['shape']}: {err:.3e} of the plain version's max; "
             f"cold kernel {ms:.4f} ms, scaled_dot_product_attention "
@@ -4038,13 +4006,115 @@ def vision_phase(torch, drive, card: str) -> dict:
     return {"prefill and decode": counts, "train": counts_c}
 
 
+# -- phase 12 -------------------------------------------------------------
+
+
+DRYRUN_BATCH = 2     # the reference's --dynamic default
+
+
+# The plan statistics of ``python -m repro.launch.dryrun --dynamic`` (the
+# JAX package on the CPU at its defaults: width 16, batch 2, seed 0, one
+# rng across the eight workloads); the plans do not depend on the width.
+DRYRUN_FIELDS = ("nodes", "n_steps", "n_arenas", "layout", "n_slice_reads",
+                 "n_gather_reads", "n_broadcast_reads", "n_slice_writes",
+                 "n_scatter_writes", "n_gather_fallback_steps",
+                 "n_pq_planned_batches", "n_pq_erased_batches",
+                 "n_pq_chunks", "pq_skipped", "bucketed", "n_pad_steps",
+                 "n_operands")
+DRYRUN_REFERENCE = {
+    "BiLSTM-Tagger": (124, 43, 4, "pq", 62, 0, 60, 84, 0, 0, 43, 0, 0, "",
+                      False, 0, 206),
+    "LSTM-NMT": (165, 40, 4, "pq", 85, 0, 24, 77, 0, 0, 40, 0, 0, "", False, 0,
+                 186),
+    "TreeLSTM": (111, 10, 4, "pq", 13, 5, 12, 14, 4, 2, 8, 2, 0, "", False, 0,
+                 48),
+    "TreeGRU": (111, 9, 3, "pq", 8, 4, 2, 7, 2, 2, 7, 2, 0, "", False, 0, 23),
+    "MV-RNN": (44, 7, 3, "pq", 9, 4, 8, 13, 0, 1, 6, 1, 0, "", False, 0, 34),
+    "TreeLSTM-2Type": (121, 12, 4, "pq", 15, 16, 4, 18, 3, 4, 8, 4, 0, "",
+                       False, 0, 56),
+    "LatticeLSTM": (173, 48, 4, "pq", 66, 12, 65, 81, 6, 4, 44, 4, 0, "",
+                    False, 0, 230),
+    "LatticeGRU": (86, 29, 3, "pq", 19, 5, 27, 29, 0, 2, 27, 2, 0, "", False,
+                   0, 80),
+}
+
+
+def dryrun_phase(torch, drive, card: str) -> dict:
+    """Phase 12 (module docstring); returns (a)'s launches. (b) is host
+    work alone, so it runs beside (a), in a process of its own that must
+    not so much as initialise CUDA."""
+    import os
+    import tempfile
+
+    from repro_torch.launch import dryrun, report
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "rows.json"
+        code = ("import sys, time\nimport torch\n"
+                "from repro_torch.launch.dryrun import main\n"
+                "t0 = time.perf_counter()\n"
+                f"rc = main(['--all', '--out', {str(out)!r}])\n"
+                "print(f'sweep seconds {time.perf_counter() - t0:.1f}')\n"
+                "sys.exit(3 if torch.cuda.is_initialized() else rc)\n")
+        sweep = subprocess.Popen(
+            [sys.executable, "-c", code], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        try:
+            t0 = time.perf_counter()
+            rows, counts = drive(lambda: dryrun.dryrun_dynamic(
+                model_size=MODEL_SIZE, batch_size=DRYRUN_BATCH, seed=SEED,
+                verbose=False))
+            dyn_s = time.perf_counter() - t0
+            sweep_log, _ = sweep.communicate(timeout=900)
+        finally:
+            if sweep.poll() is None:
+                sweep.kill()
+                sweep.wait()
+        bad = [r for r in rows if not r["ok"]]
+        if bad or len(rows) != 8:
+            fail(f"dryrun --dynamic: {len(rows)} rows, failed {bad}")
+        for r in rows:
+            log(f"dryrun --dynamic {r['workload']}: {r['nodes']} nodes, "
+                f"{r['n_steps']} steps, {r['n_arenas']} arenas "
+                f"({r['layout']} layout), {r['n_slice_reads']} slice / "
+                f"{r['n_gather_reads']} gather reads, "
+                f"{r['n_gather_fallback_steps']} fallback steps, lowering "
+                f"{r['lower_time_s']:.3f} s, {r['n_compiles']} capture "
+                f"{r['compile_time_s']:.3f} s, wall {r['wall_s']} s ({card})")
+            got = tuple(r[k] for k in DRYRUN_FIELDS)
+            want = DRYRUN_REFERENCE[r["workload"]]
+            if got != want:
+                fail(f"dryrun --dynamic {r['workload']}: "
+                     f"{dict(zip(DRYRUN_FIELDS, got))}, the reference's "
+                     f"{dict(zip(DRYRUN_FIELDS, want))}")
+        log(f"dryrun --dynamic: 8 rows ok at model_size={MODEL_SIZE}, batch "
+            f"{DRYRUN_BATCH}, in {dyn_s:.1f} s, each plan's statistics the "
+            f"reference's; launches {counts} ({card})")
+        for line in sweep_log.splitlines():
+            if line.startswith(("[dryrun]", "sweep seconds")):
+                log(line)
+        if sweep.returncode != 0:
+            fail(f"dryrun --all exited {sweep.returncode} (3: it initialised "
+                 f"CUDA):\n{sweep_log[-4000:]}")
+        with open(out) as f:
+            rows = json.load(f)
+    bad = [r for r in rows if not r["ok"]]
+    if len(rows) != 40 or bad:
+        fail(f"dryrun --all: {len(rows)} rows, failed {bad}")
+    log(report.render(rows))
+    log(f"dryrun --all: 40 rows ok on the meta device (16x16 mesh), its "
+        f"process never initialised CUDA; beside (a) on the host of {card}")
+    return counts
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="phases to run after phase 1 (comma-separated); "
-                         "the result lines are printed only for all eleven")
+                         "the result lines are printed only for all twelve")
     ap.add_argument("--workloads", default=",".join(TREES_LATTICES),
                     help="phase 5's workloads (comma-separated)")
     args = ap.parse_args(argv)
@@ -4291,9 +4361,16 @@ def main(argv: list[str] | None = None) -> int:
         on_path("the vision model's training", vision["train"],
                 ("flash_attention", "flash_attention_backward"))
         log(f"vision done: {time.perf_counter() - t0:.1f} s")
+    if 12 in phases:
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        dry_launches = dryrun_phase(torch, drive, card)
+        on_path("dryrun --dynamic", dry_launches, ("gather_rows",))
+        log(f"dryrun done: {time.perf_counter() - t0:.1f} s ({card})")
     log(f"launches by path: {json.dumps(by_path)}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
-    if phases != set(range(1, 12)) or set(workloads) != set(TREES_LATTICES):
+    if phases != set(range(1, 13)) or set(workloads) != set(TREES_LATTICES):
         log(f"partial run (phases {sorted(phases)}, workloads {workloads}): "
             f"no result lines")
         return 0

@@ -30,9 +30,13 @@ from ..kernels.ref import attention_mask
 from .config import ArchConfig
 
 
-def _normal(gen: torch.Generator, shape, scale: float, device):
+def _normal(gen: torch.Generator | None, shape, scale: float, device):
     """fp32 ``N(0, 1) * scale`` drawn on the generator's device, then
-    moved."""
+    moved. On the ``meta`` device nothing is drawn (``gen`` may be None):
+    an empty meta tensor of the shape stands in, so a tree of a model's
+    full size is built without allocating or drawing."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device) * scale).to(device)
 

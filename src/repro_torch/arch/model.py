@@ -35,6 +35,7 @@ from . import layers as L
 from . import ssm as S
 from .config import ArchConfig, LayerSpec
 
+META = torch.device("meta")
 SUPPORTED_MIXERS = ("attn", "cross_attn", "ssm")
 SUPPORTED_FFNS = ("dense", "moe", "none")
 
@@ -82,8 +83,8 @@ class TransformerLM(nn.Module):
 
     # -- parameters ----------------------------------------------------------
 
-    def _init_layer(self, gen, spec: LayerSpec):
-        cfg, dev = self.cfg, self.device
+    def _init_layer(self, gen, spec: LayerSpec, dev: torch.device):
+        cfg = self.cfg
         p: dict[str, Any] = {"norm1": torch.ones((cfg.d_model,), device=dev)}
         if spec.mixer == "attn":
             p["attn"] = L.init_attention(gen, cfg, device=dev)
@@ -104,9 +105,19 @@ class TransformerLM(nn.Module):
         ``gen`` (on its own device) and placed on the model's device. The
         tree has the reference's structure: ``blocks`` holds one dict per
         pattern position, each leaf with a leading repeat axis."""
-        cfg, dev = self.cfg, self.device
+        return self._params(gen, self.device)
+
+    def param_specs(self):
+        """The parameter tree as empty ``meta`` tensors of the reference's
+        structure and shapes (fp32), for the dry-run: nothing is allocated
+        and nothing drawn, whatever the model's size and device."""
+        return self._params(None, META)
+
+    def _params(self, gen, dev: torch.device):
+        cfg = self.cfg
         blocks = tuple(
-            _stack([self._init_layer(gen, spec) for _ in range(cfg.n_repeats)])
+            _stack([self._init_layer(gen, spec, dev)
+                    for _ in range(cfg.n_repeats)])
             for spec in cfg.pattern)
         return {
             "embed": L._normal(gen, (cfg.vocab, cfg.d_model), 0.02, dev),
@@ -191,7 +202,15 @@ class TransformerLM(nn.Module):
 
     def init_cache(self, batch: int, seq_len: int):
         """Zeroed decode caches, one stacked entry per pattern position."""
-        cfg, dev = self.cfg, self.device
+        return self._caches(batch, seq_len, self.device)
+
+    def cache_specs(self, batch: int, seq_len: int):
+        """:meth:`init_cache`'s tree as empty ``meta`` tensors (fp32), for
+        the dry-run: nothing is allocated."""
+        return self._caches(batch, seq_len, META)
+
+    def _caches(self, batch: int, seq_len: int, dev: torch.device):
+        cfg = self.cfg
         T = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
         R = cfg.n_repeats
         caches = []
@@ -202,7 +221,7 @@ class TransformerLM(nn.Module):
                 caches.append({"k": torch.zeros(shape, device=dev),
                                "v": torch.zeros(shape, device=dev)})
             else:
-                c = S.init_ssm_cache(cfg, batch)
+                c = S.init_ssm_cache(cfg, batch, device=META)  # shapes
                 caches.append({k: torch.zeros((R,) + tuple(a.shape),
                                               device=dev)
                                for k, a in c.items()})

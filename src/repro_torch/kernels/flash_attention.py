@@ -16,7 +16,8 @@ the log-sum-exp, and as its backward the kernels of
 ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_backward`).
 Otherwise nothing is saved. For tensors on the CPU the wrappers run the
 plain versions in :mod:`repro_torch.kernels.ref`, which autograd
-differentiates.
+differentiates. On the meta device they take the card's route, each launch
+a plain version standing in for its kernel (:func:`ref.stand_in`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import build, counting, ref
+from . import build, costs, counting, ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
 
@@ -73,8 +74,11 @@ def flash_attention_forward(q, k, v, causal: bool = True, window: int = 0,
     bit for bit. Inputs as :func:`flash_attention`."""
     if window and not causal:
         raise ValueError("flash_attention: a window needs causal=True")
-    if q.device.type == "cpu":
-        with torch.no_grad():
+    if q.device.type in ref.PLAIN_DEVICES:
+        B, Sq, H, D = q.shape
+        Skv, KV = k.shape[1], k.shape[2]
+        with torch.no_grad(), ref.stand_in(lambda: costs.flash_attention(
+                B, Sq, Skv, H, KV, D, causal, window, with_lse)):
             out = ref.flash_attention_ref(q, k, v, causal, window)
             lse = (ref.flash_attention_lse_ref(q, k, causal, window)
                    if with_lse else None)
@@ -114,8 +118,13 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
     read)."""
     if window and not causal:
         raise ValueError("flash_attention: a window needs causal=True")
-    if q.device.type == "cpu":
-        return ref.flash_attention_backward_ref(q, k, v, dout, causal, window)
+    if q.device.type in ref.PLAIN_DEVICES:
+        B, Sq, H, D = q.shape
+        Skv, KV = k.shape[1], k.shape[2]
+        with ref.stand_in(lambda: costs.flash_attention_backward(
+                B, Sq, Skv, H, KV, D, causal, window)):
+            return ref.flash_attention_backward_ref(q, k, v, dout, causal,
+                                                    window)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")

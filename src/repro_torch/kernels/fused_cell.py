@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core.device import Published, capturing
 
-from . import build, counting, guard, ref
+from . import build, costs, counting, guard, ref
 
 BN = 8            # hidden units per cluster (csrc/lstm_cell_tile.cuh)
 KC = 32           # k rows per chunk
@@ -117,8 +117,10 @@ def fused_lstm_cell(xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     alignment beyond the element's own. ``w`` is packed once and the
     packing kept on it (:func:`packed_weights`): a write into ``w.data`` in
     place is not seen."""
-    if xh.device.type == "cpu":
-        return ref.fused_lstm_cell_ref(xh, w, b, c)
+    if xh.device.type in ref.PLAIN_DEVICES:
+        with ref.stand_in(lambda: costs.fused_lstm_cell(
+                xh.shape[0], xh.shape[1], c.shape[1])):
+            return ref.fused_lstm_cell_ref(xh, w, b, c)
     dev = xh.device
     if dev.type != "cuda":
         raise ValueError(f"fused_lstm_cell: unsupported device {dev}")

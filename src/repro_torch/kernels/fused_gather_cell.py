@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build, counting, guard, ref
+from . import build, costs, counting, guard, ref
 from .fused_cell import cell_geometry, packed_weights
 
 
@@ -38,9 +38,11 @@ def fused_gather_lstm_cell(x_src, h_src, c_src, ix, ih, ic, w, b):
     packed once and the packing kept on it
     (:func:`.fused_cell.packed_weights`): a write into ``w.data`` in place
     is not seen."""
-    if x_src.device.type == "cpu":
-        return ref.fused_gather_lstm_cell_ref(x_src, h_src, c_src, ix, ih, ic,
-                                              w, b)
+    if x_src.device.type in ref.PLAIN_DEVICES:
+        with ref.stand_in(lambda: costs.fused_gather_lstm_cell(
+                ix.shape[0], x_src.shape[1], h_src.shape[1])):
+            return ref.fused_gather_lstm_cell_ref(x_src, h_src, c_src, ix,
+                                                  ih, ic, w, b)
     dev = x_src.device
     if dev.type != "cuda":
         raise ValueError(f"fused_gather_lstm_cell: unsupported device {dev}")

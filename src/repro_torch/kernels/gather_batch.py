@@ -7,7 +7,9 @@ index vectors are runtime data), its rows are copied into a contiguous
 buffer before the batched cell runs. On the card that copy is the
 hand-written kernel in ``csrc/gather_rows.cu``, launched with the geometry
 of :func:`gather_geometry`; for a tensor on the CPU the wrapper runs the
-plain version in :mod:`repro_torch.kernels.ref`.
+plain version in :mod:`repro_torch.kernels.ref`, and on the meta device it
+takes the card's route, each launch a plain version standing in for its
+kernel (:func:`ref.stand_in`).
 
 When autograd records the call (grad mode on and a ``src`` that requires
 grad), the wrapper runs :class:`GatherRowsFunction`, whose backward is the
@@ -26,7 +28,7 @@ from collections import Counter
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import build, counting, ref
+from . import build, costs, counting, ref
 
 
 THREADS = 256          # at most, per block (csrc/gather_rows.cu)
@@ -123,7 +125,13 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The forward kernel's launch, recording nothing for autograd."""
+    """The forward kernel's launch, recording nothing for autograd (on
+    meta the plain version in its place)."""
+    if src.device.type in ref.PLAIN_DEVICES:
+        with ref.stand_in(lambda: costs.gather_rows(
+                idx.shape[0], math.prod(src.shape[1:]) * src.element_size(),
+                idx.element_size())):
+            return ref.gather_rows_ref(src, idx)
     if src.device.type != "cuda":
         raise ValueError(f"gather_rows: unsupported device {src.device}")
     if idx.device != src.device:
@@ -169,8 +177,12 @@ def gather_rows_backward(dout: torch.Tensor, idx: torch.Tensor,
     in ``gather_rows_backward.shapes``; float32 only, ``dout`` copied
     contiguous where it is not. On the CPU the plain version
     (:func:`ref.gather_rows_bwd_ref`)."""
-    if dout.device.type == "cpu":
-        return ref.gather_rows_bwd_ref(dout, idx, n_rows)
+    if dout.device.type in ref.PLAIN_DEVICES:
+        with ref.stand_in(lambda: costs.gather_rows_backward(
+                idx.shape[0], n_rows,
+                math.prod(dout.shape[1:]) * dout.element_size(),
+                idx.element_size())):
+            return ref.gather_rows_bwd_ref(dout, idx, n_rows)
     dev = dout.device
     if dev.type != "cuda":
         raise ValueError(f"gather_rows backward: unsupported device {dev}")

@@ -1,7 +1,12 @@
 """Plain PyTorch versions of the port's hand-written kernels.
 
 Each wrapper in this package calls its plain version for a tensor on the
-CPU; on the card the kernel runs, and these are what it is held against.
+CPU or on the ``meta`` device (where the dry-run traces shapes, FLOPs and
+bytes with nothing allocated: a meta tensor cannot be launched on); on the
+card the kernel runs, and these are what it is held against. On meta a
+wrapper takes the card's route (its autograd function where autograd
+records) and the plain version stands in for each launch under
+:func:`stand_in`, so the dry-run counts the kernels' work.
 ``ssd_scan_seq_ref`` is not a kernel's plain version: it is the sequential
 recurrence the tests hold the chunked scan against. The two backward kernels'
 plain versions (``gather_rows_bwd_ref``, ``ssd_scan_bwd_ref``) are written
@@ -11,7 +16,36 @@ against autograd of the forward's plain version.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+# The devices whose tensors take the plain versions. A CUDA tensor reaches
+# only the kernels: nothing turns to a plain version when a build or a
+# launch fails.
+PLAIN_DEVICES = ("cpu", "meta")
+
+# The dry-run's step counter (``launch/dryrun.py:StepCounter``) while it
+# counts a traced step, else None.
+RECKONER = None
+
+
+@contextlib.contextmanager
+def stand_in(cost):
+    """Run a plain version in its kernel's place. Under the dry-run's step
+    counter the kernel's own work, ``cost()`` = ``(flops, bytes)``
+    (:mod:`.costs`), is counted and the plain version's ops are not;
+    otherwise this does nothing."""
+    counter = RECKONER
+    if counter is None or counter.muted:
+        yield
+        return
+    counter.add(*cost())
+    counter.muted = True
+    try:
+        yield
+    finally:
+        counter.muted = False
 
 
 def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -24,8 +58,10 @@ def gather_rows_bwd_ref(dout: torch.Tensor, idx: torch.Tensor,
     ``dsrc`` (n_rows, *row) of ``dout``'s dtype, row ``r`` the sum of the
     ``dout[k]`` whose ``idx[k]`` means ``r`` (a negative index counts from
     the end, as in ``src[idx]``), zero where no index means it. On the CPU
-    the sum runs in ascending ``k``."""
-    if idx.numel() and not bool(((idx >= -n_rows) & (idx < n_rows)).all()):
+    the sum runs in ascending ``k``. A meta ``idx`` holds no values, so
+    its bounds are not checked."""
+    if idx.numel() and idx.device.type != "meta" and \
+            not bool(((idx >= -n_rows) & (idx < n_rows)).all()):
         raise IndexError(f"gather_rows backward: an index is outside "
                          f"[-{n_rows}, {n_rows})")
     rows = torch.where(idx < 0, idx + n_rows, idx).long()

@@ -15,7 +15,9 @@ chunks' start states where any can be nonzero (more than one chunk, or an
 initial state), and as its backward the kernels of
 ``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_backward`). Otherwise nothing is
 saved. For tensors on the CPU the wrappers run the plain versions in
-:mod:`repro_torch.kernels.ref`, which autograd differentiates.
+:mod:`repro_torch.kernels.ref`, which autograd differentiates. On the meta
+device they take the card's route, each launch a plain version standing in
+for its kernel (:func:`ref.stand_in`).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import build, counting, ref
+from . import build, costs, counting, ref
 
 MAX_CHUNK = 128
 MAX_STATE = 128
@@ -83,8 +85,10 @@ def ssd_scan_forward(x, dt, A, B, C, chunk: int, init_state=None,
     chunk, h, p, n) float32, the first ``init_state`` or zero) when
     ``with_states``, else None. Without them ``y`` and ``final`` are the
     same, bit for bit. Inputs as :func:`ssd_scan`."""
-    if x.device.type == "cpu":
-        with torch.no_grad():
+    if x.device.type in ref.PLAIN_DEVICES:
+        with torch.no_grad(), ref.stand_in(lambda: costs.ssd_scan(
+                *x.shape, *B.shape[2:], chunk, init_state is not None,
+                with_states)):
             y, final = ref.ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
             states = (ref.ssd_chunk_states(x, dt, A, B, chunk, init_state)
                       if with_states else None)
@@ -127,9 +131,12 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
     with the head dim at most 64; ``dy`` and ``dfinal`` in
     another layout are copied contiguous first. The gradients are dense.
     On the CPU the plain version (:func:`ref.ssd_scan_bwd_ref`)."""
-    if x.device.type == "cpu":
-        return ref.ssd_scan_bwd_ref(x, dt, A, B, C, chunk, init_state, dy,
-                                    dfinal, states)
+    if x.device.type in ref.PLAIN_DEVICES:
+        with ref.stand_in(lambda: costs.ssd_scan_backward(
+                *x.shape, *B.shape[2:], chunk, init_state is not None,
+                dfinal is not None, states is not None)):
+            return ref.ssd_scan_bwd_ref(x, dt, A, B, C, chunk, init_state,
+                                        dy, dfinal, states)
     b, l, h, p, g, n = _check(x, dt, A, B, C, chunk, init_state)
     dev = x.device
     if p > MAX_HEAD_DIM_BACKWARD:

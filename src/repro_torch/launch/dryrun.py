@@ -1,0 +1,440 @@
+"""Dry-run: the dynamic workloads' plans built and run once on the card,
+and every (architecture x input shape) step reckoned on the production
+mesh without running it.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --dynamic [--device cpu] [--out r.json]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--out r.json]
+
+``--dynamic`` (:func:`dryrun_dynamic`) builds each Table-1 workload's
+per-topology plan on ``--device`` (default the card), runs it once (on
+the card: lowered, captured as a CUDA graph and replayed) and reports its
+``PlanStats``. The arch sweep (:func:`dryrun_one`) builds the model, its
+parameters, the AdamW state, the inputs and the decode caches as empty
+tensors on the ``meta`` device at full width and depth, so nothing is
+allocated, and traces the step once: the forward, and for a training shape
+also the loss, the backward and the functional AdamW. The kernel wrappers
+take the card's route on meta, a plain version standing in for each
+launch (``kernels/ref.py:stand_in``). Where the reference lowers and
+compiles on 256 or 512 placeholder host devices, the mesh here is a shape
+(``launch/mesh.py:ShapeMesh``), and each row's fields count:
+
+- ``arg_bytes``: exact. One device's shard bytes of every argument of the
+  step (parameters, the AdamW moments and ``step``, the inputs, the
+  caches), from the ``Partitioner``'s specs and the port's dtypes. The
+  port is fp32 only, so float leaves are twice the reference's bf16.
+- ``hlo_flops``: each kernel launch's own FLOPs (``kernels/costs.py``, as
+  ``chip_smoke.py``'s bounds count them: flash attention over the causal
+  pairs only) plus, for the ops outside the kernels, what
+  ``torch.utils.flop_counter`` counts (matmuls, convolutions; no
+  elementwise work), divided by the chips, an even split: work replicated
+  on every device is undercounted.
+- ``hlo_bytes``: each kernel launch's inputs read and outputs written
+  once, plus every other dispatched aten op's tensor input and output
+  bytes (views and metadata ops zero), divided by the chips: an upper
+  bound with no fusion outside the kernels.
+- ``model_flops``: 6 (training) or 2 times the active parameters times
+  the tokens (``launch/roofline.py``).
+- ``temp_bytes``, ``output_bytes``, ``peak_bytes`` and ``coll_bytes``:
+  None. XLA's memory analysis and its collectives have no counterpart here.
+
+``compile_s`` is the row's seconds (building the tree and the trace). The
+reference's ``--seq-parallel`` and ``--layer-remat`` change only sharding
+constraints and XLA's rematerialisation, which the port reckons neither,
+so the command refuses them. Importing this module changes no
+environment.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+import time
+import traceback
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import FlopCounterMode
+
+from ..arch.model import TransformerLM
+from ..configs import ARCHS, get_config
+from ..core.device import resolve_device
+from ..kernels import ref
+from ..train.optimizer import (AdamWConfig, adamw_update, init_opt_state,
+                               leaves, unflatten)
+from .mesh import make_production_mesh
+from .roofline import Roofline, model_flops
+from .sharding import P, Partitioner
+
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+SLIDING_WINDOW_500K = 8192  # sub-quadratic variant for full-attention archs
+
+META = torch.device("meta")
+
+# ops that move no data: their outputs alias their inputs (views, by the
+# schema) or are uninitialised, or they read only metadata
+_NO_DATA = {torch.ops.aten.empty, torch.ops.aten.empty_like,
+            torch.ops.aten.empty_strided, torch.ops.aten.new_empty,
+            torch.ops.aten.new_empty_strided, torch.ops.aten.lift_fresh,
+            torch.ops.aten.sym_size, torch.ops.aten.sym_stride,
+            torch.ops.aten.sym_numel, torch.ops.aten.sym_storage_offset,
+            torch.ops.aten.is_same_size}
+
+
+def _tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+class StepCounter(TorchDispatchMode):
+    """Counts a traced step's ``flops`` and ``bytes``. A kernel launch adds
+    its own work (:meth:`add`, called by ``kernels/ref.py:stand_in``) and
+    the ops of the plain version standing in for it are not counted
+    (``muted``). Every other dispatched aten op adds its tensor inputs' and
+    outputs' bytes (views and metadata ops zero: the bytes an unfused run
+    would move) and the FLOPs ``torch.utils.flop_counter``'s formulas give
+    it; an op without a formula is decomposed where it can be, as
+    ``FlopCounterMode`` does."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = self.bytes = 0
+        self.muted = False
+        self.formulas = FlopCounterMode(display=False).flop_registry
+
+    def add(self, flops: int, nbytes: int) -> None:
+        self.flops += flops
+        self.bytes += nbytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if self.muted:
+            return func(*args, **kwargs)
+        packet = func.overloadpacket
+        if packet not in self.formulas:
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        out = func(*args, **kwargs)
+        if packet in self.formulas:
+            self.flops += self.formulas[packet](*args, **kwargs, out_val=out)
+        if not func.is_view and packet not in _NO_DATA:
+            self.bytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
+        return out
+
+
+def trace_counts(fn, *args) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call of ``fn(*args)``, as
+    :class:`StepCounter` counts them (all devices' work: nothing is
+    divided)."""
+    counter = StepCounter()
+    outer, ref.RECKONER = ref.RECKONER, counter
+    try:
+        with counter:
+            fn(*args)
+    finally:
+        ref.RECKONER = outer
+    return counter.flops, counter.bytes
+
+
+def resolve_config(arch: str, shape: str):
+    cfg = get_config(arch)
+    note = ""
+    if shape == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        cfg = cfg.with_sliding_window(SLIDING_WINDOW_500K)
+        note = f"(SW{SLIDING_WINDOW_500K})"
+    return cfg, note
+
+
+def _meta(shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def input_specs(arch: str, shape: str, model: TransformerLM,
+                part: Partitioner):
+    """Empty meta stand-ins and shardings for every model input (int32
+    tokens and positions, as the reference's)."""
+    cfg = model.cfg
+    info = SHAPES[shape]
+    B, S = info["batch"], info["seq"]
+    i32 = torch.int32
+    tok_sharding = part.named(part.token_spec(B))
+    if info["kind"] in ("train", "prefill"):
+        specs = {"tokens": _meta((B, S), i32)}
+        shardings = {"tokens": tok_sharding}
+        if info["kind"] == "train":
+            specs["labels"] = _meta((B, S), i32)
+            shardings["labels"] = tok_sharding
+        if cfg.n_image_tokens:
+            specs["image_embeds"] = _meta((B, cfg.n_image_tokens,
+                                           cfg.d_model))
+            shardings["image_embeds"] = part.named(
+                P(part.batch_spec(B) or None, None, None))
+        return specs, shardings
+    # decode
+    caches = model.cache_specs(B, S)
+    specs = {"token": _meta((B,), i32), "caches": caches,
+             "pos": _meta((), i32)}
+    shardings = {
+        "token": part.named(P(part.batch_spec(B) or None)),
+        "caches": part.to_shardings(part.cache_specs(caches, B)),
+        "pos": part.named(P()),
+    }
+    return specs, shardings
+
+
+def _value_and_grad(model: TransformerLM, params, batch):
+    """``(loss, grads)`` of ``model.loss`` at ``params``, as
+    ``jax.value_and_grad``."""
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    with torch.enable_grad():
+        loss = model.loss(unflatten(params, flat), batch)
+        grads = torch.autograd.grad(loss, flat)
+    return loss.detach(), unflatten(params, list(grads))
+
+
+def build_step(arch: str, shape: str, model: TransformerLM,
+               part: Partitioner, grad_accum: int = 1):
+    """Returns ``(fn, args, arg_shardings)``: the step and its arguments
+    as meta tensors, with one ``Sharding`` per argument leaf in the same
+    tree structure."""
+    kind = SHAPES[shape]["kind"]
+    param_tree = model.param_specs()
+    param_shardings = part.param_shardings(param_tree)
+    in_specs, in_shardings = input_specs(arch, shape, model, part)
+
+    if kind == "train":
+        opt_cfg = AdamWConfig()
+        opt_state = init_opt_state(param_tree)
+        opt_shardings = part.to_shardings(part.opt_specs(param_tree))
+
+        def train_step(params, opt_state, batch):
+            if grad_accum > 1:
+                gsum, lsum = None, 0.0
+                for i in range(grad_accum):
+                    mb = {k: v.reshape((grad_accum, v.shape[0] // grad_accum)
+                                       + tuple(v.shape[1:]))[i]
+                          for k, v in batch.items()}
+                    loss, g = _value_and_grad(model, params, mb)
+                    g = leaves(g)
+                    gsum = g if gsum is None else [
+                        a + b for a, b in zip(gsum, g)]
+                    lsum = lsum + loss
+                grads = unflatten(params, [g / grad_accum for g in gsum])
+                loss = lsum / grad_accum
+            else:
+                loss, grads = _value_and_grad(model, params, batch)
+            params, opt_state, _ = adamw_update(opt_cfg, params, grads,
+                                                opt_state)
+            return params, opt_state, loss
+
+        return (train_step, (param_tree, opt_state, in_specs),
+                (param_shardings, opt_shardings, in_shardings))
+
+    if kind == "prefill":
+        def prefill_step(params, batch):
+            return model.prefill(params, batch["tokens"],
+                                 batch.get("image_embeds"))
+
+        return (prefill_step, (param_tree, in_specs),
+                (param_shardings, in_shardings))
+
+    def serve_step(params, token, caches, pos):
+        return model.decode_step(params, token, caches, pos)
+
+    return (serve_step, (param_tree, in_specs["token"], in_specs["caches"],
+                         in_specs["pos"]),
+            (param_shardings, in_shardings["token"], in_shardings["caches"],
+             in_shardings["pos"]))
+
+
+def arg_bytes(args, shardings) -> int:
+    """One device's bytes of every argument leaf: its shard's elements
+    times its element size."""
+    total = 0
+    for t, sh in zip(leaves(args), leaves(shardings), strict=True):
+        total += math.prod(sh.shard_shape(tuple(t.shape))) * t.element_size()
+    return total
+
+
+def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
+               verbose: bool = True, fsdp: bool = False, grad_accum: int = 1,
+               no_tp: bool = False) -> dict:
+    """Reckon one (arch, shape) step on the 16x16 (or 2x16x16) mesh on the
+    meta device; a row of the reference's keys (module docstring)."""
+    t0 = time.time()
+    cfg, note = resolve_config(arch, shape)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    part = Partitioner(mesh, cfg, fsdp=fsdp)
+    part.no_tp = no_tp
+    model = TransformerLM(cfg, device=META)
+    note += (("+fsdp" if fsdp else "")
+             + (f"+ga{grad_accum}" if grad_accum > 1 else "")
+             + ("+notp" if no_tp else ""))
+    fn, args, shardings = build_step(arch, shape, model, part, grad_accum)
+    n_arg_bytes = arg_bytes(args, shardings)
+    flops, nbytes = trace_counts(fn, *args)
+    info = SHAPES[shape]
+    tokens = info["batch"] * (info["seq"] if info["kind"] != "decode" else 1)
+    chips = int(mesh.devices.size)
+    rl = Roofline(
+        arch=arch, shape=shape + note,
+        mesh="x".join(map(str, mesh.devices.shape)), chips=chips,
+        hlo_flops=flops / chips,
+        hlo_bytes=nbytes / chips,
+        coll_bytes=None,
+        model_flops=model_flops(cfg, args[0], shape, tokens),
+        bytes_per_device=float(n_arg_bytes),
+    )
+    row = rl.row()
+    row.update({
+        "ok": True,
+        "compile_s": round(time.time() - t0, 1),
+        "temp_bytes": None,
+        "arg_bytes": n_arg_bytes,
+        "output_bytes": None,
+        "peak_bytes": None,
+        "hlo_bytes": rl.hlo_bytes,
+        "coll_bytes": None,
+    })
+    if verbose:
+        print(f"[dryrun] {arch} x {shape}{note} on {row['mesh']}: OK "
+              f"compute {rl.t_compute*1e3:.2f}ms memory "
+              f"{rl.t_memory*1e3:.2f}ms collective - -> {rl.dominant}-bound; "
+              f"useful {rl.useful_ratio:.2f}; args/dev "
+              f"{n_arg_bytes / 2**30:.2f}GiB ({row['compile_s']}s trace)",
+              flush=True)
+    return row
+
+
+def dryrun_dynamic(workloads=None, model_size: int = 16, batch_size: int = 2,
+                   seed: int = 0, verbose: bool = True,
+                   device=None) -> list[dict]:
+    """Build the dynamic workloads' per-topology plans (core/plan.py) on
+    ``device`` (None: the card) and report the lowering outcome per
+    workload: step/arena counts, how many operands became contiguous
+    slices vs gather fallbacks, and the lowering time. Each plan runs
+    once: on the card it is lowered, captured as a CUDA graph and
+    replayed, so ``n_compiles`` and ``compile_time_s`` count captures and
+    their seconds (on the CPU, the eager build). The dynamic-graph
+    counterpart of the static arch sweep."""
+    import random
+
+    from ..core.batching import SufficientConditionPolicy
+    from ..core.plan import PlanExecutor
+    from ..models.workloads import WORKLOADS, make_workload
+
+    device = resolve_device(device)
+    rng = random.Random(seed)
+    rows = []
+    for name in workloads or WORKLOADS:
+        t0 = time.time()
+        try:
+            wl = make_workload(name, model_size, seed, layout="planned",
+                               device=device)
+            g = wl.sample_graph(rng, batch_size)
+            ex = PlanExecutor(wl.impls, None, device=device)
+            policy = SufficientConditionPolicy()
+            ex.run(g, policy)            # lower + capture + one replay
+            stats = ex.plan_for(g, policy).stats
+            row = {"workload": name, "ok": True, "nodes": len(g),
+                   "wall_s": round(time.time() - t0, 2), **stats.as_dict()}
+        except Exception as e:  # noqa: BLE001 — report and continue
+            traceback.print_exc()
+            row = {"workload": name, "ok": False, "error": str(e)[:500]}
+        rows.append(row)
+        if verbose and row["ok"]:
+            print(f"[dryrun-dynamic] {name}: {row['n_steps']} steps -> 1 "
+                  f"dispatch, {row['n_arenas']} arenas ({row['layout']} "
+                  f"layout), {row['n_slice_reads']} slice / "
+                  f"{row['n_gather_reads']} gather reads, "
+                  f"{row['n_gather_fallback_steps']} fallback steps, "
+                  f"compile {row['compile_time_s']:.2f}s", flush=True)
+    return rows
+
+
+def _write(path: str, rows: list[dict], failures: int) -> None:
+    with open(path, "w") as f:
+        json.dump(rows, f, indent=1, default=str)
+    print(f"wrote {path} ({len(rows)} rows, {failures} failures)")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCHS)
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--dynamic", action="store_true",
+                    help="build the dynamic-workload execution plans "
+                         "instead of the static arch x shape sweep")
+    ap.add_argument("--device", default="cuda",
+                    help="--dynamic's device (the arch sweep runs on meta)")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="refused: changes only sharding constraints")
+    ap.add_argument("--layer-remat", action="store_true",
+                    help="refused: changes only XLA's rematerialisation")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="ZeRO-3 parameter sharding over data (perf variant)")
+    ap.add_argument("--grad-accum", type=int, default=1,
+                    help="microbatch gradient accumulation (perf variant)")
+    ap.add_argument("--no-tp", action="store_true",
+                    help="replicate params; model axis = seq-data parallel")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+    for flag, name in ((args.seq_parallel, "--seq-parallel"),
+                       (args.layer_remat, "--layer-remat")):
+        if flag:
+            ap.error(f"{name} changes only sharding constraints and XLA's "
+                     f"rematerialisation, which the port's dry-run does not "
+                     f"reckon")
+
+    if args.dynamic:
+        rows = dryrun_dynamic(device=args.device)
+        failures = sum(1 for r in rows if not r["ok"])
+        if args.out:
+            _write(args.out, rows, failures)
+        return 1 if failures else 0
+
+    if args.all:
+        combos = [(a, s) for a in ARCHS for s in SHAPES]
+    elif args.arch and args.shape:
+        combos = [(args.arch, args.shape)]
+    else:
+        ap.error("need --all or both --arch and --shape")
+
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+    rows = []
+    failures = 0
+    for arch, shape in combos:
+        for mp in meshes:
+            try:
+                rows.append(dryrun_one(arch, shape, multi_pod=mp,
+                                       fsdp=args.fsdp,
+                                       grad_accum=args.grad_accum,
+                                       no_tp=args.no_tp))
+            except Exception as e:  # noqa: BLE001 — report and continue
+                failures += 1
+                traceback.print_exc()
+                rows.append({"arch": arch, "shape": shape,
+                             "mesh": "2x16x16" if mp else "16x16",
+                             "ok": False, "error": str(e)[:500]})
+    if args.out:
+        _write(args.out, rows, failures)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

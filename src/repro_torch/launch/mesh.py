@@ -1,4 +1,5 @@
-"""The serve engine's data mesh: K data-parallel replicas on one card.
+"""Meshes: the serve engine's data mesh of K replicas on one card, and
+the production training meshes as shapes.
 
 ``make_data_mesh(k)`` is the data-mesh half of the reference's
 ``launch/mesh.py``: a 1-D ``("data",)`` mesh of ``k`` replicas, the mesh
@@ -15,8 +16,15 @@ ids, so the engine's ``excluded_devices`` (and the checkpoint field that
 carries them) mean what they mean in the reference. Ids are not bounded by
 the number of cards.
 
-Placing replicas on several cards (one process per card) and the training
-meshes (``device_mesh``, ``make_production_mesh``) are not here.
+The production meshes (``make_production_mesh``): single pod 16 x 16 =
+256 devices, axes ("data", "model"); multi-pod 2 x 16 x 16 = 512, axes
+("pod", "data", "model"), the "pod" axis pure data parallelism across
+pods. One card cannot hold them, so :func:`device_mesh` builds a
+:class:`ShapeMesh` of placeholder ids, the counterpart of the reference's
+forced host devices: the dry-run (``launch/dryrun.py``) and the
+``Partitioner`` (``launch/sharding.py``) read only its shape and axis
+names. Placing replicas on several cards (one process per card) is not
+here.
 """
 
 from __future__ import annotations
@@ -69,3 +77,51 @@ def make_data_mesh(n_devices: int | None = None, *, axis: str = "data",
             alive.append(i)
         i += 1
     return DataMesh(tuple(alive), axis, resolve_device(device))
+
+
+@dataclass(frozen=True)
+class ShapeMesh:
+    """A mesh as shapes only: ``axis_names`` in order, ``shape`` (axis ->
+    size, in axis order) and ``devices`` (placeholder ids ``0 .. n - 1``
+    in the mesh's shape), what the reference's ``jax.sharding.Mesh``
+    answers to the dry-run and the ``Partitioner``."""
+
+    sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def devices(self) -> np.ndarray:
+        return np.arange(int(np.prod(self.sizes))).reshape(self.sizes)
+
+
+def device_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> ShapeMesh:
+    """A mesh of ``prod(shape)`` placeholder devices with ``axes``."""
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    return ShapeMesh(tuple(int(n) for n in shape), tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return device_mesh(shape, axes)
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The data-parallel axes of a mesh (pod included when present)."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def model_axis_size(mesh) -> int:
+    return mesh.shape["model"]
+
+
+def data_parallel_size(mesh) -> int:
+    out = 1
+    for a in batch_axes(mesh):
+        out *= mesh.shape[a]
+    return out

@@ -1,0 +1,141 @@
+"""Roofline terms of a dry-run step on one NVIDIA H100, per device.
+
+Per (arch x shape x mesh), in seconds:
+
+    compute    = hlo_flops / PEAK_FLOPS     [fp32 on the CUDA cores]
+    memory     = hlo_bytes / HBM_BW         [HBM3]
+    collective = coll_bytes / LINK_BW       [NVLink 4; None: not counted]
+
+What each term counts here (``launch/dryrun.py`` traces the step on the
+``meta`` device, where the reference reads a compiled XLA program):
+
+- ``hlo_flops``: each kernel launch's own FLOPs (``kernels/costs.py``:
+  flash attention over the pairs its mask lets through, not the plain
+  version's full score matrix) plus, for the ops outside the kernels, the
+  FLOPs of ``torch.utils.flop_counter``'s formulas (matmuls and
+  convolutions; XLA counts elementwise work too), divided by the chips:
+  an even split, so work that is replicated on every device is
+  undercounted.
+- ``hlo_bytes``: each kernel launch's inputs read and outputs written
+  once, plus the bytes of every other dispatched aten op's tensor inputs
+  and outputs (views and metadata ops count zero), divided by the chips:
+  an upper bound with no fusion outside the kernels, where XLA's figure
+  is after fusion.
+- ``coll_bytes``: None. The port has no HLO to parse for collectives; the
+  bytes of the ``torch.distributed`` collectives a step issues come with
+  replicas on several cards (ROADMAP Queue 1), so ``t_collective`` is
+  None and ``dominant`` is taken over the terms present.
+
+The peaks are the H100 SXM 80GB's data-sheet figures at its 700 W limit
+(dense, no sparsity). The port's products run in fp32 with TF32 off, so
+``PEAK_FLOPS`` is the CUDA cores' fp32 rate; the tensor cores' TF32 rate
+and the 3xTF32 rate (a third of it: fp32-accurate products from three
+TF32 ones, as the hand kernels compute them) are named beside it. A card
+set below 700 W (``nvidia-smi --query-gpu=power.limit``) runs slower.
+
+MODEL_FLOPS uses 6·N_active·tokens for training and 2·N_active·tokens for
+inference, with N_active the parameters less the inactive experts' share.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..train.optimizer import leaves
+
+PEAK_FLOPS = 67e12        # fp32 FLOP/s on the CUDA cores (H100 SXM)
+PEAK_TF32 = 495e12        # TF32 FLOP/s on the tensor cores, dense
+PEAK_3XTF32 = PEAK_TF32 / 3   # fp32-accurate products as 3xTF32
+HBM_BW = 3.35e12          # HBM3 bytes/s
+LINK_BW = 450e9           # NVLink 4 bytes/s each way (data sheet: 900 GB/s
+                          # bidirectional per GPU)
+
+
+@dataclass
+class Roofline:
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    hlo_flops: float
+    hlo_bytes: float
+    coll_bytes: float | None = None
+    coll_breakdown: dict = field(default_factory=dict)
+    model_flops: float = 0.0
+    bytes_per_device: float = 0.0
+
+    @property
+    def t_compute(self) -> float:
+        return self.hlo_flops / PEAK_FLOPS
+
+    @property
+    def t_memory(self) -> float:
+        return self.hlo_bytes / HBM_BW
+
+    @property
+    def t_collective(self) -> float | None:
+        return None if self.coll_bytes is None else self.coll_bytes / LINK_BW
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        terms = {k: v for k, v in terms.items() if v is not None}
+        return max(terms, key=terms.get)
+
+    @property
+    def useful_ratio(self) -> float:
+        total = self.hlo_flops * self.chips
+        return self.model_flops / total if total else 0.0
+
+    def row(self) -> dict:
+        return {
+            "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
+            "t_compute_s": self.t_compute, "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective, "dominant": self.dominant,
+            "model_flops": self.model_flops, "hlo_flops": self.hlo_flops,
+            "useful_ratio": self.useful_ratio,
+            "bytes_per_device": self.bytes_per_device,
+            "coll_breakdown": self.coll_breakdown,
+        }
+
+
+def count_params(spec_tree) -> int:
+    return sum(int(np.prod(l.shape)) for l in leaves(spec_tree))
+
+
+def count_active_params(spec_tree, cfg) -> int:
+    """Total minus the inactive expert fraction (6·N_active·D convention)."""
+    total = 0
+    expert = 0
+
+    def walk(tree):
+        nonlocal total, expert
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                if k in ("w_gate", "w_up", "w_down") and hasattr(v, "shape") \
+                        and len(v.shape) >= 4:
+                    expert += int(np.prod(v.shape))
+                    total += int(np.prod(v.shape))
+                else:
+                    walk(v)
+        elif isinstance(tree, (tuple, list)):
+            for v in tree:
+                walk(v)
+        elif hasattr(tree, "shape"):
+            total += int(np.prod(tree.shape))
+
+    walk(spec_tree)
+    if cfg.n_experts:
+        frac = cfg.experts_per_token / cfg.n_experts
+        return int(total - expert * (1 - frac))
+    return total
+
+
+def model_flops(cfg, spec_tree, shape_name: str, tokens: int) -> float:
+    n_active = count_active_params(spec_tree, cfg)
+    if shape_name.startswith("train"):
+        return 6.0 * n_active * tokens
+    return 2.0 * n_active * tokens

@@ -2733,3 +2733,39 @@ def test_vision_prefill_and_decode_on_the_card_match_the_cpu(cuda):
             assert flash_wrapper.launches == before + cfg.n_layers
     for a, b in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_tensors_reach_the_kernels_and_meta_ones_do_not(cuda):
+    """The plain versions are taken on the CPU and the meta device only:
+    the same call on CUDA tensors launches the kernel (its counter rises
+    by one), on meta tensors it does not."""
+    from repro_torch.kernels.gather_batch import gather_rows_backward
+
+    def calls(dev):
+        def m(*shape, dtype=torch.float32):
+            return torch.randn(shape, device=dev).to(dtype) \
+                if dtype.is_floating_point else \
+                torch.zeros(shape, dtype=dtype, device=dev)
+
+        idx = m(7, dtype=torch.int32)
+        q, kv = m(2, 24, 8, 16), m(2, 24, 2, 16)
+        x, dt, A, BC = m(2, 32, 4, 16), m(2, 32, 4), m(4), m(2, 32, 1, 16)
+        i3 = m(3, dtype=torch.int32)
+        return [(gather_rows, lambda: gather_rows(m(50, 12), idx)),
+                (gather_rows_backward,
+                 lambda: gather_rows_backward(m(7, 12), idx, 50)),
+                (flash_attention, lambda: flash_attention(q, kv, kv)),
+                (ssd_scan, lambda: ssd_scan(x, dt.abs(), -A.abs(), BC, BC,
+                                            16)),
+                (fused_lstm_cell, lambda: fused_lstm_cell(
+                    m(3, 40), m(40, 64), m(64), m(3, 16))),
+                (fused_gather_lstm_cell, lambda: fused_gather_lstm_cell(
+                    m(9, 24), m(5, 16), m(5, 16), i3, i3, i3, m(40, 64),
+                    m(64)))]
+
+    for dev, rise in ((cuda, 1), (torch.device("meta"), 0)):
+        for wrapper, call in calls(dev):
+            before = wrapper.launches
+            call()
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + rise, (wrapper, dev)

@@ -1,0 +1,229 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) against the
+reference's ``repro.launch.dryrun``.
+
+``--dynamic`` builds each workload's plan on the CPU here; its host
+statistics (steps, arenas, layout, every read and write count, fallback
+steps, the PQ counts) must equal the reference's on the same seed. Batch
+sizes are 2 for the chains and MV-RNN (16 gather reads), 1 for the other
+trees and the lattices, whose joint PQ planning at 2 takes 10-80 s a
+package (TreeLSTM-2Type still gathers 8 operands at 1).
+
+The arch sweep traces every (configuration x shape) step on the meta
+device: each row must be ``ok``, its ``model_flops`` the reference's
+formula on the reference's parameter shapes, and its ``arg_bytes`` one
+device's shard bytes of the reference's arguments at fp32, from the
+reference's ``Partitioner`` specs. A tiny dense model's counted forward
+FLOPs must equal the hand count of its matmuls, attention counted as the
+flash kernel computes it (over the causal pairs)."""
+
+import importlib.util
+import json
+import math
+import os
+import types
+from pathlib import Path
+
+import jax
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.arch.model import TransformerLM as RefLM  # noqa: E402
+from repro.configs import ARCHS  # noqa: E402
+from repro.launch import roofline as ref_roofline  # noqa: E402
+from repro.launch import sharding as ref_sharding  # noqa: E402
+from repro_torch.arch.model import TransformerLM  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.models.workloads import WORKLOADS  # noqa: E402
+
+
+def _reference_dryrun():
+    """``repro.launch.dryrun`` without the 512 host devices its import asks
+    for (``XLA_FLAGS`` restored)."""
+    saved = os.environ.get("XLA_FLAGS")
+    import repro.launch.dryrun as ref_dryrun
+    if saved is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = saved
+    return ref_dryrun
+
+
+REF = _reference_dryrun()
+
+# workload -> minibatch size of its case
+DYNAMIC_BATCH = {"BiLSTM-Tagger": 2, "LSTM-NMT": 2, "MV-RNN": 2,
+                 "TreeGRU": 1, "TreeLSTM": 1, "TreeLSTM-2Type": 1,
+                 "LatticeLSTM": 1, "LatticeGRU": 1}
+TIMES = ("wall_s", "lower_time_s", "compile_time_s", "n_compiles")
+
+
+@pytest.mark.parametrize("name", list(DYNAMIC_BATCH))
+def test_dynamic_rows_equal_the_reference(name):
+    bs = DYNAMIC_BATCH[name]
+    got, = dryrun.dryrun_dynamic([name], batch_size=bs, verbose=False,
+                                 device="cpu")
+    want, = REF.dryrun_dynamic([name], batch_size=bs, verbose=False)
+    assert got["ok"], got
+    assert set(got) == set(want)
+    assert {k: v for k, v in got.items() if k not in TIMES} == \
+        {k: v for k, v in want.items() if k not in TIMES}
+
+
+def test_chip_smokes_reference_rows_are_the_dynamic_rows():
+    """``chip_smoke.py`` phase 12 holds the card's eight rows to the JAX
+    package's ``--dynamic`` rows at its defaults (``DRYRUN_REFERENCE``).
+    The first two workloads' plans take seconds: their rows here, one rng
+    across both as there, must be those."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert list(smoke.DRYRUN_REFERENCE) == list(WORKLOADS)
+    rows = dryrun.dryrun_dynamic(list(WORKLOADS)[:2], verbose=False,
+                                 device="cpu")
+    for row in rows:
+        assert tuple(row[k] for k in smoke.DRYRUN_FIELDS) == \
+            smoke.DRYRUN_REFERENCE[row["workload"]]
+    assert set(smoke.DRYRUN_FIELDS) == set(rows[0]) - set(TIMES) - {
+        "workload", "ok"}
+
+
+def test_dynamic_reports_a_failed_workload_as_a_row():
+    rows = dryrun.dryrun_dynamic(["no-such-workload"], verbose=False,
+                                 device="cpu")
+    assert rows == [{"workload": "no-such-workload", "ok": False,
+                     "error": "no-such-workload"}]
+
+
+@pytest.fixture(scope="module")
+def sweep(tmp_path_factory):
+    """``--all`` through the command, once: 40 rows on the 16x16 mesh."""
+    out = tmp_path_factory.mktemp("dryrun") / "rows.json"
+    rc = dryrun.main(["--all", "--out", str(out)])
+    with open(out) as f:
+        rows = json.load(f)
+    return rc, {(r["arch"], r["shape"].split("(")[0]): r for r in rows}
+
+
+def test_all_exits_zero_with_every_row_ok(sweep):
+    rc, rows = sweep
+    assert rc == 0
+    assert sorted(rows) == sorted((a, s) for a in ARCHS for s in dryrun.SHAPES)
+    assert all(r["ok"] and r["mesh"] == "16x16" for r in rows.values())
+
+
+def _stub_mesh():
+    return types.SimpleNamespace(shape={"data": 16, "model": 16},
+                                 axis_names=("data", "model"))
+
+
+def _shard_elements(shape, spec, sizes) -> int:
+    n = 1
+    for i, dim in enumerate(shape):
+        part = spec[i] if i < len(spec) else None
+        axes = () if part is None else (part,) if isinstance(part, str) \
+            else part
+        n *= -(-dim // math.prod(sizes[a] for a in axes))
+    return n
+
+
+def _reference_arg_bytes(arch, shape) -> int:
+    """One device's bytes of the reference's step arguments at fp32 (int32
+    tokens and positions: every leaf 4 bytes an element)."""
+    cfg, _ = REF.resolve_config(arch, shape)
+    mesh = _stub_mesh()
+    part = ref_sharding.Partitioner(mesh, cfg)
+    model = RefLM(cfg)
+    info = REF.SHAPES[shape]
+    B, S = info["batch"], info["seq"]
+    params = model.param_specs()
+    pairs = [(params, part.param_specs(params))]
+    P = jax.sharding.PartitionSpec
+    if info["kind"] == "train":
+        pairs.append((params, part.opt_specs(params)["mu"]))
+        pairs.append((params, part.opt_specs(params)["nu"]))
+        pairs.append((jax.ShapeDtypeStruct((), "int32"), P()))
+    if info["kind"] in ("train", "prefill"):
+        for _ in range(2 if info["kind"] == "train" else 1):
+            pairs.append((jax.ShapeDtypeStruct((B, S), "int32"),
+                          part.token_spec(B)))
+        if cfg.n_image_tokens:
+            pairs.append((jax.ShapeDtypeStruct(
+                (B, cfg.n_image_tokens, cfg.d_model), "float32"),
+                P(part.batch_spec(B) or None, None, None)))
+    else:
+        caches = model.cache_specs(B, S)
+        pairs.append((caches, part.cache_specs(caches, B)))
+        pairs.append((jax.ShapeDtypeStruct((B,), "int32"),
+                      P(part.batch_spec(B) or None)))
+        pairs.append((jax.ShapeDtypeStruct((), "int32"), P()))
+    total = 0
+    for tree, specs in pairs:
+        shapes = jax.tree.leaves(tree)
+        spec_leaves = jax.tree.leaves(specs, is_leaf=lambda x: isinstance(x, P))
+        assert len(shapes) == len(spec_leaves)
+        total += sum(4 * _shard_elements(s.shape, tuple(p), mesh.shape)
+                     for s, p in zip(shapes, spec_leaves))
+    return total
+
+
+@pytest.mark.parametrize("shape", list(dryrun.SHAPES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sweep_row_counts_equal_the_reference(sweep, arch, shape):
+    row = sweep[1][(arch, shape)]
+    assert row["ok"], row
+    cfg, note = REF.resolve_config(arch, shape)
+    assert row["shape"] == shape + note
+    info = REF.SHAPES[shape]
+    tokens = info["batch"] * (info["seq"] if info["kind"] != "decode" else 1)
+    assert row["model_flops"] == ref_roofline.model_flops(
+        cfg, RefLM(cfg).param_specs(), shape, tokens)
+    assert row["arg_bytes"] == _reference_arg_bytes(arch, shape)
+    assert row["hlo_flops"] > 0 and row["hlo_bytes"] > 0
+    for key in ("temp_bytes", "output_bytes", "peak_bytes", "coll_bytes",
+                "t_collective_s"):
+        assert row[key] is None
+
+
+def test_dryrun_one_variants_run_on_both_meshes():
+    plain = dryrun.dryrun_one("qwen2-0.5b", "decode_32k", verbose=False)
+    multi = dryrun.dryrun_one("qwen2-0.5b", "decode_32k", multi_pod=True,
+                              verbose=False, fsdp=True, no_tp=True)
+    assert multi["ok"] and multi["mesh"] == "2x16x16"
+    assert multi["shape"] == "decode_32k+fsdp+notp"
+    assert multi["model_flops"] == plain["model_flops"]
+    accum = dryrun.dryrun_one("qwen2-0.5b", "train_4k", verbose=False,
+                              grad_accum=2)
+    single = dryrun.dryrun_one("qwen2-0.5b", "train_4k", verbose=False)
+    assert accum["shape"] == "train_4k+ga2"
+    assert accum["arg_bytes"] == single["arg_bytes"]
+    assert accum["hlo_flops"] == pytest.approx(single["hlo_flops"])
+
+
+def test_tiny_dense_forward_flops_are_its_matmuls():
+    cfg = get_config("qwen2-0.5b").reduced(d_model=32)
+    B, S = 2, 24
+    model = TransformerLM(cfg, device="meta")
+    params = model.param_specs()
+    tokens = torch.empty((B, S), dtype=torch.int32, device="meta")
+    flops, nbytes = dryrun.trace_counts(model.forward, params, tokens)
+    D, H, KV, dh, F, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.d_head, cfg.d_ff, cfg.vocab)
+    per_layer = (2 * B * S * D * H * dh          # q
+                 + 2 * 2 * B * S * D * KV * dh   # k, v
+                 + 2 * 2 * B * H * S * (S + 1) // 2 * dh   # flash attention:
+                 # scores and P V over the causal pairs only
+                 + 2 * B * S * H * dh * D        # o
+                 + 3 * 2 * B * S * D * F)        # SwiGLU
+    assert flops == cfg.n_layers * per_layer + 2 * B * S * D * V
+    assert nbytes > 4 * B * S * V                # at least the logits
+
+
+def test_cli_refuses_variants_it_does_not_reckon(capsys):
+    for flag in ("--seq-parallel", "--layer-remat"):
+        with pytest.raises(SystemExit) as exc:
+            dryrun.main(["--arch", "qwen2-0.5b", "--shape", "train_4k", flag])
+        assert exc.value.code == 2
+        assert "does not reckon" in capsys.readouterr().err

@@ -69,6 +69,25 @@ def test_trainer_modules_load_no_jax(module):
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.launch.dryrun",
+                                    "repro_torch.launch.roofline",
+                                    "repro_torch.launch.report",
+                                    "repro_torch.launch.sharding",
+                                    "repro_torch.launch.mesh"])
+def test_launch_analysis_modules_load_no_jax(module):
+    """The dry-run's modules load neither jax nor the JAX package, and
+    importing them changes no environment variable."""
+    code = (f"import os, sys\nbefore = dict(os.environ)\nimport {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad)\nsys.exit(1 if bad or dict(os.environ) != before "
+            "else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _port_files():
     return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
             + sorted((ROOT / "examples").glob("*_torch.py")))
@@ -176,6 +195,7 @@ def _entry_points():
     from repro_torch.serve import engine as serve_engine
     from repro_torch.launch.serve import main as launch_serve
     from repro_torch.launch.train import main as launch_train
+    from repro_torch.launch.dryrun import main as launch_dryrun
     from repro_torch.serve.lm_wave import ServeEngine, serve_wave
 
     cfg = get_config("qwen2-0.5b").reduced(d_model=32)
@@ -206,6 +226,7 @@ def _entry_points():
         "train launcher": lambda: launch_train(["--arch", "qwen2-0.5b",
                                                 "--reduced", "--steps", "1"]),
         "tree classifier example": lambda: _tree_classifier().main([]),
+        "dryrun --dynamic": lambda: launch_dryrun(["--dynamic"]),
     }
 
 
@@ -228,7 +249,8 @@ def _tree_classifier():
                                   "serve_wave", "serve engine",
                                   "sharded serve engine", "serve launcher",
                                   "train launcher",
-                                  "tree classifier example"])
+                                  "tree classifier example",
+                                  "dryrun --dynamic"])
 def test_entry_points_default_to_cuda(no_cuda, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()
@@ -277,3 +299,88 @@ def test_chip_smoke_refuses_alone(tmp_path):
     r = _run_smoke(tmp_path, script)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def _meta_calls():
+    """Each kernel wrapper's call on meta tensors: (wrapper's counter name,
+    the call, the shapes it must return)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.fused_cell import fused_lstm_cell
+    from repro_torch.kernels.fused_gather_cell import fused_gather_lstm_cell
+    from repro_torch.kernels.gather_batch import (gather_rows,
+                                                  gather_rows_backward)
+
+    def m(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    idx = m(7, dtype=torch.int32)
+    q, kv = m(2, 24, 8, 16), m(2, 24, 2, 16)
+    x, dt, A, BC = m(2, 32, 4, 8), m(2, 32, 4), m(4), m(2, 32, 1, 16)
+    return {
+        "gather_rows": ("gather_rows", lambda: gather_rows(m(50, 12), idx),
+                        [(7, 12)]),
+        "gather_rows grad": ("gather_rows",
+                             lambda: gather_rows(m(50, 12).requires_grad_(),
+                                                 idx), [(7, 12)]),
+        "gather_rows_backward": ("gather_rows_backward",
+                                 lambda: gather_rows_backward(m(7, 12), idx,
+                                                              50), [(50, 12)]),
+        "flash_attention": ("flash_attention",
+                            lambda: fa.flash_attention(q, kv, kv),
+                            [(2, 24, 8, 16)]),
+        "flash_attention_forward": (
+            "flash_attention",
+            lambda: fa.flash_attention_forward(q, kv, kv, with_lse=True),
+            [(2, 24, 8, 16), (2, 8, 24)]),
+        "flash_attention_backward": (
+            "flash_attention_backward",
+            lambda: fa.flash_attention_backward(q, kv, kv, q, q,
+                                                m(2, 8, 24)),
+            [(2, 24, 8, 16), (2, 24, 2, 16), (2, 24, 2, 16)]),
+        "ssd_scan": ("ssd_scan", lambda: ss.ssd_scan(x, dt, A, BC, BC, 16),
+                     [(2, 32, 4, 8), (2, 4, 8, 16)]),
+        "ssd_scan_forward": (
+            "ssd_scan",
+            lambda: ss.ssd_scan_forward(x, dt, A, BC, BC, 16,
+                                        with_states=True),
+            [(2, 32, 4, 8), (2, 4, 8, 16), (2, 2, 4, 8, 16)]),
+        "ssd_scan_backward": (
+            "ssd_scan_backward",
+            lambda: ss.ssd_scan_backward(x, dt, A, BC, BC, 16, None, x)[:5],
+            [(2, 32, 4, 8), (2, 32, 4), (4,), (2, 32, 1, 16),
+             (2, 32, 1, 16)]),
+        "fused_lstm_cell": ("fused_lstm_cell",
+                            lambda: fused_lstm_cell(m(3, 40), m(40, 64),
+                                                    m(64), m(3, 16)),
+                            [(3, 16), (3, 16)]),
+        "fused_gather_lstm_cell": (
+            "fused_gather_lstm_cell",
+            lambda: fused_gather_lstm_cell(
+                m(9, 24), m(5, 16), m(5, 16), m(3, dtype=torch.int32),
+                m(3, dtype=torch.int32), m(3, dtype=torch.int32), m(40, 64),
+                m(64)),
+            [(3, 16), (3, 16)]),
+    }
+
+
+@pytest.mark.parametrize("name", ["gather_rows", "gather_rows grad",
+                                  "gather_rows_backward", "flash_attention",
+                                  "flash_attention_forward",
+                                  "flash_attention_backward", "ssd_scan",
+                                  "ssd_scan_forward", "ssd_scan_backward",
+                                  "fused_lstm_cell",
+                                  "fused_gather_lstm_cell"])
+def test_kernel_wrappers_take_the_plain_version_on_meta(no_cuda, name):
+    """A meta tensor (the dry-run's trace) takes the plain version: meta
+    outputs of the kernel's shapes, with no launch counted (here, with no
+    nvcc, a call that reached a kernel would raise)."""
+    from repro_torch.kernels.launches import WRAPPERS
+
+    counter, call, shapes = _meta_calls()[name]
+    before = WRAPPERS[counter].launches
+    out = call()
+    outs = [out] if isinstance(out, torch.Tensor) else list(out)
+    assert [tuple(t.shape) for t in outs] == shapes
+    assert all(t.device.type == "meta" for t in outs)
+    assert WRAPPERS[counter].launches == before

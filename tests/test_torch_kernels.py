@@ -110,7 +110,13 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     assert _launch_counts() == before
 
 
-def test_other_devices_raise_instead_of_falling_back():
+def test_other_devices_raise_instead_of_falling_back(monkeypatch):
+    # The plain versions run on the CPU and the meta device alone
+    # (``ref.PLAIN_DEVICES``; the dry-run traces on meta). A device outside
+    # them and outside CUDA must raise: taken out of the plain devices
+    # here, meta stands for such a device, the only other one this build
+    # of torch can make.
+    monkeypatch.setattr(ref, "PLAIN_DEVICES", ("cpu",))
     src = torch.empty((4, 3), device="meta")
     idx = torch.empty((2,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
