@@ -40,7 +40,15 @@ Phases, in order; any failure raises and exits non-zero:
    routed differently, smallest top-K gap); then the dispatch and combine
    gathers and their backwards timed cold at Granite's train shape and
    OLMoE's prefill shape beside ``index_select`` and ``zeros`` +
-   ``index_add_`` (the backwards the CPU plain version's bits).
+   ``index_add_`` (the backwards the CPU plain version's bits). Then the
+   bf16 forward kernels of flash attention and the SSD scan
+   (``check_flash_bf16``, ``check_ssd_bf16``) on bf16-exact inputs at the
+   path's shapes and small odd ones, each on the one bf16 bar
+   (``bf16_bar``: the error against the plain version in fp32 on the
+   upcast inputs at most twice the plain bf16 version's, and within
+   BF16_KERNEL_TOL, the reference's 3e-2, of the largest |value|), timed
+   at their wave's prefill shapes beside the plain bf16 version and, for
+   attention, bf16 ``scaled_dot_product_attention``.
 3. The slice: BiLSTM-Tagger at model_size=512 on CUDA. An FSM policy is
    learned on small graphs, then fresh 16-sentence minibatches (and one
    repeat) run through the interpreted, per-topology and bucketed
@@ -78,8 +86,15 @@ Phases, in order; any failure raises and exits non-zero:
    ROUTING_TIE (1e-5), printed with the smallest gap of the wave. Prints
    tokens/s, ms per prefill
    batch and per decode wave (a replay, and the eager step), the batch
-   counts and a profiler summary (busy share, device events) for both
-   engines.
+   counts, the peak memory of a repeat wave and a profiler summary (busy
+   share, device events) for both engines. Qwen2-0.5B and Mamba2-130m
+   then serve the same wave in bf16 (BF16_WAVES, ``bf16_wave``): the fp32
+   weights rounded once, full width and depth, captured and eager, the
+   bf16 kernel's counter must rise and the fp32 kernel's not, the tokens
+   of both engines bit-equal; tok/s, ms and peak memory beside the fp32
+   wave's; one prefill batch's logits at BF16_CPU_REPEATS layers held to
+   the CPU on the bf16 bar; at full depth the tokens' agreement with the
+   fp32 wave and the largest logit gap printed, not held.
 5. Trees and lattices at model_size=512: TreeLSTM and LatticeLSTM as the
    tagger runs (two fresh 16-instance minibatches and a repeat through the
    three executors), TreeGRU, MV-RNN, TreeLSTM-2Type and LatticeGRU one
@@ -255,8 +270,11 @@ Phases, in order; any failure raises and exits non-zero:
    the next.
 12. The launch analysis tools (``launch/dryrun.py``). (a) ``dryrun_dynamic``
    on the card at model_size=512, the reference's batch size 2 and seed 0:
-   all eight Table-1 workloads' weights made on the card, each
-   per-topology plan lowered, captured and replayed once; every row
+   all eight Table-1 workloads' weights made on the card and their graphs
+   drawn from one rng, and the per-topology plan of each workload whose
+   plan no earlier phase builds (all but DRYRUN_PLANNED_EARLIER: the
+   tagger, TreeLSTM and LatticeLSTM, planned and captured by phases 3
+   and 5) lowered, captured and replayed once; every row
    ``ok``; one line per workload (steps, arenas, slice and gather reads,
    fallback steps, capture and wall seconds); the row gather must launch;
    every row's plan statistics equal to the JAX package's own
@@ -267,19 +285,22 @@ Phases, in order; any failure raises and exits non-zero:
    ``ok`` rows, printed by ``report.render``; the process must exit 0
    without having initialised CUDA; the sweep's seconds.
 
-Phases 2 and 4 hold the kernels other than the gather to 1e-4 of the
-largest magnitude of their plain versions' outputs, phase 9 the backward
-kernels to 1e-4 of the largest |gradient|. The line before the
+Phases 2 and 4 hold the fp32 kernels other than the gather to 1e-4 of the
+largest magnitude of their plain versions' outputs and the bf16 ones to
+the bf16 bar, phase 9 the backward kernels to 1e-4 of the largest
+|gradient|. The line before the
 last is ``{"kernels": [...]}`` (per kernel: launches in the phase that
 drives its path, max abs error, kernel / plain / bound / library ms; the
-five forward kernels and the three backward kernels: flash attention's
+five forward kernels, the two bf16 forward kernels (launches on the bf16
+waves) and the three backward kernels: flash attention's
 and the scan's over the training steps of phase 9, the gather's over
 phase 10 (b); ``launches_by_path`` each kernel's launches on every path
 that drives it, this slice's MoE waves, Granite's training and the
 vision model's included; the gather's and its backward's ``moe_shapes``
 the MoE timings of phase 2);
 phase 2 logs each bound's byte and operation times and the peak it
-divides by (3xTF32 on the tensor cores for every kernel with products) on
+divides by (3xTF32 on the tensor cores for every fp32 kernel with
+products, bf16 on the tensor cores for the bf16 ones) on
 a ``<kernel> bound:`` line; the last line is ``{"ok": true, "device":
 {...}}``. The total seconds are printed before them. Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -302,6 +323,8 @@ ROOT = Path(__file__).resolve().parent
 MEM_BW = 3.35e12        # H100 SXM HBM3 bytes/s (data sheet)
 FP32_PEAK = 67e12       # H100 SXM fp32 FLOP/s outside the tensor cores
 TF32X3_PEAK = 495e12 / 3   # fp32 products as 3xTF32 on the tensor cores
+BF16_PEAK = 989e12      # bf16 products on the tensor cores, dense
+BF16_KERNEL_TOL = 3e-2  # the reference's bf16 kernel test (test_kernels.py)
 MODEL_SIZE = 512
 BATCH = 16              # sentences per minibatch, as benchmarks/bench_plan.py
 N_FRESH = 3             # fresh topologies, then one repeat of the first
@@ -438,7 +461,8 @@ def rel_err(got, want) -> float:
 
 
 PEAKS = {"fp32 on the CUDA cores": FP32_PEAK,
-         "3xTF32 on the tensor cores": TF32X3_PEAK}
+         "3xTF32 on the tensor cores": TF32X3_PEAK,
+         "bf16 on the tensor cores": BF16_PEAK}
 
 
 def bound(name: str, nbytes: float, flops: float,
@@ -721,31 +745,35 @@ def library_kernels(torch, fn) -> list:
     return sorted({e.name for e in device_events(prof)})
 
 
+# (label, B, Sq, Skv, H, KV, D, causal, window): the Qwen2 wave's prefill
+# shapes and the kernels' tile edges, checked in fp32 and in bf16
+FLASH_CASES = [
+    ("path S=96 B=2", 2, 96, 96, 14, 2, 64, True, 0),
+    ("path S=32 B=1", 1, 32, 32, 14, 2, 64, True, 0),
+    ("path S=48 B=4", 4, 48, 48, 14, 2, 64, True, 0),
+    ("path S=96 B=4", 4, 96, 96, 14, 2, 64, True, 0),
+    ("ragged S=100", 2, 100, 100, 14, 2, 64, True, 0),
+    ("window 16, S=130", 1, 130, 130, 4, 2, 64, True, 16),
+    ("cross Sq=40 Skv=77", 2, 40, 77, 6, 3, 64, False, 0),
+    ("D=128 MHA", 1, 70, 70, 4, 4, 128, True, 0),
+    # tile edges: a warp's 16 rows, an 8-column mma tile, a K/V tile
+    ("P V relayout D=16 Skv=8", 1, 8, 8, 2, 1, 16, True, 0),
+    ("Sq=1 Skv=77 D=16 G=7", 2, 1, 77, 14, 2, 16, True, 0),
+    ("Sq=15 Skv=8 D=128 G=7", 2, 15, 8, 14, 2, 128, True, 0),
+    ("cross Sq=17 Skv=9 D=32", 2, 17, 9, 2, 2, 32, False, 0),
+    ("window 8 Sq=100 Skv=77", 1, 100, 77, 2, 2, 64, True, 8),
+    ("window 4 Sq=17 Skv=9, rows with no key", 1, 17, 9, 14, 2, 16,
+     True, 4),
+]
+
+
 def check_flash(torch, timer) -> dict:
     from repro_torch.kernels import costs, ref
     from repro_torch.kernels.flash_attention import flash_attention
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    cases = [  # (label, B, Sq, Skv, H, KV, D, causal, window)
-        ("path S=96 B=2", 2, 96, 96, 14, 2, 64, True, 0),
-        ("path S=32 B=1", 1, 32, 32, 14, 2, 64, True, 0),
-        ("path S=48 B=4", 4, 48, 48, 14, 2, 64, True, 0),
-        ("path S=96 B=4", 4, 96, 96, 14, 2, 64, True, 0),
-        ("ragged S=100", 2, 100, 100, 14, 2, 64, True, 0),
-        ("window 16, S=130", 1, 130, 130, 4, 2, 64, True, 16),
-        ("cross Sq=40 Skv=77", 2, 40, 77, 6, 3, 64, False, 0),
-        ("D=128 MHA", 1, 70, 70, 4, 4, 128, True, 0),
-        # tile edges: a warp's 16 rows, an 8-column mma tile, a K/V tile
-        ("P V relayout D=16 Skv=8", 1, 8, 8, 2, 1, 16, True, 0),
-        ("Sq=1 Skv=77 D=16 G=7", 2, 1, 77, 14, 2, 16, True, 0),
-        ("Sq=15 Skv=8 D=128 G=7", 2, 15, 8, 14, 2, 128, True, 0),
-        ("cross Sq=17 Skv=9 D=32", 2, 17, 9, 2, 2, 32, False, 0),
-        ("window 8 Sq=100 Skv=77", 1, 100, 77, 2, 2, 64, True, 8),
-        ("window 4 Sq=17 Skv=9, rows with no key", 1, 17, 9, 14, 2, 16,
-         True, 4),
-    ]
     worst = 0.0
-    for label, B, Sq, Skv, H, KV, D, causal, window in cases:
+    for label, B, Sq, Skv, H, KV, D, causal, window in FLASH_CASES:
         q = torch.randn((B, Sq, H, D), generator=g, device="cuda")
         k = torch.randn((B, Skv, KV, D), generator=g, device="cuda")
         v = torch.randn((B, Skv, KV, D), generator=g, device="cuda")
@@ -793,6 +821,188 @@ def check_flash(torch, timer) -> dict:
                          "3xTF32 on the tensor cores"),
             "library_ms": waves[f"S={S} B={B}"]["library_ms"],
             "waves": waves}
+
+
+def bf16_bar(label: str, got, plain, truth, kernel: bool = True) -> dict:
+    """The one bar of every bf16 comparison on the card: ``truth`` is the
+    plain version in fp32 on the same bf16-exact inputs, upcast; ``got``
+    (a kernel's or a model's output) must be within twice the plain bf16
+    version's (``plain``) largest error against it, and a kernel also
+    within BF16_KERNEL_TOL of the largest |truth|. Returns both errors."""
+    truth = truth.float()
+    err = float((got.float() - truth).abs().max())
+    plain_err = float((plain.float() - truth).abs().max())
+    scale = float(truth.abs().max().clamp_min(1e-30))
+    if not err <= 2 * plain_err:
+        fail(f"{label}: bf16 error {err} against the fp32 plain version is "
+             f"above twice the plain bf16 version's, {plain_err}")
+    if kernel and not err <= BF16_KERNEL_TOL * scale:
+        fail(f"{label}: bf16 error {err} is above {BF16_KERNEL_TOL} of the "
+             f"largest |value|, {scale}")
+    return {"err": err, "plain_err": plain_err, "rel_err": err / scale}
+
+
+def check_flash_bf16(torch, timer) -> dict:
+    """The bf16 forward kernel against its plain version on the bf16 bar
+    (:func:`bf16_bar`), at FLASH_CASES and the vision model's cross
+    shape, the log-sum-exp within 1e-4 of the fp32
+    plain version's; timed at the wave's two prefill shapes beside the
+    plain bf16 version and bf16 ``scaled_dot_product_attention``."""
+    from repro_torch.kernels import costs, ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_forward)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+
+    def bf16(shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    cases = FLASH_CASES + [("vision cross Sq=64 Skv=1024 D=128 G=4", 2,
+                            64, 1024, 32, 8, 128, False, 0)]
+    worst = 0.0
+    for label, B, Sq, Skv, H, KV, D, causal, window in cases:
+        q, k, v = bf16((B, Sq, H, D)), bf16((B, Skv, KV, D)), \
+            bf16((B, Skv, KV, D))
+        out, lse = flash_attention_forward(q, k, v, causal, window,
+                                           with_lse=True)
+        truth = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                        causal, window)
+        plain = ref.flash_attention_ref(q, k, v, causal, window)
+        lse_err = rel_err(lse, ref.flash_attention_lse_ref(
+            q.float(), k.float(), causal, window))
+        torch.cuda.synchronize()
+        if out.dtype != torch.bfloat16 or lse.dtype != torch.float32:
+            fail(f"flash_attention_bf16 {label}: out {out.dtype}, lse "
+                 f"{lse.dtype}")
+        bar = bf16_bar(f"flash_attention_bf16 {label}", out, plain, truth)
+        if not lse_err <= 1e-4:
+            fail(f"flash_attention_bf16 {label}: lse relative err {lse_err}")
+        worst = max(worst, bar["err"])
+        log(f"flash_attention_bf16 {label}: max abs err {bar['err']:.3e} "
+            f"(plain bf16 {bar['plain_err']:.3e}; relative "
+            f"{bar['rel_err']:.3e}), lse relative err {lse_err:.3e}")
+
+    H, KV, D = 14, 2, 64
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    waves = {}
+    for S, B in ((32, 2), (96, 4)):   # the Qwen2 wave's prefill shapes
+        q, k, v = bf16((B, S, H, D)), bf16((B, S, KV, D)), bf16((B, S, KV, D))
+        # yardstick only: the port never calls it
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        w = waves[f"S={S} B={B}"] = {
+            "ms": timer(lambda: flash_attention(q, k, v)),
+            "library_ms": timer(lambda: sdpa(qt, kt, vt, is_causal=True)),
+            "warm_ms": timer(lambda: flash_attention(q, k, v), cold=False)}
+        log(f"flash_attention_bf16 S={S} B={B} ms: cold kernel {w['ms']:.4f}"
+            f", scaled_dot_product_attention bf16 {w['library_ms']:.4f}, "
+            f"warm kernel {w['warm_ms']:.4f}")
+    plain_ms = timer(lambda: ref.flash_attention_ref(q, k, v))
+    log(f"scaled_dot_product_attention bf16 runs: "
+        f"{library_kernels(torch, lambda: sdpa(qt, kt, vt, is_causal=True))}")
+    return {"name": "flash_attention_bf16", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bf16.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:65",
+            "shape": f"q ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {KV}, {D}) "
+                     f"bfloat16, causal",
+            "max_abs_err": worst, "ms": waves[f"S={S} B={B}"]["ms"],
+            "plain_ms": plain_ms,
+            **cost_bound("flash_attention_bf16", costs.flash_attention(
+                B, S, S, H, KV, D, True, 0, False, 2),
+                "bf16 on the tensor cores"),
+            "library_ms": waves[f"S={S} B={B}"]["library_ms"],
+            "waves": waves}
+
+
+def check_ssd_bf16(torch, timer) -> dict:
+    """The bf16 forward kernel against its plain version on the bf16 bar
+    (y; the fp32 final state and chunk start states on the same bar, the
+    kernel's 3e-2 of their largest magnitude included), at the Mamba2
+    wave's prefill shapes, from an initial state and at small odd
+    shapes; timed at the wave's two prefill shapes beside the plain bf16
+    version."""
+    from repro_torch.kernels import costs, ref
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_forward
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+    def inputs(b, l, h, p, grp, n):
+        return (torch.randn((b, l, h, p), generator=g,
+                            device="cuda").bfloat16(),
+                (torch.rand((b, l, h), generator=g, device="cuda")
+                 * 0.5).bfloat16(),
+                -torch.rand((h,), generator=g, device="cuda") * 0.5,
+                torch.randn((b, l, grp, n), generator=g,
+                            device="cuda").bfloat16(),
+                torch.randn((b, l, grp, n), generator=g,
+                            device="cuda").bfloat16())
+
+    cases = [  # (label, b, l, h, p, groups, n, chunk, from a state)
+        ("path l=128 B=3", 3, 128, 24, 64, 1, 128, 128, False),
+        ("path l=256 B=3", 3, 256, 24, 64, 1, 128, 128, False),
+        ("groups 2, chunk 16", 2, 64, 8, 16, 2, 16, 16, False),
+        ("ragged p=24 n=40 chunk 32", 1, 96, 4, 24, 1, 40, 32, False),
+        ("chunk 8 n=16 p=24 groups 2", 2, 24, 4, 24, 2, 16, 8, False),
+        ("chunk 24 n=40 p=64", 2, 72, 4, 64, 1, 40, 24, False),
+        ("chunk 24 n=128 p=24 groups 2", 1, 48, 4, 24, 2, 128, 24, False),
+        ("chunk 40 n=8 p=8, one row tile short", 1, 120, 3, 8, 1, 8, 40,
+         False),
+        ("init state, path l=256 B=3", 3, 256, 24, 64, 1, 128, 128, True),
+        ("init state, ragged p=24 n=40 chunk 24", 2, 48, 4, 24, 2, 40, 24,
+         True),
+    ]
+    worst = 0.0
+    for label, b, l, h, p, grp, n, chunk, from_state in cases:
+        x, dt, A, B, C = inputs(b, l, h, p, grp, n)
+        s0 = (torch.randn((b, h, p, n), generator=g, device="cuda")
+              if from_state else None)
+        y, final, states = ssd_scan_forward(x, dt, A, B, C, chunk, s0,
+                                            with_states=True)
+        up = [t.float() for t in (x, dt, B, C)]
+        y_t, final_t = ref.ssd_scan_ref(up[0], up[1], A, up[2], up[3], chunk,
+                                        s0)
+        states_t = ref.ssd_chunk_states(up[0], up[1], A, up[2], chunk, s0)
+        y_p, final_p = ref.ssd_scan_ref(x, dt, A, B, C, chunk, s0)
+        torch.cuda.synchronize()
+        if (y.dtype, final.dtype, states.dtype) != (
+                torch.bfloat16, torch.float32, torch.float32):
+            fail(f"ssd_scan_bf16 {label}: y {y.dtype}, final {final.dtype}")
+        bar = bf16_bar(f"ssd_scan_bf16 {label} y", y, y_p, y_t)
+        fbar = bf16_bar(f"ssd_scan_bf16 {label} final state", final,
+                        final_p, final_t)
+        srel = rel_err(states, states_t)
+        if not srel <= BF16_KERNEL_TOL:
+            fail(f"ssd_scan_bf16 {label}: chunk start states relative err "
+                 f"{srel}")
+        worst = max(worst, bar["err"])
+        log(f"ssd_scan_bf16 {label}: y max abs err {bar['err']:.3e} (plain "
+            f"bf16 {bar['plain_err']:.3e}; relative {bar['rel_err']:.3e}), "
+            f"final state {fbar['err']:.3e} (plain {fbar['plain_err']:.3e})"
+            f", start states relative {srel:.3e}")
+
+    h, p, n, q = 24, 64, 128, 128
+    waves = {}
+    for l, b in ((128, 3), (256, 3)):   # the Mamba2 wave's prefill shapes
+        x, dt, A, B, C = inputs(b, l, h, p, 1, n)
+        w = waves[f"l={l} B={b}"] = {
+            "ms": timer(lambda: ssd_scan(x, dt, A, B, C, q)),
+            "warm_ms": timer(lambda: ssd_scan(x, dt, A, B, C, q),
+                             cold=False)}
+        log(f"ssd_scan_bf16 l={l} B={b} ms: cold {w['ms']:.4f}, warm "
+            f"{w['warm_ms']:.4f}")
+    plain_ms = timer(lambda: ref.ssd_scan_ref(x, dt, A, B, C, q))
+    return {"name": "ssd_scan_bf16", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan_bf16.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:64",
+            "shape": f"x ({b}, {l}, {h}, {p}), B/C ({b}, {l}, 1, {n}), "
+                     f"chunk {q}, bfloat16",
+            "max_abs_err": worst, "ms": waves[f"l={l} B={b}"]["ms"],
+            "plain_ms": plain_ms,
+            **cost_bound("ssd_scan_bf16", costs.ssd_scan(
+                b, l, h, p, 1, n, q, False, False, 2),
+                "bf16 on the tensor cores"),
+            "library_ms": None, "waves": waves}
 
 
 def check_ssd(torch, timer) -> dict:
@@ -1227,6 +1437,12 @@ LM_RUNS = {  # name: (prompt lengths to draw from, requests, max_new, cache)
 # the eager engine's).
 LM_CPU_REPEATS = {"olmoe-1b-7b": 2}
 LOGIT_TOL = 2e-3    # prefill vs forward bar of the reference's own tests
+# The models whose wave also runs in bf16 (the fp32 wave's weights rounded
+# once), with the bf16 kernel each must launch; the card's bf16 prefill
+# logits are held to the CPU's at BF16_CPU_REPEATS repeats on the bf16 bar.
+BF16_WAVES = {"qwen2-0.5b": "flash_attention_bf16",
+              "mamba2-130m": "ssd_scan_bf16"}
+BF16_CPU_REPEATS = 2
 
 
 def top2_margin(torch, model, params, prompt, prefix) -> tuple:
@@ -1266,6 +1482,122 @@ def token_flips(torch, label: str, name: str, got: list, want: list,
                 f"top-K gap of {routing['gap_at_flip']:.3e}")
         flips.append([r, t, margin])
     return flips
+
+
+def wave_peak_gib(torch, fn) -> float:
+    """Peak device memory allocated while ``fn`` runs, in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def bf16_wave(name: str, wrappers: dict, cfg, p16, prompts: list,
+              fp32_outs: list, fp32_logits, by_len: dict, cache_len: int,
+              max_new: int) -> dict:
+    """The wave of :func:`lm_wave` again in bf16 at full width and depth:
+    the fp32 wave's weights rounded once to bf16 (``p16``, on the card;
+    the fp32 ones freed, so that the peak memory compares), the same six
+    requests through a captured engine (the counted
+    first wave, a replayed repeat) and an eager one, whose tokens must be
+    bit-equal; tok/s, prefill and decode-step ms and peak memory as for
+    fp32. At BF16_CPU_REPEATS repeats one prefill batch's logits on the
+    card are held to the CPU's on the bf16 bar (:func:`bf16_bar`: within
+    twice the CPU's plain bf16 model's error against the fp32 plain model
+    on the same bf16 weights). At full depth the bf16 tokens' agreement
+    with the fp32 wave and the largest prefill logit gap are reported,
+    not held (``fp32_logits``: the fp32 model's logits of that batch)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.core.device import block
+    from repro_torch.serve.lm_wave import ServeEngine, ServeStats
+
+    dev = torch.device("cuda")
+    model = TransformerLM(cfg, torch.bfloat16, device=dev)
+    engines = {"captured": ServeEngine(model, p16, cache_len=cache_len,
+                                       device=dev),
+               "eager": ServeEngine(model, p16, cache_len=cache_len,
+                                    device=dev, capture=False)}
+    eng = engines["captured"]
+    for fn in wrappers.values():
+        fn.launches = 0
+    stats = ServeStats()
+    outs, _ = eng.generate(prompts, max_new=max_new, stats=stats)
+    block(dev)
+    report = {"launches": {k: fn.launches for k, fn in wrappers.items()},
+              "first_wave_graphs": [stats.n_captures, stats.n_replays]}
+    if any(len(o) != max_new for o in outs):
+        fail(f"{name} bf16: a request did not get {max_new} tokens")
+    for mode, e in engines.items():
+        warm = ServeStats()
+        box = {}
+        peak = wave_peak_gib(torch, lambda: box.update(out=e.generate(
+            prompts, max_new=max_new, stats=warm)[0]))
+        if box["out"] != outs:
+            fail(f"{name} bf16: the {mode} repeat wave's tokens differ from "
+                 f"the captured first wave's")
+        if mode == "captured" and (warm.n_captures, warm.n_replays) != \
+                (0, warm.n_batches):
+            fail(f"{name} bf16: the repeat wave captured {warm.n_captures} "
+                 f"and replayed {warm.n_replays} of {warm.n_batches} steps")
+        scratch = ServeStats()
+        with torch.no_grad():
+            prefill_ms = {}
+            for L_, group in sorted(by_len.items()):
+                toks = np.asarray(group, np.int64)
+                prefill_ms[f"L={L_} B={len(group)}"] = timed(
+                    dev, lambda: e._prefill(len(group), L_).run(scratch, toks))
+            tok = np.zeros(len(prompts), np.int64)
+            pos = np.full(len(prompts), 100, np.int64)
+            decode_ms = timed(dev, lambda: e._decode(len(prompts)).run(
+                scratch, tok, pos))
+        report[mode] = {"tok_per_s": warm.tok_per_s,
+                        "wave_ms": warm.wall_s * 1e3,
+                        "n_batches": warm.n_batches,
+                        "prefill_ms": prefill_ms,
+                        "decode_wave_ms": decode_ms, "peak_gib": peak}
+
+    # full depth: against the fp32 wave, reported
+    same = sum(a == b for o16, o32 in zip(outs, fp32_outs)
+               for a, b in zip(o16, o32))
+    first = [next((i for i, (a, b) in enumerate(zip(o16, o32)) if a != b),
+                  None) for o16, o32 in zip(outs, fp32_outs)]
+    group = by_len[len(prompts[0])]
+    with torch.no_grad():
+        lg16 = model.prefill(p16, torch.tensor(group, device=dev),
+                             cache_len=cache_len)[0].float()
+    report["vs_fp32"] = {
+        "tokens_equal": same, "tokens": len(prompts) * max_new,
+        "first_differing_token": first,
+        "max_prefill_logit_gap": float((lg16 - fp32_logits).abs().max()),
+        "max_abs_logit": float(fp32_logits.abs().max())}
+
+    # at BF16_CPU_REPEATS repeats: the card against the CPU on the bf16 bar
+    cut = dataclasses.replace(cfg, n_layers=BF16_CPU_REPEATS
+                              * len(cfg.pattern))
+    cut16 = cut_params(p16, BF16_CPU_REPEATS)
+    cpu16 = tree_map(lambda t: t.cpu(), cut16)
+    toks = torch.tensor(group)
+    with torch.no_grad():
+        card = TransformerLM(cut, torch.bfloat16, device=dev).prefill(
+            cut16, toks.to(dev), cache_len=cache_len)[0].cpu()
+        plain = TransformerLM(cut, torch.bfloat16, device="cpu").prefill(
+            cpu16, toks, cache_len=cache_len)[0]
+        truth = TransformerLM(cut, device="cpu").prefill(
+            tree_map(lambda t: t.float(), cpu16), toks,
+            cache_len=cache_len)[0]
+    if tuple(card.shape) != (len(group), cfg.vocab) or \
+            not torch.isfinite(card.float()).all():
+        fail(f"{name} bf16: bad prefill logits {tuple(card.shape)}")
+    report["prefill_vs_cpu"] = bf16_bar(
+        f"{name} bf16 prefill logits at {BF16_CPU_REPEATS} repeats", card,
+        plain, truth, kernel=False)
+    report["cpu_repeats"] = BF16_CPU_REPEATS
+    return report
 
 
 def lm_wave(name: str, wrappers: dict) -> dict:
@@ -1341,7 +1673,10 @@ def lm_wave(name: str, wrappers: dict) -> dict:
     by_mode = {}
     for mode, e in engines.items():
         warm = ServeStats()
-        again, _ = e.generate(prompts, max_new=max_new, stats=warm)
+        box = {}
+        peak = wave_peak_gib(torch, lambda: box.update(again=e.generate(
+            prompts, max_new=max_new, stats=warm)[0]))
+        again = box["again"]
         if mode == "captured" and again != outs:
             fail(f"{name}: a replayed repeat of the wave gave other tokens")
         if mode == "captured" and (warm.n_captures, warm.n_replays) != \
@@ -1353,7 +1688,8 @@ def lm_wave(name: str, wrappers: dict) -> dict:
                          "n_batches": warm.n_batches,
                          "n_prefill_batches": warm.n_prefill_batches,
                          "n_decode_batches": warm.n_decode_batches,
-                         "sched_cache_hits": warm.sched_cache_hits}
+                         "sched_cache_hits": warm.sched_cache_hits,
+                         "peak_gib": peak}
     report["replay_vs_eager_flips"] = token_flips(
         torch, "replayed", name, outs, by_mode["eager"].pop("outs"),
         *((cpu_model, cpu_params) if repeats is None else (model, params)),
@@ -1448,6 +1784,18 @@ def lm_wave(name: str, wrappers: dict) -> dict:
             f"{prefill_routing['gap_at_flip']:.3e}")
     report["tokens_equal_cpu"] = not flips
     report["tokens_equal_eager"] = not report["replay_vs_eager_flips"]
+    if name in BF16_WAVES:
+        group = by_len[len(prompts[0])]
+        with torch.no_grad():
+            lg32 = model.prefill(params, torch.tensor(group, device=dev),
+                                 cache_len=cache_len)[0]
+        p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+        # the fp32 model's weights, engines and graphs go first
+        del engines, eng, e, params, cmp_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["bf16"] = bf16_wave(name, wrappers, cfg, p16, prompts, outs,
+                                   lg32, by_len, cache_len, max_new)
     return report
 
 
@@ -4039,6 +4387,13 @@ DRYRUN_REFERENCE = {
 }
 
 
+# Workloads whose per-topology plans phases 3 and 5 build and capture at
+# this width: (a) draws their graphs, so that the other rows stay the full
+# sweep's, and builds only the other plans. LatticeLSTM's joint PQ planning
+# alone took 128.9-261.8 s of (a) (PERF.md).
+DRYRUN_PLANNED_EARLIER = ("BiLSTM-Tagger", "TreeLSTM", "LatticeLSTM")
+
+
 def dryrun_phase(torch, drive, card: str) -> dict:
     """Phase 12 (module docstring); returns (a)'s launches. (b) is host
     work alone, so it runs beside (a), in a process of its own that must
@@ -4064,7 +4419,7 @@ def dryrun_phase(torch, drive, card: str) -> dict:
             t0 = time.perf_counter()
             rows, counts = drive(lambda: dryrun.dryrun_dynamic(
                 model_size=MODEL_SIZE, batch_size=DRYRUN_BATCH, seed=SEED,
-                verbose=False))
+                verbose=False, skip=DRYRUN_PLANNED_EARLIER))
             dyn_s = time.perf_counter() - t0
             sweep_log, _ = sweep.communicate(timeout=900)
         finally:
@@ -4072,7 +4427,8 @@ def dryrun_phase(torch, drive, card: str) -> dict:
                 sweep.kill()
                 sweep.wait()
         bad = [r for r in rows if not r["ok"]]
-        if bad or len(rows) != 8:
+        want_rows = len(DRYRUN_REFERENCE) - len(DRYRUN_PLANNED_EARLIER)
+        if bad or len(rows) != want_rows:
             fail(f"dryrun --dynamic: {len(rows)} rows, failed {bad}")
         for r in rows:
             log(f"dryrun --dynamic {r['workload']}: {r['nodes']} nodes, "
@@ -4088,9 +4444,11 @@ def dryrun_phase(torch, drive, card: str) -> dict:
                 fail(f"dryrun --dynamic {r['workload']}: "
                      f"{dict(zip(DRYRUN_FIELDS, got))}, the reference's "
                      f"{dict(zip(DRYRUN_FIELDS, want))}")
-        log(f"dryrun --dynamic: 8 rows ok at model_size={MODEL_SIZE}, batch "
-            f"{DRYRUN_BATCH}, in {dyn_s:.1f} s, each plan's statistics the "
-            f"reference's; launches {counts} ({card})")
+        log(f"dryrun --dynamic: {want_rows} rows ok at model_size="
+            f"{MODEL_SIZE}, batch {DRYRUN_BATCH} (the graphs of "
+            f"{', '.join(DRYRUN_PLANNED_EARLIER)} drawn, their plans left "
+            f"to phases 3 and 5), in {dyn_s:.1f} s, each plan's statistics "
+            f"the reference's; launches {counts} ({card})")
         for line in sweep_log.splitlines():
             if line.startswith(("[dryrun]", "sweep seconds")):
                 log(line)
@@ -4140,6 +4498,8 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     timer = ColdTimer(torch)
     hmma = hmma_counts(("flash_attention_kernel",
+                        "flash_attention_bf16_kernel",
+                        "ssd_scan_bf16_kernel",
                         "flash_attention_bwd_dkdv_kernel",
                         "flash_attention_bwd_dq_kernel", "ssd_scan_kernel",
                         "ssd_bwd_chunk_kernel",
@@ -4156,7 +4516,8 @@ def main(argv: list[str] | None = None) -> int:
         launch_floor(torch, timer)
         rows = [check_gather(torch, timer), check_fused(torch, timer),
                 check_fused_dense(torch, timer), check_flash(torch, timer),
-                check_ssd(torch, timer)]
+                check_ssd(torch, timer), check_flash_bf16(torch, timer),
+                check_ssd_bf16(torch, timer)]
         moe_report = check_moe(torch, timer)
         rows[0]["moe_shapes"] = moe_report["gather"]
         log(f"kernel checks done: {time.perf_counter() - t_start:.1f} s")
@@ -4224,6 +4585,35 @@ def main(argv: list[str] | None = None) -> int:
         on_path(f"the {name} wave", lm["launches"], kernels)
         if name in ("qwen2-0.5b", "mamba2-130m"):
             launches[kernels[0]] = lm["launches"][kernels[0]]
+        if name in BF16_WAVES:
+            b16, kernel = lm["bf16"], BF16_WAVES[name]
+            on_path(f"the {name} bf16 wave", b16["launches"], (kernel,))
+            launches[kernel] = b16["launches"][kernel]
+            for fp32_kernel in ("flash_attention", "ssd_scan"):
+                if b16["launches"][fp32_kernel]:
+                    fail(f"the {name} bf16 wave launched {fp32_kernel}")
+            for mode in ("captured", "eager"):
+                r, f = b16[mode], (lm if mode == "captured" else lm["eager"])
+                log(f"lm wave {name} bf16 {mode}: {r['tok_per_s']:.1f} tok/s "
+                    f"(fp32 {f['tok_per_s']:.1f}), {r['wave_ms']:.1f} ms per "
+                    f"wave of {r['n_batches']} batches, prefill ms "
+                    f"{r['prefill_ms']} (fp32 {f['prefill_ms']}), decode "
+                    f"wave ms {r['decode_wave_ms']:.3f} (fp32 "
+                    f"{f['decode_wave_ms']:.3f}), peak "
+                    f"{r['peak_gib']:.3f} GiB (fp32 {f['peak_gib']:.3f}) "
+                    f"({card})")
+            vs, cpu = b16["vs_fp32"], b16["prefill_vs_cpu"]
+            log(f"lm wave {name} bf16: first wave captured, replayed "
+                f"{b16['first_wave_graphs']}; tokens equal the eager "
+                f"engine's; prefill logits at {b16['cpu_repeats']} repeats "
+                f"against the CPU's fp32 plain model: card {cpu['err']:.3e}, "
+                f"CPU bf16 {cpu['plain_err']:.3e} (bar: twice it); full "
+                f"depth against the fp32 wave (a report, no bar): "
+                f"{vs['tokens_equal']} of {vs['tokens']} tokens equal, first "
+                f"differing token per request {vs['first_differing_token']}, "
+                f"largest prefill logit gap {vs['max_prefill_logit_gap']:.3e}"
+                f" of {vs['max_abs_logit']:.3e}; launches "
+                f"{b16['launches']}")
         log(f"lm wave {name}: {json.dumps(lm, default=str)}")
         for mode, r in (("captured", lm), ("eager", lm["eager"])):
             log(f"lm wave {name} {mode}: {r['tok_per_s']:.1f} tok/s, "

@@ -2,9 +2,10 @@
 sliding-window or cross), the SwiGLU and GeLU MLPs, and MoE with ED-Batch's
 sorted contiguous dispatch.
 
-Parameters are dicts of fp32 tensors made by the matching ``init_*``
+Parameters are dicts of tensors of the model's dtype (float32 or
+bfloat16, as the reference's ``dtype``) made by the matching ``init_*``
 functions from an explicit ``torch.Generator``, with the reference's
-scales (the kernels are fp32). Every
+scales. Every
 attention over a sequence (self or cross) runs the flash-attention kernel
 (:mod:`repro_torch.kernels.flash_attention`); single-token decode against a
 cache stays plain PyTorch, as the reference computes it outside any kernel.
@@ -30,15 +31,18 @@ from ..kernels.ref import attention_mask
 from .config import ArchConfig
 
 
-def _normal(gen: torch.Generator | None, shape, scale: float, device):
-    """fp32 ``N(0, 1) * scale`` drawn on the generator's device, then
-    moved. On the ``meta`` device nothing is drawn (``gen`` may be None):
-    an empty meta tensor of the shape stands in, so a tree of a model's
-    full size is built without allocating or drawing."""
+def _normal(gen: torch.Generator | None, shape, scale: float, device,
+            dtype=torch.float32):
+    """``N(0, 1) * scale`` drawn in fp32 on the generator's device, then
+    cast to ``dtype`` and moved. On the ``meta`` device nothing is drawn
+    (``gen`` may be None): an empty meta tensor of the shape and dtype
+    stands in, so a tree of a model's full size is built without
+    allocating or drawing."""
     if device is not None and torch.device(device).type == "meta":
-        return torch.empty(shape, dtype=torch.float32, device="meta")
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=gen.device) * scale).to(device)
+                        device=gen.device) * scale).to(device=device,
+                                                       dtype=dtype)
 
 
 # -----------------------------------------------------------------------------
@@ -74,17 +78,18 @@ def apply_rope(x, positions, theta: float):
 # -----------------------------------------------------------------------------
 
 
-def init_attention(gen, cfg: ArchConfig, cross: bool = False, device=None):
+def init_attention(gen, cfg: ArchConfig, cross: bool = False, device=None,
+                   dtype=torch.float32):
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     s = d ** -0.5
-    p = {"wq": _normal(gen, (d, h * dh), s, device),
-         "wk": _normal(gen, (d, kv * dh), s, device),
-         "wv": _normal(gen, (d, kv * dh), s, device),
-         "wo": _normal(gen, (h * dh, d), s, device)}
+    p = {"wq": _normal(gen, (d, h * dh), s, device, dtype),
+         "wk": _normal(gen, (d, kv * dh), s, device, dtype),
+         "wv": _normal(gen, (d, kv * dh), s, device, dtype),
+         "wo": _normal(gen, (h * dh, d), s, device, dtype)}
     if cfg.qkv_bias and not cross:
-        p["bq"] = torch.zeros((h * dh,), device=device)
-        p["bk"] = torch.zeros((kv * dh,), device=device)
-        p["bv"] = torch.zeros((kv * dh,), device=device)
+        p["bq"] = torch.zeros((h * dh,), device=device, dtype=dtype)
+        p["bk"] = torch.zeros((kv * dh,), device=device, dtype=dtype)
+        p["bv"] = torch.zeros((kv * dh,), device=device, dtype=dtype)
     return p
 
 
@@ -184,17 +189,17 @@ def attention_with_cache(p, x, cfg: ArchConfig, cache, pos):
 # -----------------------------------------------------------------------------
 
 
-def init_mlp(gen, cfg: ArchConfig, device=None):
+def init_mlp(gen, cfg: ArchConfig, device=None, dtype=torch.float32):
     d, f = cfg.d_model, cfg.d_ff
     s = d ** -0.5
     if cfg.mlp_type == "swiglu":
-        return {"w_gate": _normal(gen, (d, f), s, device),
-                "w_up": _normal(gen, (d, f), s, device),
-                "w_down": _normal(gen, (f, d), f ** -0.5, device)}
-    return {"w_in": _normal(gen, (d, f), s, device),
-            "b_in": torch.zeros((f,), device=device),
-            "w_out": _normal(gen, (f, d), f ** -0.5, device),
-            "b_out": torch.zeros((d,), device=device)}
+        return {"w_gate": _normal(gen, (d, f), s, device, dtype),
+                "w_up": _normal(gen, (d, f), s, device, dtype),
+                "w_down": _normal(gen, (f, d), f ** -0.5, device, dtype)}
+    return {"w_in": _normal(gen, (d, f), s, device, dtype),
+            "b_in": torch.zeros((f,), device=device, dtype=dtype),
+            "w_out": _normal(gen, (f, d), f ** -0.5, device, dtype),
+            "b_out": torch.zeros((d,), device=device, dtype=dtype)}
 
 
 def mlp(p, x, cfg: ArchConfig):
@@ -210,13 +215,13 @@ def mlp(p, x, cfg: ArchConfig):
 # -----------------------------------------------------------------------------
 
 
-def init_moe(gen, cfg: ArchConfig, device=None):
+def init_moe(gen, cfg: ArchConfig, device=None, dtype=torch.float32):
     d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
     s = d ** -0.5
-    return {"router": _normal(gen, (d, e), s, device),
-            "w_gate": _normal(gen, (e, d, f), s, device),
-            "w_up": _normal(gen, (e, d, f), s, device),
-            "w_down": _normal(gen, (e, f, d), f ** -0.5, device)}
+    return {"router": _normal(gen, (d, e), s, device, dtype),
+            "w_gate": _normal(gen, (e, d, f), s, device, dtype),
+            "w_up": _normal(gen, (e, d, f), s, device, dtype),
+            "w_down": _normal(gen, (e, f, d), f ** -0.5, device, dtype)}
 
 
 def moe_route(p, x, cfg: ArchConfig, n_groups: int = 1) -> dict:

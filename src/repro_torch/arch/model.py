@@ -1,12 +1,13 @@
-"""Composable LM over the six architecture families, in fp32 (the kernels'
-type): layers mix by causal self-attention, cross-attention onto image
-embeddings (the vision model) or SSD (Mamba-2), and feed forward through a
-dense MLP, an MoE layer or nothing.
+"""Composable LM over the six architecture families, in float32 or
+bfloat16 (the reference's ``dtype``): layers mix by causal self-attention,
+cross-attention onto image embeddings (the vision model) or SSD (Mamba-2),
+and feed forward through a dense MLP, an MoE layer or nothing.
 
 A model is a repeating block *pattern* (``ArchConfig.pattern``): parameters
 are stacked per pattern position with a leading repeat axis ``R``, as in the
 reference, and decode caches are ``(R, B, ...)`` leaves. The module holds the
-configuration and the device; parameters are a tree of tensors made by
+configuration, the dtype of its parameters and caches, and the device;
+parameters are a tree of tensors made by
 :meth:`TransformerLM.init_params` (or installed from the reference's tree by
 :mod:`repro_torch.arch.convert`) and passed to every call.
 
@@ -38,6 +39,7 @@ from .config import ArchConfig, LayerSpec
 META = torch.device("meta")
 SUPPORTED_MIXERS = ("attn", "cross_attn", "ssm")
 SUPPORTED_FFNS = ("dense", "moe", "none")
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def tree_map(fn, tree):
@@ -67,8 +69,14 @@ def _stack(trees: list):
 
 
 class TransformerLM(nn.Module):
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, dtype=torch.float32, *, device=None):
+        """``dtype``: of the parameters and the decode caches, float32 or
+        bfloat16 (as the reference's ``dtype``); the loss is taken in
+        float32 either way."""
         super().__init__()
+        if dtype not in SUPPORTED_DTYPES:
+            raise ValueError(f"{cfg.name}: dtype {dtype} is not one of "
+                             f"{SUPPORTED_DTYPES}")
         for spec in cfg.pattern:
             if spec.mixer not in SUPPORTED_MIXERS:
                 raise ValueError(
@@ -79,25 +87,28 @@ class TransformerLM(nn.Module):
                     f"{cfg.name}: layer spec {spec} has an unknown ffn "
                     f"{spec.ffn!r} (one of {SUPPORTED_FFNS})")
         self.cfg = cfg
+        self.dtype = dtype
         self.device = resolve_device(device)
 
     # -- parameters ----------------------------------------------------------
 
     def _init_layer(self, gen, spec: LayerSpec, dev: torch.device):
-        cfg = self.cfg
-        p: dict[str, Any] = {"norm1": torch.ones((cfg.d_model,), device=dev)}
+        cfg, dt = self.cfg, self.dtype
+        p: dict[str, Any] = {"norm1": torch.ones((cfg.d_model,), device=dev,
+                                                 dtype=dt)}
         if spec.mixer == "attn":
-            p["attn"] = L.init_attention(gen, cfg, device=dev)
+            p["attn"] = L.init_attention(gen, cfg, device=dev, dtype=dt)
         elif spec.mixer == "cross_attn":
-            p["attn"] = L.init_attention(gen, cfg, cross=True, device=dev)
+            p["attn"] = L.init_attention(gen, cfg, cross=True, device=dev,
+                                         dtype=dt)
         else:
-            p["ssm"] = S.init_ssm(gen, cfg, device=dev)
+            p["ssm"] = S.init_ssm(gen, cfg, device=dev, dtype=dt)
         if spec.ffn == "dense":
-            p["norm2"] = torch.ones((cfg.d_model,), device=dev)
-            p["mlp"] = L.init_mlp(gen, cfg, device=dev)
+            p["norm2"] = torch.ones((cfg.d_model,), device=dev, dtype=dt)
+            p["mlp"] = L.init_mlp(gen, cfg, device=dev, dtype=dt)
         elif spec.ffn == "moe":
-            p["norm2"] = torch.ones((cfg.d_model,), device=dev)
-            p["moe"] = L.init_moe(gen, cfg, device=dev)
+            p["norm2"] = torch.ones((cfg.d_model,), device=dev, dtype=dt)
+            p["moe"] = L.init_moe(gen, cfg, device=dev, dtype=dt)
         return p
 
     def init_params(self, gen: torch.Generator):
@@ -109,22 +120,23 @@ class TransformerLM(nn.Module):
 
     def param_specs(self):
         """The parameter tree as empty ``meta`` tensors of the reference's
-        structure and shapes (fp32), for the dry-run: nothing is allocated
-        and nothing drawn, whatever the model's size and device."""
+        structure, shapes and the model's dtype, for the dry-run: nothing
+        is allocated and nothing drawn, whatever the model's size and
+        device."""
         return self._params(None, META)
 
     def _params(self, gen, dev: torch.device):
-        cfg = self.cfg
+        cfg, dt = self.cfg, self.dtype
         blocks = tuple(
             _stack([self._init_layer(gen, spec, dev)
                     for _ in range(cfg.n_repeats)])
             for spec in cfg.pattern)
         return {
-            "embed": L._normal(gen, (cfg.vocab, cfg.d_model), 0.02, dev),
+            "embed": L._normal(gen, (cfg.vocab, cfg.d_model), 0.02, dev, dt),
             "blocks": blocks,
-            "final_norm": torch.ones((cfg.d_model,), device=dev),
+            "final_norm": torch.ones((cfg.d_model,), device=dev, dtype=dt),
             "lm_head": L._normal(gen, (cfg.d_model, cfg.vocab),
-                                 cfg.d_model ** -0.5, dev),
+                                 cfg.d_model ** -0.5, dev, dt),
         }
 
     # -- layer application ---------------------------------------------------
@@ -201,16 +213,17 @@ class TransformerLM(nn.Module):
     # -- serving -------------------------------------------------------------
 
     def init_cache(self, batch: int, seq_len: int):
-        """Zeroed decode caches, one stacked entry per pattern position."""
+        """Zeroed decode caches of the model's dtype, one stacked entry per
+        pattern position."""
         return self._caches(batch, seq_len, self.device)
 
     def cache_specs(self, batch: int, seq_len: int):
-        """:meth:`init_cache`'s tree as empty ``meta`` tensors (fp32), for
-        the dry-run: nothing is allocated."""
+        """:meth:`init_cache`'s tree as empty ``meta`` tensors, for the
+        dry-run: nothing is allocated."""
         return self._caches(batch, seq_len, META)
 
     def _caches(self, batch: int, seq_len: int, dev: torch.device):
-        cfg = self.cfg
+        cfg, dt = self.cfg, self.dtype
         T = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
         R = cfg.n_repeats
         caches = []
@@ -218,12 +231,12 @@ class TransformerLM(nn.Module):
             if spec.mixer in ("attn", "cross_attn"):
                 rows = T if spec.mixer == "attn" else cfg.n_image_tokens
                 shape = (R, batch, rows, cfg.n_kv_heads, cfg.d_head)
-                caches.append({"k": torch.zeros(shape, device=dev),
-                               "v": torch.zeros(shape, device=dev)})
+                caches.append({"k": torch.zeros(shape, device=dev, dtype=dt),
+                               "v": torch.zeros(shape, device=dev, dtype=dt)})
             else:
                 c = S.init_ssm_cache(cfg, batch, device=META)  # shapes
                 caches.append({k: torch.zeros((R,) + tuple(a.shape),
-                                              device=dev)
+                                              device=dev, dtype=dt)
                                for k, a in c.items()})
         return tuple(caches)
 

@@ -18,7 +18,7 @@ from .config import ArchConfig
 from .layers import _normal, rmsnorm
 
 
-def init_ssm(gen, cfg: ArchConfig, device=None):
+def init_ssm(gen, cfg: ArchConfig, device=None, dtype=torch.float32):
     d, di = cfg.d_model, cfg.d_inner
     nh, n, g = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
     s = d ** -0.5
@@ -27,17 +27,17 @@ def init_ssm(gen, cfg: ArchConfig, device=None):
     conv_ch = di + 2 * g * n
 
     def const(shape, value):
-        return torch.full(shape, value, device=device)
+        return torch.full(shape, value, device=device, dtype=dtype)
 
     return {
-        "in_proj": _normal(gen, (d, proj_out), s, device),
-        "conv_w": _normal(gen, (cfg.ssm_conv, conv_ch), 0.2, device),
+        "in_proj": _normal(gen, (d, proj_out), s, device, dtype),
+        "conv_w": _normal(gen, (cfg.ssm_conv, conv_ch), 0.2, device, dtype),
         "conv_b": const((conv_ch,), 0.0),
         "A_log": const((nh,), 0.0),           # A = -exp(A_log) in (-inf, 0)
         "D": const((nh,), 1.0),
         "dt_bias": const((nh,), 0.0),
         "norm_scale": const((di,), 1.0),
-        "out_proj": _normal(gen, (di, d), di ** -0.5, device),
+        "out_proj": _normal(gen, (di, d), di ** -0.5, device, dtype),
     }
 
 
@@ -54,14 +54,16 @@ def ssd_decode_step(x, dt, A, B, C, state):
     dA = torch.exp(dt * A)                                     # (b,h)
     new = state * dA[:, :, None, None] + \
         torch.einsum("bh,bhn,bhp->bhpn", dt, Bh, x)
-    y = torch.einsum("bhn,bhpn->bhp", Ch, new)
+    # the state is fp32 from here (dA is); jnp.einsum promotes a bf16 C
+    f = torch.promote_types(Ch.dtype, new.dtype)
+    y = torch.einsum("bhn,bhpn->bhp", Ch.to(f), new.to(f))
     return y, new
 
 
 def _causal_conv(u, w, b):
     """Depthwise causal conv. u: (B, L, Ch); w: (K, Ch). The same K
-    shifted multiply-adds as the reference, in full fp32 (a cuDNN
-    convolution would run in TF32 on the card by default)."""
+    shifted multiply-adds as the reference, in the input's dtype (a cuDNN
+    convolution would run an fp32 one in TF32 on the card by default)."""
     K = w.shape[0]
     pad = F.pad(u, (0, 0, K - 1, 0))
     out = torch.zeros_like(u)
@@ -126,11 +128,12 @@ def ssm_decode(p, x, cfg: ArchConfig, cache):
         {"state": new_state.to(cache["state"].dtype), "conv": new_conv}
 
 
-def init_ssm_cache(cfg: ArchConfig, batch: int, device=None):
+def init_ssm_cache(cfg: ArchConfig, batch: int, device=None,
+                   dtype=torch.float32):
     di, nh, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     g, n = cfg.ssm_groups, cfg.ssm_state
     return {
-        "state": torch.zeros((batch, nh, hd, n), device=device),
+        "state": torch.zeros((batch, nh, hd, n), device=device, dtype=dtype),
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, di + 2 * g * n),
-                            device=device),
+                            device=device, dtype=dtype),
     }

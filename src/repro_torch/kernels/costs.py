@@ -9,13 +9,19 @@ chunking, the gathers as pure data movement. The dry-run's step counter
 plain version that stands in for a kernel on the meta device, so a traced
 step counts the port's kernels, not their plain versions (which write the
 full score matrix, for one).
+
+Bytes count each operand at its element size (``elem``: 4 for float32, 2
+for bfloat16; the gathers take their row bytes). What a kernel keeps in
+float32 whatever its operands' type counts 4 bytes an element: flash
+attention's row log-sum-exp, and the SSD scan's A, its states (initial,
+final, the chunks' starts) and their gradients.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
 
-F32 = 4
+F32 = 4   # the float32 outputs and inputs of every form of a kernel
 
 
 def attention_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
@@ -39,24 +45,26 @@ def attention_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
 
 
 def flash_attention(B: int, Sq: int, Skv: int, H: int, KV: int, D: int,
-                    causal: bool, window: int,
-                    with_lse: bool = False) -> tuple[int, int]:
+                    causal: bool, window: int, with_lse: bool = False,
+                    elem: int = 4) -> tuple[int, int]:
     """The forward: Q K^T and P V over the pairs (2D each), q, k, v read
-    and the output (and the rows' log-sum-exp) written."""
+    and the output written at ``elem`` bytes an element (and the rows'
+    float32 log-sum-exp)."""
     pairs = B * H * attention_pairs(Sq, Skv, causal, window)
-    nbytes = (2 * B * Sq * H * D + 2 * B * Skv * KV * D
-              + (B * H * Sq if with_lse else 0)) * F32
+    nbytes = ((2 * B * Sq * H * D + 2 * B * Skv * KV * D) * elem
+              + (B * H * Sq * F32 if with_lse else 0))
     return 4 * D * pairs, nbytes
 
 
 def flash_attention_backward(B: int, Sq: int, Skv: int, H: int, KV: int,
-                             D: int, causal: bool,
-                             window: int) -> tuple[int, int]:
+                             D: int, causal: bool, window: int,
+                             elem: int = 4) -> tuple[int, int]:
     """Five products over the pairs (S, dP, dq, dk, dv: 2D each); q, the
-    output, its gradient and the log-sum-exp read and dq written; k, v read
-    and dk, dv written."""
+    output, its gradient and the float32 log-sum-exp read and dq written;
+    k, v read and dk, dv written."""
     pairs = B * H * attention_pairs(Sq, Skv, causal, window)
-    nbytes = (4 * B * Sq * H * D + 4 * B * Skv * KV * D + B * H * Sq) * F32
+    nbytes = ((4 * B * Sq * H * D + 4 * B * Skv * KV * D) * elem
+              + B * H * Sq * F32)
     return 5 * 2 * D * pairs, nbytes
 
 
@@ -110,26 +118,29 @@ def ssd_bwd_flops(b: int, l: int, h: int, p: int, n: int,
 
 
 def ssd_scan(b: int, l: int, h: int, p: int, g: int, n: int, chunk: int,
-             with_init: bool, with_states: bool) -> tuple[int, int]:
-    """The forward: x, dt, A, B, C (and the initial state) read; y, the
-    final state (and the chunks' start states) written."""
+             with_init: bool, with_states: bool,
+             elem: int = 4) -> tuple[int, int]:
+    """The forward: x, dt, B, C read and y written at ``elem`` bytes an
+    element; A (and the initial state) read and the final state (and the
+    chunks' start states) written in float32."""
     state = b * h * p * n
-    nbytes = (2 * b * l * h * p + b * l * h + h + 2 * b * l * g * n + state
-              + (state if with_init else 0)
-              + ((l // chunk) * state if with_states else 0)) * F32
+    nbytes = ((2 * b * l * h * p + b * l * h + 2 * b * l * g * n) * elem
+              + (h + state + (state if with_init else 0)
+                 + ((l // chunk) * state if with_states else 0)) * F32)
     return ssd_flops(b, l, h, p, n), nbytes
 
 
 def ssd_scan_backward(b: int, l: int, h: int, p: int, g: int, n: int,
                       chunk: int, with_init: bool, with_dfinal: bool,
-                      with_states: bool) -> tuple[int, int]:
-    """The backward: x, dt, B, C, dy (A, dfinal, the initial and the
-    chunks' start states) read; dx, ddt, dA, dB, dC (dinit) written."""
+                      with_states: bool, elem: int = 4) -> tuple[int, int]:
+    """The backward: x, dt, B, C, dy read and dx, ddt, dB, dC written at
+    ``elem`` bytes an element; A, dfinal, the initial and the chunks'
+    start states read and dA, dinit written in float32."""
     state = b * h * p * n
-    nbytes = (3 * b * l * h * p + 2 * b * l * h + 4 * b * l * g * n + 2 * h
-              + (2 * state if with_init else 0)
-              + (state if with_dfinal else 0)
-              + ((l // chunk) * state if with_states else 0)) * F32
+    nbytes = ((3 * b * l * h * p + 2 * b * l * h + 4 * b * l * g * n) * elem
+              + (2 * h + (2 * state if with_init else 0)
+                 + (state if with_dfinal else 0)
+                 + ((l // chunk) * state if with_states else 0)) * F32)
     carried = with_init or with_dfinal
     return ssd_bwd_flops(b, l, h, p, n, carried), nbytes
 
@@ -146,15 +157,17 @@ def gather_rows_backward(k: int, n_rows: int, row_bytes: int,
     return 0, k * row_bytes + k * idx_bytes + n_rows * row_bytes
 
 
-def fused_lstm_cell(B: int, K: int, H: int) -> tuple[int, int]:
+def fused_lstm_cell(B: int, K: int, H: int,
+                    elem: int = 4) -> tuple[int, int]:
     """The gate GEMM (2 B K 4H); xh, w, b, c read, h', c' written."""
-    return 2 * B * K * 4 * H, (B * K + K * 4 * H + 4 * H + 3 * B * H) * F32
+    return 2 * B * K * 4 * H, (B * K + K * 4 * H + 4 * H + 3 * B * H) * elem
 
 
-def fused_gather_lstm_cell(B: int, E: int, H: int) -> tuple[int, int]:
+def fused_gather_lstm_cell(B: int, E: int, H: int,
+                           elem: int = 4) -> tuple[int, int]:
     """The gate GEMM over the gathered rows; the B gathered x, h and c
-    rows, w, b and the three index vectors read, h', c' written."""
+    rows, w, b and the three int32 index vectors read, h', c' written."""
     K = E + H
     return (2 * B * K * 4 * H,
-            (K * 4 * H + 4 * H + B * (E + 2 * H) + 2 * B * H) * F32
+            (K * 4 * H + 4 * H + B * (E + 2 * H) + 2 * B * H) * elem
             + 3 * B * 4)

@@ -8,7 +8,13 @@ Q K^T and P V on the tensor cores (3xTF32, fp32 accuracy) with the online
 softmax on the accumulators, looping over 64-row K/V tiles double-buffered
 by cp.async, reading the KV head ``h // G`` in place (no seven-fold copy
 of K and V for Qwen2's 14/2 heads) and stopping at the diagonal when
-causal. Asked for it, it also writes each row's log-sum-exp.
+causal. Asked for it, it also writes each row's log-sum-exp. bfloat16
+q, k and v go to their own forward kernel, ``csrc/flash_attention_bf16.cu``
+(the same blocks and tiles; both products as bf16 ``mma.sync`` with fp32
+accumulators, P rounded to bf16 before P V as the reference's kernel
+rounds it; the output in bf16, the log-sum-exp in fp32), whose launches
+are counted on :func:`flash_attention_bf16`. The backward kernels take
+float32 only: a bfloat16 backward raises on the card.
 
 When autograd records the call (grad mode on and an input that requires
 grad), the wrapper runs :class:`FlashAttentionFunction`: the forward with
@@ -28,6 +34,7 @@ from torch.autograd.function import once_differentiable
 from . import build, costs, counting, ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
+DTYPES = (torch.float32, torch.bfloat16)   # the forward kernels' types
 
 
 def _check(q, k, v):
@@ -47,21 +54,31 @@ def _check(q, k, v):
     return B, Sq, Skv, H, KV, D
 
 
-def _check_layout(dev, named) -> None:
+def _check_layout(dev, named, dtypes=DTYPES) -> None:
+    """Every tensor of ``named`` on ``dev``, of one dtype of ``dtypes``,
+    in the layout of :func:`_fits`."""
+    named = list(named)
+    names = ", ".join(name for name, _ in named)
+    taken = " or all ".join(str(d).removeprefix("torch.") for d in dtypes)
+    first = named[0][1].dtype
     for name, t in named:
-        if t.dtype != torch.float32 or t.device != dev:
-            raise ValueError(f"flash_attention: {name} must be float32 on "
-                             f"{dev}, got {t.dtype} on {t.device}")
+        if t.dtype not in dtypes or t.dtype != first or t.device != dev:
+            raise ValueError(f"flash_attention: {names} must all be {taken} "
+                             f"on {dev}, got {name} {t.dtype} on {t.device}")
         if not _fits(t):
             raise ValueError(f"flash_attention: {name} needs a contiguous "
-                             f"last dim, strides in multiples of 4 and a "
+                             f"last dim, strides in multiples of "
+                             f"{16 // t.element_size()} elements and a "
                              f"16-byte aligned pointer; got strides "
                              f"{t.stride()}")
 
 
 def _fits(t: torch.Tensor) -> bool:
-    """The kernels' layout rule for a (B, S, heads, D) operand."""
-    return (t.stride(3) == 1 and not any(s % 4 for s in t.stride()[:3])
+    """The kernels' layout rule for a (B, S, heads, D) operand: every
+    stride but the last a multiple of 16 bytes, the pointer 16-byte
+    aligned."""
+    unit = 16 // t.element_size()
+    return (t.stride(3) == 1 and not any(s % unit for s in t.stride()[:3])
             and t.data_ptr() % 16 == 0)
 
 
@@ -78,7 +95,8 @@ def flash_attention_forward(q, k, v, causal: bool = True, window: int = 0,
         B, Sq, H, D = q.shape
         Skv, KV = k.shape[1], k.shape[2]
         with torch.no_grad(), ref.stand_in(lambda: costs.flash_attention(
-                B, Sq, Skv, H, KV, D, causal, window, with_lse)):
+                B, Sq, Skv, H, KV, D, causal, window, with_lse,
+                q.element_size())):
             out = ref.flash_attention_ref(q, k, v, causal, window)
             lse = (ref.flash_attention_lse_ref(q, k, causal, window)
                    if with_lse else None)
@@ -87,7 +105,7 @@ def flash_attention_forward(q, k, v, causal: bool = True, window: int = 0,
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     B, Sq, Skv, H, KV, D = _check(q, k, v)
-    out = torch.empty((B, Sq, H, D), dtype=torch.float32, device=dev)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if with_lse else None)
     if out.numel() == 0:
@@ -95,13 +113,17 @@ def flash_attention_forward(q, k, v, causal: bool = True, window: int = 0,
     if Skv == 0:
         raise ValueError("flash_attention: no keys to attend to")
     lib = build.library()
+    bf16 = q.dtype == torch.bfloat16
+    launch = (lib.flash_attention_bf16_launch if bf16
+              else lib.flash_attention_launch)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(lib.flash_attention_launch(
+    build.check(launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None,
         B, Sq, Skv, H, KV, D, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], int(causal), window, stream), "flash_attention")
-    counting.count(flash_attention)
+        *v.stride()[:3], int(causal), window, stream),
+        "flash_attention_bf16" if bf16 else "flash_attention")
+    counting.count(flash_attention_bf16 if bf16 else flash_attention)
     return out, lse
 
 
@@ -113,7 +135,8 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
     card the three kernels of ``csrc/flash_attention_bwd.cu`` (rowdot;
     dk/dv in thread-block clusters over a kv head's query heads; dq),
     counted as one launch; ``dout`` in another layout than the kernels
-    take is copied contiguous first. On the CPU the plain version
+    take is copied contiguous first; float32 only (a bfloat16 backward
+    raises). On the CPU the plain version
     (:func:`ref.flash_attention_backward_ref`; ``out`` and ``lse`` are not
     read)."""
     if window and not causal:
@@ -122,13 +145,16 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
         B, Sq, H, D = q.shape
         Skv, KV = k.shape[1], k.shape[2]
         with ref.stand_in(lambda: costs.flash_attention_backward(
-                B, Sq, Skv, H, KV, D, causal, window)):
+                B, Sq, Skv, H, KV, D, causal, window, q.element_size())):
             return ref.flash_attention_backward_ref(q, k, v, dout, causal,
                                                     window)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     B, Sq, Skv, H, KV, D = _check(q, k, v)
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_attention backward: the backward kernels "
+                         f"take float32 only, got {q.dtype}")
     if tuple(out.shape) != (B, Sq, H, D) or \
             tuple(dout.shape) != (B, Sq, H, D):
         raise ValueError(f"flash_attention backward: out {tuple(out.shape)} "
@@ -140,7 +166,7 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
                          f"contiguous float32 {(B, H, Sq)} tensor on {dev}")
     if dout.dtype == torch.float32 and not _fits(dout):
         dout = dout.contiguous()
-    _check_layout(dev, (("out", out), ("dout", dout)))
+    _check_layout(dev, (("out", out), ("dout", dout)), (torch.float32,))
     dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device=dev)
     dk = torch.empty((B, Skv, KV, D), dtype=torch.float32, device=dev)
     dv = torch.empty((B, Skv, KV, D), dtype=torch.float32, device=dev)
@@ -204,12 +230,14 @@ class FlashAttentionFunction(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Skv, KV, D), ``H % KV == 0`` ->
-    (B, Sq, H, D), equal to :func:`ref.flash_attention_ref`. ``causal``
-    masks column ``j > i`` (both counted from 0) and ``window`` (causal
-    only; 0 = none) also masks ``i - j >= window``. On the card: float32,
-    ``D`` in :data:`HEAD_DIMS`, the last dim contiguous, every other stride
-    a multiple of 4 elements and 16-byte aligned pointers; differentiable
-    through :class:`FlashAttentionFunction` when autograd records."""
+    (B, Sq, H, D) of q's dtype, equal to :func:`ref.flash_attention_ref`.
+    ``causal`` masks column ``j > i`` (both counted from 0) and ``window``
+    (causal only; 0 = none) also masks ``i - j >= window``. On the card:
+    q, k and v all float32 or all bfloat16, ``D`` in :data:`HEAD_DIMS`,
+    the last dim contiguous, every other stride a multiple of 16 bytes (4
+    float32 or 8 bfloat16 elements) and 16-byte aligned pointers;
+    differentiable through :class:`FlashAttentionFunction` when autograd
+    records (float32: a bfloat16 backward raises)."""
     if window and not causal:
         raise ValueError("flash_attention: a window needs causal=True")
     if q.device.type == "cpu":
@@ -219,5 +247,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_forward(q, k, v, causal, window)[0]
 
 
+def flash_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """:func:`flash_attention` of bfloat16 q, k and v, which on the card
+    runs the bf16 forward kernel (``csrc/flash_attention_bf16.cu``); its
+    launches are counted here, whichever of the two names was called."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_bf16: q must be bfloat16, got "
+                         f"{q.dtype}")
+    return flash_attention(q, k, v, causal, window)
+
+
 flash_attention.launches = 0
+flash_attention_bf16.launches = 0
 flash_attention_backward.launches = 0

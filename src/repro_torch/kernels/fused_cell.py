@@ -119,7 +119,7 @@ def fused_lstm_cell(xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     place is not seen."""
     if xh.device.type in ref.PLAIN_DEVICES:
         with ref.stand_in(lambda: costs.fused_lstm_cell(
-                xh.shape[0], xh.shape[1], c.shape[1])):
+                xh.shape[0], xh.shape[1], c.shape[1], xh.element_size())):
             return ref.fused_lstm_cell_ref(xh, w, b, c)
     dev = xh.device
     if dev.type != "cuda":

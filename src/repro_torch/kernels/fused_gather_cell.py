@@ -40,7 +40,8 @@ def fused_gather_lstm_cell(x_src, h_src, c_src, ix, ih, ic, w, b):
     is not seen."""
     if x_src.device.type in ref.PLAIN_DEVICES:
         with ref.stand_in(lambda: costs.fused_gather_lstm_cell(
-                ix.shape[0], x_src.shape[1], h_src.shape[1])):
+                ix.shape[0], x_src.shape[1], h_src.shape[1],
+                x_src.element_size())):
             return ref.fused_gather_lstm_cell_ref(x_src, h_src, c_src, ix,
                                                   ih, ic, w, b)
     dev = x_src.device

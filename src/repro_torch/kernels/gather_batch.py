@@ -113,11 +113,12 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     ``[-N, N)`` raises (on the card as a device-side assert, surfacing as
     a CUDA error at the next synchronisation, as ``src[idx]`` does there).
     On the card differentiable through :class:`GatherRowsFunction` when
-    autograd records (``src`` float32)."""
+    autograd records (``src`` float32; on meta, where the plain versions
+    stand in, any dtype)."""
     if src.device.type == "cpu":
         return ref.gather_rows_ref(src, idx)
     if torch.is_grad_enabled() and src.requires_grad:
-        if src.dtype != torch.float32:
+        if src.dtype != torch.float32 and src.device.type == "cuda":
             raise ValueError(f"gather_rows: the backward kernel takes "
                              f"float32, got {src.dtype} that requires grad")
         return GatherRowsFunction.apply(src, idx)

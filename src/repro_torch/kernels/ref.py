@@ -272,7 +272,10 @@ def ssd_scan_bwd_ref(x, dt, A, B, C, chunk: int, init_state, dy,
        chunk's last step; d(dt A)_u = sum_{t >= u} dcum_t; ddt_u +=
        A d(dt A)_u and dA gains sum_u dt_u d(dt A)_u.
     3. dB and dC of a group sum its heads' in ascending order, dA sums
-       over batch and chunks."""
+       over batch and chunks.
+
+    Computed in float32 (float64 for float64 inputs); each gradient is
+    returned in its input's dtype."""
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if l % chunk:
@@ -336,4 +339,6 @@ def ssd_scan_bwd_ref(x, dt, A, B, C, chunk: int, init_state, dy,
     # 3. group sums
     dB = dB.reshape(b, l, g, rep, n).sum(3)
     dC = dC.reshape(b, l, g, rep, n).sum(3)
-    return (dx.reshape(b, l, h, p), ddt.reshape(b, l, h), dA, dB, dC, dinit)
+    return (dx.reshape(b, l, h, p).to(x.dtype), ddt.reshape(b, l, h).to(
+        dt.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype),
+            None if dinit is None else dinit.to(init_state.dtype))

@@ -7,7 +7,12 @@ carries its slice of the state, seeded from ``init_state`` or zero,
 through a loop over the chunks, runs each chunk's four matrix products on
 the tensor cores (3xTF32, fp32 accuracy) and writes the final state for
 the decode cache. Asked for them, it also writes the state each chunk
-starts from.
+starts from. bfloat16 x, dt, B and C (A float32) go to their own forward
+kernel, ``csrc/ssd_scan_bf16.cu`` (the same blocks; the four products as
+bf16 ``mma.sync`` with fp32 accumulators, rounding to bf16 where the
+reference rounds; y in bf16, the states in fp32), whose launches are
+counted on :func:`ssd_scan_bf16`. The backward kernels take float32 only:
+a bfloat16 backward raises on the card.
 
 When autograd records the call (grad mode on and an input that requires
 grad), the wrapper runs :class:`SsdScanFunction`: the forward, saving the
@@ -33,7 +38,11 @@ MAX_HEAD_DIM_BACKWARD = 64   # csrc/ssd_scan_bwd.cu: MAXP
 
 
 def _check(x, dt, A, B, C, chunk: int, init_state) -> tuple:
-    """Raise on what the kernels do not take; returns (b, l, h, p, g, n)."""
+    """Raise on what the kernels do not take; returns (b, l, h, p, g, n).
+    x, dt, B and C all float32 or all bfloat16, A and the initial state
+    float32; bfloat16 x, B and C with every stride but the last a multiple
+    of 8 elements and 16-byte aligned pointers (the kernel stages them 16
+    bytes at a time)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {dev}")
@@ -47,10 +56,15 @@ def _check(x, dt, A, B, C, chunk: int, init_state) -> tuple:
         if tuple(t.shape) != shape:
             raise ValueError(f"ssd_scan: {name} must be {shape}, got "
                              f"{tuple(t.shape)}")
-    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
-        if t.dtype != torch.float32 or t.device != dev:
-            raise ValueError(f"ssd_scan: {name} must be float32 on {dev}, "
-                             f"got {t.dtype} on {t.device}")
+    for name, t in (("x", x), ("dt", dt), ("B", B), ("C", C)):
+        if t.dtype not in (torch.float32, torch.bfloat16) or \
+                t.dtype != x.dtype or t.device != dev:
+            raise ValueError(f"ssd_scan: x, dt, B and C must all be float32 "
+                             f"or all bfloat16 on {dev}, got {name} "
+                             f"{t.dtype} on {t.device}")
+    if A.dtype != torch.float32 or A.device != dev:
+        raise ValueError(f"ssd_scan: A must be float32 on {dev}, got "
+                         f"{A.dtype} on {A.device}")
     if not (0 < chunk <= MAX_CHUNK and l % chunk == 0):
         raise ValueError(f"ssd_scan: chunk {chunk} must be in 1..{MAX_CHUNK} "
                          f"and divide the length {l}")
@@ -66,6 +80,13 @@ def _check(x, dt, A, B, C, chunk: int, init_state) -> tuple:
     if dt.stride(2) != 1 or not A.is_contiguous():
         raise ValueError("ssd_scan: dt must be contiguous within a position "
                          "and A contiguous")
+    if x.dtype == torch.bfloat16:
+        for name, t in (("x", x), ("B", B), ("C", C)):
+            if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+                raise ValueError(f"ssd_scan: bfloat16 {name} needs strides "
+                                 f"in multiples of 8 elements and a 16-byte "
+                                 f"aligned pointer; got strides "
+                                 f"{t.stride()}")
     if init_state is not None:
         if (tuple(init_state.shape) != (b, h, p, n)
                 or init_state.dtype != torch.float32
@@ -88,14 +109,18 @@ def ssd_scan_forward(x, dt, A, B, C, chunk: int, init_state=None,
     if x.device.type in ref.PLAIN_DEVICES:
         with torch.no_grad(), ref.stand_in(lambda: costs.ssd_scan(
                 *x.shape, *B.shape[2:], chunk, init_state is not None,
-                with_states)):
+                with_states, x.element_size())):
             y, final = ref.ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
             states = (ref.ssd_chunk_states(x, dt, A, B, chunk, init_state)
                       if with_states else None)
         return y, final, states
+    if x.dtype == torch.bfloat16 and init_state is not None and \
+            init_state.dtype == torch.bfloat16:
+        init_state = init_state.float()   # as the reference's astype
     b, l, h, p, g, n = _check(x, dt, A, B, C, chunk, init_state)
     dev = x.device
-    y = torch.empty((b, l, h, p), dtype=torch.float32, device=dev)
+    bf16 = x.dtype == torch.bfloat16
+    y = torch.empty((b, l, h, p), dtype=x.dtype, device=dev)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     states = (torch.empty((b, l // chunk, h, p, n), dtype=torch.float32,
                           device=dev) if with_states else None)
@@ -103,9 +128,10 @@ def ssd_scan_forward(x, dt, A, B, C, chunk: int, init_state=None,
         return y, (final.zero_() if init_state is None
                    else final.copy_(init_state)), states
     lib = build.library()
+    launch = lib.ssd_scan_bf16_launch if bf16 else lib.ssd_scan_launch
     with torch.cuda.device(dev):   # the launch goes to the current device
         stream = torch.cuda.current_stream(dev).cuda_stream
-        build.check(lib.ssd_scan_launch(
+        build.check(launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(),
             None if init_state is None else init_state.data_ptr(),
@@ -113,8 +139,8 @@ def ssd_scan_forward(x, dt, A, B, C, chunk: int, init_state=None,
             None if states is None else states.data_ptr(), b, l, h, p, g, n,
             chunk, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
             B.stride(0), B.stride(1), C.stride(0), C.stride(1), stream),
-            "ssd_scan")
-    counting.count(ssd_scan)
+            "ssd_scan_bf16" if bf16 else "ssd_scan")
+    counting.count(ssd_scan_bf16 if bf16 else ssd_scan)
     return y, final, states
 
 
@@ -128,17 +154,21 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
     card the kernels of ``csrc/ssd_scan_bwd.cu`` (the state pass over the
     chunks, where it is needed; C B^T once per group of heads; the chunk
     kernel on the tensor cores; the group sums), counted as one launch,
-    with the head dim at most 64; ``dy`` and ``dfinal`` in
-    another layout are copied contiguous first. The gradients are dense.
+    with the head dim at most 64, float32 only (a bfloat16 backward
+    raises); ``dy`` and ``dfinal`` in another layout are copied contiguous
+    first. The gradients are dense.
     On the CPU the plain version (:func:`ref.ssd_scan_bwd_ref`)."""
     if x.device.type in ref.PLAIN_DEVICES:
         with ref.stand_in(lambda: costs.ssd_scan_backward(
                 *x.shape, *B.shape[2:], chunk, init_state is not None,
-                dfinal is not None, states is not None)):
+                dfinal is not None, states is not None, x.element_size())):
             return ref.ssd_scan_bwd_ref(x, dt, A, B, C, chunk, init_state,
                                         dy, dfinal, states)
     b, l, h, p, g, n = _check(x, dt, A, B, C, chunk, init_state)
     dev = x.device
+    if x.dtype != torch.float32:
+        raise ValueError(f"ssd_scan backward: the backward kernels take "
+                         f"float32 only, got {x.dtype}")
     if p > MAX_HEAD_DIM_BACKWARD:
         raise ValueError(f"ssd_scan backward: head dim {p} is above "
                          f"{MAX_HEAD_DIM_BACKWARD}")
@@ -229,13 +259,16 @@ class SsdScanFunction(torch.autograd.Function):
 def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
     """x: (b, l, h, p); dt: (b, l, h); A: (h,); B, C: (b, l, g, n), the g
     groups shared by ``h // g`` heads each; ``l % chunk == 0``. Returns
-    ``(y (b, l, h, p), final_state (b, h, p, n) float32)``, equal to
-    :func:`ref.ssd_scan_ref`. On the card: float32, ``chunk`` and ``n`` at
-    most 128, ``init_state`` (if given) a contiguous (b, h, p, n) float32
-    tensor, and each other tensor contiguous within a position (the batch
-    and length strides are free, so slices of a packed projection need no
-    copy); differentiable through :class:`SsdScanFunction` when autograd
-    records (head dim at most 64)."""
+    ``(y (b, l, h, p) of x's dtype, final_state (b, h, p, n) float32)``,
+    equal to :func:`ref.ssd_scan_ref`. On the card: x, dt, B and C all
+    float32 or all bfloat16 and A float32, ``chunk`` and ``n`` at most
+    128, ``init_state`` (if given) a contiguous (b, h, p, n) float32
+    tensor (bfloat16 with bfloat16 inputs, taken as its float32 value),
+    and each other tensor contiguous within a position (the batch and
+    length strides are free, so slices of a packed projection need no
+    copy; for bfloat16 multiples of 8 elements, see :func:`_check`);
+    differentiable through :class:`SsdScanFunction` when autograd records
+    (float32, head dim at most 64)."""
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
     if torch.is_grad_enabled() and any(
@@ -245,5 +278,15 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
     return ssd_scan_forward(x, dt, A, B, C, chunk, init_state)[:2]
 
 
+def ssd_scan_bf16(x, dt, A, B, C, chunk: int, init_state=None):
+    """:func:`ssd_scan` of bfloat16 x, dt, B and C (A float32), which on
+    the card runs the bf16 forward kernel (``csrc/ssd_scan_bf16.cu``); its
+    launches are counted here, whichever of the two names was called."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"ssd_scan_bf16: x must be bfloat16, got {x.dtype}")
+    return ssd_scan(x, dt, A, B, C, chunk, init_state)
+
+
 ssd_scan.launches = 0
+ssd_scan_bf16.launches = 0
 ssd_scan_backward.launches = 0

@@ -22,18 +22,21 @@ compiles on 256 or 512 placeholder host devices, the mesh here is a shape
 
 - ``arg_bytes``: exact. One device's shard bytes of every argument of the
   step (parameters, the AdamW moments and ``step``, the inputs, the
-  caches), from the ``Partitioner``'s specs and the port's dtypes. The
-  port is fp32 only, so float leaves are twice the reference's bf16.
+  caches), from the ``Partitioner``'s specs and the leaves' dtypes, which
+  are the reference's: the model in bf16 (parameters, caches and the
+  image embeddings), the moments in fp32, tokens and positions int32.
 - ``hlo_flops``: each kernel launch's own FLOPs (``kernels/costs.py``, as
   ``chip_smoke.py``'s bounds count them: flash attention over the causal
   pairs only) plus, for the ops outside the kernels, what
   ``torch.utils.flop_counter`` counts (matmuls, convolutions; no
   elementwise work), divided by the chips, an even split: work replicated
-  on every device is undercounted.
+  on every device is undercounted. The compute term divides them by the
+  bf16 tensor-core peak (``launch/roofline.py``).
 - ``hlo_bytes``: each kernel launch's inputs read and outputs written
-  once, plus every other dispatched aten op's tensor input and output
-  bytes (views and metadata ops zero), divided by the chips: an upper
-  bound with no fusion outside the kernels.
+  once at its operands' element sizes, plus every other dispatched aten
+  op's tensor input and output bytes (views and metadata ops zero),
+  divided by the chips: an upper bound with no fusion outside the
+  kernels.
 - ``model_flops``: 6 (training) or 2 times the active parameters times
   the tokens (``launch/roofline.py``).
 - ``temp_bytes``, ``output_bytes``, ``peak_bytes`` and ``coll_bytes``:
@@ -157,14 +160,15 @@ def resolve_config(arch: str, shape: str):
     return cfg, note
 
 
-def _meta(shape, dtype=torch.float32) -> torch.Tensor:
+def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=META)
 
 
 def input_specs(arch: str, shape: str, model: TransformerLM,
                 part: Partitioner):
     """Empty meta stand-ins and shardings for every model input (int32
-    tokens and positions, as the reference's)."""
+    tokens and positions, the image embeddings in the model's dtype, as
+    the reference's)."""
     cfg = model.cfg
     info = SHAPES[shape]
     B, S = info["batch"], info["seq"]
@@ -178,7 +182,7 @@ def input_specs(arch: str, shape: str, model: TransformerLM,
             shardings["labels"] = tok_sharding
         if cfg.n_image_tokens:
             specs["image_embeds"] = _meta((B, cfg.n_image_tokens,
-                                           cfg.d_model))
+                                           cfg.d_model), model.dtype)
             shardings["image_embeds"] = part.named(
                 P(part.batch_spec(B) or None, None, None))
         return specs, shardings
@@ -221,17 +225,20 @@ def build_step(arch: str, shape: str, model: TransformerLM,
 
         def train_step(params, opt_state, batch):
             if grad_accum > 1:
+                # summed in fp32, divided, then cast to bf16, as the
+                # reference accumulates its microbatches
                 gsum, lsum = None, 0.0
                 for i in range(grad_accum):
                     mb = {k: v.reshape((grad_accum, v.shape[0] // grad_accum)
                                        + tuple(v.shape[1:]))[i]
                           for k, v in batch.items()}
                     loss, g = _value_and_grad(model, params, mb)
-                    g = leaves(g)
+                    g = [a.float() for a in leaves(g)]
                     gsum = g if gsum is None else [
                         a + b for a, b in zip(gsum, g)]
                     lsum = lsum + loss
-                grads = unflatten(params, [g / grad_accum for g in gsum])
+                grads = unflatten(params, [(g / grad_accum).bfloat16()
+                                           for g in gsum])
                 loss = lsum / grad_accum
             else:
                 loss, grads = _value_and_grad(model, params, batch)
@@ -271,14 +278,15 @@ def arg_bytes(args, shardings) -> int:
 def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
                verbose: bool = True, fsdp: bool = False, grad_accum: int = 1,
                no_tp: bool = False) -> dict:
-    """Reckon one (arch, shape) step on the 16x16 (or 2x16x16) mesh on the
-    meta device; a row of the reference's keys (module docstring)."""
+    """Reckon one (arch, shape) step of the bf16 model, as the reference
+    builds it, on the 16x16 (or 2x16x16) mesh on the meta device; a row
+    of the reference's keys (module docstring)."""
     t0 = time.time()
     cfg, note = resolve_config(arch, shape)
     mesh = make_production_mesh(multi_pod=multi_pod)
     part = Partitioner(mesh, cfg, fsdp=fsdp)
     part.no_tp = no_tp
-    model = TransformerLM(cfg, device=META)
+    model = TransformerLM(cfg, torch.bfloat16, device=META)
     note += (("+fsdp" if fsdp else "")
              + (f"+ga{grad_accum}" if grad_accum > 1 else "")
              + ("+notp" if no_tp else ""))
@@ -296,6 +304,7 @@ def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
         coll_bytes=None,
         model_flops=model_flops(cfg, args[0], shape, tokens),
         bytes_per_device=float(n_arg_bytes),
+        dtype="bfloat16",
     )
     row = rl.row()
     row.update({
@@ -319,8 +328,8 @@ def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
 
 
 def dryrun_dynamic(workloads=None, model_size: int = 16, batch_size: int = 2,
-                   seed: int = 0, verbose: bool = True,
-                   device=None) -> list[dict]:
+                   seed: int = 0, verbose: bool = True, device=None,
+                   skip=()) -> list[dict]:
     """Build the dynamic workloads' per-topology plans (core/plan.py) on
     ``device`` (None: the card) and report the lowering outcome per
     workload: step/arena counts, how many operands became contiguous
@@ -328,7 +337,9 @@ def dryrun_dynamic(workloads=None, model_size: int = 16, batch_size: int = 2,
     once: on the card it is lowered, captured as a CUDA graph and
     replayed, so ``n_compiles`` and ``compile_time_s`` count captures and
     their seconds (on the CPU, the eager build). The dynamic-graph
-    counterpart of the static arch sweep."""
+    counterpart of the static arch sweep. One rng draws every workload's
+    graph in turn; a workload in ``skip`` has its graph drawn but no plan
+    built and no row, so the others' rows stay those of the full sweep."""
     import random
 
     from ..core.batching import SufficientConditionPolicy
@@ -344,6 +355,8 @@ def dryrun_dynamic(workloads=None, model_size: int = 16, batch_size: int = 2,
             wl = make_workload(name, model_size, seed, layout="planned",
                                device=device)
             g = wl.sample_graph(rng, batch_size)
+            if name in skip:
+                continue
             ex = PlanExecutor(wl.impls, None, device=device)
             policy = SufficientConditionPolicy()
             ex.run(g, policy)            # lower + capture + one replay

@@ -2,7 +2,8 @@
 
 Per (arch x shape x mesh), in seconds:
 
-    compute    = hlo_flops / PEAK_FLOPS     [fp32 on the CUDA cores]
+    compute    = hlo_flops / peak           [PEAK_BF16 for a bf16 step,
+                                             else PEAK_FLOPS]
     memory     = hlo_bytes / HBM_BW         [HBM3]
     collective = coll_bytes / LINK_BW       [NVLink 4; None: not counted]
 
@@ -27,11 +28,15 @@ What each term counts here (``launch/dryrun.py`` traces the step on the
   None and ``dominant`` is taken over the terms present.
 
 The peaks are the H100 SXM 80GB's data-sheet figures at its 700 W limit
-(dense, no sparsity). The port's products run in fp32 with TF32 off, so
-``PEAK_FLOPS`` is the CUDA cores' fp32 rate; the tensor cores' TF32 rate
-and the 3xTF32 rate (a third of it: fp32-accurate products from three
-TF32 ones, as the hand kernels compute them) are named beside it. A card
-set below 700 W (``nvidia-smi --query-gpu=power.limit``) runs slower.
+(dense, no sparsity). A row's ``dtype`` picks its compute peak. A
+bfloat16 step (the dry-run's, as the reference's) runs its products on
+the tensor cores in bf16, the hand kernels' and the matmuls outside
+them alike, so its compute term divides by ``PEAK_BF16``. A float32 step
+runs them in fp32 with TF32 off, so its term divides by ``PEAK_FLOPS``,
+the CUDA cores' fp32 rate; the tensor cores' TF32 rate and the 3xTF32
+rate (a third of it: fp32-accurate products from three TF32 ones, as the
+fp32 hand kernels compute them) are named beside it. A card set below
+700 W (``nvidia-smi --query-gpu=power.limit``) runs slower.
 
 MODEL_FLOPS uses 6·N_active·tokens for training and 2·N_active·tokens for
 inference, with N_active the parameters less the inactive experts' share.
@@ -46,6 +51,7 @@ import numpy as np
 from ..train.optimizer import leaves
 
 PEAK_FLOPS = 67e12        # fp32 FLOP/s on the CUDA cores (H100 SXM)
+PEAK_BF16 = 989e12        # bf16 FLOP/s on the tensor cores, dense
 PEAK_TF32 = 495e12        # TF32 FLOP/s on the tensor cores, dense
 PEAK_3XTF32 = PEAK_TF32 / 3   # fp32-accurate products as 3xTF32
 HBM_BW = 3.35e12          # HBM3 bytes/s
@@ -65,10 +71,15 @@ class Roofline:
     coll_breakdown: dict = field(default_factory=dict)
     model_flops: float = 0.0
     bytes_per_device: float = 0.0
+    dtype: str = "float32"     # of the step's products: picks the peak
+
+    @property
+    def peak_flops(self) -> float:
+        return PEAK_BF16 if self.dtype == "bfloat16" else PEAK_FLOPS
 
     @property
     def t_compute(self) -> float:
-        return self.hlo_flops / PEAK_FLOPS
+        return self.hlo_flops / self.peak_flops
 
     @property
     def t_memory(self) -> float:

@@ -38,6 +38,12 @@ buffers, with the argmax inside the graph, so that the host reads only the
 tokens after a replay. The first run of each is its eager warm-up, and
 the graphs replay from the second on. ``capture=False``, or the CPU, runs
 the same bodies eagerly over the same static buffers.
+
+An engine serves in its model's dtype (float32 or bfloat16): the
+parameters must be of it, and the decode pools, the caches the prefills
+write and the logits are. The argmax in the graph takes the first of
+equal logits, as ``jnp.argmax`` does, which matters in bfloat16, where
+logits tie often.
 """
 
 from __future__ import annotations
@@ -152,6 +158,10 @@ class ServeEngine:
         if self.device != model.device:
             raise ValueError(f"ServeEngine on {self.device} was given a "
                              f"model on {model.device}")
+        dtypes = {t.dtype for t in tensors_of(params)}
+        if dtypes != {model.dtype}:
+            raise ValueError(f"ServeEngine of a {model.dtype} model was "
+                             f"given parameters of {sorted(map(str, dtypes))}")
         self.model = model
         self.params = params
         self.cache_len = cache_len
@@ -266,7 +276,7 @@ class ServeEngine:
     def _decode(self, B: int) -> _WaveProgram:
         """One decode step of B slots: next tokens (B,); its ``pool``, the
         slots' decode caches, made with it, updated in place."""
-        key = ("decode", B, self.cache_len)
+        key = ("decode", B, self.cache_len)   # the pool: the model's dtype
         prog = self._programs.get(key)
         if prog is None:
             model, params = self.model, self.params   # as in _prefill

@@ -644,6 +644,191 @@ def test_ssd_scan_rejects_what_it_does_not_take(cuda):
                  16)
 
 
+# -- bf16 ---------------------------------------------------------------
+# One bar for every bf16 comparison: the truth is the plain version in fp32
+# on the same bf16-exact inputs; the kernel's error against it must be at
+# most twice the plain bf16 version's, and within the reference's bf16
+# kernel test's 3e-2 of the largest |truth|.
+
+
+def _bf16_bar(got, plain, truth) -> None:
+    truth = truth.float()
+    err = float((got.float() - truth).abs().max())
+    assert err <= 2 * float((plain.float() - truth).abs().max())
+    assert err <= 3e-2 * float(truth.abs().max())
+
+
+_ATTN_BF16_CASES = {
+    "path S=32 B=2": (2, 32, 32, 14, 2, 64, True, 0),
+    "path S=96 B=4": (4, 96, 96, 14, 2, 64, True, 0),
+    "ragged S=37": (3, 37, 37, 14, 2, 64, True, 0),
+    "window 5 S=71": (1, 71, 71, 4, 2, 32, True, 5),
+    "cross Sq=9 Skv=133 D=128": (2, 9, 133, 8, 2, 128, False, 0),
+    "Sq=3 Skv=5 D=16 G=3": (2, 3, 5, 3, 1, 16, True, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ATTN_BF16_CASES))
+def test_flash_attention_bf16_on_the_bf16_bar(cuda, case):
+    from repro_torch.kernels.flash_attention import (flash_attention_bf16,
+                                                     flash_attention_forward)
+
+    B, Sq, Skv, H, KV, D, causal, window = _ATTN_BF16_CASES[case]
+    q, k, v = (t.bfloat16() for t in _attn_inputs(B, Sq, Skv, H, KV, D,
+                                                  cuda))
+    before = (flash_attention.launches, flash_attention_bf16.launches)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert (flash_attention.launches, flash_attention_bf16.launches) == \
+        (before[0], before[1] + 1)
+    truth = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal,
+                                    window)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    _bf16_bar(out, ref.flash_attention_ref(q, k, v, causal, window), truth)
+    again, lse = flash_attention_forward(q, k, v, causal, window, True)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out) and lse.dtype == torch.float32
+    assert _rel_err(lse, ref.flash_attention_lse_ref(
+        q.float(), k.float(), causal, window)) <= 1e-4
+
+
+_SSD_BF16_CASES = {
+    "path l=128 b=3": (3, 128, 24, 64, 1, 128, 128),
+    "path l=256 b=3": (3, 256, 24, 64, 1, 128, 128),
+    "chunk 24 p=24 n=40 groups 2": (2, 72, 4, 24, 2, 40, 24),
+    "chunk 8 p=8 n=16": (1, 40, 3, 8, 1, 16, 8),
+    "chunk 56 p=40 n=24": (2, 112, 2, 40, 1, 24, 56),
+}
+
+
+@pytest.mark.parametrize("from_state", [False, True])
+@pytest.mark.parametrize("case", sorted(_SSD_BF16_CASES))
+def test_ssd_scan_bf16_on_the_bf16_bar(cuda, case, from_state):
+    from repro_torch.kernels.ssd_scan import ssd_scan_bf16, ssd_scan_forward
+
+    b, l, h, p, g, n, chunk = _SSD_BF16_CASES[case]
+    x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, cuda)
+    x, dt, B, C = (t.bfloat16() for t in (x, dt, B, C))
+    s0 = (torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (b, h, p, n)), dtype=torch.bfloat16, device=cuda)
+        if from_state else None)
+    before = (ssd_scan.launches, ssd_scan_bf16.launches)
+    y, final = ssd_scan(x, dt, A, B, C, chunk, s0)
+    assert (ssd_scan.launches, ssd_scan_bf16.launches) == \
+        (before[0], before[1] + 1)
+    up = [t.float() for t in (x, dt, B, C)]
+    s32 = None if s0 is None else s0.float()
+    y_t, final_t = ref.ssd_scan_ref(up[0], up[1], A, up[2], up[3], chunk,
+                                    s32)
+    y_p, final_p = ref.ssd_scan_ref(x, dt, A, B, C, chunk, s0)
+    torch.cuda.synchronize()
+    assert (y.dtype, final.dtype) == (torch.bfloat16, torch.float32)
+    _bf16_bar(y, y_p, y_t)
+    _bf16_bar(final, final_p, final_t)
+    again, final2, states = ssd_scan_forward(x, dt, A, B, C, chunk, s0,
+                                             with_states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(again, y) and torch.equal(final2, final)
+    assert _rel_err(states, ref.ssd_chunk_states(
+        up[0], up[1], A, up[2], chunk, s32)) <= 3e-2
+
+
+def test_bf16_kernels_refuse_strides_off_16_bytes(cuda):
+    q, k, v = (t.bfloat16() for t in _attn_inputs(1, 8, 8, 2, 1, 16, cuda))
+    packed = torch.zeros((1, 8, 2 * 16 + 4), dtype=torch.bfloat16,
+                         device=cuda)
+    odd = packed[..., :32].view(1, 8, 2, 16)   # a stride of 36 elements
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        flash_attention(odd, k, v)
+    x, dt, A, B, C = _ssd_inputs(1, 32, 2, 16, 1, 16, cuda)
+    x, dt, B, C = (t.bfloat16() for t in (x, dt, B, C))
+    wide = torch.zeros((1, 32, 20), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        ssd_scan(x, dt, A, wide[..., :16].view(1, 32, 1, 16), C, 16)
+    xp = torch.zeros((1, 32, 2 * 16 + 4), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        ssd_scan(xp[..., :32].view(1, 32, 2, 16), dt, A, B, C, 16)
+
+
+def test_fp16_and_mixed_dtypes_are_refused(cuda):
+    q, k, v = _attn_inputs(1, 8, 8, 2, 1, 16, cuda)
+    for args in ((q.half(), k.half(), v.half()), (q.bfloat16(), k, v),
+                 (q, k.bfloat16(), v.bfloat16())):
+        with pytest.raises(ValueError, match="float32 or all bfloat16"):
+            flash_attention(*args)
+    x, dt, A, B, C = _ssd_inputs(1, 32, 2, 16, 1, 16, cuda)
+    for args in ((x.half(), dt.half(), A, B.half(), C.half()),
+                 (x.bfloat16(), dt, A, B.bfloat16(), C.bfloat16()),
+                 (x.bfloat16(), dt.bfloat16(), A.bfloat16(), B.bfloat16(),
+                  C.bfloat16())):
+        with pytest.raises(ValueError, match="float32"):
+            ssd_scan(*args, 16)
+
+
+def test_a_bf16_backward_raises(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward
+
+    q, k, v = (t.bfloat16() for t in _attn_inputs(1, 8, 8, 2, 1, 16, cuda))
+    out = flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="float32 only"):
+        flash_attention_backward(q, k, v, out, out, torch.zeros(
+            (1, 2, 8), device=cuda))
+    qg = q.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="float32 only"):
+        flash_attention(qg, k, v).float().sum().backward()
+    x, dt, A, B, C = _ssd_inputs(1, 32, 2, 16, 1, 16, cuda)
+    x, dt, B, C = (t.bfloat16() for t in (x, dt, B, C))
+    with pytest.raises(ValueError, match="float32 only"):
+        ssd_scan_backward(x, dt, A, B, C, 16, None, x)
+    xg = x.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="float32 only"):
+        ssd_scan(xg, dt, A, B, C, 16)[0].float().sum().backward()
+
+
+def test_argmax_of_tied_bf16_logits_takes_the_first_index_on_the_card(cuda):
+    logits = torch.tensor([[1.0, 3.0, 3.0, 2.0], [0.5] * 4,
+                           [1.0, 1.0 + 2.0 ** -10, 0.0, 0.0]],
+                          device=cuda).bfloat16()
+    assert torch.argmax(logits, -1).tolist() == [1, 0, 0]
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-130m"])
+def test_bf16_wave_replays_equal_eager_and_run_the_bf16_kernel(cuda, name):
+    """A reduced bf16 LM served on the card: the captured engine's tokens
+    equal the eager engine's, the pool is bf16, and the wave launches the
+    bf16 kernel and not the fp32 one."""
+    import dataclasses
+
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_bf16
+    from repro_torch.kernels.ssd_scan import ssd_scan_bf16
+    from repro_torch.serve.lm_wave import ServeEngine
+
+    cfg = get_config(name).reduced()
+    if cfg.ssm_state:
+        cfg = dataclasses.replace(cfg, ssm_chunk=32)
+    model = TransformerLM(cfg, torch.bfloat16, device=cuda)
+    params = tree_map(lambda t: t.to(cuda), TransformerLM(
+        cfg, torch.bfloat16, device="cpu").init_params(
+            torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (32, 64, 32)]
+    fp32, kernel = ((ssd_scan, ssd_scan_bf16) if cfg.ssm_state
+                    else (flash_attention, flash_attention_bf16))
+    before = (fp32.launches, kernel.launches)
+    eng = ServeEngine(model, params, cache_len=80, device=cuda)
+    outs, _ = eng.generate(prompts, 5)
+    assert fp32.launches == before[0] and kernel.launches > before[1]
+    assert eng.generate(prompts, 5)[0] == outs            # replayed
+    eager, _ = ServeEngine(model, params, cache_len=80, device=cuda,
+                           capture=False).generate(prompts, 5)
+    assert eager == outs
+    assert {t.dtype for c in eng._decode(3).pool
+            for t in c.values()} == {torch.bfloat16}
+
+
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-130m"])
 def test_lm_wave_on_card_matches_cpu(cuda, name):
     """A reduced LM served on the card gives the CPU run's tokens and batch

@@ -11,10 +11,14 @@ package (TreeLSTM-2Type still gathers 8 operands at 1).
 The arch sweep traces every (configuration x shape) step on the meta
 device: each row must be ``ok``, its ``model_flops`` the reference's
 formula on the reference's parameter shapes, and its ``arg_bytes`` one
-device's shard bytes of the reference's arguments at fp32, from the
-reference's ``Partitioner`` specs. A tiny dense model's counted forward
-FLOPs must equal the hand count of its matmuls, attention counted as the
-flash kernel computes it (over the causal pairs)."""
+device's shard bytes of the reference's arguments in the reference's own
+dtypes (the bf16 model's parameters, caches and image embeddings, fp32
+moments, int32 tokens), from the reference's ``Partitioner`` specs; its
+compute term divides by the bf16 tensor-core peak, and with gradient
+accumulation AdamW takes bf16 gradients, as the reference's. A tiny dense
+model's counted forward FLOPs must equal the hand count of its matmuls,
+attention counted as the flash kernel computes it (over the causal
+pairs)."""
 
 import importlib.util
 import json
@@ -24,6 +28,8 @@ import types
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -90,6 +96,22 @@ def test_chip_smokes_reference_rows_are_the_dynamic_rows():
         "workload", "ok"}
 
 
+def test_a_skipped_workloads_graph_is_still_drawn():
+    """``chip_smoke.py`` phase 12 skips the plans earlier phases build;
+    the rows after a skipped workload must stay the full sweep's."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    first, second = list(WORKLOADS)[:2]
+    assert first in smoke.DRYRUN_PLANNED_EARLIER
+    row, = dryrun.dryrun_dynamic([first, second], verbose=False,
+                                 device="cpu", skip=(first,))
+    assert row["workload"] == second
+    assert tuple(row[k] for k in smoke.DRYRUN_FIELDS) == \
+        smoke.DRYRUN_REFERENCE[second]
+
+
 def test_dynamic_reports_a_failed_workload_as_a_row():
     rows = dryrun.dryrun_dynamic(["no-such-workload"], verbose=False,
                                  device="cpu")
@@ -130,28 +152,31 @@ def _shard_elements(shape, spec, sizes) -> int:
 
 
 def _reference_arg_bytes(arch, shape) -> int:
-    """One device's bytes of the reference's step arguments at fp32 (int32
-    tokens and positions: every leaf 4 bytes an element)."""
+    """One device's bytes of the reference's step arguments, each leaf at
+    its own element size: the model built in bf16 as the reference's
+    dry-run builds it (parameters, caches, image embeddings), the AdamW
+    moments fp32 (``init_opt_state``), tokens and positions int32."""
     cfg, _ = REF.resolve_config(arch, shape)
     mesh = _stub_mesh()
     part = ref_sharding.Partitioner(mesh, cfg)
-    model = RefLM(cfg)
+    model = RefLM(cfg, dtype=jnp.bfloat16)
     info = REF.SHAPES[shape]
     B, S = info["batch"], info["seq"]
     params = model.param_specs()
     pairs = [(params, part.param_specs(params))]
     P = jax.sharding.PartitionSpec
     if info["kind"] == "train":
-        pairs.append((params, part.opt_specs(params)["mu"]))
-        pairs.append((params, part.opt_specs(params)["nu"]))
-        pairs.append((jax.ShapeDtypeStruct((), "int32"), P()))
+        moments = jax.eval_shape(REF.init_opt_state, params)
+        pairs.append((moments["mu"], part.opt_specs(params)["mu"]))
+        pairs.append((moments["nu"], part.opt_specs(params)["nu"]))
+        pairs.append((moments["step"], P()))
     if info["kind"] in ("train", "prefill"):
         for _ in range(2 if info["kind"] == "train" else 1):
             pairs.append((jax.ShapeDtypeStruct((B, S), "int32"),
                           part.token_spec(B)))
         if cfg.n_image_tokens:
             pairs.append((jax.ShapeDtypeStruct(
-                (B, cfg.n_image_tokens, cfg.d_model), "float32"),
+                (B, cfg.n_image_tokens, cfg.d_model), model.dtype),
                 P(part.batch_spec(B) or None, None, None)))
     else:
         caches = model.cache_specs(B, S)
@@ -164,7 +189,8 @@ def _reference_arg_bytes(arch, shape) -> int:
         shapes = jax.tree.leaves(tree)
         spec_leaves = jax.tree.leaves(specs, is_leaf=lambda x: isinstance(x, P))
         assert len(shapes) == len(spec_leaves)
-        total += sum(4 * _shard_elements(s.shape, tuple(p), mesh.shape)
+        total += sum(np.dtype(s.dtype).itemsize
+                     * _shard_elements(s.shape, tuple(p), mesh.shape)
                      for s, p in zip(shapes, spec_leaves))
     return total
 
@@ -200,6 +226,40 @@ def test_dryrun_one_variants_run_on_both_meshes():
     assert accum["shape"] == "train_4k+ga2"
     assert accum["arg_bytes"] == single["arg_bytes"]
     assert accum["hlo_flops"] == pytest.approx(single["hlo_flops"])
+
+
+def test_grad_accum_hands_adamw_bf16_gradients(monkeypatch):
+    """With ``--grad-accum 2`` the microbatches' gradients are summed in
+    fp32 and cast to bf16 after dividing, as the reference's
+    ``(g / accum).astype(jnp.bfloat16)``: AdamW takes bf16 gradients
+    beside the bf16 parameters and the fp32 moments."""
+    seen = {}
+    real = dryrun.adamw_update
+
+    def spy(cfg, params, grads, state):
+        seen["params"] = {t.dtype for t in dryrun.leaves(params)}
+        seen["grads"] = {t.dtype for t in dryrun.leaves(grads)}
+        seen["moments"] = {t.dtype for t in dryrun.leaves(state["mu"])}
+        return real(cfg, params, grads, state)
+
+    monkeypatch.setattr(dryrun, "adamw_update", spy)
+    row = dryrun.dryrun_one("mamba2-130m", "train_4k", verbose=False,
+                            grad_accum=2)
+    assert row["ok"] and row["shape"] == "train_4k+ga2"
+    assert seen == {"params": {torch.bfloat16}, "grads": {torch.bfloat16},
+                    "moments": {torch.float32}}
+
+
+def test_a_bf16_rows_compute_term_uses_the_bf16_peak():
+    from repro_torch.launch import roofline
+
+    row = dryrun.dryrun_one("qwen2-0.5b", "prefill_32k", verbose=False)
+    assert roofline.PEAK_BF16 == 989e12
+    assert row["t_compute_s"] == pytest.approx(
+        row["hlo_flops"] / roofline.PEAK_BF16, rel=1e-12)
+    fp32 = roofline.Roofline(arch="a", shape="s", mesh="1", chips=1,
+                             hlo_flops=row["hlo_flops"], hlo_bytes=1.0)
+    assert fp32.t_compute == row["hlo_flops"] / roofline.PEAK_FLOPS
 
 
 def test_tiny_dense_forward_flops_are_its_matmuls():

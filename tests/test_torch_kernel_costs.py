@@ -4,9 +4,10 @@ dry-run's step counter (``launch/dryrun.py:StepCounter``) counts it.
 On the meta device each kernel wrapper takes the card's route and its plain
 version stands in for the launch: a traced call must count the kernel's
 ``(flops, bytes)`` exactly, not the plain version's ops (the plain
-attention writes the full score matrix and computes the masked half). The
-attention pair count is held against the mask it describes, element by
-element."""
+attention writes the full score matrix and computes the masked half),
+bfloat16 operands at 2 bytes an element and what stays float32 (the
+log-sum-exp, the scan's A and states) at 4. The attention pair count is
+held against the mask it describes, element by element."""
 
 import pytest
 
@@ -51,6 +52,41 @@ def _ssd_train(x, dt, A, BC):
 def _gather_train(src, idx):
     out = gather_rows(src, idx)
     torch.autograd.grad(out, (src,), torch.empty_like(out))
+
+
+def _bf16_cases():
+    """The bfloat16 forms of the attention and scan cases."""
+    bf = torch.bfloat16
+    q, kv = m(2, 24, 8, 16, dtype=bf), m(2, 24, 2, 16, dtype=bf)
+    x, dt, A, BC = (m(2, 32, 4, 8, dtype=bf), m(2, 32, 4, dtype=bf), m(4),
+                    m(2, 32, 1, 16, dtype=bf))
+    lse = costs.flash_attention(2, 24, 24, 8, 2, 16, True, 0, True, 2)
+    bwd = costs.flash_attention_backward(2, 24, 24, 8, 2, 16, True, 0, 2)
+    sfwd_states = costs.ssd_scan(2, 32, 4, 8, 1, 16, 16, False, True, 2)
+    sbwd = costs.ssd_scan_backward(2, 32, 4, 8, 1, 16, 16, False, False,
+                                   True, 2)
+    qg = m(2, 24, 8, 16, dtype=bf, grad=True)
+    kvg = m(2, 24, 2, 16, dtype=bf, grad=True)
+    kv_grad_sum = 3 * 2 * 24 * 2 * 16 * 2   # dk + dv, bf16
+
+    def add(*cs):
+        return tuple(map(sum, zip(*cs)))
+
+    return {
+        "flash_attention bf16": (
+            lambda: fa.flash_attention(q, kv, kv),
+            costs.flash_attention(2, 24, 24, 8, 2, 16, True, 0, False, 2),
+            0),
+        "flash_attention train bf16": (lambda: _flash_train(qg, kvg),
+                                       add(lse, bwd), kv_grad_sum),
+        "ssd_scan bf16": (
+            lambda: ss.ssd_scan(x, dt, A, BC, BC, 16),
+            costs.ssd_scan(2, 32, 4, 8, 1, 16, 16, False, False, 2), 0),
+        "ssd_scan train bf16": (
+            lambda: _ssd_train(m(2, 32, 4, 8, dtype=bf, grad=True), dt, A,
+                               BC),
+            add(sfwd_states, sbwd), 0),
+    }
 
 
 def _cases():
@@ -102,6 +138,7 @@ def _cases():
                 m(3, dtype=torch.int32), m(3, dtype=torch.int32), m(40, 64),
                 m(64)),
             costs.fused_gather_lstm_cell(3, 24, 16), 0),
+        **_bf16_cases(),
     }
 
 
@@ -109,6 +146,38 @@ def _cases():
 def test_a_traced_wrapper_counts_its_kernels_work(name):
     call, (flops, nbytes), extra = _cases()[name]
     assert trace_counts(call) == (flops, nbytes + extra)
+
+
+def test_costs_count_operands_at_their_element_size():
+    """bf16 operands move half an fp32 operand's bytes; the log-sum-exp,
+    A and the scan's states stay 4 bytes; FLOPs do not change."""
+    B, Sq, Skv, H, KV, D = 2, 24, 30, 8, 2, 16
+    operands = 2 * B * Sq * H * D + 2 * B * Skv * KV * D
+    f4 = costs.flash_attention(B, Sq, Skv, H, KV, D, True, 0, True)
+    f2 = costs.flash_attention(B, Sq, Skv, H, KV, D, True, 0, True, 2)
+    assert f4[0] == f2[0]
+    assert (f4[1], f2[1]) == (4 * operands + 4 * B * H * Sq,
+                              2 * operands + 4 * B * H * Sq)
+    grads = 2 * operands
+    b4 = costs.flash_attention_backward(B, Sq, Skv, H, KV, D, True, 0)
+    b2 = costs.flash_attention_backward(B, Sq, Skv, H, KV, D, True, 0, 2)
+    assert b4[1] - b2[1] == 2 * grads and b4[0] == b2[0]
+    b, l, h, p, g, n, c = 2, 32, 4, 8, 1, 16, 16
+    seq = 2 * b * l * h * p + b * l * h + 2 * b * l * g * n
+    fixed = h + b * h * p * n * (1 + 1 + l // c)   # A, init, final, states
+    s4 = costs.ssd_scan(b, l, h, p, g, n, c, True, True)
+    s2 = costs.ssd_scan(b, l, h, p, g, n, c, True, True, 2)
+    assert (s4[1], s2[1]) == (4 * seq + 4 * fixed, 2 * seq + 4 * fixed)
+    assert s4[0] == s2[0]
+    bseq = 3 * b * l * h * p + 2 * b * l * h + 4 * b * l * g * n
+    k4 = costs.ssd_scan_backward(b, l, h, p, g, n, c, True, True, True)
+    k2 = costs.ssd_scan_backward(b, l, h, p, g, n, c, True, True, True, 2)
+    assert k4[1] - k2[1] == 2 * bseq and k4[0] == k2[0]
+    assert costs.fused_lstm_cell(3, 40, 16, 2)[1] * 2 == \
+        costs.fused_lstm_cell(3, 40, 16)[1]
+    c4 = costs.fused_gather_lstm_cell(3, 24, 16)[1]
+    c2 = costs.fused_gather_lstm_cell(3, 24, 16, 2)[1]
+    assert c4 - 3 * 3 * 4 == 2 * (c2 - 3 * 3 * 4)   # int32 indices stay
 
 
 def test_the_plain_version_is_counted_only_outside_a_stand_in():
