@@ -9,11 +9,14 @@ Phases, in order; any failure raises and exits non-zero:
    gives them), builds the CUDA kernels from ``src/repro_torch/csrc`` with
    nvcc into ``build/repro_torch/`` and prints the build seconds and the
    ptxas resource lines.
-2. Kernels: counts the tensor-core (``HMMA``) instructions of the
-   attention (forward, and the backward's dk/dv and dq), scan (forward,
-   and the backward's chunk kernel) and both LSTM-cell kernels in the
-   built library
-   (``cuobjdump -sass``, where the toolkit has it; none fails). Times an
+2. Kernels: counts the tensor-core instructions (``HMMA``, and Hopper's
+   warpgroup ``HGMMA``) and TMA tile loads (``UTMALDG``) of the attention
+   (forward in fp32 and bf16, and the backward's dk/dv and dq), scan
+   (forward in fp32 and bf16, and the backward's chunk kernel) and both
+   LSTM-cell kernels in the built library (``cuobjdump -sass``, where the
+   toolkit has it): a kernel with no tensor-core instruction fails, and so
+   does a bf16 forward (redesigned for Hopper) with no ``HGMMA`` or no
+   ``UTMALDG``. Times an
    empty kernel launched through the library in the same timer as the
    kernels (the ``launch floor:`` line). Then each kernel against its
    plain PyTorch version on the card at the path's shapes and edge cases
@@ -46,9 +49,12 @@ Phases, in order; any failure raises and exits non-zero:
    path's shapes and small odd ones, each on the one bf16 bar
    (``bf16_bar``: the error against the plain version in fp32 on the
    upcast inputs at most twice the plain bf16 version's, and within
-   BF16_KERNEL_TOL, the reference's 3e-2, of the largest |value|), timed
-   at their wave's prefill shapes beside the plain bf16 version and, for
-   attention, bf16 ``scaled_dot_product_attention``.
+   BF16_KERNEL_TOL, the reference's 3e-2, of the largest |value|), two
+   runs of each case bit-equal, timed at their wave's prefill shapes
+   beside the plain bf16 version and, for attention, bf16
+   ``scaled_dot_product_attention``; attention also at the vision model's
+   cross shape (q (2, 64, 32, 128), k/v (2, 1024, 8, 128), non-causal)
+   beside bf16 ``scaled_dot_product_attention``, with its bound.
 3. The slice: BiLSTM-Tagger at model_size=512 on CUDA. An FSM policy is
    learned on small graphs, then fresh 16-sentence minibatches (and one
    repeat) run through the interpreted, per-topology and bucketed
@@ -424,11 +430,19 @@ def build_kernels() -> None:
                 log(f"ptxas {src}: {line.strip()}")
 
 
-def hmma_counts(kernels: tuple[str, ...]) -> dict | None:
-    """Tensor-core instructions (``HMMA``) in each named kernel's SASS in
-    the built library, summed over its template instances, from
-    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+# SASS opcodes counted per kernel: the tensor-core steps of mma.sync
+# (HMMA) and of wgmma (HGMMA), and TMA tile loads (UTMALDG)
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+# the kernels redesigned for Hopper: each must hold HGMMA and UTMALDG
+HOPPER_KERNELS = ("flash_attention_bf16_kernel", "ssd_scan_bf16_kernel")
+
+
+def sass_counts(kernels: tuple[str, ...]) -> dict | None:
+    """Each named kernel's count of each SASS_OPS opcode in the built
+    library, summed over its template instances, from ``cuobjdump
+    -sass``; None where the toolkit has no cuobjdump."""
     import os
+    import re
     import shutil
 
     from repro_torch.kernels import build
@@ -442,13 +456,14 @@ def hmma_counts(kernels: tuple[str, ...]) -> dict | None:
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump failed: {out.stderr.strip()[-500:]}")
-    counts = dict.fromkeys(kernels, 0)
+    counts = {k: dict.fromkeys(SASS_OPS, 0) for k in kernels}
     current = None
     for line in out.stdout.splitlines():
         if "Function :" in line:
             current = next((k for k in kernels if k in line), None)
-        elif current and "HMMA" in line:
-            counts[current] += 1
+        elif current:
+            for op in re.findall(r"\b(HMMA|HGMMA|UTMALDG)\b", line):
+                counts[current][op] += 1
     return counts
 
 
@@ -846,8 +861,11 @@ def check_flash_bf16(torch, timer) -> dict:
     """The bf16 forward kernel against its plain version on the bf16 bar
     (:func:`bf16_bar`), at FLASH_CASES and the vision model's cross
     shape, the log-sum-exp within 1e-4 of the fp32
-    plain version's; timed at the wave's two prefill shapes beside the
-    plain bf16 version and bf16 ``scaled_dot_product_attention``."""
+    plain version's, two runs bit-equal; timed at the wave's two prefill
+    shapes beside the plain bf16 version and bf16
+    ``scaled_dot_product_attention``, and at the cross shape beside bf16
+    ``scaled_dot_product_attention`` with its bound (the row's
+    ``cross``)."""
     from repro_torch.kernels import costs, ref
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_forward)
@@ -865,6 +883,7 @@ def check_flash_bf16(torch, timer) -> dict:
             bf16((B, Skv, KV, D))
         out, lse = flash_attention_forward(q, k, v, causal, window,
                                            with_lse=True)
+        again, _ = flash_attention_forward(q, k, v, causal, window)
         truth = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                         causal, window)
         plain = ref.flash_attention_ref(q, k, v, causal, window)
@@ -877,6 +896,8 @@ def check_flash_bf16(torch, timer) -> dict:
         bar = bf16_bar(f"flash_attention_bf16 {label}", out, plain, truth)
         if not lse_err <= 1e-4:
             fail(f"flash_attention_bf16 {label}: lse relative err {lse_err}")
+        if not torch.equal(again, out):
+            fail(f"flash_attention_bf16 {label}: two runs differ")
         worst = max(worst, bar["err"])
         log(f"flash_attention_bf16 {label}: max abs err {bar['err']:.3e} "
             f"(plain bf16 {bar['plain_err']:.3e}; relative "
@@ -901,6 +922,27 @@ def check_flash_bf16(torch, timer) -> dict:
     plain_ms = timer(lambda: ref.flash_attention_ref(q, k, v))
     log(f"scaled_dot_product_attention bf16 runs: "
         f"{library_kernels(torch, lambda: sdpa(qt, kt, vt, is_causal=True))}")
+    # the vision model's cross shape: 4 query heads a KV head, 1024 keys
+    cB, cSq, cSkv, cH, cKV, cD = 2, 64, 1024, 32, 8, 128
+    cq, ck, cv = bf16((cB, cSq, cH, cD)), bf16((cB, cSkv, cKV, cD)), \
+        bf16((cB, cSkv, cKV, cD))
+    cqt = cq.transpose(1, 2).contiguous()
+    ckt, cvt = (t.repeat_interleave(cH // cKV, dim=2).transpose(1, 2)
+                .contiguous() for t in (ck, cv))
+    cross = {"shape": f"q ({cB}, {cSq}, {cH}, {cD}), k/v ({cB}, {cSkv}, "
+                      f"{cKV}, {cD}) bfloat16, non-causal",
+             "ms": timer(lambda: flash_attention(cq, ck, cv, causal=False)),
+             "library_ms": timer(lambda: sdpa(cqt, ckt, cvt)),
+             "plain_ms": timer(lambda: ref.flash_attention_ref(
+                 cq, ck, cv, False)),
+             **cost_bound("flash_attention_bf16 cross",
+                          costs.flash_attention(cB, cSq, cSkv, cH, cKV, cD,
+                                                False, 0, False, 2),
+                          "bf16 on the tensor cores")}
+    log(f"flash_attention_bf16 cross ms: cold kernel {cross['ms']:.4f}, "
+        f"scaled_dot_product_attention bf16 {cross['library_ms']:.4f}, "
+        f"plain bf16 {cross['plain_ms']:.4f}, bound {cross['bound_ms']:.6f} "
+        f"({cross['bound_by']})")
     return {"name": "flash_attention_bf16", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bf16.cu",
             "replaces": "src/repro/kernels/flash_attention.py:65",
@@ -912,7 +954,7 @@ def check_flash_bf16(torch, timer) -> dict:
                 B, S, S, H, KV, D, True, 0, False, 2),
                 "bf16 on the tensor cores"),
             "library_ms": waves[f"S={S} B={B}"]["library_ms"],
-            "waves": waves}
+            "waves": waves, "cross": cross}
 
 
 def check_ssd_bf16(torch, timer) -> dict:
@@ -920,8 +962,8 @@ def check_ssd_bf16(torch, timer) -> dict:
     (y; the fp32 final state and chunk start states on the same bar, the
     kernel's 3e-2 of their largest magnitude included), at the Mamba2
     wave's prefill shapes, from an initial state and at small odd
-    shapes; timed at the wave's two prefill shapes beside the plain bf16
-    version."""
+    shapes, two runs bit-equal; timed at the wave's two prefill shapes
+    beside the plain bf16 version."""
     from repro_torch.kernels import costs, ref
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_forward
 
@@ -951,6 +993,7 @@ def check_ssd_bf16(torch, timer) -> dict:
         ("init state, path l=256 B=3", 3, 256, 24, 64, 1, 128, 128, True),
         ("init state, ragged p=24 n=40 chunk 24", 2, 48, 4, 24, 2, 40, 24,
          True),
+        ("init state, chunk 96 n=64 p=64", 1, 192, 2, 64, 1, 64, 96, True),
     ]
     worst = 0.0
     for label, b, l, h, p, grp, n, chunk, from_state in cases:
@@ -959,6 +1002,7 @@ def check_ssd_bf16(torch, timer) -> dict:
               if from_state else None)
         y, final, states = ssd_scan_forward(x, dt, A, B, C, chunk, s0,
                                             with_states=True)
+        y2, final2, _ = ssd_scan_forward(x, dt, A, B, C, chunk, s0)
         up = [t.float() for t in (x, dt, B, C)]
         y_t, final_t = ref.ssd_scan_ref(up[0], up[1], A, up[2], up[3], chunk,
                                         s0)
@@ -972,6 +1016,8 @@ def check_ssd_bf16(torch, timer) -> dict:
         fbar = bf16_bar(f"ssd_scan_bf16 {label} final state", final,
                         final_p, final_t)
         srel = rel_err(states, states_t)
+        if not (torch.equal(y, y2) and torch.equal(final, final2)):
+            fail(f"ssd_scan_bf16 {label}: two runs differ")
         if not srel <= BF16_KERNEL_TOL:
             fail(f"ssd_scan_bf16 {label}: chunk start states relative err "
                  f"{srel}")
@@ -4497,7 +4543,7 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timer = ColdTimer(torch)
-    hmma = hmma_counts(("flash_attention_kernel",
+    sass = sass_counts(("flash_attention_kernel",
                         "flash_attention_bf16_kernel",
                         "ssd_scan_bf16_kernel",
                         "flash_attention_bwd_dkdv_kernel",
@@ -4505,12 +4551,18 @@ def main(argv: list[str] | None = None) -> int:
                         "ssd_bwd_chunk_kernel",
                         "fused_gather_lstm_cell_kernel",
                         "fused_lstm_cell_kernel"))
-    if hmma is None:
-        log("HMMA instructions: not counted (no cuobjdump in the toolkit)")
+    if sass is None:
+        log("SASS: not counted (no cuobjdump in the toolkit)")
     else:
-        log(f"HMMA instructions in the SASS: {hmma}")
-        if not all(hmma.values()):
-            fail(f"a tensor-core kernel has no HMMA instruction: {hmma}")
+        log(f"SASS {'/'.join(SASS_OPS)} instructions: "
+            f"{ {k: [v[op] for op in SASS_OPS] for k, v in sass.items()} }")
+        if not all(v["HMMA"] + v["HGMMA"] for v in sass.values()):
+            fail(f"a tensor-core kernel has no HMMA or HGMMA instruction: "
+                 f"{sass}")
+        for k in HOPPER_KERNELS:
+            if not (sass[k]["HGMMA"] and sass[k]["UTMALDG"]):
+                fail(f"{k} lacks HGMMA or UTMALDG (a Hopper kernel runs "
+                     f"wgmma on TMA-loaded tiles): {sass[k]}")
     rows = []
     if 2 in phases:
         launch_floor(torch, timer)

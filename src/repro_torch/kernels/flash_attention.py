@@ -9,12 +9,15 @@ softmax on the accumulators, looping over 64-row K/V tiles double-buffered
 by cp.async, reading the KV head ``h // G`` in place (no seven-fold copy
 of K and V for Qwen2's 14/2 heads) and stopping at the diagonal when
 causal. Asked for it, it also writes each row's log-sum-exp. bfloat16
-q, k and v go to their own forward kernel, ``csrc/flash_attention_bf16.cu``
-(the same blocks and tiles; both products as bf16 ``mma.sync`` with fp32
-accumulators, P rounded to bf16 before P V as the reference's kernel
-rounds it; the output in bf16, the log-sum-exp in fp32), whose launches
-are counted on :func:`flash_attention_bf16`. The backward kernels take
-float32 only: a bfloat16 backward raises on the card.
+q, k and v go to their own forward kernel, ``csrc/flash_attention_bf16.cu``,
+written for Hopper: the query heads of a KV head folded into the rows of
+one block, so that one K/V tile feeds them all (at most 64 query heads a
+KV head), Q and the K/V tiles brought by TMA from a producer warp, both
+products as ``wgmma`` with fp32 accumulators, P rounded to bf16 before
+P V as the reference's kernel rounds it; the output in bf16, the
+log-sum-exp in fp32. Its launches are counted on
+:func:`flash_attention_bf16`. The backward kernels take float32 only: a
+bfloat16 backward raises on the card.
 
 When autograd records the call (grad mode on and an input that requires
 grad), the wrapper runs :class:`FlashAttentionFunction`: the forward with
@@ -35,6 +38,7 @@ from . import build, costs, counting, ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
 DTYPES = (torch.float32, torch.bfloat16)   # the forward kernels' types
+MAX_GROUP_BF16 = 64   # csrc/flash_attention_bf16.cu: the rows of a block
 
 
 def _check(q, k, v):
@@ -50,6 +54,10 @@ def _check(q, k, v):
         raise ValueError(f"flash_attention: {H} heads over {KV} kv heads")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and H // KV > MAX_GROUP_BF16:
+        raise ValueError(f"flash_attention: bfloat16 takes at most "
+                         f"{MAX_GROUP_BF16} query heads a kv head, got "
+                         f"{H // KV}")
     _check_layout(q.device, zip("qkv", (q, k, v)))
     return B, Sq, Skv, H, KV, D
 
@@ -235,7 +243,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (causal only; 0 = none) also masks ``i - j >= window``. On the card:
     q, k and v all float32 or all bfloat16, ``D`` in :data:`HEAD_DIMS`,
     the last dim contiguous, every other stride a multiple of 16 bytes (4
-    float32 or 8 bfloat16 elements) and 16-byte aligned pointers;
+    float32 or 8 bfloat16 elements) and 16-byte aligned pointers (bfloat16:
+    at most 64 query heads a kv head);
     differentiable through :class:`FlashAttentionFunction` when autograd
     records (float32: a bfloat16 backward raises)."""
     if window and not causal:

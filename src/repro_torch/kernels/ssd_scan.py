@@ -8,9 +8,11 @@ through a loop over the chunks, runs each chunk's four matrix products on
 the tensor cores (3xTF32, fp32 accuracy) and writes the final state for
 the decode cache. Asked for them, it also writes the state each chunk
 starts from. bfloat16 x, dt, B and C (A float32) go to their own forward
-kernel, ``csrc/ssd_scan_bf16.cu`` (the same blocks; the four products as
-bf16 ``mma.sync`` with fp32 accumulators, rounding to bf16 where the
-reference rounds; y in bf16, the states in fp32), whose launches are
+kernel, ``csrc/ssd_scan_bf16.cu``, written for Hopper: one block per
+(head, batch) holding the head's whole state (head dim at most 64), a
+producer warp keeping the next chunk's C, B and x in flight by TMA, and the
+four products as ``wgmma`` with fp32 accumulators, rounding to bf16 where
+the reference rounds; y in bf16, the states in fp32. Its launches are
 counted on :func:`ssd_scan_bf16`. The backward kernels take float32 only:
 a bfloat16 backward raises on the card.
 
@@ -35,14 +37,15 @@ from . import build, costs, counting, ref
 MAX_CHUNK = 128
 MAX_STATE = 128
 MAX_HEAD_DIM_BACKWARD = 64   # csrc/ssd_scan_bwd.cu: MAXP
+MAX_HEAD_DIM_BF16 = 64       # csrc/ssd_scan_bf16.cu: MAXP
 
 
 def _check(x, dt, A, B, C, chunk: int, init_state) -> tuple:
     """Raise on what the kernels do not take; returns (b, l, h, p, g, n).
     x, dt, B and C all float32 or all bfloat16, A and the initial state
     float32; bfloat16 x, B and C with every stride but the last a multiple
-    of 8 elements and 16-byte aligned pointers (the kernel stages them 16
-    bytes at a time)."""
+    of 8 elements and 16-byte aligned pointers (TMA reads them), and a
+    head dim of at most 64."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {dev}")
@@ -81,6 +84,9 @@ def _check(x, dt, A, B, C, chunk: int, init_state) -> tuple:
         raise ValueError("ssd_scan: dt must be contiguous within a position "
                          "and A contiguous")
     if x.dtype == torch.bfloat16:
+        if p > MAX_HEAD_DIM_BF16:
+            raise ValueError(f"ssd_scan: bfloat16 head dim {p} is above "
+                             f"{MAX_HEAD_DIM_BF16}")
         for name, t in (("x", x), ("B", B), ("C", C)):
             if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
                 raise ValueError(f"ssd_scan: bfloat16 {name} needs strides "

@@ -349,6 +349,179 @@ int main() {
 """
 
 
+# The bf16 scan (csrc/ssd_scan_bf16.cu) at the Mamba2 wave's prefill: lane
+# 0 of every warp stamps 0 at the start, 1 after the block's set-up, and
+# for each of the two chunks (c, from 2 + 7c) the TMA wait passed, the
+# barrier on S' passed, the update's A operand built, C B^T and C S'^T
+# issued and waited, the update issued, the diagonal block's weights
+# formed, every product waited; then 16 + c at the chunk's end (S'
+# written, y stored) and 18 after the final state. The producer
+# warp stamps 2 + 7c after its arrive for chunk c.
+SSD_BF16_STAMPS = [
+    ("  const int nc = static_cast<int>(L / Q);\n",
+     "+  const int pidx = (blockIdx.y * gridDim.x + blockIdx.x) * (4 * NWG + 1)"
+     " + (threadIdx.x >> 5);\n  STAMP(0, 0.f);\n"),
+    ("  if (warp == 4 * NWG) {\n", "  STAMP(1, 0.f);\n"),
+    ("      hopper::mbar_arrive(&sm.full[s]);\n",
+     "+      STAMP(2 + 7 * (c < 2 ? c : 1), 0.f);\n"),
+    ("    hopper::mbar_wait(&sm.full[s], (c / NS) & 1);\n",
+     "+    const int ci = 2 + 7 * (c < 2 ? c : 1);\n    STAMP(ci, 0.f);\n"),
+    ("    hopper::bar_sync(1, 128 * NWG);   // every block of S' is written\n",
+     "+    STAMP(ci + 1, 0.f);\n"),
+    ("    // -- 2. C B^T of the warpgroup's rows",
+     "    STAMP(ci + 2, __uint_as_float(ua[KQ - 1][3]));\n"),
+    ("    // -- 3. the update S <- S exp(cum_end)",
+     "    STAMP(ci + 3, sc[QT / 2 - 1] + ya[31]);\n"),
+    ("    // -- 4. the diagonal block on top", "    STAMP(ci + 4, 0.f);\n"),
+    ("      hopper::wg_fence();\n#pragma unroll\n      for (int kk = 0; kk < K; ++kk)\n",
+     "      STAMP(ci + 5, __uint_as_float(fa[K - 1][3]));\n"),
+    ("    if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);\n",
+     "    STAMP(ci + 6, ya[31] + st[0][31]);\n"),
+    ("              hopper::pack(ya[4 * j + 2], ya[4 * j + 3]);\n      }\n    }\n",
+     "+    STAMP(16 + (c < 2 ? c : 1), 0.f);\n"),
+    ("            make_float2(st[i][k], st[i][k + 1]);\n    }\n  }\n",
+     "+  STAMP(18, 0.f);\n"),
+]
+SSD_BF16_MAIN = r"""
+#include <cstdio>
+#include <vector>
+int main() {
+  const int b = 3, L = 256, H = 24, P = 64, N = 128, Q = 128;
+  const size_t nx = size_t(b) * L * H * P, nd = size_t(b) * L * H;
+  const size_t nb = size_t(b) * L * N;
+  std::vector<__nv_bfloat16> hx(nx), hd(nd), hb(nb);
+  std::vector<float> ha(H);
+  for (size_t i = 0; i < nx; ++i)
+    hx[i] = __float2bfloat16((i * 2654435761u % 1000) / 1e3f - .5f);
+  for (size_t i = 0; i < nd; ++i)
+    hd[i] = __float2bfloat16((i * 40503u % 1000) / 2e3f);
+  for (int i = 0; i < H; ++i) ha[i] = -0.1f * (i % 5 + 1);
+  for (size_t i = 0; i < nb; ++i)
+    hb[i] = __float2bfloat16((i * 7919u % 1000) / 1e3f - .5f);
+  __nv_bfloat16 *x, *dt, *B, *C, *y;
+  float *A, *fs;
+  cudaMalloc(&x, nx * 2); cudaMalloc(&dt, nd * 2); cudaMalloc(&A, H * 4);
+  cudaMalloc(&B, nb * 2); cudaMalloc(&C, nb * 2); cudaMalloc(&y, nx * 2);
+  cudaMalloc(&fs, size_t(b) * H * P * N * 4);
+  cudaMemcpy(x, hx.data(), nx * 2, cudaMemcpyHostToDevice);
+  cudaMemcpy(dt, hd.data(), nd * 2, cudaMemcpyHostToDevice);
+  cudaMemcpy(A, ha.data(), H * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(B, hb.data(), nb * 2, cudaMemcpyHostToDevice);
+  cudaMemcpy(C, hb.data(), nb * 2, cudaMemcpyHostToDevice);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0); cudaEventCreate(&e1);
+  for (int rep = 0; rep < 5; ++rep) {
+    cudaEventRecord(e0);
+    const int rc = ssd_scan_bf16_launch(
+        x, dt, A, B, C, nullptr, y, fs, nullptr, b, L, H, P, 1, N, Q,
+        L * H * P, H * P, L * H, H, L * N, N, L * N, N, 0);
+    cudaEventRecord(e1); cudaEventSynchronize(e1);
+    float ms; cudaEventElapsedTime(&ms, e0, e1);
+    printf("ssd bf16 phases: launch %d rc %d, %.4f ms\n", rep, rc, ms);
+  }
+  static long long hp[4096][20];
+  cudaMemcpyFromSymbol(hp, g_prof, sizeof(hp));
+  for (int blk : {0, 35, 71}) for (int w = 0; w < 9; ++w) {
+    const long long* t = hp[blk * 9 + w];
+    if (w == 8) {
+      printf("ssd bf16 phases: block %d producer cycles: set-up %lld, chunk 0 "
+             "dt and cum %lld, chunk 1 %lld\n", blk, t[1] - t[0],
+             t[2] - t[1], t[9] - t[2]);
+      continue;
+    }
+    printf("ssd bf16 phases: block %d warp %d cycles: set-up %lld", blk, w,
+           t[1] - t[0]);
+    long long prev = t[1];
+    for (int c = 0; c < 2; ++c) {
+      const long long* u = t + 2 + 7 * c;
+      printf(" | chunk %d: TMA wait %lld, S' barrier %lld, update operand "
+             "%lld, C B^T and C S'^T %lld, update issued %lld, diagonal "
+             "weights %lld, products waited %lld, S' and y %lld",
+             c, u[0] - prev,
+             u[1] - u[0], u[2] - u[1], u[3] - u[2], u[4] - u[3],
+             u[5] - u[4], u[6] - u[5], t[16 + c] - u[6]);
+      prev = t[16 + c];
+    }
+    printf(" | final state %lld | total %lld\n", t[18] - t[17],
+           t[18] - t[0]);
+  }
+  return 0;
+}
+"""
+
+# The bf16 attention (csrc/flash_attention_bf16.cu) at the Qwen2 wave's
+# larger prefill: 0 at the start, 1 after the block's set-up, 2 with Q
+# landed; for the first two K/V tiles (from 3 + 5 it) the TMA wait
+# passed, S = Q K^T waited, the softmax done, P V waited; 13 after the
+# loop, 14 after the stores.
+FLASH_BF16_STAMPS = [
+    ("  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n",
+     "+  const int pidx = ((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x"
+     " + blockIdx.x) * 5 + warp;\n  STAMP(0, 0.f);\n"),
+    ("  if (warp == 4) {\n", "  STAMP(1, 0.f);\n"),
+    ("  hopper::mbar_wait(&sm.qbar, 0);\n", "+  STAMP(2, 0.f);\n"),
+    ("    hopper::mbar_wait(&sm.full[s], (it / NS) & 1);\n",
+     "+    const int ti = 3 + 5 * (it < 2 ? it : 1);\n    STAMP(ti, 0.f);\n"),
+    ("    const bool need_mask =", "    STAMP(ti + 1, sf[BK / 2 - 1]);\n"),
+    ("    uint32_t pa[BK / 16][4];", "    STAMP(ti + 2, l0 + l1);\n"),
+    ("    if (lane == 0) hopper::mbar_arrive(&sm.empty[s]);\n",
+     "    STAMP(ti + 3, acc[D / 2 - 1]);\n"),
+    ("  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);\n",
+     "  STAMP(13, acc[D / 2 - 1]);\n"),
+    ("          m1 <= MASKED ? MASKED : (m1 + log2f(l1)) * LN2;\n  }\n",
+     "+  STAMP(14, 0.f);\n"),
+]
+FLASH_BF16_MAIN = r"""
+#include <cstdio>
+#include <vector>
+int main() {
+  const int B = 4, S = 96, H = 14, KV = 2, D = 64;
+  const size_t nq = size_t(B) * S * H * D, nk = size_t(B) * S * KV * D;
+  std::vector<__nv_bfloat16> hq(nq), hk(nk);
+  for (size_t i = 0; i < nq; ++i)
+    hq[i] = __float2bfloat16((i * 2654435761u % 1000) / 1e3f - .5f);
+  for (size_t i = 0; i < nk; ++i)
+    hk[i] = __float2bfloat16((i * 40503u % 1000) / 1e3f - .5f);
+  __nv_bfloat16 *q, *k, *v, *o;
+  cudaMalloc(&q, nq * 2); cudaMalloc(&k, nk * 2); cudaMalloc(&v, nk * 2);
+  cudaMalloc(&o, nq * 2);
+  cudaMemcpy(q, hq.data(), nq * 2, cudaMemcpyHostToDevice);
+  cudaMemcpy(k, hk.data(), nk * 2, cudaMemcpyHostToDevice);
+  cudaMemcpy(v, hk.data(), nk * 2, cudaMemcpyHostToDevice);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0); cudaEventCreate(&e1);
+  for (int rep = 0; rep < 5; ++rep) {
+    cudaEventRecord(e0);
+    const int rc = flash_attention_bf16_launch(
+        q, k, v, o, nullptr, B, S, S, H, KV, D, S * H * D, H * D, D,
+        S * KV * D, KV * D, D, S * KV * D, KV * D, D, 1, 0, 0);
+    cudaEventRecord(e1); cudaEventSynchronize(e1);
+    float ms; cudaEventElapsedTime(&ms, e0, e1);
+    printf("flash bf16 phases: launch %d rc %d, %.4f ms\n", rep, rc, ms);
+  }
+  static long long hp[4096][20];
+  cudaMemcpyFromSymbol(hp, g_prof, sizeof(hp));
+  // grid (11 row tiles, 2 KV heads, 4 batches); tiles 7.. walk two K/V
+  // tiles
+  for (int cta : {0, 10, 87}) for (int w = 0; w < 4; ++w) {
+    const long long* t = hp[cta * 5 + w];
+    printf("flash bf16 phases: block %d warp %d cycles: set-up %lld, Q "
+           "landed %lld", cta, w, t[1] - t[0], t[2] - t[1]);
+    long long prev = t[2];
+    for (int it = 0; it < 2; ++it) {
+      const long long* u = t + 3 + 5 * it;
+      if (u[0] == 0) break;
+      printf(" | tile %d: TMA wait %lld, S = Q K^T %lld, softmax %lld, "
+             "P V %lld", it, u[0] - prev, u[1] - u[0], u[2] - u[1],
+             u[3] - u[2]);
+      prev = u[3];
+    }
+    printf(" | epilogue %lld | total %lld\n", t[14] - t[13], t[14] - t[0]);
+  }
+  return 0;
+}
+"""
+
 # Cold and warm timing of one launch, as chip_smoke.py's ColdTimer: the
 # L2 flushed (or not) before each (128 MB written, then another 128 MB,
 # never written after it was zeroed, read, so that L2 holds no dirty line),
@@ -1012,6 +1185,11 @@ def main(argv: list[str] | None = None) -> None:
             ("bwd_phases", instrument("flash_attention_bwd.cu", BWD_STAMPS,
                                       BWD_MAIN)),
             ("ssd_phases", instrument("ssd_scan.cu", SSD_STAMPS, SSD_MAIN)),
+            ("flash_bf16_phases", instrument("flash_attention_bf16.cu",
+                                             FLASH_BF16_STAMPS,
+                                             FLASH_BF16_MAIN)),
+            ("ssd_bf16_phases", instrument("ssd_scan_bf16.cu",
+                                           SSD_BF16_STAMPS, SSD_BF16_MAIN)),
             ("ssd_bwd_phases", instrument("ssd_scan_bwd.cu", SSD_BWD_STAMPS,
                                           SSD_BWD_MAIN)),
             ("cell_phases", instrument_cell()),

@@ -665,6 +665,8 @@ _ATTN_BF16_CASES = {
     "window 5 S=71": (1, 71, 71, 4, 2, 32, True, 5),
     "cross Sq=9 Skv=133 D=128": (2, 9, 133, 8, 2, 128, False, 0),
     "Sq=3 Skv=5 D=16 G=3": (2, 3, 5, 3, 1, 16, True, 0),
+    "vision cross Sq=64 Skv=1024 D=128 G=4": (2, 64, 1024, 32, 8, 128,
+                                              False, 0),
 }
 
 
@@ -698,6 +700,7 @@ _SSD_BF16_CASES = {
     "chunk 24 p=24 n=40 groups 2": (2, 72, 4, 24, 2, 40, 24),
     "chunk 8 p=8 n=16": (1, 40, 3, 8, 1, 16, 8),
     "chunk 56 p=40 n=24": (2, 112, 2, 40, 1, 24, 56),
+    "chunk 96 p=64 n=64": (1, 192, 2, 64, 1, 64, 96),
 }
 
 
@@ -734,6 +737,9 @@ def test_ssd_scan_bf16_on_the_bf16_bar(cuda, case, from_state):
 
 
 def test_bf16_kernels_refuse_strides_off_16_bytes(cuda):
+    """TMA reads the bf16 operands: a stride that is not a multiple of 16
+    bytes, or a base pointer off 16 bytes, is refused by the wrapper,
+    which allocates nothing for it (no copy)."""
     q, k, v = (t.bfloat16() for t in _attn_inputs(1, 8, 8, 2, 1, 16, cuda))
     packed = torch.zeros((1, 8, 2 * 16 + 4), dtype=torch.bfloat16,
                          device=cuda)
@@ -748,6 +754,45 @@ def test_bf16_kernels_refuse_strides_off_16_bytes(cuda):
     xp = torch.zeros((1, 32, 2 * 16 + 4), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="multiples of 8 elements"):
         ssd_scan(xp[..., :32].view(1, 32, 2, 16), dt, A, B, C, 16)
+    # strides in multiples of 8 elements, the base 8 bytes past 16
+    flat = torch.zeros(2048 + 8, dtype=torch.bfloat16, device=cuda)
+    q_off = flat[4:4 + 256].view(1, 8, 2, 16)
+    x_off = flat[4:4 + 1024].view(1, 32, 2, 16)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    with pytest.raises(ValueError, match="16-byte aligned pointer"):
+        flash_attention(q_off, k, v)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, k, flat[4:4 + 128].view(1, 8, 1, 16))
+    with pytest.raises(ValueError, match="16-byte aligned pointer"):
+        ssd_scan(x_off, dt, A, B, C, 16)
+    with pytest.raises(ValueError, match="16-byte aligned pointer"):
+        ssd_scan(x, dt, A, B, flat[4:4 + 512].view(1, 32, 1, 16), 16)
+    assert torch.cuda.memory_allocated(cuda) == before
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention_bf16",
+                                    "ssd_scan_bf16"])
+def test_bf16_kernels_two_runs_are_bit_equal(cuda, kernel):
+    """No atomics: the same inputs give the same bits, at the waves'
+    larger prefill shapes and at the vision model's cross shape."""
+    if kernel == "flash_attention_bf16":
+        for B, Sq, Skv, H, KV, D, causal in ((4, 96, 96, 14, 2, 64, True),
+                                             (2, 64, 1024, 32, 8, 128,
+                                              False)):
+            q, k, v = (t.bfloat16() for t in _attn_inputs(
+                B, Sq, Skv, H, KV, D, cuda, 3))
+            runs = [flash_attention(q, k, v, causal=causal)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            assert torch.equal(runs[0], runs[1])
+    else:
+        x, dt, A, B, C = _ssd_inputs(3, 256, 24, 64, 1, 128, cuda, 3)
+        x, dt, B, C = (t.bfloat16() for t in (x, dt, B, C))
+        runs = [ssd_scan(x, dt, A, B, C, 128) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][1], runs[1][1])
 
 
 def test_fp16_and_mixed_dtypes_are_refused(cuda):
