@@ -11,14 +11,14 @@ Phases, in order; any failure raises and exits non-zero:
    ptxas resource lines.
 2. Kernels: counts the tensor-core instructions (``HMMA``, and Hopper's
    warpgroup ``HGMMA``) and TMA tile loads (``UTMALDG``) of the attention
-   (forward in fp32 and bf16, and the backward's dk/dv and dq), scan
-   (forward in fp32 and bf16, and the backward's chunk kernel) and both
-   LSTM-cell kernels in the built library (``cuobjdump -sass``, where the
-   toolkit has it): a kernel with no tensor-core instruction fails, and so
-   does a bf16 forward (redesigned for Hopper) with no ``HGMMA`` or no
-   ``UTMALDG``. Times an
-   empty kernel launched through the library in the same timer as the
-   kernels (the ``launch floor:`` line). Then each kernel against its
+   (forward in fp32 and bf16, and the backward's dk/dv and dq in fp32 and
+   bf16), scan (forward in fp32 and bf16, and the backward's chunk kernel
+   in fp32 and bf16) and both LSTM-cell kernels in the built library
+   (``cuobjdump -sass``, where the toolkit has it): a kernel with no
+   tensor-core instruction fails, and so does a bf16 forward (redesigned
+   for Hopper) with no ``HGMMA`` or no ``UTMALDG``. Times an empty kernel
+   launched through the library in the same timer as the kernels (the
+   ``launch floor:`` line). Then each kernel against its
    plain PyTorch version on the card at the path's shapes and edge cases
    (gather bit-equal; the others within 1e-4, TF32 off; the scan also
    from a random initial state), then timed cold (L2 flushed and left
@@ -236,6 +236,30 @@ Phases, in order; any failure raises and exits non-zero:
    peak memory, a profiled replayed step (busy share, device events,
    launches by kernel); then depth 2 at full width, batch 2 x 32, card
    against the CPU (loss 1e-4, gradients 2e-3, or a routing near-tie).
+   (h) bf16 training. First the two bf16 backward kernels through
+   autograd on bf16-exact inputs, each gradient on the bf16 bar
+   (``bf16_bar``: the truth autograd of the fp32 plain version on the
+   upcast inputs, the plain one autograd of the plain bf16 forward) and
+   two runs bit-equal: attention (``csrc/flash_attention_bwd_bf16.cu``)
+   at FLASH_BWD_BF16_CASES (the trainer's shape, a window, the vision
+   model's cross shape), timed cold at the first and the last beside the
+   bf16 plain backward and bf16 ``scaled_dot_product_attention``'s
+   backward with K/V expanded; the scan (``csrc/ssd_scan_bwd_bf16.cu``)
+   at SSD_BWD_BF16_CASES (the trainer's shape; two chunks from an initial
+   state with a final-state gradient), timed at the trainer's shape
+   beside the plain backward. Then Qwen2-0.5B and Mamba2-130m as
+   ``TransformerLM(cfg, torch.bfloat16)`` at full width and depth (the
+   launcher's weights rounded once), TRAIN_STEPS steps of
+   ``train/loop.py:train`` at 8 x 128, the step captured, and the same
+   steps eagerly: every loss and leaf bit-equal, losses finite and
+   falling, the bf16 forward and backward kernels' counters up by 24 a
+   step, the fp32 kernels' not at all; ms per step, tokens/s, peak memory
+   and a profiled replayed step beside (b)'s and (f)'s fp32 step, the bf16
+   losses beside the fp32 run's (reported, no bar); then depth 2 at full
+   width, card against the CPU (Qwen2 2 x 32, Mamba2 2 x 256 over two
+   chunks): the bf16 loss and every gradient leaf on the bf16 bar against
+   the CPU's fp32 model on the same bf16-exact weights (``train (h)``
+   lines).
 10. Gradients through the dynamic-graph executors. (b) TreeGRU at
    model_size=512, 16 trees a step, phase 5's FSM, EXEC_TRAIN_STEPS (5)
    SGD steps of ``examples/tree_classifier_torch.py``'s loss through
@@ -293,17 +317,17 @@ Phases, in order; any failure raises and exits non-zero:
 
 Phases 2 and 4 hold the fp32 kernels other than the gather to 1e-4 of the
 largest magnitude of their plain versions' outputs and the bf16 ones to
-the bf16 bar, phase 9 the backward kernels to 1e-4 of the largest
-|gradient|. The line before the
+the bf16 bar, phase 9 the fp32 backward kernels to 1e-4 of the largest
+|gradient| and the bf16 ones to the bf16 bar. The line before the
 last is ``{"kernels": [...]}`` (per kernel: launches in the phase that
 drives its path, max abs error, kernel / plain / bound / library ms; the
 five forward kernels, the two bf16 forward kernels (launches on the bf16
-waves) and the three backward kernels: flash attention's
-and the scan's over the training steps of phase 9, the gather's over
-phase 10 (b); ``launches_by_path`` each kernel's launches on every path
-that drives it, this slice's MoE waves, Granite's training and the
-vision model's included; the gather's and its backward's ``moe_shapes``
-the MoE timings of phase 2);
+waves) and the five backward kernels: flash attention's and the scan's
+over the training steps of phase 9, their bf16 forms over phase 9 (h)'s
+bf16 training, the gather's over phase 10 (b); ``launches_by_path`` each
+kernel's launches on every path that drives it, this slice's MoE waves,
+Granite's training and the vision model's included; the gather's and its
+backward's ``moe_shapes`` the MoE timings of phase 2);
 phase 2 logs each bound's byte and operation times and the peak it
 divides by (3xTF32 on the tensor cores for every fp32 kernel with
 products, bf16 on the tensor cores for the bf16 ones) on
@@ -1259,14 +1283,21 @@ OWN_KERNELS = {"gather_rows": ("gather_rows_kernel",),
                "fused_gather_lstm_cell": ("fused_gather_lstm_cell_kernel",),
                "fused_lstm_cell": ("fused_lstm_cell_kernel",),
                "flash_attention": ("flash_attention_kernel",),
+               "flash_attention_bf16": ("flash_attention_bf16_kernel",),
                # the backward's three kernels together (dq overlaps
-               # dk/dv), then apart
-               "flash_attention_backward": ("flash_attention_bwd_",),
+               # dk/dv), then apart; the bf16 backward's together
+               "flash_attention_backward": ("flash_attention_bwd_rowdot",
+                                            "flash_attention_bwd_dkdv",
+                                            "flash_attention_bwd_dq"),
                "flash_attention_bwd_rowdot": ("flash_attention_bwd_rowdot",),
                "flash_attention_bwd_dkdv": ("flash_attention_bwd_dkdv",),
                "flash_attention_bwd_dq": ("flash_attention_bwd_dq",),
+               "flash_attention_backward_bf16": ("flash_attention_bwd_bf16_",),
                "ssd_scan": ("ssd_scan_kernel",),
-               "ssd_scan_backward": ("ssd_bwd_",),
+               "ssd_scan_bf16": ("ssd_scan_bf16_kernel",),
+               "ssd_scan_backward": ("ssd_bwd_state", "ssd_bwd_cb",
+                                     "ssd_bwd_chunk", "ssd_bwd_sum"),
+               "ssd_scan_backward_bf16": ("ssd_bwd_bf16_",),
                "gather_rows_backward": ("gather_bwd_",)}
 
 
@@ -2758,6 +2789,8 @@ TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--batch", str(TRAIN_BATCH),
               "--seq", str(TRAIN_SEQ)]
 TRAIN_STEPS = 10
 TRAIN_DIR = ROOT / "build" / "chip_smoke" / "train"
+# phase 9 (b) and (f)'s reports by model, read beside the bf16 steps of (h)
+FP32_TRAIN: dict = {}
 GRAD_TOL = 1e-4       # backward kernel vs its plain version, of max |grad|
 
 
@@ -3161,6 +3194,7 @@ def train_phase(torch, drive, card: str, steps: int) -> dict:
               "tokens_per_s": tokens / ms * 1e3, "peak_bytes": peak,
               "peak_bytes_above_start": peak - base,
               "launches": counts, "profile": prof, "eager": cmp}
+    FP32_TRAIN["qwen2-0.5b"] = report
     log(f"train (b) qwen2-0.5b full width and depth ({n_params} params), "
         f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, the step captured (step 1 its "
         f"warm-up, then replays): {ms:.2f} ms per step (median of steps "
@@ -3473,6 +3507,7 @@ def train_ssm_phase(torch, drive, card: str, steps: int) -> dict:
               "tokens_per_s": tokens / ms * 1e3, "peak_bytes": peak,
               "peak_bytes_above_start": peak - base,
               "launches": counts, "profile": prof, "eager": cmp}
+    FP32_TRAIN["mamba2-130m"] = report
     log(f"train (f) mamba2-130m full width and depth ({n_params} params), "
         f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, the step captured (step 1 its "
         f"warm-up, then replays): {ms:.2f} ms per step (median of steps "
@@ -3524,6 +3559,399 @@ def train_ssm_phase(torch, drive, card: str, steps: int) -> dict:
         f"{max(grad_errs):.3e} of its max |grad|")
     log(f"train ssm: {json.dumps(report, default=str)}")
     return counts
+
+
+# -- phase 9 (h): bf16 training ------------------------------------------
+
+
+# (label, B, Sq, Skv, H, KV, D, causal, window): the trainer's attention
+# (Qwen2-0.5B at 8 x 128), a window, and the vision model's cross shape,
+# which the next slice trains; the first and the last are timed
+FLASH_BWD_BF16_CASES = [
+    ("trainer B=8 S=128 G=7", 8, 128, 128, 14, 2, 64, True, 0),
+    ("window 16 S=200 G=7", 1, 200, 200, 14, 2, 64, True, 16),
+    ("vision cross Sq=128 Skv=1024 D=128 G=4", 8, 128, 1024, 32, 8, 128,
+     False, 0),
+]
+
+
+def check_flash_backward_bf16(torch, timer) -> dict:
+    """Phase 9 (h): the bf16 backward kernels
+    (``csrc/flash_attention_bwd_bf16.cu``) through autograd at
+    FLASH_BWD_BF16_CASES on bf16-exact inputs: dq, dk and dv bf16, each on
+    the bf16 bar (:func:`bf16_bar`; the truth the fp32 plain backward on
+    the upcast inputs, the plain one autograd of the plain bf16 forward),
+    two runs bit-equal; timed cold at the trainer's and the cross shape
+    beside the bf16 plain backward and the backward of bf16
+    ``scaled_dot_product_attention`` with K/V expanded (a yardstick the
+    port never calls), with each shape's bound."""
+    from repro_torch.kernels import costs, ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_forward)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def bf16(shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    def grads(fn, q, k, v, dout, causal, window):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*leaves, causal, window).backward(dout)
+        return [t.grad for t in leaves]
+
+    worst, timed_shapes = 0.0, {}
+    for label, B, Sq, Skv, H, KV, D, causal, window in FLASH_BWD_BF16_CASES:
+        q, k, v = bf16((B, Sq, H, D)), bf16((B, Skv, KV, D)), \
+            bf16((B, Skv, KV, D))
+        dout = bf16((B, Sq, H, D))
+        got = grads(flash_attention, q, k, v, dout, causal, window)
+        again = grads(flash_attention, q, k, v, dout, causal, window)
+        plain = grads(ref.flash_attention_ref, q, k, v, dout, causal, window)
+        truth = ref.flash_attention_backward_ref(
+            q.float(), k.float(), v.float(), dout.float(), causal, window)
+        torch.cuda.synchronize()
+        if any(t.dtype != torch.bfloat16 for t in got):
+            fail(f"flash_attention_backward_bf16 {label}: gradients "
+                 f"{[t.dtype for t in got]}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention_backward_bf16 {label}: two runs differ")
+        bars = [bf16_bar(f"flash_attention_backward_bf16 {label} {n}", a, p,
+                         t)
+                for n, a, p, t in zip(("dq", "dk", "dv"), got, plain, truth)]
+        worst = max([worst] + [b["err"] for b in bars])
+        log(f"flash_attention_backward_bf16 {label}: "
+            + ", ".join(f"{n} max abs err {b['err']:.3e} (plain bf16 "
+                        f"{b['plain_err']:.3e}; relative {b['rel_err']:.3e})"
+                        for n, b in zip(("dq", "dk", "dv"), bars))
+            + "; two runs bit-equal")
+        if window:
+            continue
+        out, lse = flash_attention_forward(q, k, v, causal, window,
+                                           with_lse=True)
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True) for t in (k, v))
+        ot = sdpa(qt, kt, vt, is_causal=causal)
+        dt_ = dout.transpose(1, 2).contiguous()
+
+        def library():
+            torch.autograd.grad(ot, (qt, kt, vt), dt_, retain_graph=True)
+
+        w = timed_shapes[label] = {
+            "shape": f"q/o/dO ({B}, {Sq}, {H}, {D}), k/v ({B}, {Skv}, {KV}, "
+                     f"{D}) bfloat16, {'causal' if causal else 'non-causal'}",
+            "ms": timer(lambda: flash_attention_backward(
+                q, k, v, out, dout, lse, causal, window)),
+            "plain_ms": timer(lambda: ref.flash_attention_backward_ref(
+                q, k, v, dout, causal, window)),
+            "library_ms": timer(library),
+            **cost_bound(f"flash_attention_backward_bf16 {label}",
+                         costs.flash_attention_backward(
+                             B, Sq, Skv, H, KV, D, causal, window, 2),
+                         "bf16 on the tensor cores")}
+        log(f"flash_attention_backward_bf16 {label} ms: cold kernel "
+            f"{w['ms']:.4f}, plain bf16 autograd {w['plain_ms']:.4f}, "
+            f"scaled_dot_product_attention bf16 backward "
+            f"{w['library_ms']:.4f}, bound {w['bound_ms']:.6f} "
+            f"({w['bound_by']})")
+        if label.startswith("trainer"):
+            log(f"scaled_dot_product_attention bf16 backward runs: "
+                f"{library_kernels(torch, library)}")
+        del ot, qt, kt, vt
+    row, cross = timed_shapes[FLASH_BWD_BF16_CASES[0][0]], \
+        timed_shapes[FLASH_BWD_BF16_CASES[-1][0]]
+    return {"name": "flash_attention_backward_bf16", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd_bf16.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:65",
+            "max_abs_err": worst, **row, "cross": cross}
+
+
+# (label, b, l, h, p, groups, n, chunk, init, dfinal): the trainer's scan
+# (Mamba2-130m at 8 x 128, one chunk; timed) and two chunks carrying the
+# state from an initial state with a final-state gradient
+SSD_BWD_BF16_CASES = [
+    ("trainer b=8 l=128", 8, 128, 24, 64, 1, 128, 128, False, False),
+    ("two chunks, init state, final grad (3, 256)", 3, 256, 24, 64, 1, 128,
+     128, True, True),
+]
+
+
+def check_ssd_backward_bf16(torch, timer) -> dict:
+    """Phase 9 (h): the bf16 backward kernels (``csrc/ssd_scan_bwd_bf16.cu``)
+    through autograd at SSD_BWD_BF16_CASES on bf16-exact inputs: dx, ddt,
+    dB, dC bf16 and dA, dinit fp32, each on the bf16 bar (the truth autograd
+    of the fp32 plain scan on the upcast inputs, the plain one autograd of
+    the plain bf16 scan), two runs bit-equal; timed cold at the trainer's
+    shape beside the plain backward on the same bf16 inputs
+    (``ref.ssd_scan_bwd_ref``; no PyTorch call computes it)."""
+    from repro_torch.kernels import costs, ref
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    worst = 0.0
+    for label, b, l, h, p, grp, n, q, init, dfin in SSD_BWD_BF16_CASES:
+        x, B, C, dy = randn(b, l, h, p), randn(b, l, grp, n), \
+            randn(b, l, grp, n), randn(b, l, h, p)
+        dt = (torch.rand((b, l, h), generator=g, device="cuda")
+              * 0.5).bfloat16()
+        A = -torch.rand((h,), generator=g, device="cuda") * 0.5
+        s0 = randn(b, h, p, n, dtype=torch.float32) if init else None
+        dfinal = randn(b, h, p, n, dtype=torch.float32) if dfin else None
+
+        def grads(fn, up=False):
+            ins = [t.detach().clone().float() if up and t.dtype ==
+                   torch.bfloat16 else t.detach().clone()
+                   for t in (x, dt, A, B, C) + ((s0,) if init else ())]
+            for t in ins:
+                t.requires_grad_(True)
+            y, final = fn(*ins[:5], q, ins[5] if init else None)
+            outs, gs = [y], [dy.float() if up else dy]
+            if dfin:
+                outs.append(final)
+                gs.append(dfinal)
+            return torch.autograd.grad(outs, ins, gs)
+
+        got, again = grads(ssd_scan), grads(ssd_scan)
+        plain, truth = grads(ref.ssd_scan_ref), grads(ref.ssd_scan_ref, True)
+        torch.cuda.synchronize()
+        names = ("dx", "ddt", "dA", "dB", "dC") + (("dinit",) if init else ())
+        want = [torch.bfloat16, torch.bfloat16, torch.float32,
+                torch.bfloat16, torch.bfloat16] + [torch.float32] * init
+        if [t.dtype for t in got] != want:
+            fail(f"ssd_scan_backward_bf16 {label}: gradients "
+                 f"{[t.dtype for t in got]}")
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"ssd_scan_backward_bf16 {label}: two runs differ")
+        bars = [bf16_bar(f"ssd_scan_backward_bf16 {label} {nm}", a, pl, t)
+                for nm, a, pl, t in zip(names, got, plain, truth)]
+        worst = max([worst] + [bar["err"] for bar in bars])
+        log(f"ssd_scan_backward_bf16 {label}: "
+            + ", ".join(f"{nm} {bar['err']:.3e} (plain bf16 "
+                        f"{bar['plain_err']:.3e}; relative "
+                        f"{bar['rel_err']:.3e})"
+                        for nm, bar in zip(names, bars))
+            + "; two runs bit-equal")
+
+    b, l, h, p, grp, n, q = SSD_BWD_BF16_CASES[0][1:8]
+    x, B, C, dy = randn(b, l, h, p), randn(b, l, grp, n), \
+        randn(b, l, grp, n), randn(b, l, h, p)
+    dt = (torch.rand((b, l, h), generator=g, device="cuda") * 0.5).bfloat16()
+    A = -torch.rand((h,), generator=g, device="cuda") * 0.5
+    ms = timer(lambda: ssd_scan_backward(x, dt, A, B, C, q, None, dy))
+    plain_ms = timer(lambda: ref.ssd_scan_bwd_ref(x, dt, A, B, C, q, None,
+                                                  dy))
+    log(f"ssd_scan_backward_bf16 trainer shape ms: cold kernels {ms:.4f}, "
+        f"plain {plain_ms:.4f}")
+    return {"name": "ssd_scan_backward_bf16", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan_bwd_bf16.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:64",
+            "shape": f"x/dy ({b}, {l}, {h}, {p}), B/C ({b}, {l}, {grp}, "
+                     f"{n}), chunk {q}, bfloat16",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **cost_bound("ssd_scan_backward_bf16", costs.ssd_scan_backward(
+                b, l, h, p, grp, n, q, False, False, False, 2),
+                "bf16 on the tensor cores"),
+            "library_ms": None}
+
+
+# model -> (its bf16 forward and backward kernels' wrappers, the depth-2
+# card-against-CPU batch (B, S): Mamba2's over two chunks of 128)
+BF16_TRAIN = {"qwen2-0.5b": (("flash_attention_bf16",
+                              "flash_attention_backward_bf16"), (2, 32)),
+              "mamba2-130m": (("ssd_scan_bf16", "ssd_scan_backward_bf16"),
+                              (2, 256))}
+FP32_KERNELS = ("flash_attention", "flash_attention_backward", "ssd_scan",
+                "ssd_scan_backward")
+
+
+def train_bf16_phase(torch, drive, card: str, steps: int) -> dict:
+    """Phase 9 (h): Qwen2-0.5B and Mamba2-130m as ``TransformerLM(cfg,
+    torch.bfloat16)`` at full width and depth (the launcher's seed-0 fp32
+    weights rounded once), ``steps`` steps of ``train/loop.py:train`` at
+    TRAIN_BATCH x TRAIN_SEQ with the launcher's schedule, the step captured
+    (step 1 its warm-up), then the same steps eagerly: every loss and, after
+    the last step, every parameter leaf bit-equal; losses finite and
+    falling; the bf16 forward and backward kernels' counters up by the
+    layers a step each, the fp32 kernels' not at all; ms per step (median
+    of steps 2 on), tokens/s and peak memory of both, one profiled replayed
+    step (busy share, device events, launches by kernel), each beside (b)'s
+    or (f)'s fp32 step; the full-depth bf16 losses against the fp32 run's,
+    reported. Then depth 2 at full width, card against the CPU (BF16_TRAIN's
+    batch): the card's bf16 loss and every gradient leaf on the bf16 bar
+    against the CPU's fp32 model on the same bf16-exact weights (within
+    twice the CPU's plain bf16 model's error). Returns each model's launch
+    counts of its captured run."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.kernels.launches import WRAPPERS
+    from repro_torch.train.loop import StaticTrainStep, train
+    from repro_torch.train.optimizer import AdamWConfig, leaves, unflatten
+
+    out = {}
+    for arch, (kernels, (cB, cS)) in BF16_TRAIN.items():
+        cfg = get_config(arch)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=max(steps // 20, 5),
+                          total_steps=steps)
+        p16 = tree_map(lambda t: t.to("cuda", torch.bfloat16), TransformerLM(
+            cfg, device="cpu").init_params(torch.Generator().manual_seed(0)))
+        model = TransformerLM(cfg, torch.bfloat16, device="cuda")
+        runs = {}
+        for capture in (True, False):
+            stamps = []
+
+            def record(line, capture=capture):
+                stamps.append(time.perf_counter())
+                if capture:
+                    log(f"train (h) {arch} bf16: {line}")
+
+            pipe = SyntheticCorpus(PipelineConfig(
+                vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                seed=0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            state, counts = drive(lambda: train(
+                model, p16, iter(pipe), steps, opt, log_every=1,
+                log_fn=record, capture=capture))
+            torch.cuda.synchronize()
+            runs[capture] = {
+                "state": state, "counts": counts,
+                "peak_bytes_above_start":
+                    torch.cuda.max_memory_allocated() - base,
+                "ms_per_step": statistics.median(
+                    (b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))}
+        cap, eager = runs[True], runs[False]
+        losses = cap["state"].history
+        if len(losses) != steps or not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0]:
+            fail(f"train (h) {arch} bf16: losses {losses} (want {steps} "
+                 f"finite and falling)")
+        if losses != eager["state"].history or not all(
+                torch.equal(a, b) for a, b in zip(
+                    leaves(cap["state"].params),
+                    leaves(eager["state"].params))):
+            fail(f"train (h) {arch} bf16: the captured steps differ from "
+                 f"the eager ones (losses {losses} against "
+                 f"{eager['state'].history})")
+        if {t.dtype for t in leaves(cap["state"].params)} != {torch.bfloat16}:
+            fail(f"train (h) {arch} bf16: a parameter leaf is not bf16")
+        want = {k: cfg.n_layers * steps if k in kernels else 0
+                for k in kernels + FP32_KERNELS}
+        for run in (cap, eager):
+            got = {k: run["counts"][k] for k in want}
+            if got != want:
+                fail(f"train (h) {arch} bf16: launches {got}, not {want}")
+        # one replayed step over the trained state, profiled
+        step = StaticTrainStep(model, opt, cap["state"].params,
+                               cap["state"].opt)
+        corpus = SyntheticCorpus(PipelineConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+            seed=SEED))
+        batch = corpus.batch(steps)
+        step(batch)                                  # warm-up and capture
+        before = {k: WRAPPERS[k].launches for k in kernels}
+        prof = profile_run(torch, lambda: step(batch))
+        moved = {k: WRAPPERS[k].launches - before[k] for k in kernels}
+        if moved != {k: cfg.n_layers for k in kernels}:
+            fail(f"train (h) {arch} bf16: the profiled replayed step moved "
+                 f"the counters by {moved}")
+        eager_ms, eager_peak = eager["ms_per_step"], \
+            eager["peak_bytes_above_start"]
+        del step, runs, eager
+        fp32 = FP32_TRAIN.get(arch, {})
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        own = {k: [v["launches"], round(v["device_us"], 1)]
+               for k, v in prof["own_kernels"].items()}
+        f_prof = fp32.get("profile", {})
+        f_eager = (fp32.get("eager") or {}).get("eager_ms_per_step",
+                                                float("nan"))
+        report = {
+            "steps": steps, "losses": losses,
+            "ms_per_step": cap["ms_per_step"],
+            "tokens_per_s": tokens / cap["ms_per_step"] * 1e3,
+            "peak_bytes_above_start": cap["peak_bytes_above_start"],
+            "eager_ms_per_step": eager_ms,
+            "eager_peak_bytes_above_start": eager_peak,
+            "launches": cap["counts"], "profile": prof,
+            "fp32": {k: fp32.get(k) for k in ("ms_per_step", "tokens_per_s",
+                                              "peak_bytes_above_start",
+                                              "losses")}}
+        out[arch] = report
+        log(f"train (h) {arch} bf16 full width and depth, batch "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}, the step captured: "
+            f"{cap['ms_per_step']:.2f} ms per step (fp32 "
+            f"{fp32.get('ms_per_step', float('nan')):.2f}), "
+            f"{report['tokens_per_s']:.1f} tokens/s (fp32 "
+            f"{fp32.get('tokens_per_s', float('nan')):.1f}), peak above its "
+            f"start {cap['peak_bytes_above_start'] / 2**30:.2f} GiB (fp32 "
+            f"{fp32.get('peak_bytes_above_start', float('nan')) / 2**30:.2f}"
+            f"); eager {eager_ms:.2f} ms per step (fp32 {f_eager:.2f}), "
+            f"peak {eager_peak / 2**30:.2f} GiB; captured against eager "
+            f"bit-equal (losses and every leaf); profiled replayed step: "
+            f"busy share {prof['busy_share']:.3f} (fp32 "
+            f"{f_prof.get('busy_share', float('nan')):.3f}), "
+            f"{prof['device_events']} device events (fp32 "
+            f"{f_prof.get('device_events')}), {prof['device_ms']:.2f} ms "
+            f"device of {prof['wall_ms']:.2f} wall; launches by kernel "
+            f"[launches, device us] {own}; bf16 losses "
+            f"{[round(x, 4) for x in losses]} against fp32 "
+            f"{[round(x, 4) for x in fp32.get('losses') or []]} (a report, "
+            f"no bar); launches {({k: cap['counts'][k] for k in want})} "
+            f"({card})")
+        del p16, cap, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # depth 2 at full width: card against the CPU on the bf16 bar
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        w16 = tree_map(lambda t: t.to(torch.bfloat16), TransformerLM(
+            cfg2, device="cpu").init_params(
+                torch.Generator().manual_seed(SEED)))
+        corpus = SyntheticCorpus(PipelineConfig(vocab=cfg2.vocab, seq_len=cS,
+                                                batch_size=cB, seed=SEED))
+        batch = corpus.batch(0)
+
+        def grads(model, params, device):
+            flat = [t.detach().to(device).requires_grad_(True)
+                    for t in leaves(params)]
+            loss = model.loss(unflatten(params, flat),
+                              {k: torch.as_tensor(a, device=device)
+                               for k, a in batch.items()})
+            gs = torch.autograd.grad(loss, flat)
+            return [loss.detach().cpu()] + [g.cpu() for g in gs]
+
+        got = grads(TransformerLM(cfg2, torch.bfloat16, device="cuda"), w16,
+                    "cuda")
+        plain = grads(TransformerLM(cfg2, torch.bfloat16, device="cpu"), w16,
+                      "cpu")
+        truth = grads(TransformerLM(cfg2, device="cpu"),
+                      tree_map(lambda t: t.float(), w16), "cpu")
+        names = ["loss"] + leaf_names(w16)
+        bars = {nm: bf16_bar(f"train (h) {arch} bf16 depth 2 {nm}", a, p_, t,
+                             kernel=False)
+                for nm, a, p_, t in zip(names, got, plain, truth)}
+        ratio = {nm: b["err"] / b["plain_err"] if b["plain_err"] else 0.0
+                 for nm, b in bars.items()}
+        top = max(ratio, key=ratio.get)
+        report["card_vs_cpu"] = {"loss": bars["loss"],
+                                 "worst_leaf": [top, ratio[top]]}
+        log(f"train (h) {arch} bf16 depth 2, full width, batch {cB} x {cS}: "
+            f"loss error against the CPU fp32 model {bars['loss']['err']:.3e}"
+            f" (CPU plain bf16 {bars['loss']['plain_err']:.3e}); worst leaf "
+            f"{top}: {ratio[top]:.3f} of the CPU plain bf16 model's error "
+            f"(bar 2)")
+        log(f"train bf16 {arch}: {json.dumps(report, default=str)}")
+    return out
 
 
 # -- phase 10 -------------------------------------------------------------
@@ -4547,8 +4975,11 @@ def main(argv: list[str] | None = None) -> int:
                         "flash_attention_bf16_kernel",
                         "ssd_scan_bf16_kernel",
                         "flash_attention_bwd_dkdv_kernel",
-                        "flash_attention_bwd_dq_kernel", "ssd_scan_kernel",
-                        "ssd_bwd_chunk_kernel",
+                        "flash_attention_bwd_dq_kernel",
+                        "flash_attention_bwd_bf16_dkdv_kernel",
+                        "flash_attention_bwd_bf16_dq_kernel",
+                        "ssd_scan_kernel",
+                        "ssd_bwd_chunk_kernel", "ssd_bwd_bf16_chunk_kernel",
                         "fused_gather_lstm_cell_kernel",
                         "fused_lstm_cell_kernel"))
     if sass is None:
@@ -4761,6 +5192,20 @@ def main(argv: list[str] | None = None) -> int:
         launches["ssd_scan_backward"] = ssm_launches["ssd_scan_backward"]
         on_path("Mamba2-130m training", ssm_launches,
                 ("ssd_scan", "ssd_scan_backward"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        rows.append(check_flash_backward_bf16(torch, timer))
+        rows.append(check_ssd_backward_bf16(torch, timer))
+        bf16_train = train_bf16_phase(torch, drive, card, TRAIN_STEPS)
+        for arch, (kernels, _) in BF16_TRAIN.items():
+            on_path(f"{arch} bf16 training", bf16_train[arch]["launches"],
+                    kernels)
+            launches[kernels[1]] = bf16_train[arch]["launches"][kernels[1]]
+        log(f"train launches of the bf16 backward kernels (run (h)): "
+            + ", ".join(f"{k[1]} {bf16_train[a]['launches'][k[1]]}"
+                        for a, (k, _) in BF16_TRAIN.items())
+            + f"; bf16 train done: {time.perf_counter() - t1:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()

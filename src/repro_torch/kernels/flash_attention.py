@@ -16,8 +16,11 @@ KV head), Q and the K/V tiles brought by TMA from a producer warp, both
 products as ``wgmma`` with fp32 accumulators, P rounded to bf16 before
 P V as the reference's kernel rounds it; the output in bf16, the
 log-sum-exp in fp32. Its launches are counted on
-:func:`flash_attention_bf16`. The backward kernels take float32 only: a
-bfloat16 backward raises on the card.
+:func:`flash_attention_bf16`. A bfloat16 backward runs
+``csrc/flash_attention_bwd_bf16.cu``: the fp32 backward's three kernels
+with bf16 ``mma.sync`` products and fp32 sums, dq, dk and dv rounded to
+bf16 once; its launches are counted on
+:func:`flash_attention_backward_bf16`.
 
 When autograd records the call (grad mode on and an input that requires
 grad), the wrapper runs :class:`FlashAttentionFunction`: the forward with
@@ -37,7 +40,7 @@ from torch.autograd.function import once_differentiable
 from . import build, costs, counting, ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' template instances
-DTYPES = (torch.float32, torch.bfloat16)   # the forward kernels' types
+DTYPES = (torch.float32, torch.bfloat16)   # the kernels' types
 MAX_GROUP_BF16 = 64   # csrc/flash_attention_bf16.cu: the rows of a block
 
 
@@ -142,11 +145,13 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
     ``lse`` (:func:`flash_attention_forward` with ``with_lse``). On the
     card the three kernels of ``csrc/flash_attention_bwd.cu`` (rowdot;
     dk/dv in thread-block clusters over a kv head's query heads; dq),
-    counted as one launch; ``dout`` in another layout than the kernels
-    take is copied contiguous first; float32 only (a bfloat16 backward
-    raises). On the CPU the plain version
-    (:func:`ref.flash_attention_backward_ref`; ``out`` and ``lse`` are not
-    read)."""
+    counted as one launch; q, k, v, ``out`` and ``dout`` all bfloat16 go
+    to those of ``csrc/flash_attention_bwd_bf16.cu`` (counted on
+    :func:`flash_attention_backward_bf16`; ``lse`` float32 either way),
+    and mixed dtypes raise; ``dout`` in another layout than the kernels
+    take is copied contiguous first, in its own dtype. On the CPU the
+    plain version (:func:`ref.flash_attention_backward_ref`; ``out`` and
+    ``lse`` are not read)."""
     if window and not causal:
         raise ValueError("flash_attention: a window needs causal=True")
     if q.device.type in ref.PLAIN_DEVICES:
@@ -160,9 +165,6 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     B, Sq, Skv, H, KV, D = _check(q, k, v)
-    if q.dtype != torch.float32:
-        raise ValueError(f"flash_attention backward: the backward kernels "
-                         f"take float32 only, got {q.dtype}")
     if tuple(out.shape) != (B, Sq, H, D) or \
             tuple(dout.shape) != (B, Sq, H, D):
         raise ValueError(f"flash_attention backward: out {tuple(out.shape)} "
@@ -172,19 +174,33 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
             not lse.is_contiguous() or lse.device != dev:
         raise ValueError(f"flash_attention backward: lse must be a "
                          f"contiguous float32 {(B, H, Sq)} tensor on {dev}")
-    if dout.dtype == torch.float32 and not _fits(dout):
+    if dout.dtype in DTYPES and not _fits(dout):
         dout = dout.contiguous()
-    _check_layout(dev, (("out", out), ("dout", dout)), (torch.float32,))
-    dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device=dev)
-    dk = torch.empty((B, Skv, KV, D), dtype=torch.float32, device=dev)
-    dv = torch.empty((B, Skv, KV, D), dtype=torch.float32, device=dev)
+    _check_layout(dev, zip(("q", "k", "v", "out", "dout"),
+                           (q, k, v, out, dout)), (q.dtype,))
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, Skv, KV, D), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, Skv, KV, D), dtype=q.dtype, device=dev)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     backward_kernels(q, k, v, out, dout, lse, causal, window,
                      (dvec, dq, dk, dv))
-    counting.count(flash_attention_backward)
+    counting.count(flash_attention_backward_bf16
+                   if q.dtype == torch.bfloat16 else flash_attention_backward)
     return dq, dk, dv
+
+
+def flash_attention_backward_bf16(q, k, v, out, dout, lse,
+                                  causal: bool = True, window: int = 0):
+    """:func:`flash_attention_backward` of bfloat16 q, k, v, ``out`` and
+    ``dout``, which on the card runs the bf16 backward kernels
+    (``csrc/flash_attention_bwd_bf16.cu``); their launches are counted
+    here, whichever of the two names was called."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_backward_bf16: q must be "
+                         f"bfloat16, got {q.dtype}")
+    return flash_attention_backward(q, k, v, out, dout, lse, causal, window)
 
 
 BACKWARD_PARTS = {"rowdot": 1, "dkdv": 2, "dq": 4}
@@ -194,8 +210,9 @@ def backward_kernels(q, k, v, out, dout, lse, causal, window, buffers,
                      parts: int = 7) -> None:
     """Launch the backward's kernels picked by ``parts`` (a sum of
     :data:`BACKWARD_PARTS`; 7 all three, in order) on the current stream,
-    into ``buffers`` = (D scratch (B, H, Sq), dq, dk, dv), all contiguous
-    float32 on the card. Checks nothing and counts nothing:
+    into ``buffers`` = (D scratch (B, H, Sq) float32, dq, dk, dv), all
+    contiguous on the card, the gradients in q's dtype (the bf16 kernels
+    for bfloat16). Checks nothing and counts nothing:
     :func:`flash_attention_backward` checks, allocates and counts; this is
     also how one kernel is timed alone (each reads what the earlier ones
     wrote)."""
@@ -204,13 +221,16 @@ def backward_kernels(q, k, v, out, dout, lse, causal, window, buffers,
     Skv, KV = k.shape[1], k.shape[2]
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check(lib.flash_attention_bwd_launch(
+    bf16 = q.dtype == torch.bfloat16
+    launch = (lib.flash_attention_bwd_bf16_launch if bf16
+              else lib.flash_attention_bwd_launch)
+    build.check(launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KV, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], *dout.stride()[:3], int(causal), window, parts,
-        stream), "flash_attention_backward")
+        stream), "flash_attention_backward" + ("_bf16" if bf16 else ""))
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -246,7 +266,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 or 8 bfloat16 elements) and 16-byte aligned pointers (bfloat16:
     at most 64 query heads a kv head);
     differentiable through :class:`FlashAttentionFunction` when autograd
-    records (float32: a bfloat16 backward raises)."""
+    records, in either dtype."""
     if window and not causal:
         raise ValueError("flash_attention: a window needs causal=True")
     if q.device.type == "cpu":
@@ -271,3 +291,4 @@ def flash_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention_bf16.launches = 0
 flash_attention_backward.launches = 0
+flash_attention_backward_bf16.launches = 0

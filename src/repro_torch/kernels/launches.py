@@ -15,11 +15,13 @@ from collections import Counter
 
 from . import counting
 from .flash_attention import (flash_attention, flash_attention_backward,
+                              flash_attention_backward_bf16,
                               flash_attention_bf16)
 from .fused_cell import fused_lstm_cell
 from .fused_gather_cell import fused_gather_lstm_cell
 from .gather_batch import gather_rows, gather_rows_backward
-from .ssd_scan import ssd_scan, ssd_scan_backward, ssd_scan_bf16
+from .ssd_scan import (ssd_scan, ssd_scan_backward, ssd_scan_backward_bf16,
+                       ssd_scan_bf16)
 
 WRAPPERS = {"gather_rows": gather_rows,
             "gather_rows_backward": gather_rows_backward,
@@ -28,9 +30,11 @@ WRAPPERS = {"gather_rows": gather_rows,
             "flash_attention": flash_attention,
             "flash_attention_bf16": flash_attention_bf16,
             "flash_attention_backward": flash_attention_backward,
+            "flash_attention_backward_bf16": flash_attention_backward_bf16,
             "ssd_scan": ssd_scan,
             "ssd_scan_bf16": ssd_scan_bf16,
-            "ssd_scan_backward": ssd_scan_backward}
+            "ssd_scan_backward": ssd_scan_backward,
+            "ssd_scan_backward_bf16": ssd_scan_backward_bf16}
 
 
 def snapshot() -> dict:

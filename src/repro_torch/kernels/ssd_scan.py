@@ -13,15 +13,19 @@ kernel, ``csrc/ssd_scan_bf16.cu``, written for Hopper: one block per
 producer warp keeping the next chunk's C, B and x in flight by TMA, and the
 four products as ``wgmma`` with fp32 accumulators, rounding to bf16 where
 the reference rounds; y in bf16, the states in fp32. Its launches are
-counted on :func:`ssd_scan_bf16`. The backward kernels take float32 only:
-a bfloat16 backward raises on the card.
+counted on :func:`ssd_scan_bf16`. A bfloat16 backward runs
+``csrc/ssd_scan_bwd_bf16.cu``: the state pass, a chunk kernel of bf16
+``mma.sync`` products with fp32 sums rounding where the reference rounds,
+and the group sums; dx, ddt, dB and dC in bf16, dA in fp32; its launches
+are counted on :func:`ssd_scan_backward_bf16`.
 
 When autograd records the call (grad mode on and an input that requires
 grad), the wrapper runs :class:`SsdScanFunction`: the forward, saving the
 chunks' start states where any can be nonzero (more than one chunk, or an
-initial state), and as its backward the kernels of
-``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_backward`). Otherwise nothing is
-saved. For tensors on the CPU the wrappers run the plain versions in
+initial state; float32 only: the bf16 backward recomputes them), and as
+its backward the kernels of ``csrc/ssd_scan_bwd.cu`` or their bf16 forms
+(:func:`ssd_scan_backward`). Otherwise nothing is saved. For tensors on
+the CPU the wrappers run the plain versions in
 :mod:`repro_torch.kernels.ref`, which autograd differentiates. On the meta
 device they take the card's route, each launch a plain version standing in
 for its kernel (:func:`ref.stand_in`).
@@ -156,13 +160,19 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
     its inputs for the output gradients ``dy`` and ``dfinal`` (None: zero);
     ``dinit`` is None when ``init_state`` is. ``states``: the forward's
     chunk start states (:func:`ssd_scan_forward` with ``with_states``), or
-    None where they are all zero (one chunk and no initial state). On the
-    card the kernels of ``csrc/ssd_scan_bwd.cu`` (the state pass over the
+    None where they are all zero (one chunk and no initial state); the
+    bf16 kernels recompute them in fp32 and read none. On the card the
+    kernels of ``csrc/ssd_scan_bwd.cu`` (the state pass over the
     chunks, where it is needed; C B^T once per group of heads; the chunk
     kernel on the tensor cores; the group sums), counted as one launch,
-    with the head dim at most 64, float32 only (a bfloat16 backward
-    raises); ``dy`` and ``dfinal`` in another layout are copied contiguous
-    first. The gradients are dense.
+    with the head dim at most 64; bfloat16 x, dt, B, C and ``dy`` (A,
+    ``dfinal``, the states and the initial state float32, or a bfloat16
+    initial state taken as its float32 value) go to those of
+    ``csrc/ssd_scan_bwd_bf16.cu`` (counted on
+    :func:`ssd_scan_backward_bf16`; dx, ddt, dB, dC bfloat16, dA float32,
+    ``dinit`` in the initial state's dtype), and mixed dtypes raise;
+    ``dy`` and ``dfinal`` in another layout are copied contiguous first,
+    in their own dtypes. The gradients are dense.
     On the CPU the plain version (:func:`ref.ssd_scan_bwd_ref`)."""
     if x.device.type in ref.PLAIN_DEVICES:
         with ref.stand_in(lambda: costs.ssd_scan_backward(
@@ -170,47 +180,52 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
                 dfinal is not None, states is not None, x.element_size())):
             return ref.ssd_scan_bwd_ref(x, dt, A, B, C, chunk, init_state,
                                         dy, dfinal, states)
+    bf16 = x.dtype == torch.bfloat16
+    init_dtype = None if init_state is None else init_state.dtype
+    if bf16 and init_dtype == torch.bfloat16:
+        init_state = init_state.float()   # as the forward takes it
     b, l, h, p, g, n = _check(x, dt, A, B, C, chunk, init_state)
     dev = x.device
-    if x.dtype != torch.float32:
-        raise ValueError(f"ssd_scan backward: the backward kernels take "
-                         f"float32 only, got {x.dtype}")
     if p > MAX_HEAD_DIM_BACKWARD:
         raise ValueError(f"ssd_scan backward: head dim {p} is above "
                          f"{MAX_HEAD_DIM_BACKWARD}")
     nc = l // chunk
-    wants = {"dy": (dy, (b, l, h, p)), "dfinal": (dfinal, (b, h, p, n)),
-             "states": (states, (b, nc, h, p, n))}
-    for name, (t, shape) in wants.items():
+    wants = {"dy": (dy, (b, l, h, p), x.dtype),
+             "dfinal": (dfinal, (b, h, p, n), torch.float32),
+             "states": (states, (b, nc, h, p, n), torch.float32)}
+    for name, (t, shape, dtype) in wants.items():
         if t is None:
             continue
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
-                or t.device != dev):
-            raise ValueError(f"ssd_scan backward: {name} must be a float32 "
-                             f"{shape} tensor on {dev}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    if states is None and (nc > 1 or init_state is not None):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
+            raise ValueError(f"ssd_scan backward: {name} must be a "
+                             f"{str(dtype).removeprefix('torch.')} {shape} "
+                             f"tensor on {dev} (x is {x.dtype}), got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if states is None and not bf16 and (nc > 1 or init_state is not None):
         raise ValueError("ssd_scan backward: the chunks' start states are "
                          "needed with more than one chunk or an initial "
                          "state")
     dy = dy.contiguous()
     dfinal = None if dfinal is None else dfinal.contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty((b, l, h, p), **f32)
-    ddt = torch.empty((b, l, h), **f32)
+    out = dict(dtype=x.dtype, device=dev)
+    dx = torch.empty((b, l, h, p), **out)
+    ddt = torch.empty((b, l, h), **out)
     dA = torch.empty((h,), **f32)
-    dB = torch.empty((b, l, g, n), **f32)
-    dC = torch.empty((b, l, g, n), **f32)
+    dB = torch.empty((b, l, g, n), **out)
+    dC = torch.empty((b, l, g, n), **out)
     dinit = (None if init_state is None
              else torch.empty((b, h, p, n), **f32))
     if dx.numel() == 0:
         return (dx, ddt, dA.zero_(), dB.zero_(), dC.zero_(),
                 None if dinit is None else
-                (dinit.zero_() if dfinal is None else dinit.copy_(dfinal)))
+                (dinit.zero_() if dfinal is None else
+                 dinit.copy_(dfinal)).to(init_dtype))
     state_pass = nc > 1 or dfinal is not None or dinit is not None
     gbuf = torch.empty((b, nc, h, p, n) if state_pass else (0,), **f32)
-    s16 = -(-chunk // 16)
-    cbuf = torch.empty((b * nc * g, s16, 2 * s16, 32, 4), **f32)
+    # the bf16 kernels recompute the chunks' start states in fp32
+    sbuf = (torch.empty((b, nc, h, p, n), **f32)
+            if bf16 and (nc > 1 or init_state is not None) else None)
     dbh = torch.empty((b, l, h, n), **f32)
     dch = torch.empty((b, l, h, n), **f32)
     dapart = torch.empty((b * nc, h), **f32)
@@ -221,29 +236,54 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        build.check(lib.ssd_scan_bwd_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), dy.data_ptr(), ptr(dfinal), ptr(states),
-            gbuf.data_ptr(), cbuf.data_ptr(), dbh.data_ptr(), dch.data_ptr(),
-            dapart.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
-            dB.data_ptr(), dC.data_ptr(), ptr(dinit), b, l, h, p, g, n,
-            chunk, int(init_state is not None), x.stride(0), x.stride(1),
-            dt.stride(0), dt.stride(1), B.stride(0), B.stride(1),
-            C.stride(0), C.stride(1), stream), "ssd_scan_backward")
-    counting.count(ssd_scan_backward)
-    return dx, ddt, dA, dB, dC, dinit
+        head = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                C.data_ptr(), dy.data_ptr(), ptr(dfinal))
+        tail = (dbh.data_ptr(), dch.data_ptr(), dapart.data_ptr(),
+                dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                dC.data_ptr(), ptr(dinit), b, l, h, p, g, n, chunk,
+                int(init_state is not None), x.stride(0), x.stride(1),
+                dt.stride(0), dt.stride(1), B.stride(0), B.stride(1),
+                C.stride(0), C.stride(1), stream)
+        if bf16:
+            build.check(lib.ssd_scan_bwd_bf16_launch(
+                *head, ptr(init_state), ptr(sbuf), gbuf.data_ptr(), *tail),
+                "ssd_scan_backward_bf16")
+        else:
+            s16 = -(-chunk // 16)
+            cbuf = torch.empty((b * nc * g, s16, 2 * s16, 32, 4), **f32)
+            build.check(lib.ssd_scan_bwd_launch(
+                *head, ptr(states), gbuf.data_ptr(), cbuf.data_ptr(), *tail),
+                "ssd_scan_backward")
+    counting.count(ssd_scan_backward_bf16 if bf16 else ssd_scan_backward)
+    return (dx, ddt, dA, dB, dC,
+            None if dinit is None else dinit.to(init_dtype))
+
+
+def ssd_scan_backward_bf16(x, dt, A, B, C, chunk: int, init_state, dy,
+                           dfinal=None, states=None):
+    """:func:`ssd_scan_backward` of bfloat16 x, dt, B, C and ``dy``,
+    which on the card runs the bf16 backward kernels
+    (``csrc/ssd_scan_bwd_bf16.cu``); their launches are counted here,
+    whichever of the two names was called."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"ssd_scan_backward_bf16: x must be bfloat16, got "
+                         f"{x.dtype}")
+    return ssd_scan_backward(x, dt, A, B, C, chunk, init_state, dy, dfinal,
+                             states)
 
 
 class SsdScanFunction(torch.autograd.Function):
     """The card's differentiable route: the forward kernel, saving x, dt,
-    A, B, C, the initial state and, where any can be nonzero, the chunks'
-    start states; the backward kernels as its gradient. A final state
-    whose gradient never arrives counts as zero gradient, and an
-    ``init_state`` that was None gets None."""
+    A, B, C, the initial state and, in float32 where any can be nonzero,
+    the chunks' start states; the backward kernels as its gradient. A
+    final state whose gradient never arrives counts as zero gradient, and
+    an ``init_state`` that was None gets None."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk: int, init_state):
-        with_states = x.shape[1] > chunk or init_state is not None
+        # the bf16 backward recomputes the start states in fp32
+        with_states = x.dtype == torch.float32 and (
+            x.shape[1] > chunk or init_state is not None)
         y, final, states = ssd_scan_forward(x, dt, A, B, C, chunk,
                                             init_state, with_states)
         ctx.save_for_backward(x, dt, A, B, C, init_state, states)
@@ -256,7 +296,7 @@ class SsdScanFunction(torch.autograd.Function):
     def backward(ctx, dy, dfinal):
         x, dt, A, B, C, init_state, states = ctx.saved_tensors
         if dy is None:
-            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
         dx, ddt, dA, dB, dC, dinit = ssd_scan_backward(
             x, dt, A, B, C, ctx.chunk, init_state, dy, dfinal, states)
         return dx, ddt, dA, dB, dC, None, dinit
@@ -274,7 +314,7 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
     length strides are free, so slices of a packed projection need no
     copy; for bfloat16 multiples of 8 elements, see :func:`_check`);
     differentiable through :class:`SsdScanFunction` when autograd records
-    (float32, head dim at most 64)."""
+    (either dtype, head dim at most 64)."""
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
     if torch.is_grad_enabled() and any(
@@ -296,3 +336,4 @@ def ssd_scan_bf16(x, dt, A, B, C, chunk: int, init_state=None):
 ssd_scan.launches = 0
 ssd_scan_bf16.launches = 0
 ssd_scan_backward.launches = 0
+ssd_scan_backward_bf16.launches = 0

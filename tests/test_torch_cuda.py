@@ -810,25 +810,192 @@ def test_fp16_and_mixed_dtypes_are_refused(cuda):
             ssd_scan(*args, 16)
 
 
-def test_a_bf16_backward_raises(cuda):
-    from repro_torch.kernels.flash_attention import flash_attention_backward
+# (B, Sq, Skv, H, KV, D, causal, window): the trainer's attention
+# (Qwen2-0.5B at 8 x 128), a window, the vision model's cross shape and the
+# edges: a ragged tail, a cluster of 8 ranks of two heads (G = 16), small
+# head dims and rows that see no key.
+_ATTN_BF16_BWD_CASES = {
+    "trainer B=8 S=128 G=7": (8, 128, 128, 14, 2, 64, True, 0),
+    "window 16 S=200 G=7": (1, 200, 200, 14, 2, 64, True, 16),
+    "vision cross Sq=128 Skv=1024 D=128 G=4": (2, 128, 1024, 32, 8, 128,
+                                               False, 0),
+    "ragged S=37 G=1": (2, 37, 37, 4, 4, 64, True, 0),
+    "G=16 S=128": (1, 128, 128, 16, 1, 64, True, 0),
+    "D=32 cross Sq=40 Skv=77 G=3": (2, 40, 77, 6, 2, 32, False, 0),
+    "window 4 Sq=17 Skv=9 D=16, rows with no key": (1, 17, 9, 14, 2, 16,
+                                                   True, 4),
+}
+
+
+def _attn_bf16_grads(fn, q, k, v, dout, causal, window):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    fn(*leaves, causal, window).backward(dout)
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("case", sorted(_ATTN_BF16_BWD_CASES))
+def test_flash_attention_bf16_backward_on_the_bf16_bar(cuda, case):
+    """The bf16 backward kernel through autograd: dq, dk and dv bf16, each
+    on the bf16 bar (the truth autograd of the fp32 plain attention on the
+    upcast inputs, the plain one autograd of the plain bf16 attention),
+    two runs bit-equal, counted on the bf16 wrapper alone."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_bf16)
+
+    B, Sq, Skv, H, KV, D, causal, window = _ATTN_BF16_BWD_CASES[case]
+    q, k, v = (t.bfloat16() for t in _attn_inputs(B, Sq, Skv, H, KV, D,
+                                                  cuda, 5))
+    dout = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (B, Sq, H, D)), dtype=torch.bfloat16, device=cuda)
+    before = (flash_attention_backward.launches,
+              flash_attention_backward_bf16.launches)
+    got = _attn_bf16_grads(flash_attention, q, k, v, dout, causal, window)
+    assert (flash_attention_backward.launches,
+            flash_attention_backward_bf16.launches) == \
+        (before[0], before[1] + 1)
+    again = _attn_bf16_grads(flash_attention, q, k, v, dout, causal, window)
+    plain = _attn_bf16_grads(ref.flash_attention_ref, q, k, v, dout, causal,
+                             window)
+    truth = ref.flash_attention_backward_ref(
+        q.float(), k.float(), v.float(), dout.float(), causal, window)
+    torch.cuda.synchronize()
+    for a, b, p, t in zip(got, again, plain, truth):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, b)
+        _bf16_bar(a, p, t)
+
+
+_SSD_BF16_BWD_CASES = {  # (b, l, h, p, g, n, chunk, init, dfinal)
+    "trainer b=8 l=128": (8, 128, 24, 64, 1, 128, 128, False, False),
+    "two chunks, init state, final grad (3, 256)": (3, 256, 24, 64, 1, 128,
+                                                    128, True, True),
+    "groups 2, two chunks": (2, 256, 8, 64, 2, 128, 128, False, False),
+    "ragged p=24 n=40 chunk 24 groups 2, init": (2, 48, 4, 24, 2, 40, 24,
+                                                 True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SSD_BF16_BWD_CASES))
+def test_ssd_scan_bf16_backward_on_the_bf16_bar(cuda, case):
+    """The bf16 backward kernels through autograd: dx, ddt, dB, dC bf16,
+    dA and the initial state's gradient fp32, each on the bf16 bar (the
+    truth autograd of the fp32 plain scan on the upcast inputs, the plain
+    one autograd of the plain bf16 scan), two runs bit-equal, counted on
+    the bf16 wrapper alone."""
+    from repro_torch.kernels.ssd_scan import (ssd_scan_backward,
+                                              ssd_scan_backward_bf16)
+
+    b, l, h, p, g, n, chunk, init, dfin = _SSD_BF16_BWD_CASES[case]
+    x, dt, A, B, C = _ssd_inputs(b, l, h, p, g, n, cuda, 7)
+    x, dt, B, C = (t.bfloat16() for t in (x, dt, B, C))
+    rng = np.random.default_rng(8)
+    dy = torch.as_tensor(rng.standard_normal((b, l, h, p)),
+                         dtype=torch.bfloat16, device=cuda)
+    s0 = (torch.as_tensor(rng.standard_normal((b, h, p, n)),
+                          dtype=torch.float32, device=cuda) if init else None)
+    dfinal = (torch.as_tensor(rng.standard_normal((b, h, p, n)),
+                              dtype=torch.float32, device=cuda)
+              if dfin else None)
+
+    def grads(fn, up=False):
+        ins = [t.detach().clone().float() if up and t.dtype ==
+               torch.bfloat16 else t.detach().clone()
+               for t in (x, dt, A, B, C) + ((s0,) if init else ())]
+        for t in ins:
+            t.requires_grad_(True)
+        y, final = fn(*ins[:5], chunk, ins[5] if init else None)
+        outs, gs = [y], [dy.float() if up else dy]
+        if dfin:
+            outs.append(final)
+            gs.append(dfinal)
+        return torch.autograd.grad(outs, ins, gs)
+
+    before = (ssd_scan_backward.launches, ssd_scan_backward_bf16.launches)
+    got = grads(ssd_scan)
+    assert (ssd_scan_backward.launches, ssd_scan_backward_bf16.launches) \
+        == (before[0], before[1] + 1)
+    again = grads(ssd_scan)
+    plain = grads(ref.ssd_scan_ref)
+    truth = grads(ref.ssd_scan_ref, up=True)
+    torch.cuda.synchronize()
+    want = [torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16,
+            torch.bfloat16] + ([torch.float32] if init else [])
+    assert [t.dtype for t in got] == want
+    for a, c, pl, t in zip(got, again, plain, truth):
+        assert torch.equal(a, c)
+        _bf16_bar(a, pl, t)
+
+
+def test_a_bf16_backward_of_mixed_dtypes_raises(cuda):
+    """The bf16 backwards take all-bf16 operands (lse, A, the states and
+    the final state's gradient fp32): a dout or dy of another dtype is
+    refused, saying so."""
+    from repro_torch.kernels.flash_attention import (flash_attention_backward,
+                                                     flash_attention_forward)
     from repro_torch.kernels.ssd_scan import ssd_scan_backward
 
     q, k, v = (t.bfloat16() for t in _attn_inputs(1, 8, 8, 2, 1, 16, cuda))
-    out = flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="float32 only"):
-        flash_attention_backward(q, k, v, out, out, torch.zeros(
-            (1, 2, 8), device=cuda))
-    qg = q.clone().requires_grad_(True)
-    with pytest.raises(ValueError, match="float32 only"):
-        flash_attention(qg, k, v).float().sum().backward()
+    out, lse = flash_attention_forward(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="must all be bfloat16.*dout "
+                                         "torch.float32"):
+        flash_attention_backward(q, k, v, out, out.float(), lse)
+    with pytest.raises(ValueError, match="must all be bfloat16.*out "
+                                         "torch.float32"):
+        flash_attention_backward(q, k, v, out.float(), out, lse)
     x, dt, A, B, C = _ssd_inputs(1, 32, 2, 16, 1, 16, cuda)
     x, dt, B, C = (t.bfloat16() for t in (x, dt, B, C))
-    with pytest.raises(ValueError, match="float32 only"):
-        ssd_scan_backward(x, dt, A, B, C, 16, None, x)
-    xg = x.clone().requires_grad_(True)
-    with pytest.raises(ValueError, match="float32 only"):
-        ssd_scan(xg, dt, A, B, C, 16)[0].float().sum().backward()
+    with pytest.raises(ValueError, match="dy must be a bfloat16"):
+        ssd_scan_backward(x, dt, A, B, C, 16, None, x.float())
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        ssd_scan_backward(x, dt.float(), A, B, C, 16, None, x)
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "mamba2-130m"])
+def test_bf16_train_step_replays_equal_eager_and_runs_the_bf16_kernels(
+        cuda, name):
+    """A reduced bf16 LM trained three steps through ``StaticTrainStep``:
+    the captured steps' losses and every parameter leaf bit-equal to the
+    same steps run eagerly, the leaves staying bf16, and each step
+    launching the bf16 forward and backward kernels once a layer (the
+    replays' counts added by the capture), the fp32 ones not at all."""
+    import dataclasses
+
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.kernels.launches import WRAPPERS
+    from repro_torch.train.loop import StaticTrainStep
+    from repro_torch.train.optimizer import AdamWConfig, leaves
+
+    cfg = get_config(name).reduced()
+    if cfg.ssm_state:
+        cfg = dataclasses.replace(cfg, ssm_chunk=32)
+    kernels = (("ssd_scan_bf16", "ssd_scan_backward_bf16") if cfg.ssm_state
+               else ("flash_attention_bf16",
+                     "flash_attention_backward_bf16"))
+    fp32 = ("ssd_scan", "ssd_scan_backward", "flash_attention",
+            "flash_attention_backward")
+    model = TransformerLM(cfg, torch.bfloat16, device=cuda)
+    params = tree_map(lambda t: t.to(cuda), TransformerLM(
+        cfg, torch.bfloat16, device="cpu").init_params(
+            torch.Generator().manual_seed(0)))
+    corpus = SyntheticCorpus(PipelineConfig(vocab=cfg.vocab, seq_len=64,
+                                            batch_size=2, seed=0))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=3)
+    runs = {}
+    for capture in (True, False):
+        step = StaticTrainStep(model, opt, params, capture=capture)
+        before = {k: WRAPPERS[k].launches for k in kernels + fp32}
+        losses = [float(step(corpus.batch(i))["loss"]) for i in range(3)]
+        moved = {k: WRAPPERS[k].launches - before[k]
+                 for k in kernels + fp32}
+        assert moved == {k: 3 * cfg.n_layers if k in kernels else 0
+                         for k in kernels + fp32}, moved
+        runs[capture] = (losses, leaves(step.state()[0]))
+    assert all(np.isfinite(runs[True][0]))
+    assert runs[True][0] == runs[False][0]
+    for a, b in zip(runs[True][1], runs[False][1]):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
 def test_argmax_of_tied_bf16_logits_takes_the_first_index_on_the_card(cuda):
