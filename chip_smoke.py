@@ -15,8 +15,9 @@ Phases, in order; any failure raises and exits non-zero:
    bf16), scan (forward in fp32 and bf16, and the backward's chunk kernel
    in fp32 and bf16) and both LSTM-cell kernels in the built library
    (``cuobjdump -sass``, where the toolkit has it): a kernel with no
-   tensor-core instruction fails, and so does a bf16 forward (redesigned
-   for Hopper) with no ``HGMMA`` or no ``UTMALDG``. Times an empty kernel
+   tensor-core instruction fails, and so does a kernel redesigned for
+   Hopper (the bf16 forwards, and the bf16 backwards' dk/dv, dq and chunk
+   kernels) with no ``HGMMA`` or no ``UTMALDG``. Times an empty kernel
    launched through the library in the same timer as the kernels (the
    ``launch floor:`` line). Then each kernel against its
    plain PyTorch version on the card at the path's shapes and edge cases
@@ -458,7 +459,10 @@ def build_kernels() -> None:
 # (HMMA) and of wgmma (HGMMA), and TMA tile loads (UTMALDG)
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
 # the kernels redesigned for Hopper: each must hold HGMMA and UTMALDG
-HOPPER_KERNELS = ("flash_attention_bf16_kernel", "ssd_scan_bf16_kernel")
+HOPPER_KERNELS = ("flash_attention_bf16_kernel", "ssd_scan_bf16_kernel",
+                  "flash_attention_bwd_bf16_dkdv_kernel",
+                  "flash_attention_bwd_bf16_dq_kernel",
+                  "ssd_bwd_bf16_chunk_kernel")
 
 
 def sass_counts(kernels: tuple[str, ...]) -> dict | None:

@@ -1,13 +1,16 @@
 // Hopper (sm_90a) building blocks for the bf16 kernels: tensor maps and
 // TMA tile loads, mbarriers, the shared-memory matrix descriptor of the
 // 128-byte swizzle, and warpgroup matrix products (`wgmma`) on bf16
-// operands with fp32 accumulators. Included by flash_attention_bf16.cu and
-// ssd_scan_bf16.cu (which take ex2 from mma_tf32x3.cuh).
+// operands with fp32 accumulators. Included by the bf16 kernels,
+// flash_attention_bf16.cu, ssd_scan_bf16.cu and their backwards
+// flash_attention_bwd_bf16.cu and ssd_scan_bwd_bf16.cu (which take ex2 from
+// mma_tf32x3.cuh).
 //
 // Tiles. Every operand tile lives in shared memory as rows of 64 bf16
 // values (128 bytes), 1024-byte aligned, in the 128-byte swizzle that TMA
 // writes (CU_TENSOR_MAP_SWIZZLE_128B): the 16-byte unit u of row r sits at
-// unit u ^ (r % 8) of that row. A tensor dimension wider than 64 values is
+// unit u ^ (r % 8) of that row (`swz`; a kernel that writes an operand
+// tile itself writes it so). A tensor dimension wider than 64 values is
 // loaded as several such tiles, one per 64 values ("column blocks"). A TMA
 // box narrower than 64 values of the tensor's innermost dimension (a head
 // dim of 16) still fills 64: TMA writes zeros outside the tensor, so the
@@ -35,7 +38,9 @@
 //     `wgmma` takes such a transposed operand from shared memory.
 //
 // Products. `Wgmma<N>::ss<TA, TB>` is m64nNk16 with A and B from shared
-// memory (TA, TB: 0 K-major, 1 MN-major; N = 64, 128), `Wgmma<N>::rs<TB>`
+// memory (TA, TB: 0 K-major, 1 MN-major; N = 32, 64, 128; an MN-major A is
+// a tile whose rows run over k, the M index contiguous, as a kernel that
+// wrote a transposed operand tile reads it), `Wgmma<N>::rs<TB>`
 // with A from registers (N = 16, 32, 64, 128): the forms the kernels use.
 // A warpgroup (four warps, 128 threads) issues them together; warp w of
 // the group holds rows 16w..16w+15 of the 64. Per warp the
@@ -249,6 +254,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completing `bytes` of `bar`'s
+// transactions (no tensor map: a contiguous run of bytes).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Starts fetching a tensor map (a kernel parameter) ahead of its first
 // TMA load.
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -358,6 +375,23 @@ struct Wgmma<16> {
 
 template <>
 struct Wgmma<32> {
+  // d (64 x 32, fp32) += A (64 x 16, shared memory) * B (16 x 32, shared
+  // memory); TA, TB: 0 K-major, 1 MN-major.
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{" "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15" "}, "
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
   // d (64 x 32, fp32) += A (64 x 16, registers, in mma.sync's m16n8k16 A
   // fragment order on each warp's 16 rows) * B (16 x 32, shared memory).
   template <int TB>

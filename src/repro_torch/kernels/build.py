@@ -41,7 +41,7 @@ SIGNATURES = {
     "ssd_scan_launch": [_P] * 9 + [_I] * 15 + [_P],
     "ssd_scan_bf16_launch": [_P] * 9 + [_I] * 15 + [_P],
     "ssd_scan_bwd_launch": [_P] * 19 + [_I] * 16 + [_P],
-    "ssd_scan_bwd_bf16_launch": [_P] * 19 + [_I] * 16 + [_P],
+    "ssd_scan_bwd_bf16_launch": [_P] * 18 + [_I] * 16 + [_P],
     "empty_kernel_launch": [_P],
 }
 

@@ -17,9 +17,13 @@ products as ``wgmma`` with fp32 accumulators, P rounded to bf16 before
 P V as the reference's kernel rounds it; the output in bf16, the
 log-sum-exp in fp32. Its launches are counted on
 :func:`flash_attention_bf16`. A bfloat16 backward runs
-``csrc/flash_attention_bwd_bf16.cu``: the fp32 backward's three kernels
-with bf16 ``mma.sync`` products and fp32 sums, dq, dk and dv rounded to
-bf16 once; its launches are counted on
+``csrc/flash_attention_bwd_bf16.cu``, also written for Hopper: a table of
+the rows' log-sum-exp and dO . o, then dk/dv with the query heads of a KV
+head folded into the rows of each query tile (K and V loaded once by TMA,
+Q, dO and the table streamed by a producer warp, the four products as
+``wgmma``, the query tiles split over the ranks of a thread-block cluster
+and summed in rank order), and dq, which forms S and dP again; fp32 sums,
+dq, dk and dv rounded to bf16 once. Its launches are counted on
 :func:`flash_attention_backward_bf16`.
 
 When autograd records the call (grad mode on and an input that requires
@@ -148,8 +152,9 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
     counted as one launch; q, k, v, ``out`` and ``dout`` all bfloat16 go
     to those of ``csrc/flash_attention_bwd_bf16.cu`` (counted on
     :func:`flash_attention_backward_bf16`; ``lse`` float32 either way),
-    and mixed dtypes raise; ``dout`` in another layout than the kernels
-    take is copied contiguous first, in its own dtype. On the CPU the
+    and mixed dtypes raise; a float32 ``dout`` in another layout than the
+    kernels take is copied contiguous first, a bfloat16 one (which TMA
+    reads) raises, copying nothing. On the CPU the
     plain version (:func:`ref.flash_attention_backward_ref`; ``out`` and
     ``lse`` are not read)."""
     if window and not causal:
@@ -174,7 +179,7 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
             not lse.is_contiguous() or lse.device != dev:
         raise ValueError(f"flash_attention backward: lse must be a "
                          f"contiguous float32 {(B, H, Sq)} tensor on {dev}")
-    if dout.dtype in DTYPES and not _fits(dout):
+    if dout.dtype == torch.float32 and not _fits(dout):
         dout = dout.contiguous()
     _check_layout(dev, zip(("q", "k", "v", "out", "dout"),
                            (q, k, v, out, dout)), (q.dtype,))
@@ -183,7 +188,8 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
     dv = torch.empty((B, Skv, KV, D), dtype=q.dtype, device=dev)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    dvec = torch.empty(backward_scratch(q, k), dtype=torch.float32,
+                       device=dev)
     backward_kernels(q, k, v, out, dout, lse, causal, window,
                      (dvec, dq, dk, dv))
     counting.count(flash_attention_backward_bf16
@@ -206,14 +212,28 @@ def flash_attention_backward_bf16(q, k, v, out, dout, lse,
 BACKWARD_PARTS = {"rowdot": 1, "dkdv": 2, "dq": 4}
 
 
+def backward_scratch(q: torch.Tensor, k: torch.Tensor) -> tuple:
+    """The shape of the backward's float32 scratch (the first of
+    :func:`backward_kernels`' buffers): D of each row, (B, H, Sq), for
+    float32; for bfloat16 the bf16 kernels' row table, 128 floats (the
+    log2(e) lse and D of its 64 rows) for each query tile of 64 // G
+    queries by the G heads of a kv head, (B, KV, tiles, 128)."""
+    B, Sq, H, _ = q.shape
+    KV = k.shape[2]
+    if q.dtype != torch.bfloat16:
+        return (B, H, Sq)
+    qb = 64 // (H // KV)
+    return (B, KV, -(-Sq // qb), 128)
+
+
 def backward_kernels(q, k, v, out, dout, lse, causal, window, buffers,
                      parts: int = 7) -> None:
     """Launch the backward's kernels picked by ``parts`` (a sum of
     :data:`BACKWARD_PARTS`; 7 all three, in order) on the current stream,
-    into ``buffers`` = (D scratch (B, H, Sq) float32, dq, dk, dv), all
-    contiguous on the card, the gradients in q's dtype (the bf16 kernels
-    for bfloat16). Checks nothing and counts nothing:
-    :func:`flash_attention_backward` checks, allocates and counts; this is
+    into ``buffers`` = (float32 scratch of :func:`backward_scratch`'s
+    shape, dq, dk, dv), all contiguous on the card, the gradients in q's
+    dtype (the bf16 kernels for bfloat16). Checks nothing and counts
+    nothing: :func:`flash_attention_backward` checks, allocates and counts; this is
     also how one kernel is timed alone (each reads what the earlier ones
     wrote)."""
     dvec, dq, dk, dv = buffers

@@ -14,10 +14,13 @@ producer warp keeping the next chunk's C, B and x in flight by TMA, and the
 four products as ``wgmma`` with fp32 accumulators, rounding to bf16 where
 the reference rounds; y in bf16, the states in fp32. Its launches are
 counted on :func:`ssd_scan_bf16`. A bfloat16 backward runs
-``csrc/ssd_scan_bwd_bf16.cu``: the state pass, a chunk kernel of bf16
-``mma.sync`` products with fp32 sums rounding where the reference rounds,
-and the group sums; dx, ddt, dB and dC in bf16, dA in fp32; its launches
-are counted on :func:`ssd_scan_backward_bf16`.
+``csrc/ssd_scan_bwd_bf16.cu``: the state pass, then a chunk kernel written
+for Hopper (a block per head block of a group and chunk, the group's head
+blocks one thread-block cluster; one lane streaming each head's x
+and dy by TMA; every product a ``wgmma`` with fp32 sums, rounding where the
+reference rounds; the group's dB and dC summed in the block and then over
+the cluster's ranks in order); dx, ddt, dB and dC in bf16, dA in fp32;
+its launches are counted on :func:`ssd_scan_backward_bf16`.
 
 When autograd records the call (grad mode on and an input that requires
 grad), the wrapper runs :class:`SsdScanFunction`: the forward, saving the
@@ -171,8 +174,10 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
     ``csrc/ssd_scan_bwd_bf16.cu`` (counted on
     :func:`ssd_scan_backward_bf16`; dx, ddt, dB, dC bfloat16, dA float32,
     ``dinit`` in the initial state's dtype), and mixed dtypes raise;
-    ``dy`` and ``dfinal`` in another layout are copied contiguous first,
-    in their own dtypes. The gradients are dense.
+    a float32 ``dy`` and ``dfinal`` in another layout are copied
+    contiguous first, a bfloat16 ``dy`` (which TMA reads) that is not
+    contiguous with a 16-byte aligned pointer raises, copying nothing. The
+    gradients are dense.
     On the CPU the plain version (:func:`ref.ssd_scan_bwd_ref`)."""
     if x.device.type in ref.PLAIN_DEVICES:
         with ref.stand_in(lambda: costs.ssd_scan_backward(
@@ -205,6 +210,10 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
         raise ValueError("ssd_scan backward: the chunks' start states are "
                          "needed with more than one chunk or an initial "
                          "state")
+    if bf16 and (not dy.is_contiguous() or dy.data_ptr() % 16):
+        raise ValueError(f"ssd_scan backward: a bfloat16 dy must be "
+                         f"contiguous with a 16-byte aligned pointer (TMA "
+                         f"reads it); got strides {dy.stride()}")
     dy = dy.contiguous()
     dfinal = None if dfinal is None else dfinal.contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
@@ -226,8 +235,6 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
     # the bf16 kernels recompute the chunks' start states in fp32
     sbuf = (torch.empty((b, nc, h, p, n), **f32)
             if bf16 and (nc > 1 or init_state is not None) else None)
-    dbh = torch.empty((b, l, h, n), **f32)
-    dch = torch.empty((b, l, h, n), **f32)
     dapart = torch.empty((b * nc, h), **f32)
 
     def ptr(t):
@@ -238,21 +245,26 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
         stream = torch.cuda.current_stream(dev).cuda_stream
         head = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                 C.data_ptr(), dy.data_ptr(), ptr(dfinal))
-        tail = (dbh.data_ptr(), dch.data_ptr(), dapart.data_ptr(),
-                dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+        tail = (dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
                 dC.data_ptr(), ptr(dinit), b, l, h, p, g, n, chunk,
                 int(init_state is not None), x.stride(0), x.stride(1),
                 dt.stride(0), dt.stride(1), B.stride(0), B.stride(1),
                 C.stride(0), C.stride(1), stream)
         if bf16:
+            # the chunk kernel's count of finished blocks (it leaves it 0)
+            counter = torch.zeros((1,), dtype=torch.int32, device=dev)
             build.check(lib.ssd_scan_bwd_bf16_launch(
-                *head, ptr(init_state), ptr(sbuf), gbuf.data_ptr(), *tail),
+                *head, ptr(init_state), ptr(sbuf), gbuf.data_ptr(),
+                dapart.data_ptr(), counter.data_ptr(), *tail),
                 "ssd_scan_backward_bf16")
         else:
             s16 = -(-chunk // 16)
             cbuf = torch.empty((b * nc * g, s16, 2 * s16, 32, 4), **f32)
+            dbh = torch.empty((b, l, h, n), **f32)
+            dch = torch.empty((b, l, h, n), **f32)
             build.check(lib.ssd_scan_bwd_launch(
-                *head, ptr(states), gbuf.data_ptr(), cbuf.data_ptr(), *tail),
+                *head, ptr(states), gbuf.data_ptr(), cbuf.data_ptr(),
+                dbh.data_ptr(), dch.data_ptr(), dapart.data_ptr(), *tail),
                 "ssd_scan_backward")
     counting.count(ssd_scan_backward_bf16 if bf16 else ssd_scan_backward)
     return (dx, ddt, dA, dB, dC,

@@ -1116,6 +1116,230 @@ int main() {
 """
 
 
+# the bf16 backward of attention (csrc/flash_attention_bwd_bf16.cu) at the
+# trainer's shape: dk/dv's set-up, K/V landed, per query tile the TMA wait,
+# S^T and dP^T (wgmma issue and wait), the P^T/dS^T epilogue, dV and dK
+# (wgmma), then the cluster's partials and ordered sum; dq's Q/dO landed and
+# per key tile the wait, S and dP, the dS epilogue and dQ
+FLASH_BWD_BF16_STAMPS = [
+    ('  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");\n'
+     "  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n",
+     "+  const int pidx = blockIdx.x * 5 + warp;\n  STAMP(0, 0.f);\n"),
+    ("  const int g = lane >> 2, t = lane & 3;\n"
+     "  const int r0 = 16 * warp + g, r1 = r0 + 8;   // the lane's two keys\n",
+     "  STAMP(1, 0.f);\n"),
+    ("    hopper::mbar_wait(&sm.kvbar, 0);\n", "+    STAMP(2, 0.f);\n"),
+    ("      float st[BM / 2], dpt[BM / 2];   // S^T, dP^T: keys x rows\n",
+     "+      const int ti = 3 + 4 * (it < 2 ? it : 1);\n"
+     "      STAMP(ti, 0.f);\n"),
+    ("      // P^T and dS^T: d[4j + e] is key r0",
+     "      STAMP(ti + 1, st[BM / 2 - 1] + dpt[BM / 2 - 1]);\n"),
+    ("      uint32_t pa[BM / 16][4], sa[BM / 16][4];\n",
+     "      STAMP(ti + 2, st[BM / 2 - 1] + dpt[BM / 2 - 1]);\n"),
+    ("      hopper::fence_regs(dk);\n      hopper::fence_regs(dv);\n",
+     "+      STAMP(ti + 3, dk[D / 2 - 1] + dv[D / 2 - 1]);\n"),
+    ("  const int64_t kvrow = static_cast<int64_t>(b) * a.Skv;\n",
+     "  STAMP(11, 0.f);\n"),
+    ("  cluster.sync();   // every rank's partials are written\n",
+     "+  STAMP(12, 0.f);\n"),
+    ("  cluster.sync();   // no rank leaves while another reads its partials\n",
+     "  STAMP(13, 0.f);\n"),
+    ("  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n"
+     "  // the last query tiles see the most keys: they go first\n",
+     "+  const int pidx = 2048 + ((blockIdx.z * gridDim.y + blockIdx.y) * "
+     "gridDim.x + blockIdx.x) * 5 + warp;\n  STAMP(0, 0.f);\n"),
+    ("    hopper::mbar_wait(&sm.qbar, 0);\n", "+    STAMP(1, 0.f);\n"),
+    ("      float sf[BM / 2], dp[BM / 2];   // S, dP: column tile j at",
+     "      const int ti = 2 + 4 * (it < 2 ? it : 1);\n"
+     "      STAMP(ti, 0.f);\n"),
+    ("      const bool need_mask =\n          j0 + BM > a.Skv ||",
+     "      STAMP(ti + 1, sf[BM / 2 - 1] + dp[BM / 2 - 1]);\n"),
+    ("      uint32_t sa[BM / 16][4];\n",
+     "      STAMP(ti + 2, dp[BM / 2 - 1]);\n"),
+    ("      hopper::fence_regs(acc);\n",
+     "+      STAMP(ti + 3, acc[D / 2 - 1]);\n"),
+    ('  asm volatile("griddepcontrol.wait;" ::: "memory");\n',
+     "  STAMP(10, 0.f);\n"),
+]
+FLASH_BWD_BF16_MAIN = r"""
+#include <cstdio>
+#include <vector>
+int main() {
+  const int B = 8, S = 128, H = 14, KV = 2, D = 64, QB = 64 / (H / KV);
+  const int NQT = (S + QB - 1) / QB;
+  const size_t nq = size_t(B) * S * H * D, nk = size_t(B) * S * KV * D;
+  const size_t nl = size_t(B) * H * S, nt = size_t(B) * KV * NQT * 128;
+  std::vector<__nv_bfloat16> hq(nq), hk(nk);
+  std::vector<float> hl(nl, 5.f);
+  for (size_t i = 0; i < nq; ++i)
+    hq[i] = __float2bfloat16((i * 2654435761u % 1000) / 1e3f - .5f);
+  for (size_t i = 0; i < nk; ++i)
+    hk[i] = __float2bfloat16((i * 40503u % 1000) / 1e3f - .5f);
+  __nv_bfloat16 *q, *k, *v, *o, *dout, *dq, *dk, *dv;
+  float *lse, *tab;
+  for (__nv_bfloat16** p : {&q, &o, &dout, &dq}) cudaMalloc(p, nq * 2);
+  for (__nv_bfloat16** p : {&k, &v, &dk, &dv}) cudaMalloc(p, nk * 2);
+  cudaMalloc(&lse, nl * 4); cudaMalloc(&tab, nt * 4);
+  for (__nv_bfloat16* p : {q, o, dout})
+    cudaMemcpy(p, hq.data(), nq * 2, cudaMemcpyHostToDevice);
+  for (__nv_bfloat16* p : {k, v})
+    cudaMemcpy(p, hk.data(), nk * 2, cudaMemcpyHostToDevice);
+  cudaMemcpy(lse, hl.data(), nl * 4, cudaMemcpyHostToDevice);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0); cudaEventCreate(&e1);
+  const char* names[] = {"", "rows", "dkdv", "", "dq", "", "", "all"};
+  for (int parts : {1, 4, 2, 7}) for (int rep = 0; rep < 5; ++rep) {
+    cudaEventRecord(e0);
+    const int rc = flash_attention_bwd_bf16_launch(
+        q, k, v, o, dout, lse, tab, dq, dk, dv, B, S, S, H, KV, D,
+        S * H * D, H * D, D, S * KV * D, KV * D, D, S * KV * D, KV * D, D,
+        S * H * D, H * D, D, S * H * D, H * D, D, 1, 0, parts, 0);
+    cudaEventRecord(e1); cudaEventSynchronize(e1);
+    float ms; cudaEventElapsedTime(&ms, e0, e1);
+    printf("bwd bf16 phases: %s launch %d rc %d, %.4f ms\n", names[parts],
+           rep, rc, ms);
+  }
+  static long long hp[4096][20];
+  cudaMemcpyFromSymbol(hp, g_prof, sizeof(hp));
+  // dk/dv: 256 CTAs, clusters of 8 ranks over (key tile, batch, kv head);
+  // CTAs 0..7 the first cluster (keys 0-63: 15 query tiles, one or two a
+  // rank), 128 the first rank of keys 64-127 (8 tiles, one a rank)
+  for (int cta : {0, 3, 128, 255}) for (int w = 0; w < 4; ++w) {
+    const long long* t = hp[cta * 5 + w];
+    printf("bwd bf16 phases: dkdv CTA %d warp %d cycles: set-up %lld, K/V "
+           "landed %lld", cta, w, t[1] - t[0], t[2] - t[1]);
+    long long prev = t[2];
+    for (int it = 0; it < 2; ++it) {
+      const long long* u = t + 3 + 4 * it;
+      if (u[0] == 0) break;
+      printf(" | tile %d: TMA wait %lld, S^T and dP^T %lld, P^T/dS^T %lld, "
+             "dV and dK %lld", it, u[0] - prev, u[1] - u[0], u[2] - u[1],
+             u[3] - u[2]);
+      prev = u[3];
+    }
+    printf(" | rest of the tiles %lld | partials and cluster barrier %lld "
+           "| ordered sum %lld | total %lld\n", t[11] - prev, t[12] - t[11],
+           t[13] - t[12], t[13] - t[0]);
+  }
+  // dq: 15 x 2 x 8 CTAs, the last query tile (two key tiles) first
+  for (int cta : {0, 14}) for (int w = 0; w < 4; ++w) {
+    const long long* t = hp[2048 + cta * 5 + w];
+    printf("bwd bf16 phases: dq CTA %d warp %d cycles: Q and dO landed %lld",
+           cta, w, t[1] - t[0]);
+    long long prev = t[1];
+    for (int it = 0; it < 2; ++it) {
+      const long long* u = t + 2 + 4 * it;
+      if (u[0] == 0) break;
+      printf(" | tile %d: TMA wait %lld, S and dP %lld, dS %lld, dQ %lld",
+             it, u[0] - prev, u[1] - u[0], u[2] - u[1], u[3] - u[2]);
+      prev = u[3];
+    }
+    printf(" | epilogue %lld | total %lld\n", t[10] - prev, t[10] - t[0]);
+  }
+  return 0;
+}
+"""
+
+# the bf16 backward of the scan's chunk kernel (csrc/ssd_scan_bwd_bf16.cu)
+# at the trainer's shape: set-up, C and B landed, per head (the first and
+# the last of the block) the x/dy wait, the t pass (C B^T and dy x^T by
+# wgmma, the K/M epilogue and tiles, dC), its barrier, dx, dB, the barrier
+# before the dcum scan (the scan itself falls in the next head's wait);
+# then the group's partials, the cluster's ordered sum and dA
+SSD_BWD_BF16_STAMPS = [
+    ("  const int grp = static_cast<int>(blockIdx.x / a.cluster);\n",
+     "+  const int pidx = (blockIdx.y * gridDim.x + blockIdx.x) * 8 + "
+     "(threadIdx.x >> 5);\n  STAMP(0, 0.f);\n"),
+    ("  const int g = lane >> 2, tq = lane & 3;\n  const int64_t orow",
+     "  STAMP(1, 0.f);\n"),
+    ("      hopper::mbar_wait(&sm.cbbar, 0);\n", "+      STAMP(2, 0.f);\n"),
+    ("        hopper::mbar_wait(&sm.full[s], (i / NS) & 1);\n",
+     "+        const int hi = 3 + 6 * (i < 1 ? 0 : 1);\n"
+     "        STAMP(hi, 0.f);\n"),
+    ("          // the S0 term: dC += e_t",
+     "          STAMP(hi + 1, dcg[63]);\n"),
+    ("        hopper::fence_async_smem();   // the K and M tiles, for wgmma\n"
+     "        hopper::bar_sync(1, THREADS);\n",
+     "+        STAMP(hi + 2, 0.f);\n"),
+    ("          float xgb[2] = {0.f, 0.f};\n",
+     "          STAMP(hi + 3, dx[31]);\n"),
+    ("        hopper::bar_sync(1, THREADS);   // t2 and the column sums are in\n",
+     "        STAMP(hi + 4, dbg[63]);\n"),
+    ("        // -- c. dcum, its suffix sum, ddt", "        STAMP(hi + 5, 0.f);\n"),
+    ("  if (a.cluster > 1) {\n", "  STAMP(15, 0.f);\n"),
+    ("    cluster.sync();   // every rank's partials are written\n",
+     "+    STAMP(16, 0.f);\n"),
+    ("    cluster.sync();   // no rank leaves while another reads its partials\n",
+     "    STAMP(17, 0.f);\n"),
+    ("  // ---- dA: the last block adds", "  STAMP(18, 0.f);\n"),
+]
+SSD_BWD_BF16_MAIN = r"""
+#include <cstdio>
+#include <vector>
+int main() {
+  const int b = 8, L = 128, H = 24, P = 64, N = 128, Q = 128;
+  const size_t nx = size_t(b) * L * H * P, nd = size_t(b) * L * H;
+  const size_t nb = size_t(b) * L * N;
+  std::vector<__nv_bfloat16> hx(nx), hd(nd), hb(nb);
+  std::vector<float> ha(H);
+  for (size_t i = 0; i < nx; ++i)
+    hx[i] = __float2bfloat16((i * 2654435761u % 1000) / 1e3f - .5f);
+  for (size_t i = 0; i < nd; ++i)
+    hd[i] = __float2bfloat16((i * 40503u % 1000) / 2e3f);
+  for (int i = 0; i < H; ++i) ha[i] = -0.1f * (i % 5 + 1);
+  for (size_t i = 0; i < nb; ++i)
+    hb[i] = __float2bfloat16((i * 7919u % 1000) / 1e3f - .5f);
+  __nv_bfloat16 *x, *dt, *B, *C, *dy, *dx, *ddt, *dB, *dC;
+  float *A, *dA, *dap;
+  unsigned int* counter;
+  for (__nv_bfloat16** p : {&x, &dy, &dx}) cudaMalloc(p, nx * 2);
+  for (__nv_bfloat16** p : {&dt, &ddt}) cudaMalloc(p, nd * 2);
+  for (__nv_bfloat16** p : {&B, &C, &dB, &dC}) cudaMalloc(p, nb * 2);
+  cudaMalloc(&A, H * 4); cudaMalloc(&dA, H * 4); cudaMalloc(&dap, b * H * 4);
+  cudaMalloc(&counter, 4); cudaMemset(counter, 0, 4);
+  for (__nv_bfloat16* p : {x, dy})
+    cudaMemcpy(p, hx.data(), nx * 2, cudaMemcpyHostToDevice);
+  cudaMemcpy(dt, hd.data(), nd * 2, cudaMemcpyHostToDevice);
+  cudaMemcpy(A, ha.data(), H * 4, cudaMemcpyHostToDevice);
+  for (__nv_bfloat16* p : {B, C})
+    cudaMemcpy(p, hb.data(), nb * 2, cudaMemcpyHostToDevice);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0); cudaEventCreate(&e1);
+  for (int rep = 0; rep < 5; ++rep) {
+    cudaEventRecord(e0);
+    const int rc = ssd_scan_bwd_bf16_launch(
+        x, dt, A, B, C, dy, nullptr, nullptr, nullptr, nullptr, dap,
+        counter, dx, ddt, dA, dB, dC, nullptr, b, L, H, P, 1, N, Q, 0,
+        L * H * P, H * P, L * H, H, L * N, N, L * N, N, 0);
+    cudaEventRecord(e1); cudaEventSynchronize(e1);
+    float ms; cudaEventElapsedTime(&ms, e0, e1);
+    printf("ssd bwd bf16 phases: launch %d rc %d, %.4f ms\n", rep, rc, ms);
+  }
+  static long long hp[4096][20];
+  cudaMemcpyFromSymbol(hp, g_prof, sizeof(hp));
+  // 64 blocks: 8 head blocks of 3 heads (one cluster) by 8 (batch, chunk)
+  for (int blk : {0, 7, 63}) for (int w : {0, 3, 4, 7}) {
+    const long long* t = hp[blk * 8 + w];
+    printf("ssd bwd bf16 phases: block %d warp %d cycles: set-up %lld, C "
+           "and B landed %lld", blk, w, t[1] - t[0], t[2] - t[1]);
+    long long prev = t[2];
+    for (int i = 0; i < 2; ++i) {
+      const long long* u = t + 3 + 6 * i;
+      printf(" | %s head: x/dy wait %lld, t pass (C B^T, dy x^T, K/M, dC) "
+             "%lld, barrier %lld, dx %lld, dB %lld, barrier %lld",
+             i ? "last" : "first", u[0] - prev, u[1] - u[0], u[2] - u[1],
+             u[3] - u[2], u[4] - u[3], u[5] - u[4]);
+      prev = u[5];
+    }
+    printf(" | partials %lld, cluster barrier %lld, ordered sum %lld, "
+           "dA's count %lld | total %lld\n", t[15] - prev, t[16] - t[15],
+           t[17] - t[16], t[18] - t[17], t[18] - t[0]);
+  }
+  return 0;
+}
+"""
+
+
 def gather_main() -> str:
     """gather_rows.cu at the path's shapes (K = 1, 16, 256, 512 rows of
     2048 bytes): with the geometry the wrapper computes, and with other
@@ -1192,6 +1416,12 @@ def main(argv: list[str] | None = None) -> None:
                                            SSD_BF16_STAMPS, SSD_BF16_MAIN)),
             ("ssd_bwd_phases", instrument("ssd_scan_bwd.cu", SSD_BWD_STAMPS,
                                           SSD_BWD_MAIN)),
+            ("flash_bwd_bf16_phases", instrument(
+                "flash_attention_bwd_bf16.cu", FLASH_BWD_BF16_STAMPS,
+                FLASH_BWD_BF16_MAIN)),
+            ("ssd_bwd_bf16_phases", instrument(
+                "ssd_scan_bwd_bf16.cu", SSD_BWD_BF16_STAMPS,
+                SSD_BWD_BF16_MAIN)),
             ("cell_phases", instrument_cell()),
             ("cell_clusters", cell_clusters_main()),
             ("cell_floors", cell_floors_main()),

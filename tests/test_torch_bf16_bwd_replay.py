@@ -5,32 +5,40 @@ only on the card, so their loops are replayed here in float64, with bf16
 rounding at the kernels' own rounding points (float64 sums stand in for
 their fp32 sums of exact bf16 products):
 
-- attention: D = rowsum(dO o O) over the bf16 output; dk/dv by (batch, kv
-  head, 64-key tile), each rank of the kv head's cluster walking its heads
-  and the 64-row query tiles the kernel visits (from the diagonal when
-  causal, up to the window's reach, plus the tiles of rows that see no
-  key), P rounded to bf16 as the A operand of dV = P^T dO, dS = P (dP - D)
-  from the unrounded P rounded as the operand of dK = dS^T Q, the ranks'
-  partials summed in rank order; dq by (batch, head, 64-row query tile)
-  over the key tiles the kernel visits (its key tile is 64 at D <= 64, 32
-  at D = 128); each gradient rounded once;
+- attention: D = rowsum(dO o O) over the bf16 output (the rows kernel's
+  table); dk/dv by (batch, kv head, 64-key tile), the query tiles holding
+  64 // G queries by the kv head's G query heads, rows (query, head)
+  query-major as the TMA box lays them out, zero past Sq, visited from the
+  diagonal when causal, up to the window's reach, plus the tiles of rows
+  that see no key, split in order over the cluster's ranks (the card's
+  CTA slots' worth, 1 to 8, at most the tiles) and the ranks' partials
+  summed in rank order; P rounded to bf16 as the A operand of dV = P^T dO, dS = P (dP - D)
+  from the unrounded P rounded as the operand of dK = dS^T Q; dq by (batch,
+  kv head, query tile) over the 64-key tiles it sees, S and dP formed
+  again; each gradient rounded once;
 - the scan: the state pass (the chunks' start states recomputed first to
-  last, then G of each chunk last to first, in fp32), the
-  chunk kernel's products with the decays rounded where the reference
-  rounds them in the values (dx, dB, dC) and unrounded in the derivatives
-  (dcum), G and S0 as two bf16 terms, the operands bf16(K dt), bf16(M),
-  bf16(M dt), dcum's suffix sum, the group sums in ascending head order.
+  last, then G of each chunk last to first, in fp32), then the chunk
+  kernel by (batch, chunk, group), the group's heads in head blocks of
+  ceil(rep / 8), each block's heads in order and the blocks (the
+  cluster's ranks) summed in order: as t, C B^T and dy x^T once a head, K
+  and M with the decays rounded where the reference rounds them in the
+  values (dx, dB, dC) and unrounded in the derivatives (dcum), the tiles
+  bf16(K dt) and bf16(M) and the operand bf16(M dt); as s, the tiles read
+  back transposed by the causal 64 x 64 blocks of their s block; G and S0
+  as two bf16 terms; dcum's suffix sum; dA summed over batch and chunks
+  in order.
 
 Each replay is held, on numpy-seeded inputs, to autograd of the port's
 plain bf16 forward on the bf16 bar (the truth is autograd of the plain
 fp32 forward on the same bf16-exact inputs; the replay within twice the
 plain bf16 version's error and within 3e-2 of the largest |truth|), over
-causal, windowed and non-causal attention, GQA, ragged tails, and one and
-two scan chunks with and without an initial state, and to the JAX
-package's gradient of its bf16 model functions (``repro.arch.layers._sdpa``
-and ``repro.arch.ssm.ssd_scan``) within the 3e-2 of the largest magnitude
-the reference's bf16 kernel test uses. Keep them in step with the two
-``.cu`` files.
+causal, windowed and non-causal attention, GQA from 1 to 64 query heads a
+kv head, ragged tails, clusters of one to eight ranks, and one and two
+scan chunks with and without an initial state, head blocks of one to
+three heads, and to the JAX package's gradient of its bf16 model functions
+(``repro.arch.layers._sdpa`` and ``repro.arch.ssm.ssd_scan``) within the
+3e-2 of the largest magnitude the reference's bf16 kernel test uses. Keep
+them in step with the two ``.cu`` files.
 """
 
 import math
@@ -46,6 +54,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.arch import layers as JL  # noqa: E402
 from repro.arch import ssm as JS  # noqa: E402
+from repro_torch.arch import layers as TL  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.build import CSRC, SIGNATURES  # noqa: E402
 
@@ -53,7 +63,7 @@ BF16 = torch.bfloat16
 F64 = torch.float64
 KERNEL_TOL = 3e-2   # the reference's bf16 kernel test
 BQ = BKV = 64       # query rows a tile; keys a dk/dv CTA
-MAX_CLUSTER = 8
+MAX_CLUSTER = 8   # the portable cluster size: dk/dv's ranks, the scan's
 
 
 def r16(t: torch.Tensor) -> torch.Tensor:
@@ -81,54 +91,76 @@ def _near_reference(got, want) -> None:
 # -- attention --------------------------------------------------------------
 
 
-def query_tiles(Sq, Skv, causal, window, j0):
-    """The query tiles' first rows a dk/dv CTA at key j0 visits
-    (``query_tiles`` of the kernel)."""
+def query_tiles(Sq, Skv, causal, window, j0, qb):
+    """The first queries of the query tiles (qb queries by the G heads of a
+    kv head) a dk/dv CTA at key j0 visits (``query_tiles`` of the
+    kernel)."""
     nokey = Skv - 1 + window if causal and window else Sq
     qa, qhi = 0, Sq
     if causal:
-        qa = j0 // BQ * BQ
+        qa = j0 // qb * qb
         if window and j0 + BKV - 1 + window < Sq:
             qhi = j0 + BKV - 1 + window
-    n1 = -(-(qhi - qa) // BQ) if qhi > qa else 0
-    e1 = qa + n1 * BQ
-    s2 = nokey - BQ + 1
-    s2 = -(-s2 // BQ) * BQ if s2 > 0 else 0
+    n1 = -(-(qhi - qa) // qb) if qhi > qa else 0
+    e1 = qa + n1 * qb
+    s2 = nokey - qb + 1
+    s2 = -(-s2 // qb) * qb if s2 > 0 else 0
     s2 = max(s2, e1)
-    return [qa + i * BQ for i in range(n1)] + list(range(s2, Sq, BQ))
+    return [qa + i * qb for i in range(n1)] + list(range(s2, Sq, qb))
 
 
-def key_tiles(Sq, Skv, causal, window, i0, BK):
-    """The key tiles' first keys a dq CTA at row i0 visits."""
+def key_tiles(Sq, Skv, causal, window, i0, qb):
+    """The first keys of the 64-key tiles a dq CTA at query i0 visits."""
     lo, hi = 0, Skv
     if causal:
-        last = min(i0 + BQ, Sq) - 1
+        last = min(i0 + qb, Sq) - 1
         hi = min(last + 1, Skv)
         if window:
             first = i0 - window + 1
-            lo = first // BK * BK if first > 0 else 0
-    return list(range(lo, hi, BK)) if lo < hi else []
+            lo = first // BKV * BKV if first > 0 else 0
+    return list(range(lo, hi, BKV)) if lo < hi else []
 
 
-def p_ds(q, k, v, dout, lse, dvec, i0, j0, nq, nk, causal, window, Skv,
-         nokey):
-    """P and dS (float64) of query rows i0.. and keys j0.. of one head,
-    with the kernel's masks: a masked pair 0, a row that sees no key
-    P = 1 / Skv and dS = 0."""
-    D = q.shape[-1]
-    i = torch.arange(i0, i0 + nq)[:, None]
-    j = torch.arange(j0, j0 + nk)[None, :]
-    s = q[i0:i0 + nq] @ k[j0:j0 + nk].T
-    p = torch.exp(s * D ** -0.5 - lse[i0:i0 + nq, None])
-    dp = dout[i0:i0 + nq] @ v[j0:j0 + nk].T
-    ds = p * (dp - dvec[i0:i0 + nq, None])
+def cluster_ranks(B, Sq, Skv, KV, qb, D):
+    """The ranks of a dk/dv cluster: the card's 132 SMs' worth of CTAs (two
+    an SM at D <= 64), 1 to 8, at most the query tiles."""
+    ctas = -(-Skv // BKV) * B * KV
+    slots = 264 if D <= 64 else 132
+    return min(max(1, min(MAX_CLUSTER, slots // ctas)), -(-Sq // qb))
+
+
+def tile_rows(t, i0, kvh, G, qb, Sq):
+    """Rows of the query tile from query i0 of kv head kvh, (query, head)
+    pairs query-major (row r: query i0 + r // G, head kvh G + r % G), as
+    the TMA box lays them out: t[:, i, h] gathered to (qb G, ...), zero
+    past Sq; and each row's query and whether it is one."""
+    i = i0 + torch.arange(qb * G) // G
+    h = kvh * G + torch.arange(qb * G) % G
+    ok = i < Sq
+    rows = t[:, i.clamp(max=Sq - 1), h]
+    rows = torch.where(ok.view((1, -1) + (1,) * (rows.ndim - 2)), rows,
+                       torch.zeros((), dtype=rows.dtype))
+    return rows, i, ok
+
+
+def p_ds(s, dp, lse, dvec, i, ok, j, causal, window, Skv, nokey):
+    """P and dS (float64) of the scores s and dP of tile rows (queries i,
+    ``ok`` where in range) by keys j, with the kernels' masks: a row past Sq
+    or a masked pair 0, a row that sees no key P = 1 / Skv and dS = 0."""
+    p = torch.exp(s - lse[:, None])
+    ds = p * (dp - dvec[:, None])
+    zero = torch.zeros((), dtype=F64)
+    i = i[:, None]
     if causal:
-        masked = (j > i) | ((i - j >= window) if window else False)
-        p = torch.where(masked, torch.zeros(()), p)
-        ds = torch.where(masked, torch.zeros(()), ds)
+        masked = (j[None, :] > i) | ((i - j[None, :] >= window) if window
+                                     else False)
+        p = torch.where(masked, zero, p)
+        ds = torch.where(masked, zero, ds)
         blind = (i >= nokey).expand_as(p)
         p = torch.where(blind, torch.full((), 1 / Skv, dtype=F64), p)
-        ds = torch.where(blind, torch.zeros(()), ds)
+        ds = torch.where(blind, zero, ds)
+    p = torch.where(ok[:, None], p, zero)
+    ds = torch.where(ok[:, None], ds, zero)
     return p, ds
 
 
@@ -138,59 +170,62 @@ def replay_flash_bwd_bf16(q, k, v, out, dout, lse, causal, window):
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
-    BK = 64 if D <= 64 else 32
-    hpr = -(-G // MAX_CLUSTER)
-    cluster = -(-G // hpr)
+    qb = BQ // G
+    ranks = cluster_ranks(B, Sq, Skv, KV, qb, D)
     nokey = Skv - 1 + window if causal and window else Sq
     Q, K, V, O, dO = (t.to(F64) for t in (q, k, v, out, dout))
-    L = lse.to(F64)
-    dvec = (dO * O).sum(-1)                      # rowdot, (B, Sq, H)
+    Lse = lse.to(F64).transpose(1, 2)            # (B, Sq, H)
+    dvec = (dO * O).sum(-1)                      # the rows kernel, (B, Sq, H)
     dq = torch.zeros(B, Sq, H, D, dtype=F64)
     dk = torch.zeros(B, Skv, KV, D, dtype=F64)
     dv = torch.zeros(B, Skv, KV, D, dtype=F64)
     scale = D ** -0.5
+
+    def tile(b, kvh, i0):
+        (qt, dot), i, ok = tile_rows(torch.stack([Q[b], dO[b]]), i0, kvh, G,
+                                     qb, Sq)
+        (lt, dvt), _, _ = tile_rows(torch.stack([Lse[b], dvec[b]]), i0, kvh,
+                                    G, qb, Sq)
+        return qt, dot, lt, dvt, i, ok
+
     for b in range(B):
         for kvh in range(KV):
-            for j0 in range(0, Skv, BKV):
-                nk = min(BKV, Skv - j0)
-                tiles = query_tiles(Sq, Skv, causal, window, j0)
+            for j0 in range(0, Skv, BKV):         # dk/dv: a cluster
+                j = torch.arange(j0, min(j0 + BKV, Skv))
+                kt, vt = K[b, j0:j0 + BKV, kvh], V[b, j0:j0 + BKV, kvh]
+                tiles = query_tiles(Sq, Skv, causal, window, j0, qb)
+                n = len(tiles)
                 parts = []
-                for rank in range(cluster):
-                    pk = torch.zeros(nk, D, dtype=F64)
-                    pv = torch.zeros(nk, D, dtype=F64)
-                    for h in range(kvh * G + rank * hpr,
-                                   min(kvh * G + (rank + 1) * hpr,
-                                       (kvh + 1) * G)):
-                        for i0 in tiles:
-                            nq = min(BQ, Sq - i0)
-                            p, ds = p_ds(Q[b, :, h], K[b, :, kvh],
-                                         V[b, :, kvh], dO[b, :, h],
-                                         L[b, h], dvec[b, :, h], i0, j0, nq,
-                                         nk, causal, window, Skv, nokey)
-                            pv += r16(p).T @ dO[b, i0:i0 + nq, h]
-                            pk += r16(ds).T @ Q[b, i0:i0 + nq, h]
+                for rank in range(ranks):
+                    pk = torch.zeros(len(j), D, dtype=F64)
+                    pv = torch.zeros(len(j), D, dtype=F64)
+                    for i0 in tiles[n * rank // ranks:
+                                    n * (rank + 1) // ranks]:
+                        qt, dot, lt, dvt, i, ok = tile(b, kvh, i0)
+                        p, ds = p_ds(qt @ kt.T * scale, dot @ vt.T, lt, dvt,
+                                     i, ok, j, causal, window, Skv, nokey)
+                        pv += r16(p).T @ dot
+                        pk += r16(ds).T @ qt
                     parts.append((pk, pv))
                 sk, sv = parts[0]
                 for pk, pv in parts[1:]:         # in rank order
                     sk, sv = sk + pk, sv + pv
-                dk[b, j0:j0 + nk, kvh] = sk * scale
-                dv[b, j0:j0 + nk, kvh] = sv
-        for h in range(H):
-            kvh = h // G
-            for i0 in range(0, Sq, BQ):
-                nq = min(BQ, Sq - i0)
-                acc = torch.zeros(nq, D, dtype=F64)
-                for j0 in key_tiles(Sq, Skv, causal, window, i0, BK):
-                    nk = min(BK, Skv - j0)
-                    _, ds = p_ds(Q[b, :, h], K[b, :, kvh], V[b, :, kvh],
-                                 dO[b, :, h], L[b, h], dvec[b, :, h], i0, j0,
-                                 nq, nk, causal, window, Skv, nokey)
+                dk[b, j0:j0 + BKV, kvh] = sk * scale
+                dv[b, j0:j0 + BKV, kvh] = sv
+            for i0 in range(0, Sq, qb):           # dq: a query tile
+                qt, dot, lt, dvt, i, ok = tile(b, kvh, i0)
+                acc = torch.zeros(qb * G, D, dtype=F64)
+                for j0 in key_tiles(Sq, Skv, causal, window, i0, qb):
+                    j = torch.arange(j0, min(j0 + BKV, Skv))
+                    kt, vt = K[b, j0:j0 + BKV, kvh], V[b, j0:j0 + BKV, kvh]
+                    _, ds = p_ds(qt @ kt.T * scale, dot @ vt.T, lt, dvt, i,
+                                 ok, j, causal, window, Skv, nokey)
                     if causal:   # a row that sees no key has dS = 0
-                        ds = torch.where(
-                            torch.arange(i0, i0 + nq)[:, None] >= nokey,
-                            torch.zeros(()), ds)
-                    acc += r16(ds) @ K[b, j0:j0 + nk, kvh]
-                dq[b, i0:i0 + nq, h] = acc * scale
+                        ds = torch.where(i[:, None] >= nokey,
+                                         torch.zeros((), dtype=F64), ds)
+                    acc += r16(ds) @ kt
+                h = kvh * G + torch.arange(qb * G) % G
+                dq[b, i[ok], h[ok]] = (acc * scale)[ok]
     return dq.to(BF16), dk.to(BF16), dv.to(BF16)
 
 
@@ -209,8 +244,10 @@ def _attn_grads(fn, q, k, v, dout, causal, window):
 
 # (B, Sq, Skv, H, KV, D, causal, window): the trainer's heads (14 over 2,
 # D = 64) at a ragged length, a window with rows that see no key, cross
-# attention at D = 128 (the vision model's head dim, 32-key dq tiles),
-# a cluster of 8 ranks of two heads (G = 16), small head dims
+# attention at D = 128 (the vision model's head dim), G = 16 (4 queries a
+# tile) and G = 64 (one), small head dims; every case but the MHA one
+# splits its query tiles over a cluster of more than one rank, some ranks
+# with none
 ATTN_CASES = {
     "causal S=100 G=7": (1, 100, 100, 14, 2, 64, True, 0),
     "window 16 S=150 G=7": (1, 150, 150, 14, 2, 64, True, 16),
@@ -219,6 +256,8 @@ ATTN_CASES = {
     "cross Sq=40 Skv=77 D=128 G=4": (2, 40, 77, 8, 2, 128, False, 0),
     "G=16 S=70 D=32": (1, 70, 70, 16, 1, 32, True, 0),
     "MHA S=37 G=1": (2, 37, 37, 4, 4, 64, True, 0),
+    "G=64 S=20 D=16, one query a tile": (1, 20, 20, 64, 1, 16, True, 0),
+    "window 8 S=90 G=2, two kv heads": (2, 90, 90, 4, 2, 64, True, 8),
 }
 
 
@@ -266,72 +305,130 @@ def _two_terms(t: torch.Tensor) -> torch.Tensor:
     return hi + r16(t - hi)
 
 
+def head_blocks(h, g):
+    """The chunk kernel's head blocks: ceil(rep / 8) of a group's rep heads
+    a block, the group's blocks the ranks of one cluster."""
+    rep = h // g
+    hb = -(-rep // MAX_CLUSTER)
+    return hb, -(-rep // hb)
+
+
+def causal_blocks(q):
+    """The chunk's 64 x 64 blocks (t block, s block) with t >= s, in the
+    kernel's tile order."""
+    nb = -(-q // 64)
+    return [(tb, sb) for tb in range(nb) for sb in range(tb + 1)]
+
+
 def replay_ssd_bwd_bf16(x, dt, A, B, C, chunk, init_state, dy, dfinal):
     """csrc/ssd_scan_bwd_bf16.cu: ``(dx, ddt, dA, dB, dC, dinit)``, dx,
     ddt, dB, dC bf16, dA and dinit float32."""
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     q, c, rep = chunk, l // chunk, h // g
-    xs = x.to(F64).reshape(b, c, q, h, p)
-    dys = dy.to(F64).reshape(b, c, q, h, p)
-    dts = dt.to(F64).reshape(b, c, q, h)
-    Bs = B.to(F64).reshape(b, c, q, g, n).repeat_interleave(rep, 3)
-    Cs = C.to(F64).reshape(b, c, q, g, n).repeat_interleave(rep, 3)
-    cum = torch.cumsum(dts * A.to(F64), 2)                      # (b,c,q,h)
-    cend = cum[:, :, -1]
-    ecu, wu = torch.exp(cum), torch.exp(cend[:, :, None] - cum)
-    ecr, wr = r16(ecu), r16(wu)
-    # 1. the state pass, last chunk first (unrounded exp(cum_t))
-    G = (torch.zeros(b, h, p, n, dtype=F64) if dfinal is None
-         else dfinal.to(F64))
+    hb, ranks = head_blocks(h, g)
+    X, dY, Bf, Cf = (t.to(F64) for t in (x, dy, B, C))
+    dts_all = dt.to(F64)
+    # 1. the state pass: the chunks' start states first to last (unrounded
+    # u_s), then G of each chunk last to first (unrounded exp(cum_t))
+    S0 = ref.ssd_chunk_states(X, dts_all, A.to(F64), Bf, chunk,
+                              None if init_state is None
+                              else init_state.to(F64))   # (b, c, h, p, n)
+    cum_all = torch.cumsum(dts_all.reshape(b, c, q, h) * A.to(F64), 2)
+    Gc = (torch.zeros(b, h, p, n, dtype=F64) if dfinal is None
+          else dfinal.to(F64))
     Gs = [None] * c
     for ci in reversed(range(c)):
-        Gs[ci] = G
-        G = G * torch.exp(cend[:, ci])[:, :, None, None] + torch.einsum(
-            "bqh,bqhp,bqhn->bhpn", ecu[:, ci], dys[:, ci], Cs[:, ci])
-    Gs = torch.stack(Gs, 1)                                     # (b,c,h,p,n)
-    # the state pass's first walk: the chunks' start states (unrounded u_s)
-    S0 = ref.ssd_chunk_states(x.to(F64), dt.to(F64), A.to(F64), B.to(F64),
-                              chunk, None if init_state is None
-                              else init_state.to(F64))
-    G2, S2 = _two_terms(Gs), _two_terms(S0)
-    # 2. the chunk kernel
-    ct = cum.permute(0, 1, 3, 2)                                # (b,c,h,q)
+        Gs[ci] = Gc
+        sl = slice(ci * q, (ci + 1) * q)
+        Cg = Cf[:, sl].repeat_interleave(rep, 2)              # (b, q, h, n)
+        Gc = Gc * torch.exp(cum_all[:, ci, -1])[:, :, None, None] + \
+            torch.einsum("bqh,bqhp,bqhn->bhpn", torch.exp(cum_all[:, ci]),
+                         dY[:, sl], Cg)
+    has_state = c > 1 or init_state is not None
+    dx = torch.zeros(b, l, h, p, dtype=F64)
+    ddt = torch.zeros(b, l, h, dtype=F64)
+    dB = torch.zeros(b, l, g, n, dtype=F64)
+    dC = torch.zeros(b, l, g, n, dtype=F64)
+    dapart = torch.zeros(b, c, h, dtype=F64)
     keep = torch.ones(q, q, dtype=torch.bool).tril()
-    lu = torch.exp((ct[..., :, None] - ct[..., None, :])
-                   .masked_fill(~keep, -math.inf))              # (b,c,h,t,s)
-    L = r16(lu)
-    dt_s = dts.permute(0, 1, 3, 2)[..., None, :]                # (b,c,h,1,s)
-    CB = torch.einsum("bcthn,bcshn->bchts", Cs, Bs)
-    dP = torch.einsum("bcthp,bcshp->bchts", dys, xs)
-    K, M = CB * L, dP * L
-    GB = torch.einsum("bchpn,bcshn->bcshp", G2, Bs)
-    wdt = wr * dts
-    dx = (torch.einsum("bchts,bcthp->bcshp", r16(K * dt_s), dys)
-          + wdt[..., None] * GB)
-    dB = (torch.einsum("bchts,bcthn->bcshn", r16(M), Cs) * dts[..., None]
-          + wdt[..., None] * torch.einsum("bcshp,bchpn->bcshn", xs, G2))
-    dyS = torch.einsum("bcthp,bchpn->bcthn", dys, S2)
-    dC = (torch.einsum("bchts,bcshn->bcthn", r16(M * dt_s), Bs)
-          + ecr[..., None] * dyS)
-    W = CB * lu * dt_s * dP
-    colw = W.sum(-2).permute(0, 1, 3, 2)                        # sum over t
-    roww = W.sum(-1).permute(0, 1, 3, 2)                        # sum over s
-    ddtd = (K * dP).sum(-2).permute(0, 1, 3, 2)
-    t2 = wu * (xs * GB).sum(-1)
-    t5 = ecu * (Cs * dyS).sum(-1)
-    dcum = roww - colw + t5 - dts * t2
-    dcum[:, :, -1] += (dts * t2).sum(2) + torch.exp(cend) * (
-        S0 * Gs).sum((-2, -1))
-    dda = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
-    ddt = ddtd + t2 + A.to(F64) * dda
-    dA = (dts * dda).sum((0, 1, 2))
-    # 3. the group sums
-    dB = dB.reshape(b, l, g, rep, n).sum(3)
-    dC = dC.reshape(b, l, g, rep, n).sum(3)
-    return (dx.reshape(b, l, h, p).to(BF16), ddt.reshape(b, l, h).to(BF16),
-            dA.float(), dB.to(BF16), dC.to(BF16),
-            None if init_state is None else G.float())
+    blocks = causal_blocks(q)
+    # 2. the chunk kernel: a block per (group, head block) and (batch,
+    # chunk), its heads in order, the ranks' dB and dC summed in order
+    for bi in range(b):
+        for ci in range(c):
+            sl = slice(ci * q, (ci + 1) * q)
+            has_s = has_state and (ci > 0 or init_state is not None)
+            has_g = (c > 1 or dfinal is not None or init_state is not None) \
+                and not (dfinal is None and ci == c - 1)
+            for gi in range(g):
+                Cc, Bc = Cf[bi, sl, gi], Bf[bi, sl, gi]       # (q, n)
+                CB = Cc @ Bc.T                                # (t, s)
+                parts = []
+                for rank in range(ranks):
+                    dBg = torch.zeros(q, n, dtype=F64)
+                    dCg = torch.zeros(q, n, dtype=F64)
+                    for hh in range(gi * rep + rank * hb,
+                                    gi * rep + min(rep, (rank + 1) * hb)):
+                        xs, dys = X[bi, sl, hh], dY[bi, sl, hh]   # (q, p)
+                        dts = dts_all[bi, sl, hh]
+                        cum = cum_all[bi, ci, :, hh]
+                        ecu, wu = torch.exp(cum), torch.exp(cum[-1] - cum)
+                        ecr, wr = r16(ecu), r16(wu)
+                        lu = torch.exp((cum[:, None] - cum[None, :])
+                                       .masked_fill(~keep, -math.inf))
+                        L = r16(lu)
+                        # a. as t: K, M, the tiles, dC, W's sums
+                        dP = dys @ xs.T
+                        K, M = CB * L, dP * L
+                        kt, mt = r16(K * dts[None, :]), r16(M)
+                        dCg += r16(M * dts[None, :]) @ Bc
+                        W = CB * lu * dts[None, :] * dP
+                        roww, colw = W.sum(1), W.sum(0)
+                        kdp = (K * dP).sum(0)
+                        t5 = torch.zeros(q, dtype=F64)
+                        if has_s:
+                            dyS = dys @ _two_terms(S0[bi, ci, hh])
+                            dCg += ecr[:, None] * dyS
+                            t5 = ecu * (Cc * dyS).sum(-1)
+                        # b. as s: the tiles read back transposed, by the
+                        # causal blocks of their s block
+                        dxh = torch.zeros(q, p, dtype=F64)
+                        dbh = torch.zeros(q, n, dtype=F64)
+                        for tb, sb in blocks:
+                            ts, ss = (slice(64 * tb, 64 * tb + 64),
+                                      slice(64 * sb, 64 * sb + 64))
+                            dxh[ss] += kt[ts, ss].T @ dys[ts]
+                            dbh[ss] += mt[ts, ss].T @ Cc[ts]
+                        dbh = dbh * dts[:, None]
+                        wsr = wr * dts
+                        t2 = torch.zeros(q, dtype=F64)
+                        if has_g:
+                            G2 = _two_terms(Gs[ci][bi, hh])       # (p, n)
+                            GB = Bc @ G2.T
+                            dxh += wsr[:, None] * GB
+                            dbh += wsr[:, None] * (xs @ G2)
+                            t2 = wu * (xs * GB).sum(-1)
+                        dBg += dbh
+                        dx[bi, sl, hh] = dxh
+                        # c. dcum, its suffix sum, ddt, dA's share
+                        dcum = roww - colw + t5 - dts * t2
+                        dcum[-1] += (dts * t2).sum()
+                        if has_s and has_g:
+                            dcum[-1] += torch.exp(cum[-1]) * (
+                                S0[bi, ci, hh] * Gs[ci][bi, hh]).sum()
+                        dda = torch.flip(torch.cumsum(torch.flip(dcum, [0]),
+                                                      0), [0])
+                        ddt[bi, sl, hh] = kdp + t2 + A[hh].double() * dda
+                        dapart[bi, ci, hh] = (dts * dda).sum()
+                    parts.append((dBg, dCg))
+                sb_, sc_ = parts[0]
+                for pb, pc in parts[1:]:                 # in rank order
+                    sb_, sc_ = sb_ + pb, sc_ + pc
+                dB[bi, sl, gi], dC[bi, sl, gi] = sb_, sc_
+    dA = dapart.reshape(b * c, h).sum(0)   # the last block, in order
+    return (dx.to(BF16), ddt.to(BF16), dA.float(), dB.to(BF16), dC.to(BF16),
+            None if init_state is None else Gc.float())
 
 
 def _ssd_inputs(b, l, h, p, g, n, seed, init, dfin):
@@ -365,8 +462,10 @@ def _ssd_grads(fn, x, dt, A, B, C, chunk, s0, dy, dfinal, up=False):
 
 
 # (b, l, h, p, groups, n, chunk, init, dfinal): the trainer's widths (24
-# heads of 64, n = 128) at one and two chunks, from an initial state with a
-# final-state gradient, two groups, and ragged p, n and chunk
+# heads of 64, n = 128: 8 head blocks of 3) at one and two chunks, from an
+# initial state with a final-state gradient, two groups, ragged p, n and
+# chunk, a head block that does not divide the heads (11: 5 blocks of 2
+# and one of 1) and two groups of 10 heads in blocks of 2
 SSD_CASES = {
     "one chunk, trainer widths": (1, 128, 24, 64, 1, 128, 128, False,
                                   False),
@@ -376,6 +475,10 @@ SSD_CASES = {
     "ragged p=24 n=40 chunk 24 groups 2, init": (2, 48, 4, 24, 2, 40, 24,
                                                  True, False),
     "one chunk of 40, init state": (1, 40, 3, 16, 1, 32, 40, True, False),
+    "11 heads: head blocks of 2 and 1": (1, 64, 11, 16, 1, 32, 64, False,
+                                         False),
+    "groups 2 of 10 heads, two chunks, init": (1, 128, 20, 16, 2, 32, 64,
+                                               True, False),
 }
 
 
@@ -416,6 +519,53 @@ def test_ssd_backward_replay_near_the_references_bf16_gradient():
     wx, _, wB, wC = vjp(_to_jax(dy))
     for a, w in ((got[0], wx), (got[3], wB), (got[4], wC)):
         _near_reference(a, w)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_call_sites_hand_the_bf16_backwards_gradients_tma_can_read(name):
+    """At every configuration's widths the gradient that reaches
+    attention's output (``arch/layers.py:self_attention``) and the scan's y
+    (``arch/ssm.py:ssm_block``) in a bf16 step is contiguous and starts on
+    16 bytes, as the bf16 backward kernels' TMA maps take it (their
+    wrappers raise otherwise, copying nothing). Run on the meta device
+    through the call sites themselves, the kernels' wrappers wrapped to
+    record each output's gradient."""
+    from repro_torch.arch import ssm as TS
+
+    cfg = get_config(name)
+    Bt, L = 2, cfg.ssm_chunk if cfg.ssm_state else 16
+    grads = []
+
+    def recording(fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            first = out[0] if isinstance(out, tuple) else out
+            first.register_hook(grads.append)
+            return out
+        return call
+
+    meta = dict(device="meta", dtype=BF16)
+    x = torch.empty((Bt, L, cfg.d_model), **meta, requires_grad=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TL, "flash_attention", recording(TL.flash_attention))
+        mp.setattr(TS, "ssd_scan", recording(TS.ssd_scan))
+        if cfg.n_heads:
+            p = {"wq": (cfg.d_model, cfg.n_heads * cfg.d_head),
+                 "wk": (cfg.d_model, cfg.n_kv_heads * cfg.d_head),
+                 "wv": (cfg.d_model, cfg.n_kv_heads * cfg.d_head),
+                 "wo": (cfg.n_heads * cfg.d_head, cfg.d_model)}
+            p = {k: torch.empty(v, **meta) for k, v in p.items()}
+            out, _, _ = TL.self_attention(p, x, cfg,
+                                          torch.arange(L, device="meta"))
+            out.sum().backward()
+        if cfg.ssm_state:
+            p = TS.init_ssm(torch.Generator(), cfg, **meta)
+            out, _ = TS.ssm_block(p, x, cfg)
+            out.sum().backward()
+    assert len(grads) == bool(cfg.n_heads) + bool(cfg.ssm_state)
+    for g in grads:
+        assert g.dtype == BF16 and g.is_contiguous()
+        assert g.storage_offset() * 2 % 16 == 0
 
 
 @pytest.mark.parametrize("name", ["flash_attention_bwd_bf16",

@@ -758,8 +758,18 @@ def test_bf16_kernels_refuse_strides_off_16_bytes(cuda):
     flat = torch.zeros(2048 + 8, dtype=torch.bfloat16, device=cuda)
     q_off = flat[4:4 + 256].view(1, 8, 2, 16)
     x_off = flat[4:4 + 1024].view(1, 32, 2, 16)
+    # the backwards: a dO or dy whose base is off 16 bytes
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward
+    out, lse = flash_attention_forward(q, k, v, with_lse=True)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(cuda)
+    with pytest.raises(ValueError, match="16-byte aligned pointer"):
+        flash_attention_backward(q, k, v, out, q_off, lse)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_scan_backward(x, dt, A, B, C, 16, None, x_off)
+    assert torch.cuda.memory_allocated(cuda) == before
     with pytest.raises(ValueError, match="16-byte aligned pointer"):
         flash_attention(q_off, k, v)
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -772,10 +782,41 @@ def test_bf16_kernels_refuse_strides_off_16_bytes(cuda):
 
 
 @pytest.mark.parametrize("kernel", ["flash_attention_bf16",
-                                    "ssd_scan_bf16"])
+                                    "ssd_scan_bf16",
+                                    "flash_attention_backward_bf16",
+                                    "ssd_scan_backward_bf16"])
 def test_bf16_kernels_two_runs_are_bit_equal(cuda, kernel):
-    """No atomics: the same inputs give the same bits, at the waves'
-    larger prefill shapes and at the vision model's cross shape."""
+    """No atomic sum: the same inputs give the same bits, at the waves'
+    larger prefill shapes and at the vision model's cross shape; the
+    backwards at the bf16 trainers' shapes (and attention's at the cross
+    shape), called directly."""
+    if kernel == "flash_attention_backward_bf16":
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_backward, flash_attention_forward)
+        for B, Sq, Skv, H, KV, D, causal in ((8, 128, 128, 14, 2, 64, True),
+                                             (2, 128, 1024, 32, 8, 128,
+                                              False)):
+            q, k, v, dout = (t.bfloat16() for t in (
+                *_attn_inputs(B, Sq, Skv, H, KV, D, cuda, 3),
+                _attn_inputs(B, Sq, Sq, H, H, D, cuda, 4)[0]))
+            out, lse = flash_attention_forward(q, k, v, causal, 0,
+                                               with_lse=True)
+            runs = [flash_attention_backward(q, k, v, out, dout, lse, causal)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(*runs))
+        return
+    if kernel == "ssd_scan_backward_bf16":
+        from repro_torch.kernels.ssd_scan import ssd_scan_backward
+        x, dt, A, B, C = _ssd_inputs(8, 128, 24, 64, 1, 128, cuda, 3)
+        x, dt, B, C = (t.bfloat16() for t in (x, dt, B, C))
+        dy = _ssd_inputs(8, 128, 24, 64, 1, 128, cuda, 4)[0].bfloat16()
+        runs = [ssd_scan_backward(x, dt, A, B, C, 128, None, dy)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][:5],
+                                                      runs[1][:5]))
+        return
     if kernel == "flash_attention_bf16":
         for B, Sq, Skv, H, KV, D, causal in ((4, 96, 96, 14, 2, 64, True),
                                              (2, 64, 1024, 32, 8, 128,

@@ -4,7 +4,9 @@
 inserting ``clock64`` stamps at fixed lines of ``csrc/flash_attention.cu``,
 ``csrc/flash_attention_bwd.cu``, ``csrc/ssd_scan.cu``,
 ``csrc/ssd_scan_bwd.cu``, the two bf16 forwards
-(``csrc/flash_attention_bf16.cu``, ``csrc/ssd_scan_bf16.cu``) and
+(``csrc/flash_attention_bf16.cu``, ``csrc/ssd_scan_bf16.cu``), the two bf16
+backwards (``csrc/flash_attention_bwd_bf16.cu``,
+``csrc/ssd_scan_bwd_bf16.cu``) and
 ``csrc/lstm_cell_tile.cuh`` (through ``csrc/fused_gather_lstm_cell.cu``) and calls each launch function from a
 host program of its own. These tests run on the CPU, with no compiler:
 each anchor line is found exactly once in today's source, every stamp goes
@@ -59,6 +61,18 @@ _KERNELS = {
         lambda: kernel_phases.instrument("ssd_scan_bwd.cu",
                                          kernel_phases.SSD_BWD_STAMPS,
                                          kernel_phases.SSD_BWD_MAIN)),
+    "flash_attention_bwd_bf16": (
+        "flash_attention_bwd_bf16.cu", kernel_phases.FLASH_BWD_BF16_STAMPS,
+        kernel_phases.FLASH_BWD_BF16_MAIN,
+        lambda: kernel_phases.instrument("flash_attention_bwd_bf16.cu",
+                                         kernel_phases.FLASH_BWD_BF16_STAMPS,
+                                         kernel_phases.FLASH_BWD_BF16_MAIN)),
+    "ssd_scan_bwd_bf16": (
+        "ssd_scan_bwd_bf16.cu", kernel_phases.SSD_BWD_BF16_STAMPS,
+        kernel_phases.SSD_BWD_BF16_MAIN,
+        lambda: kernel_phases.instrument("ssd_scan_bwd_bf16.cu",
+                                         kernel_phases.SSD_BWD_BF16_STAMPS,
+                                         kernel_phases.SSD_BWD_BF16_MAIN)),
     "fused_gather_lstm_cell": (
         "lstm_cell_tile.cuh", kernel_phases.CELL_STAMPS,
         kernel_phases.CELL_MAIN, kernel_phases.instrument_cell),
