@@ -313,11 +313,12 @@ def moe(p, x, cfg: ArchConfig, n_groups: int = 1, gather=gather_rows):
     expert-major staging buffer (:func:`moe_route`), each expert's GEMMs
     read one contiguous ``(G * C, D)`` slice (one ``bmm`` over E), and the
     second gathers each token's K output rows in ascending expert order,
-    which are scaled by their gates and summed. Empty slots and dropped
-    assignments read zero rows appended to the gathers' sources. The
-    sum's order is fixed, so two runs, and a captured replay against
-    eager, give the same bits (``index_add_`` sums with atomics on the
-    card)."""
+    which are scaled by their gates and summed (in bf16 one add at a time,
+    rounded after each, as the reference's scatter-add rounds). Empty
+    slots and dropped assignments read zero rows appended to the gathers'
+    sources. The sum's order is fixed, so two runs, and a captured replay
+    against eager, give the same bits (``index_add_`` sums with atomics on
+    the card)."""
     N, D = x.shape
     E = cfg.n_experts
     r = moe_route(p, x, cfg, n_groups)
@@ -327,7 +328,15 @@ def moe(p, x, cfg: ArchConfig, n_groups: int = 1, gather=gather_rows):
     h = F.silu(torch.bmm(hidden, p["w_gate"])) * torch.bmm(hidden, p["w_up"])
     out = torch.bmm(h, p["w_down"]).view(-1, D)
     rows = gather(torch.cat([out, out.new_zeros((N, D))]), r["combine_idx"])
-    y = (rows.view(N, -1, D) * r["combine_w"][..., None].to(x.dtype)).sum(1)
+    contrib = rows.view(N, -1, D) * r["combine_w"][..., None].to(x.dtype)
+    if x.dtype == torch.float32:
+        y = contrib.sum(1)
+    else:
+        # the reference's scatter-add: from zero, a token's rows in
+        # ascending expert order, rounded to x's dtype after every add
+        y = x.new_zeros((N, D))
+        for k in range(contrib.shape[1]):
+            y = y + contrib[:, k]
     # switch-style load-balance aux loss, differentiable through probs
     me = r["probs"].mean(0)
     ce = F.one_hot(r["expert_idx"][:, 0], E).float().mean(0)

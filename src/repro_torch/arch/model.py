@@ -169,13 +169,24 @@ class TransformerLM(nn.Module):
     def _positions(self, B: int, S_: int):
         return torch.arange(S_, device=self.device)[None].expand(B, S_)
 
+    def _image(self, image_embeds):
+        """Image embeddings in the model's dtype: a bf16 model's cross
+        layers run in bf16 as its other layers do (the reference would
+        promote an fp32 embedding and the layers after it to fp32, so its
+        bf16 model is handed them in bf16)."""
+        if image_embeds is None:
+            return None
+        return image_embeds.to(self.dtype)
+
     def forward(self, params, tokens, image_embeds=None):
         """tokens: (B, S), image_embeds (B, n_image_tokens, D) for a model
         with cross-attention layers -> logits (B, S, V), aux_loss scalar
         (the MoE layers' summed; 0 without them). Layers run repeat-major,
-        as the reference's ``forward`` scans."""
+        as the reference's ``forward`` scans. ``image_embeds`` are taken in
+        the model's dtype (:meth:`_image`)."""
         cfg = self.cfg
         B, S_ = tokens.shape
+        image_embeds = self._image(image_embeds)
         x = params["embed"][tokens]
         positions = self._positions(B, S_)
         aux_total = torch.zeros((), device=self.device)
@@ -274,10 +285,12 @@ class TransformerLM(nn.Module):
     def prefill(self, params, tokens, image_embeds=None, cache_len: int = 0):
         """Run the full prompt, returning (last-position logits, caches of
         capacity ``max(cache_len, S)`` for continued decoding; a cross
-        layer's cache is the projected ``image_embeds``). Pattern-major,
-        as the reference's ``prefill`` scans."""
+        layer's cache is the projected ``image_embeds``, taken in the
+        model's dtype). Pattern-major, as the reference's ``prefill``
+        scans."""
         cfg = self.cfg
         B, S_ = tokens.shape
+        image_embeds = self._image(image_embeds)
         pad = max(cache_len, S_) - S_
         x = params["embed"][tokens]
         positions = self._positions(B, S_)

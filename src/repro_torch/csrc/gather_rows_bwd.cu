@@ -1,6 +1,15 @@
 // The row gather's backward: dsrc[r] = sum of dout[k] over the k whose
 // idx[k] means row r (a negative index counts from the end, as in
-// src[idx]), in ascending k; zero for a row no index means. fp32.
+// src[idx]), in ascending k; zero for a row no index means. fp32 and bf16.
+//
+// bf16 (gather_rows_bwd_bf16_launch): dout and dsrc are bf16 and each
+// row's run is summed as the reference's scatter-add of the gather's
+// gradient sums it, from zero in ascending k with the sum rounded to bf16
+// after every add (acc = float(bf16_rn(acc + float(v))); a sum of two bf16
+// values is exact enough in fp32 that rounding it once more to bf16 gives
+// the correctly rounded bf16 sum). A 16-byte unit is 8 bf16 summed in 8
+// fp32 registers; rows or pointers off 16 bytes take 2-byte units. The
+// sort and the (row, k) lists do not depend on the dtype and are shared.
 //
 // Replaces: the TPU kernel src/repro/kernels/gather_batch.py:
 // gather_rows_kernel has no backward; the JAX package differentiates the
@@ -27,8 +36,8 @@
 //    placing the pairs 32 at a time in list order with __match_any_sync)
 //    gives each row its run of k, ascending. Then the block's threads write
 //    every unit of its rows, the sum of the run's dout rows in order (zero
-//    for an empty run), in 16-byte units where rows and pointers allow, 4
-//    bytes otherwise. The zero fill, the duplicate sums and the sort are
+//    for an empty run), in 16-byte units where rows and pointers allow,
+//    one element otherwise. The zero fill, the duplicate sums and the sort are
 //    one pass; no scratch, no second launch. A block reads k indices where
 //    the kernel must move (k + n_src) * row_bytes: the wrapper takes this
 //    path while blocks * k * 4 is at most half of that, doubling the rows a
@@ -47,9 +56,9 @@
 //    rows): each block copies the sorted keys into shared memory where they
 //    fit (k <= 4096), each thread finds its row's run of keys by two binary
 //    searches there and sums those rows of dout, in order, in 16-byte
-//    units where rows and pointers allow, else 4. The row kernel is the
-//    sort's programmatic dependent: it is launched while the sort runs and
-//    waits for it only before reading the keys.
+//    units where rows and pointers allow, else one element. The row kernel
+//    is the sort's programmatic dependent: it is launched while the sort
+//    runs and waits for it only before reading the keys.
 // Both sum a row's duplicates (an embedding's repeated tokens, the
 // bucketed pad lanes' trash row) in ascending k with no floating-point
 // atomics, so the two paths give the same bits and two runs are bit-equal.
@@ -57,6 +66,7 @@
 // C interface: launches on the given stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cassert>
 #include <cstdint>
@@ -140,18 +150,58 @@ __device__ __forceinline__ int64_t lower_bound(
   return lo;
 }
 
-__device__ __forceinline__ void add(float& acc, float v) { acc += v; }
-__device__ __forceinline__ void add(float4& acc, float4 v) {
-  acc.x += v.x;
-  acc.y += v.y;
-  acc.z += v.z;
-  acc.w += v.w;
+// The sum of one unit (T, as dout and dsrc hold it) over a run of rows.
+template <typename T> struct Sum;
+template <> struct Sum<float> {
+  float a = 0.f;
+  __device__ __forceinline__ void add(float v) { a += v; }
+  __device__ __forceinline__ float get() const { return a; }
+};
+template <> struct Sum<float4> {
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  __device__ __forceinline__ void add(float4 v) {
+    a.x += v.x;
+    a.y += v.y;
+    a.z += v.z;
+    a.w += v.w;
+  }
+  __device__ __forceinline__ float4 get() const { return a; }
+};
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
-template <typename T> __device__ __forceinline__ T zero_unit();
-template <> __device__ __forceinline__ float zero_unit<float>() { return 0.f; }
-template <> __device__ __forceinline__ float4 zero_unit<float4>() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
+template <> struct Sum<__nv_bfloat16> {
+  float a = 0.f;
+  __device__ __forceinline__ void add(__nv_bfloat16 v) {
+    a = bf16_round(a + __bfloat162float(v));
+  }
+  __device__ __forceinline__ __nv_bfloat16 get() const {
+    return __float2bfloat16_rn(a);
+  }
+};
+// 8 bf16 in a 16-byte unit: element 2i in the low half of word i
+template <> struct Sum<uint4> {
+  float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  __device__ __forceinline__ void add2(int i, uint32_t w) {
+    a[2 * i] = bf16_round(a[2 * i] + __uint_as_float(w << 16));
+    a[2 * i + 1] = bf16_round(a[2 * i + 1] + __uint_as_float(w & 0xffff0000u));
+  }
+  __device__ __forceinline__ void add(uint4 v) {
+    add2(0, v.x);
+    add2(1, v.y);
+    add2(2, v.z);
+    add2(3, v.w);
+  }
+  // every a[i] is a bf16 value: its upper 16 bits are exact
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
+  }
+  __device__ __forceinline__ uint4 get() const {
+    return make_uint4(pack(a[0], a[1]), pack(a[2], a[3]), pack(a[4], a[5]),
+                      pack(a[6], a[7]));
+  }
+};
 
 // Thread (x, y) of a (tc, r) block owns row r0 + y of dsrc and its units
 // x, x + tc, ..., x + (V - 1) tc of each tile it visits.
@@ -180,19 +230,17 @@ __global__ void __launch_bounds__(256) gather_bwd_sum_kernel(
     T* to = dsrc + row * units_per_row;
     for (int64_t ut = blockIdx.y; ut < unit_tiles; ut += gridDim.y) {
       const int64_t u0 = ut * tc * V + threadIdx.x;
-      T acc[V];
-#pragma unroll
-      for (int j = 0; j < V; ++j) acc[j] = zero_unit<T>();
+      Sum<T> acc[V];
       for (int64_t e = lo; e < hi; ++e) {
         const T* from = dout + static_cast<int64_t>(keys[e] & 0xffffffffull) *
                                    units_per_row;
 #pragma unroll
         for (int j = 0; j < V; ++j)
-          if (u0 + j * tc < units_per_row) add(acc[j], from[u0 + j * tc]);
+          if (u0 + j * tc < units_per_row) acc[j].add(from[u0 + j * tc]);
       }
 #pragma unroll
       for (int j = 0; j < V; ++j)
-        if (u0 + j * tc < units_per_row) to[u0 + j * tc] = acc[j];
+        if (u0 + j * tc < units_per_row) to[u0 + j * tc] = acc[j].get();
     }
   }
 }
@@ -310,10 +358,10 @@ __global__ void __launch_bounds__(ONE_THREADS) gather_bwd_one_kernel(
   T* to = dsrc + r0 * upr;
   for (int e = tid; e < units; e += ONE_THREADS) {
     const int lr = e / up, u = e - lr * up;
-    T acc = zero_unit<T>();
+    Sum<T> acc;
     for (int j = start[lr], end = start[lr + 1]; j < end; ++j)
-      add(acc, dout[static_cast<int64_t>(runk[j]) * upr + u]);
-    to[e] = acc;
+      acc.add(dout[static_cast<int64_t>(runk[j]) * upr + u]);
+    to[e] = acc.get();
   }
 }
 
@@ -347,21 +395,16 @@ cudaError_t launch_sum(const void* dout, const unsigned long long* keys,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// dout: (k, row) fp32, dsrc: (n_src, row) fp32; unit: 16 or 4 bytes.
-// rows_per_block > 0: path 1, blocks of rows_per_block rows (k at most
-// ONE_MAX_K, rows_per_block at most ONE_MAX_ROWS); the key scratch and the
-// row geometry are not read. 0: path 2; keys_a, keys_b: k 8-byte scratch
-// words each; tc, r, v (1, 2, 4 or 8), row_tiles, unit_tiles and the grid:
-// gather_geometry's over n_src rows.
-extern "C" int gather_rows_bwd_launch(
-    const void* dout, const void* idx, void* dsrc, void* keys_a, void* keys_b,
-    int64_t n_src, int64_t k, int64_t row_bytes, int64_t unit,
-    int64_t rows_per_block, int64_t tc, int64_t r, int64_t v,
-    int64_t row_tiles, int64_t unit_tiles, int64_t grid_x, int64_t grid_y,
-    void* stream) {
-  if (n_src >= (1ll << 31) || k >= (1ll << 32) || (unit != 16 && unit != 4))
+// The launches of both paths; Wide is the 16-byte unit's type, Narrow the
+// element's.
+template <typename Wide, typename Narrow>
+int launch_bwd(const void* dout, const void* idx, void* dsrc, void* keys_a,
+               void* keys_b, int64_t n_src, int64_t k, int64_t row_bytes,
+               int64_t unit, int64_t rows_per_block, int64_t tc, int64_t r,
+               int64_t v, int64_t row_tiles, int64_t unit_tiles,
+               int64_t grid_x, int64_t grid_y, void* stream) {
+  if (n_src >= (1ll << 31) || k >= (1ll << 32) ||
+      (unit != 16 && unit != static_cast<int64_t>(sizeof(Narrow))))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const int64_t upr = row_bytes / unit;
@@ -374,15 +417,15 @@ extern "C" int gather_rows_bwd_launch(
     const int ki = static_cast<int>(k), rb = static_cast<int>(rows_per_block);
     const auto* ix = static_cast<const int32_t*>(idx);
     if (unit == 16)
-      gather_bwd_one_kernel<float4>
+      gather_bwd_one_kernel<Wide>
           <<<static_cast<unsigned>(blocks), ONE_THREADS, 0, s>>>(
-              static_cast<const float4*>(dout), ix, static_cast<float4*>(dsrc),
+              static_cast<const Wide*>(dout), ix, static_cast<Wide*>(dsrc),
               n_src, ki, upr, rb);
     else
-      gather_bwd_one_kernel<float>
+      gather_bwd_one_kernel<Narrow>
           <<<static_cast<unsigned>(blocks), ONE_THREADS, 0, s>>>(
-              static_cast<const float*>(dout), ix, static_cast<float*>(dsrc),
-              n_src, ki, upr, rb);
+              static_cast<const Narrow*>(dout), ix,
+              static_cast<Narrow*>(dsrc), n_src, ki, upr, rb);
     return static_cast<int>(cudaGetLastError());
   }
   if (tc < 1 || r < 1 || tc * r > 256)
@@ -413,9 +456,43 @@ extern "C" int gather_rows_bwd_launch(
             vv = static_cast<int>(v);
   cudaError_t err =
       unit == 16
-          ? launch_sum<float4>(dout, a, dsrc, n_src, k, upr, t, rr, vv,
-                               row_tiles, unit_tiles, grid, s)
-          : launch_sum<float>(dout, a, dsrc, n_src, k, upr, t, rr, vv,
-                              row_tiles, unit_tiles, grid, s);
+          ? launch_sum<Wide>(dout, a, dsrc, n_src, k, upr, t, rr, vv,
+                             row_tiles, unit_tiles, grid, s)
+          : launch_sum<Narrow>(dout, a, dsrc, n_src, k, upr, t, rr, vv,
+                               row_tiles, unit_tiles, grid, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// dout: (k, row) fp32, dsrc: (n_src, row) fp32; unit: 16 or 4 bytes.
+// rows_per_block > 0: path 1, blocks of rows_per_block rows (k at most
+// ONE_MAX_K, rows_per_block at most ONE_MAX_ROWS); the key scratch and the
+// row geometry are not read. 0: path 2; keys_a, keys_b: k 8-byte scratch
+// words each; tc, r, v (1, 2, 4 or 8), row_tiles, unit_tiles and the grid:
+// gather_geometry's over n_src rows.
+extern "C" int gather_rows_bwd_launch(
+    const void* dout, const void* idx, void* dsrc, void* keys_a, void* keys_b,
+    int64_t n_src, int64_t k, int64_t row_bytes, int64_t unit,
+    int64_t rows_per_block, int64_t tc, int64_t r, int64_t v,
+    int64_t row_tiles, int64_t unit_tiles, int64_t grid_x, int64_t grid_y,
+    void* stream) {
+  return launch_bwd<float4, float>(dout, idx, dsrc, keys_a, keys_b, n_src, k,
+                                   row_bytes, unit, rows_per_block, tc, r, v,
+                                   row_tiles, unit_tiles, grid_x, grid_y,
+                                   stream);
+}
+
+// The same for bf16 dout and dsrc, each add rounded to bf16; unit: 16 or 2
+// bytes.
+extern "C" int gather_rows_bwd_bf16_launch(
+    const void* dout, const void* idx, void* dsrc, void* keys_a, void* keys_b,
+    int64_t n_src, int64_t k, int64_t row_bytes, int64_t unit,
+    int64_t rows_per_block, int64_t tc, int64_t r, int64_t v,
+    int64_t row_tiles, int64_t unit_tiles, int64_t grid_x, int64_t grid_y,
+    void* stream) {
+  return launch_bwd<uint4, __nv_bfloat16>(
+      dout, idx, dsrc, keys_a, keys_b, n_src, k, row_bytes, unit,
+      rows_per_block, tc, r, v, row_tiles, unit_tiles, grid_x, grid_y,
+      stream);
 }

@@ -38,6 +38,7 @@ SIGNATURES = {
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 24 + [_P],
     "flash_attention_bwd_bf16_launch": [_P] * 10 + [_I] * 24 + [_P],
     "gather_rows_bwd_launch": [_P] * 5 + [_I] * 12 + [_P],
+    "gather_rows_bwd_bf16_launch": [_P] * 5 + [_I] * 12 + [_P],
     "ssd_scan_launch": [_P] * 9 + [_I] * 15 + [_P],
     "ssd_scan_bf16_launch": [_P] * 9 + [_I] * 15 + [_P],
     "ssd_scan_bwd_launch": [_P] * 19 + [_I] * 16 + [_P],

@@ -15,9 +15,11 @@ When autograd records the call (grad mode on and a ``src`` that requires
 grad), the wrapper runs :class:`GatherRowsFunction`, whose backward is the
 kernel of ``csrc/gather_rows_bwd.cu`` (:func:`gather_rows_backward`): the
 rows of the output gradient summed back into their source rows,
-duplicates in ascending order. It saves the index vector and ``src``'s
-shape, never ``src``: the executors write their arenas in place after
-later gathers have read them.
+duplicates in ascending order (in bf16 rounded after every add, as the
+reference's scatter-add of the gradient rounds; those launches are counted
+on :func:`gather_rows_backward_bf16`). It saves the index vector and
+``src``'s shape, never ``src``: the executors write their arenas in place
+after later gathers have read them.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ ONE_PASS_BLOCK_BYTES = 8192   # of dsrc a block writes, where rows allow
 ONE_PASS_MAX_K = 2048       # (row, k) pairs a block holds in shared memory
 ONE_PASS_MAX_ROWS = 2048    # rows a block owns
 ONE_PASS_UNITS = 8          # most units a thread writes
+BACKWARD_DTYPES = (torch.float32, torch.bfloat16)   # the backward's forms
 
 
 def backward_geometry(k: int, n_src: int, row_bytes: int, unit: int) -> dict:
@@ -86,14 +89,17 @@ def backward_geometry(k: int, n_src: int, row_bytes: int, unit: int) -> dict:
     the kernel must move ``(k + n_src) * row_bytes``. ``R`` starts at about
     ``ONE_PASS_BLOCK_BYTES`` of rows a block (at the path's 2 KB rows four
     rows, two 16-byte units a thread, beat one, two, eight and sixteen
-    rows cold at K = 1 to 2048: PERF.md section 6) and doubles, up to
-    ``ONE_PASS_UNITS`` units a thread, while the index reads exceed half of
-    those bytes; the sort takes over where they still do, or where ``k``
-    is above the pairs a block can hold (``ONE_PASS_MAX_K``)."""
+    rows cold at K = 1 to 2048: PERF.md section 6), at most
+    ``ONE_PASS_UNITS`` units a thread (which only bf16's 2-byte units
+    reach first), and doubles, up to ``ONE_PASS_UNITS`` units a thread,
+    while the index reads exceed half of those bytes; the sort takes over
+    where they still do, or where ``k`` is above the pairs a block can
+    hold (``ONE_PASS_MAX_K``)."""
     if k > ONE_PASS_MAX_K:
         return {"path": "sort"}
     upr = row_bytes // unit
-    rows = max(1, min(ONE_PASS_MAX_ROWS, ONE_PASS_BLOCK_BYTES // row_bytes))
+    rows = max(1, min(ONE_PASS_MAX_ROWS, ONE_PASS_BLOCK_BYTES // row_bytes,
+                      ONE_PASS_THREADS * ONE_PASS_UNITS // max(upr, 1)))
     while True:
         blocks = -(-n_src // rows)
         if 2 * blocks * k * 4 <= (k + n_src) * row_bytes:
@@ -113,14 +119,15 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     ``[-N, N)`` raises (on the card as a device-side assert, surfacing as
     a CUDA error at the next synchronisation, as ``src[idx]`` does there).
     On the card differentiable through :class:`GatherRowsFunction` when
-    autograd records (``src`` float32; on meta, where the plain versions
-    stand in, any dtype)."""
+    autograd records (``src`` float32 or bfloat16; on meta, where the
+    plain versions stand in, any dtype)."""
     if src.device.type == "cpu":
         return ref.gather_rows_ref(src, idx)
     if torch.is_grad_enabled() and src.requires_grad:
-        if src.dtype != torch.float32 and src.device.type == "cuda":
+        if src.dtype not in BACKWARD_DTYPES and src.device.type == "cuda":
             raise ValueError(f"gather_rows: the backward kernel takes "
-                             f"float32, got {src.dtype} that requires grad")
+                             f"float32 or bfloat16, got {src.dtype} that "
+                             f"requires grad")
         return GatherRowsFunction.apply(src, idx)
     return _gather(src, idx)
 
@@ -169,13 +176,15 @@ def gather_rows_backward(dout: torch.Tensor, idx: torch.Tensor,
                          n_rows: int) -> torch.Tensor:
     """The gradient of ``gather_rows(src, idx)`` at a ``src`` of ``n_rows``
     rows for the output gradient ``dout`` (K, *row): ``dsrc`` (n_rows,
-    *row), each row the sum of the ``dout`` rows its indices chose
-    (ascending in K), zero where none did. On the card the kernel of
-    ``csrc/gather_rows_bwd.cu``: one launch where
-    :func:`backward_geometry` allows it, else the keys sorted and every row
-    of dsrc written with :func:`gather_geometry` over ``n_rows`` rows;
-    counted as one launch either way, with its ``(K, n_rows, row bytes)``
-    in ``gather_rows_backward.shapes``; float32 only, ``dout`` copied
+    *row) in ``dout``'s dtype, each row the sum of the ``dout`` rows its
+    indices chose (ascending in K; in bf16 from zero, rounded after every
+    add), zero where none did. On the card the kernel of
+    ``csrc/gather_rows_bwd.cu``: one launch where :func:`backward_geometry`
+    allows it, else the keys sorted and every row of dsrc written with
+    :func:`gather_geometry` over ``n_rows`` rows; counted as one launch
+    either way, float32 on this function and bfloat16 on
+    :func:`gather_rows_backward_bf16`, each with its ``(K, n_rows, row
+    bytes)`` in its ``shapes``; float32 or bfloat16 only, ``dout`` copied
     contiguous where it is not. On the CPU the plain version
     (:func:`ref.gather_rows_bwd_ref`)."""
     if dout.device.type in ref.PLAIN_DEVICES:
@@ -187,9 +196,9 @@ def gather_rows_backward(dout: torch.Tensor, idx: torch.Tensor,
     dev = dout.device
     if dev.type != "cuda":
         raise ValueError(f"gather_rows backward: unsupported device {dev}")
-    if dout.dtype != torch.float32:
-        raise ValueError(f"gather_rows backward: dout must be float32, got "
-                         f"{dout.dtype}")
+    if dout.dtype not in BACKWARD_DTYPES:
+        raise ValueError(f"gather_rows backward: dout must be float32 or "
+                         f"bfloat16, got {dout.dtype}")
     if idx.device != dev or idx.dtype != torch.int32 or idx.ndim != 1 or \
             not idx.is_contiguous() or dout.ndim < 1 or \
             dout.shape[0] != idx.shape[0]:
@@ -198,36 +207,51 @@ def gather_rows_backward(dout: torch.Tensor, idx: torch.Tensor,
                          f"{dout.shape[0]} rows, got {tuple(idx.shape)} "
                          f"{idx.dtype} on {idx.device}")
     dout = dout.contiguous()
-    dsrc = torch.empty((n_rows,) + tuple(dout.shape[1:]), dtype=torch.float32,
+    dsrc = torch.empty((n_rows,) + tuple(dout.shape[1:]), dtype=dout.dtype,
                        device=dev)
     if dsrc.numel() == 0:
         return dsrc
     k = idx.shape[0]
-    row_bytes = math.prod(dout.shape[1:]) * 4
+    elem = dout.element_size()
+    row_bytes = math.prod(dout.shape[1:]) * elem
     aligned = (row_bytes % 16 == 0 and dout.data_ptr() % 16 == 0
                and dsrc.data_ptr() % 16 == 0)
-    unit = 16 if aligned else 4
+    unit = 16 if aligned else elem
     plan = backward_geometry(k, n_rows, row_bytes, unit)
     lib = build.library()
+    bf16 = dout.dtype == torch.bfloat16
+    launch = lib.gather_rows_bwd_bf16_launch if bf16 else \
+        lib.gather_rows_bwd_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
     if plan["path"] == "one pass":
-        status = lib.gather_rows_bwd_launch(
+        status = launch(
             dout.data_ptr(), idx.data_ptr(), dsrc.data_ptr(), None, None,
             n_rows, k, row_bytes, unit, plan["rows_per_block"], 0, 0, 0, 0,
             0, 0, 0, stream)
     else:
         geo = gather_geometry(n_rows, row_bytes, unit)
         keys = torch.empty((2, max(k, 1)), dtype=torch.int64, device=dev)
-        status = lib.gather_rows_bwd_launch(
+        status = launch(
             dout.data_ptr(), idx.data_ptr(), dsrc.data_ptr(),
             keys[0].data_ptr(), keys[1].data_ptr(), n_rows, k, row_bytes,
             unit, 0, geo["tc"], geo["r"], geo["v"], geo["row_tiles"],
             geo["unit_tiles"], *geo["grid"], stream)
-    build.check(status, "gather_rows_backward")
-    counting.count(gather_rows_backward)
+    counter = gather_rows_backward_bf16 if bf16 else gather_rows_backward
+    build.check(status, counter.__name__)
+    counting.count(counter)
     with counting.LOCK:
-        gather_rows_backward.shapes[(k, n_rows, row_bytes)] += 1
+        counter.shapes[(k, n_rows, row_bytes)] += 1
     return dsrc
+
+
+def gather_rows_backward_bf16(dout: torch.Tensor, idx: torch.Tensor,
+                              n_rows: int) -> torch.Tensor:
+    """:func:`gather_rows_backward` of a bfloat16 ``dout``; on the card its
+    launches of the bf16 kernel are counted here."""
+    if dout.dtype != torch.bfloat16:
+        raise ValueError(f"gather_rows_backward_bf16: dout must be bfloat16, "
+                         f"got {dout.dtype}")
+    return gather_rows_backward(dout, idx, n_rows)
 
 
 class GatherRowsFunction(torch.autograd.Function):
@@ -252,3 +276,5 @@ gather_rows.launches = 0
 gather_rows.shapes = Counter()   # (K, row bytes) -> launches
 gather_rows_backward.launches = 0
 gather_rows_backward.shapes = Counter()   # (K, n_rows, row bytes) -> launches
+gather_rows_backward_bf16.launches = 0
+gather_rows_backward_bf16.shapes = Counter()

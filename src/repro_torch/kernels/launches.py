@@ -19,12 +19,14 @@ from .flash_attention import (flash_attention, flash_attention_backward,
                               flash_attention_bf16)
 from .fused_cell import fused_lstm_cell
 from .fused_gather_cell import fused_gather_lstm_cell
-from .gather_batch import gather_rows, gather_rows_backward
+from .gather_batch import (gather_rows, gather_rows_backward,
+                           gather_rows_backward_bf16)
 from .ssd_scan import (ssd_scan, ssd_scan_backward, ssd_scan_backward_bf16,
                        ssd_scan_bf16)
 
 WRAPPERS = {"gather_rows": gather_rows,
             "gather_rows_backward": gather_rows_backward,
+            "gather_rows_backward_bf16": gather_rows_backward_bf16,
             "fused_gather_lstm_cell": fused_gather_lstm_cell,
             "fused_lstm_cell": fused_lstm_cell,
             "flash_attention": flash_attention,

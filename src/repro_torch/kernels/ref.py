@@ -58,15 +58,30 @@ def gather_rows_bwd_ref(dout: torch.Tensor, idx: torch.Tensor,
     ``dsrc`` (n_rows, *row) of ``dout``'s dtype, row ``r`` the sum of the
     ``dout[k]`` whose ``idx[k]`` means ``r`` (a negative index counts from
     the end, as in ``src[idx]``), zero where no index means it. On the CPU
-    the sum runs in ascending ``k``. A meta ``idx`` holds no values, so
-    its bounds are not checked."""
+    the sum runs in ascending ``k``. A bf16 ``dout`` is summed as the
+    reference's scatter-add of its gradient sums it: from zero, in
+    ascending ``k``, rounded to bf16 after every add (a loop over the
+    runs' j-th entries, each step over every row at once). A meta ``idx``
+    holds no values, so its bounds are not checked."""
     if idx.numel() and idx.device.type != "meta" and \
             not bool(((idx >= -n_rows) & (idx < n_rows)).all()):
         raise IndexError(f"gather_rows backward: an index is outside "
                          f"[-{n_rows}, {n_rows})")
     rows = torch.where(idx < 0, idx + n_rows, idx).long()
-    dsrc = torch.zeros((n_rows,) + tuple(dout.shape[1:]), dtype=dout.dtype,
-                       device=dout.device)
+    shape = (n_rows,) + tuple(dout.shape[1:])
+    if dout.dtype == torch.bfloat16 and dout.device.type != "meta":
+        order = torch.argsort(rows, stable=True)
+        sorted_rows = rows[order]
+        # each entry's place in its row's run: ascending k
+        j = torch.arange(rows.numel(), device=rows.device) - \
+            torch.searchsorted(sorted_rows, sorted_rows)
+        acc = torch.zeros(shape, dtype=torch.float32, device=dout.device)
+        for step in range(int(j.max()) + 1 if j.numel() else 0):
+            sel = order[j == step]
+            r = rows[sel]
+            acc[r] = (acc[r] + dout[sel].float()).bfloat16().float()
+        return acc.bfloat16()
+    dsrc = torch.zeros(shape, dtype=dout.dtype, device=dout.device)
     return dsrc.index_add_(0, rows, dout)
 
 

@@ -7,15 +7,19 @@ torch.bfloat16)``. Held here, with inputs from a numpy seed:
 - every leaf of ``param_specs()`` and ``cache_specs()`` of all ten
   configurations has the reference's shape and dtype;
 - the reference's bf16 parameters cross over bit for bit, and back;
-- on reduced Qwen2-0.5B and Mamba2-130m (two layers, narrow widths, two
-  SSD chunks), the port's bf16 ``forward``, ``prefill`` and
-  ``decode_step`` logits are within ``2 e`` of the reference's bf16
-  logits, where ``e`` is the largest gap between the reference's own bf16
-  and fp32 logits on the same bf16-exact parameters (the resolution of
-  bf16 for that model and input: two packages that round at other places
-  can differ by about as much again);
+- on reduced Qwen2-0.5B, Mamba2-130m (two layers, narrow widths, two
+  SSD chunks), Granite-MoE-1B-A400M and Llama-3.2-Vision-11B (its
+  cross-attention layer fed bf16 image embeddings in both packages), the
+  port's bf16 ``forward``, ``prefill`` and ``decode_step`` logits are
+  within ``2 e`` of the reference's bf16 logits, where ``e`` is the
+  largest gap between the reference's own bf16 and fp32 logits on the
+  same bf16-exact parameters (the resolution of bf16 for that model and
+  input: two packages that round at other places can differ by about as
+  much again);
 - the greedy tokens of the two wave engines are equal, except where the
-  reference's own top-2 margin is within ``2 e``;
+  reference's own top-2 margin is within ``2 e`` (the vision model, which
+  the port's wave engine refuses, through ``prefill`` and
+  ``decode_step``);
 - the kernels' plain versions in bf16 against the reference's: flash
   attention against its Pallas kernel in interpret mode within the
   reference test's 3e-2 (``tests/test_kernels.py``), the SSD scan against
@@ -47,7 +51,8 @@ from repro_torch.serve import lm_wave  # noqa: E402
 
 BF16 = torch.bfloat16
 E_FACTOR = 2          # the bar: 2 e (module docstring)
-MODELS = ("qwen2-0.5b", "mamba2-130m")
+MODELS = ("qwen2-0.5b", "mamba2-130m", "granite-moe-1b-a400m",
+          "llama-3.2-vision-11b")
 
 
 def _flat(tree, path=""):
@@ -99,8 +104,24 @@ def pair(request):
     model = TransformerLM(cfg, BF16, device="cpu")
     params = model.init_params(torch.Generator().manual_seed(0))
     install_params(params, jax.tree.map(np.asarray, p16))
+    # bf16-exact image embeddings for a model with cross-attention layers
+    img = None if not cfg.n_image_tokens else np.asarray(jnp.asarray(
+        np.random.default_rng(9).standard_normal(
+            (2, cfg.n_image_tokens, cfg.d_model)), jnp.bfloat16).astype(
+                jnp.float32))
     return {"name": name, "cfg": cfg, "j16": j16, "j32": j32, "p16": p16,
-            "p32": p32, "model": model, "params": params}
+            "p32": p32, "model": model, "params": params, "img": img}
+
+
+def _images(pair, rows=slice(None)):
+    """The pair's image embeddings for the port and for the reference in
+    bf16 and fp32 (all None for a model without cross-attention)."""
+    img = pair["img"]
+    if img is None:
+        return None, None, None
+    img = img[rows]
+    return (torch.from_numpy(np.array(img)).to(BF16),
+            jnp.asarray(img, jnp.bfloat16), jnp.asarray(img))
 
 
 def test_reference_bf16_weights_cross_over_bit_exact(pair):
@@ -147,15 +168,16 @@ def runs(pair):
     tok = rng.integers(0, cfg.vocab, (B,))
     j16, j32, p16, p32 = pair["j16"], pair["j32"], pair["p16"], pair["p32"]
     m, params = pair["model"], pair["params"]
+    ti, ji16, ji32 = _images(pair)
     out = {}
     with torch.no_grad():
         out["forward"] = (
-            m.forward(params, torch.from_numpy(toks))[0],
-            j16.forward(p16, jnp.asarray(toks))[0],
-            j32.forward(p32, jnp.asarray(toks))[0])
-        lt, ct = m.prefill(params, torch.from_numpy(toks), cache_len=40)
-        l16, c16 = j16.prefill(p16, jnp.asarray(toks), cache_len=40)
-        l32, c32 = j32.prefill(p32, jnp.asarray(toks), cache_len=40)
+            m.forward(params, torch.from_numpy(toks), ti)[0],
+            j16.forward(p16, jnp.asarray(toks), ji16)[0],
+            j32.forward(p32, jnp.asarray(toks), ji32)[0])
+        lt, ct = m.prefill(params, torch.from_numpy(toks), ti, cache_len=40)
+        l16, c16 = j16.prefill(p16, jnp.asarray(toks), ji16, cache_len=40)
+        l32, c32 = j32.prefill(p32, jnp.asarray(toks), ji32, cache_len=40)
         out["prefill"] = (lt, l16, l32)
         out["decode_step"] = (
             m.decode_step(params, torch.from_numpy(tok), ct, S)[0],
@@ -179,32 +201,70 @@ def test_greedy_tokens_match_the_reference_but_at_near_ties(pair, runs):
     """Both wave engines, bf16, six prompts of two lengths and eight new
     tokens; a stream may differ only where the reference's own top-2
     margin at the first differing token is within 2 e (e of the forward
-    entry point)."""
+    entry point). The vision model, which the port's engine refuses (its
+    prefill needs image embeddings), decodes two prompts greedily through
+    both packages' ``prefill`` and ``decode_step`` instead."""
     port, ref16, ref32 = runs["forward"]
     e = float(np.abs(_np32(ref16) - _np32(ref32)).max())
     cfg = pair["cfg"]
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
-               for n in rng.choice((16, 32), 6)]
-    outs, _ = lm_wave.ServeEngine(pair["model"], pair["params"],
-                                  cache_len=48, device="cpu").generate(
-                                      prompts, max_new=8)
-    jouts, _ = jwave.ServeEngine(pair["j16"], pair["p16"],
-                                 cache_len=48).generate(prompts, max_new=8)
-    for prompt, a, b in zip(prompts, outs, jouts):
+    if cfg.n_image_tokens:
+        with pytest.raises(ValueError, match="cross-attention"):
+            lm_wave.ServeEngine(pair["model"], pair["params"], cache_len=48,
+                                device="cpu")
+        prompts = rng.integers(0, cfg.vocab, (2, 16)).tolist()
+        outs, jouts = _greedy_with_images(pair, prompts, 8)
+    else:
+        prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+                   for n in rng.choice((16, 32), 6)]
+        outs, _ = lm_wave.ServeEngine(pair["model"], pair["params"],
+                                      cache_len=48, device="cpu").generate(
+                                          prompts, max_new=8)
+        jouts, _ = jwave.ServeEngine(pair["j16"], pair["p16"],
+                                     cache_len=48).generate(prompts,
+                                                            max_new=8)
+    for r, (prompt, a, b) in enumerate(zip(prompts, outs, jouts)):
         if a == b:
             continue
         t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        logits = _reference_logits_after(pair, prompt, b[:t])
+        logits = _reference_logits_after(pair, prompt, b[:t], r)
         top = np.sort(logits)[-2:]
         assert top[1] - top[0] <= E_FACTOR * e, (t, a, b)
 
 
-def _reference_logits_after(pair, prompt, prefix) -> np.ndarray:
+def _greedy_with_images(pair, prompts, n):
+    """Greedy streams of ``n`` tokens after each prompt (one length, one
+    image each) through the port's and the reference's bf16 entry
+    points."""
+    m, params, j16, p16 = pair["model"], pair["params"], pair["j16"], \
+        pair["p16"]
+    ti, ji, _ = _images(pair)
+    toks = np.asarray(prompts)
+    S = toks.shape[1]
+    with torch.no_grad():
+        lt, ct = m.prefill(params, torch.from_numpy(toks), ti,
+                           cache_len=S + n)
+        outs = []
+        for i in range(n):
+            tok = lt.argmax(-1)
+            outs.append(tok.tolist())
+            lt, ct = m.decode_step(params, tok, ct, S + i)
+    lj, cj = j16.prefill(p16, jnp.asarray(toks), ji, cache_len=S + n)
+    jouts = []
+    for i in range(n):
+        tok = jnp.argmax(lj, -1)
+        jouts.append(np.asarray(tok).tolist())
+        lj, cj = j16.decode_step(p16, tok, cj, S + i)
+    return [list(r) for r in zip(*outs)], [list(r) for r in zip(*jouts)]
+
+
+def _reference_logits_after(pair, prompt, prefix, row=0) -> np.ndarray:
     """The reference's bf16 logits for the token after ``prompt +
-    prefix``: its prefill of the prompt, then a decode step a token."""
+    prefix``: its prefill of the prompt (with image ``row`` where the
+    model has cross-attention), then a decode step a token."""
     j16, p16 = pair["j16"], pair["p16"]
-    logits, caches = j16.prefill(p16, jnp.asarray([prompt]),
+    ji = _images(pair, slice(row, row + 1))[1]
+    logits, caches = j16.prefill(p16, jnp.asarray([prompt]), ji,
                                  cache_len=len(prompt) + len(prefix) + 1)
     for i, tok in enumerate(prefix):
         logits, caches = j16.decode_step(p16, jnp.asarray([tok]), caches,
@@ -307,7 +367,12 @@ def test_only_float32_and_bfloat16_models_are_built():
 
 def test_wave_engine_serves_in_its_models_dtype(pair):
     """The decode pool is in the model's dtype; parameters of another
-    dtype are refused."""
+    dtype are refused, and so, in bf16 too, is a model with
+    cross-attention layers."""
+    if pair["cfg"].n_image_tokens:
+        with pytest.raises(ValueError, match="cross-attention"):
+            lm_wave.ServeEngine(pair["model"], pair["params"], device="cpu")
+        return
     eng = lm_wave.ServeEngine(pair["model"], pair["params"], cache_len=48,
                               device="cpu")
     eng.generate([list(range(1, 17))], max_new=2)   # one SSD chunk

@@ -20,8 +20,10 @@ is formed in fp32 and rounded once). Held here, on three numpy-seeded
   to the in-place form as it was before bf16 leaves took their own path,
   re-derived here.
 
-Then reduced Qwen2-0.5B and Mamba2-130m (two layers, narrow widths; the
-scan over two chunks of 16), built in bf16 from the reference's bf16
+Then reduced Qwen2-0.5B, Mamba2-130m (two layers, narrow widths; the
+scan over two chunks of 16), Granite-MoE-1B-A400M and
+Llama-3.2-Vision-11B (bf16-exact image embeddings, in each model's dtype
+in both packages), built in bf16 from the reference's bf16
 parameters through ``arch/convert.py``, take three steps of the port's
 functional ``make_train_step`` and of ``StaticTrainStep`` (eager on the
 CPU): at every step the loss and every gradient leaf are within ``2 e``
@@ -212,7 +214,18 @@ def _port_grads(model, tree, flat, batch):
         return torch.autograd.grad(loss, leaves)
 
 
-@pytest.fixture(scope="module", params=["qwen2-0.5b", "mamba2-130m"])
+def _bf16_exact_images(batch):
+    """The batch with its image embeddings (if any) rounded to bf16, so
+    that both packages' bf16 models take them exactly."""
+    if "image_embeds" in batch:
+        batch = dict(batch, image_embeds=np.array(jnp.asarray(
+            batch["image_embeds"], jnp.bfloat16).astype(jnp.float32)))
+    return batch
+
+
+@pytest.fixture(scope="module", params=["qwen2-0.5b", "mamba2-130m",
+                                        "granite-moe-1b-a400m",
+                                        "llama-3.2-vision-11b"])
 def trained(request):
     """Three steps of the port's ``make_train_step`` and of its
     ``StaticTrainStep`` from the reference's bf16 parameters; at each step
@@ -228,8 +241,9 @@ def trained(request):
     grad32 = jax.jit(jax.value_and_grad(j32.loss))
 
     def token_nll(jm):
-        def nll(p, tokens, labels):
-            logits = jm.forward(p, tokens)[0].astype(jnp.float32)
+        def nll(p, tokens, labels, image_embeds):
+            logits = jm.forward(p, tokens, image_embeds)[0].astype(
+                jnp.float32)
             gold = jnp.take_along_axis(logits, labels[..., None], -1)[..., 0]
             return jax.nn.logsumexp(logits, -1) - gold
         return jax.jit(nll)
@@ -239,19 +253,26 @@ def trained(request):
     params = model.init_params(torch.Generator().manual_seed(0))
     install_params(params, jax.tree.map(np.asarray, jp))
     kw = dict(lr=3e-3, warmup_steps=2, total_steps=STEPS)
-    pc = PipelineConfig(vocab=cfg.vocab, seq_len=SEQ, batch_size=2, seed=3)
-    batches = [SyntheticCorpus(pc).batch(i) for i in range(STEPS)]
+    pc = PipelineConfig(vocab=cfg.vocab, seq_len=SEQ, batch_size=2, seed=3,
+                        n_image_tokens=cfg.n_image_tokens,
+                        d_model=cfg.d_model)
+    batches = [_bf16_exact_images(SyntheticCorpus(pc).batch(i))
+               for i in range(STEPS)]
 
     def reference_at(flat, batch):
         leaves = [jnp.asarray(_np(t), jnp.bfloat16) for t in flat]
         p16 = jax.tree.unflatten(treedef, leaves)
         p32 = jax.tree.map(lambda a: a.astype(jnp.float32), p16)
-        jb = {k: jnp.asarray(v) for k, v in batch.items()}
         out = []
-        for fn, nll, p in ((grad16, nll16, p16), (grad32, nll32, p32)):
+        for fn, nll, p, dt in ((grad16, nll16, p16, jnp.bfloat16),
+                               (grad32, nll32, p32, jnp.float32)):
+            # image embeddings in the model's dtype, as the port takes them
+            jb = {k: jnp.asarray(v, dt) if k == "image_embeds" else
+                  jnp.asarray(v) for k, v in batch.items()}
             loss, grads = fn(p, jb)
             out.append((float(loss), [_np(g) for g in jax.tree.leaves(grads)],
-                        np.asarray(nll(p, jb["tokens"], jb["labels"]))))
+                        np.asarray(nll(p, jb["tokens"], jb["labels"],
+                                       jb.get("image_embeds")))))
         return out
 
     runs = {}

@@ -3126,6 +3126,104 @@ def test_gather_backward_sort_path_at_moe_shapes_equals_cpu_bits(cuda, part):
         dout.cpu(), idx.cpu(), n_src))
 
 
+# The bf16 backward (each add rounded to bf16): the one-launch path, its
+# threshold and one above, repeated and negative indices, odd rows in
+# 2-byte units on both paths, the trash row, every index on one row.
+_GATHER_BWD_BF16_CASES = {
+    "K=256 one launch": ((2048, 1024), 256, "random"),
+    "K=2048 at the threshold": ((2048, 1024), 2048, "random"),
+    "K=2049 sorted": ((2048, 1024), 2049, "random"),
+    "repeats and negatives": ((2048, 1024), 256, "repeats"),
+    "odd row D=1023 one launch": ((513, 1023), 300, "repeats"),
+    "odd row D=1023 sorted": ((513, 1023), 3000, "random"),
+    "trash row": ((1001, 512), 256, "trash"),
+    "every index on one row": ((2048, 512), 256, "one row"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_GATHER_BWD_BF16_CASES))
+def test_gather_backward_bf16_kernel_is_the_plain_versions_bits(cuda, case):
+    """The bf16 kernel sums each row's run from zero in ascending k,
+    rounding after every add, as the plain version (and the reference's
+    scatter-add) does: bit-equal to it on the card and on the CPU, two runs
+    bit-equal, counted on the bf16 wrapper and not the fp32 one."""
+    from repro_torch.kernels.gather_batch import (gather_rows_backward,
+                                                  gather_rows_backward_bf16)
+
+    shape, K, kind = _GATHER_BWD_BF16_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(K + 1)
+    idx = _gather_bwd_indices(g, shape[0], K, kind)
+    dout = torch.randn((K,) + shape[1:], generator=g, device=cuda).bfloat16()
+    before = (gather_rows_backward.launches,
+              gather_rows_backward_bf16.launches)
+    got = gather_rows_backward(dout, idx, shape[0])
+    again = gather_rows_backward_bf16(dout, idx, shape[0])
+    torch.cuda.synchronize()
+    assert (gather_rows_backward.launches,
+            gather_rows_backward_bf16.launches) == (before[0],
+                                                    before[1] + 2)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    assert torch.equal(got, ref.gather_rows_bwd_ref(dout, idx, shape[0]))
+    assert torch.equal(got.cpu(), ref.gather_rows_bwd_ref(
+        dout.cpu(), idx.cpu(), shape[0]))
+
+
+def test_gather_backward_bf16_through_a_misaligned_dout(cuda):
+    """A dout off 16 bytes is copied contiguous, or summed in 2-byte units
+    where its rows are odd: the plain version's bits either way."""
+    from repro_torch.kernels.gather_batch import gather_rows_backward
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    idx = _gather_bwd_indices(g, 300, 500, "repeats")
+    base = torch.randn((500 * 37 + 1,), generator=g, device=cuda).bfloat16()
+    dout = base[1:].view(500, 37)
+    got = gather_rows_backward(dout, idx, 300)
+    assert torch.equal(got, ref.gather_rows_bwd_ref(dout, idx, 300))
+
+
+def test_moe_bf16_gradients_through_the_kernels_are_the_plain_gathers(cuda):
+    """Granite's layer in bf16 at the train step's 1024 tokens in 8 groups:
+    both backwards on the bf16 kernel's sort path, counted on the bf16
+    wrapper; every gradient bit-equal to the same layer's with the plain
+    gathers (whose backward rounds where the kernel rounds), two runs
+    bit-equal."""
+    from repro_torch.arch import layers as L
+    from repro_torch.kernels.gather_batch import (gather_rows_backward,
+                                                  gather_rows_backward_bf16)
+
+    cfg, p, x = _moe_setup(cuda, "granite-moe-1b-a400m", 1024, seed=4)
+    p = {k: t.bfloat16().requires_grad_(True) for k, t in p.items()}
+    x = x.bfloat16().requires_grad_(True)
+    w = torch.randn(x.shape, generator=torch.Generator(device=cuda)
+                    .manual_seed(5), device=cuda).bfloat16()
+    leaves = [x] + list(p.values())
+
+    def grads(gather):
+        y, aux = L.moe(p, x, cfg, 8, gather=gather)
+        return torch.autograd.grad((y.float() * w.float()).sum() + aux,
+                                   leaves)
+
+    before = (gather_rows_backward.launches,
+              gather_rows_backward_bf16.launches)
+    got, again = grads(gather_rows), grads(gather_rows)
+    assert (gather_rows_backward.launches,
+            gather_rows_backward_bf16.launches) == (before[0],
+                                                    before[1] + 4)
+    want = grads(ref.gather_rows_ref)
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, b)
+        assert torch.equal(a, c)
+
+
+def test_gather_rows_with_grad_refuses_float16(cuda):
+    src = torch.randn((10, 4), device=cuda).half().requires_grad_(True)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gather_rows(src, idx)
+
+
 def test_lm_wave_refuses_a_cross_attention_model_on_the_card(cuda):
     from repro_torch.arch.model import TransformerLM
     from repro_torch.configs import get_config

@@ -65,12 +65,27 @@ def make(shape, K, repeats, negatives, seed=0, dtype=torch.float32):
     return src, torch.as_tensor(idx, dtype=torch.int32), dout
 
 
+def _zero(shape, dtype):
+    """The kernel's accumulator: a bf16 sum is held in fp32 registers."""
+    return torch.zeros(shape, dtype=torch.float32 if dtype == torch.bfloat16
+                       else dtype)
+
+
+def _accumulate(acc, v):
+    """One add of the kernel's sum: fp32 as it is; bf16 in an fp32
+    register, rounded to bf16 after the add
+    (``csrc/gather_rows_bwd.cu``: ``Sum<uint4>``, ``Sum<__nv_bfloat16>``)."""
+    if v.dtype == torch.bfloat16:
+        return (acc + v.float()).to(torch.bfloat16).float()
+    return acc + v
+
+
 def replay_backward(dout, idx, n_rows):
     """csrc/gather_rows_bwd.cu step by step: keys (row << 32 | k) sorted in
     bitonic tiles (the next power of two of K, at most 2048 keys), merged
     pairwise (each key placed at its index in its run plus the count of
     smaller keys in the partner run), then each row of dsrc the sum, in
-    order, of its run's dout rows."""
+    order, of its run's dout rows (in bf16 rounded after every add)."""
     K = idx.shape[0]
     rows = torch.where(idx < 0, idx + n_rows, idx).long()
     assert bool(((rows >= 0) & (rows < n_rows)).all())
@@ -116,9 +131,9 @@ def replay_backward(dout, idx, n_rows):
     for r in range(n_rows):
         lo = int(torch.searchsorted(cur, torch.tensor(r << 32)))
         hi = int(torch.searchsorted(cur, torch.tensor((r + 1) << 32)))
-        acc = torch.zeros(dout.shape[1:], dtype=dout.dtype)
+        acc = _zero(dout.shape[1:], dout.dtype)
         for e in range(lo, hi):
-            acc = acc + dout[int(cur[e]) & 0xFFFFFFFF]
+            acc = _accumulate(acc, dout[int(cur[e]) & 0xFFFFFFFF])
         dsrc[r] = acc
     return dsrc
 
@@ -130,7 +145,7 @@ def replay_one_pass(dout, idx, n_rows, rows):
     32 w + lane), lanes in order within a group; each row's count and its
     prefix; the pairs placed 32 at a time in list order, equal rows within
     the 32 in lane order; then each row the sum of its run in order (zero
-    for an empty run)."""
+    for an empty run; in bf16 rounded after every add)."""
     K = idx.shape[0]
     assert K <= ONE_PASS_MAX_K
     flat = dout.reshape(K, math.prod(dout.shape[1:]))
@@ -164,9 +179,9 @@ def replay_one_pass(dout, idx, n_rows, rows):
                 cursor[lr] += sum(1 for lr2, _ in chunk if lr2 == lr)
         assert cursor[:nrows] == start[1:]
         for lr in range(nrows):
-            acc = torch.zeros(flat.shape[1], dtype=dout.dtype)
+            acc = _zero(flat.shape[1], dout.dtype)
             for j in range(start[lr], start[lr + 1]):
-                acc = acc + flat[runk[j]]
+                acc = _accumulate(acc, flat[runk[j]])
             dsrc[r0 + lr] = acc
     return dsrc.reshape((n_rows,) + tuple(dout.shape[1:]))
 
@@ -233,6 +248,54 @@ def test_replayed_one_pass_is_bit_equal_to_the_plain_backward(case):
     rows = plan.get("rows_per_block", 3)
     got = replay_one_pass(dout, idx, shape[0], rows)
     assert torch.equal(got, ref.gather_rows_bwd_ref(dout, idx, shape[0]))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_replayed_bf16_kernel_is_bit_equal_to_the_plain_backward(case):
+    """The bf16 kernel's sort path, replayed: each row's run in ascending
+    k from zero, rounded to bf16 after every add, gives the bf16 plain
+    version's bits (which are the reference's gradient's)."""
+    shape, K, rep, neg = CASES[case]
+    if K > SORT_TILE:
+        shape, K = (60, 3), 2 * SORT_TILE + 300   # three runs, two passes
+    src, idx, dout = make(shape, K, rep, neg, seed=6, dtype=torch.bfloat16)
+    got = replay_backward(dout, idx, shape[0])
+    want = ref.gather_rows_bwd_ref(dout, idx, shape[0])
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_replayed_bf16_one_pass_is_bit_equal_to_the_plain_backward(case):
+    """The bf16 kernel's one-launch path, replayed at the rows a block
+    takes at this shape in bf16 units (16 bytes where the row allows, else
+    2): the bf16 plain version's bits."""
+    shape, K, rep, neg = CASES[case]
+    K = min(K, ONE_PASS_MAX_K)
+    src, idx, dout = make(shape, K, rep, neg, seed=7, dtype=torch.bfloat16)
+    row_bytes = 2 * src[0].numel()
+    unit = 16 if row_bytes % 16 == 0 else 2
+    plan = backward_geometry(K, shape[0], row_bytes, unit)
+    rows = plan.get("rows_per_block", 3)
+    got = replay_one_pass(dout, idx, shape[0], rows)
+    assert torch.equal(got, ref.gather_rows_bwd_ref(dout, idx, shape[0]))
+
+
+def test_bf16_backward_paths_at_the_moe_shapes():
+    """Granite's bf16 train shapes (2048-byte rows) sort, as fp32's 4096-
+    byte ones do; 2 KB bf16 rows take four a block on the one-launch path
+    at K up to 2048; a row of 2-byte units takes at most ONE_PASS_UNITS a
+    thread from the start (1023 bf16: two rows a block, where 8 KB would
+    be four)."""
+    assert backward_geometry(10240, 1344, 2048, 16) == {"path": "sort"}
+    assert backward_geometry(8192, 11264, 2048, 16) == {"path": "sort"}
+    assert backward_geometry(2048, 2048, 2048, 16) == {
+        "path": "one pass", "rows_per_block": 4, "blocks": 512}
+    assert backward_geometry(300, 513, 2046, 2) == {
+        "path": "one pass", "rows_per_block": 2, "blocks": 257}
+    # fp32's 4-byte units start where they did: 8 KB of rows a block
+    assert backward_geometry(300, 513, 4092, 4)["rows_per_block"] == 2
+    assert backward_geometry(300, 513, 68, 4)["rows_per_block"] == 120
 
 
 # (n_src, row floats, K, index pattern): the threshold's edges, a last
