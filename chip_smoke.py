@@ -186,7 +186,16 @@ Phases, in order; any failure raises and exits non-zero:
    give the clean K = 2 run's outputs. Prints a ``serve sharded K=<k>:``
    line per run (tok/s, ms per round median and p90, busy share, device
    events per round, captures, replays, fallback rounds, sharded
-   dispatches); writes under ``build/chip_smoke/sharded/``.
+   dispatches); writes under ``build/chip_smoke/sharded/``. Then the
+   per-card placement (``launch/mesh.py``, one replica a card as the
+   reference's ``shard_map`` places them): (e) K = 2 with both placements
+   on cuda:0 (each its own graphs, slot pool and weight copy), a first,
+   a steady and a profiled pass and a loss at round 3 with a regrowth at
+   round 7, every output bit-equal to the stacked K = 2 run's and within
+   1e-6 of K = 1's (``serve sharded placed K=2 devices=cuda:0,cuda:0:``
+   line, with its seconds); (f) where the machine has two cards or more,
+   K = min(4, cards) one a card with the same checks, else one line
+   saying that (f) did not run.
 9. The trainer. (a) Flash attention's backward kernel against autograd
    of the plain attention on the card, TF32 off, within 1e-4 of the
    largest |gradient| (the trainer's shape, q (8, 128, 14, 64) with k/v
@@ -2585,10 +2594,12 @@ def steal_trace(mod):
 
 
 def sharded_line(label: str, k: int, run: dict, prof: dict | None,
-                 card: str) -> dict:
-    """Log one ``serve sharded K=<k>`` line for ``run`` (a pass of
-    :func:`serve_passes`) and return its numbers; ``prof`` is a profiled
-    pass of the same engine, or None (busy share not measured)."""
+                 card: str, head: str | None = None,
+                 seconds: float | None = None) -> dict:
+    """Log one ``serve sharded K=<k>`` line (or ``head``) for ``run`` (a
+    pass of :func:`serve_passes`) and return its numbers; ``prof`` is a
+    profiled pass of the same engine, or None (busy share not measured);
+    ``seconds`` the wall of the runs the line stands for, if given."""
     from repro_torch.obs.metrics import percentile
 
     line = {
@@ -2611,7 +2622,10 @@ def sharded_line(label: str, k: int, run: dict, prof: dict | None,
     busy = (f"busy share {line['busy_share']:.3f}, device events per round "
             f"{line['device_events_per_round']:.1f}" if prof is not None
             else "busy share not measured")
-    log(f"serve sharded K={k}: {label}: {line['tok_per_s']:.1f} tok/s, "
+    if seconds is not None:
+        line["seconds"] = seconds
+    log(f"{head or f'serve sharded K={k}'}: {label}: "
+        f"{line['tok_per_s']:.1f} tok/s, "
         f"{line['rounds']} rounds, ms per round median "
         f"{line['ms_per_round_median']:.3f} p90 "
         f"{line['ms_per_round_p90']:.3f} max {line['ms_per_round_max']:.3f}"
@@ -2619,7 +2633,90 @@ def sharded_line(label: str, k: int, run: dict, prof: dict | None,
         f"{line['captures']}, replays {line['replays']}, fallback rounds "
         f"{line['fallback_rounds']}, sharded dispatches "
         f"{line['sharded_dispatches']}, lowering on the loop "
-        f"{line['lower_s']:.3f} s, tiers {line['tier_rounds']} ({card})")
+        f"{line['lower_s']:.3f} s, tiers {line['tier_rounds']}"
+        + (f", {seconds:.1f} s" if seconds is not None else "")
+        + f" ({card})")
+    return line
+
+
+def same_outputs(label: str, got: list, want: list) -> None:
+    """Fail unless every request of ``got`` completed with ``want``'s lm
+    tokens and bit-equal tree and lattice outputs."""
+    for a, b in zip(got, want):
+        if a.status != "COMPLETED" or b.status != "COMPLETED":
+            fail(f"serve sharded {label}: request {a.rid} {a.status}, "
+                 f"{b.status}")
+        if a.family == "lm" and a.out != b.out:
+            fail(f"serve sharded {label}: lm request {a.rid} tokens "
+                 f"{a.out} != {b.out}")
+        if a.family != "lm" and not (a.result.shape == b.result.shape
+                                     and (a.result == b.result).all()):
+            fail(f"serve sharded {label}: {a.family} request {a.rid} is "
+                 f"not bit-equal")
+
+
+def placed_runs(torch, wls, policies, card: str, host: dict, label: str,
+                k: int, devices, stacked: dict | None, stacked_loss,
+                base: list, cpu_wl, one_pass, mixed) -> dict:
+    """Phase 8 (e) and (f): K replicas placed one a card of ``devices``
+    (None: every card) through the engine: a first, a steady and a
+    profiled pass, then a loss of shard 1 at round 3 and a regrowth at
+    round 7. The passes bit-equal to ``stacked`` (the stacked K run's
+    passes) where given, and within 1e-6 of K = 1's (``base``); the loss
+    and regrowth within 1e-6 of the clean K run, as (a) holds the stack's,
+    and bit-equal to ``stacked_loss`` (the stack's own, (a)) where given;
+    the steady pass all sharded, replayed and uncontained. Logs the
+    line."""
+    from repro_torch.core.cache import LRUCache
+    from repro_torch.serve.faults import FaultInjector
+
+    t0 = time.perf_counter()
+    place = dict(devices=devices) if devices is not None else dict(
+        placement="cards")
+    runs = serve_passes(torch, wls, policies, "mixed",
+                        dict(host, bucket_cache=LRUCache(256)),
+                        passes=("first", "steady", "profiled"), n_shards=k,
+                        **place)
+    for name in ("first", "steady", "profiled"):
+        if stacked is not None:
+            same_outputs(f"{label} {name} pass against stacked K={k}",
+                         runs[name]["reqs"], stacked[name]["reqs"])
+        outputs_agree(f"sharded {label} {name} pass against K=1",
+                      runs[name]["reqs"], base, cpu_wl, 1e-6)
+    own_counts_seen(f"sharded {label} profiled pass", runs["profiled"])
+    steady = runs["steady"]
+    if (steady["n_contained_errors"] or steady["n_quarantine_events"]
+            or set(steady["tier_rounds"]) != {"sharded"}
+            or steady["n_graph_captures"] or not steady["n_graph_replays"]
+            or not steady["n_sharded_dispatches"]):
+        fail(f"serve sharded {label} steady pass: {steady['tier_rounds']}, "
+             f"contained {steady['n_contained_errors']}, captures "
+             f"{steady['n_graph_captures']}, replays "
+             f"{steady['n_graph_replays']}")
+    reqs = mixed()
+    eng, _ = one_pass(f"{label} loss at round 3, regrowth at round 7", k,
+                      reqs, fault_injector=FaultInjector(
+                          shard_lost={3: 1}, shard_back_rounds=[7]),
+                      **place)
+    if [(e["old"], e["new"]) for e in eng.resize_log] != [(k, k - 1),
+                                                         (k - 1, k)]:
+        fail(f"serve sharded {label}: resize log {eng.resize_log}")
+    if stacked_loss is not None:
+        same_outputs(f"{label} loss and regrowth against the stack's (a)",
+                     reqs, stacked_loss)
+    outputs_agree(f"sharded {label} loss and regrowth against the clean "
+                  f"K={k} run", reqs, runs["first"]["reqs"], cpu_wl, 1e-6)
+    outputs_agree(f"sharded {label} loss and regrowth against K=1", reqs,
+                  base, cpu_wl, 1e-6)
+    cards = ",".join(str(d) for d in eng._data_mesh().cards)
+    line = sharded_line("steady", k, steady, runs["profiled"], card,
+                        head=f"serve sharded placed K={k} devices={cards}",
+                        seconds=time.perf_counter() - t0)
+    line["first"] = sharded_line("first", k, runs["first"], None, card,
+                                 head=f"serve sharded placed K={k} "
+                                      f"devices={cards}")
+    line["loss_and_regrowth"] = {"resize_log": eng.resize_log,
+                                 "evacuated": eng.stats.n_entries_evacuated}
     return line
 
 
@@ -2705,6 +2802,8 @@ def sharded_phase(torch, drive, card: str, policies: dict) -> dict:
         log(f"serve sharded K={k}: {label}: {stats.tokens_out / stats.wall_s:.1f}"
             f" tok/s, {stats.n_rounds} rounds, {time.perf_counter() - t0:.2f}"
             f" s, busy share not measured, captures {stats.n_graph_captures}"
+            f", lowering on the loop {stats.lower_s:.3f} s, in the "
+            f"background {stats.lower_bg_s:.3f} s"
             f", replays {stats.n_graph_replays}, fallback rounds "
             f"{stats.n_shard_fallback_rounds}, sharded dispatches "
             f"{stats.n_sharded_dispatches}, tiers {stats.tier_rounds} "
@@ -2729,6 +2828,7 @@ def sharded_phase(torch, drive, card: str, policies: dict) -> dict:
                   runs[2]["first"]["reqs"], cpu_wl, 1e-6)
     lines["a"] = {"resize_log": eng.resize_log,
                   "evacuated": eng.stats.n_entries_evacuated}
+    lossy = reqs
 
     # (b) work stealing, beside a clean run of the same trace
     clean = steal_trace(tserve)
@@ -2815,6 +2915,21 @@ def sharded_phase(torch, drive, card: str, policies: dict) -> dict:
     lines["d"] = sharded_line("(d) async compile, first pass", 4,
                               runs_d["first"], None, card)
     sharded_line("(d) async compile, steady pass", 4, d, None, card)
+
+    # (e) one replica a card, both placements on cuda:0; (f) on distinct
+    # cards where the machine has them
+    lines["e"] = placed_runs(torch, wls, policies, card, host, "(e)", 2,
+                             ("cuda:0", "cuda:0"), runs[2], lossy, base,
+                             cpu_wl, one_pass, mixed)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        k = min(4, n_cards)
+        lines["f"] = placed_runs(torch, wls, policies, card, host, "(f)", k,
+                                 None, runs.get(k), lossy if k == 2 else None,
+                                 base, cpu_wl, one_pass, mixed)
+    else:
+        log(f"serve sharded (f): not run: the machine has {n_cards} card, "
+            f"so no replica could be placed on a second one ({card})")
     log(f"serve sharded detail: {json.dumps(lines, default=str)}")
     one, two, four = (lines[k] for k in SHARDED_KS)
     log(f"serve sharded K=1/2/4 steady: ms per round median "
@@ -4734,6 +4849,62 @@ def card_vs_cpu_grads(torch, label: str, cfg, params, batch) -> dict:
             "cpu_s": cpu_s, "routing_vs_cpu": routing}
 
 
+# Granite-MoE-1B-A400M's attention at the trainer's batch (8 x 128): 16
+# query heads over 8 KV heads, head dim 64, causal
+GRANITE_BWD_SHAPE = (8, 128, 16, 8, 64)
+
+
+def time_granite_backwards(torch, timer, card: str) -> dict:
+    """Phase 9 (g): flash attention's fp32 and bf16 backward kernels timed
+    cold at GRANITE_BWD_SHAPE, the shape Granite's training launches them
+    at, each beside the backward of ``scaled_dot_product_attention`` in its
+    dtype (K/V expanded; a yardstick the port never calls) and with its
+    bound. Returns each kernel's numbers by its name."""
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
+
+    B, S, H, KV, D = GRANITE_BWD_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, dtype, units in (
+            ("flash_attention_backward", torch.float32,
+             "3xTF32 on the tensor cores"),
+            ("flash_attention_backward_bf16", torch.bfloat16,
+             "bf16 on the tensor cores")):
+        q, dout = (torch.randn((B, S, H, D), generator=g,
+                               device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((B, S, KV, D), generator=g,
+                            device="cuda").to(dtype) for _ in range(2))
+        o, lse = flash_attention_forward(q, k, v, True, 0, with_lse=True)
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True) for t in (k, v))
+        ot = sdpa(qt, kt, vt, is_causal=True)
+        dt_ = dout.transpose(1, 2).contiguous()
+
+        def library():
+            torch.autograd.grad(ot, (qt, kt, vt), dt_, retain_graph=True)
+
+        w = out[name] = {
+            "shape": f"q/o/dO ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {KV}, "
+                     f"{D}) {str(dtype).removeprefix('torch.')}, causal",
+            "ms": timer(lambda: flash_attention_backward(
+                q, k, v, o, dout, lse, True, 0)),
+            "library_ms": timer(library),
+            **cost_bound(f"{name} Granite training shape",
+                         costs.flash_attention_backward(
+                             B, S, S, H, KV, D, True, 0,
+                             dtype.itemsize), units)}
+        log(f"{name} Granite training shape {w['shape']} ms: cold kernel "
+            f"{w['ms']:.4f}, scaled_dot_product_attention backward "
+            f"{w['library_ms']:.4f}, bound {w['bound_ms']:.6f} "
+            f"({w['bound_by']}) ({card})")
+        del ot, qt, kt, vt
+    return out
+
+
 def train_moe_phase(torch, drive, card: str, steps: int) -> dict:
     """Phase 9 (g): ``launch.train.main`` on Granite-MoE-1B-A400M at full
     width and depth, ``--batch 8 --seq 128``, ``steps`` steps, the step
@@ -5097,7 +5268,10 @@ def vision_train(torch, model, params, capture: bool):
     corpus = SyntheticCorpus(PipelineConfig(
         vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
         seed=SEED, n_image_tokens=cfg.n_image_tokens, d_model=cfg.d_model))
-    batches = [corpus.batch(i) for i in range(VISION_STEPS)]
+    # the corpus's fp32 image embeddings in the model's dtype (a bf16
+    # model refuses fp32 ones, as the reference's does)
+    batches = [dict(b, image_embeds=torch.as_tensor(b["image_embeds"]).to(
+        model.dtype)) for b in map(corpus.batch, range(VISION_STEPS))]
     opt = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=VISION_STEPS)
     stamps = []
     torch.cuda.synchronize()
@@ -5210,9 +5384,12 @@ def vision_bf16_cut(torch, drive, card: str, cut, one16, toks, img,
     def grads(model, params, device):
         flat = [t.detach().to(device).requires_grad_(True)
                 for t in leaves(params)]
-        loss = model.loss(unflatten(params, flat),
-                          {k: torch.as_tensor(a, device=device)
-                           for k, a in batch.items()})
+        on = {k: torch.as_tensor(a, device=device)
+              for k, a in batch.items()}
+        # the batch's fp32 image embeddings in the model's dtype: a model
+        # refuses another, as the reference's does
+        on["image_embeds"] = on["image_embeds"].to(model.dtype)
+        loss = model.loss(unflatten(params, flat), on)
         gs = torch.autograd.grad(loss, flat)
         return [loss.detach().cpu()] + [g.cpu() for g in gs]
 
@@ -5660,11 +5837,15 @@ def main(argv: list[str] | None = None) -> int:
         on_path("Granite-MoE training", moe_launches,
                 ("flash_attention", "flash_attention_backward",
                  "gather_rows", "gather_rows_backward"))
+        granite_bwd = time_granite_backwards(torch, timer, card)
         log(f"moe train done: {time.perf_counter() - t0:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         rows.append(check_flash_backward_bf16(torch, timer))
+        for row in rows:
+            if row["name"] in granite_bwd:
+                row["granite_train_shape"] = granite_bwd[row["name"]]
         rows.append(check_ssd_backward_bf16(torch, timer))
         bf16_train = train_bf16_phase(torch, drive, card, TRAIN_STEPS)
         for arch, (kernels, _) in BF16_TRAIN.items():

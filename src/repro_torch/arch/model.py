@@ -170,19 +170,23 @@ class TransformerLM(nn.Module):
         return torch.arange(S_, device=self.device)[None].expand(B, S_)
 
     def _image(self, image_embeds):
-        """Image embeddings in the model's dtype: a bf16 model's cross
-        layers run in bf16 as its other layers do (the reference would
-        promote an fp32 embedding and the layers after it to fp32, so its
-        bf16 model is handed them in bf16)."""
-        if image_embeds is None:
-            return None
-        return image_embeds.to(self.dtype)
+        """Image embeddings, which must be in the model's dtype: one of
+        another dtype is refused, as the reference refuses it (its bf16
+        ``forward``, ``prefill`` and ``loss`` raise ``TypeError`` on an
+        fp32 embedding). The caller casts."""
+        if image_embeds is not None and image_embeds.dtype != self.dtype:
+            raise ValueError(
+                f"{self.cfg.name}: image embeddings are "
+                f"{str(image_embeds.dtype).removeprefix('torch.')}, the "
+                f"model is {str(self.dtype).removeprefix('torch.')}; cast "
+                f"them to the model's dtype")
+        return image_embeds
 
     def forward(self, params, tokens, image_embeds=None):
         """tokens: (B, S), image_embeds (B, n_image_tokens, D) for a model
         with cross-attention layers -> logits (B, S, V), aux_loss scalar
         (the MoE layers' summed; 0 without them). Layers run repeat-major,
-        as the reference's ``forward`` scans. ``image_embeds`` are taken in
+        as the reference's ``forward`` scans. ``image_embeds`` must be in
         the model's dtype (:meth:`_image`)."""
         cfg = self.cfg
         B, S_ = tokens.shape
@@ -285,7 +289,7 @@ class TransformerLM(nn.Module):
     def prefill(self, params, tokens, image_embeds=None, cache_len: int = 0):
         """Run the full prompt, returning (last-position logits, caches of
         capacity ``max(cache_len, S)`` for continued decoding; a cross
-        layer's cache is the projected ``image_embeds``, taken in the
+        layer's cache is the projected ``image_embeds``, which must be in the
         model's dtype). Pattern-major, as the reference's ``prefill``
         scans."""
         cfg = self.cfg

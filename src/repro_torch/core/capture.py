@@ -53,6 +53,11 @@ train step (``train/loop.py``). Each keeps :class:`CapturedGraph`'s rules:
 - **Streams.** The first replay on a stream marks what the graph reads as
   used there, so that memory freed with the entry (on another thread, say)
   is not handed out while a replay may still read it.
+- **The entry's own card.** The warm-up, the capture and each replay run
+  with the entry's card current (the current device is per thread, so a
+  compile worker sets it too): the side stream, the capture's memory pool
+  and the kernels' launches are that card's, and a failed capture hands
+  back that card's random generator.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from typing import Any, Callable
 import torch
 
 from ..kernels import launches
+from .device import on_card
 from .executor import derived_copies
 
 
@@ -151,6 +157,10 @@ class CapturedGraph:
         the card's cache between the two. Raises (with the generator
         released) if the capture fails. The caller holds
         :func:`build_lock`."""
+        with on_card(self.device):
+            return self._capture_graph(warm, body, reclaim)
+
+    def _capture_graph(self, warm, body, reclaim):
         dev = self.device
         caller = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
@@ -211,5 +221,6 @@ class CapturedGraph:
             for t in self.pinned + self.statics:
                 t.record_stream(stream)
             self.streams.add(stream.cuda_stream)
-        self.graph.replay()
+        with on_card(self.device):
+            self.graph.replay()
         launches.add(self.counts)

@@ -7,6 +7,8 @@ raises instead of quietly running the plain PyTorch versions.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -19,6 +21,16 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on CUDA unless told otherwise, and no CUDA "
             "device is available; pass device='cpu' to run on the CPU")
     return device
+
+
+def on_card(device: torch.device):
+    """A context that makes ``device`` the calling thread's current card
+    (the current device is per thread; a kernel wrapper launches on its
+    tensors' card's current stream, which must be the current card's); a
+    no-op off the card."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def block(device: torch.device) -> None:

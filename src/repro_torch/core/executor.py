@@ -192,11 +192,36 @@ class DynamicExecutor:
         return ExecResult(graph, self.impls, bufs)
 
 
+_placed = threading.local()
+
+
+@contextlib.contextmanager
+def weights_on(copies: dict[int, torch.Tensor] | None):
+    """Within the block, every impl that the calling thread runs reads each
+    of its own tensors as its copy in ``copies`` (keyed by the ``id`` of
+    the tensor copied), where there is one: how a replica on another card
+    reads that card's copy of the weights (``core/plan.py``). ``None``
+    reads them in place."""
+    outer = getattr(_placed, "copies", None)
+    _placed.copies = copies
+    try:
+        yield
+    finally:
+        _placed.copies = outer
+
+
+def placed(t: torch.Tensor) -> torch.Tensor:
+    """An impl's own tensor ``t`` as the calling thread reads it: its copy
+    under :func:`weights_on`, else ``t``."""
+    copies = getattr(_placed, "copies", None)
+    return t if copies is None else copies.get(id(t), t)
+
+
 def _param(params: Any, name: str, impl_params: dict, key: str):
     """Threaded ``params={name: tensor}`` override the impl's own tensor."""
     if isinstance(params, dict) and name in params:
         return params[name]
-    return impl_params[key]
+    return placed(impl_params[key])
 
 
 def cell_impl(name: str, compiled_cell, in_slots: list[tuple[int, str]],
@@ -221,6 +246,9 @@ def cell_impl(name: str, compiled_cell, in_slots: list[tuple[int, str]],
 
 
 _derived = threading.local()
+# the blocked copies a fused cell keeps, one for each of the last buffers it
+# saw (a replica on each of several cards reads its own copy)
+BLOCKED_BUFFERS = 8
 
 
 @contextlib.contextmanager
@@ -229,9 +257,10 @@ def derived_copies():
     parameter buffers while the block runs on the calling thread. Yields a
     list that gains one ``(buffer, version, (w, b))`` for each use: the
     blocked ``w`` and ``b`` built from ``buffer`` at that version (the cell
-    kernel's packed copy hangs off ``w``). Each cell keeps one such copy,
-    for the last buffer it saw, so a captured CUDA graph that reads one
-    must hold it itself. Another thread's uses are its own."""
+    kernel's packed copy hangs off ``w``). Each cell keeps such copies
+    only for the last ``BLOCKED_BUFFERS`` buffers it saw, so a captured
+    CUDA graph that reads one must hold it itself. Another thread's uses
+    are its own."""
     outer = getattr(_derived, "found", None)
     _derived.found = []
     try:
@@ -271,10 +300,12 @@ def _lstm_fused_gather(name: str, compiled_cell, input_names, own: dict):
     H = prog.vars["h"].shape[0]
     w_off = {g: compiled_cell.offsets[f"W{g}"] for g in "ifgo"}
     b_off = {g: compiled_cell.offsets[f"b{g}"] for g in "ifgo"}
-    cache: list = [None]   # (buffer, version, Published(w, b))
+    # id(buffer) -> (buffer, version, Published(w, b)), the last few
+    # buffers seen: one a card where replicas read per-card copies
+    cache: dict[int, tuple] = {}
 
     def blocked(buf):
-        hit = cache[0]
+        hit = cache.get(id(buf))
         if hit is None or hit[0] is not buf or hit[1] != buf._version:
             w = torch.cat(
                 [buf[w_off[g]:w_off[g] + (E + H) * H].reshape(E + H, H)
@@ -282,7 +313,11 @@ def _lstm_fused_gather(name: str, compiled_cell, input_names, own: dict):
             b = torch.cat([buf[b_off[g]:b_off[g] + H] for g in "ifgo"])
             if capturing(buf):   # the graph's own, written at each replay
                 return _note(buf, buf._version, w, b)
-            hit = cache[0] = (buf, buf._version, Published(w, b))
+            hit = (buf, buf._version, Published(w, b))
+            cache.pop(id(buf), None)
+            while len(cache) >= BLOCKED_BUFFERS:
+                cache.pop(next(iter(cache)))
+            cache[id(buf)] = hit
         return _note(buf, hit[1], *hit[2].get())
 
     def fused_gather(params, bufs, idxs, aux):
@@ -308,6 +343,6 @@ def affine_impl(name: str, w: torch.Tensor, b: torch.Tensor,
     own = {"w": w, "b": b}
 
     def apply(params, inputs, aux):
-        return {out_field: inputs[0] @ own["w"] + own["b"]}
+        return {out_field: inputs[0] @ placed(own["w"]) + placed(own["b"])}
     return NodeImpl(name, [(0, in_field)], {out_field: (w.shape[1],)}, apply,
                     params=own)

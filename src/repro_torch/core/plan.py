@@ -54,6 +54,7 @@ interpreted executor remains the reference path.
 from __future__ import annotations
 
 import hashlib
+import threading
 import time
 import warnings
 from dataclasses import dataclass, replace
@@ -68,9 +69,9 @@ from repro_torch.obs.tracer import Tracer, default_tracer
 from . import memplan
 from .batching import Policy, Schedule, policy_cache_key, resolve_schedule
 from .cache import FIFOCache, LRUCache
-from .device import block, resolve_device
+from .device import block, on_card, resolve_device
 from .capture import CapturedGraph, build_lock, tensors_of
-from .executor import ExecStats, NodeImpl
+from .executor import ExecStats, NodeImpl, weights_on
 from .graph import Graph, TypeId
 
 ArenaKey = tuple[str, tuple[int, ...]]  # (field name, element shape)
@@ -464,7 +465,9 @@ class PlanResult:
 
     def field(self, fld: str, ids) -> torch.Tensor:
         arena, rows = self.arena_rows(fld, ids)
-        return gather_rows(arena, torch.as_tensor(rows, device=arena.device))
+        with on_card(arena.device):   # the gather launches on its card
+            return gather_rows(arena, torch.as_tensor(rows,
+                                                      device=arena.device))
 
     def arena_rows(self, fld: str, ids) -> tuple[torch.Tensor, np.ndarray]:
         """(arena, row-index vector) for ``fld`` at ``ids`` — the raw
@@ -1038,10 +1041,14 @@ class _Bucket(CapturedGraph):
     as the reference's undonated runs return fresh arrays."""
 
     def __init__(self, prog: _BucketProgram, impls: dict,
-                 device: torch.device, lead: tuple[int, ...] = ()):
+                 device: torch.device, lead: tuple[int, ...] = (),
+                 weights: Callable[[], dict] | None = None):
         super().__init__(device)
         self.prog = prog
         self.impls = impls
+        # the impls' weights as this entry reads them: copies on its card
+        # (``BucketedPlanExecutor.weight_copies``), or None for in place
+        self.weights = weights
         self.pool: dict = {}
         self.loaded: BucketedPack | None = None
         spec = prog.spec
@@ -1066,8 +1073,9 @@ class _Bucket(CapturedGraph):
     def _body(self, params: Any, arenas: dict) -> dict:
         """The program over the static buffers, writing into ``arenas``
         (allocated at their first writes where absent)."""
-        return self.prog.body(params, self.idx, self.idx_long, self.aux,
-                              arenas)
+        with weights_on(None if self.weights is None else self.weights()):
+            return self.prog.body(params, self.idx, self.idx_long, self.aux,
+                                  arenas)
 
     def _static_arenas(self, warm: dict) -> dict:
         """The arenas a capture writes into, made before it from the
@@ -1088,15 +1096,17 @@ class _Bucket(CapturedGraph):
     def run(self, pack: BucketedPack, aux: np.ndarray, params: Any,
             donate: bool) -> dict[ArenaKey, torch.Tensor]:
         """One run of the bucket on ``pack``'s operands, queued on the
-        current stream: refill the static buffers, then replay the graph
-        where one was captured, else run the body eagerly over them."""
-        self.load(pack, aux)
-        if self.graph is None:
-            return self._body(params, self.pool if donate else {})
-        self.replay()
-        if donate:
-            return dict(self.out)
-        return {k: v.clone() for k, v in self.out.items()}
+        current stream of its card: refill the static buffers, then replay
+        the graph where one was captured, else run the body eagerly over
+        them."""
+        with on_card(self.device):
+            self.load(pack, aux)
+            if self.graph is None:
+                return self._body(params, self.pool if donate else {})
+            self.replay()
+            if donate:
+                return dict(self.out)
+            return {k: v.clone() for k, v in self.out.items()}
 
 
 class BucketedPlanExecutor:
@@ -1113,6 +1123,12 @@ class BucketedPlanExecutor:
     runs every bucket eagerly on the card, over the same static buffers
     (the counterpart of running the reference under ``jax.disable_jit()``).
     On the CPU a bucket always runs eagerly.
+
+    ``copy_weights``: the executor reads its impls' weights through copies
+    on ``device``, made once for each version of them
+    (:meth:`weight_copies`): a replica on a card the weights do not live
+    on. ``placement`` (hashable) joins every executable key, so that two
+    placements never share an entry.
     """
 
     def __init__(self, impls: dict[TypeId, NodeImpl], params: Any, *,
@@ -1125,7 +1141,8 @@ class BucketedPlanExecutor:
                  exe_cache: FIFOCache | None = None, namespace: Any = None,
                  compile_hook: Callable[[Any], None] | None = None,
                  tracer: Tracer | None = None, device=None,
-                 capture: bool = True):
+                 capture: bool = True, copy_weights: bool = False,
+                 placement: Any = None):
         self.impls = impls
         self.params = params
         self.layout = layout
@@ -1152,6 +1169,30 @@ class BucketedPlanExecutor:
         self.compile_time_s = 0.0
         self.n_captures = 0       # CUDA graphs captured by this executor
         self.n_replays = 0        # and replayed
+        self.copy_weights = bool(copy_weights)
+        self.placement = placement
+        self._copies: tuple | None = None    # (weights' key, copies)
+        self._copies_lock = threading.Lock()
+
+    def weight_copies(self) -> dict[int, torch.Tensor]:
+        """The impls' weights copied to this executor's device, keyed by
+        the ``id`` of each original (what ``core/executor.py:weights_on``
+        takes); copied again once a weight's data pointer or version has
+        moved, so an update reaches every card. The copy is queued on the
+        card's current stream after the source card's pending work
+        (``Tensor.to`` between cards orders itself against both cards'
+        current streams)."""
+        ws = _weights(self.impls)
+        key = tuple((t.data_ptr(), t._version) for t in ws)
+        with self._copies_lock:
+            if self._copies is None or self._copies[0] != key:
+                with on_card(self.device), torch.no_grad():
+                    self._copies = (key, {id(t): t.detach().to(
+                        self.device, copy=True) for t in ws})
+            return self._copies[1]
+
+    def _entry_weights(self) -> Callable[[], dict] | None:
+        return self.weight_copies if self.copy_weights else None
 
     def _pack_key(self, graph: Graph,
                   policy: Policy | Callable[[Graph], Schedule],
@@ -1211,6 +1252,8 @@ class BucketedPlanExecutor:
         entry captured over copies of it is stale (``_Bucket.current``) and
         is built again."""
         key = (self._ns, pack.spec, _params_kind(params))
+        if self.placement is not None:
+            key += (("placement", self.placement),)
         if not self.capture:
             return key + ("eager",)
         return key + _static_key(self.impls, params)
@@ -1269,16 +1312,7 @@ class BucketedPlanExecutor:
                 return key, entry, 0.0
             t0 = time.perf_counter()
             prog = _BucketProgram(pack.spec, self.impls, fused=self.fused)
-            # The pool starts empty: an eager run allocates the arenas at
-            # their first writes, and with donation later runs reuse them.
-            entry = _Bucket(prog, self.impls, self.device)
-            if self.capture:
-                entry.pinned = tensors_of(params) + _weights(self.impls)
-            if capture:
-                entry.load(pack, aux if aux is not None else
-                           np.zeros(pack.spec.n_aux_lanes, np.int32))
-                entry.capture(params)
-                self.n_captures += 1
+            entry = self._new_entry(prog, params, pack, aux, capture)
             self._exes[key] = entry
             dt = time.perf_counter() - t0
             sp.set(lower_s=dt)
@@ -1287,6 +1321,28 @@ class BucketedPlanExecutor:
             pack.stats.n_compiles += 1
             pack.stats.compile_time_s += dt
         return key, entry, dt
+
+    def _new_entry(self, prog: _BucketProgram, params: Any,
+                   pack: BucketedPack | None, aux: np.ndarray | None,
+                   capture: bool) -> _Bucket:
+        """A single-device entry for ``prog`` on this executor's device,
+        captured over ``pack``'s indices and ``aux`` (zeros where None)
+        when ``capture``. The caller holds the build lock. The pool starts
+        empty: an eager run allocates the arenas at their first writes,
+        and with donation later runs reuse them."""
+        entry = _Bucket(prog, self.impls, self.device,
+                        weights=self._entry_weights())
+        if self.capture:
+            entry.pinned = tensors_of(params) + _weights(self.impls)
+            if self.copy_weights:
+                entry.pinned += list(self.weight_copies().values())
+        if capture:
+            if pack is not None:
+                entry.load(pack, aux if aux is not None else
+                           np.zeros(prog.spec.n_aux_lanes, np.int32))
+            entry.capture(params)
+            self.n_captures += 1
+        return entry
 
     def run(self, graph: Graph, policy: Policy | Callable[[Graph], Schedule],
             stats: ExecStats | None = None, params: Any = None) -> PlanResult:
@@ -1342,8 +1398,9 @@ class BucketedPlanExecutor:
                 self.n_replays += 1
             done = None
             if self.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
+                with on_card(self.device):
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
         dispatch_s = time.perf_counter() - t1
         return InFlightDispatch(self, graph, pack, key, entry, arenas, stats,
                                 dispatch_s, compile_s, done)
@@ -1405,8 +1462,16 @@ class InFlightDispatch:
 
 
 # ---------------------------------------------------------------------------
-# Sharded bucketed execution (data-parallel replicas on one card)
+# Sharded bucketed execution (data-parallel replicas: stacked on one card,
+# or one a card)
 # ---------------------------------------------------------------------------
+
+
+class PerCard(tuple):
+    """One tensor a replica, replica ``s``'s on its own card: the per-card
+    form of a tensor with a leading replica axis (the serve engine's slot
+    pools on a per-card mesh). Row ``s`` of a sharded nest is element
+    ``s`` (:func:`_shard_slice`)."""
 
 
 def _merge_params(replicated: Any, per_shard: Any) -> Any:
@@ -1428,7 +1493,10 @@ def _merge_params(replicated: Any, per_shard: Any) -> Any:
 
 def _shard_slice(x: Any, s: int) -> Any:
     """Row ``s`` of every tensor in a nest of dicts, lists and tuples: views,
-    so a graph captured over them reads the stacked tensors in place."""
+    so a graph captured over them reads the stacked tensors in place
+    (element ``s`` of a :class:`PerCard`)."""
+    if isinstance(x, PerCard):
+        return x[s]
     if isinstance(x, torch.Tensor):
         return x[s]
     if isinstance(x, dict):
@@ -1484,35 +1552,74 @@ class _ShardedBucket(_Bucket):
         return {k: torch.zeros_like(v) for k, v in warm.items()}
 
 
+class _CardBuckets:
+    """One sharded bucket signature's entry on a per-card mesh: one
+    single-device :class:`_Bucket` a replica, on that replica's card, each
+    with its own static index and aux buffers, arenas, weight copies and
+    captured graph, running the single-device program verbatim (the
+    reference's shard body)."""
+
+    def __init__(self, buckets: list[_Bucket]):
+        self.buckets = buckets
+
+    def current(self) -> bool:
+        return all(b.current() for b in self.buckets)
+
+    @property
+    def graph(self):
+        """The first replica's graph: every replica's is captured, or
+        none."""
+        return self.buckets[0].graph
+
+
 class ShardPlanResult(PlanResult):
-    """Shard ``shard``'s view of a sharded run: ``arenas`` are that shard's
-    rows of the stacked arenas (``stacked``), which :meth:`stacked_rows`
-    addresses flat, so a caller can read every shard's rows in one gather."""
+    """Shard ``shard``'s view of a sharded run. On a stacked mesh
+    ``arenas`` are that shard's rows of the stacked arenas (``stacked``),
+    which :meth:`stacked_rows` addresses flat, so a caller can read every
+    shard's rows in one gather. On a per-card mesh (``cards``) they are
+    that card's own arenas, and there is no stacked view."""
 
     def __init__(self, graph: Graph, impls: dict[TypeId, NodeImpl],
-                 stacked: dict[ArenaKey, torch.Tensor], shard: int,
-                 row_of: dict[tuple[ArenaKey, int], int]):
-        super().__init__(graph, impls, {k: v[shard] for k, v in stacked.items()},
-                         row_of)
+                 stacked: dict[ArenaKey, torch.Tensor] | None, shard: int,
+                 row_of: dict[tuple[ArenaKey, int], int],
+                 cards: dict[ArenaKey, torch.Tensor] | None = None):
+        super().__init__(graph, impls,
+                         cards if stacked is None else
+                         {k: v[shard] for k, v in stacked.items()}, row_of)
         self.stacked = stacked
         self.shard = shard
 
     def stacked_rows(self, fld: str, ids) -> tuple[torch.Tensor, np.ndarray]:
         """(flat stacked arena ``(K * rows, *row)``, row-index vector into
         it) for ``fld`` at ``ids`` of this shard."""
+        if self.stacked is None:
+            raise ValueError("a per-card shard has no stacked arenas; read "
+                             "its own with arena_rows")
         key, rows = self._key_rows(fld, ids)
         v = self.stacked[key]
         return v.view((-1,) + tuple(v.shape[2:])), rows + self.shard * v.shape[1]
 
 
 class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
-    """Data-parallel counterpart of :class:`BucketedPlanExecutor`: K shards'
-    runtime operands (index packs, aux vectors, per-shard params such as
-    the serve engine's stacked lm slot pool) are stacked on a leading
-    replica axis and the *same* bucket program runs once per shard — the
-    reference's ``shard_map`` over a 1-D ``("data",)`` mesh, here K
-    replicas on the one card of the mesh (``launch/mesh.py``). On the card
-    the K bodies are captured into one CUDA graph: one replay, K replicas.
+    """Data-parallel counterpart of :class:`BucketedPlanExecutor`: the
+    *same* bucket program runs once per shard — the reference's
+    ``shard_map`` over a 1-D ``("data",)`` mesh (``launch/mesh.py``), in
+    one of the mesh's two placements:
+
+    - **stacked**: K shards' runtime operands (index packs, aux vectors,
+      per-shard params such as the serve engine's stacked lm slot pool)
+      are stacked on a leading replica axis, and K replicas live on the
+      one card of the mesh. On the card the K bodies are captured into one
+      CUDA graph: one replay, K replicas.
+    - **cards**: one replica a card, as the reference places them. A
+      sharded signature's entry holds one single-device entry a replica
+      (:class:`_CardBuckets`) on its card, built and captured there with
+      that card current; the replicated weights are copied to each card
+      once a version (the first placement on the weights' own device reads
+      them in place), the per-shard params are a :class:`PerCard` nest,
+      and a run queues every card's replay before it waits on any. Each
+      replica's single-device executor (``card_executors``) runs that
+      shard's fallback rounds on its card.
 
     The per-shard computation is the single-device program verbatim, so
     shard results equal running each shard's graph through
@@ -1524,11 +1631,11 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
     ``run_sharded`` requires every shard's pack to share one bucket
     signature (the serve scheduler pads shards to a common signature for
     lm rounds). When signatures diverge or some shards are idle, it
-    degrades to per-shard sequential execution through the inherited
-    single-device path (still bucketed, still cached; counted in
-    ``n_fallback_rounds``). A shard's slice of ``shard_params`` is a view
-    with its own address, so one signature may capture up to K
-    single-device graphs there.
+    degrades to per-shard sequential execution through the single-device
+    path (still bucketed, still cached; counted in ``n_fallback_rounds``),
+    each shard on its own card (:meth:`run_shard`). A shard's slice of
+    ``shard_params`` is a view with its own address, so one signature may
+    capture up to K single-device graphs there.
     """
 
     def __init__(self, impls: dict[TypeId, NodeImpl], params: Any, *,
@@ -1548,6 +1655,28 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
                              f"n_shards={n_shards}")
         self.n_sharded_dispatches = 0
         self.n_fallback_rounds = 0
+        self.card_executors: list[BucketedPlanExecutor] | None = None
+        if getattr(mesh, "placement", "stacked") == "cards":
+            self.card_executors = self._card_executors(kwargs)
+
+    def _card_executors(self, kwargs: dict) -> list[BucketedPlanExecutor]:
+        """One single-device executor a replica, on its card, sharing this
+        executor's caches and namespace; the placement (the replica's
+        index into the mesh's devices, and the card) joins its keys. The
+        first placement on this executor's device (where the impls'
+        weights live) reads them in place, every other one its copies."""
+        from repro_torch.launch.mesh import concrete
+
+        home = concrete(self.device)
+        first = next((i for i, d in enumerate(self.mesh.listed)
+                      if d == home), None)
+        return [BucketedPlanExecutor(
+            self.impls, self.params,
+            **dict(kwargs, device=card, pack_cache=self._packs,
+                   exe_cache=self._exes, namespace=self._ns,
+                   compile_hook=self.compile_hook, tracer=self.tracer,
+                   copy_weights=i != first, placement=(i, str(card))))
+            for i, card in zip(self.mesh.replicas, self.mesh.cards)]
 
     # -- sharded program ------------------------------------------------------
 
@@ -1559,6 +1688,9 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
         versions, as :meth:`BucketedPlanExecutor.executable_key`."""
         key = (self._ns, sspec, _params_kind(params),
                _params_kind(shard_params))
+        if self.card_executors is not None:
+            key += (("cards", tuple(ex.placement
+                                    for ex in self.card_executors)),)
         if not self.capture:
             return key + ("eager",)
         return key + _static_key(self.impls, params, shard_params)
@@ -1613,18 +1745,24 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
             if entry is not None and entry.current():
                 return key, entry, 0.0
             t0 = time.perf_counter()
-            prog = _BucketProgram(sspec, self.impls, fused=self.fused)
-            entry = _ShardedBucket(prog, self.impls, self.device,
-                                   self.n_shards)
-            if self.capture:
-                entry.pinned = (tensors_of(params) + tensors_of(shard_params)
-                                + _weights(self.impls))
-            if capture:
-                if packs is not None:
-                    entry.load(packs, aux if aux is not None else np.zeros(
-                        (self.n_shards, sspec.n_aux_lanes), np.int32))
-                entry.capture((params, shard_params))
-                self.n_captures += 1
+            if self.card_executors is not None:
+                entry = self._build_cards(sspec, params, shard_params, packs,
+                                          aux, capture)
+            else:
+                prog = _BucketProgram(sspec, self.impls, fused=self.fused)
+                entry = _ShardedBucket(prog, self.impls, self.device,
+                                       self.n_shards)
+                if self.capture:
+                    entry.pinned = (tensors_of(params)
+                                    + tensors_of(shard_params)
+                                    + _weights(self.impls))
+                if capture:
+                    if packs is not None:
+                        entry.load(packs, aux if aux is not None else
+                                   np.zeros((self.n_shards,
+                                             sspec.n_aux_lanes), np.int32))
+                    entry.capture((params, shard_params))
+                    self.n_captures += 1
             self._exes[key] = entry
             dt = time.perf_counter() - t0
             sp.set(lower_s=dt)
@@ -1632,7 +1770,51 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
         self.compile_time_s += dt
         return key, entry, dt
 
+    def _build_cards(self, sspec: BucketSpec, params: Any,
+                     shard_params: Any, packs: list[BucketedPack] | None,
+                     aux: np.ndarray | None, capture: bool) -> _CardBuckets:
+        """The per-card entry: replica ``s``'s single-device program (the
+        spec at one shard) built, and captured on its card, by its card
+        executor over its packs' indices, its row of ``aux`` and its
+        params. The caller holds the build lock."""
+        prog = _BucketProgram(replace(sspec, n_shards=1), self.impls,
+                              fused=self.fused)
+        buckets = []
+        for s, cex in enumerate(self.card_executors):
+            mine = _merge_params(params, _shard_slice(shard_params, s))
+            before = cex.n_captures
+            buckets.append(cex._new_entry(
+                prog, mine, packs[s] if packs is not None else None,
+                aux[s] if aux is not None else None, capture))
+            self.n_captures += cex.n_captures - before
+        return _CardBuckets(buckets)
+
     # -- execution ------------------------------------------------------------
+
+    def run_shard(self, s: int, graph: Graph,
+                  policy: Policy | Callable[[Graph], Schedule],
+                  stats: ExecStats | None = None,
+                  params: Any = None) -> PlanResult:
+        """Shard ``s``'s graph alone through the single-device bucketed
+        path, on its own card: the fallback rounds' and the serve
+        engine's per-shard tier. ``params`` are the shard's own (the
+        replicated params merged with its slice of the sharded ones)."""
+        if self.card_executors is None:
+            return super().run(graph, policy, stats, params=params)
+        stats = stats if stats is not None else ExecStats()
+        cex = self.card_executors[s]
+        with self.tracer.span("plan.pack", cat="plan"):
+            pack = self.pack_for(graph, policy, stats)
+        counts = (cex.n_captures, cex.n_replays, cex.n_bucket_compiles,
+                  cex.compile_time_s)
+        try:
+            return cex.run_packed(graph, pack, stats, params=params)
+        finally:
+            # the card executors' builds and replays are this executor's
+            self.n_captures += cex.n_captures - counts[0]
+            self.n_replays += cex.n_replays - counts[1]
+            self.n_bucket_compiles += cex.n_bucket_compiles - counts[2]
+            self.compile_time_s += cex.compile_time_s - counts[3]
 
     def _run_fallback(self, graphs, policy, stats: ExecStats, params: Any,
                       shard_params: Any) -> list[PlanResult | None]:
@@ -1643,8 +1825,8 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
                 results.append(None)
                 continue
             mine = _shard_slice(shard_params, s)
-            results.append(super().run(g, policy, stats,
-                                       params=_merge_params(params, mine)))
+            results.append(self.run_shard(s, g, policy, stats,
+                                          params=_merge_params(params, mine)))
         return results
 
     def run_sharded(self, graphs, policy: Policy | Callable[[Graph], Schedule],
@@ -1657,7 +1839,10 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
         engine's stacked lm slot pool), row ``s`` read by shard ``s``.
         Returns one :class:`ShardPlanResult` per shard, viewing that
         shard's rows of the stacked arenas (copies of the graph's, unless
-        the executor donates).
+        the executor donates). On a per-card mesh ``shard_params`` is a
+        nest of :class:`PerCard` tensors, every card's replay is queued
+        before the run waits on any card, and each result holds its card's
+        own arenas.
         """
         stats = stats if stats is not None else ExecStats()
         tr = self.tracer
@@ -1688,16 +1873,31 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
             packs[0].stats.n_compiles += 1
             packs[0].stats.compile_time_s += compile_s
         t1 = time.perf_counter()
+        cards = self.card_executors
         with tr.span("plan.dispatch", cat="plan"):
-            arenas = entry.run(packs, aux, (params, shard_params),
-                               self.donate)
-            if entry.graph is not None:
-                self.n_replays += 1
+            if cards is None:
+                arenas = entry.run(packs, aux, (params, shard_params),
+                                   self.donate)
+                if entry.graph is not None:
+                    self.n_replays += 1
+            else:
+                # every card's replay queued before any card is waited on
+                arenas = [b.run(p, aux[s], _merge_params(
+                    params, _shard_slice(shard_params, s)), self.donate)
+                    for s, (b, p) in enumerate(zip(entry.buckets, packs))]
+                if entry.graph is not None:
+                    self.n_replays += len(arenas)
         with tr.span("plan.block", cat="plan"):
-            block(self.device)
+            for dev in (dict.fromkeys(self.mesh.cards) if cards is not None
+                        else (self.device,)):
+                block(dev)
         dt = time.perf_counter() - t1
         if self.donate:
-            entry.pool = arenas
+            if cards is None:
+                entry.pool = arenas
+            else:
+                for b, a in zip(entry.buckets, arenas):
+                    b.pool = a
         if compile_s > 0:
             stats.lower_time += compile_s
             stats.n_compiles += 1
@@ -1705,5 +1905,9 @@ class ShardedBucketedPlanExecutor(BucketedPlanExecutor):
         stats.n_batches += sum(p.stats.n_steps for p in packs)
         stats.n_launches += 1
         self.n_sharded_dispatches += 1
+        if cards is not None:
+            return [ShardPlanResult(g, self.impls, None, s, p.row_of,
+                                    cards=arenas[s])
+                    for s, (g, p) in enumerate(zip(graphs, packs))]
         return [ShardPlanResult(g, self.impls, arenas, s, p.row_of)
                 for s, (g, p) in enumerate(zip(graphs, packs))]

@@ -1,20 +1,28 @@
-"""Meshes: the serve engine's data mesh of K replicas on one card, and
-the production training meshes as shapes.
+"""Meshes: the serve engine's data mesh of K replicas, and the production
+training meshes as shapes.
 
 ``make_data_mesh(k)`` is the data-mesh half of the reference's
 ``launch/mesh.py``: a 1-D ``("data",)`` mesh of ``k`` replicas, the mesh
 the sharded bucketed-plan executor
-(``core.plan.ShardedBucketedPlanExecutor``) runs under. The reference puts
-one replica on each of ``k`` devices under ``shard_map``; here every
-replica lives on the one device the engine was given, as one row of a
-leading replica axis over the executor's static buffers and the engine's
-stacked slot pool, and one captured CUDA graph runs all of them.
+(``core.plan.ShardedBucketedPlanExecutor``) runs under. It places them in
+one of two ways (``DataMesh.placement``):
 
-A replica id plays the part of the reference's device index: ``exclude``
-holds ids treated as dead, and the mesh takes the first ``k`` surviving
-ids, so the engine's ``excluded_devices`` (and the checkpoint field that
-carries them) mean what they mean in the reference. Ids are not bounded by
-the number of cards.
+- ``"stacked"`` (the default): every replica lives on the one device the
+  engine was given, as one row of a leading replica axis over the
+  executor's static buffers and the engine's stacked slot pool, and one
+  captured CUDA graph runs all of them. A replica id plays the part of
+  the reference's device index: ``exclude`` holds ids treated as dead,
+  and the mesh takes the first ``k`` surviving ids. Ids are not bounded
+  by the number of cards.
+- ``"cards"``: one replica a device, in one process, as the reference's
+  ``shard_map`` places them: replica ``i`` on the ``i``-th surviving entry
+  of ``devices`` (default every card, ``cuda:0 .. cuda:N-1``), each
+  running the single-device program on its own card. ``exclude`` holds
+  indices into ``devices``, the reference's device indices, and too few
+  survivors raise the reference's ``RuntimeError``: a per-card mesh never
+  falls back to stacking. A list may name a device more than once
+  (``("cuda:0", "cuda:0")``): two placements of one card, each with its
+  own buffers, graphs and slot pool, as two cards would have.
 
 The production meshes (``make_production_mesh``): single pod 16 x 16 =
 256 devices, axes ("data", "model"); multi-pod 2 x 16 x 16 = 512, axes
@@ -23,8 +31,7 @@ pods. One card cannot hold them, so :func:`device_mesh` builds a
 :class:`ShapeMesh` of placeholder ids, the counterpart of the reference's
 forced host devices: the dry-run (``launch/dryrun.py``) and the
 ``Partitioner`` (``launch/sharding.py``) read only its shape and axis
-names. Placing replicas on several cards (one process per card) is not
-here.
+names.
 """
 
 from __future__ import annotations
@@ -36,16 +43,28 @@ import torch
 
 from repro_torch.core.device import resolve_device
 
+PLACEMENTS = ("stacked", "cards")
+
+
+class MeshError(RuntimeError):
+    """Too few devices survive for a per-card mesh: the reference's
+    ``RuntimeError``."""
+
 
 @dataclass(frozen=True)
 class DataMesh:
-    """A 1-D mesh of replica ids on one device. ``devices`` and
-    ``axis_names`` answer what the reference's ``jax.sharding.Mesh``
-    answers (``mesh.devices.size`` is the replica count)."""
+    """A 1-D mesh of replicas. ``replicas`` are their ids: replica ids on
+    the one ``device`` when ``placement`` is ``"stacked"``, indices into
+    ``listed`` (the devices the mesh was built over) when it is
+    ``"cards"``. ``devices`` and ``axis_names`` answer what the
+    reference's ``jax.sharding.Mesh`` answers (``mesh.devices.size`` is
+    the replica count)."""
 
     replicas: tuple[int, ...]
     axis: str
     device: torch.device
+    placement: str = "stacked"
+    listed: tuple[torch.device, ...] = ()
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -55,22 +74,80 @@ class DataMesh:
     def devices(self) -> np.ndarray:
         return np.asarray(self.replicas)
 
+    @property
+    def cards(self) -> tuple[torch.device, ...]:
+        """The device of each replica, in shard order."""
+        if self.placement == "stacked":
+            return (self.device,) * len(self.replicas)
+        return tuple(self.listed[i] for i in self.replicas)
+
+
+def all_cards() -> tuple[torch.device, ...]:
+    """Every CUDA device of the machine (none without CUDA)."""
+    if not torch.cuda.is_available():
+        return ()
+    return tuple(torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count()))
+
+
+def concrete(device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
 
 def make_data_mesh(n_devices: int | None = None, *, axis: str = "data",
-                   exclude: tuple[int, ...] = (), device=None) -> DataMesh:
-    """A 1-D pure data-parallel mesh of ``n_devices`` replicas (default:
-    one) on ``device`` (``None`` = CUDA) — one replica of the bucketed plan
-    program each.
+                   exclude: tuple[int, ...] = (), device=None,
+                   placement: str | None = None,
+                   devices=None) -> DataMesh:
+    """A 1-D pure data-parallel mesh of ``n_devices`` replicas — one
+    replica of the bucketed plan program each.
 
-    ``exclude`` holds replica ids treated as dead: the mesh takes the first
-    ``n_devices`` *surviving* ids. This is how the serve engine rebuilds
-    its executor after a replica loss — the K-1 mesh must not include the
-    replica that died."""
+    Stacked (the default): ``n_devices`` (default one) replica ids on
+    ``device`` (``None`` = CUDA); ``exclude`` holds ids treated as dead and
+    the mesh takes the first ``n_devices`` *surviving* ids. This is how
+    the serve engine rebuilds its executor after a replica loss — the K-1
+    mesh must not include the replica that died.
+
+    Per card (``placement="cards"``, or ``devices`` given): replica ``i``
+    on the ``i``-th entry of ``devices`` (default every card) whose index
+    is not in ``exclude``; ``n_devices`` defaults to every survivor.
+    Raises :class:`MeshError` (a ``RuntimeError``, as the reference
+    raises) when fewer than ``n_devices`` survive."""
+    if placement is None:
+        placement = "stacked" if devices is None else "cards"
+    if placement not in PLACEMENTS:
+        raise ValueError(f"placement must be one of {PLACEMENTS}, got "
+                         f"{placement!r}")
+    dead = set(exclude)
+    if placement == "cards":
+        listed = tuple(concrete(d) for d in (
+            all_cards() if devices is None else devices))
+        alive = [i for i in range(len(listed)) if i not in dead]
+        if n_devices is None:
+            n_devices = len(alive)
+        if n_devices < 1:
+            raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+        if len(alive) < n_devices:
+            if not dead:
+                raise MeshError(
+                    f"need {n_devices} devices for mesh "
+                    f"{ {axis: n_devices} }, found {len(listed)}")
+            raise MeshError(
+                f"need {n_devices} devices for a 1-D {axis!r} mesh with "
+                f"{sorted(dead)} excluded, but only {len(alive)} of "
+                f"{len(listed)} local devices survive")
+        return DataMesh(tuple(alive[:n_devices]), axis,
+                        listed[alive[0]], "cards", listed)
+    if devices is not None:
+        raise ValueError("a stacked mesh lives on one device: pass device=, "
+                         "not devices=")
     if n_devices is None:
         n_devices = 1
     if n_devices < 1:
         raise ValueError(f"n_devices must be >= 1, got {n_devices}")
-    dead = set(exclude)
     alive, i = [], 0
     while len(alive) < n_devices:
         if i not in dead:

@@ -22,10 +22,10 @@ What each term counts here (``launch/dryrun.py`` traces the step on the
   and outputs (views and metadata ops count zero), divided by the chips:
   an upper bound with no fusion outside the kernels, where XLA's figure
   is after fusion.
-- ``coll_bytes``: None. The port has no HLO to parse for collectives; the
-  bytes of the ``torch.distributed`` collectives a step issues come with
-  replicas on several cards (ROADMAP Queue 1), so ``t_collective`` is
-  None and ``dominant`` is taken over the terms present.
+- ``coll_bytes``: None. The port has no HLO to parse for collectives
+  (reckoning them from the ``Partitioner``'s specs is ROADMAP Queue 1),
+  so ``t_collective`` is None and ``dominant`` is taken over the terms
+  present.
 
 The peaks are the H100 SXM 80GB's data-sheet figures at its 700 W limit
 (dense, no sparsity). A row's ``dtype`` picks its compute peak. A

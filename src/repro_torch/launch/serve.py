@@ -22,6 +22,10 @@ latency-percentile stats. It runs on the card unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --devices 4 \
         --requests 32 --arrivals poisson
 
+    # one replica on each of 4 cards, in this process (a replay a card)
+    PYTHONPATH=src python -m repro_torch.launch.serve --devices 4 \
+        --placement cards
+
 The defaults are the reference's: bucketed plans (on the card each bucket
 signature is captured once as a CUDA graph), async compile (the captures
 run on background workers), pipelined continuous rounds, one replica.
@@ -52,6 +56,7 @@ import time
 import numpy as np
 
 from repro_torch.core.rl import RLConfig, train_fsm
+from repro_torch.launch.mesh import MeshError, make_data_mesh
 from repro_torch.models.workloads import SERVE_FAMILIES, make_workload
 from repro_torch.obs import FlightRecorder, Obs
 from repro_torch.obs.metrics import default_registry
@@ -152,9 +157,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--devices", type=int, default=1,
                     help="data-parallel replicas: shard bucketed plan "
                          "execution over a 1-D ('data',) mesh of this many "
-                         "replicas (bucketed plan mode only). In this port "
-                         "they share the card named by --device, and one "
-                         "graph replay serves all of them")
+                         "replicas (bucketed plan mode only), placed as "
+                         "--placement says")
+    ap.add_argument("--placement", choices=["stacked", "cards"],
+                    default="stacked",
+                    help="stacked: the replicas share the card named by "
+                         "--device, and one graph replay serves all of "
+                         "them; cards: one replica on each of the first "
+                         "--devices cards, in this process, as the "
+                         "reference's shard_map places them (exits with "
+                         "the mesh's error on a machine with fewer cards)")
     ap.add_argument("--device", default="cuda",
                     help="where the engine serves: cuda (the default) or "
                          "cpu (every kernel runs its plain PyTorch version)")
@@ -265,6 +277,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.devices > 1 and args.plan != "bucketed":
         ap.error("--devices > 1 requires --plan bucketed (replicas shard "
                  "the bucketed executable)")
+    if args.placement == "cards":
+        if args.plan != "bucketed":
+            ap.error("--placement cards requires --plan bucketed")
+        if not args.restore:
+            try:
+                make_data_mesh(args.devices, placement="cards")
+            except MeshError as exc:
+                ap.error(f"--placement cards --devices {args.devices}: "
+                         f"{exc}")
     if args.warm_start and not _use_async(args):
         ap.error("--warm-start needs async compile "
                  "(--plan bucketed without --no-async-compile)")
@@ -305,14 +326,19 @@ def make_engine(args, workloads, registry=None, obs=None,
             if src is None:
                 build_parser().error(
                     f"--restore {args.restore}: no checkpoints found")
-        eng = ServeEngine.restore(
-            src, workloads, obs=obs, fault_injector=injector,
-            registry=registry,
-            checkpoint_dir=args.checkpoint_dir or None,
-            checkpoint_every=args.checkpoint_every or None,
-            async_compile=use_async,
-            compile_workers=args.compile_workers,
-            compile_timeout_s=args.compile_timeout, device=args.device)
+        try:
+            eng = ServeEngine.restore(
+                src, workloads, obs=obs, fault_injector=injector,
+                registry=registry,
+                checkpoint_dir=args.checkpoint_dir or None,
+                checkpoint_every=args.checkpoint_every or None,
+                async_compile=use_async,
+                compile_workers=args.compile_workers,
+                compile_timeout_s=args.compile_timeout, device=args.device,
+                placement=args.placement)
+        except MeshError as exc:
+            build_parser().error(f"--restore {args.restore} --placement "
+                                 f"{args.placement}: {exc}")
         if args.no_pipeline:
             # The checkpoint config carries the pipeline flag; --no-pipeline
             # on the resume command line still wins (nothing has run yet).
@@ -337,7 +363,8 @@ def make_engine(args, workloads, registry=None, obs=None,
                        async_compile=use_async,
                        compile_workers=args.compile_workers,
                        compile_timeout_s=args.compile_timeout,
-                       pipeline=not args.no_pipeline, device=args.device)
+                       pipeline=not args.no_pipeline, device=args.device,
+                       placement=args.placement)
 
 
 def serve(args, workloads: dict | None = None

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.executor import NodeImpl, cell_impl, embed_impl
+from repro_torch.core.executor import NodeImpl, cell_impl, embed_impl, placed
 from repro_torch.core.graph import Graph, Node
 from repro_torch.core.subgraph import CompiledCell
 from repro_torch.kernels.gather_batch import gather_rows
@@ -47,7 +47,7 @@ def _out_impl(in_slots, wo: torch.Tensor, bo: torch.Tensor) -> NodeImpl:
 
     def out_apply(params, inputs, aux):
         x = inputs[0] if len(inputs) == 1 else torch.cat(inputs, dim=-1)
-        return {"y": x @ own["wo"] + own["bo"]}
+        return {"y": x @ placed(own["wo"]) + placed(own["bo"])}
     return NodeImpl("O", in_slots, {"y": (wo.shape[1],)}, out_apply,
                     params=own)
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.executor import NodeImpl, cell_impl, embed_impl
+from repro_torch.core.executor import NodeImpl, cell_impl, embed_impl, placed
 from repro_torch.core.graph import Graph, Node
 from repro_torch.core.subgraph import CompiledCell
 from .cells import gru_cell, lattice_char_gru, lattice_char_lstm, lstm_cell
@@ -37,7 +37,7 @@ def _out_impl(wo: torch.Tensor) -> NodeImpl:
     own = {"wo": wo}
 
     def out_apply(params, inputs, aux):
-        return {"y": inputs[0] @ own["wo"]}
+        return {"y": inputs[0] @ placed(own["wo"])}
 
     return NodeImpl("O", [(0, "h_out")], {"y": (N_TAGS,)}, out_apply,
                     params=own)

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.executor import NodeImpl, cell_impl, embed_impl
+from repro_torch.core.executor import NodeImpl, cell_impl, embed_impl, placed
 from repro_torch.core.graph import Graph, Node
 from repro_torch.core.subgraph import CompiledCell
 from repro_torch.kernels.gather_batch import gather_rows
@@ -62,7 +62,7 @@ def _out_impl(rng: np.random.Generator, hidden: int, h_field: str,
            "b": torch.zeros(N_CLASSES, dtype=torch.float32, device=device)}
 
     def apply(params, inputs, aux):
-        return {"y": inputs[0] @ own["w"] + own["b"]}
+        return {"y": inputs[0] @ placed(own["w"]) + placed(own["b"])}
 
     return NodeImpl("O", [(0, h_field)], {"y": (N_CLASSES,)}, apply,
                     params=own)
@@ -76,8 +76,8 @@ def _mv_embed_impl(vec: torch.Tensor, mat: torch.Tensor) -> NodeImpl:
     h = vec.shape[1]
 
     def apply(params, inputs, aux):
-        return {"a_out": gather_rows(own["vec"], aux),
-                "A_out": gather_rows(own["mat"], aux)}
+        return {"a_out": gather_rows(placed(own["vec"]), aux),
+                "A_out": gather_rows(placed(own["mat"]), aux)}
 
     return NodeImpl("E", [], {"a_out": (h,), "A_out": (h, h)}, apply,
                     params=own)

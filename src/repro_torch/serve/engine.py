@@ -27,12 +27,17 @@ executors, on one card:
 - ``n_shards > 1`` serves K data-parallel replicas through
   :class:`repro_torch.core.plan.ShardedBucketedPlanExecutor`: each round
   the scheduler partitions work across shards (lm slots pinned to a home
-  shard, single-shot graphs balanced by node count), every shard's round
-  graph pads to one shared bucket signature, and the whole round is one
-  graph replay on the card (the K replicas are rows of a leading replica
-  axis, ``launch/mesh.py``). The slot pool gains a leading shard axis;
-  per-shard ServeStats merge into the engine totals (``shard_tokens``
-  shows the balance).
+  shard, single-shot graphs balanced by node count) and every shard's
+  round graph pads to one shared bucket signature. Stacked (the default
+  placement) the whole round is one graph replay on the card (the K
+  replicas are rows of a leading replica axis, ``launch/mesh.py``) and
+  the slot pool gains a leading shard axis. Per card (``placement=
+  "cards"``, or ``devices``) each replica runs on its own card, one
+  replay a card, over a slot pool of its own there (a
+  :class:`~repro_torch.core.plan.PerCard` pool), as the reference's
+  ``shard_map`` places them; such an engine takes the sharded path at
+  every K, one replica included. Per-shard ServeStats merge into the
+  engine totals (``shard_tokens`` shows the balance).
 
 LM recurrent state lives in a fixed slot pool threaded through executor
 ``params`` (see ``models/chains.py:ChainLM``), so one captured graph serves
@@ -81,10 +86,11 @@ import torch
 from repro_torch.core.batching import (SufficientConditionPolicy,
                                        policy_cache_key)
 from repro_torch.core.cache import FIFOCache, LRUCache
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import on_card, resolve_device
 from repro_torch.core.executor import DynamicExecutor, ExecStats
-from repro_torch.core.plan import (BucketedPlanExecutor, PlanExecutor,
-                                   ShardedBucketedPlanExecutor, _sig_digest)
+from repro_torch.core.plan import (BucketedPlanExecutor, PerCard,
+                                   PlanExecutor, ShardedBucketedPlanExecutor,
+                                   _sig_digest)
 from repro_torch.kernels.gather_batch import gather_rows
 from repro_torch.models.workloads import SERVE_FAMILIES, make_workload
 from repro_torch.obs import FlightRecorder, Obs, Tracer
@@ -236,21 +242,23 @@ def _fused_zero(slots: np.ndarray, pools: list[torch.Tensor]) -> None:
 
 
 def _fused_commit(y_arena, y_rows, slots, state_arenas, state_rows,
-                  pools: list[torch.Tensor]) -> np.ndarray:
+                  pools: list[torch.Tensor], host: bool = True):
     """The lm round commit: argmax the entries' output rows into next
     tokens (the first index on ties, as ``jnp.argmax``) and copy their
-    recurrent state into the slot pools in place. Returns the tokens on
-    the host."""
+    recurrent state into the slot pools in place, on the arenas' card.
+    Returns the tokens on the host (``host``), else on the card, queued."""
     n = len(slots)
-    # every row vector in one upload: y rows, slots, then each field's rows
-    ix = torch.as_tensor(np.concatenate([y_rows, slots, *state_rows])
-                         .astype(np.int32), device=y_arena.device)
-    toks = torch.argmax(gather_rows(y_arena, ix[:n]), dim=-1)
-    slot_ix = ix[n:2 * n].long()
-    for k, (p, a) in enumerate(zip(pools, state_arenas)):
-        r = ix[(2 + k) * n:(3 + k) * n]
-        p.index_copy_(0, slot_ix, gather_rows(a, r).to(p.dtype))
-    return toks.cpu().numpy()
+    with on_card(y_arena.device):
+        # every row vector in one upload: y rows, slots, then each field's
+        # rows
+        ix = torch.as_tensor(np.concatenate([y_rows, slots, *state_rows])
+                             .astype(np.int32), device=y_arena.device)
+        toks = torch.argmax(gather_rows(y_arena, ix[:n]), dim=-1)
+        slot_ix = ix[n:2 * n].long()
+        for k, (p, a) in enumerate(zip(pools, state_arenas)):
+            r = ix[(2 + k) * n:(3 + k) * n]
+            p.index_copy_(0, slot_ix, gather_rows(a, r).to(p.dtype))
+    return toks.cpu().numpy() if host else toks
 
 
 class _ReadyRound:
@@ -304,8 +312,12 @@ class ServeEngine:
     to ``compile_workers`` background threads (``serve/compiler.py``);
     ``checkpoint_dir``/``checkpoint_every`` write session snapshots that
     :meth:`restore` resumes from. ``n_shards`` replicas (or a ``mesh``
-    from ``launch/mesh.py``) serve on the one card, sharing its weights;
-    ``steal_threshold`` turns on work stealing between them.
+    from ``launch/mesh.py``) serve stacked on the one card, sharing its
+    weights; with ``placement="cards"`` (or ``devices``) one replica a
+    card of ``devices`` (default every card; a list may name a card more
+    than once), each reading its card's copy of the weights. Too few
+    cards raise the mesh's ``RuntimeError`` here. ``steal_threshold``
+    turns on work stealing between replicas.
     """
 
     def __init__(self, families: dict[str, Any] | None = None, *,
@@ -330,14 +342,28 @@ class ServeEngine:
                  compile_workers: int = 2,
                  compile_timeout_s: float = 30.0,
                  pipeline: bool = True,
-                 device=None, capture: bool = True):
+                 device=None, capture: bool = True,
+                 placement: str = "stacked", devices=None):
         self.device = resolve_device(device)
         self.capture = bool(capture)
         self.compiled = compiled
         self.bucketed = bucketed
         self.n_shards = int(n_shards)
         self._mesh = mesh
-        if self.n_shards > 1 and not (compiled and bucketed):
+        # The mesh's placement: "stacked" (K replicas on this engine's
+        # device) or "cards" (one a card of ``devices``, every card when
+        # None). A mesh passed in brings its own.
+        if mesh is not None:
+            placement = getattr(mesh, "placement", "stacked")
+            devices = mesh.listed if placement == "cards" else None
+        elif devices is not None:
+            placement = "cards"
+        if placement not in ("stacked", "cards"):
+            raise ValueError(f"placement must be 'stacked' or 'cards', got "
+                             f"{placement!r}")
+        self.placement = placement
+        self._devices = None if devices is None else tuple(devices)
+        if self._sharded and not (compiled and bucketed):
             raise ValueError(
                 "multi-shard serving runs on the bucketed compiled-plan "
                 "path; pass compiled=True, bucketed=True (or n_shards=1)")
@@ -403,7 +429,7 @@ class ServeEngine:
         # bit-identical to the serial loop. Speculation is only provably
         # safe on the single-shard bucketed feed path.
         self.pipeline = bool(pipeline and compiled and bucketed
-                             and self.n_shards == 1)
+                             and not self._sharded)
         self._spec: Any = None
         self._promoted: Any = None
         self._interp_executors: dict[str, Any] = {}
@@ -454,6 +480,17 @@ class ServeEngine:
         self._retired_shard_stats: list[ServeStats] = []
         self._base: dict[str, float] = {}
         self._run_t0: float | None = None
+        # per-card placement: each listed device's slot pool, made on it
+        # at first use and kept for the engine's life (graphs read it)
+        self._card_pools: dict[int, dict[str, torch.Tensor]] = {}
+        if self.placement == "cards":
+            self._data_mesh()   # too few cards raise here
+
+    @property
+    def _sharded(self) -> bool:
+        """Rounds run through the sharded executor: K > 1, or a per-card
+        mesh at any K (its replicas live on their own cards)."""
+        return self.n_shards > 1 or self.placement == "cards"
 
     # -- observability accessors ---------------------------------------------
 
@@ -498,7 +535,7 @@ class ServeEngine:
             ns = (name, id(wl.impls))
             hook = (self._injector.on_compile if self._injector is not None
                     else None)
-            if self.compiled and self.bucketed and self.n_shards > 1:
+            if self.compiled and self.bucketed and self._sharded:
                 # n_shards rides along so the executor validates it against
                 # the mesh size at construction.
                 ex = ShardedBucketedPlanExecutor(
@@ -554,7 +591,7 @@ class ServeEngine:
         return iex
 
     def _primary_tier(self) -> str:
-        if self.n_shards > 1:
+        if self._sharded:
             return "sharded"
         if self.compiled and self.bucketed:
             return "bucketed"
@@ -612,16 +649,25 @@ class ServeEngine:
                               round=self._round)
 
     def _data_mesh(self):
-        """The shared 1-D data mesh, built lazily (first executor)."""
+        """The shared 1-D data mesh, built lazily (first executor): the
+        engine's placement over the surviving replica ids or devices."""
         if self._mesh is None:
             from repro_torch.launch.mesh import make_data_mesh
-            self._mesh = make_data_mesh(
-                self.n_shards, exclude=tuple(self._excluded_devices),
-                device=self.device)
+            if self.placement == "cards":
+                self._mesh = make_data_mesh(
+                    self.n_shards, exclude=tuple(self._excluded_devices),
+                    placement="cards", devices=self._devices)
+            else:
+                self._mesh = make_data_mesh(
+                    self.n_shards, exclude=tuple(self._excluded_devices),
+                    device=self.device)
         return self._mesh
 
     def _lm_pool(self):
-        if self._pool is None:
+        if self._pool is None and self.placement == "cards":
+            # one pool a card, made on it once (``_card_pool``)
+            self._pool = self._pool_view(self.n_shards)
+        elif self._pool is None:
             wl = self.family("lm")
             replicas = max(self.n_shards, self._n_shards0)
             if replicas > 1:
@@ -643,9 +689,27 @@ class ServeEngine:
     def _pool_view(self, k: int) -> dict[str, torch.Tensor]:
         """The stacked pool at ``k`` shards: ``[:k]``, or row 0 unstacked
         for one shard, as the reference's one-shard pool has no shard
-        axis."""
+        axis. Per card: each replica's own pool on its card, at the
+        current mesh's devices, in shard order (a :class:`PerCard` each
+        field, one replica included)."""
+        if self.placement == "cards":
+            mesh = self._data_mesh()
+            pools = [self._card_pool(i, card)
+                     for i, card in zip(mesh.replicas, mesh.cards)]
+            return {f: PerCard(p[f] for p in pools) for f in pools[0]}
         return {f: (v[0] if k == 1 else v[:k])
                 for f, v in self._pool_stack.items()}
+
+    def _card_pool(self, i: int, card: torch.device
+                   ) -> dict[str, torch.Tensor]:
+        """Listed device ``i``'s slot pool, ``(slots_per_shard, h)`` a
+        field, from the workload's initial state, made on ``card`` once."""
+        pool = self._card_pools.get(i)
+        if pool is None:
+            base = self.family("lm").init_slots(self.scheduler.slots_per_shard)
+            pool = self._card_pools[i] = {f: v.to(card, copy=True)
+                                          for f, v in base.items()}
+        return pool
 
     # -- request intake ------------------------------------------------------
 
@@ -1176,7 +1240,7 @@ class ServeEngine:
         pol = self.policy_for("lm")
         params = {"slots": self._lm_pool()}
         self._seen_lm_counts.add(count)
-        if self.n_shards > 1:
+        if self._sharded:
             # The warm target is the collective sharded graph (one
             # identical all-dummy graph per shard shares its signature with
             # any real round of this padded count).
@@ -1524,20 +1588,26 @@ class ServeEngine:
         # the stashed rows instead of re-zeroing.
         if fresh:
             # One batched zeroing per state field, in place; a stacked pool
-            # is addressed flat, (shard, slot) -> shard * slots + slot.
+            # is addressed flat, (shard, slot) -> shard * slots + slot, and
+            # a per-card pool zeroed on each card.
             slots = np.asarray([e.slot for e in fresh], np.int64)
             pools = [pool[f] for f in wl.state_fields]
-            if self.n_shards > 1:
-                slots = slots + self.scheduler.slots_per_shard * np.asarray(
-                    [e.shard for e in fresh], np.int64)
-                pools = [p.view((-1,) + p.shape[2:]) for p in pools]
-            _fused_zero(slots, pools)
+            if self.placement == "cards":
+                shards = np.asarray([e.shard for e in fresh])
+                for s in np.unique(shards):
+                    _fused_zero(slots[shards == s], [p[s] for p in pools])
+            else:
+                if self.n_shards > 1:
+                    slots = slots + self.scheduler.slots_per_shard * \
+                        np.asarray([e.shard for e in fresh], np.int64)
+                    pools = [p.view((-1,) + p.shape[2:]) for p in pools]
+                _fused_zero(slots, pools)
         for e in parked:
             state, e.req.park = e.req.park, None
             for f in wl.state_fields:
                 row = torch.as_tensor(np.asarray(state[f]))
-                if self.n_shards > 1:
-                    pool[f][e.shard, e.slot].copy_(row)
+                if self._sharded:
+                    pool[f][e.shard][e.slot].copy_(row)
                 else:
                     pool[f][e.slot].copy_(row)
 
@@ -1561,7 +1631,7 @@ class ServeEngine:
                 self._finish(req, now, st)
 
     def _run_lm_round(self, plan) -> None:
-        if self.n_shards > 1:
+        if self._sharded:
             return self._run_lm_round_sharded(plan)
         wl = self.family("lm")
         pool = self._lm_pool()
@@ -1729,10 +1799,25 @@ class ServeEngine:
     def _sharded_commit(self, live, wl, pool) -> list[np.ndarray]:
         """Commit a sharded lm round: one argmax and one state copy per
         field across all shards, addressing the stacked arenas and the
-        stacked pool flat. ``live`` holds ``(shard, result, entries)``;
-        returns each one's next tokens. (Every shard's round graph has
-        one topology, so the run is never a per-shard fallback.)"""
+        stacked pool flat; per card, one argmax and one state copy on each
+        card, all queued before the tokens are read back. ``live`` holds
+        ``(shard, result, entries)``; returns each one's next tokens, in
+        shard order. (Every shard's round graph has one topology, so the
+        run is never a per-shard fallback.)"""
         fields = list(wl.state_fields)
+        if self.placement == "cards":
+            queued = []
+            for s, res, entries in live:
+                y_arena, y_rows = res.arena_rows(
+                    "y", [e.o_node for e in entries])
+                cells = [e.cell_node for e in entries]
+                found = [res.arena_rows(f, cells) for f in fields]
+                queued.append(_fused_commit(
+                    y_arena, y_rows,
+                    np.asarray([e.slot for e in entries]),
+                    [a for a, _ in found], [r for _, r in found],
+                    [pool[f][s] for f in fields], host=False))
+            return [t.cpu().numpy() for t in queued]
         spp = self.scheduler.slots_per_shard
         y_rows, slots = [], []
         state_rows: list[list[np.ndarray]] = [[] for _ in fields]
@@ -1772,7 +1857,7 @@ class ServeEngine:
             st = self._shard_stats[s]
             mine = {f: pool[f][s] for f in fields}
             try:
-                res = ex.run(g, pol, es, params={"slots": mine})
+                res = ex.run_shard(s, g, pol, es, params={"slots": mine})
             except Exception as exc:
                 self._contained()
                 for e in entries:
@@ -1785,7 +1870,7 @@ class ServeEngine:
     def _run_single_shot(self, fam: str, reqs: list[ServeRequest]) -> None:
         if not reqs:
             return
-        if self.n_shards > 1:
+        if self._sharded:
             return self._run_single_shot_sharded(fam, reqs)
         graph, out_ids = merge_request_graphs(reqs)
         try:
@@ -1811,7 +1896,10 @@ class ServeEngine:
         — so the round still runs collectively instead of degrading per
         shard. With the async service the collective build runs on a
         compile worker and rounds serve per shard until it lands."""
-        groups = partition_singles(reqs, self.n_shards)
+        # one replica (a per-card mesh of one card) serves the
+        # single-device engine's merge, in arrival order
+        groups = (partition_singles(reqs, self.n_shards)
+                  if self.n_shards > 1 else [list(reqs)])
         built = [merge_request_graphs(grp) if grp else (None, [])
                  for grp in groups]
         ex = self._executor(fam)
@@ -1891,7 +1979,7 @@ class ServeEngine:
                 continue
             st = self._shard_stats[s]
             try:
-                res = ex.run(g, pol, es)
+                res = ex.run_shard(s, g, pol, es)
                 now = time.perf_counter()
                 for req, ids in zip(grp, out_ids):
                     req.result = res.field("y", ids).cpu().numpy()

@@ -17,7 +17,10 @@
   the captured CUDA graphs read the pool at the addresses they were
   captured over. It does so before the in-flight builds are submitted
   again. A K-shard snapshot (and one taken on a shrunken mesh) restores
-  into the stacked pool made for the configured replica count.
+  into the stacked pool made for the configured replica count, or into
+  the per-card pools of the restored mesh's cards: the snapshot's rows
+  are in shard order and name no card, and the placement is the restoring
+  engine's (``placement``, ``devices``), not the snapshot's.
 
 - **Elastic mesh resize** (:func:`resize_mesh`): a lost replica's
   slot-pinned lm entries evacuate into survivors — one slot-row copy each
@@ -27,12 +30,18 @@
   (``req.park``) and re-enters the pool, fully resumed, when a slot frees
   up. Recovery re-grows the mesh by the same path. The new layout is
   written into the same stacked pool in place, so the graphs captured at
-  the old replica count replay again when the mesh grows back to it.
+  the old replica count replay again when the mesh grows back to it. Per
+  card the layout goes through the host and lands in the new mesh's
+  cards' own pools (each card's pool made once, so its graphs replay
+  again too); a grown card's pool starts from the workload's initial
+  state.
 
 - **Work stealing** (:func:`steal_work`): the same one-row migration,
   triggered by a load-imbalance threshold instead of a death — the
   most-loaded shard's youngest request moves to the lightest shard with a
-  free slot until the spread closes.
+  free slot until the spread closes. Per card the row is copied between
+  the two cards, after the source card's queued work (``Tensor.copy_``
+  between cards orders itself against both cards' current streams).
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.core.plan import PerCard
 
 from .checkpoint import (CheckpointError, decode_array, decode_request,
                          encode_array, encode_request, read_checkpoint)
@@ -81,6 +92,34 @@ def _decode_stats(d: dict) -> ServeStats:
     return st
 
 
+def _pool_rows(eng: ServeEngine) -> dict[str, np.ndarray] | None:
+    """The slot pool on the host, ``(K, slots_per_shard, h)`` a field in
+    shard order, whatever the placement (after the work queued on it)."""
+    if eng._pool is None:
+        return None
+    out = {}
+    for f, v in eng._pool.items():
+        if isinstance(v, PerCard):
+            out[f] = np.stack([t.cpu().numpy() for t in v])
+        else:
+            out[f] = v.cpu().numpy()
+            if eng.n_shards == 1:
+                out[f] = out[f][None]
+    return out
+
+
+def _load_pool(eng: ServeEngine, rows: dict[str, np.ndarray]) -> None:
+    """Copy ``(K, slots_per_shard, h)`` rows into the engine's pool at its
+    current K, in place (per card, each shard's rows onto its card)."""
+    for f, v in rows.items():
+        dst = eng._pool[f]
+        if isinstance(dst, PerCard):
+            for t, row in zip(dst, v):
+                t.copy_(torch.from_numpy(row))
+        else:
+            dst.copy_(torch.from_numpy(v[0] if eng.n_shards == 1 else v))
+
+
 # -- snapshot -----------------------------------------------------------------
 
 
@@ -101,6 +140,7 @@ def snapshot_engine(eng: ServeEngine, reason: str = "periodic") -> dict:
         wall += time.perf_counter() - eng._run_t0
     stats_doc = _encode_stats(eng.stats)
     stats_doc["wall_s"] = wall
+    rows = _pool_rows(eng)
     return {
         "reason": reason,
         "config": {
@@ -137,9 +177,9 @@ def snapshot_engine(eng: ServeEngine, reason: str = "periodic") -> dict:
                       "slot_of": {str(rid): [s, sl] for rid, (s, sl)
                                   in sched.slot_of.items()},
                       "free": [list(d) for d in sched._free]},
-        "pool": ({f: encode_array(v.cpu().numpy())
-                  for f, v in eng._pool.items()}
-                 if eng._pool is not None else None),
+        # the reference's layout: (K, slots, h), one shard's (slots, h)
+        "pool": ({f: encode_array(v[0] if eng.n_shards == 1 else v)
+                  for f, v in rows.items()} if rows is not None else None),
         "stats": {"engine": stats_doc,
                   "shards": [_encode_stats(p) for p in eng._shard_stats],
                   "retired": [_encode_stats(p)
@@ -171,7 +211,9 @@ def restore_engine(source, families: dict[str, Any] | None = None, *,
                    async_compile: bool | None = None,
                    compile_workers: int | None = None,
                    compile_timeout_s: float | None = None,
-                   device=None, capture: bool | None = None) -> ServeEngine:
+                   device=None, capture: bool | None = None,
+                   placement: str = "stacked",
+                   devices=None) -> ServeEngine:
     """Rebuild a :class:`ServeEngine` from a checkpoint.
 
     ``source`` is a checkpoint path (read + version-gated + fingerprint-
@@ -182,7 +224,10 @@ def restore_engine(source, families: dict[str, Any] | None = None, *,
     replace the snapshotted durability config, letting a restored run
     checkpoint elsewhere or drop the crashing injector; ``device`` is the
     engine's (``None`` = CUDA) and ``capture`` defaults to the snapshot's
-    (on for a checkpoint the reference wrote).
+    (on for a checkpoint the reference wrote). ``placement`` and
+    ``devices`` (or ``mesh``) place the restored replicas, as
+    :class:`ServeEngine` takes them; the snapshot's ``excluded_devices``
+    then index the restoring machine's devices.
 
     A verification failure dumps the flight recorder (when ``obs`` wires
     one) before re-raising — the restore-mismatch post-mortem."""
@@ -230,11 +275,14 @@ def restore_engine(source, families: dict[str, Any] | None = None, *,
                            else cfg.get("compile_timeout_s", 30.0)),
         pipeline=cfg.get("pipeline", True), device=device,
         capture=(capture if capture is not None
-                 else cfg.get("capture", True)))
+                 else cfg.get("capture", True)),
+        placement=placement, devices=devices)
     with eng.tracer.span("ckpt.restore", round=payload["clock"]["round"],
                          reason=payload.get("reason", "")):
         eng._n_shards0 = int(cfg["n_shards0"])
         eng._excluded_devices = list(cfg["excluded_devices"])
+        if mesh is None:
+            eng._mesh = None   # rebuilt over the survivors
 
         # Request ledger first — queue/scheduler sections reference it by
         # rid. Reserving the rid ceiling makes post-restore submissions
@@ -264,9 +312,10 @@ def restore_engine(source, families: dict[str, Any] | None = None, *,
 
         if payload["pool"] is not None:
             # In place: the engine's graphs read its own pool's addresses.
-            pool = eng._lm_pool()
-            for f, d in payload["pool"].items():
-                pool[f].copy_(torch.from_numpy(decode_array(d)))
+            eng._lm_pool()
+            rows = {f: decode_array(d) for f, d in payload["pool"].items()}
+            _load_pool(eng, {f: v[None] if k == 1 else v
+                             for f, v in rows.items()})
 
         sdoc = payload["stats"]
         eng.stats = _decode_stats(sdoc["engine"])
@@ -329,7 +378,12 @@ def _survivor_id(excluded: list[int], shard: int) -> int:
 def _place_pool(eng: ServeEngine, new_k: int, new_host: dict) -> None:
     """Write the resized pool into the engine's stacked pool in place,
     viewed at ``new_k`` shards; only a grow past the stack's rows (or a
-    first resize of an unstacked one-shard pool) makes a new stack."""
+    first resize of an unstacked one-shard pool) makes a new stack. Per
+    card, into the pools of the (already resized) mesh's cards."""
+    if eng.placement == "cards":
+        eng._pool = eng._pool_view(new_k)
+        _load_pool(eng, new_host)
+        return
     stack = eng._pool_stack
     if stack is None or next(iter(stack.values())).shape[0] < new_k:
         eng._pool_stack = {
@@ -381,11 +435,7 @@ def resize_mesh(eng: ServeEngine, new_k: int,
                          round=eng._round):
         # Pull the pool host-side in the *old* layout (a 1-shard pool has
         # no leading shard axis — normalize to one).
-        host = None
-        if eng._pool is not None:
-            host = {f: v.cpu().numpy() for f, v in eng._pool.items()}
-            if old_k == 1:
-                host = {f: v[None] for f, v in host.items()}
+        host = _pool_rows(eng)
 
         displaced = sched.resize(new_k, mapping)
 
@@ -432,9 +482,6 @@ def resize_mesh(eng: ServeEngine, new_k: int,
             # admitted before anything still waiting.
             sched.waiting_lm.extendleft(reversed(parked_reqs))
 
-        if new_host is not None:
-            _place_pool(eng, new_k, new_host)
-
         # Per-shard stats follow the renumbering; a dead shard's stats are
         # retired (its tokens stay in the totals), a fresh shard starts at
         # zero.
@@ -469,6 +516,9 @@ def resize_mesh(eng: ServeEngine, new_k: int,
         eng._mesh = None
         eng.n_shards = new_k
         eng.stats.n_shards = max(eng.stats.n_shards, new_k)
+        # the new layout, on the new mesh (per card: its cards' pools)
+        if new_host is not None:
+            _place_pool(eng, new_k, new_host)
 
     ev = {"round": eng._round, "old": old_k, "new": new_k,
           "dead": dead_shard, "evacuated": evacuated,
@@ -524,7 +574,7 @@ def steal_work(eng: ServeEngine, threshold: int) -> int:
         sched.slot_of[req.rid] = (lo, new_slot)
         sched._free[old_shard].append(old_slot)
         for f in wl.state_fields:
-            pool[f][lo, new_slot].copy_(pool[f][old_shard, old_slot])
+            pool[f][lo][new_slot].copy_(pool[f][old_shard][old_slot])
         moved += 1
         eng.tracer.event("mesh.steal", cat="mesh", rid=req.rid,
                          src=old_shard, dst=lo, round=eng._round)

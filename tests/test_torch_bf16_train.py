@@ -282,7 +282,9 @@ def trained(request):
     for form in ("make_train_step", "StaticTrainStep"):
         steps = []
         for batch in batches:
-            tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+            # image embeddings in the model's dtype, as the port takes them
+            tb = {k: torch.as_tensor(v).to(BF16) if k == "image_embeds"
+                  else torch.as_tensor(v) for k, v in batch.items()}
             flat = (opt.leaves(fparams) if form == "make_train_step"
                     else static.params)
             ref16, ref32 = reference_at(flat, batch)

@@ -2449,6 +2449,69 @@ def test_sharded_replay_equals_the_single_shard_replays(cuda):
             assert float((t - one[key]).abs().max()) <= 1e-6, (s, key)
 
 
+def test_per_card_replays_on_cuda0_twice_equal_the_stacked_replay(cuda):
+    """Replicas one a card with both placements naming cuda:0: each
+    captures a graph of its own (the second reads its own copy of the
+    weights) and replays it, and each shard's outputs equal the stacked
+    K = 2 replay's bit for bit, over the same slot rows."""
+    from repro_torch.core.plan import PerCard, ShardedBucketedPlanExecutor
+    from repro_torch.launch.mesh import make_data_mesh
+
+    impls, (graphs, _), sp, policy = _sharded_case(cuda)
+    stacked = ShardedBucketedPlanExecutor(impls, None, n_shards=2,
+                                          ladder=(8,), device=cuda)
+    cards = ShardedBucketedPlanExecutor(
+        impls, None, ladder=(8,), device=cuda,
+        mesh=make_data_mesh(2, devices=("cuda:0", "cuda:0")))
+    mine = {"slots": {f: PerCard(v[s].clone() for s in range(2))
+                      for f, v in sp["slots"].items()}}
+    for _ in range(2):       # the first run captures, the second replays
+        want = _shard_outputs(stacked.run_sharded(graphs, policy,
+                                                  shard_params=sp), graphs)
+        got = _shard_outputs(cards.run_sharded(graphs, policy,
+                                               shard_params=mine), graphs)
+        for s in range(2):
+            assert all(torch.equal(got[s][k], t)
+                       for k, t in want[s].items()), s
+    assert cards.n_captures == 2 and cards.n_replays == 4
+    assert [c.copy_weights for c in cards.card_executors] == [False, True]
+
+
+def test_per_card_engine_on_cuda0_twice_gives_the_stacked_tokens(cuda):
+    """An engine placed per card on cuda:0 twice serves the stacked
+    engine's tokens, through a shard loss and a regrowth after which its
+    K = 2 graphs replay again (each placement's pool kept its address)."""
+    from repro_torch.models.workloads import make_workload
+    from repro_torch.serve import ServeEngine, lm_request
+
+    wls = {"lm": make_workload("ChainLM", 64, 0, device=cuda)}
+
+    def engine(**kw):
+        eng = ServeEngine(dict(wls), max_slots=8, n_shards=2, device=cuda,
+                          **kw)
+        reqs = [lm_request([i + 1, i + 2, i + 3], 10, arrival=0.0)
+                for i in range(6)]
+        eng.submit_many(reqs)
+        return eng, reqs
+
+    clean, clean_reqs = engine()
+    clean.run()
+    eng, reqs = engine(devices=("cuda:0", "cuda:0"))
+    for _ in range(4):
+        eng.step()
+    eng.lose_shard(1)
+    for _ in range(3):
+        eng.step()
+    eng.regrow_shard()
+    eng._fold_exec_stats()
+    captures = eng.stats.n_graph_captures
+    eng.step()
+    eng._fold_exec_stats()
+    assert eng.n_shards == 2 and eng.stats.n_graph_captures == captures
+    eng.run()
+    assert [r.out for r in reqs] == [r.out for r in clean_reqs]
+
+
 def test_in_place_stacked_pool_update_is_seen_by_the_next_sharded_replay(
         cuda):
     """The sharded graph reads each shard's row of the stacked pool at its

@@ -220,8 +220,8 @@ def test_static_buffer_path_equals_plain_path(trees):
 
 def test_derived_weight_copies_are_collected_for_the_entry():
     """A captured graph reads the fused cell's blocked weights, which the
-    cell keeps for the last parameter buffer it saw only. ``derived_copies``
-    hands a capture the copies the body used and the buffer and version
+    cell keeps for the last few parameter buffers it saw only.
+    ``derived_copies`` hands a capture the copies the body used and the buffer and version
     each came from, so the entry can pin them and notice an in-place
     update; here on the CPU, around plain runs with the cell's own buffer,
     a threaded one, and its own again."""
