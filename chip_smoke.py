@@ -346,8 +346,13 @@ Phases, in order; any failure raises and exits non-zero:
    ``dryrun.main(["--all", "--out", ...])``: the ten configurations x four
    shapes on the 16x16 mesh, traced on the meta device at full width and
    depth, in a process of its own beside (a) (both are host work); 40
-   ``ok`` rows, printed by ``report.render``; the process must exit 0
-   without having initialised CUDA; the sweep's seconds.
+   ``ok`` rows, printed by ``report.render`` with the collective term;
+   the process must exit 0 without having initialised CUDA; the sweep's
+   seconds; every row's ``coll_bytes`` (the step placed on the mesh as
+   DTensors over a fake process group) within :data:`DRYRUN_COLL_BAR` of
+   the reference's own ``--all`` row (:data:`DRYRUN_COLL_REFERENCE`), or
+   within :data:`DRYRUN_COLL_HELD_SLACK` of its ratio in
+   :data:`DRYRUN_COLL_HELD` (rows PERF.md explains).
 
 Phases 2 and 4 hold the fp32 kernels other than the gather to 1e-4 of the
 largest magnitude of their plain versions' outputs and the bf16 ones to
@@ -5495,6 +5500,158 @@ DRYRUN_REFERENCE = {
 DRYRUN_PLANNED_EARLIER = ("BiLSTM-Tagger", "TreeLSTM", "LatticeLSTM")
 
 
+# Each single-pod row's collective bytes by kind, per device, of ``python
+# -m repro.launch.dryrun --all`` (the JAX package on the CPU, 512 host
+# devices; its repeats' collectives added by block_cost): the yardstick of
+# the port's collective term. Keys are (arch, shape) with the shape's
+# sliding-window note dropped.
+DRYRUN_COLL_REFERENCE = {
+    ("musicgen-medium", "train_4k"): {
+        "all-gather": 10158053376, "all-reduce": 98590439512,
+        "collective-permute": 50688},
+    ("musicgen-medium", "prefill_32k"): {
+        "all-gather": 7348420608, "all-reduce": 39057358848},
+    ("musicgen-medium", "decode_32k"): {
+        "all-gather": 83558400, "all-reduce": 7495680},
+    ("musicgen-medium", "long_500k"): {
+        "all-gather": 995328, "all-reduce": 936960},
+    ("moonshot-v1-16b-a3b", "train_4k"): {
+        "all-gather": 20192174080, "all-to-all": 25212223488,
+        "all-reduce": 427409056604, "collective-permute": 285376512},
+    ("moonshot-v1-16b-a3b", "prefill_32k"): {
+        "all-gather": 12884901888, "all-to-all": 24160763904,
+        "all-reduce": 180925497344, "collective-permute": 11796480},
+    ("moonshot-v1-16b-a3b", "decode_32k"): {
+        "all-gather": 8110080, "all-to-all": 47972352,
+        "all-reduce": 607485952, "collective-permute": 5898240},
+    ("moonshot-v1-16b-a3b", "long_500k"): {
+        "all-to-all": 3932160, "all-reduce": 2785664,
+        "collective-permute": 3538944},
+    ("llama-3.2-vision-11b", "train_4k"): {
+        "all-gather": 7981514752, "all-to-all": 3825205248,
+        "all-reduce": 307875037528, "collective-permute": 1375993856},
+    ("llama-3.2-vision-11b", "prefill_32k"): {
+        "all-gather": 2619342848, "all-to-all": 1442840576,
+        "all-reduce": 86973087744, "collective-permute": 721420288},
+    ("llama-3.2-vision-11b", "decode_32k"): {
+        "all-gather": 41877504, "all-to-all": 131072, "all-reduce": 21184512,
+        "collective-permute": 65536},
+    ("llama-3.2-vision-11b", "long_500k"): {
+        "all-gather": 1048576, "all-reduce": 2689024,
+        "collective-permute": 8192},
+    ("qwen2-7b", "train_4k"): {
+        "all-gather": 28681074688, "all-to-all": 8589934592,
+        "all-reduce": 217056474724, "collective-permute": 9563275264},
+    ("qwen2-7b", "prefill_32k"): {
+        "all-gather": 13153337344, "all-to-all": 3774873600,
+        "all-reduce": 79859548160, "collective-permute": 4718592000},
+    ("qwen2-7b", "decode_32k"): {
+        "all-gather": 19898368, "all-to-all": 57344, "all-reduce": 10601472,
+        "collective-permute": 71680},
+    ("qwen2-7b", "long_500k"): {
+        "all-gather": 659456, "all-reduce": 1325184,
+        "collective-permute": 8960},
+    ("phi4-mini-3.8b", "train_4k"): {
+        "all-gather": 14199631872, "all-to-all": 9529458688,
+        "all-reduce": 185126695000, "collective-permute": 4362338304},
+    ("phi4-mini-3.8b", "prefill_32k"): {
+        "all-gather": 6442450944, "all-to-all": 4328521728,
+        "all-reduce": 65229815808, "collective-permute": 2164260864},
+    ("phi4-mini-3.8b", "decode_32k"): {
+        "all-gather": 39518208, "all-to-all": 131072, "all-reduce": 9977856,
+        "collective-permute": 65536},
+    ("phi4-mini-3.8b", "long_500k"): {
+        "all-gather": 753664, "all-reduce": 1247232,
+        "collective-permute": 8192},
+    ("jamba-v0.1-52b", "train_4k"): {
+        "all-gather": 15993858048, "all-to-all": 30994071552,
+        "all-reduce": 243877716320, "collective-permute": 29275536256},
+    ("jamba-v0.1-52b", "prefill_32k"): {
+        "all-gather": 2281701376, "all-to-all": 5537234944,
+        "all-reduce": 86980427776, "collective-permute": 23227531264},
+    ("jamba-v0.1-52b", "decode_32k"): {
+        "all-gather": 5349376, "all-to-all": 10878976,
+        "all-reduce": 141730688, "collective-permute": 6764544},
+    ("jamba-v0.1-52b", "long_500k"): {
+        "all-gather": 126976, "all-to-all": 901120, "all-reduce": 1463408,
+        "collective-permute": 1140480},
+    ("qwen2-0.5b", "train_4k"): {
+        "all-gather": 11666869760, "all-to-all": 1879048192,
+        "all-reduce": 80957565284, "collective-permute": 2055471104},
+    ("qwen2-0.5b", "prefill_32k"): {
+        "all-gather": 5637144576, "all-to-all": 809500672,
+        "all-reduce": 34057748480, "collective-permute": 1011875840},
+    ("qwen2-0.5b", "decode_32k"): {
+        "all-gather": 4521984, "all-to-all": 12288, "all-reduce": 2458624,
+        "collective-permute": 15360},
+    ("qwen2-0.5b", "long_500k"): {
+        "all-gather": 172032, "all-reduce": 307328,
+        "collective-permute": 1920},
+    ("mamba2-130m", "train_4k"): {
+        "all-gather": 4784073808, "all-to-all": 4051697664,
+        "all-reduce": 6698631292, "collective-permute": 25600863972},
+    ("mamba2-130m", "prefill_32k"): {
+        "all-gather": 2824863744, "all-reduce": 4838129664,
+        "collective-permute": 17221287936},
+    ("mamba2-130m", "decode_32k"): {
+        "all-gather": 25509888, "all-reduce": 590592,
+        "collective-permute": 33558528},
+    ("mamba2-130m", "long_500k"): {
+        "all-gather": 3188736, "all-reduce": 73824,
+        "collective-permute": 4194816},
+    ("granite-moe-1b-a400m", "train_4k"): {
+        "all-gather": 5726498816, "all-to-all": 9213968384,
+        "all-reduce": 134566983636, "collective-permute": 507979264},
+    ("granite-moe-1b-a400m", "prefill_32k"): {
+        "all-gather": 4026531840, "all-to-all": 8472887296,
+        "all-reduce": 57982058496, "collective-permute": 212664320},
+    ("granite-moe-1b-a400m", "decode_32k"): {
+        "all-gather": 14893056, "all-to-all": 15974400,
+        "all-reduce": 203907072, "collective-permute": 1499136},
+    ("granite-moe-1b-a400m", "long_500k"): {
+        "all-gather": 227328, "all-to-all": 589824, "all-reduce": 1090560,
+        "collective-permute": 494592},
+    ("olmoe-1b-7b", "train_4k"): {
+        "all-gather": 6301294592, "all-to-all": 11412963328,
+        "all-reduce": 183737426780, "collective-permute": 97980416},
+    ("olmoe-1b-7b", "prefill_32k"): {
+        "all-gather": 4294967296, "all-to-all": 10737942528,
+        "all-reduce": 77846282240, "collective-permute": 3932160},
+    ("olmoe-1b-7b", "decode_32k"): {
+        "all-gather": 2719744, "all-to-all": 21233664,
+        "all-reduce": 269680640, "collective-permute": 1966080},
+    ("olmoe-1b-7b", "long_500k"): {
+        "all-to-all": 1310720, "all-reduce": 1196160,
+        "collective-permute": 1179648},
+}
+
+# The bar: a row's collective bytes within this factor of the reference's
+# total, either way ...
+DRYRUN_COLL_BAR = 8.0
+# ... or, for the rows PERF.md explains (choices of XLA's the port does not
+# make), within DRYRUN_COLL_HELD_SLACK of the ratio (port / reference)
+# recorded here: decode steps where XLA gathers each step's new K/V rows
+# in fp32 for the cache write (MusicGen, Phi-4-mini) or permutes the SSM
+# state between layouts (Mamba2), and the port writes them where they lie.
+DRYRUN_COLL_HELD = {
+    ("musicgen-medium", "decode_32k"): 0.06586,
+    ("phi4-mini-3.8b", "decode_32k"): 0.11902,
+    ("mamba2-130m", "decode_32k"): 0.01648,
+    ("mamba2-130m", "long_500k"): 0.01648,
+}
+DRYRUN_COLL_HELD_SLACK = 0.25
+
+
+def collective_ratio_ok(arch: str, shape: str, coll_bytes: float) -> bool:
+    """A row's ``coll_bytes`` against :data:`DRYRUN_COLL_REFERENCE`: within
+    the bar, or within the slack of its held ratio."""
+    ratio = coll_bytes / sum(DRYRUN_COLL_REFERENCE[(arch, shape)].values())
+    held = DRYRUN_COLL_HELD.get((arch, shape))
+    if held is not None:
+        return abs(ratio / held - 1) <= DRYRUN_COLL_HELD_SLACK
+    return 1 / DRYRUN_COLL_BAR <= ratio <= DRYRUN_COLL_BAR
+
+
 def dryrun_phase(torch, drive, card: str) -> dict:
     """Phase 12 (module docstring); returns (a)'s launches. (b) is host
     work alone, so it runs beside (a), in a process of its own that must
@@ -5562,8 +5719,23 @@ def dryrun_phase(torch, drive, card: str) -> dict:
     if len(rows) != 40 or bad:
         fail(f"dryrun --all: {len(rows)} rows, failed {bad}")
     log(report.render(rows))
+    ratios = {}
+    for r in rows:
+        key = (r["arch"], r["shape"].split("(")[0])
+        if r.get("coll_bytes") is None or \
+                not collective_ratio_ok(*key, r["coll_bytes"]):
+            fail(f"dryrun --all {key}: coll_bytes {r.get('coll_bytes')}, "
+                 f"the reference's {DRYRUN_COLL_REFERENCE[key]}: off the "
+                 f"bar (x{DRYRUN_COLL_BAR:g}) and not a held row")
+        ratios[key] = r["coll_bytes"] / sum(
+            DRYRUN_COLL_REFERENCE[key].values())
+    free = [v for k, v in ratios.items() if k not in DRYRUN_COLL_HELD]
     log(f"dryrun --all: 40 rows ok on the meta device (16x16 mesh), its "
-        f"process never initialised CUDA; beside (a) on the host of {card}")
+        f"process never initialised CUDA; beside (a) on the host of {card}; "
+        f"collective bytes / the reference's: {min(free):.3f} to "
+        f"{max(free):.3f} over {len(free)} rows (bar x{DRYRUN_COLL_BAR:g}), "
+        + ", ".join(f"{a} {sh} {ratios[(a, sh)]:.4f} (held at {h:.4f})"
+                    for (a, sh), h in DRYRUN_COLL_HELD.items()))
     return counts
 
 

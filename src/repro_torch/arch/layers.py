@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
 from ..kernels.gather_batch import gather_rows
+from ..kernels import ref
 from ..kernels.ref import attention_mask
 from .config import ArchConfig
 
@@ -51,6 +52,14 @@ def _normal(gen: torch.Generator | None, shape, scale: float, device,
 
 
 def rmsnorm(x, scale, eps: float = 1e-5):
+    """Over the last dim; on the dry-run's production mesh placed as a
+    row-wise op, split on any dim but the last (``kernels/ref.py:reckon``)."""
+    rows = "abc"[:x.ndim - 1]
+    return ref.reckon(_rmsnorm, (x, scale, eps), (rows + "d", "d", None),
+                      rows + "d", rows)
+
+
+def _rmsnorm(x, scale, eps):
     var = x.float().square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
@@ -62,7 +71,16 @@ def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, Dh); positions: broadcastable to (..., S). The two
-    halves of the head dim rotate together (not interleaved pairs)."""
+    halves of the head dim rotate together (not interleaved pairs). On the
+    dry-run's production mesh x (B, S, H, Dh) is placed as a position- and
+    head-wise op (``kernels/ref.py:reckon``)."""
+    if x.ndim == 4 and positions.ndim == 2:
+        return ref.reckon(_apply_rope, (x, positions, theta),
+                          ("bshd", "bs", None), "bshd", "bsh")
+    return _apply_rope(x, positions, theta)
+
+
+def _apply_rope(x, positions, theta: float):
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                   # (d/2,)
     ang = positions[..., None].float() * freqs               # (..., S, d/2)
@@ -99,7 +117,16 @@ def _split_heads(x, n, dh):
 
 def _sdpa(q, k, v, mask, dtype):
     """q: (B,S,H,Dh); k/v: (B,T,KV,Dh); mask: (B or 1, S, T) bool or None.
-    Plain PyTorch: the decode path's attention against the cache."""
+    Plain PyTorch: the decode path's attention against the cache. On the
+    dry-run's production mesh it is placed as attention splits, by batch,
+    heads and keys (a split over the keys leaves partial sums;
+    ``kernels/ref.py:reckon``)."""
+    return ref.reckon(_sdpa_plain, (q, k, v, mask, dtype),
+                      ("bshd", "bthd", "bthd",
+                       None if mask is None else "bst", None), "bsh", "bht")
+
+
+def _sdpa_plain(q, k, v, mask, dtype):
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     q = q.reshape(B, S, KV, H // KV, Dh)
@@ -301,7 +328,8 @@ def moe_route(p, x, cfg: ArchConfig, n_groups: int = 1) -> dict:
             "combine_w": (gate_vals * keep_of).gather(1, ascending)}
 
 
-def moe(p, x, cfg: ArchConfig, n_groups: int = 1, gather=gather_rows):
+def moe(p, x, cfg: ArchConfig, n_groups: int = 1, gather=gather_rows,
+        constrain=None):
     """Top-k MoE with grouped sorted dispatch (the reference's ``moe``):
     x (N, D) flattened tokens -> (y (N, D), aux). Tokens beyond an
     expert's capacity are dropped (switch-style).
@@ -318,25 +346,69 @@ def moe(p, x, cfg: ArchConfig, n_groups: int = 1, gather=gather_rows):
     slots and dropped assignments read zero rows appended to the gathers'
     sources. The sum's order is fixed, so two runs, and a captured replay
     against eager, give the same bits (``index_add_`` sums with atomics on
-    the card)."""
+    the card).
+
+    ``constrain`` (the model's ``Partitioner``, as the reference hands its
+    ``constrain`` down) places the layer on a mesh, the reference's
+    constraints on the tensors holding the same data. The reference's
+    ``gathered`` (G, Sg*K, D) tokens, ``contrib`` and ``y`` are groups on
+    "data" (``moe_tokens``); here the dispatch reads x's rows and the
+    combine writes y's, both group-major, so x and y take that placement.
+    Its ``hidden`` and ``out`` (G, E, C, D) are groups on "data" and
+    experts on "model" (``moe_buf``); here they are the expert-major
+    (E, G*C, D) buffers, placed with E on "model" and G*C on "data". The
+    reference routes, gathers and scatters within each group (a ``vmap``
+    over the groups); the port's routing and its two gathers run over all
+    groups' rows at once, so each is a region that moves nothing
+    (``Partitioner.local``): every device routes its own groups and fills
+    their slots, and the combine reads its groups' rows of every expert,
+    the expert outputs first gathered over "model"."""
     N, D = x.shape
     E = cfg.n_experts
-    r = moe_route(p, x, cfg, n_groups)
+
+    def route(router, x):
+        return moe_route({"router": router}, x, cfg, n_groups)
+
+    if constrain is not None:
+        G = n_groups if n_groups > 0 and N % n_groups == 0 else 1
+        g, e = constrain.activation_spec((G, E, 1, 1), "moe_buf")[:2]
+        tokens, buf = (g, None), (e, g, None)
+        route = constrain.local(route, ((None, None), tokens), dict.fromkeys(
+            ("probs", "gate_vals", "expert_idx", "order", "dest", "keep",
+             "combine_w"), tokens) | {"dispatch_idx": (None,),
+                                     "combine_idx": (g,)})
+    r = route(p["router"], x)
     slots = r["dispatch_idx"].shape[0]
-    hidden = gather(torch.cat([x, x.new_zeros((slots // E, D))]),
-                    r["dispatch_idx"]).view(E, -1, D)
-    h = F.silu(torch.bmm(hidden, p["w_gate"])) * torch.bmm(hidden, p["w_up"])
-    out = torch.bmm(h, p["w_down"]).view(-1, D)
-    rows = gather(torch.cat([out, out.new_zeros((N, D))]), r["combine_idx"])
-    contrib = rows.view(N, -1, D) * r["combine_w"][..., None].to(x.dtype)
-    if x.dtype == torch.float32:
-        y = contrib.sum(1)
-    else:
+
+    def dispatch(x, idx):
+        return gather(torch.cat([x, x.new_zeros((slots // E, D))]),
+                      idx).view(E, -1, D)
+
+    def combine(out, idx, w):
+        rows = gather(torch.cat([out.view(-1, D), out.new_zeros((N, D))]),
+                      idx)
+        contrib = rows.view(N, -1, D) * w[..., None].to(x.dtype)
+        if x.dtype == torch.float32:
+            return contrib.sum(1)
         # the reference's scatter-add: from zero, a token's rows in
         # ascending expert order, rounded to x's dtype after every add
         y = x.new_zeros((N, D))
         for k in range(contrib.shape[1]):
             y = y + contrib[:, k]
+        return y
+
+    if constrain is not None:
+        dispatch = constrain.local(dispatch, (tokens, None), (None, g, None))
+        combine = constrain.local(combine, ((None, g, None), (g,), tokens),
+                                  tokens)
+    hidden = dispatch(x, r["dispatch_idx"])
+    if constrain is not None:
+        hidden = constrain.place(hidden, buf)
+    h = F.silu(torch.bmm(hidden, p["w_gate"])) * torch.bmm(hidden, p["w_up"])
+    out = torch.bmm(h, p["w_down"])
+    if constrain is not None:
+        out = constrain.place(out, buf)
+    y = combine(out, r["combine_idx"], r["combine_w"])
     # switch-style load-balance aux loss, differentiable through probs
     me = r["probs"].mean(0)
     ce = F.one_hot(r["expert_idx"][:, 0], E).float().mean(0)

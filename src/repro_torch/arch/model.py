@@ -22,6 +22,14 @@ pattern-major, each as the reference's entry point of the same name does,
 and every MoE layer routes over ``n_groups = B`` groups where a sequence
 has more than one token and over one group of all B rows where it has one
 (a decode step), the reference's rule.
+
+``partitioner`` (None by default) is the reference's hook: a
+``launch.sharding.Partitioner`` whose ``constrain`` the model calls at the
+reference's sites (the embedding and each repeat's residual, each
+prefill layer's residual, the logits, and the loss's fp32 logits, its
+log-sum-exp and its gathered gold logit; the MoE layers get it as
+``constrain``). On plain tensors it changes nothing; on the dry-run's
+DTensors it places the activations (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -89,6 +97,15 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
+        # Optional launch.sharding.Partitioner: when set, activations are
+        # constrained at the reference's residual, logits and loss sites
+        # (the identity on plain tensors; the dry-run's DTensors move)
+        self.partitioner = None
+
+    def _wsc(self, x, kind: str):
+        if self.partitioner is None:
+            return x
+        return self.partitioner.constrain(x, kind)
 
     # -- parameters ----------------------------------------------------------
 
@@ -151,7 +168,8 @@ class TransformerLM(nn.Module):
             h = L.rmsnorm(x, lp["norm2"], self.cfg.norm_eps)
             B_, S_, D_ = h.shape
             y, aux = L.moe(lp["moe"], h.reshape(B_ * S_, D_), self.cfg,
-                           n_groups=B_ if S_ > 1 else 1)
+                           n_groups=B_ if S_ > 1 else 1,
+                           constrain=self.partitioner)
             return x + y.view(B_, S_, D_), aux
         return x, None
 
@@ -191,7 +209,7 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         B, S_ = tokens.shape
         image_embeds = self._image(image_embeds)
-        x = params["embed"][tokens]
+        x = self._wsc(params["embed"][tokens], "residual")
         positions = self._positions(B, S_)
         aux_total = torch.zeros((), device=self.device)
         # Each stacked leaf unbound once: under autograd one unbind's
@@ -204,8 +222,9 @@ class TransformerLM(nn.Module):
                                            image_embeds)
                 if aux is not None:
                     aux_total = aux_total + aux
+            x = self._wsc(x, "residual")
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        return x @ params["lm_head"], aux_total
+        return self._wsc(x @ params["lm_head"], "logits"), aux_total
 
     def loss(self, params, batch):
         """Mean next-token NLL over ``batch["labels"]`` under
@@ -217,9 +236,12 @@ class TransformerLM(nn.Module):
         one-hot)."""
         logits, aux = self.forward(params, batch["tokens"],
                                    batch.get("image_embeds"))
-        logits32 = logits.float()
-        lse = torch.logsumexp(logits32, dim=-1)
-        gold = logits32.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        logits32 = self._wsc(logits.float(), "logits")
+        lse = self._wsc(torch.logsumexp(logits32, dim=-1), "nll")
+        # on vocab-sharded logits the gathered gold logit is a masked
+        # partial sum: placed as the nll while it keeps its unit dim
+        labels = batch["labels"].long()[..., None]
+        gold = self._wsc(logits32.gather(-1, labels), "nll")[..., 0]
         nll = lse - gold
         mask = batch.get("loss_mask")
         mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
@@ -296,7 +318,7 @@ class TransformerLM(nn.Module):
         B, S_ = tokens.shape
         image_embeds = self._image(image_embeds)
         pad = max(cache_len, S_) - S_
-        x = params["embed"][tokens]
+        x = self._wsc(params["embed"][tokens], "residual")
         positions = self._positions(B, S_)
         new_caches = []
         for spec, blk in zip(cfg.pattern, params["blocks"]):
@@ -304,6 +326,7 @@ class TransformerLM(nn.Module):
             for r in range(cfg.n_repeats):
                 x, c = self._prefill_layer(x, tree_map(lambda a: a[r], blk),
                                            spec, positions, pad, image_embeds)
+                x = self._wsc(x, "residual")
                 per_repeat.append(c)
             new_caches.append(_stack(per_repeat))
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)

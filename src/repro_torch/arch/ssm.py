@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 # Chunked SSD over a sequence: x (b, l, h, p), dt (b, l, h), A (h,), B and
 # C (b, l, g, n) -> (y (b, l, h, p), final state (b, h, p, n)).
+from ..kernels import ref
 from ..kernels.ssd_scan import ssd_scan
 from .config import ArchConfig
 from .layers import _normal, rmsnorm
@@ -63,7 +64,14 @@ def ssd_decode_step(x, dt, A, B, C, state):
 def _causal_conv(u, w, b):
     """Depthwise causal conv. u: (B, L, Ch); w: (K, Ch). The same K
     shifted multiply-adds as the reference, in the input's dtype (a cuDNN
-    convolution would run an fp32 one in TF32 on the card by default)."""
+    convolution would run an fp32 one in TF32 on the card by default). On
+    the dry-run's production mesh placed as a batch- and channel-wise op
+    (``kernels/ref.py:reckon``)."""
+    return ref.reckon(_causal_conv_plain, (u, w, b), ("blc", "kc", "c"),
+                      "blc", "bc")
+
+
+def _causal_conv_plain(u, w, b):
     K = w.shape[0]
     pad = F.pad(u, (0, 0, K - 1, 0))
     out = torch.zeros_like(u)

@@ -112,8 +112,14 @@ def flash_attention_forward(q, k, v, causal: bool = True, window: int = 0,
         with torch.no_grad(), ref.stand_in(lambda: costs.flash_attention(
                 B, Sq, Skv, H, KV, D, causal, window, with_lse,
                 q.element_size())):
-            out = ref.flash_attention_ref(q, k, v, causal, window)
-            lse = (ref.flash_attention_lse_ref(q, k, causal, window)
+            # batch and heads split alike: the kernel's blocks
+            out = ref.reckon(ref.flash_attention_ref,
+                             (q, k, v, causal, window),
+                             ("bshd", "bthd", "bthd", None, None), "bshd",
+                             "bh")
+            lse = (ref.reckon(ref.flash_attention_lse_ref,
+                              (q, k, causal, window),
+                              ("bshd", "bthd", None, None), "bhs", "bh")
                    if with_lse else None)
         return out, lse
     dev = q.device
@@ -164,8 +170,10 @@ def flash_attention_backward(q, k, v, out, dout, lse, causal: bool = True,
         Skv, KV = k.shape[1], k.shape[2]
         with ref.stand_in(lambda: costs.flash_attention_backward(
                 B, Sq, Skv, H, KV, D, causal, window, q.element_size())):
-            return ref.flash_attention_backward_ref(q, k, v, dout, causal,
-                                                    window)
+            return ref.reckon(ref.flash_attention_backward_ref,
+                              (q, k, v, dout, causal, window),
+                              ("bshd", "bthd", "bthd", "bshd", None, None),
+                              ("bshd", "bthd", "bthd"), "bh")
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")

@@ -48,6 +48,20 @@ def stand_in(cost):
         counter.muted = False
 
 
+def reckon(fn, args, labels, out_labels, shardable: str):
+    """``fn(*args)``: a plain version standing in for a launch (under
+    :func:`stand_in`), or plain code with a sharding rule of its own.
+    Under the dry-run's step counter with operands placed on its
+    production mesh (DTensors), the counter places the call by the rule
+    that ``labels``, ``out_labels`` and ``shardable`` describe
+    (``launch/spmd.py:on_shards``)."""
+    counter = RECKONER
+    if counter is not None and any(
+            getattr(a, "placements", None) is not None for a in args):
+        return counter.on_shards(fn, args, labels, out_labels, shardable)
+    return fn(*args)
+
+
 def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return src[idx]
 

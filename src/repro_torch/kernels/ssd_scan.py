@@ -123,8 +123,14 @@ def ssd_scan_forward(x, dt, A, B, C, chunk: int, init_state=None,
         with torch.no_grad(), ref.stand_in(lambda: costs.ssd_scan(
                 *x.shape, *B.shape[2:], chunk, init_state is not None,
                 with_states, x.element_size())):
-            y, final = ref.ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
-            states = (ref.ssd_chunk_states(x, dt, A, B, chunk, init_state)
+            # the batch split: heads share their group's B and C
+            args = (x, dt, A, B, C, chunk, init_state)
+            labels = ("blhp", "blh", "h", "blgn", "blgn", None,
+                      None if init_state is None else "bhpn")
+            y, final = ref.reckon(ref.ssd_scan_ref, args, labels,
+                                  ("blhp", "bhpn"), "b")
+            states = (ref.reckon(ref.ssd_chunk_states, args[:4] + args[5:],
+                                 labels[:4] + labels[5:], "bchpn", "b")
                       if with_states else None)
         return y, final, states
     if x.dtype == torch.bfloat16 and init_state is not None and \
@@ -183,8 +189,14 @@ def ssd_scan_backward(x, dt, A, B, C, chunk: int, init_state, dy,
         with ref.stand_in(lambda: costs.ssd_scan_backward(
                 *x.shape, *B.shape[2:], chunk, init_state is not None,
                 dfinal is not None, states is not None, x.element_size())):
-            return ref.ssd_scan_bwd_ref(x, dt, A, B, C, chunk, init_state,
-                                        dy, dfinal, states)
+            init = None if init_state is None else "bhpn"
+            return ref.reckon(
+                ref.ssd_scan_bwd_ref,
+                (x, dt, A, B, C, chunk, init_state, dy, dfinal, states),
+                ("blhp", "blh", "h", "blgn", "blgn", None, init, "blhp",
+                 None if dfinal is None else "bhpn",
+                 None if states is None else "bchpn"),
+                ("blhp", "blh", "h", "blgn", "blgn", init), "b")
     bf16 = x.dtype == torch.bfloat16
     init_dtype = None if init_state is None else init_state.dtype
     if bf16 and init_dtype == torch.bfloat16:

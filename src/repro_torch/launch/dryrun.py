@@ -17,8 +17,15 @@ allocated, and traces the step once: the forward, and for a training shape
 also the loss, the backward and the functional AdamW. The kernel wrappers
 take the card's route on meta, a plain version standing in for each
 launch (``kernels/ref.py:stand_in``). Where the reference lowers and
-compiles on 256 or 512 placeholder host devices, the mesh here is a shape
-(``launch/mesh.py:ShapeMesh``), and each row's fields count:
+compiles on 256 or 512 placeholder host devices, the step runs on the
+production mesh's shape (``launch/mesh.py:ShapeMesh``) as DTensors over a
+fake process group of its size (``launch/spmd.py``): every argument leaf
+is a DTensor of its ``Partitioner`` spec (a dim split over two axes,
+``("data", "model")`` or ``("pod", "data")``, is ``Shard`` of that dim on
+both mesh dims, the first the outer split), the model constrains its
+activations as the reference's (``Partitioner.constrain``), and DTensor
+places every op, its local tensors empty on meta. Each row's fields
+count:
 
 - ``arg_bytes``: exact. One device's shard bytes of every argument of the
   step (parameters, the AdamW moments and ``step``, the inputs, the
@@ -29,24 +36,50 @@ compiles on 256 or 512 placeholder host devices, the mesh here is a shape
   ``chip_smoke.py``'s bounds count them: flash attention over the causal
   pairs only) plus, for the ops outside the kernels, what
   ``torch.utils.flop_counter`` counts (matmuls, convolutions; no
-  elementwise work), divided by the chips, an even split: work replicated
-  on every device is undercounted. The compute term divides them by the
-  bf16 tensor-core peak (``launch/roofline.py``).
+  elementwise work), at the ops' global shapes, divided by the chips, an
+  even split: work replicated on every device is undercounted. The
+  compute term divides them by the bf16 tensor-core peak
+  (``launch/roofline.py``).
 - ``hlo_bytes``: each kernel launch's inputs read and outputs written
   once at its operands' element sizes, plus every other dispatched aten
-  op's tensor input and output bytes (views and metadata ops zero),
-  divided by the chips: an upper bound with no fusion outside the
-  kernels.
+  op's tensor input and output bytes (views and metadata ops zero), at
+  global shapes, divided by the chips: an upper bound with no fusion
+  outside the kernels. The placement moves neither count: DTensor's own
+  ops (its redistributions' copies, its sharding rules' local ops) are not
+  the step's, and a view's output keeps the strides it has unplaced, so
+  the composite ops decide as they do on one device.
+- ``coll_bytes`` and ``coll_breakdown``: the output bytes of every
+  functional collective the placed step issues (``all_reduce``,
+  ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+  ``all_to_all_single`` and DTensor's ``shard_dim_alltoall``), per device,
+  under the reference's kinds (``wait_tensor`` and the like count
+  nothing): the forward's, the backward's (its gradients reduced over the
+  data axes once, each to its parameter's placements) and AdamW's (the
+  ZeRO-1 moments' shards). The reference counts its compiled HLO's;
+  ``launch/roofline.py`` names where the two differ (remat, resharding
+  permutes, fused collectives), and a training row here counts its
+  forward's collectives once, where the reference's remat issues them
+  twice. Rules the placement adds to DTensor's (``launch/spmd.py``): a
+  softmax or logsumexp over a split dim runs as its decomposition, reduced
+  across the shards; a partial sum meeting the residual is reduced to the
+  residual's layout; a row lookup into a vocab-split table is a masked
+  lookup and a reduction; the kernels' plain versions run on their
+  operands' local shards, attention split by batch and heads, the scan by
+  batch (``on_shards``); the MoE's two gathers are regions that move
+  nothing, its expert outputs gathered over "model" for the combine
+  (``arch/layers.py:moe``); an op DTensor cannot place gathers its
+  operands (tallied in the counter's ``resharded``).
 - ``model_flops``: 6 (training) or 2 times the active parameters times
   the tokens (``launch/roofline.py``).
-- ``temp_bytes``, ``output_bytes``, ``peak_bytes`` and ``coll_bytes``:
-  None. XLA's memory analysis and its collectives have no counterpart here.
+- ``temp_bytes``, ``output_bytes`` and ``peak_bytes``: None. XLA's memory
+  analysis has no counterpart here.
 
-``compile_s`` is the row's seconds (building the tree and the trace). The
-reference's ``--seq-parallel`` and ``--layer-remat`` change only sharding
-constraints and XLA's rematerialisation, which the port reckons neither,
-so the command refuses them. Importing this module changes no
-environment.
+``compile_s`` is the row's seconds (building the tree, placing it and the
+trace). ``--seq-parallel`` places the residuals on "model" along the
+sequence (the reference's ``seq_parallel``; ``+sp`` in the row's note).
+The reference's ``--layer-remat`` changes only XLA's rematerialisation,
+which the port does not reckon, so the command refuses it. Importing this
+module changes no environment; the fake process group lives for one row.
 """
 
 from __future__ import annotations
@@ -59,6 +92,7 @@ import time
 import traceback
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
@@ -69,6 +103,7 @@ from ..core.device import resolve_device
 from ..kernels import ref
 from ..train.optimizer import (AdamWConfig, adamw_update, init_opt_state,
                                leaves, unflatten)
+from . import spmd
 from .mesh import make_production_mesh
 from .roofline import Roofline, model_flops
 from .sharding import P, Partitioner
@@ -107,13 +142,20 @@ class StepCounter(TorchDispatchMode):
     outputs' bytes (views and metadata ops zero: the bytes an unfused run
     would move) and the FLOPs ``torch.utils.flop_counter``'s formulas give
     it; an op without a formula is decomposed where it can be, as
-    ``FlopCounterMode`` does."""
+    ``FlopCounterMode`` does. On DTensor operands (the step placed on a
+    mesh) an op is counted at its global shapes, then placed
+    (:meth:`_sharded`); the output bytes of every collective its placement
+    issues add to ``collectives`` by the reference's kind."""
 
     def __init__(self):
         super().__init__()
         self.flops = self.bytes = 0
         self.muted = False
         self.formulas = FlopCounterMode(display=False).flop_registry
+        self.collectives = dict.fromkeys(spmd.REFERENCE_KINDS, 0)
+        self.resharded: dict[str, int] = {}
+        self._inner = 0          # nesting of DTensor's own dispatch
+        self._yield = False
 
     def add(self, flops: int, nbytes: int) -> None:
         self.flops += flops
@@ -121,33 +163,134 @@ class StepCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if self.muted:
-            return func(*args, **kwargs)
+        if self._yield:
+            # the re-entry of :meth:`_sharded`'s call: DTensor takes it
+            self._yield = False
+            return NotImplemented
+        kind = spmd.collective_kind(func)
+        if kind is not None:
+            out = func(*args, **kwargs)
+            self.collectives[kind] += _tensor_bytes(out)
+            return out
+        sharded = any(issubclass(t, spmd.DTensor) for t in types)
+        if self.muted or self._inner or spmd.QUIET:
+            return self._sharded(func, args, kwargs) if sharded \
+                else func(*args, **kwargs)
         packet = func.overloadpacket
         if packet not in self.formulas:
             with self:
                 out = func.decompose(*args, **kwargs)
             if out is not NotImplemented:
                 return out
-        out = func(*args, **kwargs)
+        out = self._sharded(func, args, kwargs) if sharded \
+            else func(*args, **kwargs)
         if packet in self.formulas:
             self.flops += self.formulas[packet](*args, **kwargs, out_val=out)
         if not func.is_view and packet not in _NO_DATA:
             self.bytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
         return out
 
+    def on_shards(self, fn, args, labels, out_labels, shardable):
+        """``fn`` placed by a sharding rule of dim labels
+        (``kernels/ref.py:reckon``, :func:`spmd.on_shards`)."""
+        return spmd.on_shards(fn, args, labels, out_labels, shardable)
+
+    def _sharded(self, func, args, kwargs):
+        """``func`` on DTensor operands, dispatched by DTensor with this
+        mode still on: its local ops pass uncounted and its collectives
+        are counted. Where DTensor cannot place the operands as they are,
+        :func:`spmd.reshard_and_retry` takes over (its route tallied by op
+        in ``resharded``); a failed attempt's collectives are not
+        counted."""
+        if func._schema.is_mutable and args and (
+                type(args[0]) is torch.Tensor
+                or func in spmd.WRITES_BY_INDEX):
+            # a write into a tensor made inside the step (a replica), or
+            # by index into a placed one (a decode cache): the rows'
+            # owners write them where they lie
+            key = f"{func} (in place, left undone)"
+            self.resharded[key] = self.resharded.get(key, 0) + 1
+            return args[0]
+        self._inner += 1
+        try:
+            out = spmd.on_replicas(func, args, kwargs)
+            if out is None:
+                out = spmd.on_same_shards(func, args, kwargs)
+            if out is not None:
+                return out
+            decomposed = spmd.decomposition(func)
+            # the mode is pushed again around every redistribution made
+            # here, so that their collectives reach it
+            with self:
+                if decomposed is not None:
+                    return decomposed(*args, **kwargs)
+                args = spmd.align_sum(func, args)
+                out = spmd.lookup(func, args, lambda f, a: self._attempt(
+                    a, kwargs, f, pushed=True))
+            if out is not None:
+                return out
+            out = self._attempt(args, kwargs, func)
+            with self:
+                return spmd.restride(func, args, kwargs, out)
+        except spmd.UNPLACEABLE as err:
+            with self:
+                out, how = spmd.reshard_and_retry(
+                    lambda a, k: self._attempt(a, k, func, pushed=True),
+                    func, args, kwargs, err)
+                out = spmd.restride(func, args, kwargs, out)
+            key = f"{func} ({how})"
+            self.resharded[key] = self.resharded.get(key, 0) + 1
+            return out
+        finally:
+            self._inner -= 1
+
+    def _attempt(self, args, kwargs, func, pushed=False):
+        counted = dict(self.collectives)
+        self._yield = True
+        try:
+            if pushed:
+                out = func(*args, **kwargs)
+            else:
+                with self:
+                    out = func(*args, **kwargs)
+            spmd.check_plain(out)
+            return out
+        except spmd.UNPLACEABLE:
+            self.collectives = counted
+            raise
+        finally:
+            self._yield = False
+
+def count_step(fn, *args) -> StepCounter:
+    """One call of ``fn(*args)`` under a :class:`StepCounter`, returned.
+    Tensors made inside the step (positions, masks, zeros) are replicas
+    beside DTensor operands (``implicit_replication``)."""
+    counter = StepCounter()
+    outer, ref.RECKONER = ref.RECKONER, counter
+    try:
+        with counter, implicit_replication():
+            fn(*args)
+    finally:
+        ref.RECKONER = outer
+    return counter
+
+
+def count_placed(fn, args, shardings, mesh) -> StepCounter:
+    """One call of ``fn(*args)`` with every argument leaf a DTensor of its
+    ``Sharding`` on ``mesh`` (``launch/spmd.py:fake_mesh``, torn down on
+    return), under a :class:`StepCounter`, returned."""
+    with spmd.fake_mesh(mesh) as dmesh:
+        placed = unflatten(args, [
+            spmd.distribute(t, sh, dmesh)
+            for t, sh in zip(leaves(args), leaves(shardings), strict=True)])
+        return count_step(fn, *placed)
+
 
 def trace_counts(fn, *args) -> tuple[int, int]:
     """``(flops, bytes)`` of one call of ``fn(*args)``, as
     :class:`StepCounter` counts them (all devices' work: nothing is
     divided)."""
-    counter = StepCounter()
-    outer, ref.RECKONER = ref.RECKONER, counter
-    try:
-        with counter:
-            fn(*args)
-    finally:
-        ref.RECKONER = outer
+    counter = count_step(fn, *args)
     return counter.flops, counter.bytes
 
 
@@ -200,12 +343,16 @@ def input_specs(arch: str, shape: str, model: TransformerLM,
 
 def _value_and_grad(model: TransformerLM, params, batch):
     """``(loss, grads)`` of ``model.loss`` at ``params``, as
-    ``jax.value_and_grad``."""
+    ``jax.value_and_grad``. On the production mesh each gradient takes its
+    parameter's placements (a partial sum over the data axes reduced
+    once), as XLA reduces a replicated parameter's gradient."""
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
     with torch.enable_grad():
         loss = model.loss(unflatten(params, flat), batch)
         grads = torch.autograd.grad(loss, flat)
-    return loss.detach(), unflatten(params, list(grads))
+    grads = [spmd.place(g, p.placements) if spmd.is_sharded(g) else g
+             for g, p in zip(grads, flat)]
+    return loss.detach(), unflatten(params, grads)
 
 
 def build_step(arch: str, shape: str, model: TransformerLM,
@@ -276,7 +423,8 @@ def arg_bytes(args, shardings) -> int:
 
 
 def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
-               verbose: bool = True, fsdp: bool = False, grad_accum: int = 1,
+               verbose: bool = True, seq_parallel: bool = False,
+               fsdp: bool = False, grad_accum: int = 1,
                no_tp: bool = False) -> dict:
     """Reckon one (arch, shape) step of the bf16 model, as the reference
     builds it, on the 16x16 (or 2x16x16) mesh on the meta device; a row
@@ -284,15 +432,18 @@ def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
     t0 = time.time()
     cfg, note = resolve_config(arch, shape)
     mesh = make_production_mesh(multi_pod=multi_pod)
-    part = Partitioner(mesh, cfg, fsdp=fsdp)
+    part = Partitioner(mesh, cfg, seq_parallel=seq_parallel, fsdp=fsdp)
     part.no_tp = no_tp
     model = TransformerLM(cfg, torch.bfloat16, device=META)
-    note += (("+fsdp" if fsdp else "")
+    model.partitioner = part
+    note += (("+sp" if seq_parallel else "") + ("+fsdp" if fsdp else "")
              + (f"+ga{grad_accum}" if grad_accum > 1 else "")
              + ("+notp" if no_tp else ""))
     fn, args, shardings = build_step(arch, shape, model, part, grad_accum)
     n_arg_bytes = arg_bytes(args, shardings)
-    flops, nbytes = trace_counts(fn, *args)
+    counter = count_placed(fn, args, shardings, mesh)
+    flops, nbytes = counter.flops, counter.bytes
+    coll = {k: v for k, v in counter.collectives.items() if v}
     info = SHAPES[shape]
     tokens = info["batch"] * (info["seq"] if info["kind"] != "decode" else 1)
     chips = int(mesh.devices.size)
@@ -301,7 +452,8 @@ def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
         mesh="x".join(map(str, mesh.devices.shape)), chips=chips,
         hlo_flops=flops / chips,
         hlo_bytes=nbytes / chips,
-        coll_bytes=None,
+        coll_bytes=float(sum(coll.values())),
+        coll_breakdown=coll,
         model_flops=model_flops(cfg, args[0], shape, tokens),
         bytes_per_device=float(n_arg_bytes),
         dtype="bfloat16",
@@ -315,14 +467,17 @@ def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
         "output_bytes": None,
         "peak_bytes": None,
         "hlo_bytes": rl.hlo_bytes,
-        "coll_bytes": None,
+        "coll_bytes": rl.coll_bytes,
     })
     if verbose:
         print(f"[dryrun] {arch} x {shape}{note} on {row['mesh']}: OK "
               f"compute {rl.t_compute*1e3:.2f}ms memory "
-              f"{rl.t_memory*1e3:.2f}ms collective - -> {rl.dominant}-bound; "
+              f"{rl.t_memory*1e3:.2f}ms collective "
+              f"{rl.t_collective*1e3:.2f}ms -> {rl.dominant}-bound; "
               f"useful {rl.useful_ratio:.2f}; args/dev "
-              f"{n_arg_bytes / 2**30:.2f}GiB ({row['compile_s']}s trace)",
+              f"{n_arg_bytes / 2**30:.2f}GiB ({row['compile_s']}s trace)"
+              + "".join(f"; {n} x {how}"
+                        for how, n in counter.resharded.items()),
               flush=True)
     return row
 
@@ -396,7 +551,7 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--seq-parallel", action="store_true",
-                    help="refused: changes only sharding constraints")
+                    help="residuals sharded over model on the sequence")
     ap.add_argument("--layer-remat", action="store_true",
                     help="refused: changes only XLA's rematerialisation")
     ap.add_argument("--fsdp", action="store_true",
@@ -407,12 +562,9 @@ def main(argv=None):
                     help="replicate params; model axis = seq-data parallel")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
-    for flag, name in ((args.seq_parallel, "--seq-parallel"),
-                       (args.layer_remat, "--layer-remat")):
-        if flag:
-            ap.error(f"{name} changes only sharding constraints and XLA's "
-                     f"rematerialisation, which the port's dry-run does not "
-                     f"reckon")
+    if args.layer_remat:
+        ap.error("--layer-remat changes only XLA's rematerialisation, which "
+                 "the port's dry-run does not reckon")
 
     if args.dynamic:
         rows = dryrun_dynamic(device=args.device)
@@ -435,6 +587,7 @@ def main(argv=None):
         for mp in meshes:
             try:
                 rows.append(dryrun_one(arch, shape, multi_pod=mp,
+                                       seq_parallel=args.seq_parallel,
                                        fsdp=args.fsdp,
                                        grad_accum=args.grad_accum,
                                        no_tp=args.no_tp))

@@ -2,8 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.report rows.json [--plain]
 
-A term the port does not count (None: the collective time, the
-temporary bytes) prints ``-``.
+A term the port does not count (None: the temporary bytes) prints
+``-``; the collective time is ``coll_bytes`` over the NVLink rate
+(``launch/roofline.py``).
 """
 
 from __future__ import annotations

@@ -22,10 +22,19 @@ What each term counts here (``launch/dryrun.py`` traces the step on the
   and outputs (views and metadata ops count zero), divided by the chips:
   an upper bound with no fusion outside the kernels, where XLA's figure
   is after fusion.
-- ``coll_bytes``: None. The port has no HLO to parse for collectives
-  (reckoning them from the ``Partitioner``'s specs is ROADMAP Queue 1),
-  so ``t_collective`` is None and ``dominant`` is taken over the terms
-  present.
+- ``coll_bytes``: one device's bytes of every collective the step
+  issues, each counted by its output (the reference's count of its HLO's
+  collectives), under the reference's kinds: all-gather, all-reduce,
+  reduce-scatter, all-to-all and collective-permute. The step runs on
+  the production mesh as DTensors over a fake process group, placed by
+  the ``Partitioner``'s specs and the reference's activation constraints
+  (``launch/spmd.py``, ``launch/dryrun.py``); DTensor's redistributions
+  issue the collectives XLA's partitioner would. Where the two differ:
+  the reference rematerialises each training repeat, so its forward's
+  collectives come twice, the port's once; XLA fuses collectives, reshards
+  by collective-permutes and picks its own layouts inside a repeat, where
+  DTensor picks by its cost model (the port issues no collective-permute).
+  ``dominant`` is taken over the three terms.
 
 The peaks are the H100 SXM 80GB's data-sheet figures at its 700 W limit
 (dense, no sparsity). A row's ``dtype`` picks its compute peak. A
@@ -55,8 +64,9 @@ PEAK_BF16 = 989e12        # bf16 FLOP/s on the tensor cores, dense
 PEAK_TF32 = 495e12        # TF32 FLOP/s on the tensor cores, dense
 PEAK_3XTF32 = PEAK_TF32 / 3   # fp32-accurate products as 3xTF32
 HBM_BW = 3.35e12          # HBM3 bytes/s
-LINK_BW = 450e9           # NVLink 4 bytes/s each way (data sheet: 900 GB/s
-                          # bidirectional per GPU)
+LINK_BW = 450e9           # NVLink 4 bytes/s each way, an H100 SXM's link
+                          # rate (data sheet: 900 GB/s bidirectional per
+                          # GPU), not a TPU's ICI
 
 
 @dataclass

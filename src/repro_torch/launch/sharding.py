@@ -10,9 +10,10 @@ extra ZeRO-1-style shard over "data" where divisible.
 :class:`PartitionSpec` is a tuple with the reference's constructor and
 its canonical form (a one-axis tuple becomes the axis, an empty one None),
 so ``tuple(spec)`` compares equal to the reference's. A :class:`Sharding`
-pairs a spec with its mesh and gives one device's shard shape. The
-reference's ``constrain`` (activation sharding constraints inside jit) is
-not here: the port runs one device, where it would be the identity.
+pairs a spec with its mesh and gives one device's shard shape.
+:meth:`Partitioner.constrain` is the reference's activation constraint:
+the identity on a plain tensor (one device), a redistribution on the
+dry-run's DTensors (``launch/spmd.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
+import torch
 
 from ..arch.config import ArchConfig
 from .mesh import batch_axes
@@ -72,13 +74,17 @@ def _divisible(n: int, k: int) -> bool:
 
 
 class Partitioner:
-    def __init__(self, mesh, cfg: ArchConfig, fsdp: bool = False):
+    def __init__(self, mesh, cfg: ArchConfig, seq_parallel: bool = False,
+                 fsdp: bool = False):
         self.mesh = mesh
         self.cfg = cfg
         self.model_size = mesh.shape["model"]
         self.dp_axes = batch_axes(mesh)
         self.dp_size = int(np.prod([mesh.shape[a] for a in self.dp_axes]))
         self.data_size = mesh.shape["data"]
+        # Megatron-style sequence parallelism: residuals sharded over the
+        # "model" axis on the sequence dim
+        self.seq_parallel = seq_parallel
         # FSDP/ZeRO-3: params (hence grads and the whole optimizer update)
         # additionally sharded over "data"
         self.fsdp = fsdp
@@ -227,6 +233,61 @@ class Partitioner:
             return P()
 
         return self._walk(cache_tree, f)
+
+    def activation_spec(self, shape: tuple[int, ...],
+                        kind: str = "residual") -> PartitionSpec | None:
+        """The reference's activation constraint of ``kind`` for a tensor of
+        ``shape``, or None where it sets none (a scalar or a vector).
+        kinds: residual (B,S,D) — batch on dp, and the sequence on "model"
+        under ``seq_parallel`` where it divides; logits / one_hot (B,S,V)
+        — batch on dp + vocab on model when divisible; nll (B,S); moe_buf
+        (G,E,C,D) — groups on data + experts on model; moe_tokens
+        (G,Sg[*K],D) — groups on data; any other rank-2+ tensor batch on
+        dp."""
+        ndim = len(shape)
+        if kind == "moe_buf" and ndim == 4:
+            g_ax = "data" if _divisible(shape[0], self.data_size) else None
+            e_ax = "model" if _divisible(shape[1], self.model_size) else None
+            return P(g_ax, e_ax, None, None)
+        if kind == "moe_tokens" and ndim == 3:
+            g_ax = "data" if _divisible(shape[0], self.data_size) else None
+            return P(g_ax, None, None)
+        bspec = self.batch_spec(shape[0]) or None
+        if kind in ("logits", "one_hot") and ndim == 3:
+            v = "model" if _divisible(shape[-1], self.model_size) else None
+            return P(bspec, None, v)
+        if kind == "nll" and ndim == 2:
+            return P(bspec, None)
+        if kind == "residual" and ndim == 3 and self.seq_parallel \
+                and _divisible(shape[1], self.model_size):
+            return P(bspec, "model", None)
+        if ndim >= 2:
+            return P(*([bspec] + [None] * (ndim - 1)))
+        return None
+
+    def constrain(self, x, kind: str = "residual"):
+        """The reference's ``constrain``: ``x`` placed as
+        :meth:`activation_spec` says. A plain tensor (one device) is
+        returned as it is; a DTensor (the dry-run's production mesh) is
+        redistributed to the spec's placements, the counterpart of
+        ``with_sharding_constraint`` (``launch/spmd.py:constrain``)."""
+        spec = self.activation_spec(tuple(x.shape), kind)
+        return x if spec is None else self.place(x, spec)
+
+    def place(self, x, spec: PartitionSpec):
+        """``x`` constrained to ``spec``: the identity on a plain tensor."""
+        if type(x) is torch.Tensor:
+            return x
+        from . import spmd
+        return spmd.constrain(x, spec) if spmd.is_sharded(x) else x
+
+    def local(self, fn, in_specs, out_spec):
+        """``fn`` as a region that moves nothing between devices, its
+        arguments placed by ``in_specs`` and its output by ``out_spec``
+        (``launch/spmd.py:local``): ``shard_map``'s contract. ``fn``
+        itself on plain tensors."""
+        from . import spmd
+        return spmd.local(fn, in_specs, out_spec)
 
     def block_specs(self, single_layer_tree) -> Any:
         """Specs for an unstacked single pattern-group param tree. Applies

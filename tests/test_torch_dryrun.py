@@ -15,10 +15,13 @@ device's shard bytes of the reference's arguments in the reference's own
 dtypes (the bf16 model's parameters, caches and image embeddings, fp32
 moments, int32 tokens), from the reference's ``Partitioner`` specs; its
 compute term divides by the bf16 tensor-core peak, and with gradient
-accumulation AdamW takes bf16 gradients, as the reference's. A tiny dense
-model's counted forward FLOPs must equal the hand count of its matmuls,
-attention counted as the flash kernel computes it (over the causal
-pairs)."""
+accumulation AdamW takes bf16 gradients, as the reference's. Each row's
+collective term (the step placed on the mesh as DTensors) is filled under
+the reference's kinds and stands within ``chip_smoke.py``'s bar of the
+reference's own row, or near its held ratio; ``--seq-parallel`` is taken
+and ``--layer-remat`` refused. A tiny dense model's counted forward
+FLOPs must equal the hand count of its matmuls, attention counted as the
+flash kernel computes it (over the causal pairs)."""
 
 import importlib.util
 import json
@@ -75,6 +78,14 @@ def test_dynamic_rows_equal_the_reference(name):
     assert set(got) == set(want)
     assert {k: v for k, v in got.items() if k not in TIMES} == \
         {k: v for k, v in want.items() if k not in TIMES}
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
 
 
 def test_chip_smokes_reference_rows_are_the_dynamic_rows():
@@ -208,9 +219,36 @@ def test_sweep_row_counts_equal_the_reference(sweep, arch, shape):
         cfg, RefLM(cfg).param_specs(), shape, tokens)
     assert row["arg_bytes"] == _reference_arg_bytes(arch, shape)
     assert row["hlo_flops"] > 0 and row["hlo_bytes"] > 0
-    for key in ("temp_bytes", "output_bytes", "peak_bytes", "coll_bytes",
-                "t_collective_s"):
+    for key in ("temp_bytes", "output_bytes", "peak_bytes"):
         assert row[key] is None
+    # the collective term: per device, under the reference's kinds
+    assert row["coll_bytes"] > 0
+    assert row["coll_bytes"] == sum(row["coll_breakdown"].values())
+    assert set(row["coll_breakdown"]) <= set(ref_roofline._COLLECTIVES)
+    assert all(v > 0 for v in row["coll_breakdown"].values())
+    assert row["t_collective_s"] == row["coll_bytes"] / 450e9
+    terms = {"compute": row["t_compute_s"], "memory": row["t_memory_s"],
+             "collective": row["t_collective_s"]}
+    assert row["dominant"] == max(terms, key=terms.get)
+
+
+def test_sweep_rows_collective_bytes_stand_by_the_references(sweep):
+    """Each single-pod row's collective bytes within ``chip_smoke.py``'s
+    bar of the reference's own ``--all`` row (``DRYRUN_COLL_REFERENCE``),
+    or, for the few rows PERF.md explains, within the slack of the ratio
+    recorded for it; no more than eight rows held so."""
+    smoke = _smoke()
+    assert len(smoke.DRYRUN_COLL_HELD) <= 8
+    assert smoke.DRYRUN_COLL_BAR == 8.0
+    rows = sweep[1]
+    assert set(smoke.DRYRUN_COLL_REFERENCE) == set(rows)
+    missed = {key: rows[key]["coll_bytes"]
+              / sum(smoke.DRYRUN_COLL_REFERENCE[key].values())
+              for key in rows
+              if not smoke.collective_ratio_ok(*key, rows[key]["coll_bytes"])}
+    assert missed == {}
+    for key, ratio in smoke.DRYRUN_COLL_HELD.items():
+        assert not 1 / 8 <= ratio <= 8, key      # held only off the bar
 
 
 def test_dryrun_one_variants_run_on_both_meshes():
@@ -282,8 +320,25 @@ def test_tiny_dense_forward_flops_are_its_matmuls():
 
 
 def test_cli_refuses_variants_it_does_not_reckon(capsys):
-    for flag in ("--seq-parallel", "--layer-remat"):
-        with pytest.raises(SystemExit) as exc:
-            dryrun.main(["--arch", "qwen2-0.5b", "--shape", "train_4k", flag])
-        assert exc.value.code == 2
-        assert "does not reckon" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exc:
+        dryrun.main(["--arch", "qwen2-0.5b", "--shape", "train_4k",
+                     "--layer-remat"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "rematerialisation" in err and "does not reckon" in err
+
+
+def test_cli_takes_seq_parallel(tmp_path):
+    """``--seq-parallel`` places the residuals on "model" along the
+    sequence, as the reference's: the row's note says ``+sp`` and its
+    collectives differ from the plain row's."""
+    out = tmp_path / "sp.json"
+    assert dryrun.main(["--arch", "qwen2-0.5b", "--shape", "prefill_32k",
+                        "--seq-parallel", "--out", str(out)]) == 0
+    row, = json.loads(out.read_text())
+    plain = dryrun.dryrun_one("qwen2-0.5b", "prefill_32k", verbose=False)
+    assert row["ok"] and row["shape"] == "prefill_32k+sp"
+    assert row["coll_bytes"] > 0
+    assert row["coll_breakdown"] != plain["coll_breakdown"]
+    assert (row["hlo_flops"], row["arg_bytes"]) == \
+        (plain["hlo_flops"], plain["arg_bytes"])
