@@ -352,7 +352,35 @@ Phases, in order; any failure raises and exits non-zero:
    DTensors over a fake process group) within :data:`DRYRUN_COLL_BAR` of
    the reference's own ``--all`` row (:data:`DRYRUN_COLL_REFERENCE`), or
    within :data:`DRYRUN_COLL_HELD_SLACK` of its ratio in
-   :data:`DRYRUN_COLL_HELD` (rows PERF.md explains).
+   :data:`DRYRUN_COLL_HELD` (rows PERF.md explains); every row's
+   ``temp_bytes`` (the memory term) within :data:`DRYRUN_MEM_BAR` either
+   way of the reference's own row less XLA:CPU's float32 copies of the
+   step's bf16 arguments (:data:`DRYRUN_MEM_REFERENCE`, made by
+   ``tests/reference_memory.py``), or within the same slack of its ratio
+   in :data:`DRYRUN_MEM_HELD`, and its ``bytes_per_device`` the temp and
+   argument bytes. A second host process beside them reckons the ten
+   ``train_4k`` rows with ``--layer-remat``: each note ``+lremat``, its
+   temp on the same bar against :data:`DRYRUN_MEM_LREMAT_REFERENCE`, and
+   no more than the plain (remat) row's.
+13. Remat. (a) For each (configuration, dtype) of :data:`REMAT_TRAIN`
+   (Qwen2-0.5B fp32, Mamba2-130m bf16, Granite-MoE-1B-A400M bf16; full
+   width and depth), ``train/loop.py:train`` runs :data:`REMAT_STEPS`
+   captured steps at TRAIN_BATCH x TRAIN_SEQ from the seed-0 weights and
+   the seed-0 batches with ``remat=False``, then with ``remat=True`` (and,
+   for Qwen2, again with ``layer_remat``): the losses and every parameter
+   leaf bit-equal to the run without remat; without remat each forward
+   and backward kernel of the path launched as often a step as the
+   layers hold it, with remat every forward kernel twice that (the
+   backward's recomputation) and every backward kernel as often; ms a
+   step (the median of steps 2 on) and the peak memory above the start,
+   remat off and on (``remat (a)`` lines). (b) Qwen2-0.5B at TRAIN_BATCH
+   x TRAIN_SEQ, fp32 and bf16, remat off and on, run eagerly on the card
+   (the loss and its gradients, and the trainer's whole step): the bytes
+   the step makes at their most (``max_memory_allocated`` less the start,
+   on a second call) against the dry-run's reckoning of the same step on
+   the meta device, unplaced (``dryrun.count_step``), within
+   :data:`REMAT_MEM_TOL` either way (``remat (b)`` line). Phase 13's
+   seconds are printed.
 
 Phases 2 and 4 hold the fp32 kernels other than the gather to 1e-4 of the
 largest magnitude of their plain versions' outputs and the bf16 ones to
@@ -388,6 +416,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -5642,6 +5671,159 @@ DRYRUN_COLL_HELD = {
 DRYRUN_COLL_HELD_SLACK = 0.25
 
 
+# Each single-pod row's (temp_bytes, output_bytes, peak_bytes) of the
+# reference's own ``--all`` run (XLA's memory analysis of the compiled step
+# on the CPU backend, one device's bytes), with the bytes of the float32
+# copies of whole bf16 step arguments that XLA:CPU makes in its temp; and
+# each train_4k row's (temp_bytes, copies) under ``--layer-remat``: the
+# yardstick of the port's memory term, printed by
+# ``tests/reference_memory.py``. XLA:CPU's peak is its arguments and
+# outputs without its temp, so it is kept and not compared.
+DRYRUN_MEM_REFERENCE = {
+    ("musicgen-medium", "train_4k"): (30191912712, 214614096,
+        429759692, 341409792),
+    ("musicgen-medium", "prefill_32k"): (1772986904, 2415919640,
+        2587876036, 341409792),
+    ("musicgen-medium", "decode_32k"): (10312534712, 4831840280,
+        9835378902, 10005086208),
+    ("musicgen-medium", "long_500k"): (360171376, 9437464,
+        190570950, 359497728),
+    ("moonshot-v1-16b-a3b", "train_4k"): (53995658960, 4399273296,
+        8799076360, 6954942464),
+    ("moonshot-v1-16b-a3b", "prefill_32k"): (14514129080, 1610653720,
+        5130337628, 6954942464),
+    ("moonshot-v1-16b-a3b", "decode_32k"): (20384114224, 6442614808,
+        16404491630, 19839844352),
+    ("moonshot-v1-16b-a3b", "long_500k"): (7035469032, 12603416,
+        3544610338, 6896222208),
+    ("llama-3.2-vision-11b", "train_4k"): (60894227896, 1528147096,
+        3191042464, 2313682944),
+    ("llama-3.2-vision-11b", "prefill_32k"): (6199708880, 541097368,
+        1780657210, 2313682944),
+    ("llama-3.2-vision-11b", "decode_32k"): (6682203272, 2164389208,
+        5542787158, 6625427456),
+    ("llama-3.2-vision-11b", "long_500k"): (2339163720, 4341496,
+        1222800902, 2305556480),
+    ("qwen2-7b", "train_4k"): (52270227368, 1190479744,
+        2381493292, 1768406528),
+    ("qwen2-7b", "prefill_32k"): (5116052440, 234919064,
+        1187522804, 1768406528),
+    ("qwen2-7b", "decode_32k"): (3802428544, 939676184,
+        2831546246, 3647454720),
+    ("qwen2-7b", "long_500k"): (1636047552, 1854040,
+        956031926, 1635827200),
+    ("phi4-mini-3.8b", "train_4k"): (39982533720, 695877432,
+        1392288692, 959741952),
+    ("phi4-mini-3.8b", "prefill_32k"): (3813967008, 536920952,
+        1093891236, 959741952),
+    ("phi4-mini-3.8b", "decode_32k"): (5477422536, 2147683736,
+        4851879894, 5254709248),
+    ("phi4-mini-3.8b", "long_500k"): (814895112, 4219336,
+        565123062, 814481408),
+    ("jamba-v0.1-52b", "train_4k"): (178609902192, 8046540512,
+        16093613768, 12805501312),
+    ("jamba-v0.1-52b", "prefill_32k"): (24798157176, 70970120,
+        6508032060, 12805501312),
+    ("jamba-v0.1-52b", "decode_32k"): (13823701792, 283880072,
+        7224702474, 13343769984),
+    ("jamba-v0.1-52b", "long_500k"): (13319941320, 35485128,
+        6535289070, 12872784896),
+    ("qwen2-0.5b", "train_4k"): (27172318504, 98579904,
+        197693404, 123669248),
+    ("qwen2-0.5b", "prefill_32k"): (2181431896, 50369656,
+        129491460, 123669248),
+    ("qwen2-0.5b", "decode_32k"): (554920576, 201478552,
+        481669046, 526322432),
+    ("qwen2-0.5b", "long_500k"): (90474496, 412232,
+        79666262, 90422016),
+    ("mamba2-130m", "train_4k"): (45244169776, 352251192,
+        705036816, 161665536),
+    ("mamba2-130m", "prefill_32k"): (5112601224, 2592696,
+        284571034, 161665536),
+    ("mamba2-130m", "decode_32k"): (204804752, 10370712,
+        367713422, 161923584),
+    ("mamba2-130m", "long_500k"): (24308112, 1296360,
+        292465858, 7237632),
+    ("granite-moe-1b-a400m", "train_4k"): (45954193704, 454305616,
+        909143048, 525545472),
+    ("granite-moe-1b-a400m", "prefill_32k"): (5395134592, 201523236,
+        565235048, 525545472),
+    ("granite-moe-1b-a400m", "decode_32k"): (2250198616, 806092872,
+        1974854174, 2136158208),
+    ("granite-moe-1b-a400m", "long_500k"): (340059032, 1671198,
+        366695076, 327352320),
+    ("olmoe-1b-7b", "train_4k"): (40101093008, 1086182736,
+        2172896264, 1712128000),
+    ("olmoe-1b-7b", "prefill_32k"): (11421943992, 536883512,
+        1406094972, 1712128000),
+    ("olmoe-1b-7b", "decode_32k"): (6513816112, 2147533976,
+        5163971054, 6007095296),
+    ("olmoe-1b-7b", "long_500k"): (1796263144, 4200616,
+        877346482, 1694760960),
+}
+DRYRUN_MEM_LREMAT_REFERENCE = {
+    "musicgen-medium": (30191945416, 341409792),
+    "moonshot-v1-16b-a3b": (53995658896, 6954942464),
+    "llama-3.2-vision-11b": (61998380216, 2313682944),
+    "qwen2-7b": (52270227304, 1768406528),
+    "phi4-mini-3.8b": (39982533720, 959741952),
+    "jamba-v0.1-52b": (178969825160, 12805501312),
+    "qwen2-0.5b": (27172318440, 123669248),
+    "mamba2-130m": (45244169712, 161665536),
+    "granite-moe-1b-a400m": (45953931432, 525545472),
+    "olmoe-1b-7b": (40101092944, 1712128000),
+}
+
+# The memory bar: a row's temp_bytes within this factor, either way, of the
+# reference's less its float32 copies (XLA's CPU backend computes bf16 in
+# float32: a decode step's temp is 79-100% such copies of the weights and
+# caches, which neither a device with bf16 arithmetic nor the port
+# makes) ...
+DRYRUN_MEM_BAR = 8.0
+# ... or, for the rows PERF.md explains, within DRYRUN_COLL_HELD_SLACK of
+# the ratio recorded here. MusicGen's prefill: the port makes each layer's
+# caches and stacks them at the end, where XLA's scan writes the stacked
+# output in place. The decode rows: at the peak of XLA:CPU's temp (its
+# buffer assignment) 94.7-100% of the live bytes are float32 converts,
+# whole stacks of the layers' weights that the count of argument copies
+# misses (through a second convert, or a fusion that does not read the
+# argument itself), bigger than the port's whole step at one token. The
+# bar is advisory: phase 13 (b) holds the reckoning to the card.
+DRYRUN_MEM_HELD = {
+    ("musicgen-medium", "prefill_32k"): 8.2975,
+    ("moonshot-v1-16b-a3b", "long_500k"): 0.0044396,
+    ("llama-3.2-vision-11b", "long_500k"): 0.0033111,
+    ("jamba-v0.1-52b", "decode_32k"): 0.087802,
+    ("jamba-v0.1-52b", "long_500k"): 0.012084,
+    ("mamba2-130m", "long_500k"): 0.11583,
+    ("granite-moe-1b-a400m", "long_500k"): 0.013421,
+    ("olmoe-1b-7b", "long_500k"): 0.0061417,
+}
+
+
+def memory_ratio(arch: str, shape: str, temp_bytes: float,
+                 layer_remat: bool = False) -> float:
+    """A row's ``temp_bytes`` over the reference's less its float32 copies
+    (:data:`DRYRUN_MEM_REFERENCE`, or with ``layer_remat``
+    :data:`DRYRUN_MEM_LREMAT_REFERENCE`)."""
+    if layer_remat:
+        temp, copies = DRYRUN_MEM_LREMAT_REFERENCE[arch]
+    else:
+        temp, _, _, copies = DRYRUN_MEM_REFERENCE[(arch, shape)]
+    return temp_bytes / (temp - copies)
+
+
+def memory_ratio_ok(arch: str, shape: str, temp_bytes: float,
+                    layer_remat: bool = False) -> bool:
+    """:func:`memory_ratio` within the bar, or within the slack of the
+    row's held ratio."""
+    ratio = memory_ratio(arch, shape, temp_bytes, layer_remat)
+    held = None if layer_remat else DRYRUN_MEM_HELD.get((arch, shape))
+    if held is not None:
+        return abs(ratio / held - 1) <= DRYRUN_COLL_HELD_SLACK
+    return 1 / DRYRUN_MEM_BAR <= ratio <= DRYRUN_MEM_BAR
+
+
 def collective_ratio_ok(arch: str, shape: str, coll_bytes: float) -> bool:
     """A row's ``coll_bytes`` against :data:`DRYRUN_COLL_REFERENCE`: within
     the bar, or within the slack of its held ratio."""
@@ -5652,38 +5834,60 @@ def collective_ratio_ok(arch: str, shape: str, coll_bytes: float) -> bool:
     return 1 / DRYRUN_COLL_BAR <= ratio <= DRYRUN_COLL_BAR
 
 
+def host_process(code: str):
+    """``code`` in a Python process of its own on ``src/``, its output
+    piped; it exits 3 if it initialised CUDA, else with its own code."""
+    import os
+
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, time\nimport torch\n" + code
+         + "sys.exit(3 if torch.cuda.is_initialized() else rc)\n"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
 def dryrun_phase(torch, drive, card: str) -> dict:
     """Phase 12 (module docstring); returns (a)'s launches. (b) is host
-    work alone, so it runs beside (a), in a process of its own that must
-    not so much as initialise CUDA."""
-    import os
+    work alone, so it runs beside (a), in processes of its own that must
+    not so much as initialise CUDA: the ``--all`` sweep, and the ten
+    train_4k rows with ``--layer-remat``."""
     import tempfile
 
     from repro_torch.launch import dryrun, report
 
     with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp) / "rows.json"
-        code = ("import sys, time\nimport torch\n"
+        out, lremat_out = Path(tmp) / "rows.json", Path(tmp) / "lremat.json"
+        procs = {
+            "--all": host_process(
                 "from repro_torch.launch.dryrun import main\n"
                 "t0 = time.perf_counter()\n"
                 f"rc = main(['--all', '--out', {str(out)!r}])\n"
-                "print(f'sweep seconds {time.perf_counter() - t0:.1f}')\n"
-                "sys.exit(3 if torch.cuda.is_initialized() else rc)\n")
-        sweep = subprocess.Popen(
-            [sys.executable, "-c", code], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True,
-            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+                "print(f'sweep seconds {time.perf_counter() - t0:.1f}')\n"),
+            "--layer-remat": host_process(
+                "import json\n"
+                "from repro_torch.configs import ARCHS\n"
+                "from repro_torch.launch.dryrun import dryrun_one\n"
+                "t0 = time.perf_counter()\n"
+                "rows = [dryrun_one(a, 'train_4k', layer_remat=True)\n"
+                "        for a in ARCHS]\n"
+                f"json.dump(rows, open({str(lremat_out)!r}, 'w'))\n"
+                "print(f'layer-remat seconds "
+                "{time.perf_counter() - t0:.1f}')\n"
+                "rc = 0\n")}
+        logs = {}
         try:
             t0 = time.perf_counter()
             rows, counts = drive(lambda: dryrun.dryrun_dynamic(
                 model_size=MODEL_SIZE, batch_size=DRYRUN_BATCH, seed=SEED,
                 verbose=False, skip=DRYRUN_PLANNED_EARLIER))
             dyn_s = time.perf_counter() - t0
-            sweep_log, _ = sweep.communicate(timeout=900)
+            for name, proc in procs.items():
+                logs[name], _ = proc.communicate(timeout=900)
         finally:
-            if sweep.poll() is None:
-                sweep.kill()
-                sweep.wait()
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         bad = [r for r in rows if not r["ok"]]
         want_rows = len(DRYRUN_REFERENCE) - len(DRYRUN_PLANNED_EARLIER)
         if bad or len(rows) != want_rows:
@@ -5707,19 +5911,23 @@ def dryrun_phase(torch, drive, card: str) -> dict:
             f"{', '.join(DRYRUN_PLANNED_EARLIER)} drawn, their plans left "
             f"to phases 3 and 5), in {dyn_s:.1f} s, each plan's statistics "
             f"the reference's; launches {counts} ({card})")
-        for line in sweep_log.splitlines():
-            if line.startswith(("[dryrun]", "sweep seconds")):
-                log(line)
-        if sweep.returncode != 0:
-            fail(f"dryrun --all exited {sweep.returncode} (3: it initialised "
-                 f"CUDA):\n{sweep_log[-4000:]}")
+        for name, proc in procs.items():
+            for line in logs[name].splitlines():
+                if line.startswith(("[dryrun]", "sweep seconds",
+                                    "layer-remat seconds")):
+                    log(line)
+            if proc.returncode != 0:
+                fail(f"dryrun {name} exited {proc.returncode} (3: it "
+                     f"initialised CUDA):\n{logs[name][-4000:]}")
         with open(out) as f:
             rows = json.load(f)
+        with open(lremat_out) as f:
+            lremat = json.load(f)
     bad = [r for r in rows if not r["ok"]]
     if len(rows) != 40 or bad:
         fail(f"dryrun --all: {len(rows)} rows, failed {bad}")
     log(report.render(rows))
-    ratios = {}
+    ratios, temp_ratios, plain_temp = {}, {}, {}
     for r in rows:
         key = (r["arch"], r["shape"].split("(")[0])
         if r.get("coll_bytes") is None or \
@@ -5729,6 +5937,15 @@ def dryrun_phase(torch, drive, card: str) -> dict:
                  f"bar (x{DRYRUN_COLL_BAR:g}) and not a held row")
         ratios[key] = r["coll_bytes"] / sum(
             DRYRUN_COLL_REFERENCE[key].values())
+        if r["temp_bytes"] is None or \
+                r["bytes_per_device"] != r["temp_bytes"] + r["arg_bytes"] \
+                or not memory_ratio_ok(*key, r["temp_bytes"]):
+            fail(f"dryrun --all {key}: temp_bytes {r['temp_bytes']} "
+                 f"(bytes_per_device {r['bytes_per_device']}), the "
+                 f"reference's {DRYRUN_MEM_REFERENCE[key]}: off the bar "
+                 f"(x{DRYRUN_MEM_BAR:g}) and not a held row")
+        temp_ratios[key] = memory_ratio(*key, r["temp_bytes"])
+        plain_temp[key] = r["temp_bytes"]
     free = [v for k, v in ratios.items() if k not in DRYRUN_COLL_HELD]
     log(f"dryrun --all: 40 rows ok on the meta device (16x16 mesh), its "
         f"process never initialised CUDA; beside (a) on the host of {card}; "
@@ -5736,16 +5953,240 @@ def dryrun_phase(torch, drive, card: str) -> dict:
         f"{max(free):.3f} over {len(free)} rows (bar x{DRYRUN_COLL_BAR:g}), "
         + ", ".join(f"{a} {sh} {ratios[(a, sh)]:.4f} (held at {h:.4f})"
                     for (a, sh), h in DRYRUN_COLL_HELD.items()))
+    for shape in dryrun.SHAPES:
+        got = [v for k, v in temp_ratios.items()
+               if k[1] == shape and k not in DRYRUN_MEM_HELD]
+        log(f"dryrun --all temp_bytes / the reference's less its float32 "
+            f"copies, {shape} rows: {min(got):.4f} to {max(got):.4f} over "
+            f"{len(got)} rows (bar x{DRYRUN_MEM_BAR:g}); "
+            + ", ".join(f"{a} {v:.4f}" for (a, sh), v in temp_ratios.items()
+                        if sh == shape))
+    log("dryrun --all held memory rows: " + ", ".join(
+        f"{a} {sh} {temp_ratios[(a, sh)]:.5g} (held at {h:.5g})"
+        for (a, sh), h in DRYRUN_MEM_HELD.items()))
+    if len(lremat) != len(DRYRUN_MEM_LREMAT_REFERENCE) or \
+            not all(r["ok"] for r in lremat):
+        fail(f"dryrun --layer-remat: {len(lremat)} rows, "
+             f"{[r for r in lremat if not r['ok']]}")
+    parts = []
+    for r in lremat:
+        key = (r["arch"], "train_4k")
+        if not r["shape"].endswith("+lremat") or \
+                not memory_ratio_ok(*key, r["temp_bytes"], True) or \
+                r["temp_bytes"] > plain_temp[key]:
+            fail(f"dryrun --layer-remat {key}: shape {r['shape']}, "
+                 f"temp_bytes {r['temp_bytes']} against the reference's "
+                 f"{DRYRUN_MEM_LREMAT_REFERENCE[r['arch']]} (bar "
+                 f"x{DRYRUN_MEM_BAR:g}) and the plain row's "
+                 f"{plain_temp[key]} (want no more)")
+        ratio = memory_ratio(*key, r["temp_bytes"], True)
+        parts.append(f"{r['arch']} {ratio:.4f} "
+                     f"({r['temp_bytes'] / plain_temp[key]:.4f} of remat)")
+    log(f"dryrun --layer-remat: 10 train_4k rows ok, temp_bytes / the "
+        f"reference's +lremat row less its float32 copies (and of the "
+        f"plain remat row's): " + ", ".join(parts))
     return counts
+
+
+# -- phase 13 -------------------------------------------------------------
+
+
+REMAT_STEPS = 3
+# (arch, dtype) -> each kernel its training path launches and its launches
+# a layer a step without remat (every layer of these models runs each of
+# them), and the layer_remat settings of its remat runs
+REMAT_TRAIN = {
+    ("qwen2-0.5b", "float32"): ({"flash_attention": 1,
+                                 "flash_attention_backward": 1},
+                                (False, True)),
+    ("mamba2-130m", "bfloat16"): ({"ssd_scan_bf16": 1,
+                                   "ssd_scan_backward_bf16": 1}, (False,)),
+    ("granite-moe-1b-a400m", "bfloat16"): ({"flash_attention_bf16": 1,
+                                            "flash_attention_backward_bf16": 1,
+                                            "gather_rows": 2,
+                                            "gather_rows_backward_bf16": 2},
+                                           (False,)),
+}
+REMAT_MEM_TOL = 0.15     # (b): the reckoned peak against the card's
+
+
+def remat_train_phase(torch, drive, card: str, on_path) -> None:
+    """Phase 13 (a) (module docstring): per (arch, dtype) of REMAT_TRAIN, a
+    remat=False run and its remat runs, REMAT_STEPS steps each of
+    ``train/loop.py:train`` at TRAIN_BATCH x TRAIN_SEQ from the seed-0
+    weights and the same batches, the step captured."""
+    import numpy as np
+
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.train.loop import train
+    from repro_torch.train.optimizer import AdamWConfig, leaves
+
+    for (arch, dt_name), (kernels, lremats) in REMAT_TRAIN.items():
+        dtype = getattr(torch, dt_name)
+        cfg = get_config(arch)
+        params = tree_map(lambda t: t.to("cuda", dtype), TransformerLM(
+            cfg, device="cpu").init_params(torch.Generator().manual_seed(0)))
+        opt = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=REMAT_STEPS)
+        runs = {}
+        for variant in [None] + list(lremats):
+            model = TransformerLM(cfg, dtype, device="cuda",
+                                  remat=variant is not None)
+            model.layer_remat = bool(variant)
+            pipe = SyntheticCorpus(PipelineConfig(
+                vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                seed=0))
+            stamps = []
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            state, counts = drive(lambda: train(
+                model, params, iter(pipe), REMAT_STEPS, opt, log_every=1,
+                log_fn=lambda line: stamps.append(time.perf_counter())))
+            torch.cuda.synchronize()
+            runs[variant] = {
+                "state": state, "counts": counts,
+                "peak": torch.cuda.max_memory_allocated() - base,
+                "ms": statistics.median(
+                    (b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))}
+            del model
+        plain = runs.pop(None)
+        losses = plain["state"].history
+        if len(losses) != REMAT_STEPS or not all(np.isfinite(losses)):
+            fail(f"remat (a) {arch} {dt_name}: losses {losses}")
+        per_step = {k: n * cfg.n_layers for k, n in kernels.items()}
+        if {k: plain["counts"][k] for k in kernels} != \
+                {k: n * REMAT_STEPS for k, n in per_step.items()}:
+            fail(f"remat (a) {arch} {dt_name}: without remat, launches "
+                 f"{ {k: plain['counts'][k] for k in kernels} } in "
+                 f"{REMAT_STEPS} steps, not {per_step} a step")
+        label = f"{arch} {dt_name} training"
+        on_path(label, plain["counts"], kernels)
+        parts = []
+        for lremat, run in runs.items():
+            name = "remat" + (" + layer remat" if lremat else "")
+            # the backward recomputes every forward kernel once
+            want = {k: n * REMAT_STEPS * (1 if "backward" in k else 2)
+                    for k, n in per_step.items()}
+            got = {k: run["counts"][k] for k in kernels}
+            if got != want:
+                fail(f"remat (a) {arch} {dt_name} {name}: launches {got}, "
+                     f"not {want}")
+            if run["state"].history != losses or not all(
+                    torch.equal(a, b) for a, b in zip(
+                        leaves(run["state"].params),
+                        leaves(plain["state"].params))):
+                fail(f"remat (a) {arch} {dt_name} {name}: losses "
+                     f"{run['state'].history} against {losses} without "
+                     f"remat, or a parameter leaf differs (want bit-equal)")
+            on_path(f"{label} with {name}", run["counts"], kernels)
+            parts.append(f"{name} {run['ms']:.2f} ms per step, peak "
+                         f"{run['peak'] / 2**30:.3f} GiB, launches {got}")
+        log(f"remat (a) {arch} {dt_name}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+            f"{REMAT_STEPS} steps captured: remat off {plain['ms']:.2f} ms "
+            f"per step (median of steps 2 on), peak above the start "
+            f"{plain['peak'] / 2**30:.3f} GiB, launches "
+            f"{ {k: plain['counts'][k] for k in kernels} }; "
+            + "; ".join(parts)
+            + f"; losses and every parameter leaf bit-equal to remat off "
+            f"({card})")
+        del params, runs, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def card_peak(torch, fn) -> int:
+    """The bytes ``fn()`` allocates on the card at its most: after a
+    warm-up call (workspaces), ``max_memory_allocated()`` over a second
+    call less what was allocated before it."""
+    fn()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def remat_memory_phase(torch, card: str) -> None:
+    """Phase 13 (b) (module docstring): Qwen2-0.5B at TRAIN_BATCH x
+    TRAIN_SEQ, fp32 and bf16, remat off and on, two steps each: the loss
+    and its gradients (``dryrun._value_and_grad``, whose peak falls in the
+    backward), and the trainer's whole step (``StaticTrainStep`` run
+    eagerly: with the in-place AdamW), each run on the card and reckoned on
+    meta by the dry-run's counter, unplaced: the reckoned high-water mark
+    of the storages the step makes within REMAT_MEM_TOL of the card's
+    (:func:`card_peak`)."""
+    from repro_torch.arch.model import TransformerLM, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticCorpus
+    from repro_torch.launch import dryrun
+    from repro_torch.train.loop import StaticTrainStep
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config("qwen2-0.5b")
+    weights = TransformerLM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    batch = {k: torch.as_tensor(v) for k, v in SyntheticCorpus(
+        PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       batch_size=TRAIN_BATCH, seed=0)).batch(0).items()}
+    opt = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=REMAT_STEPS)
+    parts = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for remat in (False, True):
+            label = (f"{str(dtype).removeprefix('torch.')} remat "
+                     f"{'on' if remat else 'off'}")
+            for what in ("loss and gradients", "whole step"):
+                sides = {}
+                for dev in ("cuda", "meta"):
+                    model = TransformerLM(cfg, dtype, device=dev,
+                                          remat=remat)
+                    params = tree_map(lambda t: torch.empty_like(
+                        t, device=dev, dtype=dtype) if dev == "meta"
+                        else t.to(dev, dtype), weights)
+                    data = {k: v.to(dev) for k, v in batch.items()}
+                    if what == "whole step":
+                        step = StaticTrainStep(model, opt, params,
+                                               capture=False)
+                        args = (data,)
+                    else:
+                        step = partial(dryrun._value_and_grad, model)
+                        args = (params, data)
+                    sides[dev] = (card_peak(torch, lambda: step(*args))
+                                  if dev == "cuda" else
+                                  dryrun.count_step(step, *args).high_water)
+                    del model, params, step, args
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                err = sides["meta"] / sides["cuda"] - 1
+                parts.append(f"{label} {what}: reckoned "
+                             f"{sides['meta'] / 2**30:.3f} GiB, the card "
+                             f"{sides['cuda'] / 2**30:.3f} GiB ({err:+.2%})")
+                if abs(err) > REMAT_MEM_TOL:
+                    fail(f"remat (b) Qwen2-0.5B {label} {what}: the "
+                         f"reckoned peak {sides['meta']} against the card's "
+                         f"{sides['cuda']} (bar {REMAT_MEM_TOL:.0%} either "
+                         f"way)")
+    log(f"remat (b) Qwen2-0.5B, batch {TRAIN_BATCH} x {TRAIN_SEQ}, run "
+        f"eagerly, the bytes it makes at their most, reckoned on meta "
+        f"against max_memory_allocated on the card: " + "; ".join(parts)
+        + f" (bar {REMAT_MEM_TOL:.0%}; {card})")
 
 
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="phases to run after phase 1 (comma-separated); "
-                         "the result lines are printed only for all twelve")
+                         "the result lines are printed only for all "
+                         "thirteen")
     ap.add_argument("--workloads", default=",".join(TREES_LATTICES),
                     help="phase 5's workloads (comma-separated)")
     args = ap.parse_args(argv)
@@ -6071,9 +6512,16 @@ def main(argv: list[str] | None = None) -> int:
         dry_launches = dryrun_phase(torch, drive, card)
         on_path("dryrun --dynamic", dry_launches, ("gather_rows",))
         log(f"dryrun done: {time.perf_counter() - t0:.1f} s ({card})")
+    if 13 in phases:
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        remat_train_phase(torch, drive, card, on_path)
+        remat_memory_phase(torch, card)
+        log(f"remat done: {time.perf_counter() - t0:.1f} s ({card})")
     log(f"launches by path: {json.dumps(by_path)}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
-    if phases != set(range(1, 13)) or set(workloads) != set(TREES_LATTICES):
+    if phases != set(range(1, 14)) or set(workloads) != set(TREES_LATTICES):
         log(f"partial run (phases {sorted(phases)}, workloads {workloads}): "
             f"no result lines")
         return 0

@@ -64,6 +64,15 @@ def _rmsnorm(x, scale, eps):
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
+def gold_logit(logits, labels):
+    """``logits`` (B, S, V) at ``labels`` (B, S): (B, S, 1). On the dry-run's
+    production mesh a region that moves nothing (``kernels/ref.py:reckon``):
+    each vocab shard's masked gather, a partial sum over the vocab's split,
+    whose backward scatters into the shard alone."""
+    return ref.reckon(torch.gather, (logits, -1, labels.long()[..., None]),
+                      ("bsv", None, "bsu"), "bsu", "bsv")
+
+
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device)
     return 1.0 / (theta ** (exps / d_head))

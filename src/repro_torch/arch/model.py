@@ -23,6 +23,16 @@ and every MoE layer routes over ``n_groups = B`` groups where a sequence
 has more than one token and over one group of all B rows where it has one
 (a decode step), the reference's rule.
 
+``remat`` checkpoints each repeat's block under autograd, and
+``layer_remat`` each layer inside it, as the reference's ``remat`` and
+``layer_remat`` do (``torch.utils.checkpoint``, non-reentrant): the
+backward recomputes the block's forward from its input, and holds one
+block's (or one layer's) activations at a time in place of all of them.
+The recomputed forward runs the same ops in the same order, so losses and
+gradients are the same, bit for bit. ``prefill`` and ``decode_step`` run
+without gradients, where a checkpoint changes nothing, and take no
+checkpoint.
+
 ``partitioner`` (None by default) is the reference's hook: a
 ``launch.sharding.Partitioner`` whose ``constrain`` the model calls at the
 reference's sites (the embedding and each repeat's residual, each
@@ -38,6 +48,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from . import layers as L
@@ -76,11 +87,24 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+def _checkpointed(fn, *args):
+    """``fn(*args)`` checkpointed where autograd records (non-reentrant).
+    The model draws no random numbers, so no generator state is read: the
+    CUDA generator a graph capture registers is never met."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class TransformerLM(nn.Module):
-    def __init__(self, cfg: ArchConfig, dtype=torch.float32, *, device=None):
+    def __init__(self, cfg: ArchConfig, dtype=torch.float32, *, device=None,
+                 remat: bool = False):
         """``dtype``: of the parameters and the decode caches, float32 or
         bfloat16 (as the reference's ``dtype``); the loss is taken in
-        float32 either way."""
+        float32 either way. ``remat``: checkpoint each repeat's block in
+        ``forward`` (training memory). The reference's ``unroll`` has no
+        counterpart: the repeats here are already a Python loop."""
         super().__init__()
         if dtype not in SUPPORTED_DTYPES:
             raise ValueError(f"{cfg.name}: dtype {dtype} is not one of "
@@ -97,6 +121,10 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.remat = remat
+        # Nested remat: checkpoint each layer inside the block too, so the
+        # backward holds one layer's activations (not the block's)
+        self.layer_remat = False
         # Optional launch.sharding.Partitioner: when set, activations are
         # constrained at the reference's residual, logits and loss sites
         # (the identity on plain tensors; the dry-run's DTensors move)
@@ -211,20 +239,30 @@ class TransformerLM(nn.Module):
         image_embeds = self._image(image_embeds)
         x = self._wsc(params["embed"][tokens], "residual")
         positions = self._positions(B, S_)
-        aux_total = torch.zeros((), device=self.device)
+        aux = torch.zeros((), device=self.device)
         # Each stacked leaf unbound once: under autograd one unbind's
         # backward stacks the repeats' gradients, where a select per repeat
         # would write a full-size zero gradient of the leaf for each.
         repeats = [_unbind(blk, cfg.n_repeats) for blk in params["blocks"]]
+
+        def layer(x, aux, lp, spec):
+            x, a = self._apply_layer(x, lp, spec, positions, image_embeds)
+            return x, aux if a is None else aux + a
+
+        def block(x, aux, lps):
+            # one repeat: the MoE aux loss is carried through, as the
+            # reference's scan carries it, never added outside a checkpoint
+            for spec, lp in zip(cfg.pattern, lps):
+                x, aux = (_checkpointed(layer, x, aux, lp, spec)
+                          if self.layer_remat else layer(x, aux, lp, spec))
+            return self._wsc(x, "residual"), aux
+
         for r in range(cfg.n_repeats):
-            for spec, layers in zip(cfg.pattern, repeats):
-                x, aux = self._apply_layer(x, layers[r], spec, positions,
-                                           image_embeds)
-                if aux is not None:
-                    aux_total = aux_total + aux
-            x = self._wsc(x, "residual")
+            lps = [layers[r] for layers in repeats]
+            x, aux = (_checkpointed(block, x, aux, lps) if self.remat
+                      else block(x, aux, lps))
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        return self._wsc(x @ params["lm_head"], "logits"), aux_total
+        return self._wsc(x @ params["lm_head"], "logits"), aux
 
     def loss(self, params, batch):
         """Mean next-token NLL over ``batch["labels"]`` under
@@ -240,8 +278,8 @@ class TransformerLM(nn.Module):
         lse = self._wsc(torch.logsumexp(logits32, dim=-1), "nll")
         # on vocab-sharded logits the gathered gold logit is a masked
         # partial sum: placed as the nll while it keeps its unit dim
-        labels = batch["labels"].long()[..., None]
-        gold = self._wsc(logits32.gather(-1, labels), "nll")[..., 0]
+        gold = self._wsc(L.gold_logit(logits32, batch["labels"]),
+                         "nll")[..., 0]
         nll = lse - gold
         mask = batch.get("loss_mask")
         mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)

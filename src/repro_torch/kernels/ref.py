@@ -34,8 +34,9 @@ RECKONER = None
 def stand_in(cost):
     """Run a plain version in its kernel's place. Under the dry-run's step
     counter the kernel's own work, ``cost()`` = ``(flops, bytes)``
-    (:mod:`.costs`), is counted and the plain version's ops are not;
-    otherwise this does nothing."""
+    (:mod:`.costs`), is counted and the plain version's ops are not, nor
+    their memory but for what outlives the block; otherwise this does
+    nothing."""
     counter = RECKONER
     if counter is None or counter.muted:
         yield
@@ -45,7 +46,7 @@ def stand_in(cost):
     try:
         yield
     finally:
-        counter.muted = False
+        counter.unmute()
 
 
 def reckon(fn, args, labels, out_labels, shardable: str):

@@ -14,7 +14,10 @@ the card: lowered, captured as a CUDA graph and replayed) and reports its
 parameters, the AdamW state, the inputs and the decode caches as empty
 tensors on the ``meta`` device at full width and depth, so nothing is
 allocated, and traces the step once: the forward, and for a training shape
-also the loss, the backward and the functional AdamW. The kernel wrappers
+also the loss, the backward and the functional AdamW. A training step's
+model checkpoints each repeat's block (``remat``, as the reference's
+dry-run builds it; with ``--layer-remat`` each layer inside it too), so
+the traced backward recomputes the blocks' forward. The kernel wrappers
 take the card's route on meta, a plain version standing in for each
 launch (``kernels/ref.py:stand_in``). Where the reference lowers and
 compiles on 256 or 512 placeholder host devices, the step runs on the
@@ -55,11 +58,13 @@ count:
   under the reference's kinds (``wait_tensor`` and the like count
   nothing): the forward's, the backward's (its gradients reduced over the
   data axes once, each to its parameter's placements) and AdamW's (the
-  ZeRO-1 moments' shards). The reference counts its compiled HLO's;
-  ``launch/roofline.py`` names where the two differ (remat, resharding
-  permutes, fused collectives), and a training row here counts its
-  forward's collectives once, where the reference's remat issues them
-  twice. Rules the placement adds to DTensor's (``launch/spmd.py``): a
+  ZeRO-1 moments' shards). A training row counts its blocks' forward
+  collectives twice, once more in the backward's recomputation, as the
+  reference's remat issues them (the FLOPs and bytes of the recomputed
+  forward count too). The reference counts its compiled HLO's;
+  ``launch/roofline.py`` names where the two differ (resharding permutes,
+  fused collectives). Rules the placement adds to DTensor's
+  (``launch/spmd.py``): a
   softmax or logsumexp over a split dim runs as its decomposition, reduced
   across the shards; a partial sum meeting the residual is reduced to the
   residual's layout; a row lookup into a vocab-split table is a masked
@@ -71,14 +76,31 @@ count:
   operands (tallied in the counter's ``resharded``).
 - ``model_flops``: 6 (training) or 2 times the active parameters times
   the tokens (``launch/roofline.py``).
-- ``temp_bytes``, ``output_bytes`` and ``peak_bytes``: None. XLA's memory
-  analysis has no counterpart here.
+- ``output_bytes``: exact. One device's shard bytes of the step's output
+  leaves (a training step's parameters, moments, step and loss; the
+  logits and caches), as ``arg_bytes`` counts the arguments.
+- ``peak_bytes``: ``arg_bytes`` plus the most bytes of the storages the
+  step makes live at once on one device, from the same trace
+  (:class:`StepCounter`'s memory term): each storage once, whatever views
+  share it (a DTensor's by its local shard, a collective's output, a
+  plain tensor inside a region that moves nothing by its device's
+  share), from the op that makes it until its last reference dies. On
+  meta tensors Python's reference counts give eager's own lifetimes, so
+  autograd's saved tensors live until the backward frees them and remat's
+  saving shows. A plain version standing in for a kernel adds only what
+  outlives it (its outputs and what its autograd function saves), never
+  the intermediates the kernel does not make; a view, an in-place or an
+  ``out=`` op, and a write the placement leaves undone, make nothing.
+  DTensor's own temporaries while it places an op are not seen.
+- ``temp_bytes``: the same high-water mark over the storages that are not
+  the step's outputs (XLA's temp: neither arguments nor outputs);
+  ``bytes_per_device`` is ``temp_bytes + arg_bytes``, as the reference's.
 
 ``compile_s`` is the row's seconds (building the tree, placing it and the
 trace). ``--seq-parallel`` places the residuals on "model" along the
-sequence (the reference's ``seq_parallel``; ``+sp`` in the row's note).
-The reference's ``--layer-remat`` changes only XLA's rematerialisation,
-which the port does not reckon, so the command refuses it. Importing this
+sequence (the reference's ``seq_parallel``; ``+sp`` in the row's note),
+``--layer-remat`` checkpoints each layer of a training step's blocks too
+(``+lremat``). Importing this
 module changes no environment; the fake process group lives for one row.
 """
 
@@ -90,6 +112,7 @@ import math
 import sys
 import time
 import traceback
+import weakref
 
 import torch
 from torch.distributed.tensor.experimental import implicit_replication
@@ -134,6 +157,22 @@ def _tensor_bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _aliases(func) -> bool:
+    """Whether ``func``'s schema has an output alias an input (a view, an
+    in-place or an ``out=`` op): such an output makes no storage."""
+    return any(r.alias_info is not None for r in func._schema.returns)
+
+
+def _storages(tree):
+    """The storages under a tree's tensors: a DTensor's local tensor's (one
+    device's shard), a plain tensor's own."""
+    for t in tree_leaves(tree):
+        if isinstance(t, spmd.DTensor):
+            t = t._local_tensor
+        if isinstance(t, torch.Tensor) and t.layout == torch.strided:
+            yield t.untyped_storage()
+
+
 class StepCounter(TorchDispatchMode):
     """Counts a traced step's ``flops`` and ``bytes``. A kernel launch adds
     its own work (:meth:`add`, called by ``kernels/ref.py:stand_in``) and
@@ -145,7 +184,19 @@ class StepCounter(TorchDispatchMode):
     ``FlopCounterMode`` does. On DTensor operands (the step placed on a
     mesh) an op is counted at its global shapes, then placed
     (:meth:`_sharded`); the output bytes of every collective its placement
-    issues add to ``collectives`` by the reference's kind."""
+    issues add to ``collectives`` by the reference's kind.
+
+    It also keeps the step's memory: every storage an op makes (a DTensor
+    output's by its local shard; a collective's output; a plain tensor's
+    times :func:`spmd.share`, its per-device share inside a region that
+    moves nothing), once whatever views share it, from the op that makes
+    it until its last reference dies (a weak reference's callback: on meta
+    tensors Python's reference counts give eager's own lifetimes, autograd's
+    saved tensors included). A plain version standing in for a kernel adds
+    only what survives it (what it returns, and what its autograd function
+    saves): its intermediates, which the kernel never makes, add nothing.
+    DTensor's own temporaries while it places an op are not seen. The
+    events (made, freed) are settled after the step (:meth:`settle`)."""
 
     def __init__(self):
         super().__init__()
@@ -156,10 +207,75 @@ class StepCounter(TorchDispatchMode):
         self.resharded: dict[str, int] = {}
         self._inner = 0          # nesting of DTensor's own dispatch
         self._yield = False
+        # the memory term: (storage serial, +bytes made / -bytes freed)
+        self.events: list[tuple[int, int]] = []
+        self._live: dict[int, int] = {}   # live storage -> its serial
+        self._refs: dict[int, weakref.ref] = {}
+        self._pending: list = []          # what a stand-in made
+        self.high_water = self.temp_high_water = self.output_bytes = 0
 
     def add(self, flops: int, nbytes: int) -> None:
         self.flops += flops
         self.bytes += nbytes
+
+    def unmute(self) -> None:
+        """The end of a stand-in: what it made and is still referenced
+        (its outputs, what its autograd function saves) counts from now."""
+        self.muted = False
+        pending, self._pending = self._pending, []
+        for ref_, nbytes in pending:
+            st = ref_()
+            if st is not None:
+                self._made(st, nbytes)
+
+    def _made(self, st, nbytes: int) -> None:
+        key = st._cdata
+        if key in self._live:
+            return
+        serial = len(self.events) + 1
+        self._live[key] = serial
+        self._refs[serial] = weakref.ref(
+            st, lambda _, key=key, serial=serial, nbytes=nbytes:
+            self._freed(key, serial, nbytes))
+        self.events.append((serial, nbytes))
+
+    def _freed(self, key: int, serial: int, nbytes: int) -> None:
+        if self._live.get(key) == serial:
+            del self._live[key]
+        del self._refs[serial]
+        self.events.append((serial, -nbytes))
+
+    def _track(self, out, scale: float = 1.0) -> None:
+        if spmd.ALIAS:
+            return
+        for st in _storages(out):
+            if st._cdata in self._live:
+                continue
+            nbytes = int(st.nbytes() * scale)
+            if self.muted:
+                self._pending.append((weakref.ref(st), nbytes))
+            else:
+                self._made(st, nbytes)
+
+    def settle(self, outputs) -> None:
+        """After the step: ``high_water``, the most bytes of storages made
+        in the step live at once; ``temp_high_water``, the same over those
+        that are not the step's outputs; ``output_bytes``, one device's
+        bytes of the output leaves."""
+        out = {self._live.get(st._cdata) for st in _storages(outputs)}
+        live = temp = 0
+        for serial, delta in self.events:
+            live += delta
+            self.high_water = max(self.high_water, live)
+            if serial not in out:
+                temp += delta
+                self.temp_high_water = max(self.temp_high_water, temp)
+        self.output_bytes = sum(
+            t.numel() * t.element_size()
+            for t in (x._local_tensor if isinstance(x, spmd.DTensor) else x
+                      for x in tree_leaves(outputs))
+            if isinstance(t, torch.Tensor))
+        self._refs.clear()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -171,11 +287,16 @@ class StepCounter(TorchDispatchMode):
         if kind is not None:
             out = func(*args, **kwargs)
             self.collectives[kind] += _tensor_bytes(out)
+            self._track(out)
             return out
         sharded = any(issubclass(t, spmd.DTensor) for t in types)
         if self.muted or self._inner or spmd.QUIET:
-            return self._sharded(func, args, kwargs) if sharded \
+            out = self._sharded(func, args, kwargs) if sharded \
                 else func(*args, **kwargs)
+            if not self._inner and not _aliases(func):
+                self._track(out, 1.0 if sharded or spmd.QUIET
+                            else spmd.share())
+            return out
         packet = func.overloadpacket
         if packet not in self.formulas:
             with self:
@@ -188,6 +309,8 @@ class StepCounter(TorchDispatchMode):
             self.flops += self.formulas[packet](*args, **kwargs, out_val=out)
         if not func.is_view and packet not in _NO_DATA:
             self.bytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
+        if not _aliases(func):
+            self._track(out, 1.0 if sharded else spmd.share())
         return out
 
     def on_shards(self, fn, args, labels, out_labels, shardable):
@@ -262,16 +385,19 @@ class StepCounter(TorchDispatchMode):
             self._yield = False
 
 def count_step(fn, *args) -> StepCounter:
-    """One call of ``fn(*args)`` under a :class:`StepCounter`, returned.
-    Tensors made inside the step (positions, masks, zeros) are replicas
-    beside DTensor operands (``implicit_replication``)."""
+    """One call of ``fn(*args)`` under a :class:`StepCounter`, returned,
+    its memory settled against the call's outputs. Tensors made inside the
+    step (positions, masks, zeros) are replicas beside DTensor operands
+    (``implicit_replication``)."""
     counter = StepCounter()
     outer, ref.RECKONER = ref.RECKONER, counter
     try:
         with counter, implicit_replication():
-            fn(*args)
+            out = fn(*args)
     finally:
         ref.RECKONER = outer
+        spmd.BACKWARD = 1.0
+    counter.settle(out)
     return counter
 
 
@@ -424,19 +550,23 @@ def arg_bytes(args, shardings) -> int:
 
 def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
                verbose: bool = True, seq_parallel: bool = False,
-               fsdp: bool = False, grad_accum: int = 1,
-               no_tp: bool = False) -> dict:
+               layer_remat: bool = False, fsdp: bool = False,
+               grad_accum: int = 1, no_tp: bool = False) -> dict:
     """Reckon one (arch, shape) step of the bf16 model, as the reference
-    builds it, on the 16x16 (or 2x16x16) mesh on the meta device; a row
-    of the reference's keys (module docstring)."""
+    builds it (a training step with each repeat checkpointed, and with
+    ``layer_remat`` each layer too), on the 16x16 (or 2x16x16) mesh on the
+    meta device; a row of the reference's keys (module docstring)."""
     t0 = time.time()
     cfg, note = resolve_config(arch, shape)
     mesh = make_production_mesh(multi_pod=multi_pod)
     part = Partitioner(mesh, cfg, seq_parallel=seq_parallel, fsdp=fsdp)
     part.no_tp = no_tp
-    model = TransformerLM(cfg, torch.bfloat16, device=META)
+    model = TransformerLM(cfg, torch.bfloat16, device=META,
+                          remat=SHAPES[shape]["kind"] == "train")
+    model.layer_remat = layer_remat
     model.partitioner = part
-    note += (("+sp" if seq_parallel else "") + ("+fsdp" if fsdp else "")
+    note += (("+sp" if seq_parallel else "")
+             + ("+lremat" if layer_remat else "") + ("+fsdp" if fsdp else "")
              + (f"+ga{grad_accum}" if grad_accum > 1 else "")
              + ("+notp" if no_tp else ""))
     fn, args, shardings = build_step(arch, shape, model, part, grad_accum)
@@ -455,17 +585,17 @@ def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
         coll_bytes=float(sum(coll.values())),
         coll_breakdown=coll,
         model_flops=model_flops(cfg, args[0], shape, tokens),
-        bytes_per_device=float(n_arg_bytes),
+        bytes_per_device=float(counter.temp_high_water + n_arg_bytes),
         dtype="bfloat16",
     )
     row = rl.row()
     row.update({
         "ok": True,
         "compile_s": round(time.time() - t0, 1),
-        "temp_bytes": None,
+        "temp_bytes": counter.temp_high_water,
         "arg_bytes": n_arg_bytes,
-        "output_bytes": None,
-        "peak_bytes": None,
+        "output_bytes": counter.output_bytes,
+        "peak_bytes": n_arg_bytes + counter.high_water,
         "hlo_bytes": rl.hlo_bytes,
         "coll_bytes": rl.coll_bytes,
     })
@@ -475,7 +605,9 @@ def dryrun_one(arch: str, shape: str, *, multi_pod: bool = False,
               f"{rl.t_memory*1e3:.2f}ms collective "
               f"{rl.t_collective*1e3:.2f}ms -> {rl.dominant}-bound; "
               f"useful {rl.useful_ratio:.2f}; args/dev "
-              f"{n_arg_bytes / 2**30:.2f}GiB ({row['compile_s']}s trace)"
+              f"{n_arg_bytes / 2**30:.2f}GiB temp/dev "
+              f"{row['temp_bytes'] / 2**30:.2f}GiB ({row['compile_s']}s "
+              f"trace)"
               + "".join(f"; {n} x {how}"
                         for how, n in counter.resharded.items()),
               flush=True)
@@ -553,7 +685,7 @@ def main(argv=None):
     ap.add_argument("--seq-parallel", action="store_true",
                     help="residuals sharded over model on the sequence")
     ap.add_argument("--layer-remat", action="store_true",
-                    help="refused: changes only XLA's rematerialisation")
+                    help="nested per-layer remat (perf variant)")
     ap.add_argument("--fsdp", action="store_true",
                     help="ZeRO-3 parameter sharding over data (perf variant)")
     ap.add_argument("--grad-accum", type=int, default=1,
@@ -562,9 +694,6 @@ def main(argv=None):
                     help="replicate params; model axis = seq-data parallel")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
-    if args.layer_remat:
-        ap.error("--layer-remat changes only XLA's rematerialisation, which "
-                 "the port's dry-run does not reckon")
 
     if args.dynamic:
         rows = dryrun_dynamic(device=args.device)
@@ -588,6 +717,7 @@ def main(argv=None):
             try:
                 rows.append(dryrun_one(arch, shape, multi_pod=mp,
                                        seq_parallel=args.seq_parallel,
+                                       layer_remat=args.layer_remat,
                                        fsdp=args.fsdp,
                                        grad_accum=args.grad_accum,
                                        no_tp=args.no_tp))

@@ -29,11 +29,16 @@ What each term counts here (``launch/dryrun.py`` traces the step on the
   the production mesh as DTensors over a fake process group, placed by
   the ``Partitioner``'s specs and the reference's activation constraints
   (``launch/spmd.py``, ``launch/dryrun.py``); DTensor's redistributions
-  issue the collectives XLA's partitioner would. Where the two differ:
-  the reference rematerialises each training repeat, so its forward's
-  collectives come twice, the port's once; XLA fuses collectives, reshards
-  by collective-permutes and picks its own layouts inside a repeat, where
-  DTensor picks by its cost model (the port issues no collective-permute).
+  issue the collectives XLA's partitioner would. Both rematerialise each
+  training repeat, so a training step's forward collectives come twice
+  (and its forward FLOPs and bytes, above). Where the two differ: XLA
+  fuses collectives, reshards by collective-permutes and picks its own
+  layouts inside a repeat, where DTensor picks by its cost model (the
+  port issues no collective-permute).
+- ``bytes_per_device``: the temp bytes (the most bytes, on one device, of
+  what the step makes and does not return, live at once) plus the
+  argument bytes; XLA's memory analysis in the reference, the dry-run's
+  trace of storages and their lifetimes in the port.
   ``dominant`` is taken over the three terms.
 
 The peaks are the H100 SXM 80GB's data-sheet figures at its 700 W limit

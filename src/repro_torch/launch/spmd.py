@@ -167,6 +167,55 @@ def quiet():
         QUIET -= 1
 
 
+# The per-device share of a plain tensor's bytes, for the dry-run's memory
+# term: a region that moves nothing (:func:`local`, :func:`on_shards`)
+# runs its plain ops at the operands' global shapes, where each device
+# holds only its share, the local share of the region's largest operand.
+# ``SCALE`` is the share of the region whose forward runs (:func:`region`;
+# None outside one), ``BACKWARD`` that of the region whose backward runs:
+# set where its gradients enter (``_Placed.backward``) and put back to 1
+# where they leave (``_Whole.backward``). Autograd runs the nodes of a
+# step in the reverse of the order it made them, so a region's backward
+# runs from the one to the other with no other node between. Outside
+# regions every plain op runs on local tensors, at 1 (:func:`share`).
+SCALE: float | None = None
+BACKWARD = 1.0
+# Nesting depth of the global stand-ins of a region's boundary (a
+# DTensor's global view, its gradient's): aliases of local data, which
+# hold no memory of their own
+ALIAS = 0
+
+
+@contextlib.contextmanager
+def region(part: float):
+    global SCALE
+    outer, SCALE = SCALE, part
+    try:
+        yield
+    finally:
+        SCALE = outer
+
+
+def share() -> float:
+    """The per-device share of what a plain op makes here: its region's in
+    a forward, its region's in a backward (grad mode off), 1 outside
+    regions. A checkpoint's recomputation runs with grad mode on, as the
+    forward it repeats."""
+    if SCALE is not None:
+        return SCALE
+    return 1.0 if torch.is_grad_enabled() else BACKWARD
+
+
+@contextlib.contextmanager
+def alias():
+    global ALIAS
+    ALIAS += 1
+    try:
+        yield
+    finally:
+        ALIAS -= 1
+
+
 class _Constrain(torch.autograd.Function):
     """``x.redistribute`` to ``target`` as a sharding constraint. Its
     backward constrains the gradient to the same placements, as JAX
@@ -208,35 +257,55 @@ def _shard_shape(shape, mesh, target) -> tuple[int, ...]:
 
 
 class _Whole(torch.autograd.Function):
-    """A DTensor as a plain meta tensor of its global shape; the gradient
-    comes back as a DTensor of the input's placements."""
+    """A DTensor as a plain meta tensor of its global shape, entering a
+    region split on the mesh dims marked in ``split``. The gradient comes
+    back as a DTensor of the input's placements, but a partial sum on each
+    of those dims where the input is a replica: each device forms its part
+    from its own shards, as ``shard_map``'s transpose sums the cotangent of
+    an input it does not split. The region's backward ends here."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.mesh, ctx.target = x.device_mesh, tuple(x.placements)
-        with quiet():
+    def forward(ctx, x, split):
+        ctx.mesh = x.device_mesh
+        ctx.target = tuple(Partial() if s and p.is_replicate() else p
+                           for s, p in zip(split, x.placements))
+        with quiet(), alias():
             return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
                                        device="meta")
 
     @staticmethod
     def backward(ctx, grad):
-        return _placed(grad, ctx.mesh, ctx.target)
+        global BACKWARD
+        BACKWARD = 1.0
+        return _placed(grad, ctx.mesh, ctx.target), None
 
 
 class _Placed(torch.autograd.Function):
-    """A plain meta tensor as a DTensor of ``target`` on ``mesh``; the
-    gradient comes back as a plain tensor of the global shape."""
+    """A plain meta tensor of a region whose per-device share is ``scale``
+    as a DTensor of ``target`` on ``mesh``. The gradient is redistributed
+    to the placements the region's backward reads (``target``'s, a replica
+    where ``target`` is a partial sum; the collectives counted) and comes
+    back as a plain tensor of the global shape. The region's backward
+    starts here."""
 
     @staticmethod
-    def forward(ctx, t, mesh, target):
+    def forward(ctx, t, mesh, target, scale):
+        ctx.scale = scale
+        ctx.want = tuple(Replicate() if p.is_partial() else p
+                         for p in target)
         return _placed(t, mesh, target)
 
     @staticmethod
     def backward(ctx, grad):
-        with quiet():
+        global BACKWARD
+        if is_sharded(grad) and tuple(grad.placements) != ctx.want:
+            with quiet():
+                grad = grad.redistribute(grad.device_mesh, ctx.want)
+        BACKWARD = ctx.scale
+        with quiet(), alias():
             return torch.empty_strided(grad.shape, grad.stride(),
                                        dtype=grad.dtype,
-                                       device="meta"), None, None
+                                       device="meta"), None, None, None
 
 
 def _placed(t, mesh, target) -> DTensor:
@@ -255,23 +324,29 @@ def local(fn, in_specs, out_spec):
     step counter counts its ops as on one device), and its output is a
     DTensor of ``out_spec`` on the arguments' mesh (for a dict output, a
     dict of specs by key; its values that are not tensors pass as they
-    are). Gradients cross the boundary the same way, in the placements of
-    the forward."""
+    are). Gradients cross the boundary the other way: an output's
+    redistributed to the placements the region read it in (a replica
+    where the output is a partial sum), an argument's in the placements it
+    entered in, but a partial sum on each mesh dim the region splits where
+    the argument is a replica."""
 
     def run(*args):
         sharded = [a for a in args if is_sharded(a)]
         if not sharded:
             return fn(*args)
         mesh = sharded[0].device_mesh
-        whole = [_Whole.apply(constrain(a, spec) if spec is not None else a)
-                 if is_sharded(a) else a for a, spec in zip(args, in_specs)]
-        out = fn(*whole)
+        placed = [constrain(a, spec) if is_sharded(a) and spec is not None
+                  else a for a, spec in zip(args, in_specs)]
+        scale, split = _largest_share(placed), _split(placed)
+        with region(scale):
+            out = fn(*[_Whole.apply(a, split) if is_sharded(a) else a
+                       for a in placed])
 
         def placed(t, spec):
             if not isinstance(t, torch.Tensor):
                 return t
             target = tuple(placements(spec, t.ndim, mesh.mesh_dim_names))
-            return _Placed.apply(t, mesh, target)
+            return _Placed.apply(t, mesh, target, scale)
 
         if isinstance(out, dict):
             return {k: placed(v, out_spec.get(k)) for k, v in out.items()}
@@ -313,13 +388,16 @@ def on_shards(fn, args, labels, out_labels, shardable: str):
                 if not any(lab in labels[i] and a.shape[labels[i].index(lab)]
                            % mesh.size(j) for i, a in tensors)]
         chosen.append(fits[0] if fits else None)
-    whole = list(args)
+    placed = list(args)
     for i, a in tensors:
         target = [Shard(labels[i].index(lab))
                   if lab is not None and lab in labels[i] else Replicate()
                   for lab in chosen]
-        whole[i] = _Whole.apply(place(a, target))
-    out = fn(*whole)
+        placed[i] = place(a, target)
+    scale, split = _largest_share(placed), _split(placed)
+    with region(scale):
+        out = fn(*[_Whole.apply(a, split) if is_sharded(a) else a
+                   for a in placed])
 
     def wrap(t, labs):
         if t is None:
@@ -327,11 +405,26 @@ def on_shards(fn, args, labels, out_labels, shardable: str):
         target = tuple(Replicate() if lab is None else
                        Shard(labs.index(lab)) if lab in labs else Partial()
                        for lab in chosen)
-        return _Placed.apply(t, mesh, target)
+        return _Placed.apply(t, mesh, target, scale)
 
     if isinstance(out_labels, str):
         return wrap(out, out_labels)
     return tuple(wrap(t, labs) for t, labs in zip(out, out_labels))
+
+
+def _largest_share(args) -> float:
+    """The part of the largest DTensor among ``args`` that one device
+    holds."""
+    x = max((a for a in args if is_sharded(a)), key=DTensor.numel)
+    return x._local_tensor.numel() / max(x.numel(), 1)
+
+
+def _split(args) -> tuple[bool, ...]:
+    """For each mesh dim, whether a DTensor among ``args`` is split on
+    it."""
+    sharded = [a for a in args if is_sharded(a)]
+    return tuple(any(a.placements[j].is_shard() for a in sharded)
+                 for j in range(sharded[0].device_mesh.ndim))
 
 
 def restride(func, args, kwargs, out):
